@@ -9,6 +9,9 @@ setup(
         "jump diffusion)"
     ),
     packages=find_packages(exclude=("tests", "tests.*")),
-    package_data={"multimodal_particles_tpu.native": ["*.cpp"]},
+    package_data={
+        "multimodal_particles_tpu.native": ["*.cpp"],
+        "multimodal_particles_tpu_torch.ops": ["csrc/*.cu", "csrc/*.cuh"],
+    },
     python_requires=">=3.10",
 )
