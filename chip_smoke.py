@@ -21,8 +21,33 @@ Phases, one JSON line each:
   6. paths    the 99-step kernel path vs the plain module path at B=1024
               with the same generator seed (informational, loose bounds:
               ≤ 1% token mismatch, median |Δx|/max(|x|, 1) ≤ 1e-4)
+  7. K3       EPiC forward + hand-written backward (epic_backward.cu) vs
+              plain autograd at config-berlin and hidden 64 / 4 blocks at
+              B=1024, and at config-berlin at the training batch B=8192;
+              N=128, random masks with empty jets, a random cotangent (0 on
+              jets with a leaky/SELU input within 8x the jet's measured
+              float32 rounding of its kink): the forward by the K1 gates,
+              every packed weight's gradient per leaf
+              (|err| ≤ 1e-4·max|ref leaf| + 1e-3·|ref|), and at least B/16
+              of the jets held must have more than 64 particles; then
+              forward+backward and the backward alone timed at B=8192
+  8. train    the training path, counted as one run: Trainer.fit at
+              config-berlin, B=8192, N=128 (2 epochs of 8 synthetic
+              batches + 1 validation batch, checkpoints to a temporary
+              directory), load_checkpoint("best"), then Trainer.predict
+              (EMA weights) on 1024 jets. The loss must fall, K3's
+              backward must launch once per train step (16), the forward
+              kernel once per train step and validation batch (18), K2 99
+              times, and no plain version may be called; load_checkpoint
+              restores the params; then the bare steps/s and jets/s
+  9. profile  one torch.profiler window over 3 train steps at B=8192; the
+              device's idle share of the bare step, unclamped
+ 10. train_paths  5 train steps on the kernel path and on the plain module
+              path from the same weights and the same injected bridge draws,
+              B=8192: every parameter within 1e-3·max|leaf| of the other
 
-The line before the last lists every kernel; the last line is
+The line before the last lists every kernel, with its launches in the
+training path's run and per path; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. Uses
 torch, numpy, the standard library and the port only. fp32 with TF32 off.
 """
@@ -30,27 +55,43 @@ torch, numpy, the standard library and the port only. fp32 with TF32 off.
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import torch
 
 from multimodal_particles_tpu_torch.config_classes import MultimodalBridgeMatchingConfig
-from multimodal_particles_tpu_torch.data import gauss_noise_source_batch
+from multimodal_particles_tpu_torch.data import (
+    InMemoryDataModule,
+    gauss_noise_source_batch,
+    synthetic_training_batch,
+)
 from multimodal_particles_tpu_torch.models.generative.init import init_mbm_parameters
 from multimodal_particles_tpu_torch.models.generative.multimodal_bridge_matching import (
     MultiModalBridgeMatching,
 )
 from multimodal_particles_tpu_torch.ops import _build
 from multimodal_particles_tpu_torch.ops.epic_cuda import (
+    PackedEncoder,
     epic_forward,
     epic_forward_reference,
+    flat_views,
     pack_mbm_encoder_params,
+)
+from multimodal_particles_tpu_torch.ops.epic_vjp_cuda import (
+    epic_backward,
+    epic_backward_reference,
+    epic_train_forward,
+    epic_train_forward_reference,
+    near_kink_jets,
 )
 from multimodal_particles_tpu_torch.ops.sampler_cuda import (
     sampler_step,
     sampler_step_reference,
 )
+from multimodal_particles_tpu_torch.training.trainer import Trainer
+from multimodal_particles_tpu_torch.utils.experiment_files import ExperimentsFiles
 
 ROOT = Path(__file__).resolve().parent
 ATOL = RTOL = 1e-4
@@ -60,6 +101,10 @@ SEED = 0
 REQUEST_SIZES = (1024, 8192, 32768)
 CHECK_B = 1024
 TIMING_B = 32768
+TRAIN_B = 8192
+TRAIN_BATCHES, TRAIN_EPOCHS = 8, 2
+EMA_DECAY = 0.99
+PARAM_BOUND = 1e-3  # train_paths: |Δparam| ≤ PARAM_BOUND·max|leaf|
 
 
 def emit(obj):
@@ -157,7 +202,9 @@ def phase_k1(device, card):
                              lambda: epic_forward_reference(packed, t, x, k, mask))
     timing = {"phase": "K1_time", "B": TIMING_B, "N": N, "ms": ms, "plain_ms": plain_ms, "card": card}
     emit(timing)
-    return max(r["max_abs_err"] for r in results), ms, plain_ms
+    errors = [{"hidden": r["hidden"], "num_blocks": r["num_blocks"], "B": r["B"],
+               "max_abs_err": r["max_abs_err"]} for r in results]
+    return results[0]["max_abs_err"], errors, ms, plain_ms
 
 
 def phase_k2(device, card):
@@ -248,6 +295,259 @@ def phase_slice(device, card):
     return launches
 
 
+def leaf_compare(got, ref, dims):
+    """Per packed leaf: |err| ≤ 1e-4·max|ref leaf| + 1e-3·|ref|
+    (tests/test_ops/test_epic_pallas_vjp.py:115-123)."""
+    worst_ratio, bad = 0.0, []
+    refs = flat_views(ref, dims)
+    for name, a in flat_views(got, dims).items():
+        r = refs[name]
+        bound = 1e-4 * max(r.abs().max().item(), 1e-6) + 1e-3 * r.abs()
+        ratio = ((a - r).abs() / bound).max().item()
+        worst_ratio = max(worst_ratio, ratio)
+        if not ratio <= 1.0:
+            bad.append(name)
+    return {"max_abs_err": (got - ref).abs().max().item(), "worst_leaf_err_over_bound": worst_ratio,
+            "leaves_out_of_bound": bad}
+
+
+def plain_calls():
+    return (epic_forward_reference.calls + sampler_step_reference.calls
+            + epic_train_forward_reference.calls + epic_backward_reference.calls)
+
+
+def multiplicity_bins(mult):
+    """Jet counts by multiplicity: 0, 1-32, 33-64, 65-96, 97-128."""
+    edges = [(0, 0), (1, 32), (33, 64), (65, 96), (97, N)]
+    return {f"{lo}-{hi}": int(((mult >= lo) & (mult <= hi)).sum().item()) for lo, hi in edges}
+
+
+def phase_k3(device, card):
+    """K3 forward + backward against plain autograd at config-berlin and
+    hidden 64 / 4 blocks (B=1024), and at config-berlin at the training
+    batch (B=8192), where each block of the persistent grid sums ~8x more
+    jets into its gradient row. Then both timed at B=8192."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    checks = []
+    for hidden, blocks, B, gate in ((16, 2, CHECK_B, "within_tol"),
+                                    (64, 4, CHECK_B, "within_tol_per_particle"),
+                                    (16, 2, TRAIN_B, "within_tol")):
+        model = make_model(device, hidden, blocks)
+        packed = pack_mbm_encoder_params(model.encoder, model.config)
+        t, x, k, mask = random_inputs(B, device, gen)
+        # jets with a leaky/SELU input within float32 rounding of its kink
+        # get no cotangent: there the two float32 evaluations may take other
+        # branches of the derivative (near_kink_jets)
+        near = near_kink_jets(packed, t, x, k, mask)
+        g = torch.randn((B, N, 11), generator=gen, device=device) * (~near)[:, None, None]
+        leaf = packed.flat.clone().requires_grad_(True)
+        out = epic_train_forward(PackedEncoder(leaf, flat_views(leaf, packed.dims), packed.dims),
+                                 t, x, k, mask)
+        out.backward(g)
+        torch.cuda.synchronize()
+        fwd = compare(out.detach(), epic_forward_reference(packed, t, x, k, mask))
+        bwd = leaf_compare(leaf.grad, epic_backward_reference(packed, t, x, k, mask, g), packed.dims)
+        mult = mask[..., 0].sum(dim=1)
+        # the kernel stages particles 64 slots at a time: the jets held must
+        # include enough with a second chunk
+        kept_long = int(((~near) & (mult > 64)).sum().item())
+        rec = {"phase": "K3", "hidden": hidden, "num_blocks": blocks, "B": B, "N": N,
+               "forward_gate": gate, "forward": fwd, "backward": bwd,
+               "near_kink_jets_left_out": int(near.sum().item()),
+               "kept_jets_by_multiplicity": multiplicity_bins(mult[~near]),
+               "left_out_by_multiplicity": multiplicity_bins(mult[near]),
+               "kept_jets_over_64": kept_long, "kept_jets_over_64_min": B // 16,
+               "finite": bool(torch.isfinite(leaf.grad).all().item())}
+        emit(rec)
+        checks.append(rec)
+        if not (fwd[gate] and rec["finite"] and not bwd["leaves_out_of_bound"]):
+            raise RuntimeError(f"K3 disagrees with plain autograd: {rec}")
+        if kept_long < B // 16:
+            raise RuntimeError(f"K3 check holds only {kept_long} jets of more than 64 particles")
+
+    # the timing reuses the training-batch check's weights and inputs
+    g = torch.randn((TRAIN_B, N, 11), generator=gen, device=device)
+    leaf_packed = PackedEncoder(leaf, flat_views(leaf, packed.dims), packed.dims)
+
+    def kernel_fb():
+        leaf.grad = None
+        epic_train_forward(leaf_packed, t, x, k, mask).backward(g)
+
+    def plain_fb():
+        leaf.grad = None
+        epic_train_forward_reference(leaf_packed, t, x, k, mask).backward(g)
+
+    fb_ms, fb_plain_ms = time_pair(kernel_fb, plain_fb)
+    ms, plain_ms = time_pair(lambda: epic_backward(packed, t, x, k, mask, g),
+                             lambda: epic_backward_reference(packed, t, x, k, mask, g))
+    emit({"phase": "K3_time", "hidden": 16, "B": TRAIN_B, "N": N, "forward_backward_ms": fb_ms,
+          "forward_backward_plain_ms": fb_plain_ms, "backward_ms": ms,
+          "backward_plain_ms": plain_ms, "card": card})
+    errors = [{"hidden": c["hidden"], "num_blocks": c["num_blocks"], "B": c["B"],
+               "max_abs_err": c["backward"]["max_abs_err"]} for c in checks]
+    return checks[-1]["backward"]["max_abs_err"], errors, ms, plain_ms
+
+
+def train_config(num_timesteps=100):
+    config = MultimodalBridgeMatchingConfig()
+    config.bridge.num_timesteps = num_timesteps
+    return config
+
+
+def phase_train(device, card, workdir):
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    dm = InMemoryDataModule(
+        train=[synthetic_training_batch(TRAIN_B, N, 3, 8, gen, device=device)
+               for _ in range(TRAIN_BATCHES)],
+        valid=[synthetic_training_batch(TRAIN_B, N, 3, 8, gen, device=device)],
+    )
+    config = train_config()
+    trainer = Trainer(MultiModalBridgeMatching(config).to(device), config,
+                      ExperimentsFiles(str(workdir / "run")), seed=SEED, ema_decay=EMA_DECAY)
+    step_losses = []
+    train_step = trainer.train_step
+
+    def recording_step(batch, draws=None):
+        metrics = train_step(batch, draws)
+        step_losses.append(metrics["loss"])
+        return metrics
+
+    trainer.train_step = recording_step
+    torch.cuda.synchronize()
+
+    request = gauss_noise_source_batch(CHECK_B, N, 3, 8, gen, device=device, num_empty=1)
+    torch.cuda.synchronize()
+
+    # the main path's run (fit, restore the best checkpoint, predict): every
+    # count starts at 0 here and is read after predict
+    epic_forward.launches = epic_backward.launches = sampler_step.launches = 0
+    epic_forward_reference.calls = sampler_step_reference.calls = 0
+    epic_train_forward_reference.calls = epic_backward_reference.calls = 0
+    start = time.perf_counter()
+    history = trainer.fit(dm, epochs=TRAIN_EPOCHS)
+    torch.cuda.synchronize()
+    fit_seconds = time.perf_counter() - start
+    steps = TRAIN_BATCHES * TRAIN_EPOCHS
+    fit_launches = {"epic_forward": epic_forward.launches, "epic_backward": epic_backward.launches}
+    trainer.train_step = train_step
+    losses = [v.item() for v in step_losses]
+    emit({"phase": "train", "B": TRAIN_B, "N": N, "steps": steps, "step_losses": losses,
+          "epochs": history, "launches": fit_launches, "plain_calls": plain_calls(),
+          "fit_seconds": fit_seconds, "fit_steps_per_s": steps / fit_seconds, "card": card})
+    if fit_launches != {"epic_forward": steps + TRAIN_EPOCHS, "epic_backward": steps}:
+        raise RuntimeError(f"fit launched {fit_launches}")
+    finite = all(torch.isfinite(torch.tensor(losses + [r["val_loss"] for r in history])).tolist())
+    if not finite or len(losses) != steps or not sum(losses[-4:]) / 4 < losses[0]:
+        raise RuntimeError(f"the loss is not finite or did not fall: {losses}")
+
+    best = torch.load(Path(trainer.files.get_checkpoint_path("best")) / "state.pt",
+                      map_location=device, weights_only=True)["params"]
+    with torch.no_grad():  # so that only the load can bring the values back
+        for p in trainer.state.params.values():
+            p.zero_()
+    trainer.load_checkpoint("best")
+    restored = all(torch.equal(p, best[k]) for k, p in trainer.state.params.items())
+    emit({"phase": "checkpoint", "best_restored": restored})
+    if not restored:
+        raise RuntimeError("load_checkpoint('best') did not restore the saved params")
+
+    out = trainer.predict([request], generator=torch.Generator(device=device).manual_seed(SEED))[0]
+    torch.cuda.synchronize()
+    launches = {"epic_forward": epic_forward.launches, "epic_backward": epic_backward.launches,
+                "sampler_step": sampler_step.launches}
+    checks = check_generated(out, request, CHECK_B)
+    emit({"phase": "train_predict", "B": CHECK_B, "launches": launches,
+          "plain_calls": plain_calls(), "ema": True, **checks})
+    if launches != {**fit_launches, "sampler_step": 99} or plain_calls():
+        raise RuntimeError(f"the training path launched {launches} and called plain "
+                           f"versions {plain_calls()} times")
+
+    # the bare step rate: host clock around synchronized steps
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for b in dm.train:
+        trainer.train_step(b)
+    torch.cuda.synchronize()
+    step_seconds = (time.perf_counter() - start) / TRAIN_BATCHES
+    rate = {"phase": "train_rate", "B": TRAIN_B, "steps_per_s": 1.0 / step_seconds,
+            "jets_per_s": TRAIN_B / step_seconds, "step_seconds": step_seconds, "card": card}
+    emit(rate)
+    return trainer, dm, launches, rate
+
+
+def phase_profile(trainer, dm, card, workdir, step_seconds):
+    """Device time by kernel and by range over 3 train steps at B=8192.
+    The profiler slows the host many times over, so the device's idle share
+    of a step is read against the bare step time, not the profiled wall."""
+    steps = 3
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with trainer.profile(str(workdir / "profile")) as prof:
+        for b in dm.train[:steps]:
+            trainer.train_step(b)
+    wall_ms = (time.perf_counter() - start) * 1e3
+
+    def dev_ms(e):
+        t = getattr(e, "self_device_time_total", None)
+        return (e.self_cuda_time_total if t is None else t) / 1e3 / steps
+
+    def range_ms(e):
+        t = getattr(e, "device_time_total", None)
+        return (e.cuda_time_total if t is None else t) / 1e3 / steps
+
+    # the ranges appear twice: as host events, whose device time is the
+    # sum of the kernels they launched, and as spans on the device timeline
+    events = prof.key_averages()
+    on_device = lambda e: str(e.device_type).endswith("CUDA")
+    is_range = lambda e: e.key.startswith(("train.", "mbm.", "Optimizer.step"))
+    kernels = sorted(((dev_ms(e), e.count // steps, e.key) for e in events
+                      if on_device(e) and not is_range(e) and dev_ms(e) > 0), reverse=True)
+    ranges = {e.key: range_ms(e) for e in events if is_range(e) and not on_device(e)}
+    device_ms = sum(k[0] for k in kernels)
+    step_ms = step_seconds * 1e3
+    rec = {"phase": "profile", "steps": steps, "B": TRAIN_B, "profiled_wall_ms_per_step": wall_ms / steps,
+           "device_ms_per_step": device_ms, "bare_step_ms": step_ms,
+           "device_idle_share_of_bare_step": 1.0 - device_ms / step_ms,
+           "ranges_device_ms_per_step": ranges,
+           "kernels_ms_per_step": [{"ms": ms, "per_step": n, "name": name[:80]}
+                                   for ms, n, name in kernels[:14]],
+           "card": card}
+    emit(rec)
+    # one stream: the device cannot be busy for longer than the step, so a
+    # kernel sum above it counts something twice
+    if device_ms > 1.05 * step_ms:
+        raise RuntimeError(f"profiled device time exceeds the bare step: {rec}")
+
+
+def phase_train_paths(device, card):
+    """5 steps on the kernel path and on the plain module path, same weights
+    and bridge draws."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    batches = [synthetic_training_batch(TRAIN_B, N, 3, 8, gen, device=device) for _ in range(5)]
+    draws = [(torch.rand((TRAIN_B,), generator=gen, device=device),
+              torch.randn((TRAIN_B, N, 3), generator=gen, device=device),
+              torch.rand((TRAIN_B, N), generator=gen, device=device)) for _ in batches]
+    finals = []
+    for use_pallas in ("auto", False):
+        config = train_config()
+        config.parallel.use_pallas = use_pallas
+        trainer = Trainer(MultiModalBridgeMatching(config).to(device), config, seed=SEED)
+        trainer.setup()
+        for b, dr in zip(batches, draws):
+            trainer.train_step(b, dr)
+        finals.append({k: p.detach().clone() for k, p in trainer.state.params.items()})
+    worst, worst_leaf = 0.0, None
+    for name, p in finals[0].items():
+        rel = ((p - finals[1][name]).abs().max() / finals[1][name].abs().max().clamp_min(1e-12)).item()
+        if rel >= worst:
+            worst, worst_leaf = rel, name
+    rec = {"phase": "train_paths", "B": TRAIN_B, "steps": 5, "max_rel_param_diff": worst,
+           "worst_leaf": worst_leaf, "bound": PARAM_BOUND, "card": card}
+    emit(rec)
+    if not worst <= PARAM_BOUND:
+        raise RuntimeError(f"kernel and plain training paths diverge: {rec}")
+
+
 def phase_paths(device):
     model = make_model(device)
     batch = gauss_noise_source_batch(
@@ -290,25 +590,46 @@ def main():
     build = _build.build_library()
     _build.load_library()
     ptxas = [line.strip() for line in build.log.splitlines() if "registers" in line or "spill" in line]
-    emit({"phase": "build", "seconds": build.seconds, "library": str(build.path.relative_to(ROOT)),
-          "ptxas": ptxas})
+    emit({"phase": "build", "seconds": build.seconds, "source_seconds": build.source_seconds,
+          "library": str(build.path.relative_to(ROOT)), "ptxas": ptxas})
 
-    k1_err, k1_ms, k1_plain = phase_k1(device, card)
+    k1_err, k1_errors, k1_ms, k1_plain = phase_k1(device, card)
     k2_err, k2_ms, k2_plain = phase_k2(device, card)
-    launches = phase_slice(device, card)
+    serving = phase_slice(device, card)
     phase_paths(device)
+    k3_err, k3_errors, k3_ms, k3_plain = phase_k3(device, card)
+    with tempfile.TemporaryDirectory(dir=ROOT / "multimodal_particles_tpu_torch" / "ops" / "build") as tmp:
+        trainer, dm, train, rate = phase_train(device, card, Path(tmp))
+        phase_profile(trainer, dm, card, Path(tmp), rate["step_seconds"])
+    del trainer, dm
+    phase_train_paths(device, card)
+
+    # `launches` is the count of the training path's run (fit, restore,
+    # predict), the path this slice added; each path's own count beside it.
+    # `max_abs_err` is taken at the width `ms` was timed at (hidden 16).
+    def by_path(name):
+        return {"serving": serving.get(name, 0), "train": train[name]}
 
     kernels = [
         {"name": "epic_forward", "route": "cuda",
          "source": "multimodal_particles_tpu_torch/ops/csrc/epic_forward.cu",
          "replaces": "multimodal_particles_tpu/ops/epic_pallas.py:432",
-         "launches": launches["epic_forward"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain},
+         "also_replaces": "multimodal_particles_tpu/ops/epic_pallas_vjp.py:313",
+         "launches": train["epic_forward"], "launches_by_path": by_path("epic_forward"),
+         "max_abs_err": k1_err, "max_abs_err_by_check": k1_errors,
+         "ms": k1_ms, "plain_ms": k1_plain, "timed_at": {"hidden": 16, "B": TIMING_B}},
         {"name": "sampler_step", "route": "cuda",
          "source": "multimodal_particles_tpu_torch/ops/csrc/sampler_step.cu",
          "replaces": "multimodal_particles_tpu/ops/sampler_pallas.py:152",
-         "launches": launches["sampler_step"], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain},
+         "launches": train["sampler_step"], "launches_by_path": by_path("sampler_step"),
+         "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
+         "timed_at": {"hidden": 16, "B": TIMING_B}},
+        {"name": "epic_backward", "route": "cuda",
+         "source": "multimodal_particles_tpu_torch/ops/csrc/epic_backward.cu",
+         "replaces": "multimodal_particles_tpu/ops/epic_pallas_vjp.py:351",
+         "launches": train["epic_backward"], "launches_by_path": by_path("epic_backward"),
+         "max_abs_err": k3_err, "max_abs_err_by_check": k3_errors,
+         "ms": k3_ms, "plain_ms": k3_plain, "timed_at": {"hidden": 16, "B": TRAIN_B}},
     ]
     emit({"kernels": kernels})
     print(card_line(), flush=True)

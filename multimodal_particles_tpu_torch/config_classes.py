@@ -1,7 +1,8 @@
-"""Config dataclasses that the MBM sampler slice reads.
+"""Config dataclasses that the MBM slices read.
 
-A field-for-field mirror of the data, encoder, bridge and parallel sections of
-multimodal_particles_tpu/config_classes/multimodal_bridge_matching_config.py:32-137
+A field-for-field mirror of the train, data, encoder, bridge and parallel
+sections of
+multimodal_particles_tpu/config_classes/multimodal_bridge_matching_config.py:16-137
 (same names, same defaults; tests/test_torch_epic.py asserts the equality).
 The port keeps its own copy so that nothing on its path imports the JAX
 package: `multimodal_particles_tpu/__init__` and its `data` subpackage pull in
@@ -10,6 +11,22 @@ modules (h5py) that the GPU machine does not have.
 
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Union
+
+
+@dataclass
+class TrainingConfig:
+    epochs: int = 200
+    gradient_clip_val: float = 1.0
+    optimizer_name: str = "AdamW"
+    lr: float = 0.001
+    weight_decay: float = 5.0e-5
+    betas: List[float] = field(default_factory=lambda: [0.9, 0.999])
+    eps: float = 1.0e-8
+    amsgrad: bool = False
+    scheduler_name: str = "CosineAnnealingLR"
+    scheduler_params: Dict[str, Union[float, int]] = field(
+        default_factory=lambda: {"T_max": 1000, "eta_min": 5.0e-5, "last_epoch": -1}
+    )
 
 
 @dataclass
@@ -90,8 +107,9 @@ class ParallelConfig:
     model_axis: int = 1
     compute_dtype: str = "float32"
     donate_buffers: bool = True
-    # hand-written CUDA kernels on the sampling path: True / False / 'auto'
-    # ('auto' = on for CUDA tensors when the encoder matches the kernels)
+    # hand-written CUDA kernels on the sampling and training paths:
+    # True / False / 'auto' ('auto' = on for CUDA tensors when the encoder
+    # matches the kernels)
     use_pallas: object = "auto"
     spmd_mode: str = "jit"
     skip_nonfinite_updates: bool = False
@@ -103,6 +121,7 @@ class MultimodalBridgeMatchingConfig:
     bridge: BridgeConfig = field(default_factory=BridgeConfig)
     data: JetsDataConfig = field(default_factory=JetsDataConfig)
     encoder: EncoderConfig = field(default_factory=EncoderConfig)
+    train: TrainingConfig = field(default_factory=TrainingConfig)
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
     @staticmethod
@@ -114,6 +133,7 @@ class MultimodalBridgeMatchingConfig:
             bridge=_build(BridgeConfig, config_dict.get("bridge", {})),
             data=_build(JetsDataConfig, config_dict.get("data", {})),
             encoder=_build(EncoderConfig, config_dict.get("encoder", {})),
+            train=_build(TrainingConfig, config_dict.get("train", {})),
             parallel=_build(ParallelConfig, config_dict.get("parallel", {})),
         )
 

@@ -1,15 +1,25 @@
-"""Request batches for the sampler.
+"""Batches for the sampler and the trainer.
 
-`MultimodalDatabatch` holds the source half of the JAX batch container
-(multimodal_particles_tpu/data/particle_clouds/jets_dataloader.py:19-29),
-which is what `predict` reads;
-`gauss_noise_source_batch` builds the Gaussian-noise source that MBM samples
-from (source_name "GaussNoise"), on any device, from an explicit generator.
+`MultimodalDatabatch` is the JAX batch container
+(multimodal_particles_tpu/data/particle_clouds/jets_dataloader.py:19-29): the
+source half, which is what `predict` reads, and the target half, which the
+training loss reads. `gauss_noise_source_batch` builds the Gaussian-noise
+source that MBM samples from (source_name "GaussNoise");
+`synthetic_training_batch` adds a synthetic target with the source's masks
+(source_masks_from_target_masks), the counterpart of
+`JetsDataloaderModule.random_databatch` (:218-235) for training runs that do
+not read jets from disk. Both build on any device from an explicit generator.
+`InMemoryDataModule` holds ready batches for `Trainer.fit`.
 """
 
 import dataclasses
+from typing import Optional, Sequence
 
 import torch
+
+# synthetic target law: per-feature normal kinematics, tokens skewed to low ids
+TARGET_MEAN = (1.0, 0.0, -0.5)
+TARGET_STD = 0.5
 
 
 @dataclasses.dataclass
@@ -17,6 +27,13 @@ class MultimodalDatabatch:
     source_continuous: torch.Tensor  # (B, N, dim_c) float
     source_discrete: torch.Tensor  # (B, N, 1) integer tokens
     source_mask: torch.Tensor  # (B, N, 1) 0/1
+
+    target_continuous: Optional[torch.Tensor] = None  # (B, N, dim_c) float
+    target_discrete: Optional[torch.Tensor] = None  # (B, N, 1) integer tokens
+    target_mask: Optional[torch.Tensor] = None  # (B, N, 1) 0/1
+
+    context_continuous: Optional[torch.Tensor] = None
+    context_discrete: Optional[torch.Tensor] = None
 
 
 def gauss_noise_source_batch(
@@ -45,3 +62,45 @@ def gauss_noise_source_batch(
         source_discrete=k * mask.to(k.dtype),
         source_mask=mask,
     )
+
+
+def synthetic_training_batch(
+    num_jets: int,
+    max_num_particles: int,
+    dim_continuous: int,
+    vocab_size: int,
+    generator: torch.Generator,
+    device=None,
+    num_empty: int = 0,
+) -> MultimodalDatabatch:
+    """A Gaussian-noise source and a synthetic target on the same masks:
+    target kinematics normal with mean TARGET_MEAN (cycled over features)
+    and std TARGET_STD, target tokens floor(S·u²) for uniform u."""
+    batch = gauss_noise_source_batch(
+        num_jets, max_num_particles, dim_continuous, vocab_size, generator,
+        device=device, num_empty=num_empty,
+    )
+    mask = batch.source_mask
+    shape = tuple(batch.source_continuous.shape)
+    mean = torch.tensor(
+        [TARGET_MEAN[i % len(TARGET_MEAN)] for i in range(dim_continuous)], device=device
+    )
+    x1 = mean + TARGET_STD * torch.randn(shape, generator=generator, device=device)
+    u = torch.rand(shape[:2] + (1,), generator=generator, device=device)
+    k1 = torch.clamp((vocab_size * u * u).long(), max=vocab_size - 1)
+    return dataclasses.replace(
+        batch,
+        target_continuous=x1 * mask,
+        target_discrete=k1 * mask.long(),
+        target_mask=mask.clone(),
+    )
+
+
+@dataclasses.dataclass
+class InMemoryDataModule:
+    """Ready batches for `Trainer.fit`: `train` and `valid` are sequences of
+    batches (`valid` may be None), as JetsDataloaderModule's loaders are."""
+
+    train: Sequence[MultimodalDatabatch]
+    valid: Optional[Sequence[MultimodalDatabatch]] = None
+    test: Optional[Sequence[MultimodalDatabatch]] = None

@@ -17,8 +17,25 @@ from multimodal_particles_tpu_torch.models.architectures.utils import (
 )
 
 
+class _LeakyReLU(torch.autograd.Function):
+    """leaky_relu with slope 0.01 whose derivative at exactly 0 is 1, as
+    flax's `jnp.where(x >= 0, x, 0.01 x)` differentiates and as the JAX
+    backward kernel's `_dleaky` (ops/epic_pallas_vjp.py:68-69) has it;
+    F.leaky_relu's own backward gives 0.01 there."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return F.leaky_relu(x, negative_slope=0.01)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, grad, 0.01 * grad)
+
+
 def leaky_relu(x):
-    return F.leaky_relu(x, negative_slope=0.01)
+    return _LeakyReLU.apply(x)
 
 
 def meansum_pool(mask, x_local, *x_global):

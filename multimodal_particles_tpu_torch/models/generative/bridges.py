@@ -1,15 +1,25 @@
-"""Stochastic bridges, the sampler half
-(multimodal_particles_tpu/models/generative/bridges.py).
+"""Stochastic bridges (multimodal_particles_tpu/models/generative/bridges.py).
 
+Training half (bridge states at a time t, drift targets):
+  linear_uniform_sample / _drift     x_t = t x1 + (1-t) x0 + σ z, target x1 - x0
+                                                                  (bridges.py:49-59)
+  schrodinger_sample / _drift        Brownian bridge, std σ√(t(1-t)) (bridges.py:62-77)
+  telegraph_conditional_probability  P(x_t_out | x_t_in)          (bridges.py:85-91)
+  telegraph_transition_probability   posterior P(x_t | x0, x1), the golden
+                                                                  (bridges.py:94-108)
+  telegraph_sample                   fused posterior draw         (bridges.py:111-136)
+Sampler half:
   LinearUniformBridge.solver_step   Euler ODE step           (bridges.py:382-395)
+  SchrodingerBridge.solver_step     Euler–Maruyama step      (bridges.py:416-425)
   telegraph_rate                    reverse-time jump rates  (bridges.py:139-159)
   telegraph_fused_solver_step       rate + single-jump update (bridges.py:205-244)
   TelegraphBridge.solver_step       masked token update      (bridges.py:460-473)
 
-Randomness is an input: the telegraph update takes a (2, B, N) tensor of
-uniforms, `u[0]` for the jump test and `u[1]` for the inverse-CDF draw, as
-ops/sampler_pallas.py:87-99 uses them. The training half (bridge sampling,
-drift targets, the Schrödinger bridge) is not ported yet.
+Randomness is an input: bridge sampling takes its normals `z` (shape of x)
+and uniforms `u` (B, N) as tensors, the Euler–Maruyama step its normals `dw`,
+and the telegraph update a (2, B, N) tensor of uniforms, `u[0]` for the jump
+test and `u[1]` for the inverse-CDF draw, as ops/sampler_pallas.py:87-99
+uses them.
 """
 
 from dataclasses import dataclass
@@ -17,6 +27,83 @@ from dataclasses import dataclass
 import torch
 
 from multimodal_particles_tpu_torch.models.generative.states import MultiHeadOutput
+
+# ---------------------------------------------------------------- continuous
+
+
+def linear_uniform_sample(t, x0, x1, sigma, z):
+    """x_t = t·x1 + (1-t)·x0 + σ·z with constant σ."""
+    return t * x1 + (1.0 - t) * x0 + sigma * z
+
+
+def linear_uniform_drift(t, x, x0, x1):
+    """Conditional-OT drift target: x1 - x0 (state-independent)."""
+    del t, x
+    return x1 - x0
+
+
+def schrodinger_sample(t, x0, x1, sigma, z):
+    """Brownian-bridge marginal: mean t·x1+(1-t)·x0, std σ√(t(1-t))."""
+    x = t * x1 + (1.0 - t) * x0
+    return x + sigma * torch.sqrt(t * (1.0 - t)) * z
+
+
+def schrodinger_drift(t, x, x0, x1):
+    # clamp away from the endpoints: MBM draws t ~ U[0,1) with no epsilon
+    # floor, and t = 0 would make the target infinite
+    t = torch.clamp(t, 1e-6, 1.0 - 1e-6)
+    denom = t * (1.0 - t)
+    A = (1.0 - 2.0 * t) / denom
+    B = t**2 / denom
+    C = -((1.0 - t) ** 2) / denom
+    return A * x + B * x1 + C * x0
+
+
+# ---------------------------------------------------------------- telegraph
+
+
+def telegraph_conditional_probability(t_in, t_out, k_in, k_out, gamma, vocab_size):
+    """P(x(t_out)=k_out | x(t_in)=k_in) = 1/S + w·(δ_{k_out,k_in} - 1/S),
+    w = exp(-S γ (t_out - t_in)). Broadcasts over leading dims."""
+    S = vocab_size
+    w = torch.exp(torch.as_tensor(-S * gamma * (t_out - t_in), dtype=torch.float32))
+    kronecker = (k_out == k_in).to(w.dtype)
+    return 1.0 / S + w * (kronecker - 1.0 / S)
+
+
+def telegraph_transition_probability(t, k0, k1, gamma, vocab_size):
+    """Posterior bridge P(x_t = k | x_0=k0, x_1=k1) over all k: t (B,1,1),
+    k0 and k1 (B,N,1) → (B, N, S) normalized probabilities."""
+    k = torch.arange(vocab_size, device=k0.device)[None, None, :]
+    p_k_to_k1 = telegraph_conditional_probability(t, 1.0, k, k1, gamma, vocab_size)
+    p_k0_to_k = telegraph_conditional_probability(0.0, t, k0, k, gamma, vocab_size)
+    p_k0_to_k1 = telegraph_conditional_probability(0.0, 1.0, k0, k1, gamma, vocab_size)
+    return (p_k_to_k1 * p_k0_to_k) / p_k0_to_k1
+
+
+def telegraph_sample(t, k0, k1, gamma, vocab_size, u):
+    """Draw k_t ~ P(·| k0, k1) from the closed-form posterior bridge by
+    inverse CDF on the uniforms u (B, N).
+
+    The unnormalized posterior factorizes over the two Kronecker deltas,
+    P(k) ∝ (1/S + w_a(δ_{k,k1} − 1/S)) · (1/S + w_b(δ_{k0,k} − 1/S)) with
+    w_a = e^{−Sγ(1−t)}, w_b = e^{−Sγt}; the normalization cancels.
+
+    The states lie on the leading axis, (S, B, N): PyTorch's CUDA scan over
+    an innermost axis of 8 took 6 ms on an H100 at B=8192, N=128; over a
+    leading axis each thread sums one column in turn, in the same order."""
+    S = vocab_size
+    t_ = torch.as_tensor(t).reshape(-1, 1)
+    w_a = torch.exp(-S * gamma * (1.0 - t_))
+    w_b = torch.exp(-S * gamma * t_)
+    iota = torch.arange(S, device=k0.device)[:, None, None]
+    fac_a = torch.where(iota == k1[..., 0], 1.0 / S + w_a * (1.0 - 1.0 / S), (1.0 - w_a) / S)
+    fac_b = torch.where(iota == k0[..., 0], 1.0 / S + w_b * (1.0 - 1.0 / S), (1.0 - w_b) / S)
+    cdf = torch.cumsum(fac_a * fac_b, dim=0)
+    u_ = u.to(cdf.dtype) * cdf[-1]
+    k_t = torch.sum((u_ >= cdf).long(), dim=0)
+    k_t = torch.clamp(k_t, 0, S - 1)
+    return k_t[..., None].to(k0.dtype)
 
 
 def telegraph_rate(t, k, logits, gamma, vocab_size):
@@ -84,9 +171,46 @@ class LinearUniformBridge:
     def from_config(cls, config):
         return cls(sigma=config.bridge.sigma)
 
+    def sample(self, t, x0, x1, z):
+        return linear_uniform_sample(t, x0, x1, self.sigma, z)
+
+    def drift(self, t, x, x0, x1):
+        return linear_uniform_drift(t, x, x0, x1)
+
     def solver_step(self, state, heads: MultiHeadOutput, delta_t):
         """Euler ODE step, masked to existing particles."""
         new_continuous = (state.continuous + delta_t * heads.continuous) * heads.absorbing
+        return state.replace(continuous=new_continuous)
+
+
+@dataclass(frozen=True)
+class SchrodingerBridge:
+    """Brownian (Schrödinger) bridge for continuous states (bridges.py:397-425)."""
+
+    sigma: float
+
+    @classmethod
+    def from_config(cls, config):
+        return cls(sigma=config.bridge.sigma)
+
+    def sample(self, t, x0, x1, z):
+        return schrodinger_sample(t, x0, x1, self.sigma, z)
+
+    def drift(self, t, x, x0, x1):
+        return schrodinger_drift(t, x, x0, x1)
+
+    def diffusion(self, t):
+        t = torch.as_tensor(t, dtype=torch.float32)
+        return self.sigma * torch.sqrt(t * (1.0 - t))
+
+    def solver_step(self, state, heads: MultiHeadOutput, delta_t, dw):
+        """Euler–Maruyama step with normals dw (shape of x), masked. It
+        integrates the drift head: the reference integrated the raw state and
+        masked the tokens (bridges.py:27-30 of the JAX package)."""
+        diffusion = self.diffusion(delta_t)
+        new_continuous = (
+            state.continuous + delta_t * heads.continuous + diffusion * dw
+        ) * heads.absorbing
         return state.replace(continuous=new_continuous)
 
 
@@ -101,6 +225,9 @@ class TelegraphBridge:
     @classmethod
     def from_config(cls, config):
         return cls(gamma=config.bridge.gamma, vocab_size=config.data.vocab_size_features)
+
+    def sample(self, t, k0, k1, u):
+        return telegraph_sample(t, k0, k1, self.gamma, self.vocab_size, u)
 
     def solver_step(self, state, heads: MultiHeadOutput, delta_t, u):
         new_discrete = telegraph_fused_solver_step(

@@ -2,19 +2,26 @@
 discrete telegraph (CTMC) bridge over fixed-mask particle clouds
 (multimodal_particles_tpu/models/generative/multimodal_bridge_matching.py:41-366).
 
-The sampling half is ported: `forward`, `simulate_dynamics` and `predict`.
 The model is an `nn.Module` that owns its parameters (the encoder and the
-multi-head loss log-variances `loss_weights`); `predict` takes the source
-batch and an explicit `torch.Generator`. When the kernel gate is on, each
-sampler step is one launch of the fused CUDA kernel (ops/sampler_cuda.py).
+multi-head loss log-variances `loss_weights`). Training: `loss_fn` draws the
+bridge states (`sample_bridges`), runs `forward_train` and combines the
+masked MSE and cross-entropy heads; with the kernel gate on, the encoder's
+forward and backward are the hand-written CUDA kernels (ops/epic_vjp_cuda.py).
+Sampling: `predict` takes the source batch and an explicit `torch.Generator`;
+with the gate on, each sampler step is one launch of the fused CUDA kernel
+(ops/sampler_cuda.py). Randomness is an input throughout: every draw comes
+from a caller's generator or is injected as tensors.
 """
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.profiler import record_function
 
 from multimodal_particles_tpu_torch.models.architectures.epic import EPiCWrapper
 from multimodal_particles_tpu_torch.models.generative.bridges import (
     LinearUniformBridge,
+    SchrodingerBridge,
     TelegraphBridge,
 )
 from multimodal_particles_tpu_torch.models.generative.states import (
@@ -26,7 +33,14 @@ from multimodal_particles_tpu_torch.ops.epic_cuda import (
     epic_supported,
     pack_mbm_encoder_params,
 )
+from multimodal_particles_tpu_torch.ops.epic_vjp_cuda import epic_train_forward
 from multimodal_particles_tpu_torch.ops.sampler_cuda import fused_simulate_dynamics
+from multimodal_particles_tpu_torch.utils.losses import multihead_loss
+
+CONTINUOUS_BRIDGES = {
+    "LinearUniformBridge": LinearUniformBridge,
+    "SchrodingerBridge": SchrodingerBridge,
+}
 
 
 class MultiModalEPiC(nn.Module):
@@ -58,22 +72,30 @@ class MultiModalEPiC(nn.Module):
 
 class MultiModalBridgeMatching(nn.Module):
     """Hybrid bridge-matching model for fixed-cardinality particle clouds
-    (multimodal_bridge_matching.py:75-366), sampling half."""
+    (multimodal_bridge_matching.py:75-366)."""
 
     num_heads = 2  # continuous + discrete
 
     def __init__(self, config):
         super().__init__()
-        self.config = config
-        self.encoder = MultiModalEPiC(config)
-        self.loss_weights = nn.Parameter(torch.zeros(self.num_heads))
-        if config.bridge.continuous != "LinearUniformBridge":
+        if config.parallel.compute_dtype != "float32":
+            # the JAX model casts weights and inputs to this dtype
+            # (multimodal_bridge_matching.py:234-253); the port computes in
+            # float32 only, so another setting must not pass unnoticed
+            raise NotImplementedError(
+                f"compute_dtype {config.parallel.compute_dtype!r}: the port computes in float32"
+            )
+        if config.bridge.continuous not in CONTINUOUS_BRIDGES:
             raise NotImplementedError(
                 f"continuous bridge {config.bridge.continuous!r} is not ported"
             )
         if config.bridge.discrete != "TelegraphBridge":
             raise NotImplementedError(f"discrete bridge {config.bridge.discrete!r}")
-        self.bridge_continuous = LinearUniformBridge.from_config(config)
+        self.config = config
+        self.vocab_size = config.data.vocab_size_features
+        self.encoder = MultiModalEPiC(config)
+        self.loss_weights = nn.Parameter(torch.zeros(self.num_heads))
+        self.bridge_continuous = CONTINUOUS_BRIDGES[config.bridge.continuous].from_config(config)
         self.bridge_discrete = TelegraphBridge.from_config(config)
 
     # ---------------------------------------------------------------- forward
@@ -109,6 +131,82 @@ class MultiModalBridgeMatching(nn.Module):
         dc = self.config.data.dim_features_continuous
         return MultiHeadOutput(out[..., :dc], out[..., dc:], state.absorbing)
 
+    def forward_train(self, state: HybridState) -> MultiHeadOutput:
+        """Training-path forward (multimodal_bridge_matching.py:171-194):
+        with the kernel gate on, the K1 forward kernel with the K3 backward
+        kernel behind it, on the differentiable packing; else the module."""
+        if not self.kernel_enabled(state.continuous.device):
+            return self.forward(state)
+        packed = pack_mbm_encoder_params(self.encoder, self.config, differentiable=True)
+        out = epic_train_forward(
+            packed, state.time, state.continuous, state.discrete, state.absorbing
+        )
+        dc = self.config.data.dim_features_continuous
+        return MultiHeadOutput(out[..., :dc], out[..., dc:], state.absorbing)
+
+    # ---------------------------------------------------------------- bridges
+
+    def sample_bridges(self, batch, generator=None, draws=None) -> HybridState:
+        """Draw t ~ U(0,1) and the bridge states at t
+        (multimodal_bridge_matching.py:257-271). `draws` = (t (B,), z (B,N,C),
+        u (B,N)) replaces the draws from `generator`: t the times, z the
+        continuous bridge's normals, u the telegraph draw's uniforms."""
+        x1 = batch.target_continuous
+        B, N = x1.shape[0], x1.shape[1]
+        if draws is None:
+            kw = dict(generator=generator, device=x1.device)
+            draws = (torch.rand((B,), **kw), torch.randn(tuple(x1.shape), **kw),
+                     torch.rand((B, N), **kw))
+        t, z, u = (d.to(device=x1.device, dtype=x1.dtype) for d in draws)
+        time = t.reshape(B, 1, 1)
+        continuous = self.bridge_continuous.sample(time, batch.source_continuous, x1, z)
+        discrete = self.bridge_discrete.sample(
+            time, batch.source_discrete, batch.target_discrete, u
+        )
+        absorbing = batch.target_mask.to(continuous.dtype)
+        return HybridState(time, continuous, discrete, absorbing)
+
+    # ----------------------------------------------------------------- losses
+
+    def loss_continuous(self, heads: MultiHeadOutput, state: HybridState, batch):
+        """Masked MSE against the conditional drift, summed over features and
+        divided by max(Σmask, 1) (multimodal_bridge_matching.py:275-286)."""
+        targets = self.bridge_continuous.drift(
+            state.time, state.continuous, batch.source_continuous, batch.target_continuous
+        )
+        mask = state.absorbing
+        mse = (heads.continuous - targets) ** 2 * mask
+        return torch.sum(mse) / torch.clamp(torch.sum(mask), min=1.0)
+
+    def loss_discrete(self, heads: MultiHeadOutput, state: HybridState, batch):
+        """Masked cross-entropy on the target tokens
+        (multimodal_bridge_matching.py:288-296)."""
+        logits = heads.discrete.reshape(-1, self.vocab_size)
+        targets = batch.target_discrete.reshape(-1).long()
+        mask = state.absorbing.reshape(-1)
+        log_probs = F.log_softmax(logits, dim=-1)
+        ce = -torch.gather(log_probs, 1, targets[:, None])[:, 0]
+        return torch.sum(ce * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+    def loss_fn(self, batch, generator=None, draws=None):
+        """Bridge sampling + forward + multi-head combine
+        (multimodal_bridge_matching.py:298-310) → (loss, metrics), the
+        metrics detached under the JAX names."""
+        with record_function("mbm.sample_bridges"):
+            state = self.sample_bridges(batch, generator, draws)
+        with record_function("mbm.forward_train"):
+            heads = self.forward_train(state)
+        with record_function("mbm.loss"):
+            loss_0 = self.loss_continuous(heads, state, batch)
+            loss_1 = self.loss_discrete(heads, state, batch)
+            loss, per_head = multihead_loss([loss_0, loss_1], self.loss_weights)
+        metrics = {
+            "loss": loss.detach(),
+            "loss_continuous": per_head[0].detach(),
+            "loss_discrete": per_head[1].detach(),
+        }
+        return loss, metrics
+
     # --------------------------------------------------------------- sampling
 
     def time_grid(self):
@@ -127,8 +225,11 @@ class MultiModalBridgeMatching(nn.Module):
         telegraph steps at time_steps[1:] (multimodal_bridge_matching.py:314-356).
 
         Each step draws (2, B, N) uniforms from `generator` on the state's
-        device; `uniforms` of shape (steps, 2, B, N) replaces the draws."""
-        if self.kernel_enabled(state.continuous.device):
+        device; `uniforms` of shape (steps, 2, B, N) replaces the draws. The
+        Schrödinger bridge's Euler–Maruyama step also draws its normals from
+        `generator`."""
+        linear = isinstance(self.bridge_continuous, LinearUniformBridge)
+        if linear and self.kernel_enabled(state.continuous.device):
             return fused_simulate_dynamics(self, state, generator, uniforms)
         time_steps, delta_t = self.time_grid()
         B, N = state.continuous.shape[0], state.continuous.shape[1]
@@ -142,7 +243,11 @@ class MultiModalBridgeMatching(nn.Module):
                 time=torch.full((B, 1, 1), t, dtype=state.continuous.dtype, device=device)
             )
             heads = self.forward(state)
-            state = self.bridge_continuous.solver_step(state, heads, delta_t)
+            if linear:
+                state = self.bridge_continuous.solver_step(state, heads, delta_t)
+            else:
+                dw = torch.randn(tuple(state.continuous.shape), generator=generator, device=device)
+                state = self.bridge_continuous.solver_step(state, heads, delta_t, dw)
             state = self.bridge_discrete.solver_step(state, heads, delta_t, u)
         return state
 

@@ -36,6 +36,10 @@ _SIGNATURES = {
     "mmp_epic_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     # weights, x, k, mask, u, x_out, k_out, t, dt, gamma, B, N, dims[8], stream
     "mmp_sampler_step": [_P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _I, _I, _P, _P],
+    # B, N, dims[8], &grid (int), &scratch floats (long long)
+    "mmp_epic_backward_workspace": [_I, _I, _P, _P, _P],
+    # weights, t, x, k, mask, g, d_weights, scratch, grid, B, N, dims[8], stream
+    "mmp_epic_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
 }
 
 
@@ -44,6 +48,7 @@ class BuildResult:
     path: Path
     seconds: float  # 0.0 when an up-to-date library was found
     log: str  # nvcc's output (ptxas register and shared-memory report)
+    source_seconds: dict  # nvcc seconds per source file (empty when up to date)
 
 
 def find_nvcc() -> str:
@@ -62,7 +67,7 @@ def build_library() -> BuildResult:
     newest = max(p.stat().st_mtime for p in sources + sorted(CSRC_DIR.glob("*.cuh")))
     out = BUILD_DIR / LIB_NAME
     if out.exists() and out.stat().st_mtime >= newest:
-        return BuildResult(out, 0.0, "")
+        return BuildResult(out, 0.0, "", {})
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}.tmp"
@@ -70,28 +75,31 @@ def build_library() -> BuildResult:
     tmp = out.with_name(f"{LIB_NAME}.{tag}")
     start = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        logs = list(pool.map(
+        runs = list(pool.map(
             lambda so: _run([nvcc, *COMPILE_FLAGS, "-c", str(so[0]), "-o", str(so[1])]),
             zip(sources, objects),
         ))
-    logs.append(_run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]))
+    runs.append(_run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]))
     seconds = time.perf_counter() - start
     os.replace(tmp, out)
     for obj in objects:
         obj.unlink()
-    log = "".join(logs)
+    log = "".join(text for text, _ in runs)
     (BUILD_DIR / "nvcc.log").write_text(log)
-    return BuildResult(out, seconds, log)
+    per_source = {src.name: sec for src, (_, sec) in zip(sources, runs)}
+    return BuildResult(out, seconds, log, per_source)
 
 
-def _run(cmd) -> str:
+def _run(cmd):
+    """Run nvcc; (its output, seconds)."""
+    start = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n"
             f"{proc.stdout}{proc.stderr}"
         )
-    return proc.stdout + proc.stderr
+    return proc.stdout + proc.stderr, time.perf_counter() - start
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,6 +1,6 @@
 // Shared EPiC forward for the hand-written Hopper kernels
-// (epic_forward.cu, sampler_step.cu), as the JAX kernels share
-// `_forward_acts` (multimodal_particles_tpu/ops/epic_pallas.py:183-272).
+// (epic_forward.cu, sampler_step.cu, epic_backward.cu), as the JAX kernels
+// share `_forward_acts` (multimodal_particles_tpu/ops/epic_pallas.py:183-272).
 //
 // Design: one thread block per jet, one thread per particle slot.
 //   * A particle's activations (h, the skip copy h0, the local hidden l1)
@@ -17,6 +17,8 @@
 //     fc_local1 through cl1 = W_fl1[:, H:]·[g_new ‖ ctx], computed once per
 //     jet; the time embedding enters local_0 through ct = W_l0[:, :E_t]·temb.
 //   * The context vector is the time embedding itself (epic_pallas.py:194).
+//   * A recorder (template parameter Rec) receives the activations that the
+//     backward kernel reads back; NoRecord, the default, compiles to nothing.
 // The buffer layout is ops/epic_cuda.py::weight_layout; make_layout mirrors it.
 #pragma once
 
@@ -103,6 +105,27 @@ inline size_t shared_bytes(const Dims& d, int threads) {
   return sizeof(float) * (size_t)(make_layout(d).max_stage + scratch_floats(d, threads / 32));
 }
 
+// Receives nothing: the forward kernels keep no activations.
+struct NoRecord {
+  __device__ __forceinline__ void z_l0(int, float) const {}
+  __device__ __forceinline__ void h_in(int, int, float) const {}
+  __device__ __forceinline__ void z_fl1(int, int, float) const {}
+  __device__ __forceinline__ void z_fl2(int, int, float) const {}
+  __device__ __forceinline__ void h_final(int, float) const {}
+  __device__ __forceinline__ void disc_pre(int, float) const {}
+  __device__ __forceinline__ void z_h0(int, float) const {}
+  __device__ __forceinline__ void p0(int, float) const {}           // warp 0 only
+  __device__ __forceinline__ void p(int, int, float) const {}       // warp 0 only
+};
+
+// Pointers into the forward's per-jet scratch that the backward reuses.
+__device__ __forceinline__ float* scratch_temb(float* smem, const Layout& L) {
+  return smem + L.max_stage;
+}
+__device__ __forceinline__ float* scratch_red(float* smem, const Layout& L, const Dims& d) {
+  return smem + L.max_stage + d.emb_t + d.hidden;
+}
+
 __device__ __forceinline__ float leaky(float x) { return x >= 0.f ? x : 0.01f * x; }
 
 __device__ __forceinline__ float selu(float x) {
@@ -171,11 +194,12 @@ __device__ __forceinline__ void warp_dense(const float* W, const float* b, const
 //   t    this jet's time
 //   x, k, m  the particle's kinematics, token and mask
 //   cont (DC) continuous head · mask; disc (V) discrete logits
-template <int H>
+template <int H, class Rec = NoRecord>
 __device__ void epic_forward_particle(const float* __restrict__ wglob, const Dims& d,
                                       const Layout& L, float* smem, float t,
                                       const float (&x)[DC], int k, float m,
-                                      float (&cont)[DC], float (&disc)[V]) {
+                                      float (&cont)[DC], float (&disc)[V],
+                                      const Rec& rec = Rec()) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, nwarps = blockDim.x >> 5;
   const int Hg = d.hidden_glob, Et = d.emb_t, Ex = d.emb_x, Ek = d.emb_k;
   float* sw = smem;
@@ -238,7 +262,11 @@ __device__ void epic_forward_particle(const float* __restrict__ wglob, const Dim
   }
   // local_0 sees the masked features: W·(f·m) + b = (W·f)·m + b
 #pragma unroll
-  for (int j = 0; j < H; ++j) h[j] = leaky(h[j] * m + sw[L.b_l0 + j]);
+  for (int j = 0; j < H; ++j) {
+    const float z = h[j] * m + sw[L.b_l0 + j];
+    rec.z_l0(j, z);
+    h[j] = leaky(z);
+  }
 
   block_pool<H>(h, m, denom, red, pool);
 #pragma unroll
@@ -247,6 +275,7 @@ __device__ void epic_forward_particle(const float* __restrict__ wglob, const Dim
   if (warp == 0) {
     for (int i = lane; i < Et; i += 32) pool[2 * H + i] = temb[i];
     __syncwarp();
+    for (int i = lane; i < 2 * H + Et; i += 32) rec.p0(i, pool[i]);
     warp_dense(sw + L.w_g0, sw + L.b_g0, pool, 2 * H + Et, H, nullptr, a0);
     warp_dense(sw + L.w_g1, sw + L.b_g1, a0, H, H, nullptr, a1);
     warp_dense(sw + L.w_g2, sw + L.b_g2, a1, H, Hg, nullptr, g);
@@ -262,12 +291,15 @@ __device__ void epic_forward_particle(const float* __restrict__ wglob, const Dim
   const int n_g1 = 2 * H + Hg + Et, n_l1 = H + Hg + Et;
   for (int blk = 0; blk < d.num_blocks; ++blk) {
     load_stage(sw, wglob + L.blocks + blk * L.block_stride, L.block_stride);
+#pragma unroll
+    for (int j = 0; j < H; ++j) rec.h_in(blk, j, h[j]);
     block_pool<H>(h, m, denom, red, pool);
 
     if (warp == 0) {
       for (int i = lane; i < Hg; i += 32) pool[2 * H + i] = g[i];
       for (int i = lane; i < Et; i += 32) pool[2 * H + Hg + i] = temb[i];
       __syncwarp();
+      for (int i = lane; i < n_g1; i += 32) rec.p(blk, i, pool[i]);
       warp_dense(sw + L.fg1, sw + L.bfg1, pool, n_g1, H, nullptr, a0);
       warp_dense(sw + L.fg2, sw + L.bfg2, a0, H, Hg, g, gnew);
       for (int j = lane; j < H; j += 32) {
@@ -289,7 +321,9 @@ __device__ void epic_forward_particle(const float* __restrict__ wglob, const Dim
       float acc = cl1[j];
 #pragma unroll
       for (int i = 0; i < H; ++i) acc = fmaf(w[i], h[i], acc);
-      l1[j] = leaky(acc + sw[L.bfl1 + j]);
+      const float z = acc + sw[L.bfl1 + j];
+      rec.z_fl1(blk, j, z);
+      l1[j] = leaky(z);
     }
 #pragma unroll
     for (int j = 0; j < H; ++j) {
@@ -297,12 +331,16 @@ __device__ void epic_forward_particle(const float* __restrict__ wglob, const Dim
       float acc = 0.f;
 #pragma unroll
       for (int i = 0; i < H; ++i) acc = fmaf(w[i], l1[i], acc);
-      h[j] = leaky(acc + sw[L.bfl2 + j] + h[j]) * m + h0[j];
+      const float z = acc + sw[L.bfl2 + j] + h[j];
+      rec.z_fl2(blk, j, z);
+      h[j] = leaky(z) * m + h0[j];
     }
     __syncthreads();  // every thread is done with this block's weights
   }
 
   // ---- weight-normed output + heads (epic.py:122-125, mbm :65-72)
+#pragma unroll
+  for (int j = 0; j < H; ++j) rec.h_final(j, h[j]);
   load_stage(sw, wglob + L.heads, L.heads_len);
   __syncthreads();
 #pragma unroll
@@ -319,6 +357,7 @@ __device__ void epic_forward_particle(const float* __restrict__ wglob, const Dim
 #pragma unroll
     for (int i = 0; i < H; ++i) acc = fmaf(sw[L.out_d + v * H + i], h[i], acc);
     dpre[v] = (acc + sw[L.b_out_d + v]) * m;
+    rec.disc_pre(v, dpre[v]);
   }
   if (d.add_discrete_head) {
     float a[V];
@@ -327,7 +366,9 @@ __device__ void epic_forward_particle(const float* __restrict__ wglob, const Dim
       float acc = 0.f;
 #pragma unroll
       for (int u = 0; u < V; ++u) acc = fmaf(sw[L.h0 + v * V + u], dpre[u], acc);
-      a[v] = selu(acc + sw[L.b_h0 + v]);
+      const float z = acc + sw[L.b_h0 + v];
+      rec.z_h0(v, z);
+      a[v] = selu(z);
     }
 #pragma unroll
     for (int v = 0; v < V; ++v) {
@@ -342,12 +383,14 @@ __device__ void epic_forward_particle(const float* __restrict__ wglob, const Dim
   }
 }
 
-// Validates the launch and sets the kernel's dynamic shared memory limit.
+// Validates the launch and sets the kernel's dynamic shared memory limit;
+// `extra_bytes` of shared memory follow the forward's.
 template <typename Kernel>
-inline cudaError_t prepare_launch(Kernel kernel, const Dims& d, int N, int* threads, size_t* smem) {
+inline cudaError_t prepare_launch(Kernel kernel, const Dims& d, int N, int* threads, size_t* smem,
+                                  size_t extra_bytes = 0) {
   if (N < 1 || N > MAX_THREADS) return cudaErrorInvalidValue;
   *threads = (N + 31) / 32 * 32;
-  *smem = shared_bytes(d, *threads);
+  *smem = shared_bytes(d, *threads) + extra_bytes;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
 }
 

@@ -4,6 +4,9 @@
 `pack_mbm_encoder_params` resolves weight normalization outside the kernel and
 lays every effective weight, (out, in) row-major, into one flat float32 buffer
 in the order that ops/csrc/epic_forward.cuh reads it (epic_pallas.py:40-104).
+The sampling packing is detached; the training packing
+(`differentiable=True`) keeps the autograd graph, so that d(flat) chains to
+v, g, the biases, the table and the head weights (epic_pallas_vjp.py:15-17).
 `epic_forward` launches ops/csrc/epic_forward.cu on CUDA tensors;
 `epic_forward_reference` is its plain PyTorch version, which the wrapper takes
 for CPU tensors. The port keeps the JAX package's (B, N, C) layout: the JAX
@@ -99,10 +102,11 @@ class PackedEncoder:
     dims: EpicDims
 
 
-def pack_mbm_encoder_params(encoder, config) -> PackedEncoder:
+def pack_mbm_encoder_params(encoder, config, differentiable: bool = False) -> PackedEncoder:
     """MultiModalEPiC module → flat buffer of effective weights
     (epic_pallas.py:47-104). Without the discrete head, w_h0/w_h1 are
-    identity placeholders that the kernel does not read."""
+    identity placeholders that the kernel does not read. With
+    `differentiable`, `flat` is a non-leaf of the autograd graph."""
     d = EpicDims.from_config(config)
     emb = encoder.epic.embedding
     net = encoder.epic.epic
@@ -132,17 +136,22 @@ def pack_mbm_encoder_params(encoder, config) -> PackedEncoder:
         src.update(w_h0=eye, b_h0=zero, w_h1=eye, b_h1=zero)
 
     layout = weight_layout(d)
-    with torch.no_grad():
-        for name, shape in layout:
-            if tuple(src[name].shape) != shape:
-                raise ValueError(f"packed weight {name}: shape {tuple(src[name].shape)} != {shape}")
-        flat = torch.cat([src[name].detach().reshape(-1).float() for name, _ in layout])
-    tensors, off = {}, 0
     for name, shape in layout:
+        if tuple(src[name].shape) != shape:
+            raise ValueError(f"packed weight {name}: shape {tuple(src[name].shape)} != {shape}")
+    with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
+        flat = torch.cat([src[name].reshape(-1).float() for name, _ in layout])
+    return PackedEncoder(flat, flat_views(flat, d), d)
+
+
+def flat_views(flat: torch.Tensor, d: EpicDims) -> Dict[str, torch.Tensor]:
+    """Named (out, in) views into a flat buffer in weight_layout order."""
+    views, off = {}, 0
+    for name, shape in weight_layout(d):
         n = math.prod(shape)
-        tensors[name] = flat[off:off + n].view(shape)
+        views[name] = flat[off:off + n].view(shape)
         off += n
-    return PackedEncoder(flat, tensors, d)
+    return views
 
 
 def epic_supported(config) -> bool:
@@ -166,11 +175,39 @@ def epic_supported(config) -> bool:
 # ------------------------------------------------------------ plain version
 
 
-def forward_from_temb(packed: PackedEncoder, temb, x, k, mask):
+class _SELU(torch.autograd.Function):
+    """SELU whose derivative at exactly 0 is the right-hand one, `scale`, as
+    in the JAX backward kernel's `_dselu` (epic_pallas_vjp.py:72-75) and in
+    ops/csrc/epic_backward.cu."""
+
+    ALPHA = 1.6732632423543772
+    SCALE = 1.0507009873554805
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return F.selu(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        slope = torch.where(x >= 0, 1.0, _SELU.ALPHA * torch.exp(x))
+        return grad * _SELU.SCALE * slope
+
+
+def forward_from_temb(packed: PackedEncoder, temb, x, k, mask, preacts=None):
     """The EPiC forward on packed weights in (B, N, C) layout, from the
     per-jet time embedding temb (B, E_t): the math of `_forward_acts`
-    (epic_pallas.py:183-272). Returns (cont (B,N,3), logits (B,N,8))."""
+    (epic_pallas.py:183-272). Returns (cont (B,N,3), logits (B,N,8)).
+    A list `preacts` receives (name, tensor) for the input of every leaky
+    and SELU: per particle (B, N, F) or per jet (B, F)."""
     W, d = packed.tensors, packed.dims
+
+    def act(name, z, fn=leaky_relu):
+        if preacts is not None:
+            preacts.append((name, z.detach()))
+        return fn(z)
+
     B, N = x.shape[0], x.shape[1]
     denom = torch.clamp(mask.sum(dim=1), min=1.0)  # (B, 1)
     ctx = temb  # per-jet context = time embedding
@@ -181,12 +218,12 @@ def forward_from_temb(packed: PackedEncoder, temb, x, k, mask):
     t_local = temb[:, None, :].expand(B, N, d.emb_t)
     feats = torch.cat([t_local, x_emb, k_emb], dim=-1) * mask
 
-    h_act = leaky_relu(feats @ W["w_l0"].T + W["b_l0"])
+    h_act = act("z_l0", feats @ W["w_l0"].T + W["b_l0"])
     s0 = (h_act * mask).sum(dim=1)
     p0 = torch.cat([s0 / denom, s0, ctx], dim=-1)
-    g = leaky_relu(p0 @ W["w_g0"].T + W["b_g0"])
-    g = leaky_relu(g @ W["w_g1"].T + W["b_g1"])
-    g = leaky_relu(g @ W["w_g2"].T + W["b_g2"])
+    g = act("z_g0", p0 @ W["w_g0"].T + W["b_g0"])
+    g = act("z_g1", g @ W["w_g1"].T + W["b_g1"])
+    g = act("z_g2", g @ W["w_g2"].T + W["b_g2"])
     h = h_act * mask
     skip_local = h if d.use_skip else 0.0
     skip_global = g if d.use_skip else 0.0
@@ -194,21 +231,21 @@ def forward_from_temb(packed: PackedEncoder, temb, x, k, mask):
     for i in range(d.num_blocks):
         s = (h * mask).sum(dim=1)
         p = torch.cat([s / denom, s, g, ctx], dim=-1)
-        g1 = leaky_relu(p @ W[f"w_fg1_{i}"].T + W[f"b_fg1_{i}"])
-        g_new = leaky_relu(g1 @ W[f"w_fg2_{i}"].T + W[f"b_fg2_{i}"] + g)
+        g1 = act("z_fg1", p @ W[f"w_fg1_{i}"].T + W[f"b_fg1_{i}"])
+        g_new = act("z_fg2", g1 @ W[f"w_fg2_{i}"].T + W[f"b_fg2_{i}"] + g)
         hcat = torch.cat(
             [h, g_new[:, None, :].expand(B, N, d.hidden_glob),
              ctx[:, None, :].expand(B, N, d.emb_t)], dim=-1,
         )
-        l1 = leaky_relu(hcat @ W[f"w_fl1_{i}"].T + W[f"b_fl1_{i}"])
-        h_new = leaky_relu(l1 @ W[f"w_fl2_{i}"].T + W[f"b_fl2_{i}"] + h)
+        l1 = act("z_fl1", hcat @ W[f"w_fl1_{i}"].T + W[f"b_fl1_{i}"])
+        h_new = act("z_fl2", l1 @ W[f"w_fl2_{i}"].T + W[f"b_fl2_{i}"] + h)
         h = h_new * mask + skip_local
         g = g_new + skip_global
 
     cont = (h @ W["w_out_c"].T + W["b_out_c"]) * mask
     disc = (h @ W["w_out_d"].T + W["b_out_d"]) * mask
     if d.add_discrete_head:
-        disc = F.selu(disc @ W["w_h0"].T + W["b_h0"]) @ W["w_h1"].T + W["b_h1"]
+        disc = act("z_h0", disc @ W["w_h0"].T + W["b_h0"], _SELU.apply) @ W["w_h1"].T + W["b_h1"]
     return cont, disc
 
 

@@ -1,12 +1,16 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, on a
-CUDA card. Without one every test here skips. The card's machine has no JAX,
-so run this file without tests/conftest.py:
+"""The hand-written CUDA kernels (K1 forward, K2 sampler step, K3 backward)
+against their plain PyTorch versions, on a CUDA card. Without one every test
+here skips. The card's machine has no JAX, so run this file without
+tests/conftest.py:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py -q
 
 Tolerance atol 1e-4 / rtol 1e-4: float32 on both sides, with sums in other
 orders (fused multiply-adds, per-jet reductions); tokens may differ on at most
 1% of real slots where a uniform falls within rounding of a CDF boundary.
+K3's weight gradients are held per leaf: |err| ≤ 1e-4·max|ref leaf| +
+1e-3·|ref| (sums over all particles of a batch, in another order), with no
+cotangent on jets that `near_kink_jets` flags.
 """
 
 import pytest
@@ -21,7 +25,14 @@ from multimodal_particles_tpu_torch.models.generative.multimodal_bridge_matching
 from multimodal_particles_tpu_torch.ops.epic_cuda import (
     epic_forward,
     epic_forward_reference,
+    flat_views,
     pack_mbm_encoder_params,
+)
+from multimodal_particles_tpu_torch.ops.epic_vjp_cuda import (
+    epic_backward,
+    epic_backward_reference,
+    epic_train_forward,
+    near_kink_jets,
 )
 from multimodal_particles_tpu_torch.ops.sampler_cuda import (
     sampler_step,
@@ -110,3 +121,55 @@ def test_wrappers_reject_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError, match="u must be"):
         sampler_step(packed, x, k, mask, torch.rand((2, 8, 31), device=device), 0.5, 0.01,
                      gamma=0.125)
+
+
+@pytest.mark.parametrize("hidden,blocks", [(16, 2), (32, 3), (64, 4)])
+@pytest.mark.parametrize("skip", [True, False])
+def test_epic_backward_matches_plain_autograd(device, hidden, blocks, skip):
+    packed = packed_model(device, hidden, blocks, skip)
+    t, x, k, mask, gen = inputs(device, 64, 128)
+    # no cotangent on jets where float32 rounding may flip a derivative branch
+    near = near_kink_jets(packed, t, x, k, mask)
+    g = torch.randn((64, 128, 11), generator=gen, device=device) * (~near)[:, None, None]
+    before = epic_backward.launches
+    got = epic_backward(packed, t, x, k, mask, g)
+    torch.cuda.synchronize()
+    assert epic_backward.launches == before + 1
+    ref = epic_backward_reference(packed, t, x, k, mask, g)
+    assert torch.isfinite(got).all()
+    for name, a in flat_views(got, packed.dims).items():
+        r = flat_views(ref, packed.dims)[name]
+        scale = max(r.abs().max().item(), 1e-6)
+        assert ((a - r).abs() <= 1e-4 * scale + 1e-3 * r.abs()).all(), name
+    # the backward is deterministic: the same inputs give the same bits
+    assert torch.equal(got, epic_backward(packed, t, x, k, mask, g))
+
+
+def test_epic_train_forward_goes_through_both_kernels(device):
+    config = MultimodalBridgeMatchingConfig()
+    model = MultiModalBridgeMatching(config)
+    init_mbm_parameters(model, 0)
+    model = model.to(device)
+    t, x, k, mask, _ = inputs(device, 32, 128)
+    fwd, bwd = epic_forward.launches, epic_backward.launches
+    packed = pack_mbm_encoder_params(model.encoder, config, differentiable=True)
+    (epic_train_forward(packed, t, x, k, mask) ** 2).sum().backward()
+    assert (epic_forward.launches, epic_backward.launches) == (fwd + 1, bwd + 1)
+    for name, p in model.encoder.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+def test_backward_wrapper_rejects_what_the_kernel_does_not_take(device):
+    packed = packed_model(device)
+    t, x, k, mask, gen = inputs(device, 8, 32)
+    g = torch.randn((8, 32, 11), generator=gen, device=device)
+    with pytest.raises(ValueError, match="is on"):
+        epic_backward(packed, t, x, k, mask, g.cpu())
+    with pytest.raises(ValueError, match="is on"):
+        epic_backward(packed, t.cpu(), x, k, mask, g)
+    with pytest.raises(ValueError, match="contiguous"):
+        epic_backward(packed, t, x, k, mask, g.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(TypeError, match="float32"):
+        epic_backward(packed, t, x, k, mask, g.double())
+    with pytest.raises(ValueError, match="g must be"):
+        epic_backward(packed, t, x, k, mask, g[..., :10].contiguous())

@@ -166,7 +166,7 @@ def test_epic_forward_reference_matches_pallas_interpret(pair):
 
 
 @pytest.mark.parametrize(
-    "name", ["JetsDataConfig", "BridgeConfig", "EncoderConfig", "ParallelConfig"]
+    "name", ["TrainingConfig", "JetsDataConfig", "BridgeConfig", "EncoderConfig", "ParallelConfig"]
 )
 def test_config_mirror_matches_jax_dataclasses(name):
     def fields(cls):

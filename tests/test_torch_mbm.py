@@ -151,6 +151,10 @@ def test_port_imports_no_jax():
         "import multimodal_particles_tpu_torch.models.generative.init\n"
         "import multimodal_particles_tpu_torch.utils.transplant\n"
         "import multimodal_particles_tpu_torch.data\n"
+        "import multimodal_particles_tpu_torch.ops.epic_vjp_cuda\n"
+        "import multimodal_particles_tpu_torch.training.trainer\n"
+        "import multimodal_particles_tpu_torch.utils.losses\n"
+        "import multimodal_particles_tpu_torch.utils.experiment_files\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'multimodal_particles_tpu')]\n"
         "print(bad)\n"

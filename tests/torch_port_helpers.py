@@ -30,18 +30,22 @@ CONFIG_PATH = os.path.join(test_resources_dir, "configs_files", "config-mbm-test
 B, N = 8, 16
 
 
-def jax_config(num_timesteps=8):
+def jax_config(num_timesteps=8, **encoder):
+    """The test config at B, N; `encoder` overrides encoder fields."""
     cfg = MultimodalBridgeMatchingConfig.from_yaml(CONFIG_PATH)
     cfg.data.batch_size = B
     cfg.data.max_num_particles = N
     cfg.bridge.num_timesteps = num_timesteps
+    for name, value in encoder.items():
+        setattr(cfg.encoder, name, value)
     return cfg
 
 
-def model_pair(seed=0, num_timesteps=8):
+def model_pair(seed=0, num_timesteps=8, **encoder):
     """(jax_model, jax_params, torch_model, jax_batch): flax-initialised
-    weights plus seeded noise (so that biases are not zero), transplanted."""
-    cfg = jax_config(num_timesteps)
+    weights plus seeded noise (so that biases are not zero), transplanted.
+    `encoder` overrides encoder fields of the test config."""
+    cfg = jax_config(num_timesteps, **encoder)
     batch = jax.tree_util.tree_map(jnp.asarray, JetsDataloaderModule.random_databatch(cfg))
     jax_model = MultiModalBridgeMatching(cfg)
     params = jax_model.init(jax.random.PRNGKey(seed), batch)
