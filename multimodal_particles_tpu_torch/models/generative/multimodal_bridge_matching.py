@@ -6,10 +6,13 @@ The model is an `nn.Module` that owns its parameters (the encoder and the
 multi-head loss log-variances `loss_weights`). Training: `loss_fn` draws the
 bridge states (`sample_bridges`), runs `forward_train` and combines the
 masked MSE and cross-entropy heads; with the kernel gate on, the encoder's
-forward and backward are the hand-written CUDA kernels (ops/epic_vjp_cuda.py).
+forward and backward are the hand-written CUDA kernels (ops/epic_vjp_cuda.py,
+and ops/epic_wide_vjp_cuda.py at hidden 128).
 Sampling: `predict` takes the source batch and an explicit `torch.Generator`;
-with the gate on, each sampler step is one launch of the fused CUDA kernel
-(ops/sampler_cuda.py). Randomness is an input throughout: every draw comes
+with the narrow gate on, each sampler step is one launch of the fused CUDA
+kernel (ops/sampler_cuda.py); with the wide gate on, each step is one launch
+of the wide forward kernel followed by the bridges' plain solver steps.
+Randomness is an input throughout: every draw comes
 from a caller's generator or is injected as tensors.
 """
 
@@ -34,6 +37,12 @@ from multimodal_particles_tpu_torch.ops.epic_cuda import (
     pack_mbm_encoder_params,
 )
 from multimodal_particles_tpu_torch.ops.epic_vjp_cuda import epic_train_forward
+from multimodal_particles_tpu_torch.ops.epic_wide_cuda import (
+    epic_forward_wide,
+    pack_wide_encoder_params,
+    wide_supported,
+)
+from multimodal_particles_tpu_torch.ops.epic_wide_vjp_cuda import epic_train_forward_wide
 from multimodal_particles_tpu_torch.ops.sampler_cuda import fused_simulate_dynamics
 from multimodal_particles_tpu_torch.utils.losses import multihead_loss
 
@@ -100,19 +109,28 @@ class MultiModalBridgeMatching(nn.Module):
 
     # ---------------------------------------------------------------- forward
 
-    def kernel_enabled(self, device) -> bool:
-        """Kernel gate (multimodal_bridge_matching.py:114-125 with
-        ops/epic_pallas.py:474-494): `parallel.use_pallas` False → off;
-        'auto' → on for CUDA devices when the encoder matches the kernels;
-        True → on when it matches. On a CPU device the kernel wrappers run
-        their plain versions."""
+    def _gate(self, supported: bool, device) -> bool:
+        """`parallel.use_pallas` False → off; 'auto' → on for CUDA devices
+        when the encoder matches the kernels; True → on when it matches. On a
+        CPU device the kernel wrappers run their plain versions."""
         flag = self.config.parallel.use_pallas
         if flag is False:
             return False
-        supported = epic_supported(self.config)
         if flag == "auto":
             return supported and torch.device(device).type == "cuda"
         return bool(flag) and supported
+
+    def kernel_enabled(self, device) -> bool:
+        """Narrow kernel gate (multimodal_bridge_matching.py:114-125 with
+        ops/epic_pallas.py:474-494): hidden ≤ 64, the fused forward, its
+        backward and the whole-step sampler kernel."""
+        return self._gate(epic_supported(self.config), device)
+
+    def wide_kernel_enabled(self, device) -> bool:
+        """Wide kernel gate (multimodal_bridge_matching.py:127-141 with
+        ops/epic_pallas_wide.py:335-369): every width 128, the wide forward
+        and its backward."""
+        return self._gate(wide_supported(self.config), device)
 
     def forward(self, state: HybridState) -> MultiHeadOutput:
         """Eager module forward (multimodal_bridge_matching.py:234-253)."""
@@ -121,24 +139,37 @@ class MultiModalBridgeMatching(nn.Module):
         )
         return MultiHeadOutput(continuous, discrete, absorbing)
 
-    def forward_kernel(self, state: HybridState) -> MultiHeadOutput:
+    def forward_kernel(self, state: HybridState, packed=None) -> MultiHeadOutput:
         """Fused-kernel forward, one launch for the whole encoder
-        (forward_pallas, multimodal_bridge_matching.py:196-232)."""
-        packed = pack_mbm_encoder_params(self.encoder, self.config)
-        out = epic_forward(
+        (forward_pallas, multimodal_bridge_matching.py:196-232): the wide
+        kernel when the wide gate is on, else the narrow one. `packed` is a
+        packing of the current weights to reuse (`pack_for_kernel`)."""
+        wide = self.wide_kernel_enabled(state.continuous.device)
+        if packed is None:
+            packed = self.pack_for_kernel(wide)
+        out = (epic_forward_wide if wide else epic_forward)(
             packed, state.time, state.continuous, state.discrete, state.absorbing
         )
         dc = self.config.data.dim_features_continuous
         return MultiHeadOutput(out[..., :dc], out[..., dc:], state.absorbing)
 
+    def pack_for_kernel(self, wide: bool, differentiable: bool = False):
+        """The encoder's effective weights in the layout of the wide or the
+        narrow kernels."""
+        pack = pack_wide_encoder_params if wide else pack_mbm_encoder_params
+        return pack(self.encoder, self.config, differentiable=differentiable)
+
     def forward_train(self, state: HybridState) -> MultiHeadOutput:
         """Training-path forward (multimodal_bridge_matching.py:171-194):
-        with the kernel gate on, the K1 forward kernel with the K3 backward
-        kernel behind it, on the differentiable packing; else the module."""
-        if not self.kernel_enabled(state.continuous.device):
+        with a kernel gate on, the forward kernel with its backward kernel
+        behind it (narrow or wide), on the differentiable packing; else the
+        module."""
+        device = state.continuous.device
+        wide = self.wide_kernel_enabled(device)
+        if not (wide or self.kernel_enabled(device)):
             return self.forward(state)
-        packed = pack_mbm_encoder_params(self.encoder, self.config, differentiable=True)
-        out = epic_train_forward(
+        packed = self.pack_for_kernel(wide, differentiable=True)
+        out = (epic_train_forward_wide if wide else epic_train_forward)(
             packed, state.time, state.continuous, state.discrete, state.absorbing
         )
         dc = self.config.data.dim_features_continuous
@@ -234,6 +265,13 @@ class MultiModalBridgeMatching(nn.Module):
         time_steps, delta_t = self.time_grid()
         B, N = state.continuous.shape[0], state.continuous.shape[1]
         device = state.continuous.device
+        # the wide regime has no fused step: the wide forward kernel, then
+        # the bridges' solver steps (multimodal_bridge_matching.py:338-352);
+        # the weights do not change under the loop, so they are packed once
+        forward = self.forward
+        if self.wide_kernel_enabled(device):
+            packed = self.pack_for_kernel(wide=True)
+            forward = lambda st: self.forward_kernel(st, packed)
         for i, t in enumerate(time_steps[1:]):
             if uniforms is not None:
                 u = uniforms[i].to(device=device, dtype=torch.float32)
@@ -242,7 +280,7 @@ class MultiModalBridgeMatching(nn.Module):
             state = state.replace(
                 time=torch.full((B, 1, 1), t, dtype=state.continuous.dtype, device=device)
             )
-            heads = self.forward(state)
+            heads = forward(state)
             if linear:
                 state = self.bridge_continuous.solver_step(state, heads, delta_t)
             else:

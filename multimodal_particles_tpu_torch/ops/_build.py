@@ -40,6 +40,10 @@ _SIGNATURES = {
     "mmp_epic_backward_workspace": [_I, _I, _P, _P, _P],
     # weights, t, x, k, mask, g, d_weights, scratch, grid, B, N, dims[8], stream
     "mmp_epic_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # the wide pair (hidden 128) takes the same arguments as the narrow one
+    "mmp_epic_wide_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "mmp_epic_wide_backward_workspace": [_I, _I, _P, _P, _P],
+    "mmp_epic_wide_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
 }
 
 

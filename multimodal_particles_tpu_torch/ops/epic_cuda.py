@@ -95,19 +95,62 @@ def weight_layout(d: EpicDims):
     return entries
 
 
+def _walk(flat: torch.Tensor, entries):
+    """(name, view of its shape) for each (name, shape), in buffer order."""
+    off = 0
+    for name, shape in entries:
+        n = math.prod(shape)
+        yield name, flat[off:off + n].view(shape)
+        off += n
+
+
+def flat_views(flat: torch.Tensor, d: EpicDims) -> Dict[str, torch.Tensor]:
+    """Named (out, in) views into a flat buffer in weight_layout order."""
+    return dict(_walk(flat, weight_layout(d)))
+
+
+def transposed_in_wide(name: str, shape) -> bool:
+    """Matrices flip to (in, out) in the wide layout; the token table is
+    (vocab, emb) in both, a matrix that the one-hot tokens multiply from the
+    left."""
+    return len(shape) == 2 and name != "table"
+
+
+def wide_weight_layout(d: EpicDims):
+    """(name, shape) of every packed weight of the wide kernels, in buffer
+    order: the names and order of `weight_layout`, matrices (in, out). Must
+    match `make_layout` in ops/csrc/epic_wide.cuh."""
+    return [(name, shape[::-1] if transposed_in_wide(name, shape) else shape)
+            for name, shape in weight_layout(d)]
+
+
+def wide_flat_views(flat: torch.Tensor, d: EpicDims) -> Dict[str, torch.Tensor]:
+    """Named (out, in) views into a flat buffer in wide_weight_layout order."""
+    return {name: view.T if transposed_in_wide(name, view.shape) else view
+            for name, view in _walk(flat, wide_weight_layout(d))}
+
+
+# layout name → (flat, dims) → named (out, in) views
+LAYOUT_VIEWS = {"narrow": flat_views, "wide": wide_flat_views}
+
+
 @dataclasses.dataclass
 class PackedEncoder:
-    flat: torch.Tensor  # (n,) float32, contiguous, in weight_layout order
-    tensors: Dict[str, torch.Tensor]  # named views into `flat`
+    flat: torch.Tensor  # (n,) float32, contiguous, in the layout's order
+    tensors: Dict[str, torch.Tensor]  # named (out, in) views into `flat`
     dims: EpicDims
+    layout: str = "narrow"  # a key of LAYOUT_VIEWS: which kernels read `flat`
+
+    def rebind(self, flat: torch.Tensor) -> "PackedEncoder":
+        """The same layout over another buffer (a leaf copy, another dtype)."""
+        return PackedEncoder(flat, LAYOUT_VIEWS[self.layout](flat, self.dims), self.dims, self.layout)
 
 
-def pack_mbm_encoder_params(encoder, config, differentiable: bool = False) -> PackedEncoder:
-    """MultiModalEPiC module → flat buffer of effective weights
-    (epic_pallas.py:47-104). Without the discrete head, w_h0/w_h1 are
-    identity placeholders that the kernel does not read. With
-    `differentiable`, `flat` is a non-leaf of the autograd graph."""
-    d = EpicDims.from_config(config)
+def effective_weights(encoder, d: EpicDims) -> Dict[str, torch.Tensor]:
+    """MultiModalEPiC module → every weight of `weight_layout` by name, weight
+    normalization resolved, matrices (out, in) (epic_pallas.py:47-104).
+    Without the discrete head, w_h0/w_h1 are identity placeholders that the
+    kernels do not read."""
     emb = encoder.epic.embedding
     net = encoder.epic.epic
     proj = net.epic_proj
@@ -134,32 +177,32 @@ def pack_mbm_encoder_params(encoder, config, differentiable: bool = False) -> Pa
         eye = torch.eye(VOCAB, device=w_out.device)
         zero = torch.zeros(VOCAB, device=w_out.device)
         src.update(w_h0=eye, b_h0=zero, w_h1=eye, b_h1=zero)
-
-    layout = weight_layout(d)
-    for name, shape in layout:
+    for name, shape in weight_layout(d):
         if tuple(src[name].shape) != shape:
             raise ValueError(f"packed weight {name}: shape {tuple(src[name].shape)} != {shape}")
+    return src
+
+
+def pack_mbm_encoder_params(encoder, config, differentiable: bool = False) -> PackedEncoder:
+    """MultiModalEPiC module → flat buffer of effective weights, (out, in)
+    row-major, for the narrow kernels. With `differentiable`, `flat` is a
+    non-leaf of the autograd graph."""
+    d = EpicDims.from_config(config)
     with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
-        flat = torch.cat([src[name].reshape(-1).float() for name, _ in layout])
+        src = effective_weights(encoder, d)
+        flat = torch.cat([src[name].reshape(-1).float() for name, _ in weight_layout(d)])
     return PackedEncoder(flat, flat_views(flat, d), d)
 
 
-def flat_views(flat: torch.Tensor, d: EpicDims) -> Dict[str, torch.Tensor]:
-    """Named (out, in) views into a flat buffer in weight_layout order."""
-    views, off = {}, 0
-    for name, shape in weight_layout(d):
-        n = math.prod(shape)
-        views[name] = flat[off:off + n].view(shape)
-        off += n
-    return views
-
-
-def epic_supported(config) -> bool:
-    """True when the encoder matches what the kernels are compiled for
-    (epic_pallas.py:450-494, without the TPU-only N % 128 condition)."""
+def epic_pattern_supported(config) -> bool:
+    """The encoder pattern both kernel families are written for
+    (epic_pallas.py:450-471): sinusoidal time embedding, Linear continuous and
+    Embedding discrete inputs, no context, 3 continuous features, vocab 8, and
+    no tensor-parallel 'model' axis (epic_pallas.py:489-493)."""
     e, d = config.encoder, config.data
     return (
-        e.embedding_time == "SinusoidalPositionalEncoding"
+        config.parallel.model_axis <= 1
+        and e.embedding_time == "SinusoidalPositionalEncoding"
         and e.embedding_features_continuous == "Linear"
         and e.embedding_features_discrete == "Embedding"
         and d.dim_context_continuous == 0
@@ -167,8 +210,16 @@ def epic_supported(config) -> bool:
         and d.dim_features_discrete == 1
         and d.dim_features_continuous == DIM_C
         and d.vocab_size_features == VOCAB
-        and e.dim_hidden_local in HIDDEN_WIDTHS
-        and 1 <= d.max_num_particles <= MAX_PARTICLES
+    )
+
+
+def epic_supported(config) -> bool:
+    """True when the encoder matches what the narrow kernels are compiled for
+    (epic_pallas.py:474-494, without the TPU-only N % 128 condition)."""
+    return (
+        epic_pattern_supported(config)
+        and config.encoder.dim_hidden_local in HIDDEN_WIDTHS
+        and 1 <= config.data.max_num_particles <= MAX_PARTICLES
     )
 
 
@@ -264,15 +315,23 @@ epic_forward_reference.calls = 0
 # ------------------------------------------------------------ kernel wrapper
 
 
-def check_kernel_inputs(packed: PackedEncoder, x, k, mask, **others):
-    """Device, dtype, shape and contiguity checks shared by both wrappers."""
+def check_narrow_packing(packed: PackedEncoder):
+    """The narrow kernels take their own layout at the widths they are
+    compiled for."""
+    if packed.layout != "narrow":
+        raise ValueError("the narrow kernels read the pack_mbm_encoder_params layout")
     if packed.dims.hidden not in HIDDEN_WIDTHS:
         raise ValueError(f"hidden width {packed.dims.hidden} not in {HIDDEN_WIDTHS}")
+
+
+def check_kernel_inputs(packed: PackedEncoder, x, k, mask, max_particles=MAX_PARTICLES, **others):
+    """Device, dtype, shape and contiguity checks shared by every wrapper;
+    each wrapper checks its own widths."""
     if x.dim() != 3 or x.shape[2] != DIM_C:
         raise ValueError(f"x must be (B, N, {DIM_C}), got {tuple(x.shape)}")
     B, N = x.shape[0], x.shape[1]
-    if not 1 <= N <= MAX_PARTICLES:
-        raise ValueError(f"N={N} outside [1, {MAX_PARTICLES}]")
+    if not 1 <= N <= max_particles:
+        raise ValueError(f"N={N} outside [1, {max_particles}]")
     if tuple(k.shape) != (B, N, 1) or tuple(mask.shape) != (B, N, 1):
         raise ValueError(f"k and mask must be (B, N, 1), got {tuple(k.shape)}, {tuple(mask.shape)}")
     if k.dtype.is_floating_point or k.dtype.is_complex:
@@ -294,6 +353,7 @@ def epic_forward(packed: PackedEncoder, t, x, k, mask):
     launch the kernel or raise."""
     if x.device.type == "cpu":
         return epic_forward_reference(packed, t, x, k, mask)
+    check_narrow_packing(packed)
     B, N = check_kernel_inputs(packed, x, k, mask, t=t)
     if t.numel() != B:
         raise ValueError(f"t must hold one time per jet, got {tuple(t.shape)}")

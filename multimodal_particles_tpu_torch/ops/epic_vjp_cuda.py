@@ -32,8 +32,8 @@ from multimodal_particles_tpu_torch.ops.epic_cuda import (
     VOCAB,
     PackedEncoder,
     check_kernel_inputs,
+    check_narrow_packing,
     epic_forward,
-    flat_views,
     forward_from_temb,
 )
 
@@ -61,7 +61,7 @@ def epic_backward_reference(packed: PackedEncoder, t, x, k, mask, g):
     epic_backward_reference.calls += 1
     with torch.enable_grad():
         flat = packed.flat.detach().clone().requires_grad_(True)
-        leaf = PackedEncoder(flat, flat_views(flat, packed.dims), packed.dims)
+        leaf = packed.rebind(flat)
         temb = sinusoidal_positional_encoding(t.reshape(x.shape[0]), packed.dims.emb_t)
         cont, disc = forward_from_temb(leaf, temb, x.float(), k, mask.float())
         (d_flat,) = torch.autograd.grad(torch.cat([cont, disc], dim=-1), flat, g)
@@ -89,8 +89,7 @@ def near_kink_jets(packed: PackedEncoder, t, x, k, mask, margin: float = 8.0):
     def preacts(dtype):
         flat = packed.flat.detach().to(dtype)
         out = []
-        forward_from_temb(PackedEncoder(flat, flat_views(flat, packed.dims), packed.dims),
-                          temb.to(dtype), x.to(dtype), k, mask.to(dtype), out)
+        forward_from_temb(packed.rebind(flat), temb.to(dtype), x.to(dtype), k, mask.to(dtype), out)
         return out
 
     with torch.no_grad():
@@ -130,6 +129,7 @@ def epic_backward(packed: PackedEncoder, t, x, k, mask, g):
     tensors launch the kernel or raise."""
     if x.device.type == "cpu":
         return epic_backward_reference(packed, t, x, k, mask, g)
+    check_narrow_packing(packed)
     B, N = check_kernel_inputs(packed, x, k, mask, t=t, g=g)
     if t.numel() != B:
         raise ValueError(f"t must hold one time per jet, got {tuple(t.shape)}")

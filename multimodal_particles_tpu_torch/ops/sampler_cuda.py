@@ -22,6 +22,7 @@ from multimodal_particles_tpu_torch.ops.epic_cuda import (
     VOCAB,
     PackedEncoder,
     check_kernel_inputs,
+    check_narrow_packing,
     forward_from_temb,
     pack_mbm_encoder_params,
 )
@@ -50,6 +51,7 @@ def sampler_step(packed: PackedEncoder, x, k, mask, u, t, dt, *, gamma):
     raise."""
     if x.device.type == "cpu":
         return sampler_step_reference(packed, x, k, mask, u, t, dt, gamma=gamma)
+    check_narrow_packing(packed)
     B, N = check_kernel_inputs(packed, x, k, mask, u=u)
     if tuple(u.shape) != (2, B, N):
         raise ValueError(f"u must be (2, {B}, {N}), got {tuple(u.shape)}")

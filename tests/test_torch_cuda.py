@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernels (K1 forward, K2 sampler step, K3 backward)
+"""The hand-written CUDA kernels (K1 forward, K2 sampler step, K3 backward,
+and the wide pair K4 forward / K5 backward at hidden 128)
 against their plain PyTorch versions, on a CUDA card. Without one every test
 here skips. The card's machine has no JAX, so run this file without
 tests/conftest.py:
@@ -10,7 +11,9 @@ orders (fused multiply-adds, per-jet reductions); tokens may differ on at most
 1% of real slots where a uniform falls within rounding of a CDF boundary.
 K3's weight gradients are held per leaf: |err| ≤ 1e-4·max|ref leaf| +
 1e-3·|ref| (sums over all particles of a batch, in another order), with no
-cotangent on jets that `near_kink_jets` flags.
+cotangent on jets that `near_kink_jets` flags. K4 is held per particle
+(|err| ≤ 1e-4 + 1e-4·max|ref| over the particle's 11 outputs: at hidden 128
+the outputs are large sums of terms that cancel), K5 per leaf as K3.
 """
 
 import pytest
@@ -34,6 +37,14 @@ from multimodal_particles_tpu_torch.ops.epic_vjp_cuda import (
     epic_train_forward,
     near_kink_jets,
 )
+from multimodal_particles_tpu_torch.ops.epic_wide_cuda import (
+    epic_forward_wide,
+    pack_wide_encoder_params,
+)
+from multimodal_particles_tpu_torch.ops.epic_wide_vjp_cuda import (
+    epic_backward_wide,
+    epic_train_forward_wide,
+)
 from multimodal_particles_tpu_torch.ops.sampler_cuda import (
     sampler_step,
     sampler_step_reference,
@@ -51,9 +62,12 @@ def device():
     return torch.device("cuda", 0)
 
 
-def packed_model(device, hidden=16, blocks=2, skip=True, head=True):
+def packed_model(device, hidden=16, blocks=2, skip=True, head=True, wide=False):
     config = MultimodalBridgeMatchingConfig()
     config.encoder.dim_hidden_local = config.encoder.dim_hidden_glob = hidden
+    if wide:  # every width 128, the wide kernels' layout
+        e = config.encoder
+        e.dim_emb_time = e.dim_emb_features_continuous = e.dim_emb_features_discrete = hidden
     config.encoder.num_blocks = blocks
     config.encoder.skip_connection = skip
     config.encoder.add_discrete_head = head
@@ -65,7 +79,8 @@ def packed_model(device, hidden=16, blocks=2, skip=True, head=True):
         for name, p in model.named_parameters():
             if name.endswith("bias"):
                 p.normal_(0.0, 0.1, generator=torch.Generator(device=device).manual_seed(1))
-    return pack_mbm_encoder_params(model.encoder, config)
+    pack = pack_wide_encoder_params if wide else pack_mbm_encoder_params
+    return pack(model.encoder, config)
 
 
 def inputs(device, B, N, seed=2):
@@ -173,3 +188,82 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take(device):
         epic_backward(packed, t, x, k, mask, g.double())
     with pytest.raises(ValueError, match="g must be"):
         epic_backward(packed, t, x, k, mask, g[..., :10].contiguous())
+
+
+# ------------------------------------------------------- the wide pair, K4/K5
+
+
+@pytest.mark.parametrize("blocks,N,skip,head", [
+    (2, 128, True, True),
+    (1, 37, False, True),
+    (6, 128, True, False),
+    (1, 8, False, False),
+])
+def test_epic_forward_wide_matches_plain(device, blocks, N, skip, head):
+    packed = packed_model(device, 128, blocks, skip, head, wide=True)
+    t, x, k, mask, _ = inputs(device, 48, N)
+    before = epic_forward_wide.launches
+    got = epic_forward_wide(packed, t, x, k, mask)
+    torch.cuda.synchronize()
+    assert epic_forward_wide.launches == before + 1
+    ref = epic_forward_reference(packed, t, x, k, mask)
+    bound = ATOL + RTOL * ref.abs().amax(dim=-1, keepdim=True)
+    assert ((got - ref).abs() <= bound).all()
+    assert (got[-2:, :, :3] == 0).all()  # empty jets
+
+
+@pytest.mark.parametrize("blocks,N", [(2, 128), (3, 50), (6, 128)])
+@pytest.mark.parametrize("skip,head", [(True, True), (False, False)])
+def test_epic_backward_wide_matches_plain_autograd(device, blocks, N, skip, head):
+    packed = packed_model(device, 128, blocks, skip, head, wide=True)
+    B = 300  # more jets than SMs: some blocks of the persistent grid sum several
+    t, x, k, mask, gen = inputs(device, B, N)
+    near = near_kink_jets(packed, t, x, k, mask)
+    g = torch.randn((B, N, 11), generator=gen, device=device) * (~near)[:, None, None]
+    before = epic_backward_wide.launches
+    got = epic_backward_wide(packed, t, x, k, mask, g)
+    torch.cuda.synchronize()
+    assert epic_backward_wide.launches == before + 1
+    ref = epic_backward_reference(packed, t, x, k, mask, g)
+    assert torch.isfinite(got).all()
+    refs = packed.rebind(ref).tensors
+    for name, a in packed.rebind(got).tensors.items():
+        r = refs[name]
+        scale = max(r.abs().max().item(), 1e-6)
+        assert ((a - r).abs() <= 1e-4 * scale + 1e-3 * r.abs()).all(), name
+    assert torch.equal(got, epic_backward_wide(packed, t, x, k, mask, g))
+
+
+def test_epic_train_forward_wide_goes_through_both_kernels(device):
+    config = MultimodalBridgeMatchingConfig()
+    e = config.encoder
+    e.dim_hidden_local = e.dim_hidden_glob = e.dim_emb_time = 128
+    e.dim_emb_features_continuous = e.dim_emb_features_discrete = 128
+    model = MultiModalBridgeMatching(config)
+    init_mbm_parameters(model, 0)
+    model = model.to(device)
+    assert model.wide_kernel_enabled(device) and not model.kernel_enabled(device)
+    t, x, k, mask, _ = inputs(device, 32, 128)
+    fwd, bwd = epic_forward_wide.launches, epic_backward_wide.launches
+    packed = pack_wide_encoder_params(model.encoder, config, differentiable=True)
+    (epic_train_forward_wide(packed, t, x, k, mask) ** 2).sum().backward()
+    assert (epic_forward_wide.launches, epic_backward_wide.launches) == (fwd + 1, bwd + 1)
+    for name, p in model.encoder.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+def test_wide_wrappers_reject_what_the_kernels_do_not_take(device):
+    wide = packed_model(device, 128, 1, wide=True)
+    narrow = packed_model(device)
+    t, x, k, mask, gen = inputs(device, 4, 32)
+    g = torch.randn((4, 32, 11), generator=gen, device=device)
+    with pytest.raises(ValueError, match="layout"):
+        epic_forward_wide(narrow, t, x, k, mask)
+    with pytest.raises(ValueError, match="layout"):
+        epic_forward(wide, t, x, k, mask)
+    with pytest.raises(ValueError, match="outside"):
+        epic_forward_wide(wide, *inputs(device, 2, 129)[:4])
+    with pytest.raises(ValueError, match="g must be"):
+        epic_backward_wide(wide, t, x, k, mask, g[..., :10].contiguous())
+    with pytest.raises(TypeError, match="float32"):
+        epic_backward_wide(wide, t, x, k, mask, g.double())

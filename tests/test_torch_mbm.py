@@ -152,6 +152,8 @@ def test_port_imports_no_jax():
         "import multimodal_particles_tpu_torch.utils.transplant\n"
         "import multimodal_particles_tpu_torch.data\n"
         "import multimodal_particles_tpu_torch.ops.epic_vjp_cuda\n"
+        "import multimodal_particles_tpu_torch.ops.epic_wide_cuda\n"
+        "import multimodal_particles_tpu_torch.ops.epic_wide_vjp_cuda\n"
         "import multimodal_particles_tpu_torch.training.trainer\n"
         "import multimodal_particles_tpu_torch.utils.losses\n"
         "import multimodal_particles_tpu_torch.utils.experiment_files\n"
