@@ -87,6 +87,36 @@ Phases, one JSON line each:
               (what plain autograd holds): every step's loss within 1e-3 of
               the other's, relative; the parameters' distance is printed
 
+ 18. k1_hidden  K1 with `output_hidden_local` and the absorbing generator's
+              56-wide discrete head at hidden 16, N=109, B=4096 vs its plain
+              version: the 11 outputs and the (B, N, 16) hidden state within
+              atol = rtol = 1e-4; random non-prefix masks, one empty jet; then
+              both timed
+ 19. k6       the fused survival head (survival_head.cu) vs its plain version
+              at (B, N) = (4096, 109), (7, 109) and (64, 128), random
+              non-prefix masks, times in (0, 1): logits within atol = rtol =
+              2e-4 (the JAX kernel's own test's tolerance), the same bits on a
+              repeated launch; then both timed at B=4096, N=109
+ 20. slice_absorbing  AbsorbingFlow(AbsorbingConfig defaults, 100 timesteps)
+              .predict serves requests of 4096 and 1024 jets at N=109: K1 and
+              K6 launched 99 times each, no plain version called; kinematics
+              finite, tokens in [0, 8), dead slots zero, and (the solver is
+              birth-only at death_rate_scale 0) every slot alive in the source
+              alive at the end; multiplicity in and out
+ 21. paths_absorbing  the 99-step kernel path vs the module path at B=256 with
+              the same generator seed: mask and token mismatch ≤ 1% of slots,
+              median |Δx|/max(|x|, 1) printed
+ 22. train_absorbing  Trainer.fit with an AbsorbingFlow at B=4096, N=109 (3
+              epochs of 8 synthetic batches + 1 validation batch), then
+              Trainer.predict (EMA weights) on 1024 jets. Absorbing training
+              launches no hand-written kernel, as the JAX package's does not
+              (its loss_fn runs the flax modules): the fit must launch none,
+              every loss term must be finite and the total fall, and predict
+              must launch K1 and K6 99 times each; then steps/s over 8
+              synchronized steps
+ 23. profile_absorbing  torch.profiler windows over 3 train steps and over a
+              serving request of 1024 jets: the top device operations
+
 The line before the last lists every kernel with its launches on its own
 path's run, its bound from the shapes and the H100 data sheet's peaks, and
 the times measured here; the last line is {"ok": true, "device": {...}}. Any
@@ -103,14 +133,24 @@ from pathlib import Path
 
 import torch
 
-from multimodal_particles_tpu_torch.config_classes import MultimodalBridgeMatchingConfig
+from multimodal_particles_tpu_torch.config_classes import (
+    AbsorbingConfig,
+    MultimodalBridgeMatchingConfig,
+)
 from multimodal_particles_tpu_torch.data import (
     InMemoryDataModule,
+    absorbing_training_batch,
     gauss_noise_source_batch,
     synthetic_training_batch,
 )
 from multimodal_particles_tpu_torch.models.architectures.utils import WeightNormLinear
-from multimodal_particles_tpu_torch.models.generative.init import init_mbm_parameters
+from multimodal_particles_tpu_torch.models.generative.absorbing.absorbing_flows import (
+    AbsorbingFlow,
+)
+from multimodal_particles_tpu_torch.models.generative.init import (
+    init_absorbing_parameters,
+    init_mbm_parameters,
+)
 from multimodal_particles_tpu_torch.models.generative.multimodal_bridge_matching import (
     MultiModalBridgeMatching,
 )
@@ -140,6 +180,11 @@ from multimodal_particles_tpu_torch.ops.sampler_cuda import (
     sampler_step,
     sampler_step_reference,
 )
+from multimodal_particles_tpu_torch.ops.survival_cuda import (
+    project_time_embeddings,
+    survival_head,
+    survival_head_reference,
+)
 from multimodal_particles_tpu_torch.training.trainer import Trainer
 from multimodal_particles_tpu_torch.utils.experiment_files import ExperimentsFiles
 
@@ -164,6 +209,13 @@ FLIPPED_B = 64
 # K5's check: a CPU count at B=512 left 346 jets out as near a kink and held 43 of more
 # than 64 particles against the 32 asked for, so the check takes 2048 jets for margin
 K5_CHECK_B = 2048
+# the absorbing family at its reference config: N=109, the batch of its bench line
+ABS_N, ABS_B = 109, 4096
+ABS_REQUEST_SIZES = (4096, 1024)
+ABS_PATHS_B = 256
+ABS_K6_SHAPES = ((ABS_B, ABS_N), (7, ABS_N), (64, 128))
+ABS_TRAIN_EPOCHS = 3
+K6_TOL = 2e-4  # tests/test_ops/test_survival_pallas.py:86-88
 # NVIDIA's H100 SXM data sheet: fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
@@ -389,7 +441,8 @@ def leaf_compare(got, ref, packed):
 
 def plain_calls():
     return (epic_forward_reference.calls + sampler_step_reference.calls
-            + epic_train_forward_reference.calls + epic_backward_reference.calls)
+            + epic_train_forward_reference.calls + epic_backward_reference.calls
+            + survival_head_reference.calls)
 
 
 def multiplicity_bins(mult):
@@ -550,6 +603,22 @@ def phase_train(device, card, workdir):
     return trainer, dm, launches, rate
 
 
+RANGE_PREFIXES = ("train.", "mbm.", "absorbing.", "Optimizer.step")
+
+
+def device_operations(prof, repeats):
+    """Device time by operation from a profiler window: (ms, count, name) per
+    repeat, largest first, the record_function ranges left out."""
+
+    def dev_ms(e):
+        t = getattr(e, "self_device_time_total", None)
+        return (e.self_cuda_time_total if t is None else t) / 1e3 / repeats
+
+    return sorted(((dev_ms(e), e.count // repeats, e.key) for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA") and dev_ms(e) > 0
+                   and not e.key.startswith(RANGE_PREFIXES)), reverse=True)
+
+
 def phase_profile(trainer, dm, card, workdir, step_seconds, phase="profile"):
     """Device time by kernel and by range over 3 train steps at B=8192.
     The profiler slows the host many times over, so the device's idle share
@@ -562,22 +631,15 @@ def phase_profile(trainer, dm, card, workdir, step_seconds, phase="profile"):
             trainer.train_step(b)
     wall_ms = (time.perf_counter() - start) * 1e3
 
-    def dev_ms(e):
-        t = getattr(e, "self_device_time_total", None)
-        return (e.self_cuda_time_total if t is None else t) / 1e3 / steps
-
     def range_ms(e):
         t = getattr(e, "device_time_total", None)
         return (e.cuda_time_total if t is None else t) / 1e3 / steps
 
     # the ranges appear twice: as host events, whose device time is the
     # sum of the kernels they launched, and as spans on the device timeline
-    events = prof.key_averages()
-    on_device = lambda e: str(e.device_type).endswith("CUDA")
-    is_range = lambda e: e.key.startswith(("train.", "mbm.", "Optimizer.step"))
-    kernels = sorted(((dev_ms(e), e.count // steps, e.key) for e in events
-                      if on_device(e) and not is_range(e) and dev_ms(e) > 0), reverse=True)
-    ranges = {e.key: range_ms(e) for e in events if is_range(e) and not on_device(e)}
+    kernels = device_operations(prof, steps)
+    ranges = {e.key: range_ms(e) for e in prof.key_averages()
+              if e.key.startswith(RANGE_PREFIXES) and not str(e.device_type).endswith("CUDA")}
     device_ms = sum(k[0] for k in kernels)
     step_ms = step_seconds * 1e3
     rec = {"phase": phase, "steps": steps, "B": TRAIN_B, "profiled_wall_ms_per_step": wall_ms / steps,
@@ -695,33 +757,51 @@ def encoder_macs(d):
     [g ‖ temb] thirds of fc_local1, the global MLP) taken once a jet."""
     H, Hg, Et, Ex, Ek, nb = d.hidden, d.hidden_glob, d.emb_t, d.emb_x, d.emb_k, d.num_blocks
     per_particle = (3 * Ex + (Ex + Ek) * H + nb * 2 * H * H + H * 11
-                    + (2 * 8 * 8 if d.add_discrete_head else 0))
+                    + (2 * 8 * d.head_hidden if d.add_discrete_head else 0))
     per_jet = (Et * H + (2 * H + Et) * H + H * H + H * Hg
                + nb * ((2 * H + Hg + Et) * H + H * Hg + (Hg + Et) * H))
     return per_particle, per_jet
 
 
-def kernel_bound(packed, B, kind):
-    """The least time the card could take for one call at (B, N): the larger
+def roofline(flops, nbytes):
+    by_flops, by_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return {"bound_ms": max(by_flops, by_bytes),
+            "bound_by": "operations" if by_flops >= by_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def kernel_bound(packed, B, kind, n=N):
+    """The least time the card could take for one call at (B, n): the larger
     of the function's operations at the fp32 peak and its bytes (each input
     read once, each output written once) at the HBM rate. The backward is the
     forward rerun plus two products per product of the forward."""
     per_particle, per_jet = encoder_macs(packed.dims)
-    forward_flops = 2.0 * (per_particle * B * N + per_jet * B)
+    forward_flops = 2.0 * (per_particle * B * n + per_jet * B)
     weights = 4 * packed.flat.numel()
-    slots = B * N
+    slots = B * n
     inputs = 4 * B + slots * (12 + 4 + 4)  # t, x, k (int32), mask
     flops, nbytes = {
         "forward": (forward_flops, inputs + slots * 44 + weights),
+        # + the (B, n, H) hidden state out
+        "forward_hidden": (forward_flops, inputs + slots * (44 + 4 * packed.dims.hidden) + weights),
         # + uniforms in, (x, k) out; ~60 operations a slot for the two updates
         "sampler_step": (forward_flops + 60.0 * slots, inputs + slots * (8 + 16) + weights),
         # + cotangent in, d(weights) out
         "backward": (3.0 * forward_flops, inputs + slots * 44 + 2 * weights),
     }[kind]
-    by_flops, by_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    return {"bound_ms": max(by_flops, by_bytes),
-            "bound_by": "operations" if by_flops >= by_bytes else "bytes",
-            "flops": flops, "bytes": nbytes}
+    return roofline(flops, nbytes)
+
+
+def survival_bound(head, B, n):
+    """K6's bound at (B, n): proj_in, per block six (n, C)·(C, C) products and
+    the heads' n·n scores and values (C multiply-adds a pair of slots over
+    the heads together, whatever their count), pre_rate, post_rate; in: the hidden state, the mask
+    as the caller holds it (int64), the time rows, the weights; out: the
+    logits."""
+    C, dh, nb = 128, head.dim_hidden, head.n_blocks
+    macs_per_jet = n * dh * C + nb * (6 * n * C * C + 2 * n * n * C) + n * C * C + n * C
+    nbytes = B * n * (4 * dh + 8 + 4) + 4 * nb * B * C + 4 * head.flat.numel()
+    return roofline(2.0 * macs_per_jet * B, nbytes)
 
 
 FLIPPED = {"skip": False, "head": False}
@@ -860,10 +940,11 @@ def narrow_counts():
 
 def reset_counts():
     """Every launch count and every plain version's call count to 0."""
-    for fn in (epic_forward, epic_backward, sampler_step, epic_forward_wide, epic_backward_wide):
+    for fn in (epic_forward, epic_backward, sampler_step, epic_forward_wide, epic_backward_wide,
+               survival_head):
         fn.launches = 0
     for fn in (epic_forward_reference, sampler_step_reference, epic_train_forward_reference,
-               epic_backward_reference):
+               epic_backward_reference, survival_head_reference):
         fn.calls = 0
 
 
@@ -1040,6 +1121,336 @@ def phase_train_scaled(device, card, workdir):
     return launches
 
 
+# --------------------------------------------------- the absorbing family
+
+
+def make_absorbing(device, num_timesteps=100):
+    """AbsorbingFlow at AbsorbingConfig's defaults (EPiC 2 blocks, hidden 16;
+    survival head 128 wide, 2 heads, 2 blocks; N=109), seeded weights."""
+    config = AbsorbingConfig()
+    config.bridge.num_timesteps = num_timesteps
+    return init_absorbing_parameters(AbsorbingFlow(config), SEED).to(device).eval()
+
+
+def scattered_inputs(B, n, device, gen):
+    """t in (0, 1), x, k and a random, non-prefix mask (each slot alive with
+    probability 0.6) at n slots; the last jet is empty."""
+    mask = (torch.rand((B, n, 1), generator=gen, device=device) < 0.6).float()
+    mask[-1] = 0.0
+    x = torch.randn((B, n, 3), generator=gen, device=device) * mask
+    k = torch.randint(0, 8, (B, n, 1), generator=gen, device=device) * mask.long()
+    t = torch.rand((B, 1, 1), generator=gen, device=device).clamp(1e-3, 1 - 1e-3)
+    return t, x, k, mask
+
+
+def phase_k1_hidden(device, card):
+    """K1 as the absorbing family calls it: 56-wide discrete head, hidden
+    output, N=109, B=4096; then timed beside its plain version."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    model = make_absorbing(device)
+    trunk, _ = model.pack_for_kernel()
+    t, x, k, mask = scattered_inputs(ABS_B, ABS_N, device, gen)
+    out, hid = epic_forward(trunk, t, x, k, mask, output_hidden_local=True)
+    torch.cuda.synchronize()
+    ref_out, ref_hid = epic_forward_reference(trunk, t, x, k, mask, output_hidden_local=True)
+    cmp_out, cmp_hid = compare(out, ref_out), compare(hid, ref_hid)
+    rec = {"phase": "k1_hidden", "hidden": 16, "head_hidden": trunk.dims.head_hidden, "B": ABS_B,
+           "N": ABS_N, "outputs": cmp_out, "hidden_state": cmp_hid,
+           "hidden_shape": list(hid.shape), "alive_share": mask.mean().item(),
+           "finite": bool(torch.isfinite(out).all().item() and torch.isfinite(hid).all().item()),
+           "empty_jet_zero_cont": bool((out[-1, :, :3] == 0).all().item())}
+    emit(rec)
+    if not (cmp_out["within_tol"] and cmp_hid["within_tol"] and rec["finite"]
+            and rec["empty_jet_zero_cont"] and rec["hidden_shape"] == [ABS_B, ABS_N, 16]):
+        raise RuntimeError(f"K1's hidden output disagrees with its plain version: {rec}")
+    ms, plain_ms = time_pair(
+        lambda: epic_forward(trunk, t, x, k, mask, output_hidden_local=True),
+        lambda: epic_forward_reference(trunk, t, x, k, mask, output_hidden_local=True))
+    bound = kernel_bound(trunk, ABS_B, "forward_hidden", ABS_N)
+    emit({"phase": "K1_hidden_time", "B": ABS_B, "N": ABS_N, "ms": ms, "plain_ms": plain_ms,
+          **bound, "card": card})
+    return {"max_abs_err": max(cmp_out["max_abs_err"], cmp_hid["max_abs_err"]), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "B": ABS_B, "N": ABS_N, "head_hidden": trunk.dims.head_hidden}
+
+
+def phase_k6(device, card):
+    """K6 against its plain version at three shapes, the same bits on a
+    repeat; then both timed at B=4096, N=109."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    model = make_absorbing(device)
+    cfg_g = model.config.generator
+    _, head = model.pack_for_kernel()
+    errors = []
+    for B, n in ABS_K6_SHAPES:
+        t, _, _, mask = scattered_inputs(B, n, device, gen)
+        mask_t = mask.long()
+        last = torch.randn((B, n, head.dim_hidden), generator=gen, device=device)
+        tp = project_time_embeddings(model.generator, t, cfg_g.n_attn_blocks, cfg_g.transformer_dim)
+        got = survival_head(head, tp, last, mask_t, n_heads=cfg_g.n_heads)
+        again = survival_head(head, tp, last, mask_t, n_heads=cfg_g.n_heads)
+        torch.cuda.synchronize()
+        ref = survival_head_reference(head, tp, last, mask_t, n_heads=cfg_g.n_heads)
+        err = (got - ref).abs()
+        rec = {"phase": "k6", "B": B, "N": n, "max_abs_err": err.max().item(),
+               "max_abs_ref": ref.abs().max().item(), "atol": K6_TOL, "rtol": K6_TOL,
+               "within_tol": bool((err <= K6_TOL + K6_TOL * ref.abs()).all().item()),
+               "same_bits_on_repeat": bool(torch.equal(got, again)),
+               "finite": bool(torch.isfinite(got).all().item()),
+               "shape": list(got.shape), "alive_share": mask.mean().item()}
+        emit(rec)
+        errors.append({"B": B, "N": n, "max_abs_err": rec["max_abs_err"]})
+        if not (rec["within_tol"] and rec["same_bits_on_repeat"] and rec["finite"]
+                and rec["shape"] == [B, n, 1]):
+            raise RuntimeError(f"K6 disagrees with its plain version: {rec}")
+
+    t, _, _, mask = scattered_inputs(ABS_B, ABS_N, device, gen)
+    mask_t = mask.long()
+    last = torch.randn((ABS_B, ABS_N, head.dim_hidden), generator=gen, device=device)
+    tp = project_time_embeddings(model.generator, t, cfg_g.n_attn_blocks, cfg_g.transformer_dim)
+    ms, plain_ms = time_pair(
+        lambda: survival_head(head, tp, last, mask_t, n_heads=cfg_g.n_heads),
+        lambda: survival_head_reference(head, tp, last, mask_t, n_heads=cfg_g.n_heads))
+    bound = survival_bound(head, ABS_B, ABS_N)
+    emit({"phase": "K6_time", "B": ABS_B, "N": ABS_N, "ms": ms, "plain_ms": plain_ms, **bound,
+          "tflops": bound["flops"] / ms / 1e9, "card": card})
+    return errors[0]["max_abs_err"], errors, ms, plain_ms, bound
+
+
+def absorbing_counts():
+    return {"epic_forward": epic_forward.launches, "survival_head": survival_head.launches}
+
+
+def check_generated_absorbing(out, batch, B):
+    """What a birth-only request must give: finite kinematics of the expected
+    shape, tokens in [0, 8), dead slots zero, no source slot dead."""
+    x, k, mask = out.continuous, out.discrete, out.mask_t
+    dead = mask == 0
+    ok = {
+        "shape": (tuple(x.shape) == (B, ABS_N, 3) and tuple(k.shape) == (B, ABS_N, 1)
+                  and tuple(mask.shape) == (B, ABS_N, 1)),
+        "finite": bool(torch.isfinite(x).all().item()),
+        "tokens_in_range": bool(((k >= 0) & (k < 8)).all().item()),
+        "mask_is_0_or_1": bool(((mask == 0) | (mask == 1)).all().item()),
+        "dead_slots_zero": bool((x[dead.expand_as(x)] == 0).all().item()
+                                and (k[dead] == 0).all().item()),
+        "source_slots_alive": bool((mask[batch.source_mask > 0] == 1).all().item()),
+    }
+    if not all(ok.values()):
+        raise RuntimeError(f"generated absorbing jets fail their checks: {ok}")
+    return ok
+
+
+def phase_slice_absorbing(device, card):
+    """predict at the absorbing family's reference config: per step one launch
+    of K1 (with its hidden output) and one of K6, the solver steps in plain
+    PyTorch, no plain version of a kernel."""
+    model = make_absorbing(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    batches = [absorbing_training_batch(B, ABS_N, 3, 8, gen, device=device, num_empty=1)
+               for B in ABS_REQUEST_SIZES]
+    torch.cuda.synchronize()
+
+    reset_counts()  # the absorbing serving path's run starts here
+    for B, batch in zip(ABS_REQUEST_SIZES, batches):
+        before = absorbing_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = model.predict(batch, generator=gen)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        k1 = epic_forward.launches - before["epic_forward"]
+        k6 = survival_head.launches - before["survival_head"]
+        checks = check_generated_absorbing(out, batch, B)
+        emit({"phase": "slice_absorbing", "B": B, "N": ABS_N, "steps": k6, "K1_launches": k1,
+              "K6_launches": k6, "seconds": seconds, "jets_per_s": B / seconds,
+              "multiplicity_in": batch.source_mask.sum().item() / B,
+              "multiplicity_out": out.mask_t.sum().item() / B,
+              "multiplicity_target": batch.target_mask.sum().item() / B, "card": card, **checks})
+        if k1 != 99 or k6 != 99:
+            raise RuntimeError(f"absorbing request of {B} jets launched K1 {k1} and K6 {k6} times")
+    launches = absorbing_counts()
+    others = {**narrow_counts(), **wide_counts()}
+    del others["epic_forward"]
+    emit({"phase": "slice_absorbing_counts", "launches": launches, "other_launches": others,
+          "plain_calls": plain_calls()})
+    if plain_calls() != 0 or any(others.values()):
+        raise RuntimeError("the absorbing serving path left its kernels")
+    return launches
+
+
+def phase_paths_absorbing(device):
+    """The 99-step kernel path against the module path, same generator seed."""
+    model = make_absorbing(device)
+    B = ABS_PATHS_B
+    batch = absorbing_training_batch(
+        B, ABS_N, 3, 8, torch.Generator(device=device).manual_seed(SEED + 18), device=device,
+        num_empty=1)
+    outs = []
+    for use_pallas in ("auto", False):
+        model.config.parallel.use_pallas = use_pallas
+        outs.append(model.predict(batch, generator=torch.Generator(device=device).manual_seed(SEED + 19)))
+    kernel, plain = outs
+    slots = B * ABS_N
+    mask_mismatch = (kernel.mask_t != plain.mask_t).sum().item() / slots
+    token_mismatch = (kernel.discrete != plain.discrete).sum().item() / slots
+    both = ((kernel.mask_t > 0) & (plain.mask_t > 0))[..., 0]
+    x_plain = plain.continuous.abs()[both]
+    dx = (kernel.continuous - plain.continuous).abs()[both]
+    rel = dx / x_plain.clamp_min(1.0)
+    rec = {"phase": "paths_absorbing", "B": B, "N": ABS_N, "steps": 99,
+           "mask_mismatch": mask_mismatch, "token_mismatch": token_mismatch,
+           "median_abs_dx": dx.median().item(), "max_abs_dx": dx.max().item(),
+           "median_rel_dx": rel.median().item(), "max_rel_dx": rel.max().item(),
+           "abs_x_q50_q99_max": torch.quantile(
+               x_plain, torch.tensor([0.5, 0.99, 1.0], device=device)).tolist(),
+           "multiplicity_out": plain.mask_t.sum().item() / B}
+    emit(rec)
+    if mask_mismatch > MAX_TOKEN_MISMATCH or token_mismatch > MAX_TOKEN_MISMATCH:
+        raise RuntimeError(f"absorbing kernel path and module path diverge: {rec}")
+
+
+def phase_train_absorbing(device, card, workdir):
+    """Trainer.fit with an AbsorbingFlow (3 epochs of 8 batches + 1 validation
+    batch at B=4096, N=109) and Trainer.predict, counted as one run; the bare
+    step rate; profiler windows over 3 train steps and a request of 1024 jets."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    dm = InMemoryDataModule(
+        train=[absorbing_training_batch(ABS_B, ABS_N, 3, 8, gen, device=device)
+               for _ in range(TRAIN_BATCHES)],
+        valid=[absorbing_training_batch(ABS_B, ABS_N, 3, 8, gen, device=device)],
+    )
+    config = AbsorbingConfig()
+    config.bridge.num_timesteps = 100
+    trainer = Trainer(AbsorbingFlow(config).to(device), config,
+                      ExperimentsFiles(str(workdir / "run_absorbing")), seed=SEED,
+                      ema_decay=EMA_DECAY)
+    step_metrics = []
+    train_step = trainer.train_step
+
+    def recording_step(batch, draws=None):
+        metrics = train_step(batch, draws)
+        step_metrics.append(metrics)
+        return metrics
+
+    trainer.train_step = recording_step
+    request = absorbing_training_batch(CHECK_B, ABS_N, 3, 8, gen, device=device, num_empty=1)
+    torch.cuda.synchronize()
+
+    reset_counts()  # the absorbing training path's run starts here
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    history = trainer.fit(dm, epochs=ABS_TRAIN_EPOCHS)
+    torch.cuda.synchronize()
+    fit_seconds = time.perf_counter() - start
+    trainer.train_step = train_step
+    steps = TRAIN_BATCHES * ABS_TRAIN_EPOCHS
+    terms = {name: [m[name].item() for m in step_metrics] for name in step_metrics[0]}
+    fit_launches = {**absorbing_counts(), **narrow_counts(), **wide_counts()}
+    emit({"phase": "train_absorbing", "B": ABS_B, "N": ABS_N, "steps": steps,
+          "parameters": sum(p.numel() for p in trainer.model.parameters()),
+          "step_losses": terms["loss"], "first_and_last_terms":
+              {name: [v[0], v[-1]] for name, v in terms.items()},
+          "epochs": history, "launches": fit_launches, "plain_calls": plain_calls(),
+          "fit_seconds": fit_seconds, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "card": card})
+    # the JAX package's absorbing loss_fn runs the flax modules, not a kernel;
+    # the port's runs the nn.Modules under autograd
+    if any(fit_launches.values()) or plain_calls():
+        raise RuntimeError(f"absorbing training launched kernels: {fit_launches}, {plain_calls()}")
+    every = [v for series in terms.values() for v in series] + [r["val_loss"] for r in history]
+    losses = terms["loss"]
+    if (not all(torch.isfinite(torch.tensor(every)).tolist()) or len(losses) != steps
+            or not sum(losses[-4:]) / 4 < losses[0]):
+        raise RuntimeError(f"the absorbing loss is not finite or did not fall: {terms}")
+
+    out = trainer.predict([request], generator=torch.Generator(device=device).manual_seed(SEED))[0]
+    torch.cuda.synchronize()
+    launches = absorbing_counts()
+    checks = check_generated_absorbing(out, request, CHECK_B)
+    emit({"phase": "train_absorbing_predict", "B": CHECK_B, "launches": launches,
+          "plain_calls": plain_calls(), "ema": True,
+          "multiplicity_in": request.source_mask.sum().item() / CHECK_B,
+          "multiplicity_out": out.mask_t.sum().item() / CHECK_B, **checks})
+    if launches != {"epic_forward": 99, "survival_head": 99} or plain_calls():
+        raise RuntimeError(f"the absorbing training path launched {launches} and called plain "
+                           f"versions {plain_calls()} times")
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for b in dm.train:
+        trainer.train_step(b)
+    torch.cuda.synchronize()
+    step_seconds = (time.perf_counter() - start) / TRAIN_BATCHES
+    emit({"phase": "train_absorbing_rate", "B": ABS_B, "steps_per_s": 1.0 / step_seconds,
+          "jets_per_s": ABS_B / step_seconds, "step_seconds": step_seconds, "card": card})
+
+    def top(kernels, n=12):
+        return [{"ms": ms, "count": c, "name": name[:80]} for ms, c, name in kernels[:n]]
+
+    def window(fn, repeats, name):
+        """(profiled wall ms, device operations) of fn under Trainer.profile."""
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        with trainer.profile(str(workdir / name)) as prof:
+            fn()
+        return (time.perf_counter() - begin) * 1e3, device_operations(prof, repeats)
+
+    wall_ms, kernels = window(lambda: [trainer.train_step(b) for b in dm.train[:3]], 3,
+                              "profile_absorbing_train")
+    device_ms = sum(k[0] for k in kernels)
+    emit({"phase": "profile_absorbing", "window": "train", "steps": 3, "B": ABS_B,
+          "profiled_wall_ms_per_step": wall_ms / 3, "device_ms_per_step": device_ms,
+          "bare_step_ms": step_seconds * 1e3,
+          "device_idle_share_of_bare_step": 1.0 - device_ms / (step_seconds * 1e3),
+          "launches_per_step": sum(k[1] for k in kernels),
+          "operations_ms_per_step": top(kernels), "card": card})
+
+    trainer.model.eval()
+    serve_gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    trainer.model.predict(request, generator=serve_gen)
+    torch.cuda.synchronize()
+    request_ms = (time.perf_counter() - start) * 1e3
+    wall_ms, kernels = window(lambda: trainer.model.predict(request, generator=serve_gen), 1,
+                              "profile_absorbing_request")
+    device_ms = sum(k[0] for k in kernels)
+    emit({"phase": "profile_absorbing", "window": "request", "B": CHECK_B, "N": ABS_N,
+          "profiled_wall_ms": wall_ms, "device_ms": device_ms, "bare_request_ms": request_ms,
+          "device_idle_share_of_bare_request": 1.0 - device_ms / request_ms,
+          "launches": sum(k[1] for k in kernels),
+          "operations_ms": top(kernels), "card": card})
+    return launches
+
+
+def absorbing_phases(device, card, build_dir):
+    """Phases 18-23 at the absorbing family's reference config; K6's entry of
+    the kernels line and what K1's entry gains. `launches` is the count of the
+    absorbing serving path's run (two requests)."""
+    k1 = phase_k1_hidden(device, card)
+    k6_err, k6_errors, k6_ms, k6_plain, k6_bound = phase_k6(device, card)
+    serving = phase_slice_absorbing(device, card)
+    phase_paths_absorbing(device)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        train = phase_train_absorbing(device, card, Path(tmp))
+    by_path = {"serving_absorbing": serving["survival_head"], "train_absorbing": train["survival_head"]}
+    k1["launches_by_path"] = {"serving_absorbing": serving["epic_forward"],
+                              "train_absorbing": train["epic_forward"]}
+    # no one PyTorch call computes the head (GroupNorm, six products and
+    # attention a block, chained): no library time
+    entry = {"name": "survival_head", "route": "cuda",
+             "source": "multimodal_particles_tpu_torch/ops/csrc/survival_head.cu",
+             "replaces": "multimodal_particles_tpu/ops/survival_pallas.py:324",
+             "launches": serving["survival_head"], "launches_by_path": by_path,
+             "max_abs_err": k6_err, "max_abs_err_by_check": k6_errors,
+             "ms": k6_ms, "plain_ms": k6_plain, "bound_ms": k6_bound["bound_ms"],
+             "bound_by": k6_bound["bound_by"], "library_ms": None,
+             "timed_at": {"B": ABS_B, "N": ABS_N, "transformer_dim": 128, "n_heads": 2,
+                          "n_attn_blocks": 2}}
+    return entry, k1
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU")
@@ -1061,6 +1472,12 @@ def main():
 
     build_dir = ROOT / "multimodal_particles_tpu_torch" / "ops" / "build"
     kernels = narrow_phases(device, card, build_dir) + scaled_phases(device, card, build_dir)
+    k6_entry, k1_absorbing = absorbing_phases(device, card, build_dir)
+    # K1 also serves the absorbing family, with its hidden output and the
+    # 56-wide head: that call's check, times and launches beside MBM's
+    kernels[0]["launches_by_path"].update(k1_absorbing.pop("launches_by_path"))
+    kernels[0]["absorbing"] = k1_absorbing
+    kernels.append(k6_entry)
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,12 @@
-"""Config dataclasses that the MBM slices read.
+"""Config dataclasses that the ported model families read.
 
 A field-for-field mirror of the train, data, encoder, bridge and parallel
 sections of
 multimodal_particles_tpu/config_classes/multimodal_bridge_matching_config.py:16-137
-(same names, same defaults; tests/test_torch_epic.py asserts the equality).
+(same names, same defaults; tests/test_torch_epic.py asserts the equality)
+and of the absorbing family's own data, bridge and generator sections,
+multimodal_particles_tpu/config_classes/absorbing_flows_config.py:21-157
+(tests/test_torch_absorbing.py asserts that one).
 The port keeps its own copy so that nothing on its path imports the JAX
 package: `multimodal_particles_tpu/__init__` and its `data` subpackage pull in
 modules (h5py) that the GPU machine does not have.
@@ -133,6 +136,80 @@ class MultimodalBridgeMatchingConfig:
             bridge=_build(BridgeConfig, config_dict.get("bridge", {})),
             data=_build(JetsDataConfig, config_dict.get("data", {})),
             encoder=_build(EncoderConfig, config_dict.get("encoder", {})),
+            train=_build(TrainingConfig, config_dict.get("train", {})),
+            parallel=_build(ParallelConfig, config_dict.get("parallel", {})),
+        )
+
+
+@dataclass
+class AbsorbingJetsDataConfig(JetsDataConfig):
+    """The absorbing family's data section: the MBM fields with its own
+    defaults for the slot count and the batch (absorbing_flows_config.py:21-55)."""
+
+    max_num_particles: int = 109
+    batch_size: int = 28
+
+
+@dataclass
+class AbsorbingBridgeConfig:
+    """absorbing_flows_config.py:58-99. `target_dropout` > 0 drops each target
+    slot from the training mask with probability dropout·SP(t);
+    `death_rate_scale` > 0 switches the sampler's death channel on. Both are 0
+    in the reference semantics."""
+
+    continuous: str = "LinearUniformBridge"
+    discrete: str = "TelegraphBridge"
+    absorbing: str = "AbsorbingBridge"
+    sigma: float = 0.0001
+    gamma: float = 0.125
+    gamma_absorb: float = 0.125
+    num_timesteps: int = 1000
+    time_eps: float = 0.0001
+    target_dropout: float = 0.0
+    death_rate_scale: float = 0.0
+
+
+@dataclass
+class GeneratorsHeadConfig:
+    """Heads for survival-rate prediction (absorbing_flows_config.py:102-113)."""
+
+    rate_use_x0_pred: bool = True
+    transformer_dim: int = 128
+    temb_dim: int = 128
+    n_heads: int = 2
+    n_attn_blocks: int = 2
+    detach_last_layer: bool = True
+    augment_dim: int = 9
+    discrete_head_hidden_dim: int = 56
+
+
+@dataclass
+class AbsorbingConfig:
+    name_str: str = "ExampleModel"
+    experiment_name: str = "absorbing_flows"
+    experiment_indentifier: Optional[str] = None
+    experiment_dir: Optional[str] = None
+
+    bridge: AbsorbingBridgeConfig = field(default_factory=AbsorbingBridgeConfig)
+    data: AbsorbingJetsDataConfig = field(default_factory=AbsorbingJetsDataConfig)
+    encoder: EncoderConfig = field(default_factory=EncoderConfig)
+    generator: GeneratorsHeadConfig = field(default_factory=GeneratorsHeadConfig)
+    train: TrainingConfig = field(default_factory=TrainingConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+
+    @staticmethod
+    def from_dict(config_dict: dict) -> "AbsorbingConfig":
+        """Build from a nested dict (e.g. the JAX config's `to_dict()`);
+        unknown sections and keys are ignored."""
+        return AbsorbingConfig(
+            name_str=config_dict.get("name_str", "ExampleModel"),
+            experiment_name=config_dict.get("experiment_name", "absorbing_flows"),
+            experiment_indentifier=config_dict.get("experiment_indentifier"),
+            experiment_dir=config_dict.get("experiment_dir"),
+            bridge=_build(AbsorbingBridgeConfig, config_dict.get("bridge", {})),
+            data=_build(AbsorbingJetsDataConfig, config_dict.get("data", {})),
+            encoder=_build(EncoderConfig, config_dict.get("encoder", {})),
+            generator=_build(GeneratorsHeadConfig, config_dict.get("generator", {})),
             train=_build(TrainingConfig, config_dict.get("train", {})),
             parallel=_build(ParallelConfig, config_dict.get("parallel", {})),
         )

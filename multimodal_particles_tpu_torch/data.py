@@ -8,7 +8,10 @@ source that MBM samples from (source_name "GaussNoise");
 `synthetic_training_batch` adds a synthetic target with the source's masks
 (source_masks_from_target_masks), the counterpart of
 `JetsDataloaderModule.random_databatch` (:218-235) for training runs that do
-not read jets from disk. Both build on any device from an explicit generator.
+not read jets from disk. `absorbing_training_batch` is the absorbing family's:
+its source holds fewer particles than its target (the data option
+`source_masks_from_target_masks` off), since that family generates the
+multiplicity. All build on any device from an explicit generator.
 `InMemoryDataModule` holds ready batches for `Trainer.fit`.
 """
 
@@ -93,6 +96,37 @@ def synthetic_training_batch(
         target_continuous=x1 * mask,
         target_discrete=k1 * mask.long(),
         target_mask=mask.clone(),
+    )
+
+
+def absorbing_training_batch(
+    num_jets: int,
+    max_num_particles: int,
+    dim_continuous: int,
+    vocab_size: int,
+    generator: torch.Generator,
+    device=None,
+    num_empty: int = 0,
+) -> MultimodalDatabatch:
+    """`synthetic_training_batch` with a source mask of its own: a jet's
+    source multiplicity is uniform in [0, its target multiplicity], so the
+    source never holds more particles than the target and the sampler's
+    births have to make up the difference. Source slots beyond the source
+    multiplicity are zeroed."""
+    batch = synthetic_training_batch(
+        num_jets, max_num_particles, dim_continuous, vocab_size, generator,
+        device=device, num_empty=num_empty,
+    )
+    target_mult = batch.target_mask.sum(dim=1)  # (B, 1)
+    u = torch.rand(tuple(target_mult.shape), generator=generator, device=device)
+    source_mult = torch.floor(u * (target_mult + 1.0))
+    slots = torch.arange(max_num_particles, device=device)[None, :]
+    mask = (slots < source_mult).to(torch.float32)[..., None]
+    return dataclasses.replace(
+        batch,
+        source_continuous=batch.source_continuous * mask,
+        source_discrete=batch.source_discrete * mask.to(batch.source_discrete.dtype),
+        source_mask=mask,
     )
 
 

@@ -108,7 +108,7 @@ class EPiCNetwork(nn.Module):
             )
         self.output_layer = WeightNormLinear(dim_hidden_local, dim_output)
 
-    def forward(self, x_local, context, mask):
+    def forward(self, x_local, context, mask, output_hidden_local=False):
         x_local, x_global = self.epic_proj(x_local, context, mask)
         x_local_skip = x_local if self.use_skip_connection else 0.0
         x_global_skip = x_global if self.use_skip_connection else 0.0
@@ -117,7 +117,10 @@ class EPiCNetwork(nn.Module):
             x_local, x_global = layer(x_local, x_global, context, mask)
             x_local = x_local + x_local_skip
             x_global = x_global + x_global_skip
-        return self.output_layer(x_local) * mask
+        h = self.output_layer(x_local) * mask
+        if output_hidden_local:
+            return h, x_local
+        return h
 
 
 class EPiCWrapper(nn.Module):
@@ -138,6 +141,8 @@ class EPiCWrapper(nn.Module):
             use_skip_connection=cfg_e.skip_connection,
         )
 
-    def forward(self, t, x, k, mask):
+    def forward(self, t, x, k, mask, output_hidden_local=False):
+        """With `output_hidden_local`, also the last block's local hidden
+        state (B, N, H), which the survival head reads (epic.py:122-125)."""
         x_local_emb, context_emb = self.embedding(t, x, k, mask)
-        return self.epic(x_local_emb, context_emb, mask)
+        return self.epic(x_local_emb, context_emb, mask, output_hidden_local)

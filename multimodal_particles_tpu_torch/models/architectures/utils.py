@@ -28,6 +28,27 @@ def sinusoidal_positional_encoding(timesteps, dim, max_period=10000.0):
     return emb
 
 
+def get_timestep_embedding(timesteps, embedding_dim):
+    """DDPM-style sinusoidal embedding (utils.py:37-49): [sin | cos] (sin
+    first), frequencies exp(-log(1e4)·i/(half − 1)); a zero column is appended
+    when the width is odd. The survival head feeds it 1000·t. Not
+    `sinusoidal_positional_encoding`, whose halves and denominator differ.
+
+    Args:
+      timesteps: (B,) float times.
+    Returns:
+      (B, embedding_dim) float32.
+    """
+    half = embedding_dim // 2
+    scale = math.log(10000.0) / (half - 1)
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=timesteps.device) * -scale)
+    args = timesteps.to(torch.float32)[:, None] * freqs[None, :]
+    emb = torch.cat([torch.sin(args), torch.cos(args)], dim=1)
+    if embedding_dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=1)
+    return emb
+
+
 class WeightNormLinear(nn.Module):
     """Linear layer with weight normalization W = g · v / ‖v‖, the norm taken
     per output unit and clamped at 1e-12 (utils.py:52-86, flax

@@ -1,11 +1,13 @@
 """The port's own parameter initialiser, mirroring flax's defaults for the
-modules MBM uses (multimodal_particles_tpu/models/generative/multimodal_bridge_matching.py:90-110):
+modules MBM (multimodal_particles_tpu/models/generative/multimodal_bridge_matching.py:90-110)
+and the absorbing family (absorbing/absorbing_flows.py:155-163) use:
 
   WeightNormDense  v lecun-normal, g = ‖v‖ per output unit, bias 0
                    (models/architectures/utils.py:65-85)
   Dense            kernel lecun-normal, bias 0
   Embed            normal with std 1/√features (flax `default_embed_init`)
-  loss_weights     zeros(2)
+  GroupNorm        scale 1, bias 0
+  loss_weights     zeros (2 for MBM, 3 for the absorbing family)
 
 lecun-normal is flax's truncated normal: a standard normal cut at ±2,
 scaled to std √(1/fan_in) / 0.8796 so that the truncated law has variance
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from multimodal_particles_tpu_torch.models.architectures.gsdm import GroupNorm
 from multimodal_particles_tpu_torch.models.architectures.utils import WeightNormLinear
 
 # std of a standard normal truncated to [-2, 2]
@@ -42,8 +45,8 @@ def _lecun_normal(rng: np.random.Generator, weight: torch.Tensor) -> torch.Tenso
 
 
 @torch.no_grad()
-def init_mbm_parameters(model: nn.Module, seed: int) -> nn.Module:
-    """Initialize every parameter of an MBM model in place; returns it.
+def init_parameters(model: nn.Module, seed: int) -> nn.Module:
+    """Initialize every parameter of a model of the port in place; returns it.
     Modules are visited in registration order, so the seed fixes the weights."""
     rng = np.random.default_rng(seed)
     for module in model.modules():
@@ -58,5 +61,13 @@ def init_mbm_parameters(model: nn.Module, seed: int) -> nn.Module:
             std = math.sqrt(1.0 / module.embedding_dim)
             table = rng.standard_normal(tuple(module.weight.shape)) * std
             module.weight.copy_(torch.from_numpy(table.astype(np.float32)))
+        elif isinstance(module, GroupNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
     model.loss_weights.zero_()
     return model
+
+
+# the families' entry points, one law for both
+init_mbm_parameters = init_parameters
+init_absorbing_parameters = init_parameters

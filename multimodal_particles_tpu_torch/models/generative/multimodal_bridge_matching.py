@@ -26,6 +26,7 @@ from multimodal_particles_tpu_torch.models.generative.bridges import (
     LinearUniformBridge,
     SchrodingerBridge,
     TelegraphBridge,
+    time_grid,
 )
 from multimodal_particles_tpu_torch.models.generative.states import (
     HybridState,
@@ -245,10 +246,7 @@ class MultiModalBridgeMatching(nn.Module):
         linspace(0, 1 − time_eps, num_timesteps); the sampler evaluates the
         steps at time_steps[1:], 99 steps for 100 timesteps
         (multimodal_bridge_matching.py:334-355)."""
-        cfg_b = self.config.bridge
-        ts = torch.linspace(0.0, 1.0 - cfg_b.time_eps, cfg_b.num_timesteps, dtype=torch.float32)
-        delta_t = (ts[-1] - ts[0]) / (cfg_b.num_timesteps - 1)
-        return ts.tolist(), delta_t.item()
+        return time_grid(self.config.bridge)
 
     @torch.no_grad()
     def simulate_dynamics(self, state: HybridState, generator=None, uniforms=None) -> HybridState:

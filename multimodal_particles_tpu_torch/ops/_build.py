@@ -32,18 +32,22 @@ _F = ctypes.c_float
 # C entry points (ops/csrc/*.cu) and their argument types; every pointer and
 # the stream are c_void_p so that 64-bit addresses are not truncated.
 _SIGNATURES = {
-    # weights, t, x, k, mask, out, B, N, dims[8], stream
-    "mmp_epic_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
-    # weights, x, k, mask, u, x_out, k_out, t, dt, gamma, B, N, dims[8], stream
+    # dims[9]: EpicDims.c_array (ops/epic_cuda.py)
+    # weights, t, x, k, mask, out, hidden out (or null), B, N, dims[9], stream
+    "mmp_epic_forward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    # weights, x, k, mask, u, x_out, k_out, t, dt, gamma, B, N, dims[9], stream
     "mmp_sampler_step": [_P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _I, _I, _P, _P],
-    # B, N, dims[8], &grid (int), &scratch floats (long long)
+    # B, N, dims[9], &grid (int), &scratch floats (long long)
     "mmp_epic_backward_workspace": [_I, _I, _P, _P, _P],
-    # weights, t, x, k, mask, g, d_weights, scratch, grid, B, N, dims[8], stream
+    # weights, t, x, k, mask, g, d_weights, scratch, grid, B, N, dims[9], stream
     "mmp_epic_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     # the wide pair (hidden 128) takes the same arguments as the narrow one
     "mmp_epic_wide_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "mmp_epic_wide_backward_workspace": [_I, _I, _P, _P, _P],
     "mmp_epic_wide_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # weights, temb_proj (n_blocks, B, C), last (B, N, Dh), mask (B, N), out (B, N),
+    # scratch (grid, 128, C), grid, B, N, Dh, n_blocks, n_heads, stream
+    "mmp_survival_head": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -31,12 +31,16 @@ constexpr int DC = 3;            // continuous features per particle
 constexpr int V = 8;             // token vocabulary
 constexpr int MAX_THREADS = 256; // particle slots per jet (one thread each)
 
+// head_hidden: hidden width of the discrete head's MLP (V for MBM, 56 for the
+// absorbing generator). The forward kernel takes any width; the sampler step
+// and the backward kernel are written for V and refuse another.
 struct Dims {
   int hidden, hidden_glob, emb_t, emb_x, emb_k, num_blocks, use_skip, add_discrete_head;
+  int head_hidden;
 };
 
 inline Dims dims_from(const int* a) {
-  return Dims{a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7]};
+  return Dims{a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8]};
 }
 
 // Offsets in floats. Stage 0 offsets are absolute; block offsets are from the
@@ -83,9 +87,9 @@ __host__ __device__ inline Layout make_layout(const Dims& d) {
   L.b_out_c = h; h += DC;
   L.out_d = h;   h += V * H;
   L.b_out_d = h; h += V;
-  L.h0 = h;      h += V * V;
-  L.b_h0 = h;    h += V;
-  L.h1 = h;      h += V * V;
+  L.h0 = h;      h += d.head_hidden * V;
+  L.b_h0 = h;    h += d.head_hidden;
+  L.h1 = h;      h += V * d.head_hidden;
   L.b_h1 = h;    h += V;
   L.heads_len = h;
   L.total = o + h;
@@ -360,23 +364,24 @@ __device__ void epic_forward_particle(const float* __restrict__ wglob, const Dim
     rec.disc_pre(v, dpre[v]);
   }
   if (d.add_discrete_head) {
-    float a[V];
+    // Dense(head_hidden) → SELU → Dense(V), one hidden unit at a time: the
+    // unit's activation goes straight into the V output sums, in unit order,
+    // so no array of the head's width is held
+    const int Hd = d.head_hidden;
 #pragma unroll
-    for (int v = 0; v < V; ++v) {
+    for (int v = 0; v < V; ++v) disc[v] = 0.f;
+    for (int u = 0; u < Hd; ++u) {
       float acc = 0.f;
 #pragma unroll
-      for (int u = 0; u < V; ++u) acc = fmaf(sw[L.h0 + v * V + u], dpre[u], acc);
-      const float z = acc + sw[L.b_h0 + v];
-      rec.z_h0(v, z);
-      a[v] = selu(z);
+      for (int v = 0; v < V; ++v) acc = fmaf(sw[L.h0 + u * V + v], dpre[v], acc);
+      const float z = acc + sw[L.b_h0 + u];
+      rec.z_h0(u, z);
+      const float a = selu(z);
+#pragma unroll
+      for (int v = 0; v < V; ++v) disc[v] = fmaf(sw[L.h1 + v * Hd + u], a, disc[v]);
     }
 #pragma unroll
-    for (int v = 0; v < V; ++v) {
-      float acc = 0.f;
-#pragma unroll
-      for (int u = 0; u < V; ++u) acc = fmaf(sw[L.h1 + v * V + u], a[u], acc);
-      disc[v] = acc + sw[L.b_h1 + v];
-    }
+    for (int v = 0; v < V; ++v) disc[v] += sw[L.b_h1 + v];
   } else {
 #pragma unroll
     for (int v = 0; v < V; ++v) disc[v] = dpre[v];

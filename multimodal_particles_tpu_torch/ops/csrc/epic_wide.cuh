@@ -42,15 +42,20 @@ constexpr int THREADS = 256;
 constexpr int KT = 16;        // input rows of a weight tile
 constexpr int MAT = ROWS * WD;
 
+// head_hidden: hidden width of the discrete head's MLP; the wide kernels are
+// written for V and refuse another.
 struct Dims {
   int hidden, hidden_glob, emb_t, emb_x, emb_k, num_blocks, use_skip, add_discrete_head;
+  int head_hidden;
 };
 
-inline Dims dims_from(const int* a) { return Dims{a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7]}; }
+inline Dims dims_from(const int* a) {
+  return Dims{a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8]};
+}
 
 inline bool dims_supported(const Dims& d) {
   return d.hidden == WD && d.hidden_glob == WD && d.emb_t == WD && d.emb_x == WD &&
-         d.emb_k == WD && d.num_blocks >= 0;
+         d.emb_k == WD && d.num_blocks >= 0 && d.head_hidden == V;
 }
 
 // Offsets in floats into the packed buffer; matrices are (in, out) row-major.
@@ -145,15 +150,18 @@ __device__ __forceinline__ void zero_acc(float (&acc)[8][8]) {
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 }
 
-// acc += A[:, k0:k0+KT] · tile, tile (KT, 128) in shared memory.
+// acc += A[:, k0:k0+KT] · tile, tile (KT, 128) in shared memory. NI < 8 leaves
+// out the thread's last 8 − NI rows, the tile's rows from 16·NI on (a caller
+// whose jets hold fewer rows).
+template <int NI = 8>
 __device__ __forceinline__ void tile_fma(float (&acc)[8][8], const float* A, int k0,
                                          const float* tile) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll
   for (int k4 = 0; k4 < KT; k4 += 4) {
-    float a[8][4];
+    float a[NI][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < NI; ++i) {
       const float4 v = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * WD + k0 + k4);
       a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
     }
@@ -163,7 +171,7 @@ __device__ __forceinline__ void tile_fma(float (&acc)[8][8], const float* A, int
       const float4 hi = *reinterpret_cast<const float4*>(tile + (k4 + kk) * WD + 64 + tx * 4);
       const float w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < NI; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i][kk], w[j], acc[i][j]);
     }
@@ -173,6 +181,8 @@ __device__ __forceinline__ void tile_fma(float (&acc)[8][8], const float* A, int
 // acc += A · W for A (128, K) in shared memory (row stride 128) and W (K, 128)
 // row-major in global memory; K a multiple of KT. Every thread of the block
 // calls it; it ends with a barrier, after which A and the buffer are free.
+// NI as in tile_fma.
+template <int NI = 8>
 __device__ __forceinline__ void gemm_acc(float (&acc)[8][8], const float* A,
                                          const float* __restrict__ Wg, int K, float* tiles) {
   const int tid = threadIdx.x;
@@ -196,7 +206,7 @@ __device__ __forceinline__ void gemm_acc(float (&acc)[8][8], const float* A,
       __pipeline_wait_prior(0);
     }
     __syncthreads();
-    tile_fma(acc, A, kt * KT, tiles + (kt & 1) * KT * WD);
+    tile_fma<NI>(acc, A, kt * KT, tiles + (kt & 1) * KT * WD);
     __syncthreads();
   }
 }

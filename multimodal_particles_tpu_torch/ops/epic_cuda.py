@@ -9,7 +9,12 @@ The sampling packing is detached; the training packing
 v, g, the biases, the table and the head weights (epic_pallas_vjp.py:15-17).
 `epic_forward` launches ops/csrc/epic_forward.cu on CUDA tensors;
 `epic_forward_reference` is its plain PyTorch version, which the wrapper takes
-for CPU tensors. The port keeps the JAX package's (B, N, C) layout: the JAX
+for CPU tensors. With `output_hidden_local` both also return the trunk's last
+local hidden state (B, N, H), which the absorbing family's survival head
+reads (epic_pallas.py:291-292, :428-446). The discrete head's hidden width is
+a member of the layout (`EpicDims.head_hidden`): the vocabulary's 8 for MBM,
+`discrete_head_hidden_dim` for the absorbing generator; only `epic_forward`
+takes another width than 8, the other kernels' wrappers refuse it. The port keeps the JAX package's (B, N, C) layout: the JAX
 kernels' (features, B·N) lane layout is TPU layout, not semantics.
 """
 
@@ -33,6 +38,7 @@ DIM_C = 3
 VOCAB = 8
 HIDDEN_WIDTHS = (16, 32, 64)
 MAX_PARTICLES = 256  # one thread per particle slot, one block per jet
+MAX_HEAD_HIDDEN = 256  # the head's weights are staged in shared memory
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,9 +51,10 @@ class EpicDims:
     num_blocks: int
     use_skip: bool
     add_discrete_head: bool
+    head_hidden: int = 8  # hidden width of the discrete head's MLP
 
     @classmethod
-    def from_config(cls, config) -> "EpicDims":
+    def from_config(cls, config, head_hidden: int = 8) -> "EpicDims":
         cfg_e = config.encoder
         emb_t, emb_x, emb_k = embedding_dims(config)
         return cls(
@@ -59,12 +66,14 @@ class EpicDims:
             num_blocks=cfg_e.num_blocks,
             use_skip=bool(cfg_e.skip_connection),
             add_discrete_head=bool(cfg_e.add_discrete_head),
+            head_hidden=head_hidden,
         )
 
     def c_array(self):
-        return (ctypes.c_int * 8)(
+        return (ctypes.c_int * 9)(
             self.hidden, self.hidden_glob, self.emb_t, self.emb_x, self.emb_k,
             self.num_blocks, int(self.use_skip), int(self.add_discrete_head),
+            self.head_hidden,
         )
 
 
@@ -89,8 +98,8 @@ def weight_layout(d: EpicDims):
     entries += [
         ("w_out_c", (DIM_C, H)), ("b_out_c", (DIM_C,)),
         ("w_out_d", (VOCAB, H)), ("b_out_d", (VOCAB,)),
-        ("w_h0", (VOCAB, VOCAB)), ("b_h0", (VOCAB,)),
-        ("w_h1", (VOCAB, VOCAB)), ("b_h1", (VOCAB,)),
+        ("w_h0", (d.head_hidden, VOCAB)), ("b_h0", (d.head_hidden,)),
+        ("w_h1", (VOCAB, d.head_hidden)), ("b_h1", (VOCAB,)),
     ]
     return entries
 
@@ -146,11 +155,12 @@ class PackedEncoder:
         return PackedEncoder(flat, LAYOUT_VIEWS[self.layout](flat, self.dims), self.dims, self.layout)
 
 
-def effective_weights(encoder, d: EpicDims) -> Dict[str, torch.Tensor]:
-    """MultiModalEPiC module → every weight of `weight_layout` by name, weight
-    normalization resolved, matrices (out, in) (epic_pallas.py:47-104).
-    Without the discrete head, w_h0/w_h1 are identity placeholders that the
-    kernels do not read."""
+def effective_weights(encoder, d: EpicDims, head=None) -> Dict[str, torch.Tensor]:
+    """A module with an `epic` trunk (EPiCWrapper) → every weight of
+    `weight_layout` by name, weight normalization resolved, matrices (out, in)
+    (epic_pallas.py:47-104). `head` is the discrete head's Linear-SELU-Linear
+    (default: MultiModalEPiC's `fc_layer`). Without the discrete head,
+    w_h0/w_h1 are identity placeholders that the kernels do not read."""
     emb = encoder.epic.embedding
     net = encoder.epic.epic
     proj = net.epic_proj
@@ -171,7 +181,8 @@ def effective_weights(encoder, d: EpicDims) -> Dict[str, torch.Tensor]:
     src.update(w_out_c=w_out[:DIM_C], b_out_c=b_out[:DIM_C],
                w_out_d=w_out[DIM_C:], b_out_d=b_out[DIM_C:])
     if d.add_discrete_head:
-        fc0, fc1 = encoder.fc_layer[0], encoder.fc_layer[2]
+        head = encoder.fc_layer if head is None else head
+        fc0, fc1 = head[0], head[2]
         src.update(w_h0=fc0.weight, b_h0=fc0.bias, w_h1=fc1.weight, b_h1=fc1.bias)
     else:
         eye = torch.eye(VOCAB, device=w_out.device)
@@ -183,13 +194,16 @@ def effective_weights(encoder, d: EpicDims) -> Dict[str, torch.Tensor]:
     return src
 
 
-def pack_mbm_encoder_params(encoder, config, differentiable: bool = False) -> PackedEncoder:
-    """MultiModalEPiC module → flat buffer of effective weights, (out, in)
-    row-major, for the narrow kernels. With `differentiable`, `flat` is a
-    non-leaf of the autograd graph."""
-    d = EpicDims.from_config(config)
+def pack_mbm_encoder_params(encoder, config, differentiable: bool = False,
+                            head=None) -> PackedEncoder:
+    """A module with an `epic` trunk → flat buffer of effective weights,
+    (out, in) row-major, for the narrow kernels. `head` replaces the module's
+    `fc_layer` as the discrete head (the absorbing generator passes its
+    `discrete_head_mlp`, epic_pallas.py:90-93); its hidden width enters the
+    layout. With `differentiable`, `flat` is a non-leaf of the autograd graph."""
+    d = EpicDims.from_config(config, head_hidden=VOCAB if head is None else head[0].out_features)
     with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
-        src = effective_weights(encoder, d)
+        src = effective_weights(encoder, d, head)
         flat = torch.cat([src[name].reshape(-1).float() for name, _ in weight_layout(d)])
     return PackedEncoder(flat, flat_views(flat, d), d)
 
@@ -246,10 +260,12 @@ class _SELU(torch.autograd.Function):
         return grad * _SELU.SCALE * slope
 
 
-def forward_from_temb(packed: PackedEncoder, temb, x, k, mask, preacts=None):
+def forward_from_temb(packed: PackedEncoder, temb, x, k, mask, preacts=None,
+                      return_hidden: bool = False):
     """The EPiC forward on packed weights in (B, N, C) layout, from the
     per-jet time embedding temb (B, E_t): the math of `_forward_acts`
-    (epic_pallas.py:183-272). Returns (cont (B,N,3), logits (B,N,8)).
+    (epic_pallas.py:183-272). Returns (cont (B,N,3), logits (B,N,8)), and
+    with `return_hidden` also the last block's local state h (B,N,H).
     A list `preacts` receives (name, tensor) for the input of every leaky
     and SELU: per particle (B, N, F) or per jet (B, F)."""
     W, d = packed.tensors, packed.dims
@@ -297,16 +313,21 @@ def forward_from_temb(packed: PackedEncoder, temb, x, k, mask, preacts=None):
     disc = (h @ W["w_out_d"].T + W["b_out_d"]) * mask
     if d.add_discrete_head:
         disc = act("z_h0", disc @ W["w_h0"].T + W["b_h0"], _SELU.apply) @ W["w_h1"].T + W["b_h1"]
+    if return_hidden:
+        return cont, disc, h
     return cont, disc
 
 
-def epic_forward_reference(packed: PackedEncoder, t, x, k, mask):
+def epic_forward_reference(packed: PackedEncoder, t, x, k, mask, output_hidden_local=False):
     """Plain PyTorch version of the kernel: (B, N, 3 + 8) head outputs
-    (continuous ‖ discrete logits)."""
+    (continuous ‖ discrete logits); with `output_hidden_local` also the
+    trunk's last local hidden state (B, N, H)."""
     epic_forward_reference.calls += 1
     temb = sinusoidal_positional_encoding(t.reshape(x.shape[0]), packed.dims.emb_t)
-    cont, disc = forward_from_temb(packed, temb, x.float(), k, mask.float())
-    return torch.cat([cont, disc], dim=-1)
+    cont, disc, h = forward_from_temb(packed, temb, x.float(), k, mask.float(),
+                                      return_hidden=True)
+    out = torch.cat([cont, disc], dim=-1)
+    return (out, h) if output_hidden_local else out
 
 
 epic_forward_reference.calls = 0
@@ -315,13 +336,29 @@ epic_forward_reference.calls = 0
 # ------------------------------------------------------------ kernel wrapper
 
 
-def check_narrow_packing(packed: PackedEncoder):
+def check_head_width(packed: PackedEncoder, kernel: str):
+    """Every kernel but the narrow forward is written for a discrete head as
+    wide as the vocabulary; another width shifts the packed buffer under it."""
+    if packed.dims.head_hidden != VOCAB:
+        raise ValueError(
+            f"{kernel} takes a discrete head of hidden width {VOCAB}, "
+            f"got {packed.dims.head_hidden}"
+        )
+
+
+def check_narrow_packing(packed: PackedEncoder, any_head_width: bool = False):
     """The narrow kernels take their own layout at the widths they are
-    compiled for."""
+    compiled for; only the forward kernel (`any_head_width`) takes a discrete
+    head of another hidden width than the vocabulary's."""
     if packed.layout != "narrow":
         raise ValueError("the narrow kernels read the pack_mbm_encoder_params layout")
     if packed.dims.hidden not in HIDDEN_WIDTHS:
         raise ValueError(f"hidden width {packed.dims.hidden} not in {HIDDEN_WIDTHS}")
+    if any_head_width:
+        if not 1 <= packed.dims.head_hidden <= MAX_HEAD_HIDDEN:
+            raise ValueError(f"head width {packed.dims.head_hidden} outside [1, {MAX_HEAD_HIDDEN}]")
+    else:
+        check_head_width(packed, "this kernel")
 
 
 def check_kernel_inputs(packed: PackedEncoder, x, k, mask, max_particles=MAX_PARTICLES, **others):
@@ -347,28 +384,33 @@ def check_kernel_inputs(packed: PackedEncoder, x, k, mask, max_particles=MAX_PAR
     return B, N
 
 
-def epic_forward(packed: PackedEncoder, t, x, k, mask):
+def epic_forward(packed: PackedEncoder, t, x, k, mask, output_hidden_local=False):
     """Fused EPiC forward. t (B,1,1), x (B,N,3), k (B,N,1) int, mask (B,N,1)
-    → (B, N, 3 + 8) float32. CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
+    → (B, N, 3 + 8) float32; with `output_hidden_local` also the trunk's last
+    local hidden state (B, N, H), written by the same launch. CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise."""
     if x.device.type == "cpu":
-        return epic_forward_reference(packed, t, x, k, mask)
-    check_narrow_packing(packed)
+        return epic_forward_reference(packed, t, x, k, mask, output_hidden_local)
+    check_narrow_packing(packed, any_head_width=True)
     B, N = check_kernel_inputs(packed, x, k, mask, t=t)
     if t.numel() != B:
         raise ValueError(f"t must hold one time per jet, got {tuple(t.shape)}")
     k32 = k.to(torch.int32).contiguous()
     out = torch.empty((B, N, DIM_C + VOCAB), dtype=torch.float32, device=x.device)
+    hidden = (torch.empty((B, N, packed.dims.hidden), dtype=torch.float32, device=x.device)
+              if output_hidden_local else None)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.mmp_epic_forward(
             packed.flat.data_ptr(), t.data_ptr(), x.data_ptr(), k32.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), B, N, packed.dims.c_array(), stream,
+            mask.data_ptr(), out.data_ptr(),
+            hidden.data_ptr() if output_hidden_local else None,
+            B, N, packed.dims.c_array(), stream,
         )
     _build.check(lib, rc, "mmp_epic_forward")
     epic_forward.launches += 1
-    return out
+    return (out, hidden) if output_hidden_local else out
 
 
 epic_forward.launches = 0

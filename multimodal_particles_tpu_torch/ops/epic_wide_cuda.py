@@ -20,6 +20,7 @@ from multimodal_particles_tpu_torch.ops.epic_cuda import (
     VOCAB,
     EpicDims,
     PackedEncoder,
+    check_head_width,
     check_kernel_inputs,
     effective_weights,
     epic_forward_reference,
@@ -72,6 +73,7 @@ def check_wide_packing(packed: PackedEncoder):
         raise ValueError("the wide kernels read the pack_wide_encoder_params layout")
     if any(w != WIDE_WIDTH for w in (d.hidden, d.hidden_glob, d.emb_t, d.emb_x, d.emb_k)):
         raise ValueError(f"the wide kernels are compiled for width {WIDE_WIDTH} throughout, got {d}")
+    check_head_width(packed, "the wide kernels")
     if packed.flat.data_ptr() % 16:
         raise ValueError("the packed weights must be 16-byte aligned")
 

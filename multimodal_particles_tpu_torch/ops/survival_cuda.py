@@ -1,0 +1,209 @@
+"""The absorbing family's survival head as one hand-written CUDA kernel
+(counterpart of multimodal_particles_tpu/ops/survival_pallas.py).
+
+`pack_survival_head_params` lays the head's weights into one flat float32
+buffer, matrices (in, out) row-major as the kernel streams them, in the order
+of the JAX packing (survival_pallas.py:56-91; the layout itself is
+`head_layout`, mirrored by `make_head_layout` in ops/csrc/survival_head.cu).
+`project_time_embeddings` computes the per-block time rows, which depend on
+the (B,) times only and stay plain PyTorch as they stay XLA in JAX (:336-352).
+`survival_head` launches ops/csrc/survival_head.cu on CUDA tensors;
+`survival_head_reference` is its plain PyTorch version, which the wrapper
+takes for CPU tensors.
+"""
+
+import dataclasses
+import math
+from typing import Dict
+
+import torch
+
+from multimodal_particles_tpu_torch.models.architectures.gsdm import group_norm, swish
+from multimodal_particles_tpu_torch.models.architectures.utils import get_timestep_embedding
+from multimodal_particles_tpu_torch.ops import _build
+
+# what the kernel is compiled for (ops/csrc/survival_head.cu)
+CHANNELS = 128
+MAX_PARTICLES = 128
+HIDDEN_MULTIPLE = 16  # the trunk's hidden width: a multiple of 16 up to CHANNELS
+
+
+def head_layout(dim_hidden: int, n_blocks: int):
+    """(name, shape) of every packed weight, in buffer order; matrices
+    (in, out). Must match `make_head_layout` in ops/csrc/survival_head.cu."""
+    C = CHANNELS
+    entries = [("w_in_h", (dim_hidden, C)), ("w_oh0", (C,)), ("w_oh1", (C,)), ("b_in", (C,))]
+    for i in range(n_blocks):
+        entries += [
+            (f"gn1_s_{i}", (C,)), (f"gn1_b_{i}", (C,)), (f"w_c1_{i}", (C, C)), (f"b_c1_{i}", (C,)),
+            (f"gn2_s_{i}", (C,)), (f"gn2_b_{i}", (C,)), (f"w_c2_{i}", (C, C)), (f"b_c2_{i}", (C,)),
+            (f"gna_s_{i}", (C,)), (f"gna_b_{i}", (C,)),
+            (f"wq_{i}", (C, C)), (f"bq_{i}", (C,)), (f"wk_{i}", (C, C)), (f"bk_{i}", (C,)),
+            (f"wv_{i}", (C, C)), (f"bv_{i}", (C,)), (f"wp_{i}", (C, C)), (f"bp_{i}", (C,)),
+        ]
+    entries += [("w_pre", (C, C)), ("b_pre", (C,)), ("w_post", (C,)), ("b_post", (1,))]
+    return entries
+
+
+@dataclasses.dataclass
+class PackedSurvivalHead:
+    flat: torch.Tensor  # (n,) float32, contiguous, in head_layout order
+    tensors: Dict[str, torch.Tensor]  # named views into `flat`, matrices (in, out)
+    dim_hidden: int
+    n_blocks: int
+
+
+def pack_survival_head_params(generator, n_blocks: int) -> PackedSurvivalHead:
+    """AbsorbingGenerator module → the head's weights in one flat buffer
+    (survival_pallas.py:56-91). proj_in's weight is split into the rows that
+    multiply the trunk's hidden state and the two rows of the mask's one-hot."""
+    w_in = generator.transformer_1_proj_in.weight.T  # (Dh + 2, C)
+    dh = w_in.shape[0] - 2
+    src = {"w_in_h": w_in[:dh], "w_oh0": w_in[dh], "w_oh1": w_in[dh + 1],
+           "b_in": generator.transformer_1_proj_in.bias}
+    for i in range(n_blocks):
+        res, att = getattr(generator, f"res_block_{i}"), getattr(generator, f"attn_block_{i}")
+        for name, norm in (("gn1", res.norm1), ("gn2", res.norm2), ("gna", att.norm)):
+            src[f"{name}_s_{i}"], src[f"{name}_b_{i}"] = norm.weight, norm.bias
+        for name, dense in (("c1", res.conv1), ("c2", res.conv2)):
+            src[f"w_{name}_{i}"], src[f"b_{name}_{i}"] = dense.weight.T, dense.bias
+        for name, dense in (("q", att.q), ("k", att.k), ("v", att.v), ("p", att.proj_out)):
+            src[f"w{name}_{i}"], src[f"b{name}_{i}"] = dense.weight.T, dense.bias
+    src.update(w_pre=generator.pre_rate_proj.weight.T, b_pre=generator.pre_rate_proj.bias,
+               w_post=generator.post_rate_proj.weight[0], b_post=generator.post_rate_proj.bias)
+    layout = head_layout(dh, n_blocks)
+    for name, shape in layout:
+        if tuple(src[name].shape) != shape:
+            raise ValueError(f"packed weight {name}: shape {tuple(src[name].shape)} != {shape}")
+    with torch.no_grad():
+        flat = torch.cat([src[name].reshape(-1).float() for name, _ in layout])
+    tensors, off = {}, 0
+    for name, shape in layout:
+        n = math.prod(shape)
+        tensors[name] = flat[off:off + n].view(shape)
+        off += n
+    return PackedSurvivalHead(flat, tensors, dh, n_blocks)
+
+
+@torch.no_grad()
+def project_time_embeddings(generator, t, n_blocks: int, temb_dim: int):
+    """The per-block time rows tp_i = res_block_i.temb_proj(swish(temb_net(
+    timestep_embedding(1000·t)))), each (B, C) (survival_pallas.py:336-352)."""
+    ts = t.reshape(t.shape[0]).to(torch.float32)
+    stemb = swish(generator.temb_net(get_timestep_embedding(ts * 1000.0, temb_dim)))
+    return tuple(getattr(generator, f"res_block_{i}").temb_proj(stemb) for i in range(n_blocks))
+
+
+def survival_supported(config) -> bool:
+    """True when the head matches what the kernel is compiled for
+    (survival_pallas.py:355-366 without the TPU-only parts): no tensor-parallel
+    'model' axis, channel width 128, heads of a multiple of 32 channels, at
+    least one block, at most 128 slots, and a trunk whose hidden width the
+    kernel's first product takes."""
+    if getattr(getattr(config, "parallel", None), "model_axis", 1) > 1:
+        return False
+    g, hidden = config.generator, config.encoder.dim_hidden_local
+    return (
+        g.transformer_dim == CHANNELS
+        and g.n_heads >= 1
+        and CHANNELS % g.n_heads == 0
+        and (CHANNELS // g.n_heads) % 32 == 0
+        and g.n_attn_blocks >= 1
+        and 1 <= config.data.max_num_particles <= MAX_PARTICLES
+        and hidden % HIDDEN_MULTIPLE == 0
+        and hidden <= CHANNELS
+    )
+
+
+# ------------------------------------------------------------ plain version
+
+
+def survival_head_reference(packed: PackedSurvivalHead, temb_projected, last_layer, mask_t, *,
+                            n_heads: int):
+    """Plain PyTorch version of the kernel: what `_survival_kernel` computes
+    (survival_pallas.py:189-241) on the packed weights, GroupNorm and
+    attention over all N slots. (B, N, 1) float32 logits."""
+    survival_head_reference.calls += 1
+    W = packed.tensors
+    B, N, _ = last_layer.shape
+    C = CHANNELS
+    head_dim = C // n_heads
+    m = mask_t.reshape(B, N, 1).to(torch.float32)
+    h = last_layer.float() @ W["w_in_h"] + W["w_oh0"] + m * (W["w_oh1"] - W["w_oh0"]) + W["b_in"]
+    for i in range(packed.n_blocks):
+        r = swish(group_norm(h, W[f"gn1_s_{i}"], W[f"gn1_b_{i}"])) @ W[f"w_c1_{i}"] + W[f"b_c1_{i}"]
+        r = r + temb_projected[i][:, None, :]
+        r = swish(group_norm(r, W[f"gn2_s_{i}"], W[f"gn2_b_{i}"])) @ W[f"w_c2_{i}"] + W[f"b_c2_{i}"]
+        h = h + r
+        hn = group_norm(h, W[f"gna_s_{i}"], W[f"gna_b_{i}"])
+        q = ((hn @ W[f"wq_{i}"] + W[f"bq_{i}"]) * head_dim**-0.5).reshape(B, N, n_heads, head_dim)
+        k = (hn @ W[f"wk_{i}"] + W[f"bk_{i}"]).reshape(B, N, n_heads, head_dim)
+        v = (hn @ W[f"wv_{i}"] + W[f"bv_{i}"]).reshape(B, N, n_heads, head_dim)
+        p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, N, C)
+        h = h + (o @ W[f"wp_{i}"] + W[f"bp_{i}"])
+    h = h @ W["w_pre"] + W["b_pre"]
+    return (h * W["w_post"]).sum(dim=-1, keepdim=True) + W["b_post"]
+
+
+survival_head_reference.calls = 0
+
+
+# ------------------------------------------------------------ kernel wrapper
+
+
+def survival_head(packed: PackedSurvivalHead, temb_projected, last_layer, mask_t, *, n_heads: int):
+    """Fused survival head. temb_projected: n_blocks tensors (B, C);
+    last_layer (B, N, Dh) float32; mask_t (B, N, 1), any 0/1 dtype → (B, N, 1)
+    float32 logits. CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise."""
+    if last_layer.device.type == "cpu":
+        return survival_head_reference(packed, temb_projected, last_layer, mask_t, n_heads=n_heads)
+    if last_layer.dim() != 3:
+        raise ValueError(f"last_layer must be (B, N, Dh), got {tuple(last_layer.shape)}")
+    B, N, dh = last_layer.shape
+    C = CHANNELS
+    if dh != packed.dim_hidden or dh % HIDDEN_MULTIPLE or not HIDDEN_MULTIPLE <= dh <= C:
+        raise ValueError(f"hidden width {dh}: packed for {packed.dim_hidden}, the kernel takes "
+                         f"multiples of {HIDDEN_MULTIPLE} up to {C}")
+    if not 1 <= N <= MAX_PARTICLES:
+        raise ValueError(f"N={N} outside [1, {MAX_PARTICLES}]")
+    if n_heads < 1 or C % n_heads or (C // n_heads) % 32:
+        raise ValueError(f"n_heads={n_heads}: heads must be a multiple of 32 channels of {C}")
+    if tuple(mask_t.shape) != (B, N, 1):
+        raise ValueError(f"mask_t must be ({B}, {N}, 1), got {tuple(mask_t.shape)}")
+    if len(temb_projected) != packed.n_blocks:
+        raise ValueError(f"{len(temb_projected)} time rows for {packed.n_blocks} blocks")
+    tp = torch.stack(tuple(temb_projected))
+    if tuple(tp.shape) != (packed.n_blocks, B, C):
+        raise ValueError(f"time rows must be ({B}, {C}) each, got {tuple(tp.shape[1:])}")
+    mask = mask_t.to(torch.float32).contiguous()
+    for name, tensor in dict(last_layer=last_layer, mask_t=mask, time_rows=tp,
+                             weights=packed.flat).items():
+        if tensor.device != last_layer.device:
+            raise ValueError(f"{name} is on {tensor.device}, last_layer on {last_layer.device}")
+        if tensor.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {tensor.dtype}")
+        if not tensor.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if packed.flat.data_ptr() % 16:
+        raise ValueError("the packed weights must be 16-byte aligned")
+    out = torch.empty((B, N, 1), dtype=torch.float32, device=last_layer.device)
+    if B == 0:
+        return out
+    lib = _build.load_library()
+    # one block an SM walks over the jets; each parks a (128, C) tile here
+    grid = min(B, torch.cuda.get_device_properties(last_layer.device).multi_processor_count)
+    scratch = torch.empty((grid, MAX_PARTICLES, C), dtype=torch.float32, device=last_layer.device)
+    with torch.cuda.device(last_layer.device):
+        stream = torch.cuda.current_stream(last_layer.device).cuda_stream
+        rc = lib.mmp_survival_head(
+            packed.flat.data_ptr(), tp.data_ptr(), last_layer.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), grid, B, N, dh, packed.n_blocks, n_heads, stream,
+        )
+    _build.check(lib, rc, "mmp_survival_head")
+    survival_head.launches += 1
+    return out
+
+
+survival_head.launches = 0

@@ -25,7 +25,7 @@ from typing import Dict, Optional
 import torch
 from torch.profiler import record_function
 
-from multimodal_particles_tpu_torch.models.generative.init import init_mbm_parameters
+from multimodal_particles_tpu_torch.models.generative.init import init_parameters
 
 
 def cosine_annealing_schedule(lr: float, eta_min: float, t_max: int, steps_per_epoch: int):
@@ -140,7 +140,7 @@ class Trainer:
     def setup(self, steps_per_epoch: int = 1):
         """Initialize the parameters from the seed, the optimizer, the EMA
         copy and the noise generator."""
-        init_mbm_parameters(self.model, self.seed)
+        init_parameters(self.model, self.seed)
         params = dict(self.model.named_parameters())
         opt = ClippedOptimizer(self.config.train, steps_per_epoch, params.values())
         ema = ({k: p.detach().clone() for k, p in params.items()}

@@ -1,4 +1,4 @@
-"""flax → torch parameter transplant for MBM.
+"""flax → torch parameter transplant for MBM and the absorbing family.
 
 `params_from_flax` turns the JAX package's MBM parameter pytree (the dict that
 `MultiModalBridgeMatching.init` returns, multimodal_bridge_matching.py:90-110,
@@ -13,9 +13,17 @@ leaves:
   encoder.fc_layer.layers_{0,2}.{kernel,bias}
   loss_weights
 
+The flax `AbsorbingFlow` tree (`{"generator": …, "loss_weights": (3,)}`,
+absorbing/absorbing_flows.py:155-163) maps onto `AbsorbingFlow`'s state_dict
+the same way: `generator.epic…` as the encoder above,
+`generator.discrete_head_mlp.layers_{0,2}`, the Dense layers `temb_net`,
+`transformer_1_proj_in`, `res_block_i.{conv1,temb_proj,conv2}`,
+`attn_block_i.{q,k,v,proj_out}`, `pre_rate_proj`, `post_rate_proj`, and the
+GroupNorms `res_block_i.{norm1,norm2}`, `attn_block_i.norm`.
+
 A Dense `kernel (in, out)` becomes `Linear.weight (out, in)`, a weight-normed
 `v (in, out)` becomes `v (out, in)`, `Embed.embedding` becomes
-`Embedding.weight`. Every source leaf must be consumed and every target key
+`Embedding.weight`, a GroupNorm's `scale` its `weight`. Every source leaf must be consumed and every target key
 filled with the right shape, or it raises.
 """
 
@@ -43,21 +51,22 @@ def _target_key(path: str):
     leaf = parts[-1]
     if leaf == "kernel":
         return ".".join(parts[:-1] + ["weight"]), True
-    if leaf == "embedding":
+    if leaf in ("embedding", "scale"):
         return ".".join(parts[:-1] + ["weight"]), False
     if leaf == "v":
         return ".".join(parts), True
     return ".".join(parts), False
 
 
-def params_from_flax(params_np: Mapping, config) -> Dict[str, torch.Tensor]:
-    """flax MBM params (numpy leaves) → state_dict of the port's
-    MultiModalBridgeMatching(config)."""
-    from multimodal_particles_tpu_torch.models.generative.multimodal_bridge_matching import (
-        MultiModalBridgeMatching,
-    )
+def params_from_flax(params_np: Mapping, config, model_cls=None) -> Dict[str, torch.Tensor]:
+    """flax params of a model family (numpy leaves) → state_dict of the
+    port's `model_cls(config)`; MultiModalBridgeMatching by default."""
+    if model_cls is None:
+        from multimodal_particles_tpu_torch.models.generative.multimodal_bridge_matching import (
+            MultiModalBridgeMatching as model_cls,
+        )
 
-    expected = {k: tuple(v.shape) for k, v in MultiModalBridgeMatching(config).state_dict().items()}
+    expected = {k: tuple(v.shape) for k, v in model_cls(config).state_dict().items()}
     state_dict = {}
     for path, value in _flatten(params_np).items():
         key, transpose = _target_key(path)

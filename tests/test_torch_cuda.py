@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (K1 forward, K2 sampler step, K3 backward,
-and the wide pair K4 forward / K5 backward at hidden 128)
+the wide pair K4 forward / K5 backward at hidden 128, and K6, the absorbing
+family's survival head, with K1's hidden output and 56-wide discrete head)
 against their plain PyTorch versions, on a CUDA card. Without one every test
 here skips. The card's machine has no JAX, so run this file without
 tests/conftest.py:
@@ -13,15 +14,26 @@ K3's weight gradients are held per leaf: |err| ≤ 1e-4·max|ref leaf| +
 1e-3·|ref| (sums over all particles of a batch, in another order), with no
 cotangent on jets that `near_kink_jets` flags. K4 is held per particle
 (|err| ≤ 1e-4 + 1e-4·max|ref| over the particle's 11 outputs: at hidden 128
-the outputs are large sums of terms that cancel), K5 per leaf as K3.
+the outputs are large sums of terms that cancel), K5 per leaf as K3. K6's
+logits are held elementwise at rtol = atol = 2e-4, the JAX kernel's own test's
+tolerance (tests/test_ops/test_survival_pallas.py:86-88).
 """
 
 import pytest
 import torch
 
-from multimodal_particles_tpu_torch.config_classes import MultimodalBridgeMatchingConfig
+from multimodal_particles_tpu_torch.config_classes import (
+    AbsorbingConfig,
+    MultimodalBridgeMatchingConfig,
+)
 from multimodal_particles_tpu_torch.data import gauss_noise_source_batch
-from multimodal_particles_tpu_torch.models.generative.init import init_mbm_parameters
+from multimodal_particles_tpu_torch.models.generative.absorbing.absorbing_flows import (
+    AbsorbingFlow,
+)
+from multimodal_particles_tpu_torch.models.generative.init import (
+    init_absorbing_parameters,
+    init_mbm_parameters,
+)
 from multimodal_particles_tpu_torch.models.generative.multimodal_bridge_matching import (
     MultiModalBridgeMatching,
 )
@@ -48,6 +60,11 @@ from multimodal_particles_tpu_torch.ops.epic_wide_vjp_cuda import (
 from multimodal_particles_tpu_torch.ops.sampler_cuda import (
     sampler_step,
     sampler_step_reference,
+)
+from multimodal_particles_tpu_torch.ops.survival_cuda import (
+    project_time_embeddings,
+    survival_head,
+    survival_head_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -267,3 +284,113 @@ def test_wide_wrappers_reject_what_the_kernels_do_not_take(device):
         epic_backward_wide(wide, t, x, k, mask, g[..., :10].contiguous())
     with pytest.raises(TypeError, match="float32"):
         epic_backward_wide(wide, t, x, k, mask, g.double())
+
+
+# ------------------------------------------------- the absorbing family: K1 + K6
+
+
+def absorbing_model(device, hidden=16, n_heads=2, n_blocks=2):
+    config = AbsorbingConfig()
+    config.encoder.dim_hidden_local = config.encoder.dim_hidden_glob = hidden
+    config.generator.n_heads, config.generator.n_attn_blocks = n_heads, n_blocks
+    model = init_absorbing_parameters(AbsorbingFlow(config), 0).to(device)
+    # non-zero biases and GroupNorm offsets, so that a misplaced vector shows
+    with torch.no_grad():
+        gen = torch.Generator(device=device).manual_seed(1)
+        for p in model.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen, device=device))
+    return model.eval()
+
+
+def scattered_inputs(device, B, N, seed=3):
+    """t, x, k, mask with random, non-prefix masks and jet 0 empty."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mask = (torch.rand((B, N, 1), generator=gen, device=device) < 0.6).float()
+    mask[0] = 0.0
+    x = torch.randn((B, N, 3), generator=gen, device=device) * mask
+    k = torch.randint(0, 8, (B, N, 1), generator=gen, device=device) * mask.long()
+    t = torch.rand((B, 1, 1), generator=gen, device=device)
+    return t, x, k, mask
+
+
+@pytest.mark.parametrize("hidden,N", [(16, 109), (32, 128), (64, 50)])
+def test_epic_forward_hidden_output_and_wide_head_match_plain(device, hidden, N):
+    """K1 with `output_hidden_local` and the absorbing generator's 56-wide
+    discrete head: the 11 outputs and the (B, N, H) hidden state."""
+    model = absorbing_model(device, hidden)
+    trunk, _ = model.pack_for_kernel()
+    assert trunk.dims.head_hidden == 56
+    t, x, k, mask = scattered_inputs(device, 64, N)
+    out, hid = epic_forward(trunk, t, x, k, mask, output_hidden_local=True)
+    torch.cuda.synchronize()
+    ref_out, ref_hid = epic_forward_reference(trunk, t, x, k, mask, output_hidden_local=True)
+    assert tuple(hid.shape) == (64, N, hidden)
+    torch.testing.assert_close(out, ref_out, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(hid, ref_hid, atol=ATOL, rtol=RTOL)
+    assert torch.equal(epic_forward(trunk, t, x, k, mask), out)
+
+
+@pytest.mark.parametrize("B,N,hidden,n_heads,n_blocks", [
+    (7, 109, 16, 2, 2), (64, 128, 16, 2, 2), (300, 109, 16, 2, 2),
+    (5, 1, 16, 2, 2), (9, 33, 32, 4, 1), (6, 77, 64, 1, 3),
+])
+def test_survival_head_matches_plain(device, B, N, hidden, n_heads, n_blocks):
+    """K6 at the reference N = 109, at N = 128, over more jets than the grid
+    has blocks, at one slot, and at other trunk widths, head counts and
+    depths; the same bits on a repeat."""
+    model = absorbing_model(device, hidden, n_heads, n_blocks)
+    _, head = model.pack_for_kernel()
+    t, _, _, mask = scattered_inputs(device, B, N)
+    gen = torch.Generator(device=device).manual_seed(4)
+    last = torch.randn((B, N, hidden), generator=gen, device=device)
+    tp = project_time_embeddings(model.generator, t, n_blocks, 128)
+    launches = survival_head.launches
+    got = survival_head(head, tp, last, mask.long(), n_heads=n_heads)
+    again = survival_head(head, tp, last, mask.long(), n_heads=n_heads)
+    torch.cuda.synchronize()
+    assert survival_head.launches == launches + 2
+    ref = survival_head_reference(head, tp, last, mask.long(), n_heads=n_heads)
+    assert tuple(got.shape) == (B, N, 1) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=2e-4, rtol=2e-4)
+    assert torch.equal(got, again)
+
+
+def test_absorbing_forward_sampling_goes_through_both_kernels(device):
+    """forward_sampling on the card: one launch of K1 and one of K6, no plain
+    version, and the heads of the module path within 2e-4."""
+    model = absorbing_model(device)
+    t, x, k, mask = scattered_inputs(device, 32, 109)
+    from multimodal_particles_tpu_torch.models.generative.states import AbsorbingBridgeState
+
+    state = AbsorbingBridgeState(t, x, k, mask.long())
+    counts = epic_forward.launches, survival_head.launches
+    calls = epic_forward_reference.calls, survival_head_reference.calls
+    heads = model.forward_sampling(state)
+    torch.cuda.synchronize()
+    assert (epic_forward.launches, survival_head.launches) == (counts[0] + 1, counts[1] + 1)
+    assert (epic_forward_reference.calls, survival_head_reference.calls) == calls
+    with torch.no_grad():
+        ref = model.forward(state)
+    for name in ("continuous", "discrete", "absorbing"):
+        torch.testing.assert_close(getattr(heads, name), getattr(ref, name), atol=2e-4, rtol=2e-4)
+
+
+def test_survival_wrapper_rejects_what_the_kernel_does_not_take(device):
+    model = absorbing_model(device)
+    _, head = model.pack_for_kernel()
+    t, _, _, mask = scattered_inputs(device, 4, 16)
+    last = torch.randn((4, 16, 16), device=device)
+    tp = project_time_embeddings(model.generator, t, 2, 128)
+    with pytest.raises(ValueError):
+        survival_head(head, tp, last[..., :8].contiguous(), mask, n_heads=2)
+    with pytest.raises(ValueError):
+        survival_head(head, tp, last, mask, n_heads=8)
+    with pytest.raises(TypeError):
+        survival_head(head, tp, last.double(), mask, n_heads=2)
+    with pytest.raises(ValueError):
+        survival_head(head, tp, last.cpu().to(device)[:, ::2], mask[:, ::2], n_heads=2)
+    trunk, _ = model.pack_for_kernel()
+    with pytest.raises(ValueError, match="hidden width 8"):
+        sampler_step(trunk, last[..., :3].contiguous(), mask.long(), mask,
+                     torch.rand((2, 4, 16), device=device), 0.5, 0.01, gamma=0.125)

@@ -1,6 +1,7 @@
 """Shared set-up for the port's CPU tests (tests/test_torch_*.py): one JAX
-MBM model and its port twin with the same transplanted weights, and inputs
-made from a seed with numpy. Both sides run in float32 on the CPU."""
+model (MBM, or the absorbing family's `absorbing_pair`) and its port twin with
+the same transplanted weights, and inputs made from a seed with numpy. Both
+sides run in float32 on the CPU."""
 
 import os
 
@@ -10,16 +11,28 @@ import numpy as np
 import torch
 
 from multimodal_particles_tpu import test_resources_dir
-from multimodal_particles_tpu.config_classes import MultimodalBridgeMatchingConfig
+from multimodal_particles_tpu.config_classes import (
+    AbsorbingConfig,
+    MultimodalBridgeMatchingConfig,
+)
 from multimodal_particles_tpu.data.particle_clouds.jets_dataloader import (
     JetsDataloaderModule,
+)
+from multimodal_particles_tpu.models.generative.absorbing.absorbing_flows import (
+    AbsorbingFlow,
 )
 from multimodal_particles_tpu.models.generative.multimodal_bridge_matching import (
     MultiModalBridgeMatching,
 )
 from multimodal_particles_tpu.ops.sampler_pallas import make_fused_sampler_step
 from multimodal_particles_tpu_torch.config_classes import (
+    AbsorbingConfig as TorchAbsorbingConfig,
+)
+from multimodal_particles_tpu_torch.config_classes import (
     MultimodalBridgeMatchingConfig as TorchConfig,
+)
+from multimodal_particles_tpu_torch.models.generative.absorbing.absorbing_flows import (
+    AbsorbingFlow as TorchAbsorbingFlow,
 )
 from multimodal_particles_tpu_torch.models.generative.multimodal_bridge_matching import (
     MultiModalBridgeMatching as TorchMBM,
@@ -59,6 +72,36 @@ def model_pair(seed=0, num_timesteps=8, **encoder):
     torch_model.load_state_dict(params_from_flax(params_np, torch_cfg))
     jax_params = jax.tree_util.tree_map(jnp.asarray, params_np)
     return jax_model, jax_params, torch_model, batch
+
+
+def noisy_params(params, seed):
+    """flax-initialised params plus seeded noise as numpy leaves, so that
+    biases and GroupNorm offsets are not zero."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda a: (np.asarray(a) + 0.1 * rng.standard_normal(a.shape)).astype(np.float32),
+        params,
+    )
+
+
+def absorbing_pair(seed=0, n=N, b=B, num_timesteps=8, sections=None):
+    """(jax_model, jax_params, torch_model, jax_batch) of the absorbing family
+    at its default config with `n` slots and `b` jets: flax-initialised
+    weights plus seeded noise, transplanted. `sections` maps a config section
+    to field overrides, e.g. {"generator": {"detach_last_layer": False}}."""
+    cfg = AbsorbingConfig()
+    cfg.data.batch_size, cfg.data.max_num_particles = b, n
+    cfg.bridge.num_timesteps = num_timesteps
+    for section, fields in (sections or {}).items():
+        for name, value in fields.items():
+            setattr(getattr(cfg, section), name, value)
+    batch = jax.tree_util.tree_map(jnp.asarray, JetsDataloaderModule.random_databatch(cfg))
+    jax_model = AbsorbingFlow(cfg)
+    params_np = noisy_params(jax_model.init(jax.random.PRNGKey(seed), batch), seed)
+    torch_cfg = TorchAbsorbingConfig.from_dict(cfg.to_dict())
+    torch_model = TorchAbsorbingFlow(torch_cfg)
+    torch_model.load_state_dict(params_from_flax(params_np, torch_cfg, TorchAbsorbingFlow))
+    return jax_model, jax.tree_util.tree_map(jnp.asarray, params_np), torch_model, batch
 
 
 def random_state(seed=1):
