@@ -117,6 +117,45 @@ Phases, one JSON line each:
  23. profile_absorbing  torch.profiler windows over 3 train steps and over a
               serving request of 1024 jets: the top device operations
 
+ 24. k1_fold  K1 with the folded Linear-discrete input (the transdimensional
+              trunk: a Dense over the 8 noisy one-hot channel values in place
+              of a token's table row), no discrete head, the hidden output,
+              hidden 16 / global 19, N=128, B=4096, prefix masks with one
+              dims=1 jet, vs its plain version: the 11 outputs and the hidden
+              state within atol = rtol = 1e-4; then both timed
+ 25. k7       the fused gsdm stack (gsdm_stack.cu) vs its plain version at
+              (B, N, Din) = (4096, 128, 24), (4096, 128, 27), (7, 40, 27) and
+              (64, 109, 24): the hidden state within atol = rtol = 2e-4 (the
+              JAX kernel's own test's tolerance), the same bits on a repeated
+              launch; then both timed at (4096, 128, 27); its registers and
+              spills from the build log
+ 26. slice_transdim  TransdimensionalJumpDiffusion(TransdimensionalEpicConfig
+              defaults, dt 1/48, multi_birth 24, a multiplicity prior uniform
+              in [1, 128] attached).predict serves requests of 4096, 1024 and
+              again 4096 jets (the first request carries the allocator's first
+              cudaMallocs): per request 48 launches of K1 and 96 of K7, no plain
+              version called, NFE 48; latents finite, 1 ≤ dims ≤ 128, rows
+              from dims on zero, the live rows' centre of mass 0 to rounding;
+              the mean multiplicity out within 10% of the prior's (with the
+              all-dims analytic posterior the terminal multiplicity follows
+              the prior)
+ 27. paths_transdim  the 48-step kernel path vs the module path at B=256 from
+              the same injected draws: the final dims equal on ≥ 95% of the
+              jets (a rounding can flip a birth), on those the median
+              |Δx|/max(|x|, 1) printed
+ 28. train_transdim  Trainer.fit with the transdimensional model at B=1024,
+              N=128 (3 epochs of 8 synthetic 'list' batches + 1 validation
+              batch, Adam at lr 1e-3, the JAX quality runs' rate), then
+              Trainer.predict (EMA weights) on 1024 jets. Its training
+              launches no hand-written kernel, as the JAX package's does not
+              (net_forward(fused=False) under jax.grad): the fit must launch
+              none, every loss term must be finite, the loss on one fixed
+              batch with fixed corruption draws must fall, and predict must
+              launch K1 48 times and K7 96 times; then steps/s over 8
+              synchronized steps, and the peak memory
+ 29. profile_transdim  torch.profiler windows over 3 train steps and over
+              serving requests of 1024 and 4096 jets: the top device operations
+
 The line before the last lists every kernel with its launches on its own
 path's run, its bound from the shapes and the H100 data sheet's peaks, and
 the times measured here; the last line is {"ok": true, "device": {...}}. Any
@@ -130,18 +169,22 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
 from multimodal_particles_tpu_torch.config_classes import (
     AbsorbingConfig,
     MultimodalBridgeMatchingConfig,
+    TransdimensionalEpicConfig,
 )
 from multimodal_particles_tpu_torch.data import (
     InMemoryDataModule,
     absorbing_training_batch,
     gauss_noise_source_batch,
+    multiplicity_histogram,
     synthetic_training_batch,
+    transdim_training_batch,
 )
 from multimodal_particles_tpu_torch.models.architectures.utils import WeightNormLinear
 from multimodal_particles_tpu_torch.models.generative.absorbing.absorbing_flows import (
@@ -150,11 +193,20 @@ from multimodal_particles_tpu_torch.models.generative.absorbing.absorbing_flows 
 from multimodal_particles_tpu_torch.models.generative.init import (
     init_absorbing_parameters,
     init_mbm_parameters,
+    init_transdimensional_parameters,
 )
 from multimodal_particles_tpu_torch.models.generative.multimodal_bridge_matching import (
     MultiModalBridgeMatching,
 )
 from multimodal_particles_tpu_torch.models.generative.states import HybridState
+from multimodal_particles_tpu_torch.models.generative.transdimensional.structure import (
+    DistributionNodes,
+    StructuredState,
+)
+from multimodal_particles_tpu_torch.models.generative.transdimensional.transdimensional_model import (
+    TransdimensionalJumpDiffusion,
+    sample_gumbel,
+)
 from multimodal_particles_tpu_torch.ops import _build
 from multimodal_particles_tpu_torch.ops.epic_cuda import (
     epic_forward,
@@ -175,6 +227,11 @@ from multimodal_particles_tpu_torch.ops.epic_wide_cuda import (
 from multimodal_particles_tpu_torch.ops.epic_wide_vjp_cuda import (
     epic_backward_wide,
     epic_train_forward_wide,
+)
+from multimodal_particles_tpu_torch.ops.gsdm_stack_cuda import (
+    gsdm_stack,
+    gsdm_stack_reference,
+    stack_time_embeddings,
 )
 from multimodal_particles_tpu_torch.ops.sampler_cuda import (
     sampler_step,
@@ -216,6 +273,18 @@ ABS_PATHS_B = 256
 ABS_K6_SHAPES = ((ABS_B, ABS_N), (7, ABS_N), (64, 128))
 ABS_TRAIN_EPOCHS = 3
 K6_TOL = 2e-4  # tests/test_ops/test_survival_pallas.py:86-88
+# the transdimensional family at its reference config: N=128, 48 steps, the batches of its
+# bench lines (4096 jets served, 1024 trained)
+TD_N, TD_STEPS, TD_MULTI_BIRTH = 128, 48, 24
+TD_B, TD_TRAIN_B = 4096, 1024
+TD_REQUEST_SIZES = (4096, 1024, 4096)  # the first carries the allocator's first cudaMallocs
+TD_PATHS_B = 256
+TD_K7_SHAPES = ((TD_B, TD_N, 24), (TD_B, TD_N, 27), (7, 40, 27), (64, 109, 24))
+TD_TRAIN_EPOCHS = 3
+TD_LR = 1e-3
+K7_TOL = 2e-4  # tests/test_ops/test_gsdm_stack_pallas.py:72
+MIN_EQUAL_DIMS = 0.95
+MAX_MULTIPLICITY_SHIFT = 0.10
 # NVIDIA's H100 SXM data sheet: fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
@@ -442,7 +511,7 @@ def leaf_compare(got, ref, packed):
 def plain_calls():
     return (epic_forward_reference.calls + sampler_step_reference.calls
             + epic_train_forward_reference.calls + epic_backward_reference.calls
-            + survival_head_reference.calls)
+            + survival_head_reference.calls + gsdm_stack_reference.calls)
 
 
 def multiplicity_bins(mult):
@@ -603,7 +672,7 @@ def phase_train(device, card, workdir):
     return trainer, dm, launches, rate
 
 
-RANGE_PREFIXES = ("train.", "mbm.", "absorbing.", "Optimizer.step")
+RANGE_PREFIXES = ("train.", "mbm.", "absorbing.", "transdim.", "Optimizer.step")
 
 
 def device_operations(prof, repeats):
@@ -757,7 +826,8 @@ def encoder_macs(d):
     [g ‖ temb] thirds of fc_local1, the global MLP) taken once a jet."""
     H, Hg, Et, Ex, Ek, nb = d.hidden, d.hidden_glob, d.emb_t, d.emb_x, d.emb_k, d.num_blocks
     per_particle = (3 * Ex + (Ex + Ek) * H + nb * 2 * H * H + H * 11
-                    + (2 * 8 * d.head_hidden if d.add_discrete_head else 0))
+                    + (2 * 8 * d.head_hidden if d.add_discrete_head else 0)
+                    + (8 * Ek if d.fold_discrete else 0))
     per_jet = (Et * H + (2 * H + Et) * H + H * H + H * Hg
                + nb * ((2 * H + Hg + Et) * H + H * Hg + (Hg + Et) * H))
     return per_particle, per_jet
@@ -779,7 +849,8 @@ def kernel_bound(packed, B, kind, n=N):
     forward_flops = 2.0 * (per_particle * B * n + per_jet * B)
     weights = 4 * packed.flat.numel()
     slots = B * n
-    inputs = 4 * B + slots * (12 + 4 + 4)  # t, x, k (int32), mask
+    # t, x, k (int32, or with the folded input the 8 float channel values), mask
+    inputs = 4 * B + slots * (12 + (32 if packed.dims.fold_discrete else 4) + 4)
     flops, nbytes = {
         "forward": (forward_flops, inputs + slots * 44 + weights),
         # + the (B, n, H) hidden state out
@@ -801,6 +872,17 @@ def survival_bound(head, B, n):
     C, dh, nb = 128, head.dim_hidden, head.n_blocks
     macs_per_jet = n * dh * C + nb * (6 * n * C * C + 2 * n * n * C) + n * C * C + n * C
     nbytes = B * n * (4 * dh + 8 + 4) + 4 * nb * B * C + 4 * head.flat.numel()
+    return roofline(2.0 * macs_per_jet * B, nbytes)
+
+
+def gsdm_stack_bound(packed, B, n):
+    """K7's bound at (B, n): proj_in over the real input width, per block six
+    (n, C)·(C, C) products and the heads' n·n scores and values (C
+    multiply-adds a pair of slots over the heads together); in: the input,
+    the time rows, the weights; out: the hidden state (B, n, C)."""
+    C, din, nb = 128, packed.dim_in, packed.n_blocks
+    macs_per_jet = n * din * C + nb * (6 * n * C * C + 2 * n * n * C)
+    nbytes = B * n * 4 * (din + C) + 4 * nb * B * C + 4 * packed.flat.numel()
     return roofline(2.0 * macs_per_jet * B, nbytes)
 
 
@@ -941,10 +1023,10 @@ def narrow_counts():
 def reset_counts():
     """Every launch count and every plain version's call count to 0."""
     for fn in (epic_forward, epic_backward, sampler_step, epic_forward_wide, epic_backward_wide,
-               survival_head):
+               survival_head, gsdm_stack):
         fn.launches = 0
     for fn in (epic_forward_reference, sampler_step_reference, epic_train_forward_reference,
-               epic_backward_reference, survival_head_reference):
+               epic_backward_reference, survival_head_reference, gsdm_stack_reference):
         fn.calls = 0
 
 
@@ -1451,6 +1533,388 @@ def absorbing_phases(device, card, build_dir):
     return entry, k1
 
 
+def make_transdim(device, prior_batch=None):
+    """The transdimensional model at its reference config with the sampler of
+    the JAX bench's transdim line (48 steps, multi_birth 24), seeded weights,
+    and a multiplicity prior from `prior_batch`'s multiplicities."""
+    config = TransdimensionalEpicConfig()
+    config.data.max_num_particles = TD_N
+    config.sampler_kwargs.dt = 1.0 / TD_STEPS
+    config.sampler_kwargs.multi_birth = TD_MULTI_BIRTH
+    model = init_transdimensional_parameters(TransdimensionalJumpDiffusion(config), SEED)
+    if prior_batch is not None:
+        attach_prior(model, prior_batch)
+    return model.to(device).eval()
+
+
+def attach_prior(model, batch):
+    model.graphical_structure = SimpleNamespace(
+        nodes_dist=DistributionNodes(multiplicity_histogram(batch[0])))
+
+
+def transdim_state(B, n, device, gen):
+    """A noisy state as the sampler meets it: prefix masks with dims uniform
+    in [1, n] and jet 0 at dims = 1, kinematics, noisy one-hot channel values,
+    times in (0, 1]."""
+    dims, x, one_hot = transdim_training_batch(B, n, 3, 8, gen, device=device)
+    dims[0] = 1
+    live = (torch.arange(n, device=device)[None, :] < dims[:, None]).float()[..., None]
+    values = (one_hot + 0.3 * torch.randn(one_hot.shape, generator=gen, device=device)) * live
+    ts = torch.rand((B,), generator=gen, device=device).clamp(1e-3, 1.0)
+    return StructuredState(x * live, values, dims), ts
+
+
+def phase_k1_fold(device, card):
+    """K1 as the transdimensional family calls it: the folded Linear-discrete
+    input, no discrete head, hidden output, global width 19, N=128, B=4096;
+    then timed beside its plain version."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    model = make_transdim(device)
+    trunk, _, _ = model.pack_for_kernel()
+    state, ts = transdim_state(TD_B, TD_N, device, gen)
+    args = (trunk, ts.reshape(TD_B, 1, 1), state.continuous, state.discrete,
+            state.particle_mask()[:, :, None])
+    out, hid = epic_forward(*args, output_hidden_local=True)
+    torch.cuda.synchronize()
+    ref_out, ref_hid = epic_forward_reference(*args, output_hidden_local=True)
+    cmp_out, cmp_hid = compare(out, ref_out), compare(hid, ref_hid)
+    rec = {"phase": "k1_fold", "hidden": trunk.dims.hidden, "hidden_glob": trunk.dims.hidden_glob,
+           "fold_discrete": trunk.dims.fold_discrete,
+           "add_discrete_head": trunk.dims.add_discrete_head, "B": TD_B, "N": TD_N,
+           "outputs": cmp_out, "hidden_state": cmp_hid, "hidden_shape": list(hid.shape),
+           "dims_of_jet_0": int(state.dims[0].item()), "mean_dims": state.dims.float().mean().item(),
+           "finite": bool(torch.isfinite(out).all().item() and torch.isfinite(hid).all().item())}
+    emit(rec)
+    if not (cmp_out["within_tol"] and cmp_hid["within_tol"] and rec["finite"]
+            and rec["fold_discrete"] and not rec["add_discrete_head"] and rec["hidden_glob"] == 19
+            and rec["hidden_shape"] == [TD_B, TD_N, 16]):
+        raise RuntimeError(f"K1's folded input disagrees with its plain version: {rec}")
+    ms, plain_ms = time_pair(lambda: epic_forward(*args, output_hidden_local=True),
+                             lambda: epic_forward_reference(*args, output_hidden_local=True))
+    bound = kernel_bound(trunk, TD_B, "forward_hidden", TD_N)
+    emit({"phase": "K1_fold_time", "B": TD_B, "N": TD_N, "ms": ms, "plain_ms": plain_ms, **bound,
+          "card": card})
+    return {"max_abs_err": max(cmp_out["max_abs_err"], cmp_hid["max_abs_err"]), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "B": TD_B, "N": TD_N, "hidden_glob": 19, "fold_discrete": True}
+
+
+def phase_k7(device, card, build_log):
+    """K7 against its plain version at four shapes, the same bits on a repeat;
+    then both timed at (4096, 128, 27)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+    model = make_transdim(device)
+    net, n_heads = model.network, model.config.encoder.n_heads
+    _, rate_stack, vec_stack = model.pack_for_kernel()
+    stacks = {24: (rate_stack, net.blocks()[0]), 27: (vec_stack, net.blocks("vec_")[0])}
+
+    def case(B, n, din):
+        packed, res_blocks = stacks[din]
+        x_in = torch.randn((B, n, din), generator=gen, device=device)
+        ts = torch.rand((B,), generator=gen, device=device)
+        with torch.no_grad():
+            tp = stack_time_embeddings(net.time_embedding(ts), res_blocks)
+        return packed, tp, x_in
+
+    errors = []
+    for B, n, din in TD_K7_SHAPES:
+        packed, tp, x_in = case(B, n, din)
+        got = gsdm_stack(packed, tp, x_in, n_heads=n_heads)
+        again = gsdm_stack(packed, tp, x_in, n_heads=n_heads)
+        torch.cuda.synchronize()
+        ref = gsdm_stack_reference(packed, tp, x_in, n_heads=n_heads)
+        err = (got - ref).abs()
+        rec = {"phase": "k7", "B": B, "N": n, "Din": din, "max_abs_err": err.max().item(),
+               "max_abs_ref": ref.abs().max().item(), "atol": K7_TOL, "rtol": K7_TOL,
+               "within_tol": bool((err <= K7_TOL + K7_TOL * ref.abs()).all().item()),
+               "same_bits_on_repeat": bool(torch.equal(got, again)),
+               "finite": bool(torch.isfinite(got).all().item()), "shape": list(got.shape)}
+        emit(rec)
+        errors.append({"B": B, "N": n, "Din": din, "max_abs_err": rec["max_abs_err"]})
+        if not (rec["within_tol"] and rec["same_bits_on_repeat"] and rec["finite"]
+                and rec["shape"] == [B, n, 128]):
+            raise RuntimeError(f"K7 disagrees with its plain version: {rec}")
+
+    packed, tp, x_in = case(TD_B, TD_N, 27)
+    ms, plain_ms = time_pair(lambda: gsdm_stack(packed, tp, x_in, n_heads=n_heads),
+                             lambda: gsdm_stack_reference(packed, tp, x_in, n_heads=n_heads))
+    bound = gsdm_stack_bound(packed, TD_B, TD_N)
+    lines = build_log.splitlines()
+    # ptxas -v, an entry: "Compiling entry function", "Function properties", the stack
+    # frame and spills, the registers
+    ptxas = [f"{lines[i + 2].strip()}; {lines[i + 3].strip()}" for i, line in enumerate(lines[:-3])
+             if "gsdm_stack_kernel" in line and "Compiling entry" in line]
+    emit({"phase": "K7_time", "B": TD_B, "N": TD_N, "Din": 27, "ms": ms, "plain_ms": plain_ms,
+          **bound, "tflops": bound["flops"] / ms / 1e9, "ptxas": ptxas, "card": card})
+    return errors[1]["max_abs_err"], errors, ms, plain_ms, bound
+
+
+def transdim_counts():
+    return {"epic_forward": epic_forward.launches, "gsdm_stack": gsdm_stack.launches}
+
+
+def check_generated_transdim(out, B):
+    """What a request must give: finite latents of the expected shape,
+    1 ≤ dims ≤ N, rows from dims on zero, the live rows centred."""
+    x, values, dims = out.continuous, out.discrete, out.dims
+    dead = (torch.arange(TD_N, device=x.device)[None, :] >= dims[:, None])[..., None]
+    live = (~dead).float()
+    centre = (x * live).sum(dim=1).abs().max().item()
+    scale = max(x.abs().max().item(), 1.0)
+    ok = {
+        "shape": (tuple(x.shape) == (B, TD_N, 3) and tuple(values.shape) == (B, TD_N, 8)
+                  and tuple(dims.shape) == (B,)),
+        "finite": bool(torch.isfinite(x).all().item() and torch.isfinite(values).all().item()),
+        "dims_in_range": bool(((dims >= 1) & (dims <= TD_N)).all().item()),
+        "dead_rows_zero": bool((x[dead.expand_as(x)] == 0).all().item()
+                               and (values[dead.expand_as(values)] == 0).all().item()),
+        # a sum of up to 128 float32 values of the jets' scale
+        "centred": centre <= 1e-5 * TD_N * scale,
+    }
+    if not all(ok.values()):
+        raise RuntimeError(f"generated transdimensional jets fail their checks: {ok}")
+    return {**ok, "max_abs_x": scale, "centre_of_mass": centre}
+
+
+def phase_slice_transdim(device, card):
+    """predict at the transdimensional family's reference config: per network
+    evaluation one launch of K1 (folded input, hidden output) and two of K7,
+    everything between them plain PyTorch, no plain version of a kernel."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 24)
+    batches = [transdim_training_batch(B, TD_N, 3, 8, gen, device=device)
+               for B in TD_REQUEST_SIZES]
+    model = make_transdim(device, batches[0])
+    prior_mean = batches[0][0].float().mean().item()
+    torch.cuda.synchronize()
+
+    reset_counts()  # the transdimensional serving path's run starts here
+    for B, batch in zip(TD_REQUEST_SIZES, batches):
+        before = transdim_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = model.predict(batch, generator=gen)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        k1 = epic_forward.launches - before["epic_forward"]
+        k7 = gsdm_stack.launches - before["gsdm_stack"]
+        nfe = k1  # a network evaluation launches K1 once
+        checks = check_generated_transdim(out, B)
+        mean_out = out.dims.float().mean().item()
+        emit({"phase": "slice_transdim", "B": B, "N": TD_N, "steps": TD_STEPS, "nfe": nfe,
+              "K1_launches": k1, "K7_launches": k7, "seconds": seconds,
+              "jets_per_s": B / seconds, "multiplicity_prior": prior_mean,
+              "multiplicity_out": mean_out, "card": card, **checks})
+        if (k1, k7, nfe) != (TD_STEPS, 2 * TD_STEPS, TD_STEPS):
+            raise RuntimeError(f"transdim request of {B} jets: K1 {k1}, K7 {k7}, NFE {nfe}")
+        if abs(mean_out - prior_mean) > MAX_MULTIPLICITY_SHIFT * prior_mean:
+            raise RuntimeError(f"mean multiplicity {mean_out} against the prior's {prior_mean}")
+    launches = transdim_counts()
+    others = {**narrow_counts(), **wide_counts(), "survival_head": survival_head.launches}
+    del others["epic_forward"]
+    emit({"phase": "slice_transdim_counts", "launches": launches, "other_launches": others,
+          "plain_calls": plain_calls()})
+    if plain_calls() != 0 or any(others.values()):
+        raise RuntimeError("the transdimensional serving path left its kernels")
+    return launches
+
+
+def phase_paths_transdim(device):
+    """The 48-step kernel path against the module path from the same injected
+    draws (the chain's uniforms, the Gumbel noise of the nearest atom and the
+    three normals, a step)."""
+    B, D = TD_PATHS_B, TD_N * 11
+    gen = torch.Generator(device=device).manual_seed(SEED + 25)
+    batch = transdim_training_batch(B, TD_N, 3, 8, gen, device=device)
+    model = make_transdim(device, batch)
+    kw = dict(generator=gen, device=device)
+    draws = {"init": torch.randn((B, D), **kw), "em_noise": torch.randn((TD_STEPS, B, D), **kw),
+             "birth_noise": torch.randn((TD_STEPS, B, D), **kw),
+             "u_chain": torch.rand((TD_STEPS, B, TD_MULTI_BIRTH), **kw),
+             "gumbel": sample_gumbel((TD_STEPS, B, TD_N), gen, device)}
+    outs = []
+    for use_pallas in ("auto", False):
+        model.config.parallel.use_pallas = use_pallas
+        outs.append(model.predict(batch, draws=draws))
+    kernel, plain = outs
+    same = kernel.dims == plain.dims
+    x_plain = plain.get_flat_lats()[same].abs()
+    dx = (kernel.get_flat_lats() - plain.get_flat_lats())[same].abs()
+    rel = dx / x_plain.clamp_min(1.0)
+    rec = {"phase": "paths_transdim", "B": B, "N": TD_N, "steps": TD_STEPS,
+           "equal_dims_share": same.float().mean().item(),
+           "median_rel_dx": rel.median().item(), "max_rel_dx": rel.max().item(),
+           "median_abs_dx": dx.median().item(), "max_abs_dx": dx.max().item(),
+           "max_abs_x": x_plain.max().item(), "mean_dims": plain.dims.float().mean().item()}
+    emit(rec)
+    if rec["equal_dims_share"] < MIN_EQUAL_DIMS:
+        raise RuntimeError(f"transdim kernel path and module path diverge: {rec}")
+
+
+def phase_train_transdim(device, card, workdir):
+    """Trainer.fit with the transdimensional model (3 epochs of 8 batches + 1
+    validation batch at B=1024, N=128) and Trainer.predict, counted as one
+    run; the bare step rate; profiler windows over 3 train steps and a request
+    of 1024 jets."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 26)
+    B = TD_TRAIN_B
+
+    def batch():
+        return transdim_training_batch(B, TD_N, 3, 8, gen, device=device)
+
+    dm = InMemoryDataModule(train=[batch() for _ in range(TRAIN_BATCHES)], valid=[batch()])
+    config = TransdimensionalEpicConfig()
+    config.data.max_num_particles = TD_N
+    config.sampler_kwargs.dt, config.sampler_kwargs.multi_birth = 1.0 / TD_STEPS, TD_MULTI_BIRTH
+    config.batch_size, config.optimizer_kwargs.lr = B, TD_LR
+    model = TransdimensionalJumpDiffusion(config).to(device)
+    attach_prior(model, [torch.cat([b[0] for b in dm.train])])
+    trainer = Trainer(model, config, ExperimentsFiles(str(workdir / "run_transdim")), seed=SEED)
+    trainer.setup(TRAIN_BATCHES)
+    step_metrics = []
+    train_step = trainer.train_step
+
+    def recording_step(batch, draws=None):
+        metrics = train_step(batch, draws)
+        step_metrics.append(metrics)
+        return metrics
+
+    trainer.train_step = recording_step
+    request = batch()
+    fixed = (torch.rand((B,), generator=gen, device=device),
+             torch.poisson(torch.full((B,), 20.0, device=device), generator=gen),
+             torch.randn((B, TD_N * 11), generator=gen, device=device))
+
+    def fixed_loss():
+        with torch.no_grad():
+            return {k: v.item() for k, v in model.loss_fn(dm.valid[0], draws=fixed)[1].items()}
+
+    before = fixed_loss()
+    torch.cuda.synchronize()
+
+    reset_counts()  # the transdimensional training path's run starts here
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    history = trainer.fit(dm, epochs=TD_TRAIN_EPOCHS)
+    torch.cuda.synchronize()
+    fit_seconds = time.perf_counter() - start
+    trainer.train_step = train_step
+    steps = TRAIN_BATCHES * TD_TRAIN_EPOCHS
+    terms = {name: [m[name].item() for m in step_metrics] for name in step_metrics[0]}
+    fit_launches = {**transdim_counts(), **narrow_counts(), **wide_counts(),
+                    "survival_head": survival_head.launches}
+    fit_plain = plain_calls()
+    after = fixed_loss()
+    emit({"phase": "train_transdim", "B": B, "N": TD_N, "steps": steps, "lr": TD_LR,
+          "ema_decay": trainer.ema_decay,
+          "parameters": sum(p.numel() for p in trainer.model.parameters()),
+          "step_losses": terms["loss"], "first_and_last_terms":
+              {name: [v[0], v[-1]] for name, v in terms.items()},
+          "fixed_batch_terms_before_and_after": {k: [before[k], after[k]] for k in before},
+          "epochs": history, "launches": fit_launches, "plain_calls": fit_plain,
+          "fit_seconds": fit_seconds, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "card": card})
+    # the JAX package's transdimensional loss runs the flax modules under
+    # jax.grad, not a kernel; the port's runs the nn.Modules under autograd
+    if any(fit_launches.values()) or fit_plain:
+        raise RuntimeError(f"transdim training launched kernels: {fit_launches}, {fit_plain}")
+    every = ([v for series in terms.values() for v in series] + [r["val_loss"] for r in history]
+             + list(before.values()) + list(after.values()))
+    if (not all(torch.isfinite(torch.tensor(every)).tolist()) or len(terms["loss"]) != steps
+            or not after["loss"] < before["loss"]):
+        raise RuntimeError(f"the transdim loss is not finite or did not fall: {before} → {after}")
+
+    out = trainer.predict([request], generator=torch.Generator(device=device).manual_seed(SEED))[0]
+    torch.cuda.synchronize()
+    launches = transdim_counts()
+    checks = check_generated_transdim(out, B)
+    emit({"phase": "train_transdim_predict", "B": B, "launches": launches,
+          "plain_calls": plain_calls(), "ema": True,
+          "multiplicity_prior": torch.cat([b[0] for b in dm.train]).float().mean().item(),
+          "multiplicity_out": out.dims.float().mean().item(), **checks})
+    if launches != {"epic_forward": TD_STEPS, "gsdm_stack": 2 * TD_STEPS} or plain_calls():
+        raise RuntimeError(f"the transdim training path's predict launched {launches} and called "
+                           f"plain versions {plain_calls()} times")
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for b in dm.train:
+        trainer.train_step(b)
+    torch.cuda.synchronize()
+    step_seconds = (time.perf_counter() - start) / TRAIN_BATCHES
+    emit({"phase": "train_transdim_rate", "B": B, "steps_per_s": 1.0 / step_seconds,
+          "jets_per_s": B / step_seconds, "step_seconds": step_seconds, "card": card})
+
+    def top(kernels, n=12):
+        return [{"ms": ms, "count": c, "name": name[:80]} for ms, c, name in kernels[:n]]
+
+    def window(fn, repeats, name):
+        """(profiled wall ms, device operations) of fn under Trainer.profile."""
+        torch.cuda.synchronize()
+        begin = time.perf_counter()
+        with trainer.profile(str(workdir / name)) as prof:
+            fn()
+        return (time.perf_counter() - begin) * 1e3, device_operations(prof, repeats)
+
+    wall_ms, kernels = window(lambda: [trainer.train_step(b) for b in dm.train[:3]], 3,
+                              "profile_transdim_train")
+    device_ms = sum(k[0] for k in kernels)
+    emit({"phase": "profile_transdim", "window": "train", "steps": 3, "B": B,
+          "profiled_wall_ms_per_step": wall_ms / 3, "device_ms_per_step": device_ms,
+          "bare_step_ms": step_seconds * 1e3,
+          "device_idle_share_of_bare_step": 1.0 - device_ms / (step_seconds * 1e3),
+          "launches_per_step": sum(k[1] for k in kernels),
+          "operations_ms_per_step": top(kernels), "card": card})
+
+    trainer.model.eval()
+    serve_gen = torch.Generator(device=device).manual_seed(SEED + 27)
+    for request_b in (B, TD_B):
+        request = transdim_training_batch(request_b, TD_N, 3, 8, gen, device=device)
+        request_ms = []
+        for _ in range(2):  # the second is the bare request: the first may allocate
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            trainer.model.predict(request, generator=serve_gen)
+            torch.cuda.synchronize()
+            request_ms.append((time.perf_counter() - start) * 1e3)
+        wall_ms, kernels = window(lambda: trainer.model.predict(request, generator=serve_gen), 1,
+                                  f"profile_transdim_request_{request_b}")
+        device_ms = sum(k[0] for k in kernels)
+        emit({"phase": "profile_transdim", "window": "request", "B": request_b, "N": TD_N,
+              "profiled_wall_ms": wall_ms, "device_ms": device_ms,
+              "first_request_ms": request_ms[0], "bare_request_ms": request_ms[1],
+              "device_idle_share_of_bare_request": 1.0 - device_ms / request_ms[1],
+              "launches": sum(k[1] for k in kernels),
+              "operations_ms": top(kernels), "card": card})
+    return launches
+
+
+def transdim_phases(device, card, build_dir, build_log):
+    """Phases 24-29 at the transdimensional family's reference config; K7's
+    entry of the kernels line and what K1's entry gains. `launches` is the
+    count of the transdimensional serving path's run (two requests)."""
+    k1 = phase_k1_fold(device, card)
+    k7_err, k7_errors, k7_ms, k7_plain, k7_bound = phase_k7(device, card, build_log)
+    serving = phase_slice_transdim(device, card)
+    phase_paths_transdim(device)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        train = phase_train_transdim(device, card, Path(tmp))
+    by_path = {"serving_transdim": serving["gsdm_stack"], "train_transdim": train["gsdm_stack"]}
+    k1["launches_by_path"] = {"serving_transdim": serving["epic_forward"],
+                              "train_transdim": train["epic_forward"]}
+    # no one PyTorch call computes the stack (GroupNorm, six products and
+    # attention a block, chained): no library time
+    entry = {"name": "gsdm_stack", "route": "cuda",
+             "source": "multimodal_particles_tpu_torch/ops/csrc/gsdm_stack.cu",
+             "replaces": "multimodal_particles_tpu/ops/gsdm_stack_pallas.py:173",
+             "launches": serving["gsdm_stack"], "launches_by_path": by_path,
+             "max_abs_err": k7_err, "max_abs_err_by_check": k7_errors,
+             "ms": k7_ms, "plain_ms": k7_plain, "bound_ms": k7_bound["bound_ms"],
+             "bound_by": k7_bound["bound_by"], "library_ms": None,
+             "timed_at": {"B": TD_B, "N": TD_N, "Din": 27, "transformer_dim": 128, "n_heads": 2,
+                          "n_attn_blocks": 2}}
+    return entry, k1
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU")
@@ -1478,6 +1942,11 @@ def main():
     kernels[0]["launches_by_path"].update(k1_absorbing.pop("launches_by_path"))
     kernels[0]["absorbing"] = k1_absorbing
     kernels.append(k6_entry)
+    # and the transdimensional family, with the folded Linear-discrete input
+    k7_entry, k1_transdim = transdim_phases(device, card, build_dir, build.log)
+    kernels[0]["launches_by_path"].update(k1_transdim.pop("launches_by_path"))
+    kernels[0]["transdim"] = k1_transdim
+    kernels.append(k7_entry)
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

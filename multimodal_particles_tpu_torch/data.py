@@ -11,8 +11,11 @@ source that MBM samples from (source_name "GaussNoise");
 not read jets from disk. `absorbing_training_batch` is the absorbing family's:
 its source holds fewer particles than its target (the data option
 `source_masks_from_target_masks` off), since that family generates the
-multiplicity. All build on any device from an explicit generator.
-`InMemoryDataModule` holds ready batches for `Trainer.fit`.
+multiplicity. `transdim_training_batch` is the transdimensional family's
+'list' batch [multiplicities, kinematics, one-hot tokens], with
+`multiplicity_histogram` for its sampler's prior. All build on any device from
+an explicit generator. `InMemoryDataModule` holds ready batches for
+`Trainer.fit`.
 """
 
 import dataclasses
@@ -128,6 +131,35 @@ def absorbing_training_batch(
         source_discrete=batch.source_discrete * mask.to(batch.source_discrete.dtype),
         source_mask=mask,
     )
+
+
+def transdim_training_batch(
+    num_jets: int,
+    max_num_particles: int,
+    dim_continuous: int,
+    vocab_size: int,
+    generator: torch.Generator,
+    device=None,
+):
+    """The transdimensional family's 'list' databatch [n_particles (B,) int32,
+    continuous (B, N, dim_c), one-hot tokens (B, N, vocab)]: multiplicities
+    uniform in [1, max_num_particles], standard-normal kinematics, uniform
+    tokens; rows from a jet's multiplicity on are zero."""
+    B, N = num_jets, max_num_particles
+    kw = dict(generator=generator, device=device)
+    n_particles = torch.randint(1, N + 1, (B,), **kw).to(torch.int32)
+    live = (torch.arange(N, device=device)[None, :] < n_particles[:, None]).float()[..., None]
+    x = torch.randn((B, N, dim_continuous), **kw) * live
+    tokens = torch.randint(0, vocab_size, (B, N), **kw)
+    one_hot = torch.nn.functional.one_hot(tokens, vocab_size).to(torch.float32) * live
+    return [n_particles, x, one_hot]
+
+
+def multiplicity_histogram(n_particles) -> dict:
+    """{multiplicity: count} of a batch's multiplicities, the input of
+    `DistributionNodes`."""
+    values, counts = torch.unique(torch.as_tensor(n_particles).cpu(), return_counts=True)
+    return {int(v): int(c) for v, c in zip(values.tolist(), counts.tolist())}
 
 
 @dataclasses.dataclass

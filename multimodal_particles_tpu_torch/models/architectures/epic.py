@@ -124,12 +124,14 @@ class EPiCNetwork(nn.Module):
 
 
 class EPiCWrapper(nn.Module):
-    """Embeds (t, x, k) then runs the EPiC network (epic.py:128-161)."""
+    """Embeds (t, x, k) then runs the EPiC network (epic.py:128-161). With
+    `discrete_channel_values` the caller may feed the (B, N, V) channel values
+    as k (the Linear discrete embedding)."""
 
-    def __init__(self, config):
+    def __init__(self, config, discrete_channel_values: bool = False):
         super().__init__()
         cfg_d, cfg_e = config.data, config.encoder
-        self.embedding = InputEmbeddings(config)
+        self.embedding = InputEmbeddings(config, discrete_channel_values)
         self.epic = EPiCNetwork(
             dim_in=self.embedding.dim_local,
             dim_context=self.embedding.dim_emb_time,

@@ -82,11 +82,14 @@ class InputEmbeddings(nn.Module):
     """Per-particle features [t_emb, x_emb, k_emb] (masked) and the global
     context t_emb (utils.py:89-177).
 
-    Ported for the config-berlin pattern only: Sinusoidal time, Linear
-    continuous, Embedding discrete, no context. Other switches raise
+    Ported: Sinusoidal time, Linear continuous, no context, and the discrete
+    input either as an Embedding of one token (config-berlin) or as a Linear
+    over the V noisy one-hot channel values (the transdimensional trunk's
+    default: `discrete_channel_values`, which a model that feeds the (B, N, V)
+    values sets; a Dense over a token id is not ported). Other switches raise
     NotImplementedError (ROADMAP lists them)."""
 
-    def __init__(self, config):
+    def __init__(self, config, discrete_channel_values: bool = False):
         super().__init__()
         cfg_d, cfg_e = config.data, config.encoder
         if cfg_e.embedding_time != "SinusoidalPositionalEncoding":
@@ -97,7 +100,9 @@ class InputEmbeddings(nn.Module):
             raise NotImplementedError(
                 f"Continuous embedding {cfg_e.embedding_features_continuous!r}"
             )
-        if cfg_e.embedding_features_discrete != "Embedding" or cfg_d.dim_features_discrete != 1:
+        self.linear_discrete = cfg_e.embedding_features_discrete == "Linear"
+        allowed = ("Embedding", "Linear") if discrete_channel_values else ("Embedding",)
+        if cfg_e.embedding_features_discrete not in allowed or cfg_d.dim_features_discrete != 1:
             raise NotImplementedError(
                 f"Discrete embedding {cfg_e.embedding_features_discrete!r} with "
                 f"dim_features_discrete={cfg_d.dim_features_discrete}"
@@ -106,21 +111,29 @@ class InputEmbeddings(nn.Module):
             raise NotImplementedError("context embeddings are not ported")
         self.dim_emb_time, dim_emb_cont, dim_emb_disc = embedding_dims(config)
         self.embedding_continuous = nn.Linear(cfg_d.dim_features_continuous, dim_emb_cont)
-        self.embedding_discrete = nn.Embedding(cfg_d.vocab_size_features, dim_emb_disc)
+        if self.linear_discrete:
+            self.embedding_discrete = nn.Linear(cfg_d.vocab_size_features, dim_emb_disc)
+        else:
+            self.embedding_discrete = nn.Embedding(cfg_d.vocab_size_features, dim_emb_disc)
 
     @property
     def dim_local(self) -> int:
         return (
             self.dim_emb_time
             + self.embedding_continuous.out_features
-            + self.embedding_discrete.embedding_dim
+            + self.embedding_discrete.weight.shape[0 if self.linear_discrete else 1]
         )
 
     def forward(self, t, x, k, mask):
+        """k: (B, N, 1) tokens, or with the Linear discrete input the
+        (B, N, V) channel values."""
         B, N = x.shape[0], x.shape[1]
         t_emb = sinusoidal_positional_encoding(t.reshape(B, -1)[:, :1], self.dim_emb_time)
         t_local = t_emb[:, None, :].expand(B, N, self.dim_emb_time)
         x_emb = self.embedding_continuous(x)
-        k_emb = self.embedding_discrete(k.reshape(B, N).long())
+        if self.linear_discrete:
+            k_emb = self.embedding_discrete(k.to(x.dtype))
+        else:
+            k_emb = self.embedding_discrete(k.reshape(B, N).long())
         features = torch.cat([t_local, x_emb, k_emb], dim=-1) * mask
         return features, t_emb

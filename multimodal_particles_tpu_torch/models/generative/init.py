@@ -1,13 +1,15 @@
 """The port's own parameter initialiser, mirroring flax's defaults for the
-modules MBM (multimodal_particles_tpu/models/generative/multimodal_bridge_matching.py:90-110)
-and the absorbing family (absorbing/absorbing_flows.py:155-163) use:
+modules MBM (multimodal_particles_tpu/models/generative/multimodal_bridge_matching.py:90-110),
+the absorbing family (absorbing/absorbing_flows.py:155-163) and the
+transdimensional family (transdimensional/transdimensional_model.py:284-293) use:
 
   WeightNormDense  v lecun-normal, g = ‖v‖ per output unit, bias 0
                    (models/architectures/utils.py:65-85)
   Dense            kernel lecun-normal, bias 0
   Embed            normal with std 1/√features (flax `default_embed_init`)
   GroupNorm        scale 1, bias 0
-  loss_weights     zeros (2 for MBM, 3 for the absorbing family)
+  loss_weights     zeros (2 for MBM, 3 for the absorbing family, none for the
+                   transdimensional family)
 
 lecun-normal is flax's truncated normal: a standard normal cut at ±2,
 scaled to std √(1/fan_in) / 0.8796 so that the truncated law has variance
@@ -64,10 +66,12 @@ def init_parameters(model: nn.Module, seed: int) -> nn.Module:
         elif isinstance(module, GroupNorm):
             module.weight.fill_(1.0)
             module.bias.zero_()
-    model.loss_weights.zero_()
+    if hasattr(model, "loss_weights"):
+        model.loss_weights.zero_()
     return model
 
 
-# the families' entry points, one law for both
+# the families' entry points, one law for all
 init_mbm_parameters = init_parameters
 init_absorbing_parameters = init_parameters
+init_transdimensional_parameters = init_parameters

@@ -3,7 +3,11 @@
 `nvcc` compiles every `ops/csrc/*.cu` for Hopper (`sm_90a`), one process per
 source in parallel, and links the objects into one shared library with a
 plain C interface, in `ops/build/` (git-ignored). The library
-is rebuilt when a source or header is newer than it. No fast-math: the
+is rebuilt when a source or header is newer than it. Sources that share
+device code include a header: epic_forward.cuh (the narrow EPiC kernels;
+epic_forward_kernel.cuh the forward kernel's two instantiations),
+epic_wide.cuh (the wide ones and the tiled products) and gsdm_blocks.cuh (the
+(ResnetBlock, AttnBlock) stack of the survival head and the gsdm stack). No fast-math: the
 telegraph update divides by 1 − exp(−Sγ(1−t)), which is about 1e-4 at the
 last step, and its jump decisions must follow the accurate `expf`.
 """
@@ -32,14 +36,16 @@ _F = ctypes.c_float
 # C entry points (ops/csrc/*.cu) and their argument types; every pointer and
 # the stream are c_void_p so that 64-bit addresses are not truncated.
 _SIGNATURES = {
-    # dims[9]: EpicDims.c_array (ops/epic_cuda.py)
-    # weights, t, x, k, mask, out, hidden out (or null), B, N, dims[9], stream
+    # dims[10]: EpicDims.c_array (ops/epic_cuda.py)
+    # weights, t, x, k (int tokens; the _fold entry: float channel values, for a layout
+    # that folds the discrete input), mask, out, hidden out (or null), B, N, dims[10], stream
     "mmp_epic_forward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
-    # weights, x, k, mask, u, x_out, k_out, t, dt, gamma, B, N, dims[9], stream
+    "mmp_epic_forward_fold": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    # weights, x, k, mask, u, x_out, k_out, t, dt, gamma, B, N, dims[10], stream
     "mmp_sampler_step": [_P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _I, _I, _P, _P],
-    # B, N, dims[9], &grid (int), &scratch floats (long long)
+    # B, N, dims[10], &grid (int), &scratch floats (long long)
     "mmp_epic_backward_workspace": [_I, _I, _P, _P, _P],
-    # weights, t, x, k, mask, g, d_weights, scratch, grid, B, N, dims[9], stream
+    # weights, t, x, k, mask, g, d_weights, scratch, grid, B, N, dims[10], stream
     "mmp_epic_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     # the wide pair (hidden 128) takes the same arguments as the narrow one
     "mmp_epic_wide_forward": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
@@ -48,6 +54,9 @@ _SIGNATURES = {
     # weights, temb_proj (n_blocks, B, C), last (B, N, Dh), mask (B, N), out (B, N),
     # scratch (grid, 128, C), grid, B, N, Dh, n_blocks, n_heads, stream
     "mmp_survival_head": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # weights, temb_proj (n_blocks, B, C), x (B, N, Din), out (B, N, C),
+    # scratch (grid, 128, C), grid, B, N, Din, n_blocks, n_heads, stream
+    "mmp_gsdm_stack": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -582,7 +582,7 @@ extern "C" int mmp_epic_backward_workspace(int B, int N, const int* dims, int* g
                                            long long* floats) {
   using namespace mmp;
   const Dims d = dims_from(dims);
-  if (d.head_hidden != V) return cudaErrorInvalidValue;  // written for a head as wide as the vocabulary
+  if (!token_layout(d)) return cudaErrorInvalidValue;  // written for a head as wide as the vocabulary and a token input
   switch (d.hidden) {
     case 16: return backward_workspace<16>(d, B, N, grid, floats);
     case 32: return backward_workspace<32>(d, B, N, grid, floats);
@@ -596,7 +596,7 @@ extern "C" int mmp_epic_backward(const void* w, const void* t, const void* x, co
                                  int grid, int B, int N, const int* dims, void* stream) {
   using namespace mmp;
   const Dims d = dims_from(dims);
-  if (d.head_hidden != V) return cudaErrorInvalidValue;  // written for a head as wide as the vocabulary
+  if (!token_layout(d)) return cudaErrorInvalidValue;  // written for a head as wide as the vocabulary and a token input
   if (B == 0) return cudaSuccess;
   const auto* wf = static_cast<const float*>(w);
   const auto* tf = static_cast<const float*>(t);

@@ -1,5 +1,5 @@
 // Shared EPiC forward for the hand-written Hopper kernels
-// (epic_forward.cu, sampler_step.cu, epic_backward.cu), as the JAX kernels
+// (epic_forward.cu, epic_forward_fold.cu, sampler_step.cu, epic_backward.cu), as the JAX kernels
 // share `_forward_acts` (multimodal_particles_tpu/ops/epic_pallas.py:183-272).
 //
 // Design: one thread block per jet, one thread per particle slot.
@@ -32,21 +32,28 @@ constexpr int V = 8;             // token vocabulary
 constexpr int MAX_THREADS = 256; // particle slots per jet (one thread each)
 
 // head_hidden: hidden width of the discrete head's MLP (V for MBM, 56 for the
-// absorbing generator). The forward kernel takes any width; the sampler step
-// and the backward kernel are written for V and refuse another.
+// absorbing generator). fold_discrete: the discrete input is the particle's V
+// channel values through a Dense (the transdimensional trunk's Linear-discrete
+// embedding) instead of a token's table row; the layout then holds the
+// Dense's bias after the table. The forward kernel takes any head width and
+// the fold; the sampler step and the backward kernel are written for a head
+// of width V and a token, and refuse anything else.
 struct Dims {
   int hidden, hidden_glob, emb_t, emb_x, emb_k, num_blocks, use_skip, add_discrete_head;
-  int head_hidden;
+  int head_hidden, fold_discrete;
 };
 
 inline Dims dims_from(const int* a) {
-  return Dims{a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8]};
+  return Dims{a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], a[9]};
 }
+
+// What every kernel but the forward takes: the MBM layout.
+inline bool token_layout(const Dims& d) { return d.head_hidden == V && d.fold_discrete == 0; }
 
 // Offsets in floats. Stage 0 offsets are absolute; block offsets are from the
 // start of a block; head offsets are from `heads`.
 struct Layout {
-  int w_x, b_x, table, w_l0, b_l0, w_g0, b_g0, w_g1, b_g1, w_g2, b_g2;
+  int w_x, b_x, table, b_k, w_l0, b_l0, w_g0, b_g0, w_g1, b_g1, w_g2, b_g2;
   int blocks, block_stride;
   int fg1, bfg1, fg2, bfg2, fl1, bfl1, fl2, bfl2;
   int heads, heads_len;
@@ -61,6 +68,7 @@ __host__ __device__ inline Layout make_layout(const Dims& d) {
   L.w_x = o;   o += d.emb_x * DC;
   L.b_x = o;   o += d.emb_x;
   L.table = o; o += V * d.emb_k;
+  L.b_k = o;   o += d.fold_discrete ? d.emb_k : 0;  // the folded Dense's bias
   L.w_l0 = o;  o += H * (Et + d.emb_x + d.emb_k);
   L.b_l0 = o;  o += H;
   L.w_g0 = o;  o += H * (2 * H + Et);
@@ -198,12 +206,14 @@ __device__ __forceinline__ void warp_dense(const float* W, const float* b, const
 //   t    this jet's time
 //   x, k, m  the particle's kinematics, token and mask
 //   cont (DC) continuous head · mask; disc (V) discrete logits
-template <int H, class Rec = NoRecord>
+//   FOLD, kvals  the folded Linear-discrete input (d.fold_discrete): the
+//        particle's V channel values take the token's place, k is not read
+template <int H, class Rec = NoRecord, bool FOLD = false>
 __device__ void epic_forward_particle(const float* __restrict__ wglob, const Dims& d,
                                       const Layout& L, float* smem, float t,
                                       const float (&x)[DC], int k, float m,
                                       float (&cont)[DC], float (&disc)[V],
-                                      const Rec& rec = Rec()) {
+                                      const Rec& rec = Rec(), const float* kvals = nullptr) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, nwarps = blockDim.x >> 5;
   const int Hg = d.hidden_glob, Et = d.emb_t, Ex = d.emb_x, Ek = d.emb_k;
   float* sw = smem;
@@ -259,7 +269,15 @@ __device__ void epic_forward_particle(const float* __restrict__ wglob, const Dim
   }
   const bool k_valid = k >= 0 && k < V;
   for (int i = 0; i < Ek; ++i) {
-    const float ke = k_valid ? sw[L.table + k * Ek + i] : 0.f;
+    float ke;
+    if constexpr (FOLD) {
+      ke = 0.f;
+#pragma unroll
+      for (int v = 0; v < V; ++v) ke = fmaf(kvals[v], sw[L.table + v * Ek + i], ke);
+      ke += sw[L.b_k + i];
+    } else {
+      ke = k_valid ? sw[L.table + k * Ek + i] : 0.f;
+    }
     const float* w = sw + L.w_l0 + Et + Ex + i;
 #pragma unroll
     for (int j = 0; j < H; ++j) h[j] = fmaf(w[j * n_l0], ke, h[j]);

@@ -42,20 +42,22 @@ constexpr int THREADS = 256;
 constexpr int KT = 16;        // input rows of a weight tile
 constexpr int MAT = ROWS * WD;
 
-// head_hidden: hidden width of the discrete head's MLP; the wide kernels are
-// written for V and refuse another.
+// head_hidden: hidden width of the discrete head's MLP; fold_discrete: the
+// Linear-discrete input of the narrow forward kernel (epic_forward.cuh). The
+// wide kernels are written for a head of width V and a token input and refuse
+// anything else.
 struct Dims {
   int hidden, hidden_glob, emb_t, emb_x, emb_k, num_blocks, use_skip, add_discrete_head;
-  int head_hidden;
+  int head_hidden, fold_discrete;
 };
 
 inline Dims dims_from(const int* a) {
-  return Dims{a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8]};
+  return Dims{a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], a[9]};
 }
 
 inline bool dims_supported(const Dims& d) {
   return d.hidden == WD && d.hidden_glob == WD && d.emb_t == WD && d.emb_x == WD &&
-         d.emb_k == WD && d.num_blocks >= 0 && d.head_hidden == V;
+         d.emb_k == WD && d.num_blocks >= 0 && d.head_hidden == V && d.fold_discrete == 0;
 }
 
 // Offsets in floats into the packed buffer; matrices are (in, out) row-major.

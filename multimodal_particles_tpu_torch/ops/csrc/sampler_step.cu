@@ -113,7 +113,7 @@ extern "C" int mmp_sampler_step(const void* w, const void* x, const void* k, con
                                 float gamma, int B, int N, const int* dims, void* stream) {
   using namespace mmp;
   const Dims d = dims_from(dims);
-  if (d.head_hidden != V) return cudaErrorInvalidValue;  // written for a head as wide as the vocabulary
+  if (!token_layout(d)) return cudaErrorInvalidValue;  // written for a head as wide as the vocabulary and a token input
   if (B == 0) return cudaSuccess;
   const auto* wf = static_cast<const float*>(w);
   const auto* xf = static_cast<const float*>(x);

@@ -14,8 +14,15 @@ local hidden state (B, N, H), which the absorbing family's survival head
 reads (epic_pallas.py:291-292, :428-446). The discrete head's hidden width is
 a member of the layout (`EpicDims.head_hidden`): the vocabulary's 8 for MBM,
 `discrete_head_hidden_dim` for the absorbing generator; only `epic_forward`
-takes another width than 8, the other kernels' wrappers refuse it. The port keeps the JAX package's (B, N, C) layout: the JAX
-kernels' (features, B·N) lane layout is TPU layout, not semantics.
+takes another width than 8, the other kernels' wrappers refuse it. So is
+the Linear-discrete input of the transdimensional trunk
+(`EpicDims.fold_discrete`, set by `pack_encoder_params_fold_discrete`,
+epic_pallas.py:107-131): the discrete embedding is then a Dense over the
+particle's V channel values, its bias has a slot after the table, and
+`epic_forward` takes the (B, N, V) float values where it takes the tokens;
+again only `epic_forward` takes such a packing. The port keeps the JAX
+package's (B, N, C) layout: the JAX kernels' (features, B·N) lane layout is
+TPU layout, not semantics.
 """
 
 import ctypes
@@ -52,9 +59,12 @@ class EpicDims:
     use_skip: bool
     add_discrete_head: bool
     head_hidden: int = 8  # hidden width of the discrete head's MLP
+    fold_discrete: bool = False  # the discrete input is a Dense over the V channel values
 
     @classmethod
-    def from_config(cls, config, head_hidden: int = 8) -> "EpicDims":
+    def from_config(cls, config, head_hidden: int = 8, add_discrete_head=None,
+                    fold_discrete: bool = False) -> "EpicDims":
+        """`add_discrete_head` None takes the config's; a bare trunk passes False."""
         cfg_e = config.encoder
         emb_t, emb_x, emb_k = embedding_dims(config)
         return cls(
@@ -65,15 +75,17 @@ class EpicDims:
             emb_k=emb_k,
             num_blocks=cfg_e.num_blocks,
             use_skip=bool(cfg_e.skip_connection),
-            add_discrete_head=bool(cfg_e.add_discrete_head),
+            add_discrete_head=bool(cfg_e.add_discrete_head if add_discrete_head is None
+                                   else add_discrete_head),
             head_hidden=head_hidden,
+            fold_discrete=fold_discrete,
         )
 
     def c_array(self):
-        return (ctypes.c_int * 9)(
+        return (ctypes.c_int * 10)(
             self.hidden, self.hidden_glob, self.emb_t, self.emb_x, self.emb_k,
             self.num_blocks, int(self.use_skip), int(self.add_discrete_head),
-            self.head_hidden,
+            self.head_hidden, int(self.fold_discrete),
         )
 
 
@@ -83,6 +95,7 @@ def weight_layout(d: EpicDims):
     H, Hg, Et = d.hidden, d.hidden_glob, d.emb_t
     entries = [
         ("w_x", (d.emb_x, DIM_C)), ("b_x", (d.emb_x,)), ("table", (VOCAB, d.emb_k)),
+        *([("b_k", (d.emb_k,))] if d.fold_discrete else []),
         ("w_l0", (H, Et + d.emb_x + d.emb_k)), ("b_l0", (H,)),
         ("w_g0", (H, 2 * H + Et)), ("b_g0", (H,)),
         ("w_g1", (H, H)), ("b_g1", (H,)),
@@ -164,10 +177,11 @@ def effective_weights(encoder, d: EpicDims, head=None) -> Dict[str, torch.Tensor
     emb = encoder.epic.embedding
     net = encoder.epic.epic
     proj = net.epic_proj
-    src = {
-        "w_x": emb.embedding_continuous.weight, "b_x": emb.embedding_continuous.bias,
-        "table": emb.embedding_discrete.weight,
-    }
+    src = {"w_x": emb.embedding_continuous.weight, "b_x": emb.embedding_continuous.bias}
+    if d.fold_discrete:  # a Linear (emb_k, V): its transpose has the table's shape
+        src.update(table=emb.embedding_discrete.weight.T, b_k=emb.embedding_discrete.bias)
+    else:
+        src["table"] = emb.embedding_discrete.weight
     for name, layer in (("l0", proj.local_0), ("g0", proj.global_0),
                         ("g1", proj.global_1), ("g2", proj.global_2)):
         src[f"w_{name}"], src[f"b_{name}"] = layer.effective_weight(), layer.bias
@@ -208,17 +222,39 @@ def pack_mbm_encoder_params(encoder, config, differentiable: bool = False,
     return PackedEncoder(flat, flat_views(flat, d), d)
 
 
-def epic_pattern_supported(config) -> bool:
+def pack_bare_trunk_params(encoder, config, fold_discrete: bool) -> PackedEncoder:
+    """A module with a bare `epic` trunk → flat buffer for the narrow forward
+    kernel, detached. The trunk has no discrete head of its own, whatever
+    `config.encoder.add_discrete_head` says: the transdimensional network
+    reads the trunk's 11 outputs as they are (transdimensional_model.py:413).
+    With `fold_discrete` the discrete embedding is a Linear over the V channel
+    values (epic_pallas.py:107-131), else a token's table row."""
+    d = EpicDims.from_config(config, add_discrete_head=False, fold_discrete=fold_discrete)
+    with torch.no_grad():
+        src = effective_weights(encoder, d)
+        flat = torch.cat([src[name].reshape(-1).float() for name, _ in weight_layout(d)])
+    return PackedEncoder(flat, flat_views(flat, d), d)
+
+
+def pack_encoder_params_fold_discrete(encoder, config) -> PackedEncoder:
+    """`pack_bare_trunk_params` with the folded Linear-discrete input."""
+    return pack_bare_trunk_params(encoder, config, fold_discrete=True)
+
+
+def epic_pattern_supported(config, allow_linear_discrete: bool = False) -> bool:
     """The encoder pattern both kernel families are written for
     (epic_pallas.py:450-471): sinusoidal time embedding, Linear continuous and
-    Embedding discrete inputs, no context, 3 continuous features, vocab 8, and
-    no tensor-parallel 'model' axis (epic_pallas.py:489-493)."""
+    Embedding discrete inputs (with `allow_linear_discrete` also the Linear
+    discrete input, which only the narrow forward kernel takes), no context,
+    3 continuous features, vocab 8, and no tensor-parallel 'model' axis
+    (epic_pallas.py:489-493)."""
     e, d = config.encoder, config.data
+    discrete = ("Embedding", "Linear") if allow_linear_discrete else ("Embedding",)
     return (
         config.parallel.model_axis <= 1
         and e.embedding_time == "SinusoidalPositionalEncoding"
         and e.embedding_features_continuous == "Linear"
-        and e.embedding_features_discrete == "Embedding"
+        and e.embedding_features_discrete in discrete
         and d.dim_context_continuous == 0
         and d.dim_context_discrete == 0
         and d.dim_features_discrete == 1
@@ -227,11 +263,11 @@ def epic_pattern_supported(config) -> bool:
     )
 
 
-def epic_supported(config) -> bool:
+def epic_supported(config, allow_linear_discrete: bool = False) -> bool:
     """True when the encoder matches what the narrow kernels are compiled for
     (epic_pallas.py:474-494, without the TPU-only N % 128 condition)."""
     return (
-        epic_pattern_supported(config)
+        epic_pattern_supported(config, allow_linear_discrete)
         and config.encoder.dim_hidden_local in HIDDEN_WIDTHS
         and 1 <= config.data.max_num_particles <= MAX_PARTICLES
     )
@@ -264,7 +300,8 @@ def forward_from_temb(packed: PackedEncoder, temb, x, k, mask, preacts=None,
                       return_hidden: bool = False):
     """The EPiC forward on packed weights in (B, N, C) layout, from the
     per-jet time embedding temb (B, E_t): the math of `_forward_acts`
-    (epic_pallas.py:183-272). Returns (cont (B,N,3), logits (B,N,8)), and
+    (epic_pallas.py:183-272). k is the (B, N, 1) tokens, or with a folded
+    packing the (B, N, V) channel values. Returns (cont (B,N,3), logits (B,N,8)), and
     with `return_hidden` also the last block's local state h (B,N,H).
     A list `preacts` receives (name, tensor) for the input of every leaky
     and SELU: per particle (B, N, F) or per jet (B, F)."""
@@ -280,8 +317,11 @@ def forward_from_temb(packed: PackedEncoder, temb, x, k, mask, preacts=None,
     ctx = temb  # per-jet context = time embedding
 
     x_emb = x @ W["w_x"].T + W["b_x"]
-    one_hot = (k.reshape(B, N, 1).long() == torch.arange(VOCAB, device=x.device)).to(x.dtype)
-    k_emb = one_hot @ W["table"]
+    if d.fold_discrete:
+        k_emb = k.to(x.dtype) @ W["table"] + W["b_k"]
+    else:
+        one_hot = (k.reshape(B, N, 1).long() == torch.arange(VOCAB, device=x.device)).to(x.dtype)
+        k_emb = one_hot @ W["table"]
     t_local = temb[:, None, :].expand(B, N, d.emb_t)
     feats = torch.cat([t_local, x_emb, k_emb], dim=-1) * mask
 
@@ -338,18 +378,23 @@ epic_forward_reference.calls = 0
 
 def check_head_width(packed: PackedEncoder, kernel: str):
     """Every kernel but the narrow forward is written for a discrete head as
-    wide as the vocabulary; another width shifts the packed buffer under it."""
+    wide as the vocabulary and for tokens as the discrete input; another head
+    width or the folded Linear-discrete input shifts the packed buffer under
+    it."""
     if packed.dims.head_hidden != VOCAB:
         raise ValueError(
             f"{kernel} takes a discrete head of hidden width {VOCAB}, "
             f"got {packed.dims.head_hidden}"
         )
+    if packed.dims.fold_discrete:
+        raise ValueError(f"{kernel} takes tokens, not a packing with the folded discrete input")
 
 
 def check_narrow_packing(packed: PackedEncoder, any_head_width: bool = False):
     """The narrow kernels take their own layout at the widths they are
     compiled for; only the forward kernel (`any_head_width`) takes a discrete
-    head of another hidden width than the vocabulary's."""
+    head of another hidden width than the vocabulary's, or the folded
+    Linear-discrete input."""
     if packed.layout != "narrow":
         raise ValueError("the narrow kernels read the pack_mbm_encoder_params layout")
     if packed.dims.hidden not in HIDDEN_WIDTHS:
@@ -369,15 +414,18 @@ def check_kernel_inputs(packed: PackedEncoder, x, k, mask, max_particles=MAX_PAR
     B, N = x.shape[0], x.shape[1]
     if not 1 <= N <= max_particles:
         raise ValueError(f"N={N} outside [1, {max_particles}]")
-    if tuple(k.shape) != (B, N, 1) or tuple(mask.shape) != (B, N, 1):
-        raise ValueError(f"k and mask must be (B, N, 1), got {tuple(k.shape)}, {tuple(mask.shape)}")
-    if k.dtype.is_floating_point or k.dtype.is_complex:
+    fold = packed.dims.fold_discrete
+    k_shape = (B, N, VOCAB) if fold else (B, N, 1)
+    if tuple(k.shape) != k_shape or tuple(mask.shape) != (B, N, 1):
+        raise ValueError(f"k must be {k_shape} and mask (B, N, 1), got {tuple(k.shape)}, "
+                         f"{tuple(mask.shape)}")
+    if not fold and (k.dtype.is_floating_point or k.dtype.is_complex):
         raise TypeError(f"k must be an integer tensor, got {k.dtype}")
     tensors = dict(x=x, k=k, mask=mask, weights=packed.flat, **others)
     for name, tensor in tensors.items():
         if tensor.device != x.device:
             raise ValueError(f"{name} is on {tensor.device}, x on {x.device}")
-        if name != "k" and tensor.dtype != torch.float32:
+        if (name != "k" or fold) and tensor.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {tensor.dtype}")
         if not tensor.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -385,24 +433,29 @@ def check_kernel_inputs(packed: PackedEncoder, x, k, mask, max_particles=MAX_PAR
 
 
 def epic_forward(packed: PackedEncoder, t, x, k, mask, output_hidden_local=False):
-    """Fused EPiC forward. t (B,1,1), x (B,N,3), k (B,N,1) int, mask (B,N,1)
-    → (B, N, 3 + 8) float32; with `output_hidden_local` also the trunk's last
-    local hidden state (B, N, H), written by the same launch. CPU tensors take
-    the plain version; CUDA tensors launch the kernel or raise."""
+    """Fused EPiC forward. t (B,1,1), x (B,N,3), k (B,N,1) int (with a folded
+    packing the (B,N,8) float channel values), mask (B,N,1) → (B, N, 3 + 8)
+    float32; with `output_hidden_local` also the trunk's last local hidden
+    state (B, N, H), written by the same launch. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
     if x.device.type == "cpu":
         return epic_forward_reference(packed, t, x, k, mask, output_hidden_local)
     check_narrow_packing(packed, any_head_width=True)
     B, N = check_kernel_inputs(packed, x, k, mask, t=t)
     if t.numel() != B:
         raise ValueError(f"t must hold one time per jet, got {tuple(t.shape)}")
-    k32 = k.to(torch.int32).contiguous()
+    k32 = k if packed.dims.fold_discrete else k.to(torch.int32).contiguous()
+    if k32.data_ptr() % 16 and packed.dims.fold_discrete:
+        raise ValueError("the channel values must be 16-byte aligned")
     out = torch.empty((B, N, DIM_C + VOCAB), dtype=torch.float32, device=x.device)
     hidden = (torch.empty((B, N, packed.dims.hidden), dtype=torch.float32, device=x.device)
               if output_hidden_local else None)
     lib = _build.load_library()
+    # the folded instantiation has an entry point (and a source) of its own
+    entry = lib.mmp_epic_forward_fold if packed.dims.fold_discrete else lib.mmp_epic_forward
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.mmp_epic_forward(
+        rc = entry(
             packed.flat.data_ptr(), t.data_ptr(), x.data_ptr(), k32.data_ptr(),
             mask.data_ptr(), out.data_ptr(),
             hidden.data_ptr() if output_hidden_local else None,

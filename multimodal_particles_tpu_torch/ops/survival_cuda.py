@@ -9,22 +9,33 @@ of the JAX packing (survival_pallas.py:56-91; the layout itself is
 the (B,) times only and stay plain PyTorch as they stay XLA in JAX (:336-352).
 `survival_head` launches ops/csrc/survival_head.cu on CUDA tensors;
 `survival_head_reference` is its plain PyTorch version, which the wrapper
-takes for CPU tensors.
+takes for CPU tensors. The (ResnetBlock, AttnBlock) blocks are the gsdm
+stack's: their packing, their plain version and the wrappers' common checks
+come from ops/gsdm_stack_cuda.py, their device code from
+ops/csrc/gsdm_blocks.cuh.
 """
 
 import dataclasses
-import math
 from typing import Dict
 
 import torch
 
-from multimodal_particles_tpu_torch.models.architectures.gsdm import group_norm, swish
+from multimodal_particles_tpu_torch.models.architectures.gsdm import swish
 from multimodal_particles_tpu_torch.models.architectures.utils import get_timestep_embedding
 from multimodal_particles_tpu_torch.ops import _build
+from multimodal_particles_tpu_torch.ops.gsdm_stack_cuda import (
+    CHANNELS,
+    MAX_PARTICLES,
+    block_grid_and_scratch,
+    block_layout,
+    block_weights,
+    blocks_reference,
+    check_float32_on,
+    check_heads,
+    pack_flat,
+    stacked_time_rows,
+)
 
-# what the kernel is compiled for (ops/csrc/survival_head.cu)
-CHANNELS = 128
-MAX_PARTICLES = 128
 HIDDEN_MULTIPLE = 16  # the trunk's hidden width: a multiple of 16 up to CHANNELS
 
 
@@ -34,13 +45,7 @@ def head_layout(dim_hidden: int, n_blocks: int):
     C = CHANNELS
     entries = [("w_in_h", (dim_hidden, C)), ("w_oh0", (C,)), ("w_oh1", (C,)), ("b_in", (C,))]
     for i in range(n_blocks):
-        entries += [
-            (f"gn1_s_{i}", (C,)), (f"gn1_b_{i}", (C,)), (f"w_c1_{i}", (C, C)), (f"b_c1_{i}", (C,)),
-            (f"gn2_s_{i}", (C,)), (f"gn2_b_{i}", (C,)), (f"w_c2_{i}", (C, C)), (f"b_c2_{i}", (C,)),
-            (f"gna_s_{i}", (C,)), (f"gna_b_{i}", (C,)),
-            (f"wq_{i}", (C, C)), (f"bq_{i}", (C,)), (f"wk_{i}", (C, C)), (f"bk_{i}", (C,)),
-            (f"wv_{i}", (C, C)), (f"bv_{i}", (C,)), (f"wp_{i}", (C, C)), (f"bp_{i}", (C,)),
-        ]
+        entries += block_layout(i)
     entries += [("w_pre", (C, C)), ("b_pre", (C,)), ("w_post", (C,)), ("b_post", (1,))]
     return entries
 
@@ -62,26 +67,11 @@ def pack_survival_head_params(generator, n_blocks: int) -> PackedSurvivalHead:
     src = {"w_in_h": w_in[:dh], "w_oh0": w_in[dh], "w_oh1": w_in[dh + 1],
            "b_in": generator.transformer_1_proj_in.bias}
     for i in range(n_blocks):
-        res, att = getattr(generator, f"res_block_{i}"), getattr(generator, f"attn_block_{i}")
-        for name, norm in (("gn1", res.norm1), ("gn2", res.norm2), ("gna", att.norm)):
-            src[f"{name}_s_{i}"], src[f"{name}_b_{i}"] = norm.weight, norm.bias
-        for name, dense in (("c1", res.conv1), ("c2", res.conv2)):
-            src[f"w_{name}_{i}"], src[f"b_{name}_{i}"] = dense.weight.T, dense.bias
-        for name, dense in (("q", att.q), ("k", att.k), ("v", att.v), ("p", att.proj_out)):
-            src[f"w{name}_{i}"], src[f"b{name}_{i}"] = dense.weight.T, dense.bias
+        src.update(block_weights(getattr(generator, f"res_block_{i}"),
+                                 getattr(generator, f"attn_block_{i}"), i))
     src.update(w_pre=generator.pre_rate_proj.weight.T, b_pre=generator.pre_rate_proj.bias,
                w_post=generator.post_rate_proj.weight[0], b_post=generator.post_rate_proj.bias)
-    layout = head_layout(dh, n_blocks)
-    for name, shape in layout:
-        if tuple(src[name].shape) != shape:
-            raise ValueError(f"packed weight {name}: shape {tuple(src[name].shape)} != {shape}")
-    with torch.no_grad():
-        flat = torch.cat([src[name].reshape(-1).float() for name, _ in layout])
-    tensors, off = {}, 0
-    for name, shape in layout:
-        n = math.prod(shape)
-        tensors[name] = flat[off:off + n].view(shape)
-        off += n
+    flat, tensors = pack_flat(src, head_layout(dh, n_blocks))
     return PackedSurvivalHead(flat, tensors, dh, n_blocks)
 
 
@@ -126,22 +116,9 @@ def survival_head_reference(packed: PackedSurvivalHead, temb_projected, last_lay
     survival_head_reference.calls += 1
     W = packed.tensors
     B, N, _ = last_layer.shape
-    C = CHANNELS
-    head_dim = C // n_heads
     m = mask_t.reshape(B, N, 1).to(torch.float32)
     h = last_layer.float() @ W["w_in_h"] + W["w_oh0"] + m * (W["w_oh1"] - W["w_oh0"]) + W["b_in"]
-    for i in range(packed.n_blocks):
-        r = swish(group_norm(h, W[f"gn1_s_{i}"], W[f"gn1_b_{i}"])) @ W[f"w_c1_{i}"] + W[f"b_c1_{i}"]
-        r = r + temb_projected[i][:, None, :]
-        r = swish(group_norm(r, W[f"gn2_s_{i}"], W[f"gn2_b_{i}"])) @ W[f"w_c2_{i}"] + W[f"b_c2_{i}"]
-        h = h + r
-        hn = group_norm(h, W[f"gna_s_{i}"], W[f"gna_b_{i}"])
-        q = ((hn @ W[f"wq_{i}"] + W[f"bq_{i}"]) * head_dim**-0.5).reshape(B, N, n_heads, head_dim)
-        k = (hn @ W[f"wk_{i}"] + W[f"bk_{i}"]).reshape(B, N, n_heads, head_dim)
-        v = (hn @ W[f"wv_{i}"] + W[f"bv_{i}"]).reshape(B, N, n_heads, head_dim)
-        p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
-        o = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(B, N, C)
-        h = h + (o @ W[f"wp_{i}"] + W[f"bp_{i}"])
+    h = blocks_reference(W, h, temb_projected, packed.n_blocks, n_heads)
     h = h @ W["w_pre"] + W["b_pre"]
     return (h * W["w_post"]).sum(dim=-1, keepdim=True) + W["b_post"]
 
@@ -168,33 +145,20 @@ def survival_head(packed: PackedSurvivalHead, temb_projected, last_layer, mask_t
                          f"multiples of {HIDDEN_MULTIPLE} up to {C}")
     if not 1 <= N <= MAX_PARTICLES:
         raise ValueError(f"N={N} outside [1, {MAX_PARTICLES}]")
-    if n_heads < 1 or C % n_heads or (C // n_heads) % 32:
-        raise ValueError(f"n_heads={n_heads}: heads must be a multiple of 32 channels of {C}")
+    check_heads(n_heads)
     if tuple(mask_t.shape) != (B, N, 1):
         raise ValueError(f"mask_t must be ({B}, {N}, 1), got {tuple(mask_t.shape)}")
-    if len(temb_projected) != packed.n_blocks:
-        raise ValueError(f"{len(temb_projected)} time rows for {packed.n_blocks} blocks")
-    tp = torch.stack(tuple(temb_projected))
-    if tuple(tp.shape) != (packed.n_blocks, B, C):
-        raise ValueError(f"time rows must be ({B}, {C}) each, got {tuple(tp.shape[1:])}")
+    tp = stacked_time_rows(temb_projected, packed.n_blocks, B)
     mask = mask_t.to(torch.float32).contiguous()
-    for name, tensor in dict(last_layer=last_layer, mask_t=mask, time_rows=tp,
-                             weights=packed.flat).items():
-        if tensor.device != last_layer.device:
-            raise ValueError(f"{name} is on {tensor.device}, last_layer on {last_layer.device}")
-        if tensor.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {tensor.dtype}")
-        if not tensor.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    check_float32_on(last_layer.device, last_layer=last_layer, mask_t=mask, time_rows=tp,
+                     weights=packed.flat)
     if packed.flat.data_ptr() % 16:
         raise ValueError("the packed weights must be 16-byte aligned")
     out = torch.empty((B, N, 1), dtype=torch.float32, device=last_layer.device)
     if B == 0:
         return out
     lib = _build.load_library()
-    # one block an SM walks over the jets; each parks a (128, C) tile here
-    grid = min(B, torch.cuda.get_device_properties(last_layer.device).multi_processor_count)
-    scratch = torch.empty((grid, MAX_PARTICLES, C), dtype=torch.float32, device=last_layer.device)
+    grid, scratch = block_grid_and_scratch(B, last_layer.device)
     with torch.cuda.device(last_layer.device):
         stream = torch.cuda.current_stream(last_layer.device).cuda_stream
         rc = lib.mmp_survival_head(

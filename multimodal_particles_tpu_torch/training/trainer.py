@@ -11,7 +11,10 @@
 The model is an `nn.Module` that owns its parameters and exposes
 `loss_fn(batch, generator, draws) -> (loss, metrics)` and
 `predict(batch, generator)`; bridge noise comes from the trainer's generator.
-Mesh, DDP and tensor parallelism are not ported.
+The transdimensional family's config tree has `optimizer_kwargs` where the
+others have a `train` section: `resolve_train_config` synthesizes the one from
+the other (:60-87), and its EMA decay comes from `ema_halflife_kimg`
+(:142-149). Mesh, DDP and tensor parallelism are not ported.
 """
 
 import contextlib
@@ -20,6 +23,7 @@ import json
 import math
 import os
 import time
+from types import SimpleNamespace
 from typing import Dict, Optional
 
 import torch
@@ -38,6 +42,39 @@ def cosine_annealing_schedule(lr: float, eta_min: float, t_max: int, steps_per_e
         return eta_min + (lr - eta_min) * (1.0 + cos) / 2.0
 
     return schedule
+
+
+def resolve_train_config(config):
+    """The `train` section of any family's config. The transdimensional tree
+    carries `optimizer_kwargs` instead: Adam at its lr, betas and eps, the
+    clip from `grad_conditioner_kwargs.grad_norm_clip`, no weight decay, no
+    scheduler (trainer.py:60-87)."""
+    train = getattr(config, "train", None)
+    if train is not None:
+        return train
+    ok = config.optimizer_kwargs
+    return SimpleNamespace(
+        epochs=1,
+        optimizer_name="AdamW" if "AdamW" in ok.class_name else "Adam",
+        lr=ok.lr,
+        betas=list(ok.betas),
+        eps=ok.eps,
+        weight_decay=0.0,
+        gradient_clip_val=getattr(config.grad_conditioner_kwargs, "grad_norm_clip", 0.0),
+        scheduler_name=None,
+        scheduler_params={},
+    )
+
+
+def ema_decay_from_halflife(config):
+    """EDM-style EMA: a half-life in thousands of samples
+    (`ema_halflife_kimg`) → the decay a step of `batch_size` samples; None for
+    a config without one (trainer.py:142-149)."""
+    halflife = getattr(config, "ema_halflife_kimg", None)
+    if not halflife:
+        return None
+    batch = getattr(config, "batch_size", None) or getattr(config.data, "batch_size", 64)
+    return 0.5 ** (batch / (halflife * 1000.0))
 
 
 class ClippedOptimizer:
@@ -117,14 +154,15 @@ class Trainer:
       experiment_files: any object with `checkpoint_path(tag)`,
         `get_checkpoint_path(tag)` and `metrics_file`, or None.
       seed: seeds the initial parameters and the bridge noise.
-      ema_decay: EMA decay d (e ← d·e + (1−d)·p), or None.
+      ema_decay: EMA decay d (e ← d·e + (1−d)·p); None takes the config's
+        `ema_halflife_kimg` where it has one, else no EMA.
     """
 
     def __init__(self, model, config, experiment_files=None, seed: int = 0, ema_decay=None):
         self.model = model
         self.config = config
         self.files = experiment_files
-        self.ema_decay = ema_decay
+        self.ema_decay = ema_decay if ema_decay is not None else ema_decay_from_halflife(config)
         self.seed = seed
         par = getattr(config, "parallel", None)
         self.skip_nonfinite_updates = bool(getattr(par, "skip_nonfinite_updates", False))
@@ -142,7 +180,7 @@ class Trainer:
         copy and the noise generator."""
         init_parameters(self.model, self.seed)
         params = dict(self.model.named_parameters())
-        opt = ClippedOptimizer(self.config.train, steps_per_epoch, params.values())
+        opt = ClippedOptimizer(resolve_train_config(self.config), steps_per_epoch, params.values())
         ema = ({k: p.detach().clone() for k, p in params.items()}
                if self.ema_decay is not None else None)
         self.state = TrainState(step=0, params=params, opt_state=opt, ema_params=ema)
@@ -192,7 +230,7 @@ class Trainer:
     def fit(self, datamodule, epochs: Optional[int] = None):
         """Training loop with validation, best/last checkpoints and JSONL
         metrics (trainer.py:300-362). Returns the per-epoch records."""
-        epochs = epochs if epochs is not None else self.config.train.epochs
+        epochs = epochs if epochs is not None else resolve_train_config(self.config).epochs
         steps_per_epoch = max(len(datamodule.train), 1)
         if self.state is None:
             self.setup(steps_per_epoch)

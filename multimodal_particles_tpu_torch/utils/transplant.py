@@ -1,4 +1,5 @@
-"""flax → torch parameter transplant for MBM and the absorbing family.
+"""flax → torch parameter transplant for MBM, the absorbing family and the
+transdimensional family.
 
 `params_from_flax` turns the JAX package's MBM parameter pytree (the dict that
 `MultiModalBridgeMatching.init` returns, multimodal_bridge_matching.py:90-110,
@@ -20,6 +21,15 @@ the same way: `generator.epic…` as the encoder above,
 `transformer_1_proj_in`, `res_block_i.{conv1,temb_proj,conv2}`,
 `attn_block_i.{q,k,v,proj_out}`, `pre_rate_proj`, `post_rate_proj`, and the
 GroupNorms `res_block_i.{norm1,norm2}`, `attn_block_i.norm`.
+
+The flax `TransdimensionalJumpDiffusion` tree (`{"network": …}`,
+transdimensional/transdimensional_model.py:284-293) maps onto the port's
+model likewise: `network.epic…` as the encoder above, except that
+`embedding.embedding_discrete` is a Dense (`kernel`, `bias`) with the
+Linear-discrete input; the Dense layers `temb_net`, `transformer_1_proj_in`,
+`vec_transformer_in_proj`, `pre_rate_proj`, `post_rate_proj`, `near_atom_proj`,
+`vec_weighting_proj`, `pre_auto_proj`, `post_auto_proj`, and the blocks `res_i`,
+`attn_i`, `vec_res_i`, `vec_attn_i` with the survival head's leaves.
 
 A Dense `kernel (in, out)` becomes `Linear.weight (out, in)`, a weight-normed
 `v (in, out)` becomes `v (out, in)`, `Embed.embedding` becomes

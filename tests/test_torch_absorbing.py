@@ -154,8 +154,8 @@ def test_plain_epic_forward_with_hidden_and_wide_head_matches_pallas(pair):
 
 def test_c_dims_carry_the_head_width(pair):
     trunk, _ = pair[2].pack_for_kernel()
-    assert list(trunk.dims.c_array()) == [16, 16, 16, 16, 16, 2, 1, 1, 56]
-    assert list(epic_cuda.EpicDims.from_config(pair[2].config).c_array())[-1] == 8
+    assert list(trunk.dims.c_array()) == [16, 16, 16, 16, 16, 2, 1, 1, 56, 0]
+    assert list(epic_cuda.EpicDims.from_config(pair[2].config).c_array())[-2:] == [8, 0]
 
 
 def test_other_kernels_refuse_a_head_width_they_do_not_support(pair):

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (K1 forward, K2 sampler step, K3 backward,
-the wide pair K4 forward / K5 backward at hidden 128, and K6, the absorbing
-family's survival head, with K1's hidden output and 56-wide discrete head)
-against their plain PyTorch versions, on a CUDA card. Without one every test
+the wide pair K4 forward / K5 backward at hidden 128, K6, the absorbing
+family's survival head, with K1's hidden output and 56-wide discrete head, and
+K7, the transdimensional family's gsdm stack, with K1's folded Linear-discrete
+input) against their plain PyTorch versions, on a CUDA card. Without one every test
 here skips. The card's machine has no JAX, so run this file without
 tests/conftest.py:
 
@@ -16,7 +17,8 @@ cotangent on jets that `near_kink_jets` flags. K4 is held per particle
 (|err| ≤ 1e-4 + 1e-4·max|ref| over the particle's 11 outputs: at hidden 128
 the outputs are large sums of terms that cancel), K5 per leaf as K3. K6's
 logits are held elementwise at rtol = atol = 2e-4, the JAX kernel's own test's
-tolerance (tests/test_ops/test_survival_pallas.py:86-88).
+tolerance (tests/test_ops/test_survival_pallas.py:86-88); K7's hidden state
+likewise (tests/test_ops/test_gsdm_stack_pallas.py:72).
 """
 
 import pytest
@@ -25,6 +27,7 @@ import torch
 from multimodal_particles_tpu_torch.config_classes import (
     AbsorbingConfig,
     MultimodalBridgeMatchingConfig,
+    TransdimensionalEpicConfig,
 )
 from multimodal_particles_tpu_torch.data import gauss_noise_source_batch
 from multimodal_particles_tpu_torch.models.generative.absorbing.absorbing_flows import (
@@ -33,15 +36,27 @@ from multimodal_particles_tpu_torch.models.generative.absorbing.absorbing_flows 
 from multimodal_particles_tpu_torch.models.generative.init import (
     init_absorbing_parameters,
     init_mbm_parameters,
+    init_transdimensional_parameters,
 )
 from multimodal_particles_tpu_torch.models.generative.multimodal_bridge_matching import (
     MultiModalBridgeMatching,
+)
+from multimodal_particles_tpu_torch.models.generative.transdimensional.structure import (
+    StructuredState,
+)
+from multimodal_particles_tpu_torch.models.generative.transdimensional.transdimensional_model import (
+    TransdimensionalJumpDiffusion,
 )
 from multimodal_particles_tpu_torch.ops.epic_cuda import (
     epic_forward,
     epic_forward_reference,
     flat_views,
     pack_mbm_encoder_params,
+)
+from multimodal_particles_tpu_torch.ops.gsdm_stack_cuda import (
+    gsdm_stack,
+    gsdm_stack_reference,
+    stack_time_embeddings,
 )
 from multimodal_particles_tpu_torch.ops.epic_vjp_cuda import (
     epic_backward,
@@ -394,3 +409,146 @@ def test_survival_wrapper_rejects_what_the_kernel_does_not_take(device):
     with pytest.raises(ValueError, match="hidden width 8"):
         sampler_step(trunk, last[..., :3].contiguous(), mask.long(), mask,
                      torch.rand((2, 4, 16), device=device), 0.5, 0.01, gamma=0.125)
+
+
+# ------------------------------------------- the transdimensional family, K7
+
+
+def transdim_model(device, hidden=16, n_heads=2, n_blocks=2, n=128):
+    """TransdimensionalJumpDiffusion at its reference config (global 19,
+    Linear-discrete input) with seeded weights and noise on every vector."""
+    config = TransdimensionalEpicConfig()
+    config.data.max_num_particles = n
+    config.encoder.dim_hidden_local = hidden
+    config.encoder.n_heads, config.encoder.n_attn_blocks = n_heads, n_blocks
+    model = init_transdimensional_parameters(TransdimensionalJumpDiffusion(config), 0).to(device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen, device=device))
+    return model.eval()
+
+
+def transdim_state(device, B, N, seed=5):
+    """A noisy state with prefix masks: dims in [1, N], jet 0 at dims = 1."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dims = torch.randint(1, N + 1, (B,), generator=gen, device=device).to(torch.int32)
+    dims[0] = 1
+    live = (torch.arange(N, device=device)[None, :] < dims[:, None]).float()[..., None]
+    x = torch.randn((B, N, 3), generator=gen, device=device) * live
+    values = torch.nn.functional.one_hot(
+        torch.randint(0, 8, (B, N), generator=gen, device=device), 8).float()
+    values = (values + 0.3 * torch.randn((B, N, 8), generator=gen, device=device)) * live
+    ts = torch.rand((B,), generator=gen, device=device).clamp(1e-3, 1.0)
+    return StructuredState(x, values, dims), ts
+
+
+@pytest.mark.parametrize("hidden,N", [(16, 128), (32, 40), (64, 109)])
+def test_epic_forward_folded_input_matches_plain(device, hidden, N):
+    """K1 with the folded Linear-discrete input, no discrete head, the hidden
+    output and global width 19: the 11 outputs and the (B, N, H) hidden state."""
+    model = transdim_model(device, hidden, n=N)
+    trunk, _, _ = model.pack_for_kernel()
+    assert trunk.dims.fold_discrete and not trunk.dims.add_discrete_head
+    assert trunk.dims.hidden_glob == 19
+    state, ts = transdim_state(device, 64, N)
+    mask = state.particle_mask()[:, :, None]
+    args = (trunk, ts.reshape(-1, 1, 1), state.continuous, state.discrete, mask)
+    launches = epic_forward.launches
+    out, hid = epic_forward(*args, output_hidden_local=True)
+    torch.cuda.synchronize()
+    assert epic_forward.launches == launches + 1
+    ref_out, ref_hid = epic_forward_reference(*args, output_hidden_local=True)
+    assert tuple(hid.shape) == (64, N, hidden)
+    torch.testing.assert_close(out, ref_out, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(hid, ref_hid, atol=ATOL, rtol=RTOL)
+    with torch.no_grad():
+        mod_out, mod_hid = model.network.epic(*args[1:], output_hidden_local=True)
+    torch.testing.assert_close(out, mod_out, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(hid, mod_hid, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("B,N,dim_in,n_heads,n_blocks", [
+    (7, 40, 27, 2, 2), (64, 128, 24, 2, 2), (300, 109, 27, 2, 2),
+    (5, 1, 24, 2, 2), (9, 33, 43, 4, 1), (6, 77, 128, 1, 3), (4, 128, 16, 2, 2),
+])
+def test_gsdm_stack_matches_plain(device, B, N, dim_in, n_heads, n_blocks):
+    """K7 at the reference widths (24, 27) and N = 128, at ragged N, over more
+    jets than the grid has blocks, at one slot, and at input widths that are,
+    and are not, multiples of the 16-row weight tile, up to 128; the same bits
+    on a repeat."""
+    from multimodal_particles_tpu_torch.models.architectures.gsdm import AttnBlock, ResnetBlock
+    from multimodal_particles_tpu_torch.ops.gsdm_stack_cuda import pack_gsdm_stack_params
+
+    class Stack(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.proj_in = torch.nn.Linear(dim_in, 128)
+            self.res = torch.nn.ModuleList(ResnetBlock(128, 0.0, 128) for _ in range(n_blocks))
+            self.att = torch.nn.ModuleList(AttnBlock(128, n_heads) for _ in range(n_blocks))
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    stack = init_transdimensional_parameters(Stack(), 2).to(device)
+    with torch.no_grad():
+        for p in stack.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen, device=device))
+        packed = pack_gsdm_stack_params(stack.proj_in, list(stack.res), list(stack.att))
+        x_in = torch.randn((B, N, dim_in), generator=gen, device=device)
+        tp = stack_time_embeddings(torch.randn((B, 128), generator=gen, device=device),
+                                   list(stack.res))
+    launches = gsdm_stack.launches
+    got = gsdm_stack(packed, tp, x_in, n_heads=n_heads)
+    again = gsdm_stack(packed, tp, x_in, n_heads=n_heads)
+    torch.cuda.synchronize()
+    assert gsdm_stack.launches == launches + 2
+    ref = gsdm_stack_reference(packed, tp, x_in, n_heads=n_heads)
+    assert tuple(got.shape) == (B, N, 128) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=2e-4, rtol=2e-4)
+    assert torch.equal(got, again)
+
+
+def test_transdim_forward_kernel_goes_through_its_kernels(device):
+    """forward_kernel on the card: one launch of K1 and two of K7, no plain
+    version, and the module path's outputs within 5e-4."""
+    model = transdim_model(device)
+    state, ts = transdim_state(device, 32, 128)
+    nearest = torch.zeros(32, dtype=torch.long, device=device)
+    counts = epic_forward.launches, gsdm_stack.launches
+    calls = epic_forward_reference.calls, gsdm_stack_reference.calls
+    got = model.forward_kernel(state, ts, nearest)
+    torch.cuda.synchronize()
+    assert (epic_forward.launches, gsdm_stack.launches) == (counts[0] + 1, counts[1] + 2)
+    assert (epic_forward_reference.calls, gsdm_stack_reference.calls) == calls
+    with torch.no_grad():
+        ref = model.network(state, ts, nearest)
+    for g, r in zip(got[:5], ref[:5]):
+        torch.testing.assert_close(g, r, atol=5e-4, rtol=5e-4)
+
+
+def test_other_kernels_refuse_a_folded_packing(device):
+    """Only K1 takes the folded Linear-discrete input: K2 and K3 raise in
+    their wrappers, and the C entry point of the token instantiation returns
+    cudaErrorInvalidValue for a folded layout."""
+    model = transdim_model(device)
+    trunk, _, _ = model.pack_for_kernel()
+    state, ts = transdim_state(device, 4, 128)
+    mask = state.particle_mask()[:, :, None]
+    tokens = torch.zeros((4, 128, 1), dtype=torch.long, device=device)
+    with pytest.raises(ValueError, match="folded"):
+        sampler_step(trunk, state.continuous, tokens, mask,
+                     torch.rand((2, 4, 128), device=device), 0.5, 0.01, gamma=0.125)
+    with pytest.raises(ValueError, match="folded"):
+        epic_backward(trunk, ts.reshape(-1, 1, 1), state.continuous, tokens, mask,
+                      torch.zeros((4, 128, 11), device=device))
+    with pytest.raises((ValueError, TypeError)):  # tokens where the values belong
+        epic_forward(trunk, ts.reshape(-1, 1, 1), state.continuous, tokens, mask)
+    from multimodal_particles_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    out = torch.empty((4, 128, 11), device=device)
+    rc = lib.mmp_epic_forward(trunk.flat.data_ptr(), ts.data_ptr(), state.continuous.data_ptr(),
+                              state.discrete.data_ptr(), mask.data_ptr(), out.data_ptr(), None,
+                              4, 128, trunk.dims.c_array(), 0)
+    assert rc == 1  # cudaErrorInvalidValue

@@ -1,7 +1,9 @@
 """Shared set-up for the port's CPU tests (tests/test_torch_*.py): one JAX
-model (MBM, or the absorbing family's `absorbing_pair`) and its port twin with
-the same transplanted weights, and inputs made from a seed with numpy. Both
-sides run in float32 on the CPU."""
+model (MBM, the absorbing family's `absorbing_pair`, or the transdimensional
+family's `transdim_pair`) and its port twin with the same transplanted
+weights, and inputs made from a seed with numpy; `replay_sampler_draws`
+replays the JAX jump sampler's key schedule so that both samplers take the
+same draws. Both sides run in float32 on the CPU."""
 
 import os
 
@@ -15,6 +17,9 @@ from multimodal_particles_tpu.config_classes import (
     AbsorbingConfig,
     MultimodalBridgeMatchingConfig,
 )
+from multimodal_particles_tpu.config_classes.transdimensional_unconditional_config import (
+    TransdimensionalEpicConfig,
+)
 from multimodal_particles_tpu.data.particle_clouds.jets_dataloader import (
     JetsDataloaderModule,
 )
@@ -24,6 +29,12 @@ from multimodal_particles_tpu.models.generative.absorbing.absorbing_flows import
 from multimodal_particles_tpu.models.generative.multimodal_bridge_matching import (
     MultiModalBridgeMatching,
 )
+from multimodal_particles_tpu.models.generative.transdimensional.sampler import (
+    _build_time_grid,
+)
+from multimodal_particles_tpu.models.generative.transdimensional.transdimensional_model import (
+    TransdimensionalJumpDiffusion,
+)
 from multimodal_particles_tpu.ops.sampler_pallas import make_fused_sampler_step
 from multimodal_particles_tpu_torch.config_classes import (
     AbsorbingConfig as TorchAbsorbingConfig,
@@ -31,11 +42,17 @@ from multimodal_particles_tpu_torch.config_classes import (
 from multimodal_particles_tpu_torch.config_classes import (
     MultimodalBridgeMatchingConfig as TorchConfig,
 )
+from multimodal_particles_tpu_torch.config_classes import (
+    TransdimensionalEpicConfig as TorchTransdimConfig,
+)
 from multimodal_particles_tpu_torch.models.generative.absorbing.absorbing_flows import (
     AbsorbingFlow as TorchAbsorbingFlow,
 )
 from multimodal_particles_tpu_torch.models.generative.multimodal_bridge_matching import (
     MultiModalBridgeMatching as TorchMBM,
+)
+from multimodal_particles_tpu_torch.models.generative.transdimensional.transdimensional_model import (
+    TransdimensionalJumpDiffusion as TorchTransdim,
 )
 from multimodal_particles_tpu_torch.utils.transplant import params_from_flax
 
@@ -102,6 +119,64 @@ def absorbing_pair(seed=0, n=N, b=B, num_timesteps=8, sections=None):
     torch_model = TorchAbsorbingFlow(torch_cfg)
     torch_model.load_state_dict(params_from_flax(params_np, torch_cfg, TorchAbsorbingFlow))
     return jax_model, jax.tree_util.tree_map(jnp.asarray, params_np), torch_model, batch
+
+
+def transdim_list_batch(seed, b, n):
+    """The 'list' databatch [n_particles, continuous, one-hot] as numpy:
+    multiplicities in [1, n] with jet 0 at 1 and jet 1 at n, rows past a jet's
+    multiplicity zero."""
+    rng = np.random.default_rng(seed)
+    dims = rng.integers(1, n + 1, b).astype(np.int32)
+    dims[0], dims[1] = 1, n
+    live = (np.arange(n)[None, :] < dims[:, None]).astype(np.float32)[..., None]
+    x = rng.standard_normal((b, n, 3)).astype(np.float32) * live
+    one_hot = np.eye(8, dtype=np.float32)[rng.integers(0, 8, (b, n))] * live
+    return [dims, x, one_hot]
+
+
+def transdim_pair(seed=0, n=16, b=6, sections=None):
+    """(jax_model, jax_params, torch_model, numpy 'list' batch) of the
+    transdimensional family at its default config with `n` slots and `b` jets:
+    flax-initialised weights plus seeded noise, transplanted. `sections` maps
+    a config section to field overrides, e.g. {"sampler_kwargs": {"dt": 0.25}}."""
+    cfg = TransdimensionalEpicConfig()
+    cfg.data.batch_size, cfg.data.max_num_particles = b, n
+    for section, fields in (sections or {}).items():
+        for name, value in fields.items():
+            setattr(getattr(cfg, section), name, value)
+    batch = transdim_list_batch(seed + 100, b, n)
+    jax_model = TransdimensionalJumpDiffusion(cfg)
+    params_np = noisy_params(jax_model.init(jax.random.PRNGKey(seed), batch), seed)
+    torch_cfg = TorchTransdimConfig.from_dict(cfg.to_dict())
+    torch_model = TorchTransdim(torch_cfg)
+    torch_model.load_state_dict(params_from_flax(params_np, torch_cfg, TorchTransdim))
+    return jax_model, jax.tree_util.tree_map(jnp.asarray, params_np), torch_model, batch
+
+
+def replay_sampler_draws(key, cfg_sampler, b, n, flat_dim):
+    """The draws the JAX jump sampler makes from `key` on a grid without
+    corrector steps, by its key schedule (sampler.py:224, :584, :312):
+    split(key) → key_init; a step: split(key) → key_d, split(key_d, 4) →
+    key_net, key_noise, key_jump, key_new. `gumbel` is the noise behind
+    `jax.random.categorical(key_net, logits, axis=1)`. Numpy arrays over the
+    T-step grid, as the port's `draws`."""
+    steps = len(_build_time_grid(cfg_sampler)[0])
+    k = max(int(cfg_sampler.multi_birth), 1)
+    tiny = jnp.finfo(jnp.float32).tiny
+    key, key_init = jax.random.split(key)
+    draws = {"init": np.array(jax.random.normal(key_init, (b, flat_dim)))}
+    per_step = {name: [] for name in ("gumbel", "em_noise", "u_jump", "u_chain", "birth_noise")}
+    for _ in range(steps):
+        key, key_d = jax.random.split(key)
+        key_net, key_noise, key_jump, key_new = jax.random.split(key_d, 4)
+        per_step["gumbel"].append(jax.random.gumbel(key_net, (b, n)))
+        per_step["em_noise"].append(jax.random.normal(key_noise, (b, flat_dim)))
+        per_step["u_jump"].append(jax.random.uniform(key_jump, (b,)))
+        per_step["u_chain"].append(jax.random.uniform(key_jump, (b, k), minval=tiny))
+        per_step["birth_noise"].append(jax.random.normal(key_new, (b, flat_dim)))
+    draws.update({name: np.stack([np.asarray(v) for v in values])
+                  for name, values in per_step.items()})
+    return draws
 
 
 def random_state(seed=1):
