@@ -141,8 +141,17 @@ Phases, one JSON line each:
               the prior)
  27. paths_transdim  the 48-step kernel path vs the module path at B=256 from
               the same injected draws: the final dims equal on ≥ 95% of the
-              jets (a rounding can flip a birth), on those the median
-              |Δx|/max(|x|, 1) printed
+              jets (a rounding can flip a birth); on those, |Δx| relative to
+              each jet's scale, beside the same for the module path against
+              itself from draws 1 ulp away (the initial draw ×(1 ± 2⁻²³),
+              every step's noise ×(1 + 2⁻²³): the flow's own sensitivity).
+              At most 3× the worst nudge's jets parted by more than 1e-3 of
+              their scale, and 4 more; every kernel call on the kernel path
+              held against its plain version on the same inputs, per jet
+              (|err| ≤ tol·(1 + max|ref| over the jet), 1e-4 for the
+              trunk, 2e-4 for K7) where the plain version is finite (the
+              seeded flow overflows float32 in some jets' GroupNorms; those
+              jets are counted)
  28. train_transdim  Trainer.fit with the transdimensional model at B=1024,
               N=128 (3 epochs of 8 synthetic 'list' batches + 1 validation
               batch, Adam at lr 1e-3, the JAX quality runs' rate), then
@@ -155,6 +164,52 @@ Phases, one JSON line each:
               synchronized steps, and the peak memory
  29. profile_transdim  torch.profiler windows over 3 train steps and over
               serving requests of 1024 and 4096 jets: the top device operations
+
+ 30. k4_hidden_head  K4 as the `--scaled` absorbing generator calls it (every
+              width 128, 6 blocks: bench.py's `_scale_encoder`): the 56-wide
+              discrete head and the hidden output, N=109, B=4096, seeded
+              weights, random non-prefix masks, one empty jet: the 11 outputs
+              and the (B, N, 128) hidden state per particle (|err| ≤ 1e-4 +
+              1e-4·max|ref| over the particle's row, as phase 11), the same
+              bits on a repeat; then both timed
+ 31. k4_fold  K4 as the `--scaled` transdimensional trunk calls it: the folded
+              Linear-discrete input, no discrete head, the hidden output,
+              N=128, B=4096, prefix masks with one dims=1 jet; as phase 30
+ 32. k7_wide_input  K7 at the `--scaled` stacks' input widths 136 and 139
+              (trunk hidden 128 ‖ V, ‖ 3 more: two passes of the first
+              product over the input tile) at B=4096, N=128, atol = rtol =
+              2e-4, the same bits on a repeat; then both timed at 139
+ 33. k8       the attention core (attention_core.cu) vs the einsum at B=4096,
+              C=128, 2 heads, N=109 and N=128, with a random key mask that
+              masks every key of one jet, and without a mask: atol 2e-5 (the
+              JAX kernel's test's), the same bits on a repeat; then timed at
+              N=128 with the mask beside the einsum and, as the library's
+              time, torch's scaled_dot_product_attention with the same
+              additive mask (timed only; the port never calls it). Then K8's
+              path, counted as one run: AttnBlock(use_pallas=True) forward
+              and backward at B=4096, N=109 with a key mask (one launch of K8,
+              the backward autograd of the einsum, as in JAX), held against
+              AttnBlock(use_pallas=False): the output, the input's and every
+              parameter's gradient per leaf (|err| ≤ 1e-4·max|ref leaf| +
+              1e-3·|ref|), the key bias's against 0
+ 34. slice_absorbing_scaled  AbsorbingFlow at the `--scaled` backbone
+              .predict serves requests of 4096, 4096, 1024 and 1024 jets at
+              N=109 (each size's second request is the steady one): K4 (hidden
+              output, 56-wide head) and K6 launched 99 times each, no other
+              kernel, no plain version; the checks of phase 20. The model gets
+              `data_dependent_gains` (its seeded trunk's heads reach 1e5, as
+              the scaled MBM's). A torch.profiler window over one more
+              4096-jet request (profile_absorbing_scaled). Then the 99-step
+              kernel path vs the module path at B=256 as phase 21
+              (paths_absorbing_scaled)
+ 35. slice_transdim_scaled  TransdimensionalJumpDiffusion at the `--scaled`
+              backbone (the sampler of phase 26) .predict serves requests of
+              4096, 4096, 1024 and 1024 jets: K4 (folded input, hidden output)
+              48 and K7 (Din 136 and 139) 96 times a request, no other kernel,
+              no plain version; the checks of phase 26; gains as phase 34;
+              a profiler window as phase 34 (profile_transdim_scaled). Then
+              the kernel path vs the module path from the same draws at
+              B=256 as phase 27 (paths_transdim_scaled)
 
 The line before the last lists every kernel with its launches on its own
 path's run, its bound from the shapes and the H100 data sheet's peaks, and
@@ -186,6 +241,7 @@ from multimodal_particles_tpu_torch.data import (
     synthetic_training_batch,
     transdim_training_batch,
 )
+from multimodal_particles_tpu_torch.models.architectures.gsdm import AttnBlock
 from multimodal_particles_tpu_torch.models.architectures.utils import WeightNormLinear
 from multimodal_particles_tpu_torch.models.generative.absorbing.absorbing_flows import (
     AbsorbingFlow,
@@ -198,16 +254,27 @@ from multimodal_particles_tpu_torch.models.generative.init import (
 from multimodal_particles_tpu_torch.models.generative.multimodal_bridge_matching import (
     MultiModalBridgeMatching,
 )
-from multimodal_particles_tpu_torch.models.generative.states import HybridState
+from multimodal_particles_tpu_torch.models.generative.states import (
+    AbsorbingBridgeState,
+    HybridState,
+)
 from multimodal_particles_tpu_torch.models.generative.transdimensional.structure import (
     DistributionNodes,
     StructuredState,
+)
+from multimodal_particles_tpu_torch.models.generative.transdimensional import (
+    transdimensional_model as transdim_module,
 )
 from multimodal_particles_tpu_torch.models.generative.transdimensional.transdimensional_model import (
     TransdimensionalJumpDiffusion,
     sample_gumbel,
 )
 from multimodal_particles_tpu_torch.ops import _build
+from multimodal_particles_tpu_torch.ops.attention_cuda import (
+    attention_core,
+    attention_core_reference,
+    key_bias,
+)
 from multimodal_particles_tpu_torch.ops.epic_cuda import (
     epic_forward,
     epic_forward_reference,
@@ -283,7 +350,16 @@ TD_K7_SHAPES = ((TD_B, TD_N, 24), (TD_B, TD_N, 27), (7, 40, 27), (64, 109, 24))
 TD_TRAIN_EPOCHS = 3
 TD_LR = 1e-3
 K7_TOL = 2e-4  # tests/test_ops/test_gsdm_stack_pallas.py:72
+# the absorbing and transdimensional families at the `--scaled` backbone (bench.py --scaled):
+# each request size twice, the second the steady one
+SCALED_FAMILY_REQUEST_SIZES = (4096, 4096, 1024, 1024)
+K8_TOL = 2e-5  # tests/test_ops/test_attention_pallas.py:26
+K8_HEADS = 2
 MIN_EQUAL_DIMS = 0.95
+# paths_transdim: the kernel path may part (|Δx| > 1e-3 of the jet's scale) PART_FACTOR
+# times as many jets as the worst 1-ulp nudge of the module path does, and PART_SLACK more
+PART_FACTOR, PART_SLACK = 3, 4
+ULP = 2.0 ** -23
 MAX_MULTIPLICITY_SHIFT = 0.10
 # NVIDIA's H100 SXM data sheet: fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -511,7 +587,8 @@ def leaf_compare(got, ref, packed):
 def plain_calls():
     return (epic_forward_reference.calls + sampler_step_reference.calls
             + epic_train_forward_reference.calls + epic_backward_reference.calls
-            + survival_head_reference.calls + gsdm_stack_reference.calls)
+            + survival_head_reference.calls + gsdm_stack_reference.calls
+            + attention_core_reference.calls)
 
 
 def multiplicity_bins(mult):
@@ -1023,24 +1100,41 @@ def narrow_counts():
 def reset_counts():
     """Every launch count and every plain version's call count to 0."""
     for fn in (epic_forward, epic_backward, sampler_step, epic_forward_wide, epic_backward_wide,
-               survival_head, gsdm_stack):
+               survival_head, gsdm_stack, attention_core):
         fn.launches = 0
     for fn in (epic_forward_reference, sampler_step_reference, epic_train_forward_reference,
-               epic_backward_reference, survival_head_reference, gsdm_stack_reference):
+               epic_backward_reference, survival_head_reference, gsdm_stack_reference,
+               attention_core_reference):
         fn.calls = 0
 
 
+def mbm_probe(model, device, gen):
+    model.forward(HybridState(*random_inputs(256, device, gen)))
+
+
+def absorbing_probe(model, device, gen):
+    t, x, k, mask = scattered_inputs(256, ABS_N, device, gen)
+    model.forward(AbsorbingBridgeState(t, x, k, mask.long()))
+
+
+def transdim_probe(model, device, gen):
+    state, ts = transdim_state(256, TD_N, device, gen)
+    model.network(state, ts, torch.zeros(256, dtype=torch.long, device=device))
+
+
 @torch.no_grad()
-def data_dependent_gains(model, device):
+def data_dependent_gains(model, device, probe=mbm_probe):
     """Data-dependent initialisation of the weight-norm gains (Salimans &
-    Kingma 2016): one pass of a probe batch through the module path, each
-    weight-normed layer's gain divided so that the layer's output has unit
-    standard deviation on the probe (the biases are 0, so dividing the gain
-    divides the output). Returns log10 of the product of the divisors. With the seeded initialiser alone the scaled backbone's
+    Kingma 2016): one pass of a probe batch through the module path (`probe`:
+    the family's module forward on a state of 256 jets), each weight-normed
+    layer's gain divided so that the layer's output has unit standard
+    deviation on the probe (the biases are 0, so dividing the gain divides
+    the output). Returns log10 of the product of the divisors. With the seeded initialiser alone the scaled backbone's
     heads reach 1e5 (each of the 6 blocks adds a skip and a sum over up to
     128 particles): an untrained flow of that size overflows float32 within a
     few of the 99 steps, and a first optimizer step at lr 1e-3 moves such a
-    network's outputs by orders of magnitude, whatever computes them."""
+    network's outputs by orders of magnitude, whatever computes them. The
+    absorbing and transdimensional families have the same EPiC trunk."""
     log10_total = 0.0
 
     def rescale(module, args, output):
@@ -1052,8 +1146,7 @@ def data_dependent_gains(model, device):
 
     hooks = [m.register_forward_hook(rescale) for m in model.modules()
              if isinstance(m, WeightNormLinear)]
-    gen = torch.Generator(device=device).manual_seed(SEED + 13)
-    model.forward(HybridState(*random_inputs(256, device, gen)))
+    probe(model, device, torch.Generator(device=device).manual_seed(SEED + 13))
     for hook in hooks:
         hook.remove()
     return log10_total
@@ -1206,12 +1299,28 @@ def phase_train_scaled(device, card, workdir):
 # --------------------------------------------------- the absorbing family
 
 
-def make_absorbing(device, num_timesteps=100):
+def scale_encoder(config):
+    """bench.py's `_scale_encoder`: 6 blocks, hidden, global and every
+    embedding 128."""
+    e = config.encoder
+    e.num_blocks = SCALED_BLOCKS
+    e.dim_hidden_local = e.dim_hidden_glob = e.dim_emb_time = SCALED_HIDDEN
+    e.dim_emb_features_continuous = e.dim_emb_features_discrete = SCALED_HIDDEN
+
+
+def make_absorbing(device, num_timesteps=100, scaled=False, gains=False):
     """AbsorbingFlow at AbsorbingConfig's defaults (EPiC 2 blocks, hidden 16;
-    survival head 128 wide, 2 heads, 2 blocks; N=109), seeded weights."""
+    survival head 128 wide, 2 heads, 2 blocks; N=109), seeded weights; with
+    `scaled` at the `--scaled` backbone, with `gains` `data_dependent_gains`."""
     config = AbsorbingConfig()
     config.bridge.num_timesteps = num_timesteps
-    return init_absorbing_parameters(AbsorbingFlow(config), SEED).to(device).eval()
+    if scaled:
+        scale_encoder(config)
+    model = init_absorbing_parameters(AbsorbingFlow(config), SEED).to(device).eval()
+    if gains:
+        emit({"phase": "absorbing_gains", "scaled": scaled,
+              "log10_gain_divisors": data_dependent_gains(model, device, absorbing_probe)})
+    return model
 
 
 def scattered_inputs(B, n, device, gen):
@@ -1361,9 +1470,9 @@ def phase_slice_absorbing(device, card):
     return launches
 
 
-def phase_paths_absorbing(device):
+def phase_paths_absorbing(device, model=None, phase="paths_absorbing"):
     """The 99-step kernel path against the module path, same generator seed."""
-    model = make_absorbing(device)
+    model = model or make_absorbing(device)
     B = ABS_PATHS_B
     batch = absorbing_training_batch(
         B, ABS_N, 3, 8, torch.Generator(device=device).manual_seed(SEED + 18), device=device,
@@ -1380,7 +1489,7 @@ def phase_paths_absorbing(device):
     x_plain = plain.continuous.abs()[both]
     dx = (kernel.continuous - plain.continuous).abs()[both]
     rel = dx / x_plain.clamp_min(1.0)
-    rec = {"phase": "paths_absorbing", "B": B, "N": ABS_N, "steps": 99,
+    rec = {"phase": phase, "B": B, "N": ABS_N, "steps": 99,
            "mask_mismatch": mask_mismatch, "token_mismatch": token_mismatch,
            "median_abs_dx": dx.median().item(), "max_abs_dx": dx.max().item(),
            "median_rel_dx": rel.median().item(), "max_rel_dx": rel.max().item(),
@@ -1533,18 +1642,25 @@ def absorbing_phases(device, card, build_dir):
     return entry, k1
 
 
-def make_transdim(device, prior_batch=None):
+def make_transdim(device, prior_batch=None, scaled=False, gains=False):
     """The transdimensional model at its reference config with the sampler of
     the JAX bench's transdim line (48 steps, multi_birth 24), seeded weights,
-    and a multiplicity prior from `prior_batch`'s multiplicities."""
+    and a multiplicity prior from `prior_batch`'s multiplicities; with
+    `scaled` at the `--scaled` backbone, with `gains` `data_dependent_gains`."""
     config = TransdimensionalEpicConfig()
     config.data.max_num_particles = TD_N
     config.sampler_kwargs.dt = 1.0 / TD_STEPS
     config.sampler_kwargs.multi_birth = TD_MULTI_BIRTH
+    if scaled:
+        scale_encoder(config)
     model = init_transdimensional_parameters(TransdimensionalJumpDiffusion(config), SEED)
     if prior_batch is not None:
         attach_prior(model, prior_batch)
-    return model.to(device).eval()
+    model = model.to(device).eval()
+    if gains:
+        emit({"phase": "transdim_gains", "scaled": scaled,
+              "log10_gain_divisors": data_dependent_gains(model, device, transdim_probe)})
+    return model
 
 
 def attach_prior(model, batch):
@@ -1718,35 +1834,157 @@ def phase_slice_transdim(device, card):
     return launches
 
 
-def phase_paths_transdim(device):
+def jet_divergence(got, ref):
+    """Two generated batches compared jet by jet: the share of jets of equal
+    multiplicity and, over those, |Δx| relative to the jet's scale (its
+    largest |x| in `ref`, at least 1): the flow expands |x| to 1e19 and more,
+    so an entry near 0 of such a jet makes an elementwise ratio meaningless."""
+    same = got.dims == ref.dims
+    x_ref = ref.get_flat_lats()[same].abs()
+    dx = (got.get_flat_lats() - ref.get_flat_lats())[same].abs()
+    jet_rel = dx.amax(dim=1) / x_ref.amax(dim=1).clamp_min(1.0)
+    return same, x_ref, dx, {
+        "equal_dims_share": same.float().mean().item(),
+        "median_jet_rel_dx": jet_rel.median().item(), "max_jet_rel_dx": jet_rel.max().item(),
+        "jets_over_1e-3_of_their_scale": int((jet_rel > 1e-3).sum().item())}
+
+
+def jet_err_over_bound(got, ref, tol):
+    """Per jet: the largest |got − ref| over the jet's entries where `ref` is
+    finite, over the bound tol·(1 + the largest such |ref|); inf where `got`
+    is not finite and `ref` is. Where `ref` itself is not finite (the seeded
+    flow reaches |x| ≈ 1e21, whose squares in a GroupNorm float32 cannot
+    hold) the plain version has no value to hold the kernel to; those
+    entries are counted apart (`not_finite_jets`)."""
+    B = ref.shape[0]
+    got, ref = got.reshape(B, -1), ref.reshape(B, -1)
+    defined = torch.isfinite(ref)
+    err = torch.where(defined, (got - ref).abs().nan_to_num(nan=torch.inf), 0.0).amax(dim=1)
+    return err / (tol * (1.0 + torch.where(defined, ref.abs(), 0.0).amax(dim=1)))
+
+
+def not_finite_jets(got, ref):
+    """Per jet: (`ref` not finite somewhere, and `got` finite at every such
+    entry: the kernel gives a value where the plain version has none)."""
+    B = ref.shape[0]
+    got, ref = got.reshape(B, -1), ref.reshape(B, -1)
+    undefined = ~torch.isfinite(ref)
+    return undefined.any(dim=1), undefined.any(dim=1) & ~(undefined & ~torch.isfinite(got)).any(dim=1)
+
+
+class KernelShadow:
+    """Within `with`: the transdimensional network's kernels as
+    `forward_kernel` calls them (the trunk's, K1 or K4, and K7), each call
+    also through its plain version on the same inputs. `trunk` and `stack`
+    hold per call each jet's error over its bound (`jet_err_over_bound`, the
+    trunk at ATOL, K7 at K7_TOL): along the flow the inputs reach 1e21 and
+    a jet's entries are coupled through its GroupNorm and attention, so the
+    bound scales with the jet's largest output. `undefined` and
+    `kernel_only` hold per call and kernel the jets of `not_finite_jets`."""
+
+    def __enter__(self):
+        m = transdim_module
+        self.trunk, self.stack = [], []
+        self.undefined = {"trunk": [], "gsdm_stack": []}
+        self.kernel_only = {"trunk": [], "gsdm_stack": []}
+        self.saved = m.epic_forward, m.epic_forward_wide, m.gsdm_stack
+        m.epic_forward, m.epic_forward_wide = self._trunk(epic_forward), self._trunk(epic_forward_wide)
+        m.gsdm_stack = self._stack
+        return self
+
+    def __exit__(self, *exc):
+        m = transdim_module
+        m.epic_forward, m.epic_forward_wide, m.gsdm_stack = self.saved
+
+    def _count(self, name, got, ref):
+        undefined, kernel_only = not_finite_jets(got, ref)
+        self.undefined[name].append(undefined)
+        self.kernel_only[name].append(kernel_only)
+
+    def _trunk(self, kernel):
+        def run(packed, t, x, k, mask, output_hidden_local=False):
+            out, hid = kernel(packed, t, x, k, mask, output_hidden_local=True)
+            ref_out, ref_hid = epic_forward_reference(packed, t, x, k, mask, True)
+            self.trunk.append(torch.maximum(jet_err_over_bound(out, ref_out, ATOL),
+                                            jet_err_over_bound(hid, ref_hid, ATOL)))
+            self._count("trunk", torch.cat([out, hid], -1), torch.cat([ref_out, ref_hid], -1))
+            return (out, hid) if output_hidden_local else out
+        return run
+
+    def _stack(self, packed, temb, x_in, *, n_heads):
+        got = gsdm_stack(packed, temb, x_in, n_heads=n_heads)
+        ref = gsdm_stack_reference(packed, temb, x_in, n_heads=n_heads)
+        self.stack.append(jet_err_over_bound(got, ref, K7_TOL))
+        self._count("gsdm_stack", got, ref)
+        return got
+
+    def worst(self):
+        """The largest error over bound of each kernel; the calls; and summed
+        over calls, the jets where the plain version is not finite and, of
+        those, the ones where the kernel is."""
+        def total(per_call):
+            return {name: int(torch.stack(v).sum().item()) for name, v in per_call.items()}
+        return {"trunk": torch.stack(self.trunk).max().item(),
+                "gsdm_stack": torch.stack(self.stack).max().item(),
+                "calls": [len(self.trunk), len(self.stack)],
+                "jet_calls_plain_not_finite": total(self.undefined),
+                "of_those_kernel_finite": total(self.kernel_only)}
+
+
+def transdim_path_draws(B, gen, device):
+    """Every draw of a 48-step request: the initial state, the chain's
+    uniforms, the Gumbel noise of the nearest atom, and two normals a step."""
+    D, kw = TD_N * 11, dict(generator=gen, device=device)
+    return {"init": torch.randn((B, D), **kw), "em_noise": torch.randn((TD_STEPS, B, D), **kw),
+            "birth_noise": torch.randn((TD_STEPS, B, D), **kw),
+            "u_chain": torch.rand((TD_STEPS, B, TD_MULTI_BIRTH), **kw),
+            "gumbel": sample_gumbel((TD_STEPS, B, TD_N), gen, device)}
+
+
+def nudged_draws(draws):
+    """The same draws moved by 1 ulp: the initial state ×(1 ± 2⁻²³), every
+    step's Euler-Maruyama noise ×(1 + 2⁻²³)."""
+    return {"init_up": {**draws, "init": draws["init"] * (1 + ULP)},
+            "init_down": {**draws, "init": draws["init"] * (1 - ULP)},
+            "em_noise_up": {**draws, "em_noise": draws["em_noise"] * (1 + ULP)}}
+
+
+def phase_paths_transdim(device, scaled=False, phase="paths_transdim"):
     """The 48-step kernel path against the module path from the same injected
-    draws (the chain's uniforms, the Gumbel noise of the nearest atom and the
-    three normals, a step)."""
-    B, D = TD_PATHS_B, TD_N * 11
+    draws. Beside it, as the yardstick of the flow's own sensitivity, the
+    module path against itself from draws 1 ulp away (`nudged_draws`): a
+    rounding can flip a birth or a nearest atom and part a jet for good, and
+    the flow expands what parts to 1e15 of the other's scale. Checks: the
+    final dims equal on ≥ 95% of the jets; at most PART_FACTOR × the worst
+    nudge's parted jets and PART_SLACK more; every kernel call of the kernel
+    path within its bound of its plain version on the same inputs
+    (`KernelShadow`), the states on which jets part included."""
+    B = TD_PATHS_B
     gen = torch.Generator(device=device).manual_seed(SEED + 25)
     batch = transdim_training_batch(B, TD_N, 3, 8, gen, device=device)
-    model = make_transdim(device, batch)
-    kw = dict(generator=gen, device=device)
-    draws = {"init": torch.randn((B, D), **kw), "em_noise": torch.randn((TD_STEPS, B, D), **kw),
-             "birth_noise": torch.randn((TD_STEPS, B, D), **kw),
-             "u_chain": torch.rand((TD_STEPS, B, TD_MULTI_BIRTH), **kw),
-             "gumbel": sample_gumbel((TD_STEPS, B, TD_N), gen, device)}
-    outs = []
-    for use_pallas in ("auto", False):
-        model.config.parallel.use_pallas = use_pallas
-        outs.append(model.predict(batch, draws=draws))
-    kernel, plain = outs
-    same = kernel.dims == plain.dims
-    x_plain = plain.get_flat_lats()[same].abs()
-    dx = (kernel.get_flat_lats() - plain.get_flat_lats())[same].abs()
+    model = make_transdim(device, batch, scaled=scaled, gains=scaled)
+    draws = transdim_path_draws(B, gen, device)
+    model.config.parallel.use_pallas = True
+    with KernelShadow() as shadow:
+        kernel = model.predict(batch, draws=draws)
+    model.config.parallel.use_pallas = False
+    plain = model.predict(batch, draws=draws)
+    yardstick = {name: jet_divergence(model.predict(batch, draws=nudged), plain)[3]
+                 for name, nudged in nudged_draws(draws).items()}
+    same, x_plain, dx, by_jet = jet_divergence(kernel, plain)
     rel = dx / x_plain.clamp_min(1.0)
-    rec = {"phase": "paths_transdim", "B": B, "N": TD_N, "steps": TD_STEPS,
-           "equal_dims_share": same.float().mean().item(),
+    nudged_parted = max(y["jets_over_1e-3_of_their_scale"] for y in yardstick.values())
+    allowed = PART_FACTOR * nudged_parted + PART_SLACK
+    rec = {"phase": phase, "B": B, "N": TD_N, "steps": TD_STEPS, **by_jet,
+           "parted_jets_allowed": allowed, "module_vs_module_1ulp": yardstick,
+           "kernel_err_over_bound": shadow.worst(),
            "median_rel_dx": rel.median().item(), "max_rel_dx": rel.max().item(),
            "median_abs_dx": dx.median().item(), "max_abs_dx": dx.max().item(),
            "max_abs_x": x_plain.max().item(), "mean_dims": plain.dims.float().mean().item()}
     emit(rec)
-    if rec["equal_dims_share"] < MIN_EQUAL_DIMS:
+    worst = rec["kernel_err_over_bound"]
+    if (rec["equal_dims_share"] < MIN_EQUAL_DIMS or by_jet["jets_over_1e-3_of_their_scale"] > allowed
+            or not (worst["trunk"] <= 1.0 and worst["gsdm_stack"] <= 1.0)):
         raise RuntimeError(f"transdim kernel path and module path diverge: {rec}")
 
 
@@ -1915,6 +2153,352 @@ def transdim_phases(device, card, build_dir, build_log):
     return entry, k1
 
 
+# ------------------ the absorbing and transdimensional families at `--scaled`
+
+
+def phase_k4_family(device, card, family):
+    """K4 as the scaled absorbing generator (56-wide head, hidden output,
+    N=109, phase "k4_hidden_head") or the scaled transdimensional trunk
+    (folded input, no head, hidden output, N=128, phase "k4_fold") calls it,
+    at B=4096, seeded weights, per particle, the same bits on a repeat; then
+    both timed."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 28)
+    if family == "absorbing":
+        phase, B, n = "k4_hidden_head", ABS_B, ABS_N
+        trunk, _ = make_absorbing(device, scaled=True).pack_for_kernel()
+        args = (trunk, *scattered_inputs(B, n, device, gen))
+    else:
+        phase, B, n = "k4_fold", TD_B, TD_N
+        trunk, _, _ = make_transdim(device, scaled=True).pack_for_kernel()
+        state, ts = transdim_state(B, n, device, gen)
+        args = (trunk, ts.reshape(B, 1, 1), state.continuous, state.discrete,
+                state.particle_mask()[:, :, None])
+    out, hid = epic_forward_wide(*args, output_hidden_local=True)
+    again = epic_forward_wide(*args, output_hidden_local=True)
+    torch.cuda.synchronize()
+    ref_out, ref_hid = epic_forward_reference(*args, output_hidden_local=True)
+    cmp_out, cmp_hid = compare(out, ref_out), compare(hid, ref_hid)
+    gate = "within_tol_per_particle"
+    d = trunk.dims
+    rec = {"phase": phase, "layout": trunk.layout, "hidden": d.hidden, "num_blocks": d.num_blocks,
+           "head_hidden": d.head_hidden, "add_discrete_head": d.add_discrete_head,
+           "fold_discrete": d.fold_discrete, "B": B, "N": n, "gate": gate,
+           "outputs": cmp_out, "hidden_state": cmp_hid, "hidden_shape": list(hid.shape),
+           "max_abs_ref": ref_out.abs().max().item(),
+           "same_bits_on_repeat": bool(torch.equal(out, again[0]) and torch.equal(hid, again[1])),
+           "finite": bool(torch.isfinite(out).all().item() and torch.isfinite(hid).all().item())}
+    emit(rec)
+    if not (cmp_out[gate] and cmp_hid[gate] and rec["finite"] and rec["same_bits_on_repeat"]
+            and rec["layout"] == "wide" and rec["hidden_shape"] == [B, n, SCALED_HIDDEN]):
+        raise RuntimeError(f"K4 ({phase}) disagrees with its plain version: {rec}")
+    ms, plain_ms = time_pair(lambda: epic_forward_wide(*args, output_hidden_local=True),
+                             lambda: epic_forward_reference(*args, output_hidden_local=True))
+    bound = kernel_bound(trunk, B, "forward_hidden", n)
+    emit({"phase": f"{phase}_time", "B": B, "N": n, "ms": ms, "plain_ms": plain_ms, **bound,
+          "tflops": bound["flops"] / ms / 1e9, "card": card})
+    return {"max_abs_err": max(cmp_out["max_abs_err"], cmp_hid["max_abs_err"]),
+            "max_abs_ref": rec["max_abs_ref"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "B": B, "N": n,
+            "num_blocks": d.num_blocks, "head_hidden": d.head_hidden if d.add_discrete_head else None,
+            "fold_discrete": d.fold_discrete, "output_hidden_local": True}
+
+
+def phase_k7_wide_input(device, card):
+    """K7 at the scaled stacks' input widths 136 and 139, B=4096, N=128, the
+    same bits on a repeat; then both timed at 139."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 29)
+    model = make_transdim(device, scaled=True)
+    net, n_heads = model.network, model.config.encoder.n_heads
+    _, rate_stack, vec_stack = model.pack_for_kernel()
+    cases = {}
+    errors = []
+    for packed, res_blocks in ((rate_stack, net.blocks()[0]), (vec_stack, net.blocks("vec_")[0])):
+        x_in = torch.randn((TD_B, TD_N, packed.dim_in), generator=gen, device=device)
+        with torch.no_grad():
+            tp = stack_time_embeddings(
+                net.time_embedding(torch.rand((TD_B,), generator=gen, device=device)), res_blocks)
+        got = gsdm_stack(packed, tp, x_in, n_heads=n_heads)
+        again = gsdm_stack(packed, tp, x_in, n_heads=n_heads)
+        torch.cuda.synchronize()
+        ref = gsdm_stack_reference(packed, tp, x_in, n_heads=n_heads)
+        err = (got - ref).abs()
+        rec = {"phase": "k7_wide_input", "B": TD_B, "N": TD_N, "Din": packed.dim_in,
+               "padded_rows": packed.tensors["w_in"].shape[0], "max_abs_err": err.max().item(),
+               "max_abs_ref": ref.abs().max().item(), "atol": K7_TOL, "rtol": K7_TOL,
+               "within_tol": bool((err <= K7_TOL + K7_TOL * ref.abs()).all().item()),
+               "same_bits_on_repeat": bool(torch.equal(got, again)),
+               "finite": bool(torch.isfinite(got).all().item())}
+        emit(rec)
+        errors.append({"Din": packed.dim_in, "max_abs_err": rec["max_abs_err"]})
+        if not (rec["within_tol"] and rec["same_bits_on_repeat"] and rec["finite"]):
+            raise RuntimeError(f"K7 at a wide input disagrees with its plain version: {rec}")
+        cases[packed.dim_in] = (packed, tp, x_in)
+    if sorted(cases) != [136, 139]:
+        raise RuntimeError(f"the scaled stacks read {sorted(cases)} columns, not 136 and 139")
+    packed, tp, x_in = cases[139]
+    ms, plain_ms = time_pair(lambda: gsdm_stack(packed, tp, x_in, n_heads=n_heads),
+                             lambda: gsdm_stack_reference(packed, tp, x_in, n_heads=n_heads))
+    bound = gsdm_stack_bound(packed, TD_B, TD_N)
+    emit({"phase": "k7_wide_input_time", "B": TD_B, "N": TD_N, "Din": 139, "ms": ms,
+          "plain_ms": plain_ms, **bound, "tflops": bound["flops"] / ms / 1e9, "card": card})
+    return {"max_abs_err": errors[1]["max_abs_err"], "max_abs_err_by_check": errors, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "B": TD_B, "N": TD_N, "Din": 139}
+
+
+def attention_bound(B, n, C=128, masked=True):
+    """K8's bound at (B, n): the scores and the values, n·n·C multiply-adds
+    each a jet over the heads together; in: q, k, v (and the mask), out: the
+    result."""
+    return roofline(2.0 * 2 * n * n * C * B, 4.0 * B * n * C * 4 + (4.0 * B * n if masked else 0))
+
+
+def phase_k8(device, card):
+    """K8 against the einsum at N=109 and 128, with a key mask (one jet wholly
+    masked) and without, the same bits on a repeat; then timed at N=128 with
+    the mask beside the einsum and scaled_dot_product_attention."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+    B, C = TD_B, 128
+    errors = []
+    for n in (ABS_N, TD_N):
+        q, k, v = (torch.randn((B, n, C), generator=gen, device=device) for _ in range(3))
+        mask = (torch.rand((B, n, 1), generator=gen, device=device) < 0.6).float()
+        mask[0] = 0.0
+        for m in (mask, None):
+            got = attention_core(q, k, v, m, n_heads=K8_HEADS)
+            again = attention_core(q, k, v, m, n_heads=K8_HEADS)
+            torch.cuda.synchronize()
+            ref = attention_core_reference(q, k, v, m, n_heads=K8_HEADS)
+            err = (got - ref).abs()
+            rec = {"phase": "k8", "B": B, "N": n, "C": C, "n_heads": K8_HEADS,
+                   "masked": m is not None, "max_abs_err": err.max().item(),
+                   "max_abs_ref": ref.abs().max().item(), "atol": K8_TOL,
+                   "within_tol": bool((err <= K8_TOL).all().item()),
+                   "masked_jet_is_the_mean_of_its_values": bool(
+                       (got[0] - v[0].mean(0)).abs().max().item() <= K8_TOL) if m is not None else None,
+                   "same_bits_on_repeat": bool(torch.equal(got, again)),
+                   "finite": bool(torch.isfinite(got).all().item())}
+            emit(rec)
+            errors.append({"N": n, "masked": m is not None, "max_abs_err": rec["max_abs_err"]})
+            if not (rec["within_tol"] and rec["same_bits_on_repeat"] and rec["finite"]):
+                raise RuntimeError(f"K8 disagrees with its plain version: {rec}")
+
+    # timed at N=128 with the mask (q, k, v, mask of the last case)
+    ms, plain_ms = time_pair(lambda: attention_core(q, k, v, mask, n_heads=K8_HEADS),
+                             lambda: attention_core_reference(q, k, v, mask, n_heads=K8_HEADS))
+    hd = C // K8_HEADS
+    q4, k4, v4 = (a.view(B, TD_N, K8_HEADS, hd).transpose(1, 2) for a in (q, k, v))
+    bias4 = key_bias(mask, B, TD_N, q)[:, None]  # (B, 1, 1, N)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias4)
+
+    library = sdpa().transpose(1, 2).reshape(B, TD_N, C)
+    library_err = (library - attention_core_reference(q, k, v, mask, n_heads=K8_HEADS)).abs().max().item()
+    lib1, lib2 = cuda_ms(sdpa), cuda_ms(sdpa)
+    bound = attention_bound(B, TD_N)
+    emit({"phase": "k8_time", "B": B, "N": TD_N, "C": C, "n_heads": K8_HEADS, "masked": True,
+          "ms": ms, "plain_ms": plain_ms, "library_ms": (lib1 + lib2) / 2,
+          "library": "torch.nn.functional.scaled_dot_product_attention, float mask",
+          "library_max_abs_err": library_err, **bound, "tflops": bound["flops"] / ms / 1e9,
+          "card": card})
+    return errors, ms, plain_ms, (lib1 + lib2) / 2, bound
+
+
+def phase_attn_block(device, card):
+    """K8's path, counted as one run: AttnBlock(use_pallas=True) forward and
+    backward at B=4096, N=109 with a key mask (one jet wholly masked); then
+    held against AttnBlock(use_pallas=False) from the same weights."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    fused = init_transdimensional_parameters(AttnBlock(128, K8_HEADS, use_pallas=True), SEED)
+    fused = fused.to(device)
+    with torch.no_grad():  # non-zero biases and GroupNorm offsets
+        for p in fused.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen, device=device))
+    einsum = AttnBlock(128, K8_HEADS, use_pallas=False).to(device)
+    einsum.load_state_dict(fused.state_dict())
+    B, n = TD_B, ABS_N
+    x = torch.randn((B, n, 128), generator=gen, device=device)
+    mask = (torch.rand((B, n, 1), generator=gen, device=device) < 0.6).float()
+    mask[0] = 0.0
+    g = torch.randn((B, n, 128), generator=gen, device=device)
+    xs = [x.clone().requires_grad_(True) for _ in range(2)]
+    torch.cuda.synchronize()
+
+    reset_counts()  # K8's path: AttnBlock(use_pallas=True) forward and backward
+    out = fused(xs[0], mask)
+    out.backward(g)
+    torch.cuda.synchronize()
+    launches = {"attention_core": attention_core.launches}
+    calls = plain_calls()
+
+    ref = einsum(xs[1], mask)
+    ref.backward(g)
+    err = (out - ref).abs()
+    pairs = [("x", xs[0].grad, xs[1].grad)] + [
+        (name, p.grad, dict(einsum.named_parameters())[name].grad)
+        for name, p in fused.named_parameters()]
+    worst, bad, key_bias_grads = 0.0, [], None
+    for name, a, r in pairs:
+        if name == "k.bias":  # 0 in exact arithmetic: a shift of a row's scores
+            scale = fused.k.weight.grad.abs().max().item()
+            key_bias_grads = {"fused": a.abs().max().item(), "einsum": r.abs().max().item(),
+                              "k_weight_grad_max": scale}
+            if not max(key_bias_grads["fused"], key_bias_grads["einsum"]) <= 1e-4 * scale:
+                bad.append(name)
+            continue
+        bound = 1e-4 * max(r.abs().max().item(), 1e-6) + 1e-3 * r.abs()
+        ratio = ((a - r).abs() / bound).max().item()
+        worst = max(worst, ratio)
+        if not ratio <= 1.0:
+            bad.append(name)
+    rec = {"phase": "attn_block", "B": B, "N": n, "n_heads": K8_HEADS, "launches": launches,
+           "plain_calls": calls, "output_max_abs_err": err.max().item(),
+           "output_max_abs_ref": ref.abs().max().item(),
+           "output_within_tol": bool((err <= 1e-4 + 1e-4 * ref.abs()).all().item()),
+           "worst_grad_err_over_bound": worst, "grads_out_of_bound": bad,
+           "key_bias_grad": key_bias_grads, "card": card}
+    emit(rec)
+    if launches != {"attention_core": 1} or calls or bad or not rec["output_within_tol"]:
+        raise RuntimeError(f"AttnBlock(use_pallas=True) disagrees with the einsum path: {rec}")
+    return launches
+
+
+def profile_request(model, request, B, gen, phase, bare_seconds, card):
+    """One torch.profiler window over a served request of B jets: device time
+    by operation, against the bare request's time, unprofiled, of the same
+    size."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    begin = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        model.predict(request, generator=gen)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - begin) * 1e3
+    kernels = device_operations(prof, 1)
+    device_ms = sum(k[0] for k in kernels)
+    emit({"phase": phase, "window": "request", "B": B, "profiled_wall_ms": wall_ms,
+          "device_ms": device_ms,
+          "bare_request_ms": bare_seconds * 1e3,
+          "device_idle_share_of_bare_request": 1.0 - device_ms / (bare_seconds * 1e3),
+          "launches": sum(k[1] for k in kernels),
+          "operations_ms": [{"ms": ms, "count": c, "name": name[:80]}
+                            for ms, c, name in kernels[:12]], "card": card})
+
+
+def phase_slice_absorbing_scaled(device, card):
+    """predict at the scaled absorbing backbone: per step one launch of K4
+    (hidden output, 56-wide head) and one of K6, nothing else, no plain
+    version; then the kernel path against the module path."""
+    model = make_absorbing(device, scaled=True, gains=True)
+    gen = torch.Generator(device=device).manual_seed(SEED + 32)
+    batches = [absorbing_training_batch(B, ABS_N, 3, 8, gen, device=device, num_empty=1)
+               for B in SCALED_FAMILY_REQUEST_SIZES]
+    torch.cuda.synchronize()
+
+    reset_counts()  # the scaled absorbing serving path's run starts here
+    bare = {}
+    for B, batch in zip(SCALED_FAMILY_REQUEST_SIZES, batches):
+        k4_before, k6_before = epic_forward_wide.launches, survival_head.launches
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = model.predict(batch, generator=gen)
+        torch.cuda.synchronize()
+        seconds = bare[B] = time.perf_counter() - start
+        k4 = epic_forward_wide.launches - k4_before
+        k6 = survival_head.launches - k6_before
+        checks = check_generated_absorbing(out, batch, B)
+        emit({"phase": "slice_absorbing_scaled", "B": B, "N": ABS_N, "steps": k6,
+              "K4_launches": k4, "K6_launches": k6, "seconds": seconds,
+              "jets_per_s": B / seconds, "multiplicity_in": batch.source_mask.sum().item() / B,
+              "multiplicity_out": out.mask_t.sum().item() / B, "card": card, **checks})
+        if k4 != 99 or k6 != 99:
+            raise RuntimeError(f"scaled absorbing request of {B} jets launched K4 {k4} and K6 "
+                               f"{k6} times")
+    launches = {"epic_wide_forward": epic_forward_wide.launches,
+                "survival_head": survival_head.launches}
+    others = {**narrow_counts(), "epic_wide_backward": epic_backward_wide.launches,
+              "gsdm_stack": gsdm_stack.launches, "attention_core": attention_core.launches}
+    emit({"phase": "slice_absorbing_scaled_counts", "launches": launches,
+          "other_launches": others, "plain_calls": plain_calls()})
+    if plain_calls() != 0 or any(others.values()):
+        raise RuntimeError("the scaled absorbing serving path left its kernels")
+    profile_request(model, batches[1], ABS_B, gen, "profile_absorbing_scaled", bare[ABS_B], card)
+    phase_paths_absorbing(device, model, "paths_absorbing_scaled")
+    return launches
+
+
+def phase_slice_transdim_scaled(device, card):
+    """predict at the scaled transdimensional backbone: per network
+    evaluation one launch of K4 (folded input, hidden output) and two of K7
+    (Din 136, 139), nothing else, no plain version; then the kernel path
+    against the module path from the same draws."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 33)
+    batches = [transdim_training_batch(B, TD_N, 3, 8, gen, device=device)
+               for B in SCALED_FAMILY_REQUEST_SIZES]
+    model = make_transdim(device, batches[0], scaled=True, gains=True)
+    prior_mean = batches[0][0].float().mean().item()
+    torch.cuda.synchronize()
+
+    reset_counts()  # the scaled transdimensional serving path's run starts here
+    bare = {}
+    for B, batch in zip(SCALED_FAMILY_REQUEST_SIZES, batches):
+        k4_before, k7_before = epic_forward_wide.launches, gsdm_stack.launches
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = model.predict(batch, generator=gen)
+        torch.cuda.synchronize()
+        seconds = bare[B] = time.perf_counter() - start
+        k4 = epic_forward_wide.launches - k4_before
+        k7 = gsdm_stack.launches - k7_before
+        checks = check_generated_transdim(out, B)
+        mean_out = out.dims.float().mean().item()
+        emit({"phase": "slice_transdim_scaled", "B": B, "N": TD_N, "steps": TD_STEPS, "nfe": k4,
+              "K4_launches": k4, "K7_launches": k7, "seconds": seconds,
+              "jets_per_s": B / seconds, "multiplicity_prior": prior_mean,
+              "multiplicity_out": mean_out, "card": card, **checks})
+        if (k4, k7) != (TD_STEPS, 2 * TD_STEPS):
+            raise RuntimeError(f"scaled transdim request of {B} jets: K4 {k4}, K7 {k7}")
+        if abs(mean_out - prior_mean) > MAX_MULTIPLICITY_SHIFT * prior_mean:
+            raise RuntimeError(f"mean multiplicity {mean_out} against the prior's {prior_mean}")
+    launches = {"epic_wide_forward": epic_forward_wide.launches, "gsdm_stack": gsdm_stack.launches}
+    others = {**narrow_counts(), "epic_wide_backward": epic_backward_wide.launches,
+              "survival_head": survival_head.launches, "attention_core": attention_core.launches}
+    emit({"phase": "slice_transdim_scaled_counts", "launches": launches,
+          "other_launches": others, "plain_calls": plain_calls()})
+    if plain_calls() != 0 or any(others.values()):
+        raise RuntimeError("the scaled transdimensional serving path left its kernels")
+    profile_request(model, batches[1], TD_B, gen, "profile_transdim_scaled", bare[TD_B], card)
+    phase_paths_transdim(device, scaled=True, phase="paths_transdim_scaled")
+    return launches
+
+
+def scaled_family_phases(device, card):
+    """Phases 30-35: K4's two other trunks, K7 at wide inputs, K8 and its
+    path, the scaled absorbing and transdimensional serving paths. Returns
+    what the kernels line gains."""
+    k4_absorbing = phase_k4_family(device, card, "absorbing")
+    k4_transdim = phase_k4_family(device, card, "transdim")
+    k7_wide = phase_k7_wide_input(device, card)
+    k8_errors, k8_ms, k8_plain, k8_library, k8_bound = phase_k8(device, card)
+    k8_path = phase_attn_block(device, card)
+    absorbing = phase_slice_absorbing_scaled(device, card)
+    transdim = phase_slice_transdim_scaled(device, card)
+    k8_entry = {"name": "attention_core", "route": "cuda",
+                "source": "multimodal_particles_tpu_torch/ops/csrc/attention_core.cu",
+                "replaces": "multimodal_particles_tpu/ops/attention_pallas.py:98",
+                "launches": k8_path["attention_core"],
+                "launches_by_path": {"attn_block": k8_path["attention_core"]},
+                "max_abs_err": k8_errors[-2]["max_abs_err"], "max_abs_err_by_check": k8_errors,
+                "ms": k8_ms, "plain_ms": k8_plain, "bound_ms": k8_bound["bound_ms"],
+                "bound_by": k8_bound["bound_by"], "library_ms": k8_library,
+                "library": "torch.nn.functional.scaled_dot_product_attention",
+                "timed_at": {"B": TD_B, "N": TD_N, "C": 128, "n_heads": K8_HEADS, "masked": True}}
+    return {"k4_absorbing": k4_absorbing, "k4_transdim": k4_transdim, "k7_wide": k7_wide,
+            "k8_entry": k8_entry, "absorbing": absorbing, "transdim": transdim}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU")
@@ -1947,6 +2531,17 @@ def main():
     kernels[0]["launches_by_path"].update(k1_transdim.pop("launches_by_path"))
     kernels[0]["transdim"] = k1_transdim
     kernels.append(k7_entry)
+    # the two families at the `--scaled` backbone: K4's other trunks, K7 at
+    # wide inputs, and K8
+    scaled = scaled_family_phases(device, card)
+    k4, k6, k7 = kernels[3], kernels[5], kernels[6]
+    k4["absorbing_scaled"], k4["transdim_scaled"] = scaled["k4_absorbing"], scaled["k4_transdim"]
+    k4["launches_by_path"].update(serving_absorbing_scaled=scaled["absorbing"]["epic_wide_forward"],
+                                  serving_transdim_scaled=scaled["transdim"]["epic_wide_forward"])
+    k6["launches_by_path"]["serving_absorbing_scaled"] = scaled["absorbing"]["survival_head"]
+    k7["wide_input"] = scaled["k7_wide"]
+    k7["launches_by_path"]["serving_transdim_scaled"] = scaled["transdim"]["gsdm_stack"]
+    kernels.append(scaled["k8_entry"])
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_particles_tpu_torch.ops.attention_cuda import (
+    AttentionCore,
+    attention_core_supported,
+)
+
 GN_GROUPS = 32
 GN_EPS = 1e-6
 
@@ -63,30 +68,44 @@ class AttnBlock(nn.Module):
     """Multi-head self-attention over the particle axis with residual
     (gsdm.py:49-105): heads are contiguous channel ranges, the scores are
     scaled by head_dim^-0.5, and without `mask` every slot attends over all N
-    slots. The JAX module's fused attention core (`use_pallas`) is not ported
-    and raises."""
+    slots.
+
+    `use_pallas` picks the attention core as the JAX module's does
+    (gsdm.py:62-72): False, the einsum path; True, the fused core
+    (ops/attention_cuda.py: the kernel on CUDA tensors, its plain version on
+    CPU ones; backward by autograd of the einsum); "auto", the kernel on CUDA
+    tensors of a shape it takes, the einsum path otherwise. With
+    `attn_dim_reduce` other than 1 it is always the einsum path. No model
+    turns it on: the JAX package measured the einsum ~9× faster on v5e."""
 
     def __init__(self, in_channels: int, n_heads: int = 1, attn_dim_reduce: int = 1,
                  use_pallas=False):
         super().__init__()
-        if use_pallas:
-            raise NotImplementedError(
-                "the fused attention core (ops/attention_pallas.py) is not ported; "
-                "AttnBlock takes the einsum path"
-            )
         c = in_channels // attn_dim_reduce
         self.n_heads = n_heads
+        self.attn_dim_reduce = attn_dim_reduce
+        self.use_pallas = use_pallas
         self.norm = GroupNorm(in_channels)
         self.q = nn.Linear(in_channels, c)
         self.k = nn.Linear(in_channels, c)
         self.v = nn.Linear(in_channels, c)
         self.proj_out = nn.Linear(c, in_channels)
 
+    def _core_on(self, q) -> bool:
+        """Whether the fused core computes the attention (`_pallas_on`)."""
+        if not self.use_pallas or self.attn_dim_reduce != 1:
+            return False
+        if self.use_pallas == "auto":
+            return q.device.type == "cuda" and attention_core_supported(q.shape, self.n_heads)
+        return True
+
     def forward(self, x, mask=None):
         """x: (B, N, C); mask: optional (B, N, 1) validity mask of the keys."""
         B, N, _ = x.shape
         h = self.norm(x)
         q, k, v = self.q(h), self.k(h), self.v(h)
+        if self._core_on(q):
+            return x + self.proj_out(AttentionCore.apply(q, k, v, mask, self.n_heads))
         c = q.shape[-1]
         heads, head_dim = self.n_heads, c // self.n_heads
         q = q.reshape(B, N, heads, head_dim)

@@ -9,8 +9,9 @@ runs the modules under autograd, as the JAX package's `loss_fn` runs flax: it
 has no hand-written kernel on this path. Sampling (`predict`) interleaves
 absorbing → continuous → discrete solver steps; with the kernel gate on, each
 step's forward is two launches, the fused EPiC trunk with its hidden output
-(ops/epic_cuda.py) and the fused survival head (ops/survival_cuda.py), and the
-solver steps stay plain PyTorch (the JAX package has no fused absorbing step).
+(ops/epic_cuda.py; at every width 128, the wide one of ops/epic_wide_cuda.py)
+and the fused survival head (ops/survival_cuda.py), and the solver steps stay
+plain PyTorch (the JAX package has no fused absorbing step).
 Randomness is an input throughout: every draw comes from a caller's generator
 or is injected as tensors.
 """
@@ -36,9 +37,14 @@ from multimodal_particles_tpu_torch.models.generative.states import (
 from multimodal_particles_tpu_torch.ops.epic_cuda import (
     epic_forward,
     epic_supported,
+    head_width,
     pack_mbm_encoder_params,
 )
-from multimodal_particles_tpu_torch.ops.epic_wide_cuda import wide_supported
+from multimodal_particles_tpu_torch.ops.epic_wide_cuda import (
+    epic_forward_wide,
+    pack_wide_encoder_params,
+    wide_supported,
+)
 from multimodal_particles_tpu_torch.ops.survival_cuda import (
     pack_survival_head_params,
     project_time_embeddings,
@@ -155,41 +161,35 @@ class AbsorbingFlow(nn.Module):
         """Eager module forward (absorbing_flows.py:269-287)."""
         return self.generator(state)
 
-    def _narrow_trunk(self) -> bool:
-        """The trunk tier of the kernel path (absorbing_flows.py:208-213): the
-        narrow fused kernel at hidden ≤ 64, the module otherwise. At widths
-        that only the wide kernel takes there is no kernel path yet: the wide
-        kernel has no hidden output and takes no 56-wide discrete head."""
-        if wide_supported(self.config):
-            raise NotImplementedError(
-                "the absorbing family at a wide trunk (every width 128) needs the wide EPiC "
-                "kernel's hidden output and head width, which are not ported (ROADMAP Queue 2, "
-                "'Not yet ported around K4'); set parallel.use_pallas = False for the module path"
-            )
-        return epic_supported(self.config)
-
     def pack_for_kernel(self):
         """(packed trunk or None, packed survival head) of the current
-        weights, detached: what `forward_sampling` reads."""
+        weights, detached: what `forward_sampling` reads. The trunk tier
+        follows absorbing_flows.py:204-245: the wide kernel where
+        `wide_supported` takes the trunk and its discrete head, the narrow one
+        at the hidden widths it is compiled for, the module trunk (None)
+        otherwise."""
         gen = self.generator
+        head = gen.discrete_head_mlp if self.config.encoder.add_discrete_head else None
         trunk = None
-        if self._narrow_trunk():
-            head = gen.discrete_head_mlp if self.config.encoder.add_discrete_head else None
+        if wide_supported(self.config, head_hidden=head_width(head)):
+            trunk = pack_wide_encoder_params(gen, self.config, head=head)
+        elif epic_supported(self.config):
             trunk = pack_mbm_encoder_params(gen, self.config, head=head)
         return trunk, pack_survival_head_params(gen, self.config.generator.n_attn_blocks)
 
     @torch.no_grad()
     def forward_sampling(self, state: AbsorbingBridgeState, packed=None) -> OutputHeads:
         """Sampling-path forward (absorbing_flows.py:178-267): with the gate
-        on, the fused EPiC trunk with its hidden output, then the fused
-        survival head; else the modules. `packed` is a packing of the current
+        on, the fused EPiC trunk (narrow or wide) with its hidden output, then
+        the fused survival head; else the modules. `packed` is a packing of the current
         weights to reuse (`pack_for_kernel`)."""
         if not self._pallas_enabled(state.continuous.device):
             return self.forward(state)
         trunk, head = packed if packed is not None else self.pack_for_kernel()
         gen, cfg_g = self.generator, self.config.generator
         if trunk is not None:
-            out, last = epic_forward(
+            trunk_fn = epic_forward_wide if trunk.layout == "wide" else epic_forward
+            out, last = trunk_fn(
                 trunk, state.time, state.continuous, state.discrete,
                 state.mask_t.to(state.continuous.dtype), output_hidden_local=True,
             )

@@ -13,8 +13,9 @@ eps/x0 preconditioning and the reverse rate (`net_forward`), the training loss
 Training runs the modules under autograd, as the JAX package's `loss_fn` runs
 flax: it has no hand-written kernel on this path. Sampling, with the kernel
 gate on, is three launches a network evaluation: the fused EPiC trunk with the
-Linear-discrete input and its hidden output (ops/epic_cuda.py) and the fused
-gsdm stack twice (ops/gsdm_stack_cuda.py); the small head projections between
+Linear-discrete input and its hidden output (ops/epic_cuda.py; at every width
+128 the wide one of ops/epic_wide_cuda.py) and the fused gsdm stack twice
+(ops/gsdm_stack_cuda.py); the small head projections between
 and after them stay plain PyTorch, as they stay XLA in JAX. Randomness is an
 input throughout: every draw comes from a caller's generator or is injected
 as tensors.
@@ -51,6 +52,7 @@ from multimodal_particles_tpu_torch.ops.epic_cuda import (
     epic_supported,
     pack_bare_trunk_params,
 )
+from multimodal_particles_tpu_torch.ops.epic_wide_cuda import epic_forward_wide, wide_supported
 from multimodal_particles_tpu_torch.ops.gsdm_stack_cuda import (
     gsdm_stack,
     gsdm_stack_supported,
@@ -253,28 +255,30 @@ class TransdimensionalJumpDiffusion(nn.Module):
         flag = self.config.parallel.use_pallas
         if flag is False:
             return False
-        enc = self.config.encoder
-        narrow = epic_supported(self.config, allow_linear_discrete=True)
-        wide = all(w == 128 for w in (enc.dim_hidden_local, enc.dim_hidden_glob, enc.dim_emb_time,
-                                      enc.dim_emb_features_continuous,
-                                      enc.dim_emb_features_discrete))
-        supported = gsdm_stack_supported(self.config) and (narrow or wide)
+        supported = gsdm_stack_supported(self.config) and self._trunk_layout() is not None
         if flag == "auto":
             return supported and torch.device(device).type == "cuda"
         return bool(flag) and supported
 
+    def _trunk_layout(self):
+        """The trunk's kernel (transdimensional_model.py:325-337): "wide" when
+        every width is 128, "narrow" at the hidden widths K1 is compiled for,
+        None when neither takes it."""
+        if wide_supported(self.config, allow_linear_discrete=True):
+            return "wide"
+        if epic_supported(self.config, allow_linear_discrete=True):
+            return "narrow"
+        return None
+
     def pack_for_kernel(self):
         """(packed trunk, packed rate stack, packed creation stack) of the
         current weights, detached: what `forward_kernel` reads."""
-        if not epic_supported(self.config, allow_linear_discrete=True):
-            raise NotImplementedError(
-                "the transdimensional family at a wide trunk (every width 128) needs the wide "
-                "EPiC kernel's hidden output and Linear-discrete input, which are not ported "
-                "(ROADMAP Queue 2, 'Not yet ported around K4'); set parallel.use_pallas = False "
-                "for the module path"
-            )
+        layout = self._trunk_layout()
+        if layout is None:
+            raise ValueError("no trunk kernel takes this encoder (see `_pallas_enabled`)")
         net = self.network
-        trunk = pack_bare_trunk_params(net, self.config, fold_discrete=net.linear_discrete)
+        trunk = pack_bare_trunk_params(net, self.config, fold_discrete=net.linear_discrete,
+                                       layout=layout)
         return (trunk,
                 pack_gsdm_stack_params(net.transformer_1_proj_in, *net.blocks()),
                 pack_gsdm_stack_params(net.vec_transformer_in_proj, *net.blocks("vec_")))
@@ -290,7 +294,8 @@ class TransdimensionalJumpDiffusion(nn.Module):
         net, enc = self.network, self.config.encoder
         trunk, rate_stack, vec_stack = packed if packed is not None else self.pack_for_kernel()
         node_mask = state.particle_mask()[:, :, None]
-        net_out, net_last_layer = epic_forward(
+        trunk_fn = epic_forward_wide if trunk.layout == "wide" else epic_forward
+        net_out, net_last_layer = trunk_fn(
             trunk, ts.reshape(state.B, 1, 1).contiguous(), state.continuous.contiguous(),
             net.trunk_input(state).contiguous(), node_mask, output_hidden_local=True)
         temb = net.time_embedding(ts)

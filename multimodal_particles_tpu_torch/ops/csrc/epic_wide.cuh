@@ -25,6 +25,15 @@
 //     the per-jet global MLP is vector-matrix products by the whole block.
 //   * A recorder (template parameter Rec) receives the activations that the
 //     backward kernel reads back; NoRecord compiles to nothing.
+//   * The forward kernel alone also takes the two trunks of the absorbing and
+//     transdimensional families (`wide_forward_jet_ext`): the folded
+//     Linear-discrete input (FOLD: the discrete embedding is a Dense over the
+//     particle's V channel values, so k_emb = values·table + b_k fills the
+//     tile the token lookup fills; the concatenated features stay 384 wide),
+//     a discrete head of any hidden width up to MAX_WIDE_HEAD (WIDE_HEAD: a
+//     warp a row, a lane two hidden units), and the trunk's last local
+//     hidden state as a third output. Each is a template flag or a null
+//     pointer, so that the token, 8-wide-head instantiation is the MBM one.
 #pragma once
 
 #include <cuda_pipeline.h>
@@ -43,9 +52,10 @@ constexpr int KT = 16;        // input rows of a weight tile
 constexpr int MAT = ROWS * WD;
 
 // head_hidden: hidden width of the discrete head's MLP; fold_discrete: the
-// Linear-discrete input of the narrow forward kernel (epic_forward.cuh). The
-// wide kernels are written for a head of width V and a token input and refuse
-// anything else.
+// Linear-discrete input (a Dense over the V channel values in place of the
+// token table). The backward kernel is written for a head of width V and a
+// token input and refuses anything else (dims_supported); the forward kernel
+// takes both (forward_dims_supported).
 struct Dims {
   int hidden, hidden_glob, emb_t, emb_x, emb_k, num_blocks, use_skip, add_discrete_head;
   int head_hidden, fold_discrete;
@@ -60,22 +70,34 @@ inline bool dims_supported(const Dims& d) {
          d.emb_k == WD && d.num_blocks >= 0 && d.head_hidden == V && d.fold_discrete == 0;
 }
 
+constexpr int MAX_WIDE_HEAD = 64;  // the forward kernel's widest discrete head
+
+inline bool forward_dims_supported(const Dims& d) {
+  return d.hidden == WD && d.hidden_glob == WD && d.emb_t == WD && d.emb_x == WD &&
+         d.emb_k == WD && d.num_blocks >= 0 && d.head_hidden >= 1 &&
+         d.head_hidden <= MAX_WIDE_HEAD && (d.fold_discrete == 0 || d.fold_discrete == 1);
+}
+
 // Offsets in floats into the packed buffer; matrices are (in, out) row-major.
 // Block offsets are from the start of a block, head offsets absolute.
 struct Layout {
-  int w_x, b_x, table, w_l0, b_l0, w_g0, b_g0, w_g1, b_g1, w_g2, b_g2;
+  int w_x, b_x, table, b_k, w_l0, b_l0, w_g0, b_g0, w_g1, b_g1, w_g2, b_g2;
   int blocks, block_stride;
   int fg1, bfg1, fg2, bfg2, fl1, bfl1, fl2, bfl2;
   int out_c, b_out_c, out_d, b_out_d, h0, b_h0, h1, b_h1;
   int total, row_stride;  // row_stride: total rounded up to a float4
 };
 
-__host__ __device__ inline Layout make_layout(int num_blocks) {
+// head_hidden and fold as in Dims; the defaults are the backward kernel's
+// layout.
+__host__ __device__ inline Layout make_layout(int num_blocks, int head_hidden = V,
+                                              bool fold = false) {
   Layout L;
   int o = 0;
   L.w_x = o;   o += DC * WD;
   L.b_x = o;   o += WD;
-  L.table = o; o += V * WD;
+  L.table = o; o += V * WD;     // with fold: the folded Dense, (V, 128)
+  L.b_k = o;   o += fold ? WD : 0;  // and its bias
   L.w_l0 = o;  o += 3 * WD * WD;
   L.b_l0 = o;  o += WD;
   L.w_g0 = o;  o += 3 * WD * WD;
@@ -100,9 +122,9 @@ __host__ __device__ inline Layout make_layout(int num_blocks) {
   L.b_out_c = o; o += DC;
   L.out_d = o;   o += WD * V;
   L.b_out_d = o; o += V;
-  L.h0 = o;      o += V * V;
-  L.b_h0 = o;    o += V;
-  L.h1 = o;      o += V * V;
+  L.h0 = o;      o += V * head_hidden;
+  L.b_h0 = o;    o += head_hidden;
+  L.h1 = o;      o += head_hidden * V;
   L.b_h1 = o;    o += V;
   L.total = o;
   L.row_stride = (o + 3) & ~3;
@@ -124,6 +146,12 @@ static_assert(SMEM_BYTES <= 232448, "over a block's 227 KB of shared memory");
 // Head weights staged in the (idle) weight buffer, [output][input].
 constexpr int T_HW = 0, T_BO = NOUT * WD, T_WH0 = T_BO + 16, T_BH0 = T_WH0 + 64,
               T_WH1 = T_BH0 + 8, T_BH1 = T_WH1 + 64, T_DZ = 2048;
+// A wide head's weights in the same buffer, [input][output] as packed:
+// W_h0 (V, head_hidden), W_h1 (head_hidden, V).
+constexpr int TW_WH0 = T_BO + 16, TW_BH0 = TW_WH0 + V * MAX_WIDE_HEAD,
+              TW_WH1 = TW_BH0 + MAX_WIDE_HEAD, TW_BH1 = TW_WH1 + MAX_WIDE_HEAD * V,
+              TW_END = TW_BH1 + V;
+static_assert(TW_END <= 2 * KT * WD, "a wide head's weights overrun the weight buffer");
 
 __device__ __forceinline__ float leaky(float x) { return x >= 0.f ? x : 0.01f * x; }
 
@@ -269,22 +297,74 @@ struct NoRecord {
 constexpr int R_P0 = 0, R_ZG0 = 384, R_ZG1 = 512, R_ZG2 = 640, R_PROJ = 768;  // proj(i, v)
 constexpr int R_P = 0, R_ZFG1 = 512, R_ZFG2 = 640, R_GLOB = 768;              // glob(blk, i, v)
 
-// Stages the head weights [output][input] and biases into the weight buffer.
-__device__ __forceinline__ void stage_heads(const float* __restrict__ w, const Layout& L,
-                                            float* tiles) {
+// Stages the output layer's weights [output][input] and biases into the
+// weight buffer.
+__device__ __forceinline__ void stage_outputs(const float* __restrict__ w, const Layout& L,
+                                              float* tiles) {
   const int tid = threadIdx.x;
   for (int e = tid; e < WD * DC; e += THREADS) tiles[T_HW + (e % DC) * WD + e / DC] = w[L.out_c + e];
   for (int e = tid; e < WD * V; e += THREADS)
     tiles[T_HW + (DC + e % V) * WD + e / V] = w[L.out_d + e];
   if (tid < DC) tiles[T_BO + tid] = w[L.b_out_c + tid];
+  if (tid < V) tiles[T_BO + DC + tid] = w[L.b_out_d + tid];
+}
+
+// Stages the output layer and the V-wide head's weights and biases.
+__device__ __forceinline__ void stage_heads(const float* __restrict__ w, const Layout& L,
+                                            float* tiles) {
+  const int tid = threadIdx.x;
+  stage_outputs(w, L, tiles);
   if (tid < V) {
-    tiles[T_BO + DC + tid] = w[L.b_out_d + tid];
     tiles[T_BH0 + tid] = w[L.b_h0 + tid];
     tiles[T_BH1 + tid] = w[L.b_h1 + tid];
   }
   if (tid < V * V) {
     tiles[T_WH0 + tid] = w[L.h0 + tid];
     tiles[T_WH1 + tid] = w[L.h1 + tid];
+  }
+}
+
+// Stages the output layer and a head of hidden width hh ≤ MAX_WIDE_HEAD.
+__device__ __forceinline__ void stage_wide_head(const float* __restrict__ w, const Layout& L,
+                                                int hh, float* tiles) {
+  const int tid = threadIdx.x;
+  stage_outputs(w, L, tiles);
+  for (int e = tid; e < V * hh; e += THREADS) {
+    tiles[TW_WH0 + e] = w[L.h0 + e];
+    tiles[TW_WH1 + e] = w[L.h1 + e];
+  }
+  if (tid < hh) tiles[TW_BH0 + tid] = w[L.b_h0 + tid];
+  if (tid < V) tiles[TW_BH1 + tid] = w[L.b_h1 + tid];
+}
+
+// The discrete head Dense(V → hh) → SELU → Dense(hh → V) on one row's
+// disc_pre p[DC..DC+V) by the calling warp: lane j takes the hidden units j
+// and j + 32, the output products are warp sums. Every lane gets all V.
+__device__ __forceinline__ void wide_head(float (&p)[NOUT], const float* tiles, int hh) {
+  const int lane = threadIdx.x & 31;
+  float a[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int j = lane + 32 * q;
+    a[q] = 0.f;
+    if (j < hh) {
+      float s = 0.f;
+#pragma unroll
+      for (int u = 0; u < V; ++u) s = fmaf(p[DC + u], tiles[TW_WH0 + u * hh + j], s);
+      a[q] = selu(s + tiles[TW_BH0 + j]);
+    }
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int j = lane + 32 * q;
+      if (j < hh) s = fmaf(a[q], tiles[TW_WH1 + j * V + v], s);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    p[DC + v] = s + tiles[TW_BH1 + v];
   }
 }
 
@@ -321,12 +401,17 @@ __device__ __forceinline__ void head_hidden(const float (&p)[NOUT], const float*
 
 // The whole encoder for this block's jet. Every thread of the block calls it.
 // On return the tile S0 holds h_final; with Rec::HEADS the head outputs of
-// rows < N are written to out (N, 11).
-template <class Rec>
-__device__ void wide_forward_jet(const float* __restrict__ w, const Dims& d, const Layout& L,
-                                 float* smem, float t, const float* __restrict__ x,
-                                 const int* __restrict__ k, const float* __restrict__ mask, int N,
-                                 float* __restrict__ out, const Rec& rec) {
+// rows < N are written to out (N, 11). FOLD: the discrete input is `kv`
+// (N, V) channel values through the folded Dense (k unused); else the tokens
+// `k` (N,). WIDE_HEAD: the discrete head has d.head_hidden hidden units (else
+// V). A non-null `hid` receives h_final's rows < N, (N, 128).
+template <class Rec, bool FOLD, bool WIDE_HEAD>
+__device__ void wide_forward_jet_ext(const float* __restrict__ w, const Dims& d, const Layout& L,
+                                     float* smem, float t, const float* __restrict__ x,
+                                     const int* __restrict__ k, const float* __restrict__ kv,
+                                     const float* __restrict__ mask, int N,
+                                     float* __restrict__ out, float* __restrict__ hid,
+                                     const Rec& rec) {
   const int tid = threadIdx.x;
   float* S0 = smem;
   float* S1 = smem + MAT;
@@ -352,7 +437,7 @@ __device__ void wide_forward_jet(const float* __restrict__ w, const Dims& d, con
   if (tid < ROWS) {
     const bool real = tid < N;
     m[tid] = real ? mask[tid] : 0.f;
-    ks[tid] = real ? k[tid] : 0;
+    if constexpr (!FOLD) ks[tid] = real ? k[tid] : 0;
 #pragma unroll
     for (int c = 0; c < DC; ++c) xs[tid * DC + c] = real ? x[tid * DC + c] : 0.f;
     const int half = WD / 2;
@@ -367,6 +452,28 @@ __device__ void wide_forward_jet(const float* __restrict__ w, const Dims& d, con
   denom = fmaxf(denom, 1.f);
 
   // ---- input embeddings: S1 = x_emb, S2 = k_emb (utils.py:112-172)
+  if constexpr (FOLD) {
+    // the Linear-discrete input: k_emb = values·W_k + b_k
+    const int e4 = (tid & 31) * 4;
+    const float4 bk = *reinterpret_cast<const float4*>(w + L.b_k + e4);
+    float4 wk[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) wk[v] = *reinterpret_cast<const float4*>(w + L.table + v * WD + e4);
+    for (int r = tid >> 5; r < ROWS; r += 8) {
+      float4 ke = bk;
+      if (r < N) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const float kc = __ldg(kv + r * V + v);
+          ke.x = fmaf(kc, wk[v].x, ke.x);
+          ke.y = fmaf(kc, wk[v].y, ke.y);
+          ke.z = fmaf(kc, wk[v].z, ke.z);
+          ke.w = fmaf(kc, wk[v].w, ke.w);
+        }
+      }
+      *reinterpret_cast<float4*>(S2 + r * WD + e4) = ke;
+    }
+  }
   {
     const int e4 = (tid & 31) * 4;
     const float4 bx = *reinterpret_cast<const float4*>(w + L.b_x + e4);
@@ -384,10 +491,12 @@ __device__ void wide_forward_jet(const float* __restrict__ w, const Dims& d, con
         xe.w = fmaf(xc, wx[c].w, xe.w);
       }
       *reinterpret_cast<float4*>(S1 + r * WD + e4) = xe;
-      const int kr = ks[r];
-      float4 ke = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (kr >= 0 && kr < V) ke = *reinterpret_cast<const float4*>(w + L.table + kr * WD + e4);
-      *reinterpret_cast<float4*>(S2 + r * WD + e4) = ke;
+      if constexpr (!FOLD) {
+        const int kr = ks[r];
+        float4 ke = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (kr >= 0 && kr < V) ke = *reinterpret_cast<const float4*>(w + L.table + kr * WD + e4);
+        *reinterpret_cast<float4*>(S2 + r * WD + e4) = ke;
+      }
     }
   }
   // the time third of local_0 is the same for every particle of the jet
@@ -497,17 +606,29 @@ __device__ void wide_forward_jet(const float* __restrict__ w, const Dims& d, con
     __syncthreads();
   }
 
+  // ---- the trunk's last local hidden state (output_hidden_local): rows of
+  // 128 floats, contiguous
+  if (hid != nullptr)
+    for (int idx = tid; idx < N * (WD / 4); idx += THREADS)
+      reinterpret_cast<float4*>(hid)[idx] = reinterpret_cast<const float4*>(S0)[idx];
+
   // ---- weight-normed output + heads (epic.py:145-162, mbm :102-113):
   // one warp per row; cont and disc_pre are masked, the SELU head's output
   // is not
   if (!Rec::HEADS) return;
-  stage_heads(w, L, tiles);
+  if constexpr (WIDE_HEAD) {
+    stage_wide_head(w, L, d.head_hidden, tiles);
+  } else {
+    stage_heads(w, L, tiles);
+  }
   __syncthreads();
   const int lane = tid & 31, warp = tid >> 5;
   for (int r = warp; r < N; r += THREADS / 32) {
     float p[NOUT];
     row_outputs(S0 + r * WD, tiles, m[r], p);
-    if (d.add_discrete_head) {
+    if (WIDE_HEAD && d.add_discrete_head) {
+      wide_head(p, tiles, d.head_hidden);
+    } else if (d.add_discrete_head) {
       float z[V];
       head_hidden(p, tiles, z);
 #pragma unroll
@@ -527,6 +648,19 @@ __device__ void wide_forward_jet(const float* __restrict__ w, const Dims& d, con
     if (lane < NOUT) out[r * NOUT + lane] = val;
   }
   __syncthreads();
+}
+
+// The MBM encoder (tokens, a V-wide head, no hidden output), as the backward
+// kernel's recording forward runs it.
+template <class Rec>
+__device__ __forceinline__ void wide_forward_jet(const float* __restrict__ w, const Dims& d,
+                                                 const Layout& L, float* smem, float t,
+                                                 const float* __restrict__ x,
+                                                 const int* __restrict__ k,
+                                                 const float* __restrict__ mask, int N,
+                                                 float* __restrict__ out, const Rec& rec) {
+  wide_forward_jet_ext<Rec, false, false>(w, d, L, smem, t, x, k, nullptr, mask, N, out, nullptr,
+                                          rec);
 }
 
 }  // namespace mmpw

@@ -4,15 +4,25 @@
 // (`epic_forward_pallas_wide`, body `_epic_wide_kernel` / `_forward_acts_wide`):
 // input embeddings → EPiC projection → num_blocks EPiC layers → weight-normed
 // output → continuous head and SELU discrete head, every feature width 128.
+// As the JAX kernel, it also takes the trunks of the other two families at
+// these widths: with a non-null `hidden` the same launch writes the trunk's
+// last local hidden state (B, N, 128), `output_hidden_local`
+// (epic_pallas_wide.py:209-210, :314-316); the discrete head may be wider than
+// the vocabulary (the absorbing generator's is 56, :186-189); and with
+// `fold_discrete` in the layout the discrete input is the particle's V channel
+// values through a Dense, the transdimensional trunk's Linear-discrete
+// embedding (:72-80, :124-127), read from `k` as (B, N, V) floats. Each is a
+// template instance (epic_wide.cuh, `wide_forward_jet_ext`); the MBM one is
+// the token, V-wide-head instance.
 //
 // What bounds it. With the broadcast thirds of local_0 and fc_local1 taken
 // per jet, a particle costs (2 + 2·num_blocks)·128·128 multiply-adds, 0.23 M
 // at 6 blocks: 0.48 TFLOP for 8192 jets of 128 particles, against 68 bytes of
-// input and output a particle. The bound is fp32 arithmetic on the CUDA
-// cores. Below it sit two costs of this first design: every block streams the
-// whole packed buffer (4 MB at 6 blocks) from L2 for its one jet, three
-// quarters of it for the per-jet global MLP, and 212 KB of activation tiles
-// leave room for one block of 8 warps per SM.
+// input and output a particle (+ 512 with the hidden output). The bound is
+// fp32 arithmetic on the CUDA cores. Below it sit two costs of this first
+// design: every block streams the whole packed buffer (4 MB at 6 blocks) from
+// L2 for its one jet, three quarters of it for the per-jet global MLP, and
+// 212 KB of activation tiles leave room for one block of 8 warps per SM.
 //
 // C interface (bound with ctypes by ops/epic_wide_cuda.py): returns the
 // cudaError_t of the launch, 0 on success.
@@ -21,32 +31,51 @@
 
 namespace mmpw {
 
+template <bool FOLD, bool WIDE_HEAD>
 __global__ void __launch_bounds__(THREADS, 1)
 epic_wide_forward_kernel(const float* __restrict__ w, Dims d, const float* __restrict__ t,
-                         const float* __restrict__ x, const int* __restrict__ k,
-                         const float* __restrict__ mask, float* __restrict__ out, int N) {
+                         const float* __restrict__ x, const void* __restrict__ k,
+                         const float* __restrict__ mask, float* __restrict__ out,
+                         float* __restrict__ hidden, int N) {
   extern __shared__ __align__(16) float smem[];
-  const Layout L = make_layout(d.num_blocks);
+  const Layout L = make_layout(d.num_blocks, d.head_hidden, FOLD);
   const size_t p = (size_t)blockIdx.x * N;
-  wide_forward_jet(w, d, L, smem, t[blockIdx.x], x + p * DC, k + p, mask + p, N, out + p * NOUT,
-                   NoRecord());
+  const int* tokens = FOLD ? nullptr : static_cast<const int*>(k) + p;
+  const float* values = FOLD ? static_cast<const float*>(k) + p * V : nullptr;
+  wide_forward_jet_ext<NoRecord, FOLD, WIDE_HEAD>(
+      w, d, L, smem, t[blockIdx.x], x + p * DC, tokens, values, mask + p, N, out + p * NOUT,
+      hidden == nullptr ? nullptr : hidden + p * WD, NoRecord());
+}
+
+template <bool FOLD, bool WIDE_HEAD>
+cudaError_t launch(const void* w, const Dims& d, const void* t, const void* x, const void* k,
+                   const void* mask, void* out, void* hidden, int B, int N, cudaStream_t stream) {
+  auto kernel = epic_wide_forward_kernel<FOLD, WIDE_HEAD>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  kernel<<<B, THREADS, SMEM_BYTES, stream>>>(
+      static_cast<const float*>(w), d, static_cast<const float*>(t), static_cast<const float*>(x),
+      k, static_cast<const float*>(mask), static_cast<float*>(out), static_cast<float*>(hidden), N);
+  return cudaGetLastError();
 }
 
 }  // namespace mmpw
 
+// k: (B, N) int tokens, or with fold_discrete (B, N, V) float channel values;
+// hidden: (B, N, 128) or null.
 extern "C" int mmp_epic_wide_forward(const void* w, const void* t, const void* x, const void* k,
-                                     const void* mask, void* out, int B, int N, const int* dims,
-                                     void* stream) {
+                                     const void* mask, void* out, void* hidden, int B, int N,
+                                     const int* dims, void* stream) {
   using namespace mmpw;
   const Dims d = dims_from(dims);
-  if (!dims_supported(d) || N < 1 || N > ROWS) return cudaErrorInvalidValue;
+  if (!forward_dims_supported(d) || N < 1 || N > ROWS) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(epic_wide_forward_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  epic_wide_forward_kernel<<<B, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(w), d, static_cast<const float*>(t), static_cast<const float*>(x),
-      static_cast<const int*>(k), static_cast<const float*>(mask), static_cast<float*>(out), N);
-  return cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool wide_head = d.head_hidden != V;
+  if (d.fold_discrete)
+    return wide_head ? launch<true, true>(w, d, t, x, k, mask, out, hidden, B, N, s)
+                     : launch<true, false>(w, d, t, x, k, mask, out, hidden, B, N, s);
+  return wide_head ? launch<false, true>(w, d, t, x, k, mask, out, hidden, B, N, s)
+                   : launch<false, false>(w, d, t, x, k, mask, out, hidden, B, N, s);
 }

@@ -10,7 +10,7 @@
 // they stay outside the TPU kernel. The blocks, their GroupNorm and attention,
 // the shared memory plan and the design are gsdm_blocks.cuh's, shared with
 // the survival head (survival_head.cu); this file adds a first product of any
-// input width up to 128 and the store of the residual tile.
+// input width and the store of the residual tile.
 //
 // What bounds it. A jet of N = 128 slots costs N·Din·128 (proj_in) + per block
 // 6 products of (N,128)·(128,128) and two heads of N·N·64 scores and values:
@@ -22,6 +22,10 @@
 // no multiple of 16: the packed proj_in weight carries zero rows up to
 // Dpad = 16·⌈Din/16⌉ (ops/gsdm_stack_cuda.py::stack_layout), and the input
 // tile's columns from Din to Dpad are zeroed, so the product runs over Dpad.
+// An input wider than the tile's 128 columns (the `--scaled` trunk's hidden
+// state of 128 ‖ V ‖ 3: Din = 136 and 139) goes through the tile in passes of
+// 128 columns, each accumulating into the same register tile, so the sum runs
+// over the columns in the order of one pass over Dpad; Din ≤ 128 is one pass.
 //
 // C interface (bound with ctypes by ops/gsdm_stack_cuda.py): returns the
 // cudaError_t of the launch, 0 on success.
@@ -46,17 +50,19 @@ __device__ void stack_jet(const float* __restrict__ w, const BlockLayout& L, flo
   const float* b_in = w + Dpad * C;
   const float* wblocks = b_in + C;
 
-  // ---- the input into the first Dpad columns of `a`, zero past N and Din
-  for (int idx = tid; idx < ROWS * Dpad; idx += THREADS) {
-    const int r = idx / Dpad, c = idx - r * Dpad;
-    a[r * WD + c] = (r < N && c < Din) ? x[r * Din + c] : 0.f;
-  }
-  __syncthreads();
-
-  // ---- proj_in
+  // ---- proj_in, in passes of up to 128 input columns: the pass's columns
+  // into the first `width` columns of `a`, zero past N and Din
   float acc[8][8];
   zero_acc(acc);
-  gemm_acc<NI>(acc, a, w_in, Dpad, tiles);
+  for (int c0 = 0; c0 < Dpad; c0 += WD) {
+    const int width = Dpad - c0 < WD ? Dpad - c0 : WD;
+    for (int idx = tid; idx < ROWS * width; idx += THREADS) {
+      const int r = idx / width, c = idx - r * width;
+      a[r * WD + c] = (r < N && c0 + c < Din) ? x[r * Din + c0 + c] : 0.f;
+    }
+    __syncthreads();
+    gemm_acc<NI>(acc, a, w_in + (size_t)c0 * C, width, tiles);  // ends with a barrier
+  }
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int r = tile_row(i);
@@ -100,7 +106,7 @@ extern "C" int mmp_gsdm_stack(const void* w, const void* tp, const void* x, void
                               void* scratch, int grid, int B, int N, int Din, int n_blocks,
                               int n_heads, void* stream) {
   using namespace mmps;
-  if (N < 1 || N > ROWS || Din < 1 || Din > WD || n_blocks < 1 || n_heads < 1 ||
+  if (N < 1 || N > ROWS || Din < 1 || n_blocks < 1 || n_heads < 1 ||
       C % n_heads != 0 || (C / n_heads) % 32 != 0 || grid < 1)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;

@@ -20,7 +20,8 @@ the Linear-discrete input of the transdimensional trunk
 epic_pallas.py:107-131): the discrete embedding is then a Dense over the
 particle's V channel values, its bias has a slot after the table, and
 `epic_forward` takes the (B, N, V) float values where it takes the tokens;
-again only `epic_forward` takes such a packing. The port keeps the JAX
+again only `epic_forward` takes such a packing (and of the wide kernels,
+only the wide forward, ops/epic_wide_cuda.py). The port keeps the JAX
 package's (B, N, C) layout: the JAX kernels' (features, B·N) lane layout is
 TPU layout, not semantics.
 """
@@ -208,6 +209,29 @@ def effective_weights(encoder, d: EpicDims, head=None) -> Dict[str, torch.Tensor
     return src
 
 
+def pack_encoder(encoder, d: EpicDims, layout: str = "narrow", differentiable: bool = False,
+                 head=None) -> PackedEncoder:
+    """A module with an `epic` trunk → flat buffer of effective weights in
+    `layout`'s order: matrices (out, in) for the narrow kernels, (in, out)
+    for the wide ones (`wide_weight_layout`). With `differentiable`, `flat`
+    is a non-leaf of the autograd graph."""
+    transpose = layout == "wide"
+    with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
+        src = effective_weights(encoder, d, head)
+        flat = torch.cat([
+            (src[name].T if transpose and transposed_in_wide(name, shape) else src[name])
+            .reshape(-1).float()
+            for name, shape in weight_layout(d)
+        ])
+    return PackedEncoder(flat, LAYOUT_VIEWS[layout](flat, d), d, layout)
+
+
+def head_width(head) -> int:
+    """The hidden width of a discrete head (Linear-SELU-Linear), or the
+    vocabulary's for the module's own `fc_layer`."""
+    return VOCAB if head is None else head[0].out_features
+
+
 def pack_mbm_encoder_params(encoder, config, differentiable: bool = False,
                             head=None) -> PackedEncoder:
     """A module with an `epic` trunk → flat buffer of effective weights,
@@ -215,25 +239,21 @@ def pack_mbm_encoder_params(encoder, config, differentiable: bool = False,
     `fc_layer` as the discrete head (the absorbing generator passes its
     `discrete_head_mlp`, epic_pallas.py:90-93); its hidden width enters the
     layout. With `differentiable`, `flat` is a non-leaf of the autograd graph."""
-    d = EpicDims.from_config(config, head_hidden=VOCAB if head is None else head[0].out_features)
-    with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
-        src = effective_weights(encoder, d, head)
-        flat = torch.cat([src[name].reshape(-1).float() for name, _ in weight_layout(d)])
-    return PackedEncoder(flat, flat_views(flat, d), d)
+    d = EpicDims.from_config(config, head_hidden=head_width(head))
+    return pack_encoder(encoder, d, "narrow", differentiable, head)
 
 
-def pack_bare_trunk_params(encoder, config, fold_discrete: bool) -> PackedEncoder:
-    """A module with a bare `epic` trunk → flat buffer for the narrow forward
-    kernel, detached. The trunk has no discrete head of its own, whatever
-    `config.encoder.add_discrete_head` says: the transdimensional network
-    reads the trunk's 11 outputs as they are (transdimensional_model.py:413).
-    With `fold_discrete` the discrete embedding is a Linear over the V channel
-    values (epic_pallas.py:107-131), else a token's table row."""
+def pack_bare_trunk_params(encoder, config, fold_discrete: bool,
+                           layout: str = "narrow") -> PackedEncoder:
+    """A module with a bare `epic` trunk → flat buffer for the forward kernel
+    of `layout` (K1 narrow, K4 wide), detached. The trunk has no discrete
+    head of its own, whatever `config.encoder.add_discrete_head` says: the
+    transdimensional network reads the trunk's 11 outputs as they are
+    (transdimensional_model.py:413). With `fold_discrete` the discrete
+    embedding is a Linear over the V channel values (epic_pallas.py:107-131,
+    epic_pallas_wide.py:72-80), else a token's table row."""
     d = EpicDims.from_config(config, add_discrete_head=False, fold_discrete=fold_discrete)
-    with torch.no_grad():
-        src = effective_weights(encoder, d)
-        flat = torch.cat([src[name].reshape(-1).float() for name, _ in weight_layout(d)])
-    return PackedEncoder(flat, flat_views(flat, d), d)
+    return pack_encoder(encoder, d, layout)
 
 
 def pack_encoder_params_fold_discrete(encoder, config) -> PackedEncoder:
@@ -377,10 +397,10 @@ epic_forward_reference.calls = 0
 
 
 def check_head_width(packed: PackedEncoder, kernel: str):
-    """Every kernel but the narrow forward is written for a discrete head as
-    wide as the vocabulary and for tokens as the discrete input; another head
-    width or the folded Linear-discrete input shifts the packed buffer under
-    it."""
+    """Every kernel but the two forward kernels (K1, K4) is written for a
+    discrete head as wide as the vocabulary and for tokens as the discrete
+    input; another head width or the folded Linear-discrete input shifts the
+    packed buffer under it."""
     if packed.dims.head_hidden != VOCAB:
         raise ValueError(
             f"{kernel} takes a discrete head of hidden width {VOCAB}, "

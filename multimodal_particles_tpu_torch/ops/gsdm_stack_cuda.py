@@ -12,7 +12,8 @@ the card, the device code (ops/csrc/gsdm_blocks.cuh).
 buffer, matrices (in, out) row-major as the kernel streams them
 (gsdm_stack_pallas.py:41-60; the layout is `stack_layout`). The kernel's
 weight tiles hold 16 input rows, so proj_in's weight is stored with zero rows
-up to the next multiple of 16 (Din = 24 → 32, 27 → 32).
+up to the next multiple of 16 (Din = 24 → 32, 27 → 32; at the `--scaled`
+trunk 136 → 144, 139 → 144, which the kernel takes in passes of 128 columns).
 `stack_time_embeddings` computes the per-block time rows from an already
 projected time embedding; they depend on the (B,) times only and stay plain
 PyTorch as they stay XLA in JAX (:63-70). `gsdm_stack` launches
@@ -183,8 +184,9 @@ def gsdm_stack_supported(config) -> bool:
     for (transdimensional_model.py:329-333 without the TPU-only parts): no
     tensor-parallel 'model' axis, channel width 128, heads of a multiple of 32
     channels, at least one block, at most 128 slots. The stacks' input width
-    (the trunk's hidden width + V, and + 3) is the wrapper's to refuse: at most
-    128 columns, which every narrow trunk gives."""
+    (the trunk's hidden width + V, and + 3) may be any: the kernel's first
+    product runs over it in passes of 128 columns, as the JAX kernel takes any
+    width (gsdm_stack_pallas.py:138, :152, :168)."""
     if getattr(getattr(config, "parallel", None), "model_axis", 1) > 1:
         return False
     e, d = config.encoder, config.data
@@ -219,9 +221,8 @@ def gsdm_stack(packed: PackedGsdmStack, temb_projected, x_in, *, n_heads: int):
     if x_in.dim() != 3:
         raise ValueError(f"x_in must be (B, N, Din), got {tuple(x_in.shape)}")
     B, N, dim_in = x_in.shape
-    if dim_in != packed.dim_in or not 1 <= dim_in <= CHANNELS:
-        raise ValueError(f"input width {dim_in}: packed for {packed.dim_in}, the kernel takes "
-                         f"up to {CHANNELS} columns")
+    if dim_in != packed.dim_in or dim_in < 1:
+        raise ValueError(f"input width {dim_in}: packed for {packed.dim_in}")
     if not 1 <= N <= MAX_PARTICLES:
         raise ValueError(f"N={N} outside [1, {MAX_PARTICLES}]")
     check_heads(n_heads)

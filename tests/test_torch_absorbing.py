@@ -45,7 +45,7 @@ from multimodal_particles_tpu_torch.models.generative.states import (
 )
 from multimodal_particles_tpu_torch.ops import epic_cuda, survival_cuda
 from multimodal_particles_tpu_torch.ops.epic_vjp_cuda import epic_backward
-from multimodal_particles_tpu_torch.ops.epic_wide_cuda import check_wide_packing
+from multimodal_particles_tpu_torch.ops.epic_wide_cuda import check_wide_packing, wide_supported
 from multimodal_particles_tpu_torch.ops.sampler_cuda import sampler_step
 from multimodal_particles_tpu_torch.training.trainer import Trainer
 from multimodal_particles_tpu_torch.utils.transplant import params_from_flax
@@ -339,8 +339,8 @@ def test_forward_and_forward_sampling_match_jax_head_by_head(n):
 
 def test_kernel_gate(pair):
     """`use_pallas` False → module path; 'auto' → off on the CPU;
-    transformer_dim 96 or a model axis → off even when forced; a trunk that
-    only the wide kernel takes → NotImplementedError naming what is missing."""
+    transformer_dim 96 or a model axis → off even when forced; a trunk at
+    every width 128 packs for the wide kernel (K4) with the 56-wide head."""
     model = pair[2]
     cfg = model.config
     try:
@@ -374,10 +374,18 @@ def test_kernel_gate(pair):
     e.dim_emb_features_continuous = e.dim_emb_features_discrete = 128
     wide.parallel.use_pallas = True
     wide_model = AbsorbingFlow(wide)
-    with pytest.raises(NotImplementedError, match="wide"):
-        wide_model.pack_for_kernel()
+    assert wide_model._pallas_enabled("cuda")
+    trunk, head = wide_model.pack_for_kernel()
+    assert trunk.layout == "wide" and trunk.dims.head_hidden == 56 and head.dim_hidden == 128
+    check_wide_packing(trunk, any_head_width=True)
     wide.parallel.use_pallas = False
     assert not wide_model._pallas_enabled("cuda")  # the module path stays open
+    # a head wider than K4 is compiled for (64): the module trunk, then the fused head
+    assert wide_supported(wide, head_hidden=64) and not wide_supported(wide, head_hidden=65)
+    wide.parallel.use_pallas = True
+    wide.generator.discrete_head_hidden_dim = 96
+    trunk, head = AbsorbingFlow(wide).pack_for_kernel()
+    assert trunk is None and head.dim_hidden == 128
 
     # a trunk no kernel takes (hidden 48): the module trunk, then the fused head
     odd = port_cfg.AbsorbingConfig()

@@ -1,8 +1,10 @@
 """The hand-written CUDA kernels (K1 forward, K2 sampler step, K3 backward,
 the wide pair K4 forward / K5 backward at hidden 128, K6, the absorbing
-family's survival head, with K1's hidden output and 56-wide discrete head, and
-K7, the transdimensional family's gsdm stack, with K1's folded Linear-discrete
-input) against their plain PyTorch versions, on a CUDA card. Without one every test
+family's survival head, with K1's hidden output and 56-wide discrete head, K7,
+the transdimensional family's gsdm stack, with K1's folded Linear-discrete
+input, K4 as the `--scaled` absorbing and transdimensional trunks call it, K7 at
+input widths above 128, and K8, the attention core) against their plain
+PyTorch versions, on a CUDA card. Without one every test
 here skips. The card's machine has no JAX, so run this file without
 tests/conftest.py:
 
@@ -18,7 +20,8 @@ cotangent on jets that `near_kink_jets` flags. K4 is held per particle
 the outputs are large sums of terms that cancel), K5 per leaf as K3. K6's
 logits are held elementwise at rtol = atol = 2e-4, the JAX kernel's own test's
 tolerance (tests/test_ops/test_survival_pallas.py:86-88); K7's hidden state
-likewise (tests/test_ops/test_gsdm_stack_pallas.py:72).
+likewise (tests/test_ops/test_gsdm_stack_pallas.py:72). K8's output is held
+at atol 2e-5, the JAX kernel's own test's (tests/test_ops/test_attention_pallas.py:26).
 """
 
 import pytest
@@ -304,9 +307,19 @@ def test_wide_wrappers_reject_what_the_kernels_do_not_take(device):
 # ------------------------------------------------- the absorbing family: K1 + K6
 
 
-def absorbing_model(device, hidden=16, n_heads=2, n_blocks=2):
+def scale_encoder(config, blocks):
+    """Every width 128 (bench.py's `_scale_encoder`) at `blocks` blocks."""
+    e = config.encoder
+    e.num_blocks = blocks
+    e.dim_hidden_local = e.dim_hidden_glob = e.dim_emb_time = 128
+    e.dim_emb_features_continuous = e.dim_emb_features_discrete = 128
+
+
+def absorbing_model(device, hidden=16, n_heads=2, n_blocks=2, scaled_blocks=None):
     config = AbsorbingConfig()
     config.encoder.dim_hidden_local = config.encoder.dim_hidden_glob = hidden
+    if scaled_blocks is not None:
+        scale_encoder(config, scaled_blocks)
     config.generator.n_heads, config.generator.n_attn_blocks = n_heads, n_blocks
     model = init_absorbing_parameters(AbsorbingFlow(config), 0).to(device)
     # non-zero biases and GroupNorm offsets, so that a misplaced vector shows
@@ -414,12 +427,15 @@ def test_survival_wrapper_rejects_what_the_kernel_does_not_take(device):
 # ------------------------------------------- the transdimensional family, K7
 
 
-def transdim_model(device, hidden=16, n_heads=2, n_blocks=2, n=128):
+def transdim_model(device, hidden=16, n_heads=2, n_blocks=2, n=128, scaled_blocks=None):
     """TransdimensionalJumpDiffusion at its reference config (global 19,
-    Linear-discrete input) with seeded weights and noise on every vector."""
+    Linear-discrete input) with seeded weights and noise on every vector;
+    with `scaled_blocks` at the `--scaled` widths."""
     config = TransdimensionalEpicConfig()
     config.data.max_num_particles = n
     config.encoder.dim_hidden_local = hidden
+    if scaled_blocks is not None:
+        scale_encoder(config, scaled_blocks)
     config.encoder.n_heads, config.encoder.n_attn_blocks = n_heads, n_blocks
     model = init_transdimensional_parameters(TransdimensionalJumpDiffusion(config), 0).to(device)
     gen = torch.Generator(device=device).manual_seed(1)
@@ -472,12 +488,14 @@ def test_epic_forward_folded_input_matches_plain(device, hidden, N):
 @pytest.mark.parametrize("B,N,dim_in,n_heads,n_blocks", [
     (7, 40, 27, 2, 2), (64, 128, 24, 2, 2), (300, 109, 27, 2, 2),
     (5, 1, 24, 2, 2), (9, 33, 43, 4, 1), (6, 77, 128, 1, 3), (4, 128, 16, 2, 2),
+    (64, 128, 136, 2, 2), (300, 109, 139, 2, 2), (7, 40, 200, 4, 1), (5, 1, 139, 2, 2),
 ])
 def test_gsdm_stack_matches_plain(device, B, N, dim_in, n_heads, n_blocks):
     """K7 at the reference widths (24, 27) and N = 128, at ragged N, over more
-    jets than the grid has blocks, at one slot, and at input widths that are,
-    and are not, multiples of the 16-row weight tile, up to 128; the same bits
-    on a repeat."""
+    jets than the grid has blocks, at one slot, at input widths that are, and
+    are not, multiples of the 16-row weight tile, up to 128, and above it
+    (the `--scaled` stacks' 136 and 139, and 200: passes of 128 columns); the
+    same bits on a repeat."""
     from multimodal_particles_tpu_torch.models.architectures.gsdm import AttnBlock, ResnetBlock
     from multimodal_particles_tpu_torch.ops.gsdm_stack_cuda import pack_gsdm_stack_params
 
@@ -551,4 +569,227 @@ def test_other_kernels_refuse_a_folded_packing(device):
     rc = lib.mmp_epic_forward(trunk.flat.data_ptr(), ts.data_ptr(), state.continuous.data_ptr(),
                               state.discrete.data_ptr(), mask.data_ptr(), out.data_ptr(), None,
                               4, 128, trunk.dims.c_array(), 0)
+    assert rc == 1  # cudaErrorInvalidValue
+
+
+# ---------------------- K4's other trunks: `--scaled` absorbing and transdim
+
+
+def close_per_particle(got, ref):
+    bound = ATOL + RTOL * ref.abs().amax(dim=-1, keepdim=True)
+    assert ((got - ref).abs() <= bound).all(), (got - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("blocks,N", [(2, 109), (6, 128), (1, 37)])
+def test_epic_forward_wide_absorbing_trunk_matches_plain(device, blocks, N):
+    """K4 with the absorbing generator's 56-wide discrete head and the hidden
+    output, per particle; without the hidden output the same heads."""
+    model = absorbing_model(device, scaled_blocks=blocks)
+    trunk, _ = model.pack_for_kernel()
+    assert trunk.layout == "wide" and trunk.dims.head_hidden == 56
+    t, x, k, mask = scattered_inputs(device, 48, N)
+    launches = epic_forward_wide.launches
+    out, hid = epic_forward_wide(trunk, t, x, k, mask, output_hidden_local=True)
+    again = epic_forward_wide(trunk, t, x, k, mask)
+    torch.cuda.synchronize()
+    assert epic_forward_wide.launches == launches + 2
+    ref_out, ref_hid = epic_forward_reference(trunk, t, x, k, mask, output_hidden_local=True)
+    assert tuple(hid.shape) == (48, N, 128)
+    close_per_particle(out, ref_out)
+    close_per_particle(hid, ref_hid)
+    assert torch.equal(again, out)
+    assert (out[0, :, :3] == 0).all()  # the empty jet's masked continuous head
+
+
+@pytest.mark.parametrize("blocks,N", [(2, 128), (6, 128), (1, 40)])
+def test_epic_forward_wide_folded_input_matches_plain(device, blocks, N):
+    """K4 with the folded Linear-discrete input, no head, the hidden output,
+    per particle, and against the module trunk."""
+    model = transdim_model(device, n=N, scaled_blocks=blocks)
+    trunk, _, _ = model.pack_for_kernel()
+    assert trunk.layout == "wide" and trunk.dims.fold_discrete
+    state, ts = transdim_state(device, 64, N)
+    mask = state.particle_mask()[:, :, None]
+    args = (trunk, ts.reshape(-1, 1, 1), state.continuous, state.discrete, mask)
+    launches = epic_forward_wide.launches
+    out, hid = epic_forward_wide(*args, output_hidden_local=True)
+    torch.cuda.synchronize()
+    assert epic_forward_wide.launches == launches + 1
+    ref_out, ref_hid = epic_forward_reference(*args, output_hidden_local=True)
+    close_per_particle(out, ref_out)
+    close_per_particle(hid, ref_hid)
+    with torch.no_grad():
+        mod_out, mod_hid = model.network.epic(*args[1:], output_hidden_local=True)
+    close_per_particle(out, mod_out)
+    close_per_particle(hid, mod_hid)
+
+
+def test_wide_backward_refuses_the_absorbing_and_transdim_packings(device):
+    """K5 is written for MBM's packing: its wrapper raises and its C entry
+    points return cudaErrorInvalidValue for a 56-wide head or a folded input."""
+    import ctypes
+
+    from multimodal_particles_tpu_torch.ops import _build
+
+    trunk, _ = absorbing_model(device, scaled_blocks=1).pack_for_kernel()
+    fold, _, _ = transdim_model(device, scaled_blocks=1).pack_for_kernel()
+    t, x, k, mask = scattered_inputs(device, 4, 32)
+    g = torch.zeros((4, 32, 11), device=device)
+    with pytest.raises(ValueError, match="hidden width 8"):
+        epic_backward_wide(trunk, t, x, k, mask, g)
+    with pytest.raises(ValueError, match="folded"):
+        epic_backward_wide(fold, t, x, torch.zeros((4, 32, 8), device=device), mask, g)
+    lib = _build.load_library()
+    grid, floats = ctypes.c_int(), ctypes.c_longlong()
+    for packed in (trunk, fold):
+        rc = lib.mmp_epic_wide_backward_workspace(4, 32, packed.dims.c_array(),
+                                                  ctypes.byref(grid), ctypes.byref(floats))
+        assert rc == 1  # cudaErrorInvalidValue
+
+
+def test_scaled_absorbing_forward_sampling_goes_through_k4_and_k6(device):
+    """forward_sampling at every width 128: one launch of K4 (hidden output,
+    56-wide head) and one of K6, no plain version, the module path's heads
+    within 2e-4 of their scale."""
+    from multimodal_particles_tpu_torch.models.generative.states import AbsorbingBridgeState
+
+    model = absorbing_model(device, scaled_blocks=2)
+    assert model._pallas_enabled(device)
+    t, x, k, mask = scattered_inputs(device, 32, 109)
+    state = AbsorbingBridgeState(t, x, k, mask.long())
+    counts = epic_forward_wide.launches, survival_head.launches, epic_forward.launches
+    calls = epic_forward_reference.calls, survival_head_reference.calls
+    heads = model.forward_sampling(state)
+    torch.cuda.synchronize()
+    assert (epic_forward_wide.launches, survival_head.launches, epic_forward.launches) == (
+        counts[0] + 1, counts[1] + 1, counts[2])
+    assert (epic_forward_reference.calls, survival_head_reference.calls) == calls
+    with torch.no_grad():
+        ref = model.forward(state)
+    for name in ("continuous", "discrete", "absorbing"):
+        r = getattr(ref, name)
+        torch.testing.assert_close(getattr(heads, name), r, rtol=2e-4,
+                                   atol=2e-4 * max(r.abs().max().item(), 1.0))
+
+
+def test_scaled_transdim_forward_kernel_goes_through_k4_and_k7(device):
+    """forward_kernel at every width 128: one launch of K4 (folded input,
+    hidden output) and two of K7 at Din 136 and 139, no plain version, the
+    module path's outputs within 5e-4 of their scale."""
+    model = transdim_model(device, scaled_blocks=2)
+    assert model._pallas_enabled(device)
+    state, ts = transdim_state(device, 32, 128)
+    nearest = torch.zeros(32, dtype=torch.long, device=device)
+    counts = epic_forward_wide.launches, gsdm_stack.launches, epic_forward.launches
+    calls = epic_forward_reference.calls, gsdm_stack_reference.calls
+    got = model.forward_kernel(state, ts, nearest)
+    torch.cuda.synchronize()
+    assert (epic_forward_wide.launches, gsdm_stack.launches, epic_forward.launches) == (
+        counts[0] + 1, counts[1] + 2, counts[2])
+    assert (epic_forward_reference.calls, gsdm_stack_reference.calls) == calls
+    with torch.no_grad():
+        ref = model.network(state, ts, nearest)
+    for g, r in zip(got[:5], ref[:5]):
+        torch.testing.assert_close(g, r, rtol=5e-4, atol=5e-4 * max(r.abs().max().item(), 1.0))
+
+
+# ------------------------------------------------------ K8, the attention core
+
+
+def attention_inputs(device, B, N, C=128, seed=7, masked=True):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn((B, N, C), generator=gen, device=device) for _ in range(3))
+    mask = None
+    if masked:
+        mask = (torch.rand((B, N, 1), generator=gen, device=device) < 0.5).float()
+        mask[0] = 0.0  # every key of jet 0 masked
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("B,N,heads", [(8, 128, 2), (4, 109, 2), (8, 64, 1), (300, 128, 4),
+                                       (5, 1, 2), (9, 33, 2)])
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+def test_attention_core_matches_plain(device, B, N, heads, masked):
+    """K8 against the einsum at the JAX test's shapes and others, with a key
+    mask (one jet wholly masked) and without; the same bits on a repeat."""
+    from multimodal_particles_tpu_torch.ops.attention_cuda import (
+        attention_core,
+        attention_core_reference,
+    )
+
+    q, k, v, mask = attention_inputs(device, B, N, masked=masked)
+    launches = attention_core.launches
+    got = attention_core(q, k, v, mask, n_heads=heads)
+    again = attention_core(q, k, v, mask, n_heads=heads)
+    torch.cuda.synchronize()
+    assert attention_core.launches == launches + 2
+    ref = attention_core_reference(q, k, v, mask, n_heads=heads)
+    assert tuple(got.shape) == (B, N, 128) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=2e-5, rtol=0)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("flag", [True, "auto"])
+def test_attn_block_fused_core_matches_the_einsum_path(device, flag):
+    """AttnBlock(use_pallas=True / "auto") on the card: forward by K8,
+    backward by autograd of the einsum; the output and every parameter's and
+    the input's gradient against use_pallas=False, the key bias's against 0."""
+    from multimodal_particles_tpu_torch.models.architectures.gsdm import AttnBlock
+    from multimodal_particles_tpu_torch.ops.attention_cuda import attention_core
+
+    torch.manual_seed(0)
+    ref_block = AttnBlock(128, n_heads=2, use_pallas=False).to(device)
+    block = AttnBlock(128, n_heads=2, use_pallas=flag).to(device)
+    block.load_state_dict(ref_block.state_dict())
+    gen = torch.Generator(device=device).manual_seed(8)
+    x = torch.randn((16, 109, 128), generator=gen, device=device)
+    mask = (torch.rand((16, 109, 1), generator=gen, device=device) < 0.5).float()
+    mask[3] = 0.0
+    g = torch.randn((16, 109, 128), generator=gen, device=device)
+    xs = [x.clone().requires_grad_(True) for _ in range(2)]
+    launches = attention_core.launches
+    out = block(xs[0], mask)
+    ref = ref_block(xs[1], mask)
+    assert attention_core.launches == launches + 1
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    out.backward(g)
+    ref.backward(g)
+    pairs = [("x", xs[0].grad, xs[1].grad)] + [
+        (name, p.grad, dict(ref_block.named_parameters())[name].grad)
+        for name, p in block.named_parameters()]
+    for name, a, r in pairs:
+        if name == "k.bias":  # zero in exact arithmetic
+            assert a.abs().max() <= 1e-4 * block.k.weight.grad.abs().max()
+            continue
+        scale = max(r.abs().max().item(), 1e-6)
+        assert ((a - r).abs() <= 1e-4 * scale + 1e-3 * r.abs()).all(), name
+    # shapes K8 does not take go to the einsum path under "auto", and raise under True
+    small = torch.randn((2, 129, 128), device=device)
+    if flag == "auto":
+        launches = attention_core.launches
+        torch.testing.assert_close(block(small), ref_block(small), atol=1e-5, rtol=1e-5)
+        assert attention_core.launches == launches
+    else:
+        with pytest.raises(ValueError, match="attention kernel takes"):
+            block(small)
+
+
+def test_attention_wrapper_rejects_what_the_kernel_does_not_take(device):
+    from multimodal_particles_tpu_torch.ops import _build
+    from multimodal_particles_tpu_torch.ops.attention_cuda import attention_core
+
+    q, k, v, mask = attention_inputs(device, 4, 32)
+    with pytest.raises(ValueError):
+        attention_core(q, k, v, mask, n_heads=8)  # heads of 16 channels
+    with pytest.raises(ValueError):
+        attention_core(q[..., :64].contiguous(), k[..., :64].contiguous(),
+                       v[..., :64].contiguous(), n_heads=2)
+    with pytest.raises(TypeError):
+        attention_core(q, k.double(), v, n_heads=2)
+    with pytest.raises(ValueError):
+        attention_core(q, k, v, mask[:, :16].contiguous(), n_heads=2)
+    lib = _build.load_library()
+    out = torch.empty_like(q)
+    rc = lib.mmp_attention_core(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(),
+                                4, 4, 32, 128, 3, 0)
     assert rc == 1  # cudaErrorInvalidValue

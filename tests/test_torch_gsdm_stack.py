@@ -102,6 +102,29 @@ def test_plain_stack_matches_pallas_interpret_and_flax(n, b, dim_in):
     np.testing.assert_allclose(got, np.asarray(flax_out), **TOL)
 
 
+@pytest.mark.parametrize("dim_in", [136, 139, 200])
+def test_plain_stack_at_wide_inputs_matches_pallas_interpret(dim_in):
+    """The stacks of the `--scaled` transdimensional network read inputs wider
+    than the kernel's 128-column tile (trunk hidden 128 ‖ V = 136, ‖ 3 more =
+    139; 200 for two full passes and a ragged one): the plain version against
+    the interpret-mode Pallas kernel, which takes any width, at N = 13, B = 3;
+    the packing pads proj_in's weight to 144 (208) rows; atol = rtol = 2e-4."""
+    flax_stack, params, module, x_in, temb = _case(13, 3, dim_in, seed=2)
+    res_p, attn_p = _jax_blocks(params)
+    pallas = jax_stack.gsdm_stack_pallas(
+        jax_stack.pack_gsdm_stack_params(params["proj_in"], res_p, attn_p),
+        jax_stack.stack_time_embeddings(jnp.asarray(temb), res_p), jnp.asarray(x_in),
+        n_blocks=N_BLOCKS, n_heads=N_HEADS, transformer_dim=C, interpret=True)
+    x_t, temb_t = to_torch(x_in, temb)
+    with torch.no_grad():
+        packed = gsdm_stack_cuda.pack_gsdm_stack_params(module.proj_in, *module.blocks())
+        tp = gsdm_stack_cuda.stack_time_embeddings(temb_t, module.blocks()[0])
+        got = gsdm_stack_cuda.gsdm_stack(packed, tp, x_t, n_heads=N_HEADS).numpy()
+    assert tuple(packed.tensors["w_in"].shape) == (-(-dim_in // 16) * 16, C)
+    assert not packed.tensors["w_in"][dim_in:].any()
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+
+
 def test_pack_gsdm_stack_params_leaf_by_leaf():
     """The port's packed leaves are the JAX packing's, in its order (vectors
     there are (1, C) rows), bit for bit; proj_in's weight carries zero rows up
@@ -160,7 +183,7 @@ def _config(**encoder):
     ({"n_attn_blocks": 0}, 128, False),
     ({}, 129, False),
     ({"dim_hidden_local": 64}, 128, True),
-    ({"dim_hidden_local": 128}, 128, True),  # the wrapper refuses inputs of 136 and 139 columns
+    ({"dim_hidden_local": 128}, 128, True),  # stack inputs of 136 and 139 columns
 ])
 def test_gsdm_stack_supported(encoder, n, expected):
     config = _config(**encoder)

@@ -144,23 +144,24 @@ def test_forward_kernel_matches_module_forward(pair):
 
 
 def test_port_imports_no_jax():
+    """Every module of the port, and chip_smoke.py's imports, load neither
+    JAX, flax, optax nor the JAX package: the card's machine has none of them."""
     code = (
-        "import sys\n"
-        "import multimodal_particles_tpu_torch\n"
-        "import multimodal_particles_tpu_torch.models.generative.multimodal_bridge_matching\n"
-        "import multimodal_particles_tpu_torch.models.generative.init\n"
-        "import multimodal_particles_tpu_torch.utils.transplant\n"
-        "import multimodal_particles_tpu_torch.data\n"
-        "import multimodal_particles_tpu_torch.ops.epic_vjp_cuda\n"
-        "import multimodal_particles_tpu_torch.ops.epic_wide_cuda\n"
-        "import multimodal_particles_tpu_torch.ops.epic_wide_vjp_cuda\n"
-        "import multimodal_particles_tpu_torch.training.trainer\n"
-        "import multimodal_particles_tpu_torch.utils.losses\n"
-        "import multimodal_particles_tpu_torch.utils.experiment_files\n"
+        "import pkgutil, sys\n"
+        "import multimodal_particles_tpu_torch as port\n"
+        "names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    __import__(name)\n"
+        "import chip_smoke\n"
+        "need = {'ops.attention_cuda', 'ops.gsdm_stack_cuda', 'ops.survival_cuda',\n"
+        "        'models.generative.absorbing.absorbing_flows', 'config_classes',\n"
+        "        'models.generative.transdimensional.transdimensional_model',\n"
+        "        'models.generative.transdimensional.sampler', 'training.trainer'}\n"
+        "missing = {n for n in need if port.__name__ + '.' + n not in names}\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'multimodal_particles_tpu')]\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "print(len(names), sorted(missing), bad)\n"
+        "sys.exit(1 if bad or missing or len(names) < 30 else 0)\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=300, cwd=ROOT)

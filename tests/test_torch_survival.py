@@ -83,8 +83,19 @@ def test_attn_block_matches_flax(masked):
 
 
 def test_attn_block_refuses_the_fused_core():
-    with pytest.raises(NotImplementedError):
-        gsdm.AttnBlock(64, n_heads=2, use_pallas=True)
+    """The fused core is refused where the JAX module refuses it (gsdm.py:67-72):
+    with `attn_dim_reduce` other than 1, and under "auto" on CPU tensors; with
+    use_pallas=True it runs (on CPU tensors, its plain version)."""
+    from multimodal_particles_tpu_torch.ops import attention_cuda
+
+    x = torch.randn((2, 9, 64), generator=torch.Generator().manual_seed(0))
+    for kwargs, core in (({"use_pallas": True, "attn_dim_reduce": 2}, False),
+                         ({"use_pallas": "auto"}, False), ({"use_pallas": False}, False),
+                         ({"use_pallas": True}, True)):
+        block = gsdm.AttnBlock(64, n_heads=2, **kwargs)
+        calls = attention_cuda.attention_core_reference.calls
+        assert torch.isfinite(block(x)).all()
+        assert attention_cuda.attention_core_reference.calls == calls + int(core), kwargs
 
 
 def test_swish_matches_flax():

@@ -526,14 +526,25 @@ def test_kernel_gate_follows_the_heads_and_a_wide_trunk_raises():
     e.dim_hidden_local = e.dim_hidden_glob = e.dim_emb_time = 128
     e.dim_emb_features_continuous = e.dim_emb_features_discrete = 128
     e.transformer_dim = 128
-    wide = TransdimensionalJumpDiffusion(cfg)
-    assert wide._pallas_enabled("cuda")  # the gate is on, and the kernel path says what it lacks
-    with pytest.raises(NotImplementedError, match="wide"):
-        wide.pack_for_kernel()
+    wide = init_transdimensional_parameters(TransdimensionalJumpDiffusion(cfg), 0)
+    assert wide._pallas_enabled("cuda")  # K4 with the folded input, K7 at Din 136 and 139
+    trunk, rate_stack, vec_stack = wide.pack_for_kernel()
+    assert trunk.layout == "wide" and trunk.dims.fold_discrete
+    assert (rate_stack.dim_in, vec_stack.dim_in) == (136, 139)
     state = structure.state_from_list_batch([_t(b) for b in transdim_list_batch(0, 2, N)])
-    with pytest.raises(NotImplementedError):
-        wide.net_forward(state, torch.full((2,), 0.5), fused=True)
-    wide.net_forward(state, torch.full((2,), 0.5))  # the module path runs
+    calls = epic_forward_reference.calls, gsdm_stack_reference.calls
+    fused = wide.net_forward(state, torch.full((2,), 0.5), fused=True)  # CPU: the plain versions
+    assert (epic_forward_reference.calls, gsdm_stack_reference.calls) == (calls[0] + 1, calls[1] + 2)
+    module = wide.net_forward(state, torch.full((2,), 0.5))
+    for got, ref in zip(fused[0::4], module[0::4]):  # the score and the nearest-atom logits
+        assert torch.isfinite(ref).all()
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
+    # a wide trunk no kernel is compiled for (256): the gate is off and the packing raises
+    e.dim_hidden_local = e.dim_hidden_glob = 256
+    wider = TransdimensionalJumpDiffusion(cfg)
+    assert not wider._pallas_enabled("cuda")
+    with pytest.raises(ValueError, match="no trunk kernel"):
+        wider.pack_for_kernel()
 
 
 def test_compute_dtype_other_than_float32_raises():
