@@ -174,15 +174,22 @@ Phases, one JSON line each:
               bits on a repeat; then both timed
  31. k4_fold  K4 as the `--scaled` transdimensional trunk calls it: the folded
               Linear-discrete input, no discrete head, the hidden output,
-              N=128, B=4096, prefix masks with one dims=1 jet; as phase 30
+              N=128, B=4096, prefix masks with one dims=1 jet; as phase 30.
+              Then k4_row_cut: each of K4's four template instances (tokens
+              or the folded input, times the 8-wide or the 56-wide head) with
+              the hidden output at B=256 and N = 1, 40, 109, 112, 113, 128
+              (both sides of its tensor-core products' 16-row and 64-row
+              edges), per particle as phase 11, the same bits on a repeat
  32. k7_wide_input  K7 at the `--scaled` stacks' input widths 136 and 139
               (trunk hidden 128 ‖ V, ‖ 3 more: two passes of the first
               product over the input tile) at B=4096, N=128, atol = rtol =
               2e-4, the same bits on a repeat; then both timed at 139
- 33. k8       the attention core (attention_core.cu) vs the einsum at B=4096,
-              C=128, 2 heads, N=109 and N=128, with a random key mask that
-              masks every key of one jet, and without a mask: atol 2e-5 (the
-              JAX kernel's test's), the same bits on a repeat; then timed at
+ 33. k8       the attention core (attention_core.cu) vs the einsum at B=1024,
+              C=128, head widths 32, 64 and 128, N = 1, 17, 109 and 128, and
+              at B=4096, N=128, 2 heads, with a random key mask that masks
+              every key of one jet (whose output must be the mean of its
+              values) and without a mask: atol 2e-5 (the JAX kernel's
+              test's), the same bits on a repeat; then timed at B=4096,
               N=128 with the mask beside the einsum and, as the library's
               time, torch's scaled_dot_product_attention with the same
               additive mask (timed only; the port never calls it). Then K8's
@@ -212,12 +219,15 @@ Phases, one JSON line each:
               B=256 as phase 27 (paths_transdim_scaled)
 
 The line before the last lists every kernel with its launches on its own
-path's run, its bound from the shapes and the H100 data sheet's peaks, and
-the times measured here; the last line is {"ok": true, "device": {...}}. Any
+path's run, its two bounds from the shapes and the H100 data sheet's peaks
+(`bound_ms` with the operations on the CUDA cores in fp32, `tensor_bound_ms`
+with them on the tensor cores as three TF32 products, the 3×TF32 split that
+K4 and K8 run), and the times measured here; the last line is {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero. Uses torch, numpy, the standard library
 and the port only. fp32 with TF32 off.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -278,6 +288,7 @@ from multimodal_particles_tpu_torch.ops.attention_cuda import (
 from multimodal_particles_tpu_torch.ops.epic_cuda import (
     epic_forward,
     epic_forward_reference,
+    pack_encoder,
     pack_mbm_encoder_params,
 )
 from multimodal_particles_tpu_torch.ops.epic_vjp_cuda import (
@@ -361,9 +372,12 @@ MIN_EQUAL_DIMS = 0.95
 PART_FACTOR, PART_SLACK = 3, 4
 ULP = 2.0 ** -23
 MAX_MULTIPLICITY_SHIFT = 0.10
-# NVIDIA's H100 SXM data sheet: fp32 outside the tensor cores, HBM3
+# NVIDIA's H100 SXM data sheet: fp32 outside the tensor cores, dense TF32 on
+# the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
+TF32X3_PRODUCTS = 3  # tensor-core products a multiply-add under the 3×TF32 split
 
 
 def emit(obj):
@@ -897,33 +911,78 @@ def phase_paths(device, model=None, B=CHECK_B, phase="paths"):
         raise RuntimeError(f"kernel path and plain path diverge: {rec}")
 
 
-def encoder_macs(d):
+def encoder_macs(d, embeddings_folded=True):
     """Multiply-adds of one EPiC forward, (per particle, per jet), with what
     is the same for every particle of a jet (the time third of local_0, the
-    [g ‖ temb] thirds of fc_local1, the global MLP) taken once a jet."""
+    [g ‖ temb] thirds of fc_local1, the global MLP) taken once a jet.
+
+    The x and discrete embeddings are Dense layers, so local_0's particle two
+    thirds fold with them into tables (ops/epic_cuda.py::tensor_core_weights),
+    and what the function needs of them a particle is x·T_x (3·H) plus the
+    channel values times T_k (8·H) with the folded input, or plus a token's
+    row of T_k (H additions, counted as H/2 multiply-adds); the tables are
+    made once a packing and left out. With `embeddings_folded` false, the
+    layers as the module has them: x's embedding (3·Ex), the folded input's
+    (8·Ek), local_0's particle thirds ((Ex + Ek)·H), which a backward that
+    gives each weight its gradient goes through."""
     H, Hg, Et, Ex, Ek, nb = d.hidden, d.hidden_glob, d.emb_t, d.emb_x, d.emb_k, d.num_blocks
-    per_particle = (3 * Ex + (Ex + Ek) * H + nb * 2 * H * H + H * 11
-                    + (2 * 8 * d.head_hidden if d.add_discrete_head else 0)
-                    + (8 * Ek if d.fold_discrete else 0))
+    if embeddings_folded:
+        local_0 = 3 * H + (8 * H if d.fold_discrete else H / 2)
+    else:
+        local_0 = 3 * Ex + (Ex + Ek) * H + (8 * Ek if d.fold_discrete else 0)
+    per_particle = (local_0 + nb * 2 * H * H + H * 11
+                    + (2 * 8 * d.head_hidden if d.add_discrete_head else 0))
     per_jet = (Et * H + (2 * H + Et) * H + H * H + H * Hg
                + nb * ((2 * H + Hg + Et) * H + H * Hg + (Hg + Et) * H))
     return per_particle, per_jet
 
 
+def products_tensor_bound_ms(d, B, n):
+    """The tensor-core bound of K4's per-particle products alone (fc_local1's
+    particle third and fc_local2 of every layer, 2·H² multiply-adds a layer
+    and particle), at (B, n)."""
+    return roofline(2.0 * d.num_blocks * 2 * d.hidden ** 2 * B * n, 0)["tensor_bound_ms"]
+
+
 def roofline(flops, nbytes):
-    by_flops, by_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    return {"bound_ms": max(by_flops, by_bytes),
-            "bound_by": "operations" if by_flops >= by_bytes else "bytes",
+    """The least time for `flops` operations and `nbytes` bytes: `bound_ms` at
+    the fp32 peak of the CUDA cores, `tensor_bound_ms` with every operation
+    on the tensor cores as three TF32 products (the 3×TF32 split), each the
+    larger of the operations' time and the bytes' at the HBM rate."""
+    by_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    by_fp32 = flops / PEAK_FP32_FLOPS * 1e3
+    by_tensor = TF32X3_PRODUCTS * flops / PEAK_TF32_FLOPS * 1e3
+    return {"bound_ms": max(by_fp32, by_bytes),
+            "bound_by": "operations" if by_fp32 >= by_bytes else "bytes",
+            "tensor_bound_ms": max(by_tensor, by_bytes),
+            "tensor_bound_by": "operations" if by_tensor >= by_bytes else "bytes",
             "flops": flops, "bytes": nbytes}
+
+
+def against_bounds(bound, ms):
+    """A timed call's rate and its share of each bound (1 = at the bound)."""
+    return {"tflops": bound["flops"] / ms / 1e9, "share_of_bound": bound["bound_ms"] / ms,
+            "share_of_tensor_bound": bound["tensor_bound_ms"] / ms}
+
+
+BOUND_KEYS = ("bound_ms", "bound_by", "tensor_bound_ms", "tensor_bound_by")
+
+
+def bound_fields(bound):
+    """A roofline's two bounds, as the kernels line carries them."""
+    return {key: bound[key] for key in BOUND_KEYS}
 
 
 def kernel_bound(packed, B, kind, n=N):
     """The least time the card could take for one call at (B, n): the larger
     of the function's operations at the fp32 peak and its bytes (each input
     read once, each output written once) at the HBM rate. The backward is the
-    forward rerun plus two products per product of the forward."""
-    per_particle, per_jet = encoder_macs(packed.dims)
-    forward_flops = 2.0 * (per_particle * B * n + per_jet * B)
+    forward rerun plus two products per product of the module's layers."""
+    def flops(folded):
+        per_particle, per_jet = encoder_macs(packed.dims, folded)
+        return 2.0 * (per_particle * B * n + per_jet * B)
+
+    forward_flops = flops(True)
     weights = 4 * packed.flat.numel()
     slots = B * n
     # t, x, k (int32, or with the folded input the 8 float channel values), mask
@@ -935,7 +994,7 @@ def kernel_bound(packed, B, kind, n=N):
         # + uniforms in, (x, k) out; ~60 operations a slot for the two updates
         "sampler_step": (forward_flops + 60.0 * slots, inputs + slots * (8 + 16) + weights),
         # + cotangent in, d(weights) out
-        "backward": (3.0 * forward_flops, inputs + slots * 44 + 2 * weights),
+        "backward": (forward_flops + 2.0 * flops(False), inputs + slots * 44 + 2 * weights),
     }[kind]
     return roofline(flops, nbytes)
 
@@ -999,7 +1058,9 @@ def phase_k4(device, card):
                              lambda: epic_forward_reference(packed, t, x, k, mask))
     bound = kernel_bound(packed, TRAIN_B, "forward")
     emit({"phase": "K4_time", "B": TRAIN_B, "N": N, "ms": ms, "plain_ms": plain_ms, **bound,
-          "tflops": bound["flops"] / ms / 1e9, "card": card})
+          **against_bounds(bound, ms),
+          "products_tensor_bound_ms": products_tensor_bound_ms(packed.dims, TRAIN_B, N),
+          "card": card})
     errors = [{"skip": r["skip"], "head": r["head"], "B": r["B"], "max_abs_err": r["max_abs_err"],
                "max_abs_ref": r["max_abs_ref"]} for r in results]
     return results[0]["max_abs_err"], errors, ms, plain_ms, bound
@@ -1361,7 +1422,7 @@ def phase_k1_hidden(device, card):
     emit({"phase": "K1_hidden_time", "B": ABS_B, "N": ABS_N, "ms": ms, "plain_ms": plain_ms,
           **bound, "card": card})
     return {"max_abs_err": max(cmp_out["max_abs_err"], cmp_hid["max_abs_err"]), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "plain_ms": plain_ms, **bound_fields(bound),
             "B": ABS_B, "N": ABS_N, "head_hidden": trunk.dims.head_hidden}
 
 
@@ -1635,8 +1696,7 @@ def absorbing_phases(device, card, build_dir):
              "replaces": "multimodal_particles_tpu/ops/survival_pallas.py:324",
              "launches": serving["survival_head"], "launches_by_path": by_path,
              "max_abs_err": k6_err, "max_abs_err_by_check": k6_errors,
-             "ms": k6_ms, "plain_ms": k6_plain, "bound_ms": k6_bound["bound_ms"],
-             "bound_by": k6_bound["bound_by"], "library_ms": None,
+             "ms": k6_ms, "plain_ms": k6_plain, **bound_fields(k6_bound), "library_ms": None,
              "timed_at": {"B": ABS_B, "N": ABS_N, "transformer_dim": 128, "n_heads": 2,
                           "n_attn_blocks": 2}}
     return entry, k1
@@ -1711,7 +1771,7 @@ def phase_k1_fold(device, card):
     emit({"phase": "K1_fold_time", "B": TD_B, "N": TD_N, "ms": ms, "plain_ms": plain_ms, **bound,
           "card": card})
     return {"max_abs_err": max(cmp_out["max_abs_err"], cmp_hid["max_abs_err"]), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "plain_ms": plain_ms, **bound_fields(bound),
             "B": TD_B, "N": TD_N, "hidden_glob": 19, "fold_discrete": True}
 
 
@@ -2146,8 +2206,7 @@ def transdim_phases(device, card, build_dir, build_log):
              "replaces": "multimodal_particles_tpu/ops/gsdm_stack_pallas.py:173",
              "launches": serving["gsdm_stack"], "launches_by_path": by_path,
              "max_abs_err": k7_err, "max_abs_err_by_check": k7_errors,
-             "ms": k7_ms, "plain_ms": k7_plain, "bound_ms": k7_bound["bound_ms"],
-             "bound_by": k7_bound["bound_by"], "library_ms": None,
+             "ms": k7_ms, "plain_ms": k7_plain, **bound_fields(k7_bound), "library_ms": None,
              "timed_at": {"B": TD_B, "N": TD_N, "Din": 27, "transformer_dim": 128, "n_heads": 2,
                           "n_attn_blocks": 2}}
     return entry, k1
@@ -2195,12 +2254,68 @@ def phase_k4_family(device, card, family):
                              lambda: epic_forward_reference(*args, output_hidden_local=True))
     bound = kernel_bound(trunk, B, "forward_hidden", n)
     emit({"phase": f"{phase}_time", "B": B, "N": n, "ms": ms, "plain_ms": plain_ms, **bound,
-          "tflops": bound["flops"] / ms / 1e9, "card": card})
+          **against_bounds(bound, ms), "products_tensor_bound_ms": products_tensor_bound_ms(d, B, n),
+          "card": card})
     return {"max_abs_err": max(cmp_out["max_abs_err"], cmp_hid["max_abs_err"]),
             "max_abs_ref": rec["max_abs_ref"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"], "B": B, "N": n,
+            **bound_fields(bound), "B": B, "N": n,
             "num_blocks": d.num_blocks, "head_hidden": d.head_hidden if d.add_discrete_head else None,
             "fold_discrete": d.fold_discrete, "output_hidden_local": True}
+
+
+K4_ROW_CUT_B = 256
+K4_ROW_CUT_N = (1, 40, 109, 112, 113, 128)  # both sides of a 16-row tile's and a 64-row half's edge
+
+
+def k4_instances(device):
+    """K4's four template instances at the scaled backbone, seeded weights:
+    (name, packing). The folded input under the 56-wide head is no model's
+    trunk; it is packed from the transdim trunk and the absorbing head."""
+    absorbing = make_absorbing(device, scaled=True)
+    tokens_wide_head, _ = absorbing.pack_for_kernel()
+    transdim = make_transdim(device, scaled=True)
+    fold, _, _ = transdim.pack_for_kernel()
+    d = dataclasses.replace(fold.dims, add_discrete_head=True,
+                            head_hidden=tokens_wide_head.dims.head_hidden)
+    fold_wide_head = pack_encoder(transdim.network, d, "wide",
+                                  head=absorbing.generator.discrete_head_mlp)
+    return [("tokens", scaled_packed(device)), ("tokens_wide_head", tokens_wide_head),
+            ("fold", fold), ("fold_wide_head", fold_wide_head)]
+
+
+def phase_k4_row_cut(device, card):
+    """Each of K4's four instances with the hidden output at B=256 and N on
+    both sides of the tensor-core products' 16-row and 64-row edges, per
+    particle, the same bits on a repeat. Returns the worst share of the gate
+    by instance."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    gate, worst = "within_tol_per_particle", {}
+    for name, packed in k4_instances(device):
+        for n in K4_ROW_CUT_N:
+            if packed.dims.fold_discrete:
+                state, ts = transdim_state(K4_ROW_CUT_B, n, device, gen)
+                args = (packed, ts.reshape(-1, 1, 1), state.continuous, state.discrete,
+                        state.particle_mask()[:, :, None])
+            else:
+                args = (packed, *scattered_inputs(K4_ROW_CUT_B, n, device, gen))
+            got = epic_forward_wide(*args, output_hidden_local=True)
+            again = epic_forward_wide(*args, output_hidden_local=True)
+            torch.cuda.synchronize()
+            ref = epic_forward_reference(*args, output_hidden_local=True)
+            cmps = [compare(a, r) for a, r in zip(got, ref)]
+            rec = {"phase": "k4_row_cut", "instance": name, "B": K4_ROW_CUT_B, "N": n,
+                   "fold_discrete": packed.dims.fold_discrete,
+                   "head_hidden": packed.dims.head_hidden, "gate": gate,
+                   "worst_particle_err_over_bound": max(c["worst_particle_err_over_bound"]
+                                                        for c in cmps),
+                   "max_abs_err": max(c["max_abs_err"] for c in cmps),
+                   "same_bits_on_repeat": all(torch.equal(a, b) for a, b in zip(got, again)),
+                   "finite": all(bool(torch.isfinite(a).all().item()) for a in got)}
+            emit(rec)
+            if not (all(c[gate] for c in cmps) and rec["same_bits_on_repeat"] and rec["finite"]):
+                raise RuntimeError(f"K4 ({name}) disagrees with its plain version: {rec}")
+            worst[name] = max(worst.get(name, 0.0), rec["worst_particle_err_over_bound"])
+    return worst
 
 
 def phase_k7_wide_input(device, card):
@@ -2242,7 +2357,7 @@ def phase_k7_wide_input(device, card):
     emit({"phase": "k7_wide_input_time", "B": TD_B, "N": TD_N, "Din": 139, "ms": ms,
           "plain_ms": plain_ms, **bound, "tflops": bound["flops"] / ms / 1e9, "card": card})
     return {"max_abs_err": errors[1]["max_abs_err"], "max_abs_err_by_check": errors, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "plain_ms": plain_ms, **bound_fields(bound),
             "B": TD_B, "N": TD_N, "Din": 139}
 
 
@@ -2253,24 +2368,32 @@ def attention_bound(B, n, C=128, masked=True):
     return roofline(2.0 * 2 * n * n * C * B, 4.0 * B * n * C * 4 + (4.0 * B * n if masked else 0))
 
 
+K8_CHECK_B = 1024
+K8_CHECK_N = (1, 17, ABS_N, TD_N)  # both sides of the 16-row tiles and the 64-key chunks
+K8_CHECK_HEADS = (4, 2, 1)  # head widths 32, 64, 128
+
+
 def phase_k8(device, card):
-    """K8 against the einsum at N=109 and 128, with a key mask (one jet wholly
-    masked) and without, the same bits on a repeat; then timed at N=128 with
-    the mask beside the einsum and scaled_dot_product_attention."""
+    """K8 against the einsum at every head width it takes (32, 64, 128) and
+    N in K8_CHECK_N at B=1024, and at the timed shape (B=4096, N=128, 2
+    heads), with a key mask (one jet wholly masked: the mean of its values)
+    and without, the same bits on a repeat; then timed at N=128 with the mask
+    beside the einsum and scaled_dot_product_attention."""
     gen = torch.Generator(device=device).manual_seed(SEED + 30)
-    B, C = TD_B, 128
+    C = 128
     errors = []
-    for n in (ABS_N, TD_N):
+    cases = [(K8_CHECK_B, n, h) for n in K8_CHECK_N for h in K8_CHECK_HEADS] + [(TD_B, TD_N, K8_HEADS)]
+    for B, n, heads in cases:
         q, k, v = (torch.randn((B, n, C), generator=gen, device=device) for _ in range(3))
         mask = (torch.rand((B, n, 1), generator=gen, device=device) < 0.6).float()
         mask[0] = 0.0
         for m in (mask, None):
-            got = attention_core(q, k, v, m, n_heads=K8_HEADS)
-            again = attention_core(q, k, v, m, n_heads=K8_HEADS)
+            got = attention_core(q, k, v, m, n_heads=heads)
+            again = attention_core(q, k, v, m, n_heads=heads)
             torch.cuda.synchronize()
-            ref = attention_core_reference(q, k, v, m, n_heads=K8_HEADS)
+            ref = attention_core_reference(q, k, v, m, n_heads=heads)
             err = (got - ref).abs()
-            rec = {"phase": "k8", "B": B, "N": n, "C": C, "n_heads": K8_HEADS,
+            rec = {"phase": "k8", "B": B, "N": n, "C": C, "n_heads": heads, "head_width": C // heads,
                    "masked": m is not None, "max_abs_err": err.max().item(),
                    "max_abs_ref": ref.abs().max().item(), "atol": K8_TOL,
                    "within_tol": bool((err <= K8_TOL).all().item()),
@@ -2279,11 +2402,14 @@ def phase_k8(device, card):
                    "same_bits_on_repeat": bool(torch.equal(got, again)),
                    "finite": bool(torch.isfinite(got).all().item())}
             emit(rec)
-            errors.append({"N": n, "masked": m is not None, "max_abs_err": rec["max_abs_err"]})
-            if not (rec["within_tol"] and rec["same_bits_on_repeat"] and rec["finite"]):
+            errors.append({"B": B, "N": n, "n_heads": heads, "masked": m is not None,
+                           "max_abs_err": rec["max_abs_err"]})
+            if not (rec["within_tol"] and rec["same_bits_on_repeat"] and rec["finite"]
+                    and rec["masked_jet_is_the_mean_of_its_values"] in (True, None)):
                 raise RuntimeError(f"K8 disagrees with its plain version: {rec}")
 
-    # timed at N=128 with the mask (q, k, v, mask of the last case)
+    # timed at B=4096, N=128, 2 heads with the mask (q, k, v, mask of the last case)
+    B = TD_B
     ms, plain_ms = time_pair(lambda: attention_core(q, k, v, mask, n_heads=K8_HEADS),
                              lambda: attention_core_reference(q, k, v, mask, n_heads=K8_HEADS))
     hd = C // K8_HEADS
@@ -2300,7 +2426,7 @@ def phase_k8(device, card):
     emit({"phase": "k8_time", "B": B, "N": TD_N, "C": C, "n_heads": K8_HEADS, "masked": True,
           "ms": ms, "plain_ms": plain_ms, "library_ms": (lib1 + lib2) / 2,
           "library": "torch.nn.functional.scaled_dot_product_attention, float mask",
-          "library_max_abs_err": library_err, **bound, "tflops": bound["flops"] / ms / 1e9,
+          "library_max_abs_err": library_err, **bound, **against_bounds(bound, ms),
           "card": card})
     return errors, ms, plain_ms, (lib1 + lib2) / 2, bound
 
@@ -2480,6 +2606,7 @@ def scaled_family_phases(device, card):
     what the kernels line gains."""
     k4_absorbing = phase_k4_family(device, card, "absorbing")
     k4_transdim = phase_k4_family(device, card, "transdim")
+    k4_row_cut = phase_k4_row_cut(device, card)
     k7_wide = phase_k7_wide_input(device, card)
     k8_errors, k8_ms, k8_plain, k8_library, k8_bound = phase_k8(device, card)
     k8_path = phase_attn_block(device, card)
@@ -2491,11 +2618,12 @@ def scaled_family_phases(device, card):
                 "launches": k8_path["attention_core"],
                 "launches_by_path": {"attn_block": k8_path["attention_core"]},
                 "max_abs_err": k8_errors[-2]["max_abs_err"], "max_abs_err_by_check": k8_errors,
-                "ms": k8_ms, "plain_ms": k8_plain, "bound_ms": k8_bound["bound_ms"],
-                "bound_by": k8_bound["bound_by"], "library_ms": k8_library,
+                "ms": k8_ms, "plain_ms": k8_plain, **bound_fields(k8_bound),
+                "library_ms": k8_library,
                 "library": "torch.nn.functional.scaled_dot_product_attention",
                 "timed_at": {"B": TD_B, "N": TD_N, "C": 128, "n_heads": K8_HEADS, "masked": True}}
-    return {"k4_absorbing": k4_absorbing, "k4_transdim": k4_transdim, "k7_wide": k7_wide,
+    return {"k4_absorbing": k4_absorbing, "k4_transdim": k4_transdim, "k4_row_cut": k4_row_cut,
+            "k7_wide": k7_wide,
             "k8_entry": k8_entry, "absorbing": absorbing, "transdim": transdim}
 
 
@@ -2514,7 +2642,8 @@ def main():
 
     build = _build.build_library()
     _build.load_library()
-    ptxas = [line.strip() for line in build.log.splitlines() if "registers" in line or "spill" in line]
+    ptxas = [line.strip() for line in build.log.splitlines()
+             if "registers" in line or "spill" in line or "Compiling entry function" in line]
     emit({"phase": "build", "seconds": build.seconds, "source_seconds": build.source_seconds,
           "library": str(build.path.relative_to(ROOT)), "ptxas": ptxas})
 
@@ -2536,6 +2665,7 @@ def main():
     scaled = scaled_family_phases(device, card)
     k4, k6, k7 = kernels[3], kernels[5], kernels[6]
     k4["absorbing_scaled"], k4["transdim_scaled"] = scaled["k4_absorbing"], scaled["k4_transdim"]
+    k4["row_cut_worst_share_of_gate"] = scaled["k4_row_cut"]
     k4["launches_by_path"].update(serving_absorbing_scaled=scaled["absorbing"]["epic_wide_forward"],
                                   serving_transdim_scaled=scaled["transdim"]["epic_wide_forward"])
     k6["launches_by_path"]["serving_absorbing_scaled"] = scaled["absorbing"]["survival_head"]
@@ -2550,7 +2680,7 @@ def main():
 
 def bound_keys(packed, B, kind):
     bound = kernel_bound(packed, B, kind)
-    return {"bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+    return bound_fields(bound)
 
 
 def narrow_phases(device, card, build_dir):
@@ -2619,9 +2749,6 @@ def scaled_phases(device, card, build_dir):
     def by_path(name):
         return {"serving_scaled": serving[name], "train_scaled": train[name]}
 
-    def bound(b):
-        return {key: b[key] for key in ("bound_ms", "bound_by")}
-
     return [
         {"name": "epic_wide_forward", "route": "cuda",
          "source": "multimodal_particles_tpu_torch/ops/csrc/epic_wide_forward.cu",
@@ -2629,14 +2756,14 @@ def scaled_phases(device, card, build_dir):
          "also_replaces": "multimodal_particles_tpu/ops/epic_pallas_wide_vjp.py:311",
          "launches": train["epic_wide_forward"], "launches_by_path": by_path("epic_wide_forward"),
          "max_abs_err": k4_err, "max_abs_err_by_check": k4_errors,
-         "ms": k4_ms, "plain_ms": k4_plain, **bound(k4_bound), "library_ms": None,
+         "ms": k4_ms, "plain_ms": k4_plain, **bound_fields(k4_bound), "library_ms": None,
          "timed_at": {"hidden": SCALED_HIDDEN, "num_blocks": SCALED_BLOCKS, "B": TRAIN_B}},
         {"name": "epic_wide_backward", "route": "cuda",
          "source": "multimodal_particles_tpu_torch/ops/csrc/epic_wide_backward.cu",
          "replaces": "multimodal_particles_tpu/ops/epic_pallas_wide_vjp.py:349",
          "launches": train["epic_wide_backward"], "launches_by_path": by_path("epic_wide_backward"),
          "max_abs_err": k5_err, "max_abs_err_by_check": k5_errors,
-         "ms": k5_ms, "plain_ms": k5_plain, **bound(k5_bound), "library_ms": None,
+         "ms": k5_ms, "plain_ms": k5_plain, **bound_fields(k5_bound), "library_ms": None,
          "timed_at": {"hidden": SCALED_HIDDEN, "num_blocks": SCALED_BLOCKS, "B": TRAIN_B,
                       "plain_B": SCALED_PLAIN_B}},
     ]

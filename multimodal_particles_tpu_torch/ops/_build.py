@@ -6,9 +6,10 @@ plain C interface, in `ops/build/` (git-ignored). The library
 is rebuilt when a source or header is newer than it. Sources that share
 device code include a header: epic_forward.cuh (the narrow EPiC kernels;
 epic_forward_kernel.cuh the forward kernel's two instantiations),
-epic_wide.cuh (the wide ones and the tiled products) and gsdm_blocks.cuh (the
-(ResnetBlock, AttnBlock) stack of the survival head and the gsdm stack, and the
-attention that the attention core runs alone). No fast-math: the
+epic_wide.cuh (the wide ones and the tiled products), gsdm_blocks.cuh (the
+(ResnetBlock, AttnBlock) stack of the survival head and the gsdm stack) and
+tf32x3.cuh (tensor-core products at fp32 accuracy, for the attention core and
+the wide forward). No fast-math: the
 telegraph update divides by 1 − exp(−Sγ(1−t)), which is about 1e-4 at the
 last step, and its jump decisions must follow the accurate `expf`.
 """
@@ -48,8 +49,9 @@ _SIGNATURES = {
     "mmp_epic_backward_workspace": [_I, _I, _P, _P, _P],
     # weights, t, x, k, mask, g, d_weights, scratch, grid, B, N, dims[10], stream
     "mmp_epic_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    # the wide pair (hidden 128) takes the same arguments as the narrow one
-    "mmp_epic_wide_forward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    # the wide pair (hidden 128) takes the narrow one's arguments; the forward
+    # also the tensor-core stages and local_0's tables after the weights
+    "mmp_epic_wide_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "mmp_epic_wide_backward_workspace": [_I, _I, _P, _P, _P],
     "mmp_epic_wide_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     # weights, temb_proj (n_blocks, B, C), last (B, N, Dh), mask (B, N), out (B, N),

@@ -4,7 +4,9 @@ CUDA kernel (counterpart of multimodal_particles_tpu/ops/attention_pallas.py).
 Per jet and head: softmax over the keys of q·kᵀ/√d plus an additive key bias
 (−1e9 on the keys whose (B, N, 1) mask is 0, none without a mask), times v;
 q, k, v and the output are (B, N, C), before proj_out and the residual.
-`attention_core` launches ops/csrc/attention_core.cu on CUDA tensors;
+`attention_core` launches ops/csrc/attention_core.cu on CUDA tensors, a
+block a (jet, head) pair, its products on the tensor cores at fp32 accuracy
+(the 3×TF32 split of ops/csrc/tf32x3.cuh);
 `attention_core_reference` is its plain PyTorch version, the einsum of
 `_core_jnp` (:77-87), which the wrapper takes for CPU tensors.
 `AttentionCore` is the differentiable form, as `attention_core_pallas` is in
@@ -17,7 +19,7 @@ import torch
 
 from multimodal_particles_tpu_torch.ops import _build
 
-# what the kernel is compiled for (ops/csrc/attention_core.cu, gsdm_blocks.cuh)
+# what the kernel is compiled for (ops/csrc/attention_core.cu)
 CHANNELS = 128
 MAX_PARTICLES = 128
 MASKED_KEY_BIAS = -1e9  # attention_pallas.py:149
@@ -95,7 +97,7 @@ def attention_core(q, k, v, mask=None, *, n_heads: int):
         rc = lib.mmp_attention_core(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             mask.data_ptr() if mask is not None else None, out.data_ptr(),
-            B, B, N, C, n_heads, stream,
+            B * n_heads, B, N, C, n_heads, stream,
         )
     _build.check(lib, rc, "mmp_attention_core")
     attention_core.launches += 1

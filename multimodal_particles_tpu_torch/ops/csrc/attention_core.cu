@@ -13,89 +13,256 @@
 //
 // What bounds it. A jet of N slots costs 2·N²·C multiply-adds (scores and
 // values over the heads together), 4.2 M at N = 128, against 4·N·C·4 bytes
-// (256 KB) of q, k, v in and the output out: 32 floating-point operations a
-// byte against the card's 20 (67 TFLOP/s over 3.35 TB/s), so fp32 arithmetic
-// on the CUDA cores bounds it, with the bytes close behind.
+// (256 KB) of q, k, v in and the output out. On the tensor cores, three TF32
+// products a multiply-add (tf32x3.cuh) make 24 operations a byte against the
+// card's 148 (495 TFLOP/s over 3.35 TB/s): the bytes bound it.
 //
-// Design: the attention of the gsdm stacks (gsdm_blocks.cuh::attention_rows)
-// with its key-bias flag on. One block of 256 threads a jet: q (scaled) in
-// one (128, 128) tile of shared memory, k transposed and XOR-swizzled in the
-// second, v in the third, four query rows a warp, the result over q's rows,
-// then stored. No tile is written past N; the scores of the keys past N that
-// the lanes compute are left out of the softmax. The bias comes from the mask
-// in the kernel, so a masked call is one launch too.
+// Design: a block of 8 warps a (jet, head) pair, ⌈N/16⌉ warps of 16 query
+// rows each doing the work.
+//   * q, k and v of the pair come into shared memory by cp.async, rows of
+//     hd + 4 floats (no bank conflict in the fragment reads), rows from N to
+//     ⌈N/16⌉·16 zero-filled; q and k in one group, v in a second that lands
+//     while the first keys are scored. At hd = 64 a pair takes 102 KB, so two
+//     blocks share an SM and one's loads overlap the other's products.
+//   * S = q·kᵀ and O = P·v are mma.sync.m16n8k8 TF32 products under the
+//     3×TF32 split, fp32 accumulators in registers. k's rows are the K-major
+//     B operand as they are stored; no transpose.
+//   * The softmax runs in registers over chunks of 64 keys with a running
+//     maximum and sum (the output rescaled when the maximum rises). Keys past
+//     N never enter it; a masked key's score is q·k/√d − 1e9 as in the plain
+//     version, so a wholly masked jet gives the mean of its values.
+//   * P goes from the accumulator fragment to the A fragment without a
+//     shuffle: the product's keys are taken in the order the accumulator
+//     holds them (column t of the A fragment is key 2t, column t + 4 key
+//     2t + 1), and v's rows are read in that order.
+//   * The 1/√d scale multiplies the fp32 score, as the einsum does.
+//   * Each warp stages its 16 output rows in its own q rows and stores them
+//     as float4.
 //
 // C interface (bound with ctypes by ops/attention_cuda.py): returns the
 // cudaError_t of the launch, 0 on success.
 
-#include "gsdm_blocks.cuh"
+#include <math.h>
 
-namespace mmps {
+#include "tf32x3.cuh"
 
-constexpr int AV_BIAS = 0, AV_PROB = ROWS, AV_END = AV_PROB + WARPS * ROWS * RG;
-constexpr size_t ATTN_SMEM_BYTES = sizeof(float) * (size_t)(3 * MAT + AV_END);
-static_assert(ATTN_SMEM_BYTES <= 232448, "over a block's 227 KB of shared memory");
+namespace mmpa {
+
+using namespace tf32x3;
+
+constexpr int C = 128;        // channels, all heads
+constexpr int ROWS = 128;     // particle slots per jet
+constexpr int THREADS = 256;  // 8 warps of 16 query rows
+constexpr int KC = 64;        // keys a softmax chunk
 constexpr float MASKED_KEY_BIAS = -1e9f;  // attention_pallas.py:149
 
-template <bool MASKED>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int HD>
+struct Smem {
+  static constexpr int LD = HD + 4;  // row stride in floats
+  static constexpr int MAT = ROWS * LD;
+  static constexpr size_t BYTES = sizeof(float) * (size_t)(3 * MAT + ROWS);
+  static_assert(BYTES <= 232448, "over a block's 227 KB of shared memory");
+};
+
+template <int HD, bool MASKED>
+__global__ void __launch_bounds__(THREADS, HD == 128 ? 1 : 2)
 attention_core_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ mask,
-                      float* __restrict__ out, int B, int N, int n_heads) {
+                      float* __restrict__ out, int B, int N, int n_heads, float scale) {
+  constexpr int LD = Smem<HD>::LD, F4 = HD / 4, NT = HD / 8;
   extern __shared__ __align__(16) float smem[];
-  float* Q = smem;
-  float* KT = smem + MAT;
-  float* Vt = smem + 2 * MAT;
-  float* kbias = smem + 3 * MAT + AV_BIAS;
-  float* prob = smem + 3 * MAT + AV_PROB;
-  const int tid = threadIdx.x;
-  const float scale = rsqrtf((float)(C / n_heads));
-  for (int jet = blockIdx.x; jet < B; jet += gridDim.x) {
-    const size_t p = (size_t)jet * N * C;
-    const float4* q4 = reinterpret_cast<const float4*>(q + p);
-    const float4* k4 = reinterpret_cast<const float4*>(k + p);
-    const float4* v4 = reinterpret_cast<const float4*>(v + p);
-    for (int idx = tid; idx < N * (C / 4); idx += THREADS) {
-      float4 a = __ldg(q4 + idx);
-      a.x *= scale; a.y *= scale; a.z *= scale; a.w *= scale;
-      reinterpret_cast<float4*>(Q)[idx] = a;
-      reinterpret_cast<float4*>(Vt)[idx] = __ldg(v4 + idx);
-      const float4 b = __ldg(k4 + idx);
-      const int r = idx / (C / 4), c = (idx % (C / 4)) * 4;
-      KT[kt_index(c, r)] = b.x;
-      KT[kt_index(c + 1, r)] = b.y;
-      KT[kt_index(c + 2, r)] = b.z;
-      KT[kt_index(c + 3, r)] = b.w;
+  float* Qs = smem;
+  float* Ks = smem + Smem<HD>::MAT;
+  float* Vs = smem + 2 * Smem<HD>::MAT;
+  float* kbias = smem + 3 * Smem<HD>::MAT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int npad = (N + 15) & ~15;  // the rows and keys the products run over
+  const int row0 = 16 * warp;
+  const bool active = row0 < N;
+
+  for (int item = blockIdx.x; item < B * n_heads; item += gridDim.x) {
+    const int jet = item / n_heads, head = item % n_heads;
+    const size_t base = (size_t)jet * N * C + (size_t)head * HD;
+    for (int idx = tid; idx < npad * F4; idx += THREADS) {
+      const int r = idx / F4, c = (idx % F4) * 4;
+      const bool real = r < N;
+      const size_t src = base + (size_t)(real ? r : 0) * C + c;
+      cp_async16(Qs + r * LD + c, q + src, real);
+      cp_async16(Ks + r * LD + c, k + src, real);
     }
-    if (MASKED && tid < N) kbias[tid] = mask[(size_t)jet * N + tid] > 0.f ? 0.f : MASKED_KEY_BIAS;
+    cp_async_commit();
+    for (int idx = tid; idx < npad * F4; idx += THREADS) {
+      const int r = idx / F4, c = (idx % F4) * 4;
+      const bool real = r < N;
+      cp_async16(Vs + r * LD + c, v + base + (size_t)(real ? r : 0) * C + c, real);
+    }
+    cp_async_commit();
+    if (tid < N) kbias[tid] = MASKED && !(mask[(size_t)jet * N + tid] > 0.f) ? MASKED_KEY_BIAS : 0.f;
+    cp_async_wait<1>();
     __syncthreads();
-    attention_rows<MASKED>(Q, KT, Vt, N, n_heads, prob, kbias);
-    __syncthreads();
-    float4* o4 = reinterpret_cast<float4*>(out + p);
-    for (int idx = tid; idx < N * (C / 4); idx += THREADS)
-      o4[idx] = reinterpret_cast<const float4*>(Q)[idx];
-    __syncthreads();  // the tiles are free for the block's next jet
+
+    float o[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    float row_max[2] = {-INFINITY, -INFINITY}, row_sum[2] = {0.f, 0.f};
+    const float* qa = Qs + (row0 + g) * LD + t;
+
+    for (int kc = 0; kc < npad; kc += KC) {
+      const int nt = min(KC, npad - kc) / 8;  // key tiles of 8 in this chunk
+      float s[KC / 8][4];
+#pragma unroll
+      for (int j = 0; j < KC / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      if (active) {
+        // S = q·kᵀ over the chunk's keys
+#pragma unroll 2
+        for (int kk = 0; kk < HD; kk += 8) {
+          Frag<4> a;
+          a.set(0, qa[kk]);
+          a.set(1, qa[8 * LD + kk]);
+          a.set(2, qa[kk + 4]);
+          a.set(3, qa[8 * LD + kk + 4]);
+#pragma unroll
+          for (int j = 0; j < KC / 8; ++j) {
+            if (j < nt) {
+              const float* kb = Ks + (kc + 8 * j + g) * LD + kk + t;
+              Frag<2> b;
+              b.set(0, kb[0]);
+              b.set(1, kb[4]);
+              mma3(s[j], a, b);
+            }
+          }
+        }
+      }
+      if (kc == 0) {  // v has landed while the first chunk was scored
+        cp_async_wait<0>();
+        __syncthreads();
+      }
+      if (active) {
+        // the softmax's running maximum and sum; rows g (s[.][0..1]) and g + 8
+        float cmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < KC / 8; ++j) {
+          if (j < nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = kc + 8 * j + 2 * t + (e & 1);
+              const float x = key < N ? s[j][e] * scale + kbias[key] : -INFINITY;
+              s[j][e] = x;
+              cmax[e >> 1] = fmaxf(cmax[e >> 1], x);
+            }
+          }
+        }
+        float factor[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          cmax[h] = fmaxf(cmax[h], __shfl_xor_sync(0xffffffffu, cmax[h], 1));
+          cmax[h] = fmaxf(cmax[h], __shfl_xor_sync(0xffffffffu, cmax[h], 2));
+          const float m = fmaxf(row_max[h], cmax[h]);  // finite: a chunk holds a key < N
+          factor[h] = expf(row_max[h] - m);
+          row_max[h] = m;
+          row_sum[h] *= factor[h];
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          o[n][0] *= factor[0];
+          o[n][1] *= factor[0];
+          o[n][2] *= factor[1];
+          o[n][3] *= factor[1];
+        }
+#pragma unroll
+        for (int j = 0; j < KC / 8; ++j) {
+          if (j < nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              s[j][e] = expf(s[j][e] - row_max[e >> 1]);
+              row_sum[e >> 1] += s[j][e];
+            }
+          }
+        }
+        // O += P·v, keys in the accumulator's order (2t, 2t + 1)
+#pragma unroll
+        for (int j = 0; j < KC / 8; ++j) {
+          if (j < nt) {
+            Frag<4> a;
+            a.set(0, s[j][0]);
+            a.set(1, s[j][2]);
+            a.set(2, s[j][1]);
+            a.set(3, s[j][3]);
+            const float* vb = Vs + (kc + 8 * j + 2 * t) * LD + g;
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+              Frag<2> b;
+              b.set(0, vb[8 * n]);
+              b.set(1, vb[LD + 8 * n]);
+              mma3(o[n], a, b);
+            }
+          }
+        }
+      }
+    }
+
+    if (active) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 1);
+        row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 2);
+      }
+      // the warp's own q rows are free: stage the output there
+      __syncwarp();
+      float* stage = Qs + (row0 + g) * LD + 2 * t;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        *reinterpret_cast<float2*>(stage + 8 * n) =
+            make_float2(o[n][0] / row_sum[0], o[n][1] / row_sum[0]);
+        *reinterpret_cast<float2*>(stage + 8 * LD + 8 * n) =
+            make_float2(o[n][2] / row_sum[1], o[n][3] / row_sum[1]);
+      }
+      __syncwarp();
+      const int rows = min(16, N - row0);
+      for (int idx = lane; idx < rows * F4; idx += 32) {
+        const int r = row0 + idx / F4, c = (idx % F4) * 4;
+        *reinterpret_cast<float4*>(out + base + (size_t)r * C + c) =
+            *reinterpret_cast<const float4*>(Qs + r * LD + c);
+      }
+    }
+    __syncthreads();  // the tiles are free for the block's next pair
   }
 }
 
-}  // namespace mmps
+template <int HD>
+cudaError_t launch(const float* q, const float* k, const float* v, const float* mask, float* out,
+                   int grid, int B, int N, int n_heads, cudaStream_t stream) {
+  auto kernel = mask != nullptr ? attention_core_kernel<HD, true> : attention_core_kernel<HD, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)Smem<HD>::BYTES);
+  if (err != cudaSuccess) return err;
+  const float scale = (float)(1.0 / sqrt((double)HD));  // hd**-0.5 as the einsum takes it
+  kernel<<<grid, THREADS, Smem<HD>::BYTES, stream>>>(q, k, v, mask, out, B, N, n_heads, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace mmpa
 
 // q, k, v, out: (B, N, C) float32, 16-byte aligned; mask: (B, N) float32 or
-// null. One block a jet (grid = B, or fewer blocks that walk the jets).
+// null. A block a (jet, head) pair: grid = B · n_heads, or fewer blocks that
+// walk the pairs. Heads of 32, 64 or 128 channels.
 extern "C" int mmp_attention_core(const void* q, const void* k, const void* v, const void* mask,
                                   void* out, int grid, int B, int N, int channels, int n_heads,
                                   void* stream) {
-  using namespace mmps;
+  using namespace mmpa;
   if (N < 1 || N > ROWS || channels != C || n_heads < 1 || C % n_heads != 0 ||
       (C / n_heads) % 32 != 0 || grid < 1)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  auto kernel = mask != nullptr ? attention_core_kernel<true> : attention_core_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)ATTN_SMEM_BYTES);
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, THREADS, ATTN_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(mask), static_cast<float*>(out), B, N, n_heads);
-  return cudaGetLastError();
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  const auto* mf = static_cast<const float*>(mask);
+  auto* of = static_cast<float*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C / n_heads) {
+    case 32: return launch<32>(qf, kf, vf, mf, of, grid, B, N, n_heads, s);
+    case 64: return launch<64>(qf, kf, vf, mf, of, grid, B, N, n_heads, s);
+    default: return launch<128>(qf, kf, vf, mf, of, grid, B, N, n_heads, s);
+  }
 }

@@ -25,6 +25,10 @@
 //     the per-jet global MLP is vector-matrix products by the whole block.
 //   * A recorder (template parameter Rec) receives the activations that the
 //     backward kernel reads back; NoRecord compiles to nothing.
+//   * The forward kernel's instances (TC) take the per-particle products to
+//     the tensor cores instead (gemm_wg, wgmma under the 3×TF32 split of
+//     tf32x3.cuh), with their own shared-memory plan; the backward kernel's
+//     recording rerun keeps the FFMA products above.
 //   * The forward kernel alone also takes the two trunks of the absorbing and
 //     transdimensional families (`wide_forward_jet_ext`): the folded
 //     Linear-discrete input (FOLD: the discrete embedding is a Dense over the
@@ -39,6 +43,10 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
+
+#include "tf32x3.cuh"
 
 namespace mmpw {
 
@@ -153,6 +161,44 @@ constexpr int TW_WH0 = T_BO + 16, TW_BH0 = TW_WH0 + V * MAX_WIDE_HEAD,
               TW_END = TW_BH1 + V;
 static_assert(TW_END <= 2 * KT * WD, "a wide head's weights overrun the weight buffer");
 
+// Shared memory of the forward kernel's tensor-core products (TC): the
+// activation tiles h (S0) and l1 (S1) with rows padded to LDA_TC floats, so
+// that the A-fragment reads hit 32 banks; in the third tile's place the ring
+// of TC_STAGES prepared weight stages (the skip copy h0 lives in registers,
+// and local_0 needs no embedding tiles: its per-particle products are folded
+// into per-jet tables by the wrapper); a small staging area (the heads'
+// weights, local_0's tables); the per-jet vectors the forward reads (V_MASK
+// … V_CT) and the reduction buffer. The backward kernel keeps the plan above.
+constexpr int LDA_TC = WD + 4;
+constexpr int TC_KT = 8;                   // input rows a stage: one k-step of wgmma
+constexpr int TC_STAGE = 2 * TC_KT * WD;   // floats a stage: its TF32 hi and lo halves
+constexpr int TC_STAGES = 8;               // stages in the ring; 6 are fetched ahead
+constexpr int TC_STAGING = 2 * KT * WD;    // floats of the staging area
+constexpr int S_TILE_TC = 3 * ROWS * LDA_TC;
+constexpr int S_VEC_TC = S_TILE_TC + TC_STAGING;
+constexpr int V_RED_TC = V_CT + WD, V_END_TC = V_RED_TC + 8 * WD;
+constexpr size_t SMEM_BYTES_TC = sizeof(float) * (size_t)(S_VEC_TC + V_END_TC);
+static_assert(SMEM_BYTES_TC <= 232448, "over a block's 227 KB of shared memory");
+static_assert(TC_STAGES * TC_STAGE <= ROWS * LDA_TC, "the ring overruns the third tile");
+static_assert(TW_END <= TC_STAGING, "a wide head's weights overrun the staging area");
+// local_0's tables in the staging area, as the wrapper packs them: x's
+// (3, 128), the discrete input's (V, 128), the constant row (128)
+constexpr int L0_X = 0, L0_K = DC * WD, L0_C = L0_K + V * WD, L0_END = L0_C + WD;
+static_assert(L0_END <= TC_STAGING, "local_0's tables overrun the staging area");
+// prepared weights of one EPiC layer: fc_local1's particle third, then fc_local2
+constexpr int TC_FL2 = (WD / TC_KT) * TC_STAGE, TC_LAYER = 2 * TC_FL2;
+
+// The two shared-memory plans: the FFMA products' (K5, and K4 before its
+// tensor-core products) and the tensor cores'.
+template <bool TC>
+struct Plan {
+  static constexpr int LDA = WD, TILE = S_TILE, VEC = S_VEC, RED = V_RED;
+};
+template <>
+struct Plan<true> {
+  static constexpr int LDA = LDA_TC, TILE = S_TILE_TC, VEC = S_VEC_TC, RED = V_RED_TC;
+};
+
 __device__ __forceinline__ float leaky(float x) { return x >= 0.f ? x : 0.01f * x; }
 
 __device__ __forceinline__ float selu(float x) {
@@ -241,15 +287,133 @@ __device__ __forceinline__ void gemm_acc(float (&acc)[8][8], const float* A,
   }
 }
 
+// A (128, 128) product result in registers, as the FFMA routine holds it:
+// an 8 × 8 tile a thread (tile_row, tile_col).
+struct FmaAcc {
+  float v[8][8];
+  __device__ __forceinline__ void zero() { zero_acc(v); }
+  // f(index, row, column, value) for each of the thread's elements
+  template <class F>
+  __device__ __forceinline__ void each(F f) const {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = tile_row(i);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) f(8 * i + j, r, tile_col(j), v[i][j]);
+    }
+  }
+};
+
+// The same result as the tensor cores hold it: warpgroup q (warps 4q … 4q + 3)
+// owns rows 64q … 64q + 63, warp w of it 16 of them, in the wgmma.m64n128k8
+// accumulator layout (tf32x3.cuh). A thread's elements sit at the same
+// (row, column) in every product.
+struct WgAcc {
+  float v[64];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) v[i] = 0.f;
+  }
+  template <class F>
+  __device__ __forceinline__ void each(F f) const {
+    const int warp = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7, t = threadIdx.x & 3;
+    const int r0 = 64 * (warp >> 2) + 16 * (warp & 3) + g;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) f(i, r0 + 8 * ((i >> 1) & 1), 8 * (i >> 2) + 2 * t + (i & 1), v[i]);
+  }
+};
+
+// Stage `stage` (TC_STAGE floats) of a product's prepared weights into its
+// ring slot by cp.async, two float4 a thread, committed as a group; a null
+// Wt commits an empty group. The wrapper lays each stage out as the tensor
+// cores read it (ops/epic_cuda.py::tensor_core_weights): the TF32 hi
+// and lo halves of 8 input rows, each K-major in 8 × 4 core matrices.
+__device__ __forceinline__ void ring_fetch(const float* __restrict__ Wt, int stage, float* ring) {
+  if (Wt != nullptr) {
+    const float* src = Wt + (size_t)stage * TC_STAGE;
+    float* dst = ring + (stage % TC_STAGES) * TC_STAGE;
+#pragma unroll
+    for (int q = 0; q < TC_STAGE / (4 * THREADS); ++q) {
+      const int idx = 4 * (threadIdx.x + THREADS * q);
+      tf32x3::cp_async16(dst + idx, src + idx);
+    }
+  }
+  tf32x3::cp_async_commit();
+}
+
+// The first TC_STAGES − 2 stages of Wt, before the gemm_wg that reads it.
+__device__ __forceinline__ void ring_prefetch(const float* __restrict__ Wt, float* ring) {
+#pragma unroll
+  for (int kt = 0; kt < TC_STAGES - 2; ++kt) ring_fetch(Wt, kt, ring);
+}
+
+// acc += A·W on the tensor cores at fp32 accuracy (the 3×TF32 split): A
+// (128, 128) in shared memory with rows of LDA_TC floats, W (128, 128) given
+// as its 16 prepared stages Wt, streamed through the ring. Each warpgroup
+// multiplies its 64 rows by wgmma, A from registers (split here, truncated:
+// `split_fast`), the stage's hi and lo halves from shared memory (rounded by
+// the wrapper): a_lo·w_hi + a_hi·w_lo + a_hi·w_hi a k-step, one k-step in
+// flight while the next A is split. The
+// caller has fetched Wt's first TC_STAGES − 2 stages (ring_prefetch, or the
+// `next` of the gemm_wg before); this one fetches `next`'s (null: none) as
+// its own last stages are read, so that the following product starts on a
+// full ring. A stage's slot is refilled two k-steps after its product was
+// issued, when both warpgroups have waited for it. A warpgroup whose rows
+// all lie at or past npad skips its products and keeps its accumulators.
+// Every thread of the block calls it; it ends with a barrier, after which A
+// and the ring slots read are free.
+__device__ __forceinline__ void gemm_wg(WgAcc& acc, const float* A, const float* __restrict__ Wt,
+                                        float* ring, const float* __restrict__ next, int npad) {
+  using namespace tf32x3;
+  constexpr int NKT = WD / TC_KT;
+  static_assert(NKT % TC_STAGES == 0, "the next product's stages must land in their own slots");
+  const int warp = threadIdx.x >> 5, g = (threadIdx.x >> 2) & 7, t = threadIdx.x & 3;
+  const bool live = 64 * (warp >> 2) < npad;
+  const float* ar = A + (64 * (warp >> 2) + 16 * (warp & 3) + g) * LDA_TC + t;
+  uint32_t ah[2][4], al[2][4];
+  fence_operands(acc.v);
+#pragma unroll
+  for (int kt = 0; kt < NKT; ++kt) {
+    const int s = kt & 1;  // the A registers of group kt − 2, which has completed
+    if (live) {
+      const float* a = ar + kt * TC_KT;
+      split_fast(a[0], ah[s][0], al[s][0]);
+      split_fast(a[8 * LDA_TC], ah[s][1], al[s][1]);
+      split_fast(a[4], ah[s][2], al[s][2]);
+      split_fast(a[8 * LDA_TC + 4], ah[s][3], al[s][3]);
+    }
+    cp_async_wait<TC_STAGES - 3>();  // stage kt has landed, for this thread
+    fence_proxy_async();
+    __syncthreads();  // for every thread; both warpgroups have waited for group kt − 2
+    const int ahead = kt + TC_STAGES - 2;  // into the slot of stage kt − 2
+    ring_fetch(ahead < NKT ? Wt : next, ahead < NKT ? ahead : ahead - NKT, ring);
+    if (live) {
+      const float* slot = ring + (kt % TC_STAGES) * TC_STAGE;
+      // core matrices: 128 bytes apart along K, 256 along N
+      const uint64_t w_hi = smem_desc(slot, 128, 256), w_lo = smem_desc(slot + TC_KT * WD, 128, 256);
+      wgmma_fence();
+      wgmma_m64n128k8(acc.v, al[s], w_hi);
+      wgmma_m64n128k8(acc.v, ah[s], w_lo);
+      wgmma_m64n128k8(acc.v, ah[s], w_hi);
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+  }
+  if (live) wgmma_wait<0>();
+  fence_operands(acc.v);
+  __syncthreads();
+}
+
 // z[j] = Σ_k v[k]·W[k, j] for a per-jet vector v (n_in, shared memory) and W
 // (n_in, 128) row-major in global memory; thread j < 128 then calls
 // post(j, z[j]). Every thread calls it; it ends with a barrier.
-template <class Post>
+// UNROLL: the weight rows a thread has in flight (the sums' order is the same).
+template <int UNROLL = 4, class Post>
 __device__ __forceinline__ void jet_matvec(const float* v, const float* __restrict__ Wg, int n_in,
                                            float* red, Post post) {
   const int tid = threadIdx.x, cg = tid & 31, ks = tid >> 5;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
+#pragma unroll (UNROLL)
   for (int k = ks; k < n_in; k += 8) {
     const float4 w = __ldg(reinterpret_cast<const float4*>(Wg + (size_t)k * WD) + cg);
     const float vk = v[k];
@@ -269,13 +433,14 @@ __device__ __forceinline__ void jet_matvec(const float* v, const float* __restri
   __syncthreads();
 }
 
-// s[c] = Σ_r f(r, S[r, c]) over the tile's rows; thread c < 128 then calls
-// post(c, s[c]). Every thread calls it; it ends with a barrier.
-template <class F, class Post>
+// s[c] = Σ_r f(r, S[r, c]) over the tile's rows (row stride LD); thread
+// c < 128 then calls post(c, s[c]). Every thread calls it; it ends with a
+// barrier.
+template <int LD = WD, class F, class Post>
 __device__ __forceinline__ void column_sums(const float* S, float* red, F f, Post post) {
   const int tid = threadIdx.x, c = tid & (WD - 1), half = tid >> 7;
   float s = 0.f;
-  for (int r = half * 64; r < half * 64 + 64; ++r) s += f(r, S[r * WD + c]);
+  for (int r = half * 64; r < half * 64 + 64; ++r) s += f(r, S[r * LD + c]);
   red[half * WD + c] = s;
   __syncthreads();
   if (tid < WD) post(tid, red[tid] + red[WD + tid]);
@@ -405,19 +570,36 @@ __device__ __forceinline__ void head_hidden(const float (&p)[NOUT], const float*
 // (N, V) channel values through the folded Dense (k unused); else the tokens
 // `k` (N,). WIDE_HEAD: the discrete head has d.head_hidden hidden units (else
 // V). A non-null `hid` receives h_final's rows < N, (N, 128).
-template <class Rec, bool FOLD, bool WIDE_HEAD>
-__device__ void wide_forward_jet_ext(const float* __restrict__ w, const Dims& d, const Layout& L,
+// TC: the per-particle products run on the tensor cores (gemm_wg, the plan
+// SMEM_BYTES_TC) over the 64-row halves that hold rows below ⌈N/16⌉·16, on
+// the weights the wrapper prepared: `tcw` the fc_local1/fc_local2 stages of
+// each layer (TC_LAYER floats a layer), `l0t` local_0's tables (L0_END
+// floats): the x and discrete embeddings are Dense layers, so their product
+// with local_0's weights is the embedding's input times a (3, 128) or
+// (V, 128) table plus a constant row (a token's row of the table without the
+// fold). Else the FFMA products (gemm_acc, SMEM_BYTES) over all 128 rows, as
+// the backward kernel's recording rerun needs (tokens and a V-wide head
+// only), and tcw, l0t are not read.
+template <class Rec, bool FOLD, bool WIDE_HEAD, bool TC = false>
+__device__ void wide_forward_jet_ext(const float* __restrict__ w, const float* __restrict__ tcw,
+                                     const float* __restrict__ l0t, const Dims& d, const Layout& L,
                                      float* smem, float t, const float* __restrict__ x,
                                      const int* __restrict__ k, const float* __restrict__ kv,
                                      const float* __restrict__ mask, int N,
                                      float* __restrict__ out, float* __restrict__ hid,
                                      const Rec& rec) {
+  static_assert(TC || (!FOLD && !WIDE_HEAD), "only the tensor-core instances take these");
+  using P = Plan<TC>;
+  constexpr int LDA = P::LDA;
+  constexpr int MATVEC_UNROLL = TC ? 8 : 4;
+  using Acc = typename std::conditional<TC, WgAcc, FmaAcc>::type;
   const int tid = threadIdx.x;
+  const int npad = (N + 15) & ~15;
   float* S0 = smem;
-  float* S1 = smem + MAT;
-  float* S2 = smem + 2 * MAT;
-  float* tiles = smem + S_TILE;
-  float* vec = smem + S_VEC;
+  float* S1 = smem + ROWS * LDA;
+  float* S2 = smem + 2 * ROWS * LDA;  // with TC the weight ring
+  float* tiles = smem + P::TILE;
+  float* vec = smem + P::VEC;
   float* m = vec + V_MASK;
   float* xs = vec + V_X;
   int* ks = reinterpret_cast<int*>(vec + V_K);
@@ -430,7 +612,10 @@ __device__ void wide_forward_jet_ext(const float* __restrict__ w, const Dims& d,
   float* gskip = vec + V_GSKIP;
   float* cl1 = vec + V_CL1;
   float* ct = vec + V_CT;
-  float* red = vec + V_RED;
+  float* red = vec + P::RED;
+  // with TC, the skip copy h0 of the thread's elements (WgAcc's places)
+  float h0[TC ? 64 : 1];
+  if constexpr (TC) ring_prefetch(d.num_blocks > 0 ? tcw : nullptr, S2);  // fc_local1's first stages
 
   // ---- inputs and the sinusoidal time embedding [cos | sin]
   // (architectures/utils.py:15-34)
@@ -446,35 +631,17 @@ __device__ void wide_forward_jet_ext(const float* __restrict__ w, const Dims& d,
     const float arg = t * freq;
     temb[tid] = tid < half ? cosf(arg) : sinf(arg);
   }
+  if constexpr (TC)
+    for (int e = tid; e < L0_END / 4; e += THREADS)
+      reinterpret_cast<float4*>(tiles)[e] = __ldg(reinterpret_cast<const float4*>(l0t) + e);
   __syncthreads();
   float denom = 0.f;
   for (int r = 0; r < ROWS; ++r) denom += m[r];
   denom = fmaxf(denom, 1.f);
 
-  // ---- input embeddings: S1 = x_emb, S2 = k_emb (utils.py:112-172)
-  if constexpr (FOLD) {
-    // the Linear-discrete input: k_emb = values·W_k + b_k
-    const int e4 = (tid & 31) * 4;
-    const float4 bk = *reinterpret_cast<const float4*>(w + L.b_k + e4);
-    float4 wk[V];
-#pragma unroll
-    for (int v = 0; v < V; ++v) wk[v] = *reinterpret_cast<const float4*>(w + L.table + v * WD + e4);
-    for (int r = tid >> 5; r < ROWS; r += 8) {
-      float4 ke = bk;
-      if (r < N) {
-#pragma unroll
-        for (int v = 0; v < V; ++v) {
-          const float kc = __ldg(kv + r * V + v);
-          ke.x = fmaf(kc, wk[v].x, ke.x);
-          ke.y = fmaf(kc, wk[v].y, ke.y);
-          ke.z = fmaf(kc, wk[v].z, ke.z);
-          ke.w = fmaf(kc, wk[v].w, ke.w);
-        }
-      }
-      *reinterpret_cast<float4*>(S2 + r * WD + e4) = ke;
-    }
-  }
-  {
+  // ---- input embeddings: S1 = x_emb, S2 = k_emb (utils.py:112-172); with
+  // TC they enter local_0 through its tables instead
+  if constexpr (!TC) {
     const int e4 = (tid & 31) * 4;
     const float4 bx = *reinterpret_cast<const float4*>(w + L.b_x + e4);
     float4 wx[DC];
@@ -490,59 +657,83 @@ __device__ void wide_forward_jet_ext(const float* __restrict__ w, const Dims& d,
         xe.z = fmaf(xc, wx[c].z, xe.z);
         xe.w = fmaf(xc, wx[c].w, xe.w);
       }
-      *reinterpret_cast<float4*>(S1 + r * WD + e4) = xe;
-      if constexpr (!FOLD) {
-        const int kr = ks[r];
-        float4 ke = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (kr >= 0 && kr < V) ke = *reinterpret_cast<const float4*>(w + L.table + kr * WD + e4);
-        *reinterpret_cast<float4*>(S2 + r * WD + e4) = ke;
-      }
+      *reinterpret_cast<float4*>(S1 + r * LDA + e4) = xe;
+      const int kr = ks[r];
+      float4 ke = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (kr >= 0 && kr < V) ke = *reinterpret_cast<const float4*>(w + L.table + kr * WD + e4);
+      *reinterpret_cast<float4*>(S2 + r * LDA + e4) = ke;
     }
   }
   // the time third of local_0 is the same for every particle of the jet
-  jet_matvec(temb, w + L.w_l0, WD, red, [&](int j, float s) { ct[j] = s; });
+  jet_matvec<MATVEC_UNROLL>(temb, w + L.w_l0, WD, red, [&](int j, float s) { ct[j] = s; });
 
   // ---- projection (epic.py:164-191): local_0 sees the masked features,
   // W·(f·m) + b = (W·f)·m + b
-  float acc[8][8];
-  zero_acc(acc);
-  gemm_acc(acc, S1, w + L.w_l0 + WD * WD, WD, tiles);
-  gemm_acc(acc, S2, w + L.w_l0 + 2 * WD * WD, WD, tiles);
+  Acc acc;
+  acc.zero();
+  if constexpr (TC) {
+    // the particle two thirds from the tables: x·T_x + (values·T_k or a
+    // token's row of T_k) + the constant row
+    const int r0 = 64 * (tid >> 7) + 16 * ((tid >> 5) & 3) + ((tid >> 2) & 7);
+    float kin[2][V];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = tile_row(i);
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = tile_col(j);
-      const float z = (acc[i][j] + ct[c]) * m[r] + w[L.b_l0 + c];
-      rec.z_l0(r, c, z);
-      S0[r * WD + c] = leaky(z);
+      for (int v = 0; v < V; ++v) {
+        if constexpr (FOLD) {
+          kin[h][v] = r < N ? __ldg(kv + r * V + v) : 0.f;
+        } else {
+          kin[h][v] = ks[r] == v ? 1.f : 0.f;
+        }
+      }
     }
+    acc.each([&](int i, int r, int c, float) {
+      const int h = (i >> 1) & 1;
+      float e = tiles[L0_C + c];
+#pragma unroll
+      for (int q = 0; q < DC; ++q) e = fmaf(xs[r * DC + q], tiles[L0_X + q * WD + c], e);
+#pragma unroll
+      for (int v = 0; v < V; ++v) e = fmaf(kin[h][v], tiles[L0_K + v * WD + c], e);
+      const float z = (e + ct[c]) * m[r] + w[L.b_l0 + c];
+      const float a = leaky(z);
+      S0[r * LDA + c] = a;
+      h0[i] = d.use_skip ? a * m[r] : 0.f;
+    });
+  } else {
+    gemm_acc(acc.v, S1, w + L.w_l0 + WD * WD, WD, tiles);
+    gemm_acc(acc.v, S2, w + L.w_l0 + 2 * WD * WD, WD, tiles);
+    acc.each([&](int, int r, int c, float a) {
+      const float z = (a + ct[c]) * m[r] + w[L.b_l0 + c];
+      rec.z_l0(r, c, z);
+      S0[r * LDA + c] = leaky(z);
+    });
   }
   __syncthreads();
-  column_sums(S0, red, [&](int r, float v) { return v * m[r]; }, [&](int c, float s) {
+  column_sums<LDA>(S0, red, [&](int r, float v) { return v * m[r]; }, [&](int c, float s) {
     pv[c] = s / denom;
     pv[WD + c] = s;
     pv[2 * WD + c] = temb[c];
   });
   // h = h_act·mask, and the skip copy
   for (int idx = tid; idx < MAT; idx += THREADS) {
-    const float v = S0[idx] * m[idx >> 7];
-    S0[idx] = v;
-    if (d.use_skip) S2[idx] = v;
+    const int at = (idx >> 7) * LDA + (idx & (WD - 1));
+    const float v = S0[at] * m[idx >> 7];
+    S0[at] = v;
+    if (!TC && d.use_skip) S2[at] = v;
   }
   for (int i = tid; i < 3 * WD; i += THREADS) rec.proj(R_P0 + i, pv[i]);
-  jet_matvec(pv, w + L.w_g0, 3 * WD, red, [&](int j, float s) {
+  jet_matvec<MATVEC_UNROLL>(pv, w + L.w_g0, 3 * WD, red, [&](int j, float s) {
     const float z = s + w[L.b_g0 + j];
     rec.proj(R_ZG0 + j, z);
     va[j] = leaky(z);
   });
-  jet_matvec(va, w + L.w_g1, WD, red, [&](int j, float s) {
+  jet_matvec<MATVEC_UNROLL>(va, w + L.w_g1, WD, red, [&](int j, float s) {
     const float z = s + w[L.b_g1 + j];
     rec.proj(R_ZG1 + j, z);
     vb[j] = leaky(z);
   });
-  jet_matvec(vb, w + L.w_g2, WD, red, [&](int j, float s) {
+  jet_matvec<MATVEC_UNROLL>(vb, w + L.w_g2, WD, red, [&](int j, float s) {
     const float z = s + w[L.b_g2 + j];
     rec.proj(R_ZG2 + j, z);
     g[j] = leaky(z);
@@ -552,57 +743,60 @@ __device__ void wide_forward_jet_ext(const float* __restrict__ w, const Dims& d,
   // ---- EPiC layers (epic.py:193-241)
   for (int blk = 0; blk < d.num_blocks; ++blk) {
     const float* wb = w + L.blocks + (size_t)blk * L.block_stride;
+    const float* tb = TC ? tcw + (size_t)blk * TC_LAYER : nullptr;
     rec.h_in(blk, S0);
-    column_sums(S0, red, [&](int r, float v) { return v * m[r]; }, [&](int c, float s) {
+    column_sums<LDA>(S0, red, [&](int r, float v) { return v * m[r]; }, [&](int c, float s) {
       pv[c] = s / denom;
       pv[WD + c] = s;
       pv[2 * WD + c] = g[c];
       pv[3 * WD + c] = temb[c];
     });
     for (int i = tid; i < 4 * WD; i += THREADS) rec.glob(blk, R_P + i, pv[i]);
-    jet_matvec(pv, wb + L.fg1, 4 * WD, red, [&](int j, float s) {
+    jet_matvec<MATVEC_UNROLL>(pv, wb + L.fg1, 4 * WD, red, [&](int j, float s) {
       const float z = s + wb[L.bfg1 + j];
       rec.glob(blk, R_ZFG1 + j, z);
       va[j] = leaky(z);
     });
-    jet_matvec(va, wb + L.fg2, WD, red, [&](int j, float s) {
+    jet_matvec<MATVEC_UNROLL>(va, wb + L.fg2, WD, red, [&](int j, float s) {
       const float z = s + wb[L.bfg2 + j] + g[j];
       rec.glob(blk, R_ZFG2 + j, z);
       gnew[j] = leaky(z);
     });
     // fc_local1's broadcast inputs [g_new ‖ temb], once per jet
-    jet_matvec(gnew, wb + L.fl1 + WD * WD, 2 * WD, red, [&](int j, float s) {
+    jet_matvec<MATVEC_UNROLL>(gnew, wb + L.fl1 + WD * WD, 2 * WD, red, [&](int j, float s) {
       cl1[j] = s + wb[L.bfl1 + j];
       g[j] = gnew[j] + gskip[j];
     });
 
-    zero_acc(acc);
-    gemm_acc(acc, S0, wb + L.fl1, WD, tiles);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = tile_row(i);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = tile_col(j);
-        const float z = acc[i][j] + cl1[c];
-        rec.z_fl1(blk, r, c, z);
-        S1[r * WD + c] = leaky(z);
-      }
+    acc.zero();
+    if constexpr (TC) {
+      gemm_wg(acc, S0, tb, S2, tb + TC_FL2, npad);
+    } else {
+      gemm_acc(acc.v, S0, wb + L.fl1, WD, tiles);
     }
+    acc.each([&](int, int r, int c, float a) {
+      const float z = a + cl1[c];
+      rec.z_fl1(blk, r, c, z);
+      S1[r * LDA + c] = leaky(z);
+    });
     __syncthreads();
-    zero_acc(acc);
-    gemm_acc(acc, S1, wb + L.fl2, WD, tiles);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = tile_row(i);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = tile_col(j);
-        const float z = acc[i][j] + wb[L.bfl2 + c] + S0[r * WD + c];
-        rec.z_fl2(blk, r, c, z);
-        S0[r * WD + c] = leaky(z) * m[r] + (d.use_skip ? S2[r * WD + c] : 0.f);
-      }
+    acc.zero();
+    if constexpr (TC) {
+      gemm_wg(acc, S1, tb + TC_FL2, S2, blk + 1 < d.num_blocks ? tb + TC_LAYER : nullptr, npad);
+    } else {
+      gemm_acc(acc.v, S1, wb + L.fl2, WD, tiles);
     }
+    acc.each([&](int i, int r, int c, float a) {
+      const float z = a + wb[L.bfl2 + c] + S0[r * LDA + c];
+      rec.z_fl2(blk, r, c, z);
+      float skip;
+      if constexpr (TC) {
+        skip = h0[i];
+      } else {
+        skip = d.use_skip ? S2[r * LDA + c] : 0.f;
+      }
+      S0[r * LDA + c] = leaky(z) * m[r] + skip;
+    });
     __syncthreads();
   }
 
@@ -610,7 +804,8 @@ __device__ void wide_forward_jet_ext(const float* __restrict__ w, const Dims& d,
   // 128 floats, contiguous
   if (hid != nullptr)
     for (int idx = tid; idx < N * (WD / 4); idx += THREADS)
-      reinterpret_cast<float4*>(hid)[idx] = reinterpret_cast<const float4*>(S0)[idx];
+      reinterpret_cast<float4*>(hid)[idx] =
+          *reinterpret_cast<const float4*>(S0 + (idx >> 5) * LDA + (idx & 31) * 4);
 
   // ---- weight-normed output + heads (epic.py:145-162, mbm :102-113):
   // one warp per row; cont and disc_pre are masked, the SELU head's output
@@ -625,7 +820,7 @@ __device__ void wide_forward_jet_ext(const float* __restrict__ w, const Dims& d,
   const int lane = tid & 31, warp = tid >> 5;
   for (int r = warp; r < N; r += THREADS / 32) {
     float p[NOUT];
-    row_outputs(S0 + r * WD, tiles, m[r], p);
+    row_outputs(S0 + r * LDA, tiles, m[r], p);
     if (WIDE_HEAD && d.add_discrete_head) {
       wide_head(p, tiles, d.head_hidden);
     } else if (d.add_discrete_head) {
@@ -659,8 +854,8 @@ __device__ __forceinline__ void wide_forward_jet(const float* __restrict__ w, co
                                                  const int* __restrict__ k,
                                                  const float* __restrict__ mask, int N,
                                                  float* __restrict__ out, const Rec& rec) {
-  wide_forward_jet_ext<Rec, false, false>(w, d, L, smem, t, x, k, nullptr, mask, N, out, nullptr,
-                                          rec);
+  wide_forward_jet_ext<Rec, false, false>(w, nullptr, nullptr, d, L, smem, t, x, k, nullptr, mask,
+                                          N, out, nullptr, rec);
 }
 
 }  // namespace mmpw

@@ -19,10 +19,26 @@
 // per jet, a particle costs (2 + 2·num_blocks)·128·128 multiply-adds, 0.23 M
 // at 6 blocks: 0.48 TFLOP for 8192 jets of 128 particles, against 68 bytes of
 // input and output a particle (+ 512 with the hidden output). The bound is
-// fp32 arithmetic on the CUDA cores. Below it sit two costs of this first
-// design: every block streams the whole packed buffer (4 MB at 6 blocks) from
-// L2 for its one jet, three quarters of it for the per-jet global MLP, and
-// 212 KB of activation tiles leave room for one block of 8 warps per SM.
+// arithmetic: 7.2 ms in fp32 on the CUDA cores, 2.9 ms as three TF32
+// tensor-core products a multiply-add. Beside it sit two costs of the design:
+// every block streams the whole packed buffer (4 MB at 6 blocks) from L2 for
+// its one jet, three quarters of it for the per-jet global MLP, and 203 KB of
+// shared memory leave room for one block of 8 warps per SM, so the per-jet
+// serial phases (pooling, the global MLP, the heads) do not overlap products.
+//
+// Design (epic_wide.cuh, `wide_forward_jet_ext<NoRecord, FOLD, WIDE_HEAD,
+// TC = true>`): fc_local1's particle third and fc_local2 are wgmma products
+// (m64n128k8 TF32, a warpgroup a 64-row half of the jet, skipped when the
+// half lies past ⌈N/16⌉·16) at fp32 accuracy by the 3×TF32 split
+// (tf32x3.cuh): A, the activations, split in registers; W as TF32 hi and lo
+// halves that the wide packing lays out in the tensor cores' order once
+// (ops/epic_cuda.py::tensor_core_weights), streamed from L2 through a
+// ring of eight 8 KB stages by cp.async, six ahead, each product fetching the
+// next one's first stages. local_0's particle two thirds are the embeddings'
+// inputs times tables the wrapper folds (x·T_x + values·T_k or a token's row
+// of T_k + a constant row), so local_0 needs no product. The skip copy h0
+// stays in registers, in the place of the thread's accumulators. K5's
+// recording forward keeps the FFMA products (TC = false) and its bits.
 //
 // C interface (bound with ctypes by ops/epic_wide_cuda.py): returns the
 // cudaError_t of the launch, 0 on success.
@@ -33,7 +49,8 @@ namespace mmpw {
 
 template <bool FOLD, bool WIDE_HEAD>
 __global__ void __launch_bounds__(THREADS, 1)
-epic_wide_forward_kernel(const float* __restrict__ w, Dims d, const float* __restrict__ t,
+epic_wide_forward_kernel(const float* __restrict__ w, const float* __restrict__ tcw,
+                         const float* __restrict__ l0t, Dims d, const float* __restrict__ t,
                          const float* __restrict__ x, const void* __restrict__ k,
                          const float* __restrict__ mask, float* __restrict__ out,
                          float* __restrict__ hidden, int N) {
@@ -42,29 +59,35 @@ epic_wide_forward_kernel(const float* __restrict__ w, Dims d, const float* __res
   const size_t p = (size_t)blockIdx.x * N;
   const int* tokens = FOLD ? nullptr : static_cast<const int*>(k) + p;
   const float* values = FOLD ? static_cast<const float*>(k) + p * V : nullptr;
-  wide_forward_jet_ext<NoRecord, FOLD, WIDE_HEAD>(
-      w, d, L, smem, t[blockIdx.x], x + p * DC, tokens, values, mask + p, N, out + p * NOUT,
-      hidden == nullptr ? nullptr : hidden + p * WD, NoRecord());
+  wide_forward_jet_ext<NoRecord, FOLD, WIDE_HEAD, true>(
+      w, tcw, l0t, d, L, smem, t[blockIdx.x], x + p * DC, tokens, values, mask + p, N,
+      out + p * NOUT, hidden == nullptr ? nullptr : hidden + p * WD, NoRecord());
 }
 
 template <bool FOLD, bool WIDE_HEAD>
-cudaError_t launch(const void* w, const Dims& d, const void* t, const void* x, const void* k,
-                   const void* mask, void* out, void* hidden, int B, int N, cudaStream_t stream) {
+cudaError_t launch(const void* w, const void* tcw, const void* l0t, const Dims& d, const void* t,
+                   const void* x, const void* k, const void* mask, void* out, void* hidden, int B,
+                   int N, cudaStream_t stream) {
   auto kernel = epic_wide_forward_kernel<FOLD, WIDE_HEAD>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
+                                         (int)SMEM_BYTES_TC);
   if (err != cudaSuccess) return err;
-  kernel<<<B, THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const float*>(w), d, static_cast<const float*>(t), static_cast<const float*>(x),
-      k, static_cast<const float*>(mask), static_cast<float*>(out), static_cast<float*>(hidden), N);
+  kernel<<<B, THREADS, SMEM_BYTES_TC, stream>>>(
+      static_cast<const float*>(w), static_cast<const float*>(tcw), static_cast<const float*>(l0t),
+      d, static_cast<const float*>(t), static_cast<const float*>(x), k,
+      static_cast<const float*>(mask), static_cast<float*>(out), static_cast<float*>(hidden), N);
   return cudaGetLastError();
 }
 
 }  // namespace mmpw
 
-// k: (B, N) int tokens, or with fold_discrete (B, N, V) float channel values;
-// hidden: (B, N, 128) or null.
-extern "C" int mmp_epic_wide_forward(const void* w, const void* t, const void* x, const void* k,
+// w: the packed weights; tcw: the tensor-core stages of fc_local1 and fc_local2,
+// TC_LAYER floats a layer, and l0t: local_0's tables, L0_END floats
+// (ops/epic_cuda.py::tensor_core_weights), 16-byte aligned; k: (B, N)
+// int tokens, or with fold_discrete (B, N, V) float channel values; hidden:
+// (B, N, 128) or null.
+extern "C" int mmp_epic_wide_forward(const void* w, const void* tcw, const void* l0t,
+                                     const void* t, const void* x, const void* k,
                                      const void* mask, void* out, void* hidden, int B, int N,
                                      const int* dims, void* stream) {
   using namespace mmpw;
@@ -74,8 +97,8 @@ extern "C" int mmp_epic_wide_forward(const void* w, const void* t, const void* x
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool wide_head = d.head_hidden != V;
   if (d.fold_discrete)
-    return wide_head ? launch<true, true>(w, d, t, x, k, mask, out, hidden, B, N, s)
-                     : launch<true, false>(w, d, t, x, k, mask, out, hidden, B, N, s);
-  return wide_head ? launch<false, true>(w, d, t, x, k, mask, out, hidden, B, N, s)
-                   : launch<false, false>(w, d, t, x, k, mask, out, hidden, B, N, s);
+    return wide_head ? launch<true, true>(w, tcw, l0t, d, t, x, k, mask, out, hidden, B, N, s)
+                     : launch<true, false>(w, tcw, l0t, d, t, x, k, mask, out, hidden, B, N, s);
+  return wide_head ? launch<false, true>(w, tcw, l0t, d, t, x, k, mask, out, hidden, B, N, s)
+                   : launch<false, false>(w, tcw, l0t, d, t, x, k, mask, out, hidden, B, N, s);
 }

@@ -158,15 +158,11 @@ __device__ __forceinline__ void group_norm(const float* src, float* dst,
 }
 
 // Q[r, head's channels] ← softmax_j(q_r·k_j)·v_j over the keys j < N, for the
-// rows r < N and every head; q comes scaled. With KEY_BIAS each score gets
-// its key's additive bias kbias[j] (the attention core's mask, K8); the
-// stacks (K6, K7) attend without one. A warp takes RG neighbouring query rows
-// at a time, so that a key or value read from shared memory feeds RG
-// multiply-adds. The caller synchronises before and after.
-template <bool KEY_BIAS = false>
+// rows r < N and every head; q comes scaled. A warp takes RG neighbouring
+// query rows at a time, so that a key or value read from shared memory feeds
+// RG multiply-adds. The caller synchronises before and after.
 __device__ __forceinline__ void attention_rows(float* Q, const float* KT, const float* Vt, int N,
-                                               int n_heads, float* prob,
-                                               const float* kbias = nullptr) {
+                                               int n_heads, float* prob) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int hd = C / n_heads, nq = hd / 32;
   float* pw = prob + warp * ROWS * RG;  // [key][row of the group]
@@ -201,14 +197,6 @@ __device__ __forceinline__ void attention_rows(float* Q, const float* KT, const 
 #pragma unroll
           for (int i = 0; i < RG; ++i) s[i][jj] = fmaf(qv[i][cc], kv, s[i][jj]);
         }
-      }
-    }
-    if constexpr (KEY_BIAS) {
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const float kb = kbias[lane + 32 * jj];
-#pragma unroll
-        for (int i = 0; i < RG; ++i) s[i][jj] += kb;
       }
     }
 #pragma unroll

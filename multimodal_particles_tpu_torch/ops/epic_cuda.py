@@ -29,7 +29,7 @@ TPU layout, not semantics.
 import ctypes
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -163,10 +163,65 @@ class PackedEncoder:
     tensors: Dict[str, torch.Tensor]  # named (out, in) views into `flat`
     dims: EpicDims
     layout: str = "narrow"  # a key of LAYOUT_VIEWS: which kernels read `flat`
+    # the wide forward kernel's (stages, tables), made from `flat` by
+    # `tensor_core_weights` where the wide packing is built (`pack_encoder`)
+    tensor_core: Optional[Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     def rebind(self, flat: torch.Tensor) -> "PackedEncoder":
-        """The same layout over another buffer (a leaf copy, another dtype)."""
-        return PackedEncoder(flat, LAYOUT_VIEWS[self.layout](flat, self.dims), self.dims, self.layout)
+        """The same weights over another buffer (a leaf copy, another dtype):
+        the layout's views over `flat`, the kernel weights kept."""
+        return dataclasses.replace(self, flat=flat, tensors=LAYOUT_VIEWS[self.layout](flat, self.dims))
+
+
+# a stage of the wide forward's tensor-core products: 8 input rows (one
+# k-step), in core matrices of 8 output rows × 4 input rows
+# (ops/csrc/epic_wide.cuh, TC_STAGE)
+STAGE_ROWS = 8
+
+
+def tf32_round(x):
+    """float32 → the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as the tensor cores' `cvt.rna.tf32.f32`; inf and NaN pass."""
+    bits = x.contiguous().view(torch.int32)
+    finite = (bits & 0x7F800000) != 0x7F800000
+    return torch.where(finite, (bits + 0x1000) & ~0x1FFF, bits).view(torch.float32)
+
+
+def tensor_core_stages(w_in_out):
+    """(M, K, 128) weights, (in, out), → each one's K/8 stages as the wide
+    forward kernel's weight ring holds them, flat, weight after weight: per
+    stage the TF32 hi half, then the lo half (w − hi, rounded again), each 16
+    output groups × 2 input groups × 8 × 4, input rows contiguous (K-major
+    core matrices)."""
+    M, K, n_out = w_in_out.shape
+    blocks = (w_in_out.reshape(M, K // STAGE_ROWS, 2, 4, n_out // 8, 8)
+              .permute(0, 1, 4, 2, 5, 3).reshape(M * K // STAGE_ROWS, -1))
+    hi = tf32_round(blocks)
+    return torch.stack([hi, tf32_round(blocks - hi)], dim=1).reshape(-1)
+
+
+def tensor_core_weights(flat: torch.Tensor, d: "EpicDims"):
+    """The weights the wide forward kernel's tensor-core products read, made
+    from a wide-layout buffer (left as it is): (stages, tables). `stages`: per
+    EPiC layer the stages of fc_local1's particle third (its first 128 input
+    rows), then fc_local2's. `tables`: local_0's particle two thirds folded
+    with the embeddings, which are Dense layers, so that a particle's local_0
+    input term is x·T_x + (values·T_k, or a token's row of T_k) + c: T_x
+    (3, 128), T_k (V, 128), c (128), computed in float64."""
+    with torch.no_grad():
+        views = wide_flat_views(flat.detach(), d)
+        weights = [w for i in range(d.num_blocks)
+                   for w in (views[f"w_fl1_{i}"][:, :d.hidden].T, views[f"w_fl2_{i}"].T)]
+        stages = tensor_core_stages(torch.stack(weights)) if weights else flat.new_zeros(4)
+        w_l0 = views["w_l0"].double()
+        w_x, w_k = w_l0[:, d.emb_t:d.emb_t + d.emb_x].T, w_l0[:, d.emb_t + d.emb_x:].T
+        c = views["b_x"].double() @ w_x
+        if d.fold_discrete:
+            c = c + views["b_k"].double() @ w_k
+        tables = torch.cat([(views["w_x"].double().T @ w_x).reshape(-1),
+                            (views["table"].double() @ w_k).reshape(-1), c]).float()
+    return stages.contiguous(), tables.contiguous()
 
 
 def effective_weights(encoder, d: EpicDims, head=None) -> Dict[str, torch.Tensor]:
@@ -213,7 +268,9 @@ def pack_encoder(encoder, d: EpicDims, layout: str = "narrow", differentiable: b
                  head=None) -> PackedEncoder:
     """A module with an `epic` trunk → flat buffer of effective weights in
     `layout`'s order: matrices (out, in) for the narrow kernels, (in, out)
-    for the wide ones (`wide_weight_layout`). With `differentiable`, `flat`
+    for the wide ones (`wide_weight_layout`), whose forward kernel also gets
+    its tensor-core weights here, once a packing (a request's sampler steps
+    and a train step's forward reuse them). With `differentiable`, `flat`
     is a non-leaf of the autograd graph."""
     transpose = layout == "wide"
     with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
@@ -223,7 +280,8 @@ def pack_encoder(encoder, d: EpicDims, layout: str = "narrow", differentiable: b
             .reshape(-1).float()
             for name, shape in weight_layout(d)
         ])
-    return PackedEncoder(flat, LAYOUT_VIEWS[layout](flat, d), d, layout)
+    tensor_core = tensor_core_weights(flat, d) if layout == "wide" else None
+    return PackedEncoder(flat, LAYOUT_VIEWS[layout](flat, d), d, layout, tensor_core)
 
 
 def head_width(head) -> int:

@@ -9,7 +9,14 @@ the JAX wide packing does (epic_pallas_wide.py:58-69; the layout itself is
 `PackedEncoder` are the transposes, (out, in), so the plain version is
 the one `forward_from_temb` of ops/epic_cuda.py for both kernel families.
 `epic_forward_wide` launches ops/csrc/epic_wide_forward.cu on CUDA tensors
-and takes the plain version for CPU tensors. As the JAX kernel, it serves the
+and takes the plain version for CPU tensors. The kernel's per-particle
+products run on the tensor cores at fp32 accuracy (the 3×TF32 split,
+ops/csrc/tf32x3.cuh); the wide packing carries the weights they read
+(`PackedEncoder.tensor_core`, made once a packing by
+ops/epic_cuda.py::tensor_core_weights): fc_local1's particle third and
+fc_local2 of every layer as TF32 hi and lo halves in the order the tensor
+cores take them, and local_0's particle two thirds folded with the
+embeddings into small tables. As the JAX kernel, it serves the
 three families' trunks at these widths: MBM's; the absorbing generator's,
 with a discrete head of another hidden width (`head`, 56) and the trunk's
 last local hidden state as a second output (`output_hidden_local`); and the
@@ -111,11 +118,16 @@ def epic_forward_wide(packed: PackedEncoder, t, x, k, mask, output_hidden_local=
     out = torch.empty((B, N, DIM_C + VOCAB), dtype=torch.float32, device=x.device)
     hidden = (torch.empty((B, N, WIDE_WIDTH), dtype=torch.float32, device=x.device)
               if output_hidden_local else None)
+    if packed.tensor_core is None:
+        raise ValueError("the wide forward kernel reads the tensor-core weights that "
+                         "pack_encoder makes with the wide packing")
+    stages, tables = packed.tensor_core
     lib = _build.load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.mmp_epic_wide_forward(
-            packed.flat.data_ptr(), t.data_ptr(), x.data_ptr(), k_in.data_ptr(),
+            packed.flat.data_ptr(), stages.data_ptr(), tables.data_ptr(),
+            t.data_ptr(), x.data_ptr(), k_in.data_ptr(),
             mask.data_ptr(), out.data_ptr(),
             hidden.data_ptr() if output_hidden_local else None,
             B, N, packed.dims.c_array(), stream,

@@ -96,8 +96,8 @@ class EpicWideTrainForward(torch.autograd.Function):
     the flat weights get a gradient."""
 
     @staticmethod
-    def forward(ctx, flat, dims, t, x, k, mask):
-        out = epic_forward_wide(PackedEncoder(flat, {}, dims, "wide"), t, x, k, mask)
+    def forward(ctx, flat, dims, tensor_core, t, x, k, mask):
+        out = epic_forward_wide(PackedEncoder(flat, {}, dims, "wide", tensor_core), t, x, k, mask)
         ctx.save_for_backward(flat, t, x, k, mask)
         ctx.dims = dims
         return out
@@ -107,7 +107,7 @@ class EpicWideTrainForward(torch.autograd.Function):
         flat, t, x, k, mask = ctx.saved_tensors
         d_flat = epic_backward_wide(PackedEncoder(flat, {}, ctx.dims, "wide"),
                                     t, x, k, mask, g.float().contiguous())
-        return d_flat, None, None, None, None, None
+        return d_flat, None, None, None, None, None, None
 
 
 def epic_train_forward_wide(packed: PackedEncoder, t, x, k, mask):
@@ -117,4 +117,4 @@ def epic_train_forward_wide(packed: PackedEncoder, t, x, k, mask):
     if x.device.type == "cpu":
         return epic_train_forward_reference(packed, t, x, k, mask)
     check_wide_packing(packed)
-    return EpicWideTrainForward.apply(packed.flat, packed.dims, t, x, k, mask)
+    return EpicWideTrainForward.apply(packed.flat, packed.dims, packed.tensor_core, t, x, k, mask)

@@ -1,33 +1,43 @@
 #!/usr/bin/env python3
-"""Hold the PyTorch/CUDA port's K1, K4, K6 and K7 to the bits of another build.
+"""Hold the PyTorch/CUDA port's kernels to the output of another build.
 
-    python3 scripts/port_kernel_bits.py --other DIR [--kernels K1 K4 K6 K7]
+    python3 scripts/port_kernel_bits.py --other DIR [--kernels K1 K4 K5 K6 K7]
 
 DIR holds another revision's sources of the kernels compared and the headers
 they include (`epic_forward.cu`, `epic_forward.cuh`, `epic_forward_kernel.cuh`
-for K1; `epic_wide_forward.cu`, `epic_wide.cuh` for K4; `survival_head.cu`,
-`gsdm_blocks.cuh` for K6; `gsdm_stack.cu` for K7), for example unpacked with
-`git show REV:multimodal_particles_tpu_torch/ops/csrc/FILE`. The script builds
-those sources of that directory and of the working tree's `ops/csrc/` with
-nvcc, each into a temporary directory, and compares on one GPU, with
-`torch.equal`:
+for K1; `epic_wide_forward.cu`, `epic_wide.cuh` and, from the tensor-core K4
+on, `tf32x3.cuh` for K4; `epic_wide_backward.cu`, `epic_wide.cuh` for K5;
+`survival_head.cu`, `gsdm_blocks.cuh` for K6; `gsdm_stack.cu` for K7), for
+example unpacked with `git archive REV multimodal_particles_tpu_torch/ops/csrc`.
+The script builds those sources of that directory and of the working tree's
+`ops/csrc/` with nvcc, each into a temporary directory, and compares on one
+GPU, with `torch.equal`:
 
   K1  the fused EPiC forward at config-berlin (B=1024, N=128) and as the
       absorbing family calls it (56-wide head, hidden output, B=512, N=109);
-  K4  the wide fused EPiC forward at the scaled MBM backbone (every width
-      128, 6 blocks, B=512, N=128);
+  K5  the wide backward at the scaled MBM backbone (every width 128, 6 blocks,
+      B=512, N=128), a random cotangent: the weights' gradient;
   K6  the fused survival head at (B, N) = (512, 109), (7, 109), (64, 128);
   K7  the fused gsdm stack at the reference input widths 24 and 27
       (B=512, N=128; B=7, N=40).
 
+K4's bits are not held: its products run on the tensor cores under the
+3×TF32 split, in another order than the FFMA products before them. For each
+of its four instances (tokens or the folded input, times the 8-wide or the
+56-wide head; the hidden output of all but MBM's) at the scaled backbone,
+B=512, N=109 and 128, the line gives the largest per-particle difference of
+the two builds' outputs as a share of K4's gate against its plain version,
+|err| ≤ 1e-4 + 1e-4·max|other| over the particle's row; a share above 1 fails.
+
 K1's source builds in minutes; `--kernels` leaves it out when its sources did
-not change. One JSON line a comparison; exit code 1 if any output differs. For
-a change to a header that several kernels share and that must not move their
-results.
+not change. One JSON line a comparison; exit code 1 if any output held to the
+bits differs or a K4 share exceeds 1. For a change to a header that several
+kernels share and that must not move their results.
 """
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import shutil
 import sys
@@ -58,6 +68,7 @@ from multimodal_particles_tpu_torch.ops import (  # noqa: E402
     _build,
     epic_cuda,
     epic_wide_cuda,
+    epic_wide_vjp_cuda,
     gsdm_stack_cuda,
     survival_cuda,
 )
@@ -66,10 +77,13 @@ from multimodal_particles_tpu_torch.ops import (  # noqa: E402
 KERNELS = {
     "K1": ("epic_forward.cu", "mmp_epic_forward"),
     "K4": ("epic_wide_forward.cu", "mmp_epic_wide_forward"),
+    "K5": ("epic_wide_backward.cu", "mmp_epic_wide_backward"),
     "K6": ("survival_head.cu", "mmp_survival_head"),
     "K7": ("gsdm_stack.cu", "mmp_gsdm_stack"),
 }
-HEADERS = ("epic_forward.cuh", "epic_forward_kernel.cuh", "epic_wide.cuh", "gsdm_blocks.cuh")
+HEADERS = ("epic_forward.cuh", "epic_forward_kernel.cuh", "epic_wide.cuh", "gsdm_blocks.cuh",
+           "tf32x3.cuh")
+K4_ATOL = K4_RTOL = 1e-4  # K4's gate against its plain version, per particle
 # the error strings' entry point lives in K1's source; without it, a stub
 ERROR_STRING_STUB = """#include <cuda_runtime.h>
 extern "C" const char* mmp_error_string(int err) {
@@ -80,8 +94,7 @@ extern "C" const char* mmp_error_string(int err) {
 
 def build(csrc: Path, workdir: Path, kernels) -> ctypes.CDLL:
     """Build the chosen kernels' sources of `csrc` into `workdir` and bind
-    their entry points. `lib.wide_hidden_arg`: whether that revision's K4
-    entry point takes the hidden-output pointer."""
+    their entry points."""
     src = workdir / "csrc"
     src.mkdir(parents=True)
     for name in [KERNELS[k][0] for k in kernels] + list(HEADERS):
@@ -91,17 +104,37 @@ def build(csrc: Path, workdir: Path, kernels) -> ctypes.CDLL:
         (src / "error_string.cu").write_text(ERROR_STRING_STUB)
     _build.CSRC_DIR, _build.BUILD_DIR = src, workdir / "build"
     lib = ctypes.CDLL(str(_build.build_library().path))
-    wide_hidden = "K4" in kernels and "void* hidden" in (src / KERNELS["K4"][0]).read_text()
-    for k in kernels:
-        name = KERNELS[k][1]
-        argtypes = list(_build._SIGNATURES[name])
-        if k == "K4" and not wide_hidden:  # before the hidden output: no such pointer
-            del argtypes[6]
+    names = [KERNELS[k][1] for k in kernels]
+    if "K5" in kernels:
+        names.append("mmp_epic_wide_backward_workspace")
+    # K4 before its tensor-core products takes no prepared weights
+    lib.k4_tensor_core = "K4" in kernels and "tcw" in (src / KERNELS["K4"][0]).read_text()
+    for name in names:
         fn = getattr(lib, name)
+        argtypes = list(_build._SIGNATURES[name])
+        if name == KERNELS["K4"][1] and not lib.k4_tensor_core:
+            del argtypes[1:3]
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
     lib.mmp_error_string.argtypes, lib.mmp_error_string.restype = [ctypes.c_int], ctypes.c_char_p
-    lib.wide_hidden_arg = wide_hidden
     return lib
+
+
+def wide_forward(lib, packed, t, x, k, mask, hidden):
+    """K4 through `lib`, with or without the prepared weights its entry point
+    takes: (out,) or (out, hidden state)."""
+    if lib.k4_tensor_core:
+        out = epic_wide_cuda.epic_forward_wide(packed, t, x, k, mask, output_hidden_local=hidden)
+        return out if hidden else (out,)
+    B, N = x.shape[:2]
+    out = torch.empty((B, N, 11), device=x.device)
+    hid = torch.empty((B, N, 128), device=x.device) if hidden else None
+    k_in = k if packed.dims.fold_discrete else k.to(torch.int32).contiguous()
+    rc = lib.mmp_epic_wide_forward(
+        packed.flat.data_ptr(), t.data_ptr(), x.data_ptr(), k_in.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), hid.data_ptr() if hidden else None, B, N, packed.dims.c_array(),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "mmp_epic_wide_forward")
+    return (out, hid) if hidden else (out,)
 
 
 def inputs(B, N, device, gen):
@@ -113,19 +146,31 @@ def inputs(B, N, device, gen):
     return torch.rand((B, 1, 1), generator=gen, device=device), x, k, mask
 
 
-def wide_forward(lib, packed, t, x, k, mask):
-    """K4's MBM call through `lib`'s entry point, whichever its signature."""
-    B, N = x.shape[:2]
-    out = torch.empty((B, N, 11), device=x.device)
-    k32 = k.to(torch.int32).contiguous()
-    args = [packed.flat.data_ptr(), t.data_ptr(), x.data_ptr(), k32.data_ptr(), mask.data_ptr(),
-            out.data_ptr()]
-    if lib.wide_hidden_arg:
-        args.append(None)
-    rc = lib.mmp_epic_wide_forward(*args, B, N, packed.dims.c_array(),
-                                   torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, rc, "mmp_epic_wide_forward")
-    return out
+def scaled_config(config, blocks=6):
+    """`config` with every encoder width 128 and `blocks` EPiC layers (the
+    `--scaled` backbone)."""
+    e = config.encoder
+    e.num_blocks = blocks
+    e.dim_hidden_local = e.dim_hidden_glob = e.dim_emb_time = 128
+    e.dim_emb_features_continuous = e.dim_emb_features_discrete = 128
+    return config
+
+
+def k4_instances(device):
+    """K4's four instances at the scaled backbone: (name, packed, hidden
+    output, folded input)."""
+    mbm = init_parameters(MultiModalBridgeMatching(scaled_config(MultimodalBridgeMatchingConfig())), 0)
+    mbm = epic_wide_cuda.pack_wide_encoder_params(mbm.to(device).encoder, mbm.config)
+    flow = init_parameters(AbsorbingFlow(scaled_config(AbsorbingConfig())), 0).to(device).eval()
+    absorbing, _ = flow.pack_for_kernel()
+    model = init_parameters(TransdimensionalJumpDiffusion(scaled_config(TransdimensionalEpicConfig())), 0)
+    model = model.to(device).eval()
+    fold, _, _ = model.pack_for_kernel()
+    # the folded input under the absorbing generator's 56-wide head
+    d = dataclasses.replace(fold.dims, add_discrete_head=True, head_hidden=absorbing.dims.head_hidden)
+    both = epic_cuda.pack_encoder(model.network, d, "wide", head=flow.generator.discrete_head_mlp)
+    return [("mbm", mbm, False), ("hidden output, 56-wide head", absorbing, True),
+            ("folded input, hidden output", fold, True), ("folded input, 56-wide head", both, True)]
 
 
 def main():
@@ -160,6 +205,17 @@ def main():
             print(json.dumps({"kernel": name, **where, "same_bits": equal,
                               "max_abs": max(a.abs().max().item() for a in outs[0])}), flush=True)
 
+        def report_share(name, outs, **where):
+            """The two builds' largest per-particle difference as a share of
+            K4's gate, taking the other build's output as the reference."""
+            share = max(((here - other).abs()
+                         / (K4_ATOL + K4_RTOL * other.abs().amax(dim=-1, keepdim=True))).max().item()
+                        for other, here in zip(*outs))
+            same.append(share <= 1.0)
+            print(json.dumps({"kernel": name, **where, "share_of_gate": share,
+                              "same_bits": all(torch.equal(a, b) for a, b in zip(*outs)),
+                              "max_abs": max(a.abs().max().item() for a in outs[0])}), flush=True)
+
         if "K1" in args.kernels:
             mbm = init_parameters(MultiModalBridgeMatching(MultimodalBridgeMatchingConfig()), 0)
             packed = epic_cuda.pack_mbm_encoder_params(mbm.to(device).encoder, mbm.config)
@@ -176,16 +232,22 @@ def main():
                    config="absorbing", B=512, N=109)
 
         if "K4" in args.kernels:
-            config = MultimodalBridgeMatchingConfig()
-            e = config.encoder
-            e.num_blocks = 6
-            e.dim_hidden_local = e.dim_hidden_glob = e.dim_emb_time = 128
-            e.dim_emb_features_continuous = e.dim_emb_features_discrete = 128
-            scaled = init_parameters(MultiModalBridgeMatching(config), 0).to(device)
-            packed = epic_wide_cuda.pack_wide_encoder_params(scaled.encoder, config)
+            for name, packed, hidden in k4_instances(device):
+                for N in (109, 128):
+                    t, x, k, mask = inputs(512, N, device, gen)
+                    if packed.dims.fold_discrete:  # channel values in place of tokens
+                        k = torch.randn((512, N, 8), generator=gen, device=device) * mask
+                    report_share("K4", both(lambda lib: wide_forward(lib, packed, t, x, k, mask,
+                                                                     hidden)),
+                                 instance=name, B=512, N=N)
+
+        if "K5" in args.kernels:
+            mbm = init_parameters(MultiModalBridgeMatching(scaled_config(MultimodalBridgeMatchingConfig())), 0)
+            packed = epic_wide_cuda.pack_wide_encoder_params(mbm.to(device).encoder, mbm.config)
             t, x, k, mask = inputs(512, 128, device, gen)
-            report("K4", both(lambda lib: wide_forward(lib, packed, t, x, k, mask)),
-                   config="scaled MBM", B=512, N=128)
+            g = torch.randn((512, 128, 11), generator=gen, device=device)
+            report("K5", both(lambda lib: epic_wide_vjp_cuda.epic_backward_wide(
+                packed, t, x, k, mask, g)), config="scaled MBM", B=512, N=128)
 
         if "K6" in args.kernels:
             gen_cfg = flow.config.generator

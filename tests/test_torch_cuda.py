@@ -22,7 +22,12 @@ logits are held elementwise at rtol = atol = 2e-4, the JAX kernel's own test's
 tolerance (tests/test_ops/test_survival_pallas.py:86-88); K7's hidden state
 likewise (tests/test_ops/test_gsdm_stack_pallas.py:72). K8's output is held
 at atol 2e-5, the JAX kernel's own test's (tests/test_ops/test_attention_pallas.py:26).
+K8 and K4 run their products on the tensor cores under the 3×TF32 split; K8
+is held at every head width it takes (32, 64, 128 channels), K4's four
+template instances at N on both sides of their 16-row and 64-row edges.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -54,6 +59,7 @@ from multimodal_particles_tpu_torch.ops.epic_cuda import (
     epic_forward,
     epic_forward_reference,
     flat_views,
+    pack_encoder,
     pack_mbm_encoder_params,
 )
 from multimodal_particles_tpu_torch.ops.gsdm_stack_cuda import (
@@ -693,6 +699,48 @@ def test_scaled_transdim_forward_kernel_goes_through_k4_and_k7(device):
         torch.testing.assert_close(g, r, rtol=5e-4, atol=5e-4 * max(r.abs().max().item(), 1.0))
 
 
+def k4_instance(device, name, N):
+    """One of K4's four template instances at the scaled widths, 2 blocks:
+    (packed, t, x, k or the channel values, mask, hidden output)."""
+    if name in ("tokens", "tokens_wide_head"):
+        if name == "tokens":
+            packed = packed_model(device, 128, 2, wide=True)
+        else:
+            packed, _ = absorbing_model(device, scaled_blocks=2).pack_for_kernel()
+        return (packed, *scattered_inputs(device, 16, N), name != "tokens")
+    model = transdim_model(device, scaled_blocks=2)
+    packed, _, _ = model.pack_for_kernel()
+    if name == "fold_wide_head":  # the folded input under a 56-wide head
+        head = absorbing_model(device, scaled_blocks=2).generator.discrete_head_mlp
+        d = dataclasses.replace(packed.dims, add_discrete_head=True, head_hidden=56)
+        packed = pack_encoder(model.network, d, "wide", head=head)
+    state, ts = transdim_state(device, 16, N)
+    return (packed, ts.reshape(-1, 1, 1), state.continuous, state.discrete,
+            state.particle_mask()[:, :, None], True)
+
+
+@pytest.mark.parametrize("N", [1, 40, 109, 112, 113, 128])
+@pytest.mark.parametrize("name", ["tokens", "tokens_wide_head", "fold", "fold_wide_head"])
+def test_epic_forward_wide_instances_across_the_row_cut(device, name, N):
+    """Each of K4's four instances (tokens or the folded input, times the
+    8-wide or the 56-wide head) with its tensor-core products over ⌈N/16⌉
+    row tiles, N on both sides of a tile's edge: per particle against the
+    plain version, the hidden output included, the same bits on a repeat."""
+    packed, t, x, k, mask, hidden = k4_instance(device, name, N)
+    assert bool(packed.dims.fold_discrete) == name.startswith("fold")
+    assert (packed.dims.head_hidden == 56) == name.endswith("wide_head")
+    launches = epic_forward_wide.launches
+    got = epic_forward_wide(packed, t, x, k, mask, output_hidden_local=hidden)
+    again = epic_forward_wide(packed, t, x, k, mask, output_hidden_local=hidden)
+    torch.cuda.synchronize()
+    assert epic_forward_wide.launches == launches + 2
+    ref = epic_forward_reference(packed, t, x, k, mask, output_hidden_local=hidden)
+    got, again, ref = ((a,) if not hidden else a for a in (got, again, ref))
+    for a, b, r in zip(got, again, ref):
+        close_per_particle(a, r)
+        assert torch.equal(a, b)
+
+
 # ------------------------------------------------------ K8, the attention core
 
 
@@ -726,6 +774,30 @@ def test_attention_core_matches_plain(device, B, N, heads, masked):
     ref = attention_core_reference(q, k, v, mask, n_heads=heads)
     assert tuple(got.shape) == (B, N, 128) and torch.isfinite(got).all()
     torch.testing.assert_close(got, ref, atol=2e-5, rtol=0)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("N", [1, 17, 109, 128])
+@pytest.mark.parametrize("heads", [4, 2, 1], ids=["hd32", "hd64", "hd128"])
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+def test_attention_core_at_every_head_width(device, N, heads, masked):
+    """The tensor-core K8 at every head width it takes (32, 64, 128
+    channels) and at N on both sides of its 16-row and 64-key tiles: within
+    the JAX test's atol, a wholly masked jet gives the mean of its values,
+    nothing past N is written, the same bits on a repeat."""
+    from multimodal_particles_tpu_torch.ops.attention_cuda import (
+        attention_core,
+        attention_core_reference,
+    )
+
+    q, k, v, mask = attention_inputs(device, 6, N, seed=11, masked=masked)
+    got = attention_core(q, k, v, mask, n_heads=heads)
+    again = attention_core(q, k, v, mask, n_heads=heads)
+    torch.cuda.synchronize()
+    ref = attention_core_reference(q, k, v, mask, n_heads=heads)
+    torch.testing.assert_close(got, ref, atol=2e-5, rtol=0)
+    if masked:
+        torch.testing.assert_close(got[0], v[0].mean(0).expand(N, -1), atol=2e-5, rtol=0)
     assert torch.equal(got, again)
 
 

@@ -206,3 +206,64 @@ def jax_step_fn(jax_model):
         gamma=cfg.bridge.gamma, dim_emb_time=cfg.encoder.dim_emb_time, interpret=True,
     )
     return jax.jit(make_for(N, B))
+
+
+# ---- a plain model of the 3×TF32 product of the tensor-core kernels (K4, K8;
+# multimodal_particles_tpu_torch/ops/csrc/tf32x3.cuh)
+
+
+def tf32_round(x):
+    """float32 → the nearest TF32 value (10 mantissa bits), ties away from
+    zero, as `cvt.rna.tf32.f32`; inf and NaN pass."""
+    bits = x.float().contiguous().view(torch.int32)
+    finite = (bits & 0x7F800000) != 0x7F800000
+    return torch.where(finite, (bits + 0x1000) & ~0x1FFF, bits).view(torch.float32)
+
+
+def tf32_split(x):
+    """x = hi + lo, both TF32: hi = tf32(x), lo = tf32(x − hi), both rounded
+    to nearest (tf32x3.cuh `split`: K8's operands, K4's weights)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def tf32_truncate(x):
+    """float32 → its top 19 bits (10 mantissa bits), the TF32 value the
+    tensor cores read from a float32 bit pattern."""
+    return (x.float().contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_split_truncated(x):
+    """x = hi + lo with both truncated (tf32x3.cuh `split_fast`: K4's A
+    operand): hi = x truncated, lo = x − hi exact in float32 and read by the
+    tensor cores truncated."""
+    hi = tf32_truncate(x)
+    return hi, tf32_truncate(x.float() - hi)
+
+
+def tf32x3_matmul(a, b, split_a=tf32_split):
+    """a @ b as the kernels compute it: a_lo·b_hi + a_hi·b_lo + a_hi·b_hi,
+    products of TF32 values (exact in float32) accumulated in float32; a
+    split by `split_a`, b by `tf32_split`."""
+    a_hi, a_lo = split_a(a)
+    b_hi, b_lo = tf32_split(b)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def tf32_matmul(a, b):
+    """a @ b as one TF32 tensor-core product."""
+    return tf32_round(a) @ tf32_round(b)
+
+
+def attention_core_model(q, k, v, bias, n_heads, matmul):
+    """K8's function with both of its products (q·kᵀ and P·v) taken by
+    `matmul`: softmax(q·kᵀ/√d + bias)·v per head, bias (B, 1, N). The bias
+    is added to the float32 score, as the kernel and its plain version add
+    it, whatever `matmul`'s precision: −1e9 then absorbs the score, and a
+    wholly masked jet gives the mean of its values."""
+    B, N, C = q.shape
+    hd = C // n_heads
+    q4, k4, v4 = (a.reshape(B, N, n_heads, hd).transpose(1, 2) for a in (q, k, v))
+    s = matmul(q4, k4.transpose(-1, -2)) * hd**-0.5
+    s = (s.float() + bias.float()[:, None]).to(s.dtype)
+    return matmul(torch.softmax(s, dim=-1), v4).transpose(1, 2).reshape(B, N, C)
