@@ -222,9 +222,9 @@ The line before the last lists every kernel with its launches on its own
 path's run, its two bounds from the shapes and the H100 data sheet's peaks
 (`bound_ms` with the operations on the CUDA cores in fp32, `tensor_bound_ms`
 with them on the tensor cores as three TF32 products, the 3×TF32 split that
-K4 and K8 run), and the times measured here; the last line is {"ok": true, "device": {...}}. Any
-failure raises and exits non-zero. Uses torch, numpy, the standard library
-and the port only. fp32 with TF32 off.
+K4, K6, K7 and K8 run), and the times measured here; the last line is
+{"ok": true, "device": {...}}. Any failure raises and exits non-zero. Uses
+torch, numpy, the standard library and the port only. fp32 with TF32 off.
 """
 
 import dataclasses
@@ -944,6 +944,15 @@ def products_tensor_bound_ms(d, B, n):
     return roofline(2.0 * d.num_blocks * 2 * d.hidden ** 2 * B * n, 0)["tensor_bound_ms"]
 
 
+def gsdm_products_tensor_bound_ms(dim_in, n_blocks, B, n, pre_rate=False):
+    """The tensor-core bound of K6's or K7's products alone (proj_in over the
+    real input width, six (n, C)·(C, C) a block, K6's pre_rate; not the
+    attention), at (B, n)."""
+    C = 128
+    macs = n * (dim_in * C + n_blocks * 6 * C * C + (C * C if pre_rate else 0))
+    return roofline(2.0 * macs * B, 0)["tensor_bound_ms"]
+
+
 def roofline(flops, nbytes):
     """The least time for `flops` operations and `nbytes` bytes: `bound_ms` at
     the fp32 peak of the CUDA cores, `tensor_bound_ms` with every operation
@@ -1465,7 +1474,9 @@ def phase_k6(device, card):
         lambda: survival_head_reference(head, tp, last, mask_t, n_heads=cfg_g.n_heads))
     bound = survival_bound(head, ABS_B, ABS_N)
     emit({"phase": "K6_time", "B": ABS_B, "N": ABS_N, "ms": ms, "plain_ms": plain_ms, **bound,
-          "tflops": bound["flops"] / ms / 1e9, "card": card})
+          "tflops": bound["flops"] / ms / 1e9, "products_tensor_bound_ms":
+          gsdm_products_tensor_bound_ms(head.dim_hidden, head.n_blocks, ABS_B, ABS_N, True),
+          "card": card})
     return errors[0]["max_abs_err"], errors, ms, plain_ms, bound
 
 
@@ -1821,7 +1832,9 @@ def phase_k7(device, card, build_log):
     ptxas = [f"{lines[i + 2].strip()}; {lines[i + 3].strip()}" for i, line in enumerate(lines[:-3])
              if "gsdm_stack_kernel" in line and "Compiling entry" in line]
     emit({"phase": "K7_time", "B": TD_B, "N": TD_N, "Din": 27, "ms": ms, "plain_ms": plain_ms,
-          **bound, "tflops": bound["flops"] / ms / 1e9, "ptxas": ptxas, "card": card})
+          **bound, "tflops": bound["flops"] / ms / 1e9, "products_tensor_bound_ms":
+          gsdm_products_tensor_bound_ms(27, packed.n_blocks, TD_B, TD_N), "ptxas": ptxas,
+          "card": card})
     return errors[1]["max_abs_err"], errors, ms, plain_ms, bound
 
 
@@ -2355,7 +2368,9 @@ def phase_k7_wide_input(device, card):
                              lambda: gsdm_stack_reference(packed, tp, x_in, n_heads=n_heads))
     bound = gsdm_stack_bound(packed, TD_B, TD_N)
     emit({"phase": "k7_wide_input_time", "B": TD_B, "N": TD_N, "Din": 139, "ms": ms,
-          "plain_ms": plain_ms, **bound, "tflops": bound["flops"] / ms / 1e9, "card": card})
+          "plain_ms": plain_ms, **bound, "tflops": bound["flops"] / ms / 1e9,
+          "products_tensor_bound_ms": gsdm_products_tensor_bound_ms(139, packed.n_blocks, TD_B, TD_N),
+          "card": card})
     return {"max_abs_err": errors[1]["max_abs_err"], "max_abs_err_by_check": errors, "ms": ms,
             "plain_ms": plain_ms, **bound_fields(bound),
             "B": TD_B, "N": TD_N, "Din": 139}

@@ -8,8 +8,8 @@ device code include a header: epic_forward.cuh (the narrow EPiC kernels;
 epic_forward_kernel.cuh the forward kernel's two instantiations),
 epic_wide.cuh (the wide ones and the tiled products), gsdm_blocks.cuh (the
 (ResnetBlock, AttnBlock) stack of the survival head and the gsdm stack) and
-tf32x3.cuh (tensor-core products at fp32 accuracy, for the attention core and
-the wide forward). No fast-math: the
+tf32x3.cuh (tensor-core products at fp32 accuracy, for the attention core,
+the wide forward and the gsdm blocks). No fast-math: the
 telegraph update divides by 1 − exp(−Sγ(1−t)), which is about 1e-4 at the
 last step, and its jump decisions must follow the accurate `expf`.
 """
@@ -54,12 +54,14 @@ _SIGNATURES = {
     "mmp_epic_wide_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "mmp_epic_wide_backward_workspace": [_I, _I, _P, _P, _P],
     "mmp_epic_wide_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    # weights, temb_proj (n_blocks, B, C), last (B, N, Dh), mask (B, N), out (B, N),
-    # scratch (grid, 128, C), grid, B, N, Dh, n_blocks, n_heads, stream
-    "mmp_survival_head": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # weights, temb_proj (n_blocks, B, C), x (B, N, Din), out (B, N, C),
-    # scratch (grid, 128, C), grid, B, N, Din, n_blocks, n_heads, stream
-    "mmp_gsdm_stack": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # weights, tensor-core stream, temb_proj (n_blocks, B, C), last (B, N, Dh),
+    # mask (B, N), out (B, N), scratch (grid, 128, 132), grid, B, N, Dh, n_blocks,
+    # n_heads, stream
+    "mmp_survival_head": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # weights, tensor-core stream, temb_proj (n_blocks, B, C), x (B, N, Din),
+    # out (B, N, C), scratch (grid, 128, 132), grid, B, N, Din, n_blocks, n_heads,
+    # stream
+    "mmp_gsdm_stack": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, mask (B, N) or null, out (B, N, C), grid, B, N, C, n_heads, stream
     "mmp_attention_core": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

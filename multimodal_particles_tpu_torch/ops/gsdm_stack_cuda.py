@@ -9,11 +9,16 @@ width. The two share the packing of a block (`block_layout`, `block_weights`,
 the card, the device code (ops/csrc/gsdm_blocks.cuh).
 
 `pack_gsdm_stack_params` lays the stack's weights into one flat float32
-buffer, matrices (in, out) row-major as the kernel streams them
-(gsdm_stack_pallas.py:41-60; the layout is `stack_layout`). The kernel's
-weight tiles hold 16 input rows, so proj_in's weight is stored with zero rows
-up to the next multiple of 16 (Din = 24 → 32, 27 → 32; at the `--scaled`
-trunk 136 → 144, 139 → 144, which the kernel takes in passes of 128 columns).
+buffer, matrices (in, out) row-major (gsdm_stack_pallas.py:41-60; the layout
+is `stack_layout`, proj_in's weight stored with zero rows up to the next
+multiple of 16), which the plain version reads, and beside it the stream of
+tensor-core stages that the kernel reads its matrices from (`stack_stream`):
+every matrix in the order the kernel multiplies by it, in stages of 8 input
+rows as TF32 hi and lo halves in the tensor cores' core-matrix order
+(`tensor_core_stream`), proj_in's padded with zero rows to a multiple of 8
+(Din = 24 → 3 stages, 27 → 4; at the `--scaled` trunk 136 → 17, 139 → 18,
+which the kernel takes in passes of 128 columns). The kernel reads the
+vectors (biases, GroupNorm's scales) from the flat buffer.
 `stack_time_embeddings` computes the per-block time rows from an already
 projected time embedding; they depend on the (B,) times only and stay plain
 PyTorch as they stay XLA in JAX (:63-70). `gsdm_stack` launches
@@ -29,11 +34,15 @@ import torch
 
 from multimodal_particles_tpu_torch.models.architectures.gsdm import group_norm, swish
 from multimodal_particles_tpu_torch.ops import _build
+from multimodal_particles_tpu_torch.ops.epic_cuda import STAGE_ROWS, tensor_core_stages
 
 # what the kernels are compiled for (ops/csrc/gsdm_blocks.cuh)
 CHANNELS = 128
 MAX_PARTICLES = 128
-WEIGHT_TILE_ROWS = 16  # input rows of a streamed weight tile
+# proj_in's rows in the flat buffer: zero rows up to a multiple of this
+# (ops/csrc/gsdm_stack.cu finds proj_in's bias after them)
+WEIGHT_TILE_ROWS = 16
+PARK_FLOATS = MAX_PARTICLES * 132  # a block's scratch tile (ops/csrc/gsdm_blocks.cuh TILE)
 
 
 def block_layout(i: int):
@@ -115,6 +124,14 @@ def check_float32_on(device, **tensors):
             raise ValueError(f"{name} must be contiguous")
 
 
+def check_stream(stream, stages: int, device):
+    """A packing's tensor-core stream as its kernel reads it: `stages` stages,
+    float32, contiguous, 16-byte aligned, on `device`."""
+    check_float32_on(device, tensor_core=stream)
+    if stream.numel() != stages * 2 * STAGE_ROWS * CHANNELS or stream.data_ptr() % 16:
+        raise ValueError(f"the tensor-core stream must be {stages} stages, 16-byte aligned")
+
+
 def stacked_time_rows(temb_projected, n_blocks: int, B: int):
     """n_blocks tensors (B, C) → one (n_blocks, B, C) tensor as the kernels read it."""
     if len(temb_projected) != n_blocks:
@@ -126,11 +143,32 @@ def stacked_time_rows(temb_projected, n_blocks: int, B: int):
 
 
 def block_grid_and_scratch(B: int, device):
-    """One block an SM walks over the jets; each parks a (128, C) tile in its
-    row of the scratch."""
+    """One block an SM walks over the jets; each parks its residual tile in
+    its row of the scratch while it attends."""
     grid = min(B, torch.cuda.get_device_properties(device).multi_processor_count)
-    scratch = torch.empty((grid, MAX_PARTICLES, CHANNELS), dtype=torch.float32, device=device)
-    return grid, scratch
+    return grid, torch.empty((grid, PARK_FLOATS), dtype=torch.float32, device=device)
+
+
+def tensor_core_stream(matrices):
+    """(K, 128) weights, (in, out), → one flat stream of their stages as the
+    kernels' weight ring reads them, matrix after matrix: each matrix padded
+    with zero rows to a multiple of 8, then per stage of 8 input rows the TF32
+    hi half and the lo half (w − hi), rounded to nearest, in core-matrix
+    order (ops/epic_cuda.py::tensor_core_stages)."""
+    with torch.no_grad():
+        parts = []
+        for w in matrices:
+            pad = -w.shape[0] % STAGE_ROWS
+            if pad:
+                w = torch.cat([w, w.new_zeros((pad, w.shape[1]))])
+            parts.append(tensor_core_stages(w.detach().float()[None]))
+        return torch.cat(parts).contiguous()
+
+
+def block_stream_matrices(W: Dict[str, torch.Tensor], i: int):
+    """Block i's matrices in the order the kernel multiplies by them: conv1,
+    conv2, k, v, q, proj_out."""
+    return [W[f"{name}_{i}"] for name in ("w_c1", "w_c2", "wk", "wv", "wq", "wp")]
 
 
 # ----------------------------------------------------------------- the stack
@@ -138,6 +176,12 @@ def block_grid_and_scratch(B: int, device):
 
 def padded_width(dim_in: int) -> int:
     return -(-dim_in // WEIGHT_TILE_ROWS) * WEIGHT_TILE_ROWS
+
+
+def stream_stages(dim_in: int, n_blocks: int) -> int:
+    """Stages of a stack's tensor-core stream: proj_in's ⌈Din/8⌉, then 6 × 16
+    a block."""
+    return -(-dim_in // STAGE_ROWS) + n_blocks * 6 * (CHANNELS // STAGE_ROWS)
 
 
 def stack_layout(dim_in: int, n_blocks: int):
@@ -156,11 +200,22 @@ class PackedGsdmStack:
     tensors: Dict[str, torch.Tensor]  # named views into `flat`, matrices (in, out)
     dim_in: int
     n_blocks: int
+    tensor_core: torch.Tensor  # the kernel's stream of weight stages (`stack_stream`)
+
+
+def stack_stream(W: Dict[str, torch.Tensor], dim_in: int, n_blocks: int):
+    """A stack's tensor-core stream: proj_in's Din rows, then every block's
+    matrices (`block_stream_matrices`)."""
+    matrices = [W["w_in"][:dim_in]]
+    for i in range(n_blocks):
+        matrices += block_stream_matrices(W, i)
+    return tensor_core_stream(matrices)
 
 
 def pack_gsdm_stack_params(proj_in, res_blocks, attn_blocks) -> PackedGsdmStack:
     """(proj_in Linear, [ResnetBlock], [AttnBlock]) → the stack's weights in
-    one flat buffer (gsdm_stack_pallas.py:41-60)."""
+    one flat buffer (gsdm_stack_pallas.py:41-60), and their tensor-core
+    stream."""
     w_in = proj_in.weight.T  # (Din, C)
     dim_in, n_blocks = w_in.shape[0], len(res_blocks)
     pad = w_in.new_zeros((padded_width(dim_in) - dim_in, w_in.shape[1]))
@@ -168,7 +223,8 @@ def pack_gsdm_stack_params(proj_in, res_blocks, attn_blocks) -> PackedGsdmStack:
     for i, (res, att) in enumerate(zip(res_blocks, attn_blocks)):
         src.update(block_weights(res, att, i))
     flat, tensors = pack_flat(src, stack_layout(dim_in, n_blocks))
-    return PackedGsdmStack(flat, tensors, dim_in, n_blocks)
+    return PackedGsdmStack(flat, tensors, dim_in, n_blocks,
+                           stack_stream(tensors, dim_in, n_blocks))
 
 
 def stack_time_embeddings(temb, res_blocks):
@@ -234,12 +290,15 @@ def gsdm_stack(packed: PackedGsdmStack, temb_projected, x_in, *, n_heads: int):
     if B == 0:
         return out
     lib = _build.load_library()
+    # the stream is checked where the kernel reads it
+    check_stream(packed.tensor_core, stream_stages(dim_in, packed.n_blocks), x_in.device)
     grid, scratch = block_grid_and_scratch(B, x_in.device)
     with torch.cuda.device(x_in.device):
         stream = torch.cuda.current_stream(x_in.device).cuda_stream
         rc = lib.mmp_gsdm_stack(
-            packed.flat.data_ptr(), tp.data_ptr(), x_in.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), grid, B, N, dim_in, packed.n_blocks, n_heads, stream,
+            packed.flat.data_ptr(), packed.tensor_core.data_ptr(), tp.data_ptr(),
+            x_in.data_ptr(), out.data_ptr(), scratch.data_ptr(), grid, B, N, dim_in,
+            packed.n_blocks, n_heads, stream,
         )
     _build.check(lib, rc, "mmp_gsdm_stack")
     gsdm_stack.launches += 1

@@ -2,9 +2,12 @@
 (counterpart of multimodal_particles_tpu/ops/survival_pallas.py).
 
 `pack_survival_head_params` lays the head's weights into one flat float32
-buffer, matrices (in, out) row-major as the kernel streams them, in the order
-of the JAX packing (survival_pallas.py:56-91; the layout itself is
-`head_layout`, mirrored by `make_head_layout` in ops/csrc/survival_head.cu).
+buffer, matrices (in, out) row-major, in the order of the JAX packing
+(survival_pallas.py:56-91; the layout itself is `head_layout`, mirrored by
+`make_head_layout` in ops/csrc/survival_head.cu), and beside it the stream of
+tensor-core stages that the kernel reads its matrices from (`head_stream`:
+proj_in's Dh trunk rows, the blocks', pre_rate's; the mask's two one-hot
+rows stay in the flat buffer, a per-row correction in proj_in's epilogue).
 `project_time_embeddings` computes the per-block time rows, which depend on
 the (B,) times only and stay plain PyTorch as they stay XLA in JAX (:336-352).
 `survival_head` launches ops/csrc/survival_head.cu on CUDA tensors;
@@ -26,14 +29,18 @@ from multimodal_particles_tpu_torch.ops import _build
 from multimodal_particles_tpu_torch.ops.gsdm_stack_cuda import (
     CHANNELS,
     MAX_PARTICLES,
+    STAGE_ROWS,
     block_grid_and_scratch,
     block_layout,
+    block_stream_matrices,
     block_weights,
     blocks_reference,
     check_float32_on,
     check_heads,
+    check_stream,
     pack_flat,
     stacked_time_rows,
+    tensor_core_stream,
 )
 
 HIDDEN_MULTIPLE = 16  # the trunk's hidden width: a multiple of 16 up to CHANNELS
@@ -56,6 +63,22 @@ class PackedSurvivalHead:
     tensors: Dict[str, torch.Tensor]  # named views into `flat`, matrices (in, out)
     dim_hidden: int
     n_blocks: int
+    tensor_core: torch.Tensor  # the kernel's stream of weight stages (`head_stream`)
+
+
+def head_stream(W: Dict[str, torch.Tensor], n_blocks: int):
+    """The head's tensor-core stream: proj_in's trunk rows, every block's
+    matrices (ops/gsdm_stack_cuda.py::block_stream_matrices), pre_rate."""
+    matrices = [W["w_in_h"]]
+    for i in range(n_blocks):
+        matrices += block_stream_matrices(W, i)
+    return tensor_core_stream(matrices + [W["w_pre"]])
+
+
+def head_stages(dim_hidden: int, n_blocks: int) -> int:
+    """Stages of a head's tensor-core stream: proj_in's Dh / 8, then 6 × 16 a
+    block and 16 for pre_rate."""
+    return dim_hidden // STAGE_ROWS + (n_blocks * 6 + 1) * (CHANNELS // STAGE_ROWS)
 
 
 def pack_survival_head_params(generator, n_blocks: int) -> PackedSurvivalHead:
@@ -72,7 +95,7 @@ def pack_survival_head_params(generator, n_blocks: int) -> PackedSurvivalHead:
     src.update(w_pre=generator.pre_rate_proj.weight.T, b_pre=generator.pre_rate_proj.bias,
                w_post=generator.post_rate_proj.weight[0], b_post=generator.post_rate_proj.bias)
     flat, tensors = pack_flat(src, head_layout(dh, n_blocks))
-    return PackedSurvivalHead(flat, tensors, dh, n_blocks)
+    return PackedSurvivalHead(flat, tensors, dh, n_blocks, head_stream(tensors, n_blocks))
 
 
 @torch.no_grad()
@@ -152,18 +175,21 @@ def survival_head(packed: PackedSurvivalHead, temb_projected, last_layer, mask_t
     mask = mask_t.to(torch.float32).contiguous()
     check_float32_on(last_layer.device, last_layer=last_layer, mask_t=mask, time_rows=tp,
                      weights=packed.flat)
-    if packed.flat.data_ptr() % 16:
-        raise ValueError("the packed weights must be 16-byte aligned")
+    if packed.flat.data_ptr() % 16 or last_layer.data_ptr() % 16:
+        raise ValueError("the packed weights and last_layer must be 16-byte aligned")
     out = torch.empty((B, N, 1), dtype=torch.float32, device=last_layer.device)
     if B == 0:
         return out
     lib = _build.load_library()
+    # the stream is checked where the kernel reads it
+    check_stream(packed.tensor_core, head_stages(dh, packed.n_blocks), last_layer.device)
     grid, scratch = block_grid_and_scratch(B, last_layer.device)
     with torch.cuda.device(last_layer.device):
         stream = torch.cuda.current_stream(last_layer.device).cuda_stream
         rc = lib.mmp_survival_head(
-            packed.flat.data_ptr(), tp.data_ptr(), last_layer.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), grid, B, N, dh, packed.n_blocks, n_heads, stream,
+            packed.flat.data_ptr(), packed.tensor_core.data_ptr(), tp.data_ptr(),
+            last_layer.data_ptr(), mask.data_ptr(), out.data_ptr(), scratch.data_ptr(), grid, B,
+            N, dh, packed.n_blocks, n_heads, stream,
         )
     _build.check(lib, rc, "mmp_survival_head")
     survival_head.launches += 1

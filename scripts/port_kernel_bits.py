@@ -1,38 +1,43 @@
 #!/usr/bin/env python3
 """Hold the PyTorch/CUDA port's kernels to the output of another build.
 
-    python3 scripts/port_kernel_bits.py --other DIR [--kernels K1 K4 K5 K6 K7]
+    python3 scripts/port_kernel_bits.py --other DIR [--kernels K1 K4 K5 K6 K7 K8]
 
 DIR holds another revision's sources of the kernels compared and the headers
 they include (`epic_forward.cu`, `epic_forward.cuh`, `epic_forward_kernel.cuh`
 for K1; `epic_wide_forward.cu`, `epic_wide.cuh` and, from the tensor-core K4
 on, `tf32x3.cuh` for K4; `epic_wide_backward.cu`, `epic_wide.cuh` for K5;
-`survival_head.cu`, `gsdm_blocks.cuh` for K6; `gsdm_stack.cu` for K7), for
-example unpacked with `git archive REV multimodal_particles_tpu_torch/ops/csrc`.
-The script builds those sources of that directory and of the working tree's
-`ops/csrc/` with nvcc, each into a temporary directory, and compares on one
-GPU, with `torch.equal`:
+`survival_head.cu`, `gsdm_blocks.cuh` and, from the tensor-core K6 on,
+`tf32x3.cuh` for K6; `gsdm_stack.cu` and the same headers for K7;
+`attention_core.cu`, `tf32x3.cuh` for K8), for example unpacked with `git
+archive REV multimodal_particles_tpu_torch/ops/csrc`. The script builds those
+sources of that directory and of the working tree's `ops/csrc/` with nvcc,
+each into a temporary directory, and compares on one GPU, with `torch.equal`:
 
   K1  the fused EPiC forward at config-berlin (B=1024, N=128) and as the
       absorbing family calls it (56-wide head, hidden output, B=512, N=109);
   K5  the wide backward at the scaled MBM backbone (every width 128, 6 blocks,
       B=512, N=128), a random cotangent: the weights' gradient;
-  K6  the fused survival head at (B, N) = (512, 109), (7, 109), (64, 128);
-  K7  the fused gsdm stack at the reference input widths 24 and 27
-      (B=512, N=128; B=7, N=40).
+  K8  the attention core at B=512, N=128 and 109, 2 heads, with a key mask
+      and without.
 
-K4's bits are not held: its products run on the tensor cores under the
-3×TF32 split, in another order than the FFMA products before them. For each
-of its four instances (tokens or the folded input, times the 8-wide or the
-56-wide head; the hidden output of all but MBM's) at the scaled backbone,
-B=512, N=109 and 128, the line gives the largest per-particle difference of
-the two builds' outputs as a share of K4's gate against its plain version,
-|err| ≤ 1e-4 + 1e-4·max|other| over the particle's row; a share above 1 fails.
+K4's, K6's and K7's bits are not held where the two builds run their
+products in another order (the tensor cores under the 3×TF32 split against
+the FFMA products before them). For each, the line gives the two builds'
+largest difference as a share of the kernel's gate against its plain
+version, the other build's output taken as the reference; a share above 1
+fails. K4: each of its four instances (tokens or the folded input, times the
+8-wide or the 56-wide head; the hidden output of all but MBM's) at the scaled
+backbone, B=512, N=109 and 128, per particle |err| ≤ 1e-4 + 1e-4·max|other|
+over the particle's row. K6: the fused survival head at (B, N) = (512, 109),
+(7, 109), (64, 128); K7: the fused gsdm stack at the reference input widths
+24 and 27 (B=512, N=128; B=7, N=40) and the `--scaled` ones, 136 and 139
+(B=64, N=128); both elementwise, |err| ≤ 2e-4 + 2e-4·|other|.
 
 K1's source builds in minutes; `--kernels` leaves it out when its sources did
 not change. One JSON line a comparison; exit code 1 if any output held to the
-bits differs or a K4 share exceeds 1. For a change to a header that several
-kernels share and that must not move their results.
+bits differs or a share exceeds 1. For a change to a header that several
+kernels share.
 """
 
 import argparse
@@ -66,6 +71,7 @@ from multimodal_particles_tpu_torch.models.generative.transdimensional.transdime
 )
 from multimodal_particles_tpu_torch.ops import (  # noqa: E402
     _build,
+    attention_cuda,
     epic_cuda,
     epic_wide_cuda,
     epic_wide_vjp_cuda,
@@ -80,10 +86,12 @@ KERNELS = {
     "K5": ("epic_wide_backward.cu", "mmp_epic_wide_backward"),
     "K6": ("survival_head.cu", "mmp_survival_head"),
     "K7": ("gsdm_stack.cu", "mmp_gsdm_stack"),
+    "K8": ("attention_core.cu", "mmp_attention_core"),
 }
 HEADERS = ("epic_forward.cuh", "epic_forward_kernel.cuh", "epic_wide.cuh", "gsdm_blocks.cuh",
            "tf32x3.cuh")
 K4_ATOL = K4_RTOL = 1e-4  # K4's gate against its plain version, per particle
+K6_TOL = K7_TOL = 2e-4  # K6's and K7's, elementwise (tests/test_ops/test_survival_pallas.py:86-88)
 # the error strings' entry point lives in K1's source; without it, a stub
 ERROR_STRING_STUB = """#include <cuda_runtime.h>
 extern "C" const char* mmp_error_string(int err) {
@@ -107,13 +115,18 @@ def build(csrc: Path, workdir: Path, kernels) -> ctypes.CDLL:
     names = [KERNELS[k][1] for k in kernels]
     if "K5" in kernels:
         names.append("mmp_epic_wide_backward_workspace")
-    # K4 before its tensor-core products takes no prepared weights
+    # K4 before its tensor-core products takes no prepared weights, nor K6 and
+    # K7 before theirs their stream
     lib.k4_tensor_core = "K4" in kernels and "tcw" in (src / KERNELS["K4"][0]).read_text()
+    lib.gsdm_tensor_core = (src / "gsdm_blocks.cuh").exists() and "Ring" in (
+        src / "gsdm_blocks.cuh").read_text()
     for name in names:
         fn = getattr(lib, name)
         argtypes = list(_build._SIGNATURES[name])
         if name == KERNELS["K4"][1] and not lib.k4_tensor_core:
             del argtypes[1:3]
+        if name in (KERNELS["K6"][1], KERNELS["K7"][1]) and not lib.gsdm_tensor_core:
+            del argtypes[1]  # no stream
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
     lib.mmp_error_string.argtypes, lib.mmp_error_string.restype = [ctypes.c_int], ctypes.c_char_p
     return lib
@@ -135,6 +148,44 @@ def wide_forward(lib, packed, t, x, k, mask, hidden):
         torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "mmp_epic_wide_forward")
     return (out, hid) if hidden else (out,)
+
+
+def survival_head(lib, head, tp, last, mask_t, n_heads):
+    """K6 through `lib`, the tensor-core build or the FFMA build before it."""
+    if lib.gsdm_tensor_core:
+        return survival_cuda.survival_head(head, tp, last, mask_t, n_heads=n_heads)
+    B, N, dh = last.shape
+    tp = gsdm_stack_cuda.stacked_time_rows(tp, head.n_blocks, B)
+    mask = mask_t.to(torch.float32).contiguous()
+    out = torch.empty((B, N, 1), device=last.device)
+    grid, scratch = gsdm_stack_cuda.block_grid_and_scratch(B, last.device)
+    rc = lib.mmp_survival_head(
+        head.flat.data_ptr(), tp.data_ptr(), last.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), grid, B, N, dh, head.n_blocks, n_heads,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "mmp_survival_head")
+    return out
+
+
+def gsdm_stack(lib, packed, tp, x_in, n_heads):
+    """K7 through `lib`, the tensor-core build or the FFMA build before it."""
+    if lib.gsdm_tensor_core:
+        return gsdm_stack_cuda.gsdm_stack(packed, tp, x_in, n_heads=n_heads)
+    B, N, dim_in = x_in.shape
+    tp = gsdm_stack_cuda.stacked_time_rows(tp, packed.n_blocks, B)
+    out = torch.empty((B, N, 128), device=x_in.device)
+    grid, scratch = gsdm_stack_cuda.block_grid_and_scratch(B, x_in.device)
+    rc = lib.mmp_gsdm_stack(
+        packed.flat.data_ptr(), tp.data_ptr(), x_in.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), grid, B, N, dim_in, packed.n_blocks, n_heads,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "mmp_gsdm_stack")
+    return out
+
+
+def share_of_gate(here, other, atol, rtol):
+    """The largest |here − other| as a share of atol + rtol·|other|, elementwise."""
+    return ((here - other).abs() / (atol + rtol * other.abs())).max().item()
 
 
 def inputs(B, N, device, gen):
@@ -206,11 +257,15 @@ def main():
                               "max_abs": max(a.abs().max().item() for a in outs[0])}), flush=True)
 
         def report_share(name, outs, **where):
-            """The two builds' largest per-particle difference as a share of
-            K4's gate, taking the other build's output as the reference."""
-            share = max(((here - other).abs()
-                         / (K4_ATOL + K4_RTOL * other.abs().amax(dim=-1, keepdim=True))).max().item()
-                        for other, here in zip(*outs))
+            """The two builds' largest difference as a share of the kernel's
+            gate, taking the other build's output as the reference: K4's per
+            particle, K6's and K7's elementwise."""
+            if name == "K4":
+                share = max(((here - other).abs() / (
+                    K4_ATOL + K4_RTOL * other.abs().amax(dim=-1, keepdim=True))).max().item()
+                            for other, here in zip(*outs))
+            else:
+                share = max(share_of_gate(here, other, K6_TOL, K6_TOL) for other, here in zip(*outs))
             same.append(share <= 1.0)
             print(json.dumps({"kernel": name, **where, "share_of_gate": share,
                               "same_bits": all(torch.equal(a, b) for a, b in zip(*outs)),
@@ -256,24 +311,34 @@ def main():
                 last = torch.randn((B, N, head.dim_hidden), generator=gen, device=device)
                 tp = survival_cuda.project_time_embeddings(flow.generator, t, gen_cfg.n_attn_blocks,
                                                            gen_cfg.transformer_dim)
-                report("K6", both(lambda lib: survival_cuda.survival_head(
-                    head, tp, last, mask.long(), n_heads=gen_cfg.n_heads)), B=B, N=N)
+                report_share("K6", both(lambda lib: survival_head(
+                    lib, head, tp, last, mask.long(), gen_cfg.n_heads)), B=B, N=N)
 
         if "K7" in args.kernels:
-            model = init_parameters(TransdimensionalJumpDiffusion(TransdimensionalEpicConfig()), 0)
-            model = model.to(device).eval()
-            net = model.network
-            _, rate_stack, vec_stack = model.pack_for_kernel()
-            for packed, res, B, N in ((rate_stack, net.blocks()[0], 512, 128),
-                                      (vec_stack, net.blocks("vec_")[0], 512, 128),
-                                      (vec_stack, net.blocks("vec_")[0], 7, 40)):
+            cases = []
+            for config, shapes in ((TransdimensionalEpicConfig(), ((512, 128), (512, 128), (7, 40))),
+                                   (scaled_config(TransdimensionalEpicConfig()), ((64, 128),) * 2)):
+                model = init_parameters(TransdimensionalJumpDiffusion(config), 0).to(device).eval()
+                net = model.network
+                _, rate_stack, vec_stack = model.pack_for_kernel()
+                stacks = ((rate_stack, net.blocks()[0]), (vec_stack, net.blocks("vec_")[0]),
+                          (vec_stack, net.blocks("vec_")[0]))
+                cases += [(net, *stack, *shape) for stack, shape in zip(stacks, shapes)]
+            for net, packed, res, B, N in cases:
                 x_in = torch.randn((B, N, packed.dim_in), generator=gen, device=device)
                 with torch.no_grad():
                     tp = gsdm_stack_cuda.stack_time_embeddings(
                         net.time_embedding(torch.rand((B,), generator=gen, device=device)), res)
-                report("K7", both(lambda lib: gsdm_stack_cuda.gsdm_stack(
-                    packed, tp, x_in, n_heads=model.config.encoder.n_heads)),
-                    B=B, N=N, Din=packed.dim_in)
+                report_share("K7", both(lambda lib: gsdm_stack(lib, packed, tp, x_in, 2)),
+                             B=B, N=N, Din=packed.dim_in)
+
+        if "K8" in args.kernels:
+            for N in (128, 109):
+                q, k, v = (torch.randn((512, N, 128), generator=gen, device=device) for _ in range(3))
+                mask = (torch.rand((512, N, 1), generator=gen, device=device) < 0.6).float()
+                for m in (mask, None):
+                    report("K8", both(lambda lib: attention_cuda.attention_core(q, k, v, m, n_heads=2)),
+                           B=512, N=N, masked=m is not None)
     return 0 if all(same) else 1
 
 

@@ -22,9 +22,10 @@ logits are held elementwise at rtol = atol = 2e-4, the JAX kernel's own test's
 tolerance (tests/test_ops/test_survival_pallas.py:86-88); K7's hidden state
 likewise (tests/test_ops/test_gsdm_stack_pallas.py:72). K8's output is held
 at atol 2e-5, the JAX kernel's own test's (tests/test_ops/test_attention_pallas.py:26).
-K8 and K4 run their products on the tensor cores under the 3×TF32 split; K8
-is held at every head width it takes (32, 64, 128 channels), K4's four
-template instances at N on both sides of their 16-row and 64-row edges.
+K8, K4, K6 and K7 run their products on the tensor cores under the 3×TF32
+split; K8 is held at every head width it takes (32, 64, 128 channels), K4's
+four template instances at N on both sides of their 16-row and 64-row edges,
+K6 and K7 at every head width and N on both sides of the same edges.
 """
 
 import dataclasses
@@ -527,6 +528,64 @@ def test_gsdm_stack_matches_plain(device, B, N, dim_in, n_heads, n_blocks):
     again = gsdm_stack(packed, tp, x_in, n_heads=n_heads)
     torch.cuda.synchronize()
     assert gsdm_stack.launches == launches + 2
+    ref = gsdm_stack_reference(packed, tp, x_in, n_heads=n_heads)
+    assert tuple(got.shape) == (B, N, 128) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=2e-4, rtol=2e-4)
+    assert torch.equal(got, again)
+
+
+# K6 and K7 on the tensor cores: N across each warpgroup's 64 rows and the
+# 16-row tiles of the attention (and the old 112-row cut), every head width,
+# the trunk widths and input widths of the reference and `--scaled` models,
+# a batch that is no multiple of the grid
+ROW_CUT_N = (1, 40, 63, 64, 65, 109, 112, 113, 128)
+ROW_CUT_HEADS = (1, 2, 4)
+
+
+@pytest.mark.parametrize("N", ROW_CUT_N)
+@pytest.mark.parametrize("n_heads", ROW_CUT_HEADS)
+def test_survival_head_across_the_row_cut(device, N, n_heads):
+    hidden = 16 if (ROW_CUT_N.index(N) + n_heads) % 2 else 128
+    model = absorbing_model(device, hidden, n_heads, 2)
+    _, head = model.pack_for_kernel()
+    B = 133
+    t, _, _, mask = scattered_inputs(device, B, N)
+    last = torch.randn((B, N, hidden), generator=torch.Generator(device=device).manual_seed(7),
+                       device=device)
+    tp = project_time_embeddings(model.generator, t, 2, 128)
+    got = survival_head(head, tp, last, mask.long(), n_heads=n_heads)
+    again = survival_head(head, tp, last, mask.long(), n_heads=n_heads)
+    torch.cuda.synchronize()
+    ref = survival_head_reference(head, tp, last, mask.long(), n_heads=n_heads)
+    assert tuple(got.shape) == (B, N, 1) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=2e-4, rtol=2e-4)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("N", ROW_CUT_N)
+@pytest.mark.parametrize("n_heads", ROW_CUT_HEADS)
+def test_gsdm_stack_across_the_row_cut(device, N, n_heads):
+    from multimodal_particles_tpu_torch.models.architectures.gsdm import AttnBlock, ResnetBlock
+    from multimodal_particles_tpu_torch.ops.gsdm_stack_cuda import pack_gsdm_stack_params
+
+    dim_in = (24, 27, 136, 139)[(ROW_CUT_N.index(N) + n_heads) % 4]
+    gen = torch.Generator(device=device).manual_seed(8)
+    proj_in = torch.nn.Linear(dim_in, 128)
+    res = [ResnetBlock(128, 0.0, 128) for _ in range(2)]
+    att = [AttnBlock(128, n_heads) for _ in range(2)]
+    modules = torch.nn.ModuleList([proj_in, *res, *att])
+    init_transdimensional_parameters(modules, 3).to(device)
+    with torch.no_grad():
+        for p in modules.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen, device=device))
+        packed = pack_gsdm_stack_params(proj_in, res, att)
+        B = 133
+        x_in = torch.randn((B, N, dim_in), generator=gen, device=device)
+        tp = stack_time_embeddings(torch.randn((B, 128), generator=gen, device=device), res)
+    got = gsdm_stack(packed, tp, x_in, n_heads=n_heads)
+    again = gsdm_stack(packed, tp, x_in, n_heads=n_heads)
+    torch.cuda.synchronize()
     ref = gsdm_stack_reference(packed, tp, x_in, n_heads=n_heads)
     assert tuple(got.shape) == (B, N, 128) and torch.isfinite(got).all()
     torch.testing.assert_close(got, ref, atol=2e-4, rtol=2e-4)

@@ -267,3 +267,76 @@ def attention_core_model(q, k, v, bias, n_heads, matmul):
     s = matmul(q4, k4.transpose(-1, -2)) * hd**-0.5
     s = (s.float() + bias.float()[:, None]).to(s.dtype)
     return matmul(torch.softmax(s, dim=-1), v4).transpose(1, 2).reshape(B, N, C)
+
+
+# ---- a plain model of K6's and K7's arithmetic (the survival head and the
+# gsdm stack on the tensor cores, multimodal_particles_tpu_torch/ops/csrc/
+# gsdm_blocks.cuh), in float64 apart from the split of each product's
+# float32 operands
+
+
+def gsdm_product_model(a, w, one_product=False):
+    """A product as K6's and K7's wgmma products take it: a (float32
+    activations) split by truncation, w (the weights) rounded to nearest,
+    the three TF32 products (or a_hi·w_hi alone) summed in float64."""
+    a_hi, a_lo = tf32_split_truncated(a.float())
+    w_hi, w_lo = tf32_split(w.float())
+    a_hi, a_lo, w_hi, w_lo = (x.double() for x in (a_hi, a_lo, w_hi, w_lo))
+    return a_hi @ w_hi if one_product else a_lo @ w_hi + a_hi @ w_lo + a_hi @ w_hi
+
+
+def gsdm_attention_product_model(a, b, one_product=False):
+    """A product of the attention (q·kᵀ, P·v) as the kernels' mma.sync takes
+    it: both operands split by truncation."""
+    a_hi, a_lo = tf32_split_truncated(a.float())
+    b_hi, b_lo = tf32_split_truncated(b.float())
+    a_hi, a_lo, b_hi, b_lo = (x.double() for x in (a_hi, a_lo, b_hi, b_lo))
+    return a_hi @ b_hi if one_product else a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def gsdm_blocks_model(W, h, temb_projected, n_blocks, n_heads, one_product=False):
+    """The block walk of ops/gsdm_stack_cuda.py::blocks_reference with every
+    product taken as the kernels take it (`gsdm_product_model`,
+    `gsdm_attention_product_model`) and the rest in float64."""
+    from multimodal_particles_tpu_torch.models.architectures.gsdm import group_norm, swish
+
+    def mm(a, w):
+        return gsdm_product_model(a, w, one_product)
+
+    def vec(name):
+        return W[name].double()
+
+    B, N, C = h.shape
+    hd = C // n_heads
+    for i in range(n_blocks):
+        r = mm(swish(group_norm(h, vec(f"gn1_s_{i}"), vec(f"gn1_b_{i}"))), W[f"w_c1_{i}"])
+        r = r + vec(f"b_c1_{i}") + temb_projected[i].double()[:, None, :]
+        r = mm(swish(group_norm(r, vec(f"gn2_s_{i}"), vec(f"gn2_b_{i}"))), W[f"w_c2_{i}"])
+        h = h + (r + vec(f"b_c2_{i}"))
+        hn = group_norm(h, vec(f"gna_s_{i}"), vec(f"gna_b_{i}"))
+        q, k, v = ((mm(hn, W[f"w{x}_{i}"]) + vec(f"b{x}_{i}")).reshape(B, N, n_heads, hd)
+                   .transpose(1, 2) for x in "qkv")
+        s = gsdm_attention_product_model(q * hd**-0.5, k.transpose(-1, -2), one_product)
+        o = gsdm_attention_product_model(torch.softmax(s, dim=-1), v, one_product)
+        h = h + (mm(o.transpose(1, 2).reshape(B, N, C), W[f"wp_{i}"]) + vec(f"bp_{i}"))
+    return h
+
+
+def survival_head_model(packed, temb_projected, last_layer, mask_t, n_heads, one_product=False):
+    """K6's function (ops/survival_cuda.py::survival_head_reference) with its
+    products as the kernel takes them: (B, N, 1) float64."""
+    W = packed.tensors
+    m = mask_t.double()
+    h = (gsdm_product_model(last_layer, W["w_in_h"], one_product) + W["w_oh0"].double()
+         + m * (W["w_oh1"].double() - W["w_oh0"].double()) + W["b_in"].double())
+    h = gsdm_blocks_model(W, h, temb_projected, packed.n_blocks, n_heads, one_product)
+    h = gsdm_product_model(h, W["w_pre"], one_product) + W["b_pre"].double()
+    return (h * W["w_post"].double()).sum(dim=-1, keepdim=True) + W["b_post"].double()
+
+
+def gsdm_stack_model(packed, temb_projected, x_in, n_heads, one_product=False):
+    """K7's function (ops/gsdm_stack_cuda.py::gsdm_stack_reference) with its
+    products as the kernel takes them: (B, N, C) float64."""
+    W = packed.tensors
+    h = gsdm_product_model(x_in, W["w_in"][:packed.dim_in], one_product) + W["b_in"].double()
+    return gsdm_blocks_model(W, h, temb_projected, packed.n_blocks, n_heads, one_product)
