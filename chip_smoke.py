@@ -312,6 +312,7 @@ from multimodal_particles_tpu_torch.ops.gsdm_stack_cuda import (
     stack_time_embeddings,
 )
 from multimodal_particles_tpu_torch.ops.sampler_cuda import (
+    pack_sampler_params,
     sampler_step,
     sampler_step_reference,
 )
@@ -497,7 +498,7 @@ def phase_k1(device, card):
 def phase_k2(device, card):
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
     model = make_model(device)
-    packed = pack_mbm_encoder_params(model.encoder, model.config)
+    packed = pack_sampler_params(model.encoder, model.config)
     gamma = model.config.bridge.gamma
     _, dt = model.time_grid()
     _, x, k, mask = random_inputs(CHECK_B, device, gen)
@@ -525,7 +526,11 @@ def phase_k2(device, card):
         lambda: sampler_step(packed, x, k, mask, u, 0.5, dt, gamma=gamma),
         lambda: sampler_step_reference(packed, x, k, mask, u, 0.5, dt, gamma=gamma),
     )
-    emit({"phase": "K2_time", "B": TIMING_B, "N": N, "ms": ms, "plain_ms": plain_ms, "card": card})
+    bound = kernel_bound(packed, TIMING_B, "sampler_step")
+    emit({"phase": "K2_time", "B": TIMING_B, "N": N, "ms": ms, "plain_ms": plain_ms, **bound,
+          **against_bounds(bound, ms),
+          "products_tensor_bound_ms": sampler_products_tensor_bound_ms(packed.dims, TIMING_B, N),
+          "card": card})
     return worst, ms, plain_ms
 
 
@@ -944,6 +949,24 @@ def products_tensor_bound_ms(d, B, n):
     return roofline(2.0 * d.num_blocks * 2 * d.hidden ** 2 * B * n, 0)["tensor_bound_ms"]
 
 
+def sampler_products_tensor_bound_ms(d, B, n):
+    """The tensor-core bound of K2's per-particle products alone, at (B, n):
+    the multiply-adds the function needs a particle (`encoder_macs`' per
+    particle term: local_0's particle two thirds folded, fc_local1's particle
+    third and fc_local2 of every layer, the output layer's 11 columns, the
+    8 → 8 → 8 head), not the padded products the kernel runs (local_0 16
+    deep, the output layer 16 columns)."""
+    per_particle, _ = encoder_macs(d)
+    return roofline(2.0 * per_particle * B * n, 0)["tensor_bound_ms"]
+
+
+def wide_backward_products_tensor_bound_ms(d, B, n):
+    """The tensor-core bound of K5's (128, 128, 128) products alone: per
+    layer and particle the rerun's two (fc_local1's particle third,
+    fc_local2), dz·Wᵀ and aᵀ·dz of each, 6·H² multiply-adds, at (B, n)."""
+    return roofline(2.0 * d.num_blocks * 6 * d.hidden ** 2 * B * n, 0)["tensor_bound_ms"]
+
+
 def gsdm_products_tensor_bound_ms(dim_in, n_blocks, B, n, pre_rate=False):
     """The tensor-core bound of K6's or K7's products alone (proj_in over the
     real input width, six (n, C)·(C, C) a block, K6's pre_rate; not the
@@ -1151,7 +1174,9 @@ def phase_k5(device, card):
     emit({"phase": "K5_time", "hidden": SCALED_HIDDEN, "B": TRAIN_B, "N": N, "backward_ms": ms,
           "forward_backward_ms": fb, "plain_B": SCALED_PLAIN_B, "backward_plain_ms_at_plain_B": plain_ms,
           "forward_backward_plain_ms_at_plain_B": fb_plain, "backward_ms_at_plain_B": ks, **bound,
-          "tflops": bound["flops"] / ms / 1e9, "card": card})
+          **against_bounds(bound, ms),
+          "products_tensor_bound_ms": wide_backward_products_tensor_bound_ms(packed.dims, TRAIN_B, N),
+          "card": card})
     errors = [{"skip": c["skip"], "head": c["head"], "B": c["B"],
                "max_abs_err": c["backward"]["max_abs_err"]} for c in checks]
     return checks[-1]["backward"]["max_abs_err"], errors, ms, plain_ms, bound

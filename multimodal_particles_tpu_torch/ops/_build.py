@@ -43,17 +43,19 @@ _SIGNATURES = {
     # that folds the discrete input), mask, out, hidden out (or null), B, N, dims[10], stream
     "mmp_epic_forward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "mmp_epic_forward_fold": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
-    # weights, x, k, mask, u, x_out, k_out, t, dt, gamma, B, N, dims[10], stream
+    # the kernel's own buffer (ops/sampler_cuda.py::sampler_weights), x, k, mask, u,
+    # x_out, k_out, t, dt, gamma, B, N, dims[10], stream
     "mmp_sampler_step": [_P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _I, _I, _P, _P],
     # B, N, dims[10], &grid (int), &scratch floats (long long)
     "mmp_epic_backward_workspace": [_I, _I, _P, _P, _P],
     # weights, t, x, k, mask, g, d_weights, scratch, grid, B, N, dims[10], stream
     "mmp_epic_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     # the wide pair (hidden 128) takes the narrow one's arguments; the forward
-    # also the tensor-core stages and local_0's tables after the weights
+    # also the tensor-core stages and local_0's tables after the weights, the
+    # backward those and the transposed stages
     "mmp_epic_wide_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "mmp_epic_wide_backward_workspace": [_I, _I, _P, _P, _P],
-    "mmp_epic_wide_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "mmp_epic_wide_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     # weights, tensor-core stream, temb_proj (n_blocks, B, C), last (B, N, Dh),
     # mask (B, N), out (B, N), scratch (grid, 128, 132), grid, B, N, Dh, n_blocks,
     # n_heads, stream

@@ -9,14 +9,14 @@
 //
 // Design: one thread block of 256 threads per jet, every width 128.
 //   * A jet's activations are (128 rows, 128 features) float32 tiles in
-//     shared memory: h, the local hidden l1, and the skip copy h0 (64 KB
-//     each). Rows past the jet's N carry mask 0.
-//   * A product C = A·W streams W from L2 in tiles of 16 input rows through
-//     a double buffer filled with cp.async; each thread owns an 8 × 8
-//     register tile of C (rows ty + 16·i, columns 4·tx + j and 64 + 4·tx + j)
-//     and reads A as float4 along the contraction axis. Packed matrices are
-//     (in, out) row-major (ops/epic_cuda.py::wide_weight_layout), so a
-//     tile is 16 contiguous rows of 512 bytes.
+//     shared memory, rows padded to LDA_TC floats: h and the local hidden
+//     l1; the skip copy h0 lives in registers. Rows past the jet's N carry
+//     mask 0.
+//   * The per-particle products (fc_local1's particle third, fc_local2) run
+//     on the tensor cores (gemm_wg: wgmma under the 3×TF32 split of
+//     tf32x3.cuh) on weight stages the wrapper lays out, streamed through a
+//     ring of cp.async stages in the third tile's place. local_0's particle
+//     two thirds are folded with the embeddings into small tables.
 //   * The concatenated inputs of fc_local1 and local_0 are never built: the
 //     broadcast thirds (g_new ‖ temb, and temb) are the same for every
 //     particle of a jet, so they enter as one per-jet vector-matrix product
@@ -24,11 +24,8 @@
 //   * Masked per-jet sums are column sums over the tile in shared memory;
 //     the per-jet global MLP is vector-matrix products by the whole block.
 //   * A recorder (template parameter Rec) receives the activations that the
-//     backward kernel reads back; NoRecord compiles to nothing.
-//   * The forward kernel's instances (TC) take the per-particle products to
-//     the tensor cores instead (gemm_wg, wgmma under the 3×TF32 split of
-//     tf32x3.cuh), with their own shared-memory plan; the backward kernel's
-//     recording rerun keeps the FFMA products above.
+//     backward kernel reads back (its recording rerun is this forward);
+//     NoRecord compiles to nothing.
 //   * The forward kernel alone also takes the two trunks of the absorbing and
 //     transdimensional families (`wide_forward_jet_ext`): the folded
 //     Linear-discrete input (FOLD: the discrete embedding is a Dense over the
@@ -40,11 +37,9 @@
 //     pointer, so that the token, 8-wide-head instantiation is the MBM one.
 #pragma once
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include <type_traits>
 
 #include "tf32x3.cuh"
 
@@ -56,7 +51,6 @@ constexpr int NOUT = DC + V;  // head outputs per particle
 constexpr int WD = 128;       // every hidden and embedding width
 constexpr int ROWS = 128;     // particle slots per jet
 constexpr int THREADS = 256;
-constexpr int KT = 16;        // input rows of a weight tile
 constexpr int MAT = ROWS * WD;
 
 // head_hidden: hidden width of the discrete head's MLP; fold_discrete: the
@@ -139,19 +133,12 @@ __host__ __device__ inline Layout make_layout(int num_blocks, int head_hidden = 
   return L;
 }
 
-// Shared memory, in floats: three activation tiles, the weight double
-// buffer, then per-jet vectors. g_new and temb are adjacent: together they
-// are the broadcast input of fc_local1.
-constexpr int S_TILE = 3 * MAT;
-constexpr int S_VEC = S_TILE + 2 * KT * WD;
+// Offsets of the per-jet vectors in shared memory, in floats. g_new and temb
+// are adjacent: together they are the broadcast input of fc_local1.
 constexpr int V_MASK = 0, V_X = 128, V_K = 512, V_GNEW = 640, V_TEMB = 768, V_P = 896,
-              V_VA = 1408, V_VB = 1536, V_G = 1664, V_GSKIP = 1792, V_CL1 = 1920, V_CT = 2048,
-              V_DG = 2176, V_DSG = 2304, V_DZA = 2432, V_DZB = 2560, V_DZC = 2688, V_DP = 2816,
-              V_DSUM = 3328, V_SDZ = 3456, V_RED = 3584, V_END = 4608;
-constexpr size_t SMEM_BYTES = sizeof(float) * (size_t)(S_VEC + V_END);
-static_assert(SMEM_BYTES <= 232448, "over a block's 227 KB of shared memory");
+              V_VA = 1408, V_VB = 1536, V_G = 1664, V_GSKIP = 1792, V_CL1 = 1920, V_CT = 2048;
 
-// Head weights staged in the (idle) weight buffer, [output][input].
+// Head weights staged in the (idle) staging area, [output][input].
 constexpr int T_HW = 0, T_BO = NOUT * WD, T_WH0 = T_BO + 16, T_BH0 = T_WH0 + 64,
               T_WH1 = T_BH0 + 8, T_BH1 = T_WH1 + 64, T_DZ = 2048;
 // A wide head's weights in the same buffer, [input][output] as packed:
@@ -159,21 +146,20 @@ constexpr int T_HW = 0, T_BO = NOUT * WD, T_WH0 = T_BO + 16, T_BH0 = T_WH0 + 64,
 constexpr int TW_WH0 = T_BO + 16, TW_BH0 = TW_WH0 + V * MAX_WIDE_HEAD,
               TW_WH1 = TW_BH0 + MAX_WIDE_HEAD, TW_BH1 = TW_WH1 + MAX_WIDE_HEAD * V,
               TW_END = TW_BH1 + V;
-static_assert(TW_END <= 2 * KT * WD, "a wide head's weights overrun the weight buffer");
 
-// Shared memory of the forward kernel's tensor-core products (TC): the
-// activation tiles h (S0) and l1 (S1) with rows padded to LDA_TC floats, so
-// that the A-fragment reads hit 32 banks; in the third tile's place the ring
-// of TC_STAGES prepared weight stages (the skip copy h0 lives in registers,
-// and local_0 needs no embedding tiles: its per-particle products are folded
-// into per-jet tables by the wrapper); a small staging area (the heads'
-// weights, local_0's tables); the per-jet vectors the forward reads (V_MASK
-// … V_CT) and the reduction buffer. The backward kernel keeps the plan above.
+// Shared memory of the forward: the activation tiles h (S0) and l1 (S1) with
+// rows padded to LDA_TC floats, so that the A-fragment reads hit 32 banks; in
+// the third tile's place the ring of TC_STAGES prepared weight stages (the
+// skip copy h0 lives in registers, and local_0 needs no embedding tiles: its
+// per-particle products are folded into per-jet tables by the wrapper); a
+// small staging area (the heads' weights, local_0's tables); the per-jet
+// vectors (V_MASK … V_CT) and the reduction buffer. The backward kernel
+// takes this plan and its own vectors after them.
 constexpr int LDA_TC = WD + 4;
 constexpr int TC_KT = 8;                   // input rows a stage: one k-step of wgmma
 constexpr int TC_STAGE = 2 * TC_KT * WD;   // floats a stage: its TF32 hi and lo halves
 constexpr int TC_STAGES = 8;               // stages in the ring; 6 are fetched ahead
-constexpr int TC_STAGING = 2 * KT * WD;    // floats of the staging area
+constexpr int TC_STAGING = 4096;           // floats of the staging area
 constexpr int S_TILE_TC = 3 * ROWS * LDA_TC;
 constexpr int S_VEC_TC = S_TILE_TC + TC_STAGING;
 constexpr int V_RED_TC = V_CT + WD, V_END_TC = V_RED_TC + 8 * WD;
@@ -188,17 +174,6 @@ static_assert(L0_END <= TC_STAGING, "local_0's tables overrun the staging area")
 // prepared weights of one EPiC layer: fc_local1's particle third, then fc_local2
 constexpr int TC_FL2 = (WD / TC_KT) * TC_STAGE, TC_LAYER = 2 * TC_FL2;
 
-// The two shared-memory plans: the FFMA products' (K5, and K4 before its
-// tensor-core products) and the tensor cores'.
-template <bool TC>
-struct Plan {
-  static constexpr int LDA = WD, TILE = S_TILE, VEC = S_VEC, RED = V_RED;
-};
-template <>
-struct Plan<true> {
-  static constexpr int LDA = LDA_TC, TILE = S_TILE_TC, VEC = S_VEC_TC, RED = V_RED_TC;
-};
-
 __device__ __forceinline__ float leaky(float x) { return x >= 0.f ? x : 0.01f * x; }
 
 __device__ __forceinline__ float selu(float x) {
@@ -206,108 +181,10 @@ __device__ __forceinline__ float selu(float x) {
   return scale * (x > 0.f ? x : alpha * expm1f(x));
 }
 
-struct Identity {
-  __device__ __forceinline__ float operator()(float v) const { return v; }
-};
-struct Leaky {
-  __device__ __forceinline__ float operator()(float v) const { return leaky(v); }
-};
-
-// The thread's register tile of a (128, 128) result.
-__device__ __forceinline__ int tile_row(int i) { return (threadIdx.x >> 4) + 16 * i; }
-__device__ __forceinline__ int tile_col(int j) {
-  return ((threadIdx.x & 15) << 2) + (j & 3) + ((j >> 2) << 6);
-}
-
-__device__ __forceinline__ void zero_acc(float (&acc)[8][8]) {
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-}
-
-// acc += A[:, k0:k0+KT] · tile, tile (KT, 128) in shared memory. NI < 8 leaves
-// out the thread's last 8 − NI rows, the tile's rows from 16·NI on (a caller
-// whose jets hold fewer rows).
-template <int NI = 8>
-__device__ __forceinline__ void tile_fma(float (&acc)[8][8], const float* A, int k0,
-                                         const float* tile) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int k4 = 0; k4 < KT; k4 += 4) {
-    float a[NI][4];
-#pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      const float4 v = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * WD + k0 + k4);
-      a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 lo = *reinterpret_cast<const float4*>(tile + (k4 + kk) * WD + tx * 4);
-      const float4 hi = *reinterpret_cast<const float4*>(tile + (k4 + kk) * WD + 64 + tx * 4);
-      const float w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-      for (int i = 0; i < NI; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i][kk], w[j], acc[i][j]);
-    }
-  }
-}
-
-// acc += A · W for A (128, K) in shared memory (row stride 128) and W (K, 128)
-// row-major in global memory; K a multiple of KT. Every thread of the block
-// calls it; it ends with a barrier, after which A and the buffer are free.
-// NI as in tile_fma.
-template <int NI = 8>
-__device__ __forceinline__ void gemm_acc(float (&acc)[8][8], const float* A,
-                                         const float* __restrict__ Wg, int K, float* tiles) {
-  const int tid = threadIdx.x;
-  const int nkt = K / KT;
-  auto fetch = [&](int kt) {
-    float* dst = tiles + (kt & 1) * KT * WD;
-    const float* src = Wg + (size_t)kt * KT * WD;
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int idx = tid + THREADS * q;  // float4 index in the tile
-      __pipeline_memcpy_async(dst + idx * 4, src + idx * 4, 16);
-    }
-    __pipeline_commit();
-  };
-  fetch(0);
-  for (int kt = 0; kt < nkt; ++kt) {
-    if (kt + 1 < nkt) {
-      fetch(kt + 1);
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();
-    tile_fma<NI>(acc, A, kt * KT, tiles + (kt & 1) * KT * WD);
-    __syncthreads();
-  }
-}
-
-// A (128, 128) product result in registers, as the FFMA routine holds it:
-// an 8 × 8 tile a thread (tile_row, tile_col).
-struct FmaAcc {
-  float v[8][8];
-  __device__ __forceinline__ void zero() { zero_acc(v); }
-  // f(index, row, column, value) for each of the thread's elements
-  template <class F>
-  __device__ __forceinline__ void each(F f) const {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int r = tile_row(i);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) f(8 * i + j, r, tile_col(j), v[i][j]);
-    }
-  }
-};
-
-// The same result as the tensor cores hold it: warpgroup q (warps 4q … 4q + 3)
-// owns rows 64q … 64q + 63, warp w of it 16 of them, in the wgmma.m64n128k8
-// accumulator layout (tf32x3.cuh). A thread's elements sit at the same
-// (row, column) in every product.
+// A (128, 128) product result in registers as the tensor cores hold it:
+// warpgroup q (warps 4q … 4q + 3) owns rows 64q … 64q + 63, warp w of it 16 of
+// them, in the wgmma.m64n128k8 accumulator layout (tf32x3.cuh). A thread's
+// elements sit at the same (row, column) in every product.
 struct WgAcc {
   float v[64];
   __device__ __forceinline__ void zero() {
@@ -450,10 +327,10 @@ __device__ __forceinline__ void column_sums(const float* S, float* red, F f, Pos
 // Receives nothing: the forward kernel keeps no activations.
 struct NoRecord {
   static constexpr bool HEADS = true;
-  __device__ __forceinline__ void z_l0(int, int, float) const {}
+  __device__ __forceinline__ void z_l0(int, int, int, float) const {}
   __device__ __forceinline__ void z_fl1(int, int, int, float) const {}
-  __device__ __forceinline__ void z_fl2(int, int, int, float) const {}
-  __device__ __forceinline__ void h_in(int, const float*) const {}
+  __device__ __forceinline__ void z_fl2(int, int, int, int, float) const {}
+  __device__ __forceinline__ void h_in(int, const float*, int) const {}
   __device__ __forceinline__ void proj(int, float) const {}
   __device__ __forceinline__ void glob(int, int, float) const {}
 };
@@ -570,17 +447,15 @@ __device__ __forceinline__ void head_hidden(const float (&p)[NOUT], const float*
 // (N, V) channel values through the folded Dense (k unused); else the tokens
 // `k` (N,). WIDE_HEAD: the discrete head has d.head_hidden hidden units (else
 // V). A non-null `hid` receives h_final's rows < N, (N, 128).
-// TC: the per-particle products run on the tensor cores (gemm_wg, the plan
+// The per-particle products run on the tensor cores (gemm_wg, the plan
 // SMEM_BYTES_TC) over the 64-row halves that hold rows below ⌈N/16⌉·16, on
 // the weights the wrapper prepared: `tcw` the fc_local1/fc_local2 stages of
 // each layer (TC_LAYER floats a layer), `l0t` local_0's tables (L0_END
 // floats): the x and discrete embeddings are Dense layers, so their product
 // with local_0's weights is the embedding's input times a (3, 128) or
 // (V, 128) table plus a constant row (a token's row of the table without the
-// fold). Else the FFMA products (gemm_acc, SMEM_BYTES) over all 128 rows, as
-// the backward kernel's recording rerun needs (tokens and a V-wide head
-// only), and tcw, l0t are not read.
-template <class Rec, bool FOLD, bool WIDE_HEAD, bool TC = false>
+// fold).
+template <class Rec, bool FOLD, bool WIDE_HEAD>
 __device__ void wide_forward_jet_ext(const float* __restrict__ w, const float* __restrict__ tcw,
                                      const float* __restrict__ l0t, const Dims& d, const Layout& L,
                                      float* smem, float t, const float* __restrict__ x,
@@ -588,18 +463,15 @@ __device__ void wide_forward_jet_ext(const float* __restrict__ w, const float* _
                                      const float* __restrict__ mask, int N,
                                      float* __restrict__ out, float* __restrict__ hid,
                                      const Rec& rec) {
-  static_assert(TC || (!FOLD && !WIDE_HEAD), "only the tensor-core instances take these");
-  using P = Plan<TC>;
-  constexpr int LDA = P::LDA;
-  constexpr int MATVEC_UNROLL = TC ? 8 : 4;
-  using Acc = typename std::conditional<TC, WgAcc, FmaAcc>::type;
+  constexpr int LDA = LDA_TC;
+  constexpr int MATVEC_UNROLL = 8;
   const int tid = threadIdx.x;
   const int npad = (N + 15) & ~15;
   float* S0 = smem;
   float* S1 = smem + ROWS * LDA;
-  float* S2 = smem + 2 * ROWS * LDA;  // with TC the weight ring
-  float* tiles = smem + P::TILE;
-  float* vec = smem + P::VEC;
+  float* S2 = smem + 2 * ROWS * LDA;  // the weight ring
+  float* tiles = smem + S_TILE_TC;
+  float* vec = smem + S_VEC_TC;
   float* m = vec + V_MASK;
   float* xs = vec + V_X;
   int* ks = reinterpret_cast<int*>(vec + V_K);
@@ -612,10 +484,10 @@ __device__ void wide_forward_jet_ext(const float* __restrict__ w, const float* _
   float* gskip = vec + V_GSKIP;
   float* cl1 = vec + V_CL1;
   float* ct = vec + V_CT;
-  float* red = vec + P::RED;
-  // with TC, the skip copy h0 of the thread's elements (WgAcc's places)
-  float h0[TC ? 64 : 1];
-  if constexpr (TC) ring_prefetch(d.num_blocks > 0 ? tcw : nullptr, S2);  // fc_local1's first stages
+  float* red = vec + V_RED_TC;
+  // the skip copy h0 of the thread's elements (WgAcc's places)
+  float h0[64];
+  ring_prefetch(d.num_blocks > 0 ? tcw : nullptr, S2);  // fc_local1's first stages
 
   // ---- inputs and the sinusoidal time embedding [cos | sin]
   // (architectures/utils.py:15-34)
@@ -631,49 +503,24 @@ __device__ void wide_forward_jet_ext(const float* __restrict__ w, const float* _
     const float arg = t * freq;
     temb[tid] = tid < half ? cosf(arg) : sinf(arg);
   }
-  if constexpr (TC)
-    for (int e = tid; e < L0_END / 4; e += THREADS)
-      reinterpret_cast<float4*>(tiles)[e] = __ldg(reinterpret_cast<const float4*>(l0t) + e);
+  for (int e = tid; e < L0_END / 4; e += THREADS)
+    reinterpret_cast<float4*>(tiles)[e] = __ldg(reinterpret_cast<const float4*>(l0t) + e);
   __syncthreads();
   float denom = 0.f;
   for (int r = 0; r < ROWS; ++r) denom += m[r];
   denom = fmaxf(denom, 1.f);
 
-  // ---- input embeddings: S1 = x_emb, S2 = k_emb (utils.py:112-172); with
-  // TC they enter local_0 through its tables instead
-  if constexpr (!TC) {
-    const int e4 = (tid & 31) * 4;
-    const float4 bx = *reinterpret_cast<const float4*>(w + L.b_x + e4);
-    float4 wx[DC];
-#pragma unroll
-    for (int c = 0; c < DC; ++c) wx[c] = *reinterpret_cast<const float4*>(w + L.w_x + c * WD + e4);
-    for (int r = tid >> 5; r < ROWS; r += 8) {
-      float4 xe = bx;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const float xc = xs[r * DC + c];
-        xe.x = fmaf(xc, wx[c].x, xe.x);
-        xe.y = fmaf(xc, wx[c].y, xe.y);
-        xe.z = fmaf(xc, wx[c].z, xe.z);
-        xe.w = fmaf(xc, wx[c].w, xe.w);
-      }
-      *reinterpret_cast<float4*>(S1 + r * LDA + e4) = xe;
-      const int kr = ks[r];
-      float4 ke = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (kr >= 0 && kr < V) ke = *reinterpret_cast<const float4*>(w + L.table + kr * WD + e4);
-      *reinterpret_cast<float4*>(S2 + r * LDA + e4) = ke;
-    }
-  }
   // the time third of local_0 is the same for every particle of the jet
   jet_matvec<MATVEC_UNROLL>(temb, w + L.w_l0, WD, red, [&](int j, float s) { ct[j] = s; });
 
   // ---- projection (epic.py:164-191): local_0 sees the masked features,
   // W·(f·m) + b = (W·f)·m + b
-  Acc acc;
+  WgAcc acc;
   acc.zero();
-  if constexpr (TC) {
-    // the particle two thirds from the tables: x·T_x + (values·T_k or a
-    // token's row of T_k) + the constant row
+  {
+    // the particle two thirds from the tables (the embeddings are Dense
+    // layers, utils.py:112-172): x·T_x + (values·T_k or a token's row of
+    // T_k) + the constant row
     const int r0 = 64 * (tid >> 7) + 16 * ((tid >> 5) & 3) + ((tid >> 2) & 7);
     float kin[2][V];
 #pragma unroll
@@ -696,17 +543,10 @@ __device__ void wide_forward_jet_ext(const float* __restrict__ w, const float* _
 #pragma unroll
       for (int v = 0; v < V; ++v) e = fmaf(kin[h][v], tiles[L0_K + v * WD + c], e);
       const float z = (e + ct[c]) * m[r] + w[L.b_l0 + c];
+      rec.z_l0(i, r, c, z);
       const float a = leaky(z);
       S0[r * LDA + c] = a;
       h0[i] = d.use_skip ? a * m[r] : 0.f;
-    });
-  } else {
-    gemm_acc(acc.v, S1, w + L.w_l0 + WD * WD, WD, tiles);
-    gemm_acc(acc.v, S2, w + L.w_l0 + 2 * WD * WD, WD, tiles);
-    acc.each([&](int, int r, int c, float a) {
-      const float z = (a + ct[c]) * m[r] + w[L.b_l0 + c];
-      rec.z_l0(r, c, z);
-      S0[r * LDA + c] = leaky(z);
     });
   }
   __syncthreads();
@@ -715,12 +555,11 @@ __device__ void wide_forward_jet_ext(const float* __restrict__ w, const float* _
     pv[WD + c] = s;
     pv[2 * WD + c] = temb[c];
   });
-  // h = h_act·mask, and the skip copy
+  // h = h_act·mask (the skip copy is in registers)
   for (int idx = tid; idx < MAT; idx += THREADS) {
     const int at = (idx >> 7) * LDA + (idx & (WD - 1));
     const float v = S0[at] * m[idx >> 7];
     S0[at] = v;
-    if (!TC && d.use_skip) S2[at] = v;
   }
   for (int i = tid; i < 3 * WD; i += THREADS) rec.proj(R_P0 + i, pv[i]);
   jet_matvec<MATVEC_UNROLL>(pv, w + L.w_g0, 3 * WD, red, [&](int j, float s) {
@@ -743,8 +582,8 @@ __device__ void wide_forward_jet_ext(const float* __restrict__ w, const float* _
   // ---- EPiC layers (epic.py:193-241)
   for (int blk = 0; blk < d.num_blocks; ++blk) {
     const float* wb = w + L.blocks + (size_t)blk * L.block_stride;
-    const float* tb = TC ? tcw + (size_t)blk * TC_LAYER : nullptr;
-    rec.h_in(blk, S0);
+    const float* tb = tcw + (size_t)blk * TC_LAYER;
+    rec.h_in(blk, S0, LDA);
     column_sums<LDA>(S0, red, [&](int r, float v) { return v * m[r]; }, [&](int c, float s) {
       pv[c] = s / denom;
       pv[WD + c] = s;
@@ -769,11 +608,7 @@ __device__ void wide_forward_jet_ext(const float* __restrict__ w, const float* _
     });
 
     acc.zero();
-    if constexpr (TC) {
-      gemm_wg(acc, S0, tb, S2, tb + TC_FL2, npad);
-    } else {
-      gemm_acc(acc.v, S0, wb + L.fl1, WD, tiles);
-    }
+    gemm_wg(acc, S0, tb, S2, tb + TC_FL2, npad);
     acc.each([&](int, int r, int c, float a) {
       const float z = a + cl1[c];
       rec.z_fl1(blk, r, c, z);
@@ -781,21 +616,11 @@ __device__ void wide_forward_jet_ext(const float* __restrict__ w, const float* _
     });
     __syncthreads();
     acc.zero();
-    if constexpr (TC) {
-      gemm_wg(acc, S1, tb + TC_FL2, S2, blk + 1 < d.num_blocks ? tb + TC_LAYER : nullptr, npad);
-    } else {
-      gemm_acc(acc.v, S1, wb + L.fl2, WD, tiles);
-    }
+    gemm_wg(acc, S1, tb + TC_FL2, S2, blk + 1 < d.num_blocks ? tb + TC_LAYER : nullptr, npad);
     acc.each([&](int i, int r, int c, float a) {
       const float z = a + wb[L.bfl2 + c] + S0[r * LDA + c];
-      rec.z_fl2(blk, r, c, z);
-      float skip;
-      if constexpr (TC) {
-        skip = h0[i];
-      } else {
-        skip = d.use_skip ? S2[r * LDA + c] : 0.f;
-      }
-      S0[r * LDA + c] = leaky(z) * m[r] + skip;
+      rec.z_fl2(blk, i, r, c, z);
+      S0[r * LDA + c] = leaky(z) * m[r] + h0[i];
     });
     __syncthreads();
   }
@@ -843,19 +668,6 @@ __device__ void wide_forward_jet_ext(const float* __restrict__ w, const float* _
     if (lane < NOUT) out[r * NOUT + lane] = val;
   }
   __syncthreads();
-}
-
-// The MBM encoder (tokens, a V-wide head, no hidden output), as the backward
-// kernel's recording forward runs it.
-template <class Rec>
-__device__ __forceinline__ void wide_forward_jet(const float* __restrict__ w, const Dims& d,
-                                                 const Layout& L, float* smem, float t,
-                                                 const float* __restrict__ x,
-                                                 const int* __restrict__ k,
-                                                 const float* __restrict__ mask, int N,
-                                                 float* __restrict__ out, const Rec& rec) {
-  wide_forward_jet_ext<Rec, false, false>(w, nullptr, nullptr, d, L, smem, t, x, k, nullptr, mask,
-                                          N, out, nullptr, rec);
 }
 
 }  // namespace mmpw

@@ -9,25 +9,35 @@
 //
 // Design.
 //   * A block walks over jets (jet = blockIdx.x, += gridDim.x). For each jet
-//     it reruns the shared forward (epic_wide.cuh) with a recorder that
-//     writes what the walk back needs to this block's slice of a global
-//     scratch: per particle z_l0 and, per EPiC block, h_in, z_fl1, z_fl2
-//     (19 tiles of 64 KB at 6 blocks: no shared memory holds them); per jet
-//     the pooled inputs and pre-activations of the global MLP. It reads no
-//     residual of the forward launch.
-//   * The walk back keeps the cotangent of h as a tile in shared memory.
-//     dz·Wᵀ products stream W transposed through the weight buffer; weight
-//     gradients aᵀ·dz contract the row axis of two tiles, each thread owning
-//     an 8 × 8 piece. Gradients of what is the same for every particle of a
-//     jet (the global MLP, the broadcast thirds of fc_local1 and local_0)
-//     are rank-1 in a jet's vectors, and they are three quarters of the
-//     packed buffer: a jet only logs the vector pairs (a, dz), 36 KB, and
-//     when the block has walked all its jets it contracts the pairs over
-//     them, so those rows of the gradient are written once a block and not
-//     once a jet. local_0's input side needs no 128-row product: with
-//     R = [x·m ‖ m ‖ onehot(k)·m] (128, 12) and Q = Rᵀ·dz_l0 (12, 128), every
-//     gradient of w_x, b_x, the table and w_l0 is a product of Q with a
-//     weight.
+//     it reruns the forward as K4 runs it (epic_wide.cuh's tensor-core
+//     forward, wgmma under the 3×TF32 split, so that the rerun rounds as the
+//     train forward did) with a recorder that writes what the walk back needs
+//     to this block's slice of a global scratch: per EPiC block h_in and
+//     z_fl1 (12 tiles of 64 KB at 6 blocks: no shared memory holds them),
+//     the signs of z_l0 and of each block's z_fl2 (a warp's ballot a word);
+//     per jet the pooled inputs and pre-activations of the global MLP. It
+//     reads no residual of the forward launch.
+//   * The walk back keeps the cotangent of h as a tile in shared memory, in
+//     the forward's plan (rows of LDA_TC floats; the third tile is the weight
+//     ring of the products or the operand a of a weight gradient).
+//     dz·Wᵀ runs as the forward's products do (gemm_wg: wgmma, dz split in
+//     registers, Wᵀ from stages the wrapper lays out once a call,
+//     ops/epic_wide_vjp_cuda.py::tensor_core_transposed_stages). aᵀ·dz contracts the
+//     particle axis, which wgmma cannot take as K for TF32 operands in shared
+//     memory (both would have to be K-major, and a and dz are stored
+//     particle-major): it runs on mma.sync.m16n8k8 with both fragments
+//     loaded by hand from the two tiles and split by truncation, a warp a
+//     32 × 64 piece of the (128, 128) gradient, which it adds into the
+//     block's gradient row (always the same thread, so no atomics).
+//   * Gradients of what is the same for every particle of a jet (the global
+//     MLP, the broadcast thirds of fc_local1 and local_0) are rank-1 in a
+//     jet's vectors, and they are three quarters of the packed buffer: a jet
+//     only logs the vector pairs (a, dz), 36 KB, and when the block has
+//     walked all its jets it contracts the pairs over them, so those rows of
+//     the gradient are written once a block and not once a jet. local_0's
+//     input side needs no 128-row product: with R = [x·m ‖ m ‖ onehot(k)·m]
+//     (128, 12) and Q = Rᵀ·dz_l0 (12, 128), every gradient of w_x, b_x, the
+//     table and w_l0 is a product of Q with a weight.
 //   * Masking follows `_bwd_kernel`: the heads' cotangents are masked, pooled
 //     cotangents come back times the mask, the mean's denominator is
 //     max(Σmask, 1). leaky'(0) = 1 and selu'(0) = scale, as `_dleaky`/`_dselu`.
@@ -36,12 +46,22 @@
 //     kernel sums the rows in a fixed order. The result does not depend on
 //     the schedule. grid = one block per SM, at most B.
 //
-// What bounds it. About three times the forward's arithmetic (the rerun, two
-// dz·Wᵀ and two aᵀ·dz products per EPiC block). Beside that, per jet: the
-// per-particle quarter of the block's gradient row (1 MB at 6 blocks) is
-// read and written once, the records (1.3 MB) written and read back, and
-// the packed weights streamed twice from L2. The scratch is grid × (row +
-// records + the block's jets × pairs), 1.0 GB for 8192 jets on 132 SMs.
+// What bounds it. The products: the rerun's 12 and the walk back's 24
+// (128, 128, 128) products at 6 blocks, three TF32 products each under the
+// split (their own tensor bound 7.5 ms at B = 8192 on an H100); then each
+// jet's chain of dependent steps with one block an SM and nothing to hide its
+// latency: the per-jet vector-matrix products (the global MLP and the
+// broadcast thirds, forward and back, their weights streamed from L2 for
+// every jet), the bytes a jet moves (the records: h_in and z_fl1 of each
+// block, 0.8 MB written and read back, of z_l0 and z_fl2 only the signs,
+// which is all leaky' needs; the per-particle quarter of the block's
+// gradient row, 768 KB read and written once a jet), the elementwise passes
+// and column sums. scripts/k5_variants.py splits it (PERF.md §5): at B = 8192
+// ≈ 24% products, ≈ 21% per-jet vector-matrix products, ≈ 10% gradient row,
+// ≈ 8% records. aᵀ·dz on wgmma (aᵀ from registers, dz transposed into
+// K-major stages by the block) timed ≈ 4% slower than on mma.sync. The
+// scratch is grid × (row + records + the block's jets × pairs), 0.95 GB for
+// 8192 jets on 132 SMs.
 //
 // C interface (bound with ctypes by ops/epic_wide_vjp_cuda.py): each entry
 // point returns the cudaError_t of its calls, 0 on success.
@@ -59,103 +79,160 @@ __device__ __forceinline__ float dselu(float z) {
   return scale * (z >= 0.f ? 1.f : alpha * expf(z));
 }
 
-// Floats of one block's records: z_l0, (h_in, z_fl1, z_fl2) per EPiC block,
-// the skip cotangent's sum, then the per-jet vectors.
+// A tile's signs, a bit an element: what the walk back needs of z_l0 and of
+// each block's z_fl2 (their leaky's slope), a 32nd of the tile's bytes.
+constexpr int SIGN_WORDS = MAT / 32;
+
+// Floats of one block's records: (h_in, z_fl1) per EPiC block, the skip
+// cotangent's sum, the signs of z_l0 and of each block's z_fl2, then the
+// per-jet vectors.
 __host__ __device__ inline long long record_floats(int num_blocks) {
-  return (long long)(2 + 3 * num_blocks) * MAT + R_PROJ + (long long)num_blocks * R_GLOB;
+  return (long long)(1 + 2 * num_blocks) * MAT + (long long)(1 + num_blocks) * SIGN_WORDS +
+         R_PROJ + (long long)num_blocks * R_GLOB;
 }
 
 struct GlobalRecord {
   static constexpr bool HEADS = false;
   float* mats;
+  unsigned* signs;
   float* projv;
   float* globv;
 
   __device__ __forceinline__ float* mat(int i) const { return mats + (size_t)i * MAT; }
-  __device__ __forceinline__ float* z_l0_mat() const { return mat(0); }
-  __device__ __forceinline__ float* h_in_mat(int b) const { return mat(1 + 3 * b); }
-  __device__ __forceinline__ float* z_fl1_mat(int b) const { return mat(2 + 3 * b); }
-  __device__ __forceinline__ float* z_fl2_mat(int b) const { return mat(3 + 3 * b); }
-  __device__ __forceinline__ float* dsl_mat(int nb) const { return mat(1 + 3 * nb); }
+  __device__ __forceinline__ float* h_in_mat(int b) const { return mat(2 * b); }
+  __device__ __forceinline__ float* z_fl1_mat(int b) const { return mat(2 * b + 1); }
+  __device__ __forceinline__ float* dsl_mat(int nb) const { return mat(2 * nb); }
+  __device__ __forceinline__ unsigned* z_l0_signs() const { return signs; }
+  __device__ __forceinline__ unsigned* z_fl2_signs(int b) const {
+    return signs + (size_t)(1 + b) * SIGN_WORDS;
+  }
 
-  __device__ __forceinline__ void z_l0(int r, int c, float v) const { mat(0)[r * WD + c] = v; }
+  // z ≥ 0 of element i (WgAcc's index) over the warp's 32 threads: word
+  // 64·warp + i of the tile's signs, bit lane. Every thread calls it.
+  __device__ __forceinline__ static void put_sign(unsigned* words, int i, float z) {
+    const unsigned bits = __ballot_sync(0xffffffffu, z >= 0.f);
+    if ((threadIdx.x & 31) == 0) words[64 * (threadIdx.x >> 5) + i] = bits;
+  }
+  __device__ __forceinline__ void z_l0(int i, int, int, float z) const {
+    put_sign(z_l0_signs(), i, z);
+  }
   __device__ __forceinline__ void z_fl1(int b, int r, int c, float v) const {
     z_fl1_mat(b)[r * WD + c] = v;
   }
-  __device__ __forceinline__ void z_fl2(int b, int r, int c, float v) const {
-    z_fl2_mat(b)[r * WD + c] = v;
+  __device__ __forceinline__ void z_fl2(int b, int i, int, int, float z) const {
+    put_sign(z_fl2_signs(b), i, z);
   }
-  __device__ __forceinline__ void h_in(int b, const float* S) const {
+  // the tile S (rows of ld floats) into rows of 128
+  __device__ __forceinline__ void h_in(int b, const float* S, int ld) const {
     float4* dst = reinterpret_cast<float4*>(h_in_mat(b));
-    const float4* src = reinterpret_cast<const float4*>(S);
-    for (int i = threadIdx.x; i < MAT / 4; i += THREADS) dst[i] = src[i];
+    for (int i = threadIdx.x; i < MAT / 4; i += THREADS)
+      dst[i] = *reinterpret_cast<const float4*>(S + (i >> 5) * ld + 4 * (i & 31));
   }
   __device__ __forceinline__ void proj(int i, float v) const { projv[i] = v; }
   __device__ __forceinline__ void glob(int b, int i, float v) const { globv[b * R_GLOB + i] = v; }
 };
 
-// acc += A · Wᵀ for A (128, 128) in shared memory and W (128, 128) row-major
-// in global memory: the tile of Wᵀ is transposed on its way into the buffer.
-// Every thread calls it; it ends with a barrier.
-__device__ __forceinline__ void gemm_acc_t(float (&acc)[8][8], const float* A,
-                                           const float* __restrict__ Wg, float* tiles) {
-  const int j = threadIdx.x & (WD - 1), q = threadIdx.x >> 7;
-  const float4* src = reinterpret_cast<const float4*>(Wg + (size_t)j * WD + q * 8);
-  float4 n0 = __ldg(src), n1 = __ldg(src + 1);
-  for (int kt = 0; kt < WD / KT; ++kt) {
-    float* tile = tiles + (kt & 1) * KT * WD + q * 8 * WD + j;
-    tile[0 * WD] = n0.x; tile[1 * WD] = n0.y; tile[2 * WD] = n0.z; tile[3 * WD] = n0.w;
-    tile[4 * WD] = n1.x; tile[5 * WD] = n1.y; tile[6 * WD] = n1.z; tile[7 * WD] = n1.w;
-    if (kt + 1 < WD / KT) {
-      n0 = __ldg(src + (kt + 1) * (KT / 4));
-      n1 = __ldg(src + (kt + 1) * (KT / 4) + 1);
+// The backward's shared memory: the tensor-core forward's plan (three tiles
+// of rows of LDA_TC floats, the staging area, the forward's vectors), the
+// walk back's vectors in what the forward leaves dead (g, gskip, cl1, ct,
+// its reduction buffer) and after it.
+constexpr int B_DG = V_G, B_DSG = V_GSKIP, B_DZA = V_CL1, B_DZB = V_CT, B_DZC = V_RED_TC,
+              B_DP = B_DZC + WD, B_DSUM = B_DP + 4 * WD, B_SDZ = B_DSUM + WD, B_RED = B_SDZ + WD,
+              B_END = B_RED + 2 * WD;
+constexpr size_t SMEM_BYTES_BWD = sizeof(float) * (size_t)(S_VEC_TC + B_END);
+static_assert(SMEM_BYTES_BWD <= 232448, "over a block's 227 KB of shared memory");
+static_assert(B_END >= V_END_TC, "the walk back's vectors end past the forward's");
+
+// Float4 i of a (128, 128) tile, counted row by row, in a tile with rows of
+// LDA_TC floats.
+__device__ __forceinline__ int at4(int i) { return (i >> 5) * (LDA_TC / 4) + (i & 31); }
+
+// gm (128, 128, rows of 128 floats) += aᵀ·dz over the tiles' rows below
+// 8·ksteps: A (a) and D (dz) in shared memory with rows of LDA_TC floats. On
+// the tensor cores at fp32 accuracy: mma.sync.m16n8k8 with the particle axis
+// as K, both fragments loaded by hand and split by truncation, three TF32
+// products. Warp w takes the a-columns 32·(w >> 1) … + 31 and the dz-columns
+// 64·(w & 1) … + 63, and adds its piece into gm (the same thread always owns
+// the same elements). Every thread calls it; no barrier.
+__device__ __forceinline__ void outer_mma(float* gm, const float* A, const float* D, int ksteps) {
+  using namespace tf32x3;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int i0 = 32 * (warp >> 1), o0 = 64 * (warp & 1);
+  float acc[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+  for (int ks = 0; ks < ksteps; ++ks) {
+    // mma's A (16 a-columns × 8 rows): a0 = a[t][g], a1 = a[t][g + 8],
+    // a2 = a[t + 4][g], a3 = a[t + 4][g + 8]; B (8 rows × 8 dz-columns):
+    // b0 = dz[t][g], b1 = dz[t + 4][g]
+    const float* ar = A + (8 * ks + t) * LDA_TC + i0 + g;
+    const float* dr = D + (8 * ks + t) * LDA_TC + o0 + g;
+    Frag<4> a[2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      split_fast(ar[16 * mi], a[mi].hi[0], a[mi].lo[0]);
+      split_fast(ar[16 * mi + 8], a[mi].hi[1], a[mi].lo[1]);
+      split_fast(ar[4 * LDA_TC + 16 * mi], a[mi].hi[2], a[mi].lo[2]);
+      split_fast(ar[4 * LDA_TC + 16 * mi + 8], a[mi].hi[3], a[mi].lo[3]);
     }
-    // one barrier a tile: the buffer written two tiles on is the one every
-    // thread has left by then
-    __syncthreads();
-    tile_fma(acc, A, kt * KT, tiles + (kt & 1) * KT * WD);
-  }
-  __syncthreads();
-}
-
-// acc[ii][j] += Σ_rows fa(A[r, 8·ty + ii]) · D[r, col(j)]: the thread's piece
-// of aᵀ·dz for two tiles in shared memory.
-template <class FA>
-__device__ __forceinline__ void outer_acc(float (&acc)[8][8], const float* A, FA fa,
-                                          const float* D) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 2
-  for (int r = 0; r < ROWS; ++r) {
-    const float4 a0 = *reinterpret_cast<const float4*>(A + r * WD + ty * 8);
-    const float4 a1 = *reinterpret_cast<const float4*>(A + r * WD + ty * 8 + 4);
-    const float4 lo = *reinterpret_cast<const float4*>(D + r * WD + tx * 4);
-    const float4 hi = *reinterpret_cast<const float4*>(D + r * WD + 64 + tx * 4);
-    const float a[8] = {fa(a0.x), fa(a0.y), fa(a0.z), fa(a0.w),
-                        fa(a1.x), fa(a1.y), fa(a1.z), fa(a1.w)};
-    const float dz[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int j = 0; j < 8; ++j) {
+      Frag<2> b;
+      split_fast(dr[8 * j], b.hi[0], b.lo[0]);
+      split_fast(dr[4 * LDA_TC + 8 * j], b.hi[1], b.lo[1]);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], dz[j], acc[i][j]);
-  }
-}
-
-// gm (128, 128) += the thread's piece from outer_acc.
-__device__ __forceinline__ void add_outer(float* gm, const float (&acc)[8][8]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float4* p = reinterpret_cast<float4*>(gm + (ty * 8 + i) * WD + hh * 64 + tx * 4);
-      float4 v = *p;
-      v.x += acc[i][4 * hh + 0];
-      v.y += acc[i][4 * hh + 1];
-      v.z += acc[i][4 * hh + 2];
-      v.w += acc[i][4 * hh + 3];
-      *p = v;
+      for (int mi = 0; mi < 2; ++mi) mma3(acc[mi][j], a[mi], b);
     }
   }
+  // c0, c1: a-column g, dz-columns 2t, 2t + 1; c2, c3: a-column g + 8. Every
+  // load before any store, so that the 32 loads are in flight together
+  float2* p[2][8][2];
+  float2 v[2][8][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        p[mi][j][h] = reinterpret_cast<float2*>(gm + (i0 + 16 * mi + g + 8 * h) * WD + o0 + 8 * j + 2 * t);
+        v[mi][j][h] = *p[mi][j][h];
+      }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        v[mi][j][h].x += acc[mi][j][2 * h];
+        v[mi][j][h].y += acc[mi][j][2 * h + 1];
+        *p[mi][j][h] = v[mi][j][h];
+      }
+}
+
+// leaky'(z) of element (r, c) from its tile's signs (GlobalRecord::put_sign:
+// WgAcc's places), in shared memory.
+__device__ __forceinline__ float dleaky_at(const unsigned* signs, int r, int c) {
+  const int warp = 4 * (r >> 6) + ((r >> 4) & 3), i = 4 * (c >> 3) + 2 * ((r >> 3) & 1) + (c & 1);
+  return (signs[64 * warp + i] >> (4 * (r & 7) + ((c >> 1) & 3))) & 1u ? 1.f : 0.01f;
+}
+
+// cp.async of a tile's signs into shared memory, committed as one group; the
+// caller waits.
+__device__ __forceinline__ void signs_to_smem_async(unsigned* dst, const unsigned* __restrict__ src) {
+  for (int i = threadIdx.x; i < SIGN_WORDS / 4; i += THREADS) tf32x3::cp_async16(dst + 4 * i, src + 4 * i);
+  tf32x3::cp_async_commit();
+}
+
+// cp.async of a record's (128, 128) tile (rows of 128 floats) into a shared
+// tile with rows of LDA_TC floats, committed as one group; the caller waits.
+__device__ __forceinline__ void tile_to_smem_async(float* dst, const float* __restrict__ src) {
+  for (int i = threadIdx.x; i < MAT / 4; i += THREADS)
+    tf32x3::cp_async16(dst + 4 * at4(i), src + 4 * i);
+  tf32x3::cp_async_commit();
 }
 
 // Rank-1 weight gradients a ⊗ dz of one jet, logged and not applied: `put`
@@ -206,6 +283,7 @@ __device__ __forceinline__ void contract_pairs(const float* pairs, int n_jets, i
       float4 acc[4];
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
       for (int j = 0; j < n_jets; ++j) {
         const float* rec = base + (size_t)j * stride;
         const float4 dz = __ldg(reinterpret_cast<const float4*>(rec + n_a + o4));
@@ -235,38 +313,64 @@ __device__ __forceinline__ void vec_add(float* gb, const float* dz) {
 }
 
 // out[j] = Σ_o v[o]·W[j, o] for j < n_out, W rows of 128 in global memory:
-// one warp a row; lane 0 calls post(j, out[j]). Ends with a barrier.
+// one warp a row, MATVEC_T_ROWS rows a warp at once (their loads in flight
+// together: one block an SM hides no L2 latency); lane u of the warp calls
+// post(j, out[j]) for its u-th row. Ends with a barrier.
+constexpr int MATVEC_T_ROWS = 8;
 template <class Post>
 __device__ __forceinline__ void jet_matvec_t(const float* v, const float* __restrict__ Wg,
                                              int n_out, Post post) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int WARPS = THREADS / 32;
   const float4 vv = *reinterpret_cast<const float4*>(v + lane * 4);
-  for (int j = warp; j < n_out; j += THREADS / 32) {
-    const float4 w = __ldg(reinterpret_cast<const float4*>(Wg + (size_t)j * WD) + lane);
-    float s = vv.x * w.x;
-    s = fmaf(vv.y, w.y, s);
-    s = fmaf(vv.z, w.z, s);
-    s = fmaf(vv.w, w.w, s);
+  for (int j0 = warp; j0 < n_out; j0 += WARPS * MATVEC_T_ROWS) {
+    float4 w[MATVEC_T_ROWS];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) post(j, s);
+    for (int u = 0; u < MATVEC_T_ROWS; ++u) {
+      const int j = j0 + WARPS * u;
+      w[u] = j < n_out ? __ldg(reinterpret_cast<const float4*>(Wg + (size_t)j * WD) + lane)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    float s[MATVEC_T_ROWS];
+#pragma unroll
+    for (int u = 0; u < MATVEC_T_ROWS; ++u) {
+      s[u] = vv.x * w[u].x;
+      s[u] = fmaf(vv.y, w[u].y, s[u]);
+      s[u] = fmaf(vv.z, w[u].z, s[u]);
+      s[u] = fmaf(vv.w, w[u].w, s[u]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int u = 0; u < MATVEC_T_ROWS; ++u) s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
+    // lane u posts row u: the posts that read or add to global memory run
+    // side by side
+    float mine = s[0];
+#pragma unroll
+    for (int u = 1; u < MATVEC_T_ROWS; ++u)
+      if (lane == u) mine = s[u];
+    if (lane < MATVEC_T_ROWS && j0 + WARPS * lane < n_out) post(j0 + WARPS * lane, mine);
   }
   __syncthreads();
 }
 
 // The backward of one jet after the recording forward (S0 holds h_final);
-// accumulates into this block's gradient row `grad`. Every thread calls it.
-__device__ void wide_backward_jet(const float* __restrict__ w, const Dims& d, const Layout& L,
-                                  float* smem, const GlobalRecord& rec,
-                                  const float* __restrict__ gout, int N, float* grad,
-                                  PairLog& pairs) {
+// accumulates into this block's gradient row `grad`. tcw_t: per EPiC block
+// the stages of W_fl2ᵀ, then of W_fl1[0:128]ᵀ (TC_LAYER floats a block).
+// Every thread calls it.
+__device__ void wide_backward_jet(const float* __restrict__ w, const float* __restrict__ tcw_t,
+                                  const Dims& d, const Layout& L, float* smem,
+                                  const GlobalRecord& rec, const float* __restrict__ gout, int N,
+                                  float* grad, PairLog& pairs) {
+  constexpr int LD = LDA_TC;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nb = d.num_blocks;
+  const int npad = (N + 15) & ~15, ksteps = (N + 7) / 8;
   float* S0 = smem;
-  float* S1 = smem + MAT;
-  float* S2 = smem + 2 * MAT;
-  float* tiles = smem + S_TILE;
-  float* vec = smem + S_VEC;
+  float* S1 = smem + ROWS * LD;
+  float* S2 = smem + 2 * ROWS * LD;  // the products' weight ring, or a weight gradient's a
+  float* tiles = smem + S_TILE_TC;
+  float* vec = smem + S_VEC_TC;
   const float* m = vec + V_MASK;
   const float* xs = vec + V_X;
   const int* ks = reinterpret_cast<const int*>(vec + V_K);
@@ -275,15 +379,15 @@ __device__ void wide_backward_jet(const float* __restrict__ w, const Dims& d, co
   float* pv = vec + V_P;
   float* va = vec + V_VA;
   float* vb = vec + V_VB;
-  float* dg = vec + V_DG;
-  float* dsg = vec + V_DSG;
-  float* dza = vec + V_DZA;
-  float* dzb = vec + V_DZB;
-  float* dzc = vec + V_DZC;
-  float* dp = vec + V_DP;
-  float* dsum = vec + V_DSUM;
-  float* sdz = vec + V_SDZ;
-  float* red = vec + V_RED;
+  float* dg = vec + B_DG;
+  float* dsg = vec + B_DSG;
+  float* dza = vec + B_DZA;
+  float* dzb = vec + B_DZB;
+  float* dzc = vec + B_DZC;
+  float* dp = vec + B_DP;
+  float* dsum = vec + B_DSUM;
+  float* sdz = vec + B_SDZ;
+  float* red = vec + B_RED;
   float4* S0v = reinterpret_cast<float4*>(S0);
   float4* S1v = reinterpret_cast<float4*>(S1);
   float4* S2v = reinterpret_cast<float4*>(S2);
@@ -308,7 +412,7 @@ __device__ void wide_backward_jet(const float* __restrict__ w, const Dims& d, co
     const int u0 = lane >> 3, u1 = u0 + 4, v0 = lane & 7;
     for (int r = warp; r < ROWS; r += THREADS / 32) {
       float p[NOUT], gc[DC], gd[V], dd[V];
-      row_outputs(S0 + r * WD, tiles, m[r], p);
+      row_outputs(S0 + r * LD, tiles, m[r], p);
       const bool real = r < N;
 #pragma unroll
       for (int c = 0; c < DC; ++c) gc[c] = real ? gout[r * NOUT + c] : 0.f;
@@ -384,17 +488,24 @@ __device__ void wide_backward_jet(const float* __restrict__ w, const Dims& d, co
     const int i = tid & (WD - 1), o_lo = tid < WD ? 0 : 6, o_hi = tid < WD ? 6 : NOUT;
     float s[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     for (int r = 0; r < ROWS; ++r) {
-      const float hv = S0[r * WD + i];
+      const float hv = S0[r * LD + i];
 #pragma unroll
       for (int o = 0; o < 6; ++o)
         if (o_lo + o < o_hi) s[o] = fmaf(hv, DZ[r * 12 + o_lo + o], s[o]);
     }
+    // every load of the row's six before any store
+    float* dst[6];
+    float old[6];
 #pragma unroll
     for (int o = 0; o < 6; ++o) {
       const int oo = o_lo + o;
-      if (oo < DC) grad[L.out_c + i * DC + oo] += s[o];
-      else if (oo < o_hi) grad[L.out_d + i * V + (oo - DC)] += s[o];
+      dst[o] = oo < DC ? grad + L.out_c + i * DC + oo
+                       : oo < o_hi ? grad + L.out_d + i * V + (oo - DC) : nullptr;
+      old[o] = dst[o] != nullptr ? *dst[o] : 0.f;
     }
+#pragma unroll
+    for (int o = 0; o < 6; ++o)
+      if (dst[o] != nullptr) *dst[o] = old[o] + s[o];
     if (tid < NOUT) {
       float b = 0.f;
       for (int r = 0; r < ROWS; ++r) b += DZ[r * 12 + tid];
@@ -409,90 +520,90 @@ __device__ void wide_backward_jet(const float* __restrict__ w, const Dims& d, co
     float s = 0.f;
 #pragma unroll
     for (int o = 0; o < NOUT; ++o) s = fmaf(DZ[r * 12 + o], tiles[T_HW + o * WD + c], s);
-    S0[idx] = s;
+    S0[r * LD + c] = s;
   }
   float4* dsl = reinterpret_cast<float4*>(rec.dsl_mat(nb));
   if (d.use_skip)
     for (int i = tid; i < MAT / 4; i += THREADS) dsl[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
 
-  float acc[8][8];
+  WgAcc acc;
 
   // ---- EPiC layers, reversed (epic_pallas_wide_vjp.py:145-187)
   for (int blk = nb - 1; blk >= 0; --blk) {
     const float* wb = w + L.blocks + (size_t)blk * L.block_stride;
+    const float* tb = tcw_t + (size_t)blk * TC_LAYER;
     const int boff = L.blocks + blk * L.block_stride;
     float* gb = grad + boff;
     const float* gv = rec.globv + blk * R_GLOB;
-    // h_out = leaky(z_fl2)·m + skip: S0 ← dz_fl2, S1 ← z_fl1, and the
-    // per-jet vectors p, g1, g_new
-    {
-      const float4* z2 = reinterpret_cast<const float4*>(rec.z_fl2_mat(blk));
-      const float4* z1 = reinterpret_cast<const float4*>(rec.z_fl1_mat(blk));
-      for (int i = tid; i < MAT / 4; i += THREADS) {
-        float4 v = S0v[i];
+    // h_out = leaky(z_fl2)·m + skip: S0 ← dz_fl2, S1 ← z_fl1, S2 ← l1 =
+    // leaky(z_fl1), the records (z_fl1, z_fl2's signs) fetched into S1 and the
+    // staging area by cp.async first; and the per-jet vectors p, g1, g_new.
+    // The skip's cotangent (global, L2) is read four float4 at a time, all
+    // before their stores.
+    const unsigned* sgn = reinterpret_cast<const unsigned*>(tiles);
+    tile_to_smem_async(S1, rec.z_fl1_mat(blk));
+    signs_to_smem_async(reinterpret_cast<unsigned*>(tiles), rec.z_fl2_signs(blk));
+    for (int i = tid; i < 4 * WD; i += THREADS) pv[i] = gv[R_P + i];
+    if (tid < WD) {
+      if (d.use_skip) dsg[tid] += dg[tid];
+      va[tid] = leaky(gv[R_ZFG1 + tid]);
+      gnew[tid] = leaky(gv[R_ZFG2 + tid]);
+    }
+    tf32x3::cp_async_wait<0>();
+    __syncthreads();
+    for (int i0 = tid; i0 < MAT / 4; i0 += 4 * THREADS) {
+      float4 sk[4];
+      if (d.use_skip)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) sk[u] = dsl[i0 + u * THREADS];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u * THREADS, at = at4(i);
+        float4 v = S0v[at];
         if (d.use_skip) {
-          float4 s = dsl[i];
-          s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
-          dsl[i] = s;
+          sk[u].x += v.x; sk[u].y += v.y; sk[u].z += v.z; sk[u].w += v.w;
         }
-        const float mr = m[i >> 5];
-        const float4 z = z2[i];
-        v.x *= mr * dleaky(z.x);
-        v.y *= mr * dleaky(z.y);
-        v.z *= mr * dleaky(z.z);
-        v.w *= mr * dleaky(z.w);
-        S0v[i] = v;
-        S1v[i] = z1[i];
+        const int r = i >> 5, c = 4 * (i & 31);
+        const float mr = m[r];
+        v.x *= mr * dleaky_at(sgn, r, c);
+        v.y *= mr * dleaky_at(sgn, r, c + 1);
+        v.z *= mr * dleaky_at(sgn, r, c + 2);
+        v.w *= mr * dleaky_at(sgn, r, c + 3);
+        S0v[at] = v;
+        const float4 y = S1v[at];
+        S2v[at] = make_float4(leaky(y.x), leaky(y.y), leaky(y.z), leaky(y.w));
       }
-      for (int i = tid; i < 4 * WD; i += THREADS) pv[i] = gv[R_P + i];
-      if (tid < WD) {
-        if (d.use_skip) dsg[tid] += dg[tid];
-        va[tid] = leaky(gv[R_ZFG1 + tid]);
-        gnew[tid] = leaky(gv[R_ZFG2 + tid]);
-      }
+      if (d.use_skip)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) dsl[i0 + u * THREADS] = sk[u];
     }
     __syncthreads();
     // fc_local2: dW = l1ᵀ·dz_fl2, db = Σ_rows dz_fl2
-    zero_acc(acc);
-    outer_acc(acc, S1, Leaky(), S0);
-    add_outer(gb + L.fl2, acc);
-    column_sums(S0, red, [](int, float v) { return v; },
-                [&](int c, float s) { gb[L.bfl2 + c] += s; });
+    outer_mma(gb + L.fl2, S2, S0, ksteps);
+    column_sums<LD>(S0, red, [](int, float v) { return v; },
+                    [&](int c, float s) { gb[L.bfl2 + c] += s; });
     // dz_fl1 = (dz_fl2·W_fl2ᵀ)·leaky'(z_fl1), in place of z_fl1
-    zero_acc(acc);
-    gemm_acc_t(acc, S0, wb + L.fl2, tiles);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int at = tile_row(i) * WD + tile_col(j);
-        S1[at] = acc[i][j] * dleaky(S1[at]);
-      }
-    }
-    {
-      const float4* hin = reinterpret_cast<const float4*>(rec.h_in_mat(blk));
-      for (int i = tid; i < MAT / 4; i += THREADS) S2v[i] = hin[i];
-    }
+    ring_prefetch(tb, S2);
+    acc.zero();
+    gemm_wg(acc, S0, tb, S2, nullptr, npad);
+    acc.each([&](int, int r, int c, float a) { S1[r * LD + c] = a * dleaky(S1[r * LD + c]); });
+    tile_to_smem_async(S2, rec.h_in_mat(blk));
+    tf32x3::cp_async_wait<0>();
     __syncthreads();
     // fc_local1: the per-particle third, then the broadcast [g_new ‖ temb]
     // thirds from the per-jet sum of dz_fl1
-    zero_acc(acc);
-    outer_acc(acc, S2, Identity(), S1);
-    add_outer(gb + L.fl1, acc);
-    column_sums(S1, red, [](int, float v) { return v; }, [&](int c, float s) {
+    outer_mma(gb + L.fl1, S2, S1, ksteps);
+    column_sums<LD>(S1, red, [](int, float v) { return v; }, [&](int c, float s) {
       sdz[c] = s;
       gb[L.bfl1 + c] += s;
     });
     pairs.put(boff + L.fl1 + WD * WD, gnew, 2 * WD, sdz);
     // dh_in = dz_fl2 (residual) + dz_fl1·W_fl1[0:128]ᵀ
-    zero_acc(acc);
-    gemm_acc_t(acc, S1, wb + L.fl1, tiles);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) S0[tile_row(i) * WD + tile_col(j)] += acc[i][j];
-    }
+    ring_prefetch(tb + TC_FL2, S2);
+    acc.zero();
+    gemm_wg(acc, S1, tb + TC_FL2, S2, nullptr, npad);
+    acc.each([&](int, int r, int c, float a) { S0[r * LD + c] += a; });
     // global MLP: dz_fg2 = (dg + W_fl1[128:256]·Σdz_fl1)·leaky'(z_fg2)
     jet_matvec_t(sdz, wb + L.fl1 + WD * WD, WD, [&](int j, float s) {
       dza[j] = (dg[j] + s) * dleaky(gv[R_ZFG2 + j]);
@@ -514,12 +625,12 @@ __device__ void wide_backward_jet(const float* __restrict__ w, const Dims& d, co
     for (int i = tid; i < MAT / 4; i += THREADS) {
       const float mr = m[i >> 5];
       const float4 ds = *reinterpret_cast<const float4*>(dsum + (i & 31) * 4);
-      float4 v = S0v[i];
+      float4 v = S0v[at4(i)];
       v.x = fmaf(ds.x, mr, v.x);
       v.y = fmaf(ds.y, mr, v.y);
       v.z = fmaf(ds.z, mr, v.z);
       v.w = fmaf(ds.w, mr, v.w);
-      S0v[i] = v;
+      S0v[at4(i)] = v;
     }
     __syncthreads();
   }
@@ -548,23 +659,31 @@ __device__ void wide_backward_jet(const float* __restrict__ w, const Dims& d, co
     if (tid < WD) dsum[tid] = dp[WD + tid] + dp[tid] / denom;
     __syncthreads();
   }
-  // h = leaky(z_l0)·m and s0 = pool(leaky(z_l0)·m): S0 ← dz_l0
-  {
-    const float4* zl0 = reinterpret_cast<const float4*>(rec.z_l0_mat());
-    for (int i = tid; i < MAT / 4; i += THREADS) {
-      const float mr = m[i >> 5];
+  // h = leaky(z_l0)·m and s0 = pool(leaky(z_l0)·m): S0 ← dz_l0, z_l0's
+  // signs fetched into the staging area by cp.async first
+  const unsigned* sgn = reinterpret_cast<const unsigned*>(tiles);
+  signs_to_smem_async(reinterpret_cast<unsigned*>(tiles), rec.z_l0_signs());
+  tf32x3::cp_async_wait<0>();
+  __syncthreads();
+  for (int i0 = tid; i0 < MAT / 4; i0 += 4 * THREADS) {
+    float4 sk[4];
+    if (d.use_skip)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) sk[u] = dsl[i0 + u * THREADS];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * THREADS, at = at4(i), r = i >> 5, c = 4 * (i & 31);
+      const float mr = m[r];
       const float4 ds = *reinterpret_cast<const float4*>(dsum + (i & 31) * 4);
-      const float4 z = zl0[i];
-      float4 v = S0v[i];
+      float4 v = S0v[at];
       if (d.use_skip) {
-        const float4 s = dsl[i];
-        v.x += s.x; v.y += s.y; v.z += s.z; v.w += s.w;
+        v.x += sk[u].x; v.y += sk[u].y; v.z += sk[u].z; v.w += sk[u].w;
       }
-      v.x = (v.x * mr + ds.x * mr) * dleaky(z.x);
-      v.y = (v.y * mr + ds.y * mr) * dleaky(z.y);
-      v.z = (v.z * mr + ds.z * mr) * dleaky(z.z);
-      v.w = (v.w * mr + ds.w * mr) * dleaky(z.w);
-      S0v[i] = v;
+      v.x = (v.x * mr + ds.x * mr) * dleaky_at(sgn, r, c);
+      v.y = (v.y * mr + ds.y * mr) * dleaky_at(sgn, r, c + 1);
+      v.z = (v.z * mr + ds.z * mr) * dleaky_at(sgn, r, c + 2);
+      v.w = (v.w * mr + ds.w * mr) * dleaky_at(sgn, r, c + 3);
+      S0v[at] = v;
     }
   }
   __syncthreads();
@@ -577,7 +696,7 @@ __device__ void wide_backward_jet(const float* __restrict__ w, const Dims& d, co
 #pragma unroll
     for (int e = 0; e < NQ; ++e) q[e] = 0.f;
     for (int r = half * 64; r < half * 64 + 64; ++r) {
-      const float dz = S0[r * WD + o];
+      const float dz = S0[r * LD + o];
       const float md = m[r] * dz;
       q[NQ - 1] += dz;
 #pragma unroll
@@ -597,11 +716,22 @@ __device__ void wide_backward_jet(const float* __restrict__ w, const Dims& d, co
   vec_add(grad + L.b_l0, Q + (NQ - 1) * WD);
   // w_l0 (384, 128): rows of temb, of x_emb = x·w_x + b_x, of k_emb = table[k]
   pairs.put(L.w_l0, temb, WD, Q + DC * WD);
-  for (int i = tid; i < MAT / 4; i += THREADS) {
+  for (int i0 = tid; i0 < MAT / 4; i0 += 4 * THREADS) {
+    float4* gx[4];
+    float4* gk[4];
+    float4 vxs[4], vks[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {  // the loads of four rows in flight together
+      gx[u] = reinterpret_cast<float4*>(grad + L.w_l0 + WD * WD) + i0 + u * THREADS;
+      gk[u] = reinterpret_cast<float4*>(grad + L.w_l0 + 2 * WD * WD) + i0 + u * THREADS;
+      vxs[u] = *gx[u];
+      vks[u] = *gk[u];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+    const int i = i0 + u * THREADS;
     const int e = i >> 5, o4 = (i & 31) * 4;
-    float4* gx = reinterpret_cast<float4*>(grad + L.w_l0 + WD * WD) + i;
-    float4* gk = reinterpret_cast<float4*>(grad + L.w_l0 + 2 * WD * WD) + i;
-    float4 vx = *gx, vk = *gk;
+    float4 vx = vxs[u], vk = vks[u];
 #pragma unroll
     for (int c = 0; c <= DC; ++c) {
       const float a = c < DC ? w[L.w_x + c * WD + e] : w[L.b_x + e];
@@ -620,8 +750,9 @@ __device__ void wide_backward_jet(const float* __restrict__ w, const Dims& d, co
       vk.z = fmaf(a, qq.z, vk.z);
       vk.w = fmaf(a, qq.w, vk.w);
     }
-    *gx = vx;
-    *gk = vk;
+    *gx[u] = vx;
+    *gk[u] = vk;
+    }
   }
   // dfeats = dz_l0·W_l0ᵀ·m reaches w_x, b_x and the table through Q
   for (int c = 0; c <= DC; ++c) {
@@ -636,7 +767,9 @@ __device__ void wide_backward_jet(const float* __restrict__ w, const Dims& d, co
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
-epic_wide_backward_kernel(const float* __restrict__ w, Dims d, const float* __restrict__ t,
+epic_wide_backward_kernel(const float* __restrict__ w, const float* __restrict__ tcw,
+                          const float* __restrict__ l0t, const float* __restrict__ tcw_t, Dims d,
+                          const float* __restrict__ t,
                           const float* __restrict__ x, const int* __restrict__ k,
                           const float* __restrict__ mask, const float* __restrict__ gout,
                           float* __restrict__ partials, float* __restrict__ records,
@@ -646,8 +779,9 @@ epic_wide_backward_kernel(const float* __restrict__ w, Dims d, const float* __re
   float* grad = partials + (size_t)blockIdx.x * L.row_stride;
   for (int i = threadIdx.x; i < L.total; i += THREADS) grad[i] = 0.f;
   float* base = records + (size_t)blockIdx.x * record_floats(d.num_blocks);
-  float* projv = base + (size_t)(2 + 3 * d.num_blocks) * MAT;
-  const GlobalRecord rec{base, projv, projv + R_PROJ};
+  auto* signs = reinterpret_cast<unsigned*>(base + (size_t)(1 + 2 * d.num_blocks) * MAT);
+  float* projv = reinterpret_cast<float*>(signs + (size_t)(1 + d.num_blocks) * SIGN_WORDS);
+  const GlobalRecord rec{base, signs, projv, projv + R_PROJ};
   const int stride = pair_floats(d.num_blocks);
   float* pairs = pair_log + (size_t)blockIdx.x * pair_block_floats(d.num_blocks, jets_per_block);
   int* groups = reinterpret_cast<int*>(pairs + (size_t)jets_per_block * stride);
@@ -656,9 +790,10 @@ epic_wide_backward_kernel(const float* __restrict__ w, Dims d, const float* __re
   for (int jet = blockIdx.x; jet < B; jet += gridDim.x, ++n_jets) {
     const size_t p = (size_t)jet * N;
     PairLog log{pairs + (size_t)n_jets * stride, groups, 0, 0};
-    wide_forward_jet(w, d, L, smem, t[jet], x + p * DC, k + p, mask + p, N,
-                     static_cast<float*>(nullptr), rec);
-    wide_backward_jet(w, d, L, smem, rec, gout + p * NOUT, N, grad, log);
+    wide_forward_jet_ext<GlobalRecord, false, false>(
+        w, tcw, l0t, d, L, smem, t[jet], x + p * DC, k + p, nullptr, mask + p, N, nullptr,
+        nullptr, rec);
+    wide_backward_jet(w, tcw_t, d, L, smem, rec, gout + p * NOUT, N, grad, log);
     __syncthreads();
   }
   contract_pairs(pairs, n_jets, stride, groups, pair_groups(d.num_blocks), grad);
@@ -701,16 +836,21 @@ extern "C" int mmp_epic_wide_backward_workspace(int B, int N, const int* dims, i
   return cudaSuccess;
 }
 
-extern "C" int mmp_epic_wide_backward(const void* w, const void* t, const void* x, const void* k,
-                                      const void* mask, const void* g, void* out, void* scratch,
-                                      int grid, int B, int N, const int* dims, void* stream) {
+// w: the packed weights; tcw, l0t: the forward's tensor-core stages and
+// local_0's tables (as mmp_epic_wide_forward takes them); tcw_t: the
+// transposed stages of the walk back's dz·Wᵀ
+extern "C" int mmp_epic_wide_backward(const void* w, const void* tcw, const void* l0t,
+                                      const void* tcw_t, const void* t, const void* x,
+                                      const void* k, const void* mask, const void* g, void* out,
+                                      void* scratch, int grid, int B, int N, const int* dims,
+                                      void* stream) {
   using namespace mmpw;
   const Dims d = dims_from(dims);
   if (!dims_supported(d) || N < 1 || N > ROWS || grid < 1) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(epic_wide_backward_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
+                                         (int)SMEM_BYTES_BWD);
   if (err != cudaSuccess) return err;
   const Layout L = make_layout(d.num_blocks);
   auto* partials = static_cast<float*>(scratch);
@@ -718,8 +858,9 @@ extern "C" int mmp_epic_wide_backward(const void* w, const void* t, const void* 
   float* pair_log = records + (size_t)grid * record_floats(d.num_blocks);
   const int jets_per_block = (B + grid - 1) / grid;
   auto s = static_cast<cudaStream_t>(stream);
-  epic_wide_backward_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
-      static_cast<const float*>(w), d, static_cast<const float*>(t), static_cast<const float*>(x),
+  epic_wide_backward_kernel<<<grid, THREADS, SMEM_BYTES_BWD, s>>>(
+      static_cast<const float*>(w), static_cast<const float*>(tcw), static_cast<const float*>(l0t),
+      static_cast<const float*>(tcw_t), d, static_cast<const float*>(t), static_cast<const float*>(x),
       static_cast<const int*>(k), static_cast<const float*>(mask), static_cast<const float*>(g),
       partials, records, pair_log, jets_per_block, B, N);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;

@@ -26,8 +26,8 @@
 // shared memory leave room for one block of 8 warps per SM, so the per-jet
 // serial phases (pooling, the global MLP, the heads) do not overlap products.
 //
-// Design (epic_wide.cuh, `wide_forward_jet_ext<NoRecord, FOLD, WIDE_HEAD,
-// TC = true>`): fc_local1's particle third and fc_local2 are wgmma products
+// Design (epic_wide.cuh, `wide_forward_jet_ext<NoRecord, FOLD, WIDE_HEAD>`):
+// fc_local1's particle third and fc_local2 are wgmma products
 // (m64n128k8 TF32, a warpgroup a 64-row half of the jet, skipped when the
 // half lies past ⌈N/16⌉·16) at fp32 accuracy by the 3×TF32 split
 // (tf32x3.cuh): A, the activations, split in registers; W as TF32 hi and lo
@@ -38,7 +38,7 @@
 // inputs times tables the wrapper folds (x·T_x + values·T_k or a token's row
 // of T_k + a constant row), so local_0 needs no product. The skip copy h0
 // stays in registers, in the place of the thread's accumulators. K5's
-// recording forward keeps the FFMA products (TC = false) and its bits.
+// recording forward is the same code with a recorder.
 //
 // C interface (bound with ctypes by ops/epic_wide_cuda.py): returns the
 // cudaError_t of the launch, 0 on success.
@@ -59,7 +59,7 @@ epic_wide_forward_kernel(const float* __restrict__ w, const float* __restrict__ 
   const size_t p = (size_t)blockIdx.x * N;
   const int* tokens = FOLD ? nullptr : static_cast<const int*>(k) + p;
   const float* values = FOLD ? static_cast<const float*>(k) + p * V : nullptr;
-  wide_forward_jet_ext<NoRecord, FOLD, WIDE_HEAD, true>(
+  wide_forward_jet_ext<NoRecord, FOLD, WIDE_HEAD>(
       w, tcw, l0t, d, L, smem, t[blockIdx.x], x + p * DC, tokens, values, mask + p, N,
       out + p * NOUT, hidden == nullptr ? nullptr : hidden + p * WD, NoRecord());
 }

@@ -1,58 +1,653 @@
-// K2: one whole MBM sampler step in one launch.
+// K2: one whole MBM sampler step in one launch, its per-particle products on
+// the tensor cores.
 //
 // Replaces the TPU kernel multimodal_particles_tpu/ops/sampler_pallas.py
-// (`make_fused_sampler_step`, body `_step_kernel` / `_step_math`): time
-// embedding from the scalar t → the shared EPiC forward (epic_forward.cuh)
-// → Euler update x ← (x + dt·cont)·mask → telegraph single-jump token
-// update, all in the thread that owns the particle.
+// (`make_fused_sampler_step`, body `_step_kernel` / `_step_math`, :54-101):
+// time embedding from the scalar t → EPiC forward → Euler update
+// x ← (x + dt·cont)·mask → telegraph single-jump token update.
 //
-// What bounds it. The 100-step sampler calls this 99 times; per step the
-// encoder is some 6 kFLOP a particle at config-berlin (hidden 16, 2 blocks,
-// N = 128). As separate PyTorch operators a step is some 60 launches that
-// each move (B·N, 16..48) float32 activations through device memory, so the
-// plain version is bound by launch count (small B) and memory traffic
-// (large B), not by FLOPs. Here one launch per step reads x, k, mask and the
-// two uniforms (28 bytes a particle) and writes x', k' (16 bytes); every
-// activation stays in registers or shared memory, and only the weights are
-// re-read, from L2, by each jet's block. What is left is fp32 arithmetic.
+// Design. A persistent grid (as many blocks as fit on the SMs, each walking
+// over jets); a block of one warp per 16 particle slots (⌈N/16⌉ warps).
+//   * A warp's 16 rows go through every per-particle product as
+//     mma.sync.m16n8k8 TF32 products under the 3×TF32 split (tf32x3.cuh):
+//     local_0's particle part, fc_local1's particle third and fc_local2 of
+//     every EPiC layer, the output layer (discrete and continuous columns as
+//     two 8-wide n-tiles) and the 8 → 8 → 8 discrete head. A product's
+//     accumulator is the next one's A fragment as it stands: a thread holds
+//     columns 2t and 2t + 1 of each 8-column n-tile, and the wrapper lays each
+//     weight's k-step out so that the mma's k positions t and t + 4 read the
+//     inputs 2t and 2t + 1 (ops/sampler_cuda.py::sampler_weights). The products
+//     add into registers that already hold the bias and, for fc_local2, the
+//     residual; the split's two small products go to sums of their own, so
+//     that twice as many mma chains are in flight; activations are applied in
+//     place.
+//   * local_0's particle two thirds are folded with the x and token
+//     embeddings by the wrapper: one 16-deep product of [x, 1, 0…, onehot(k)]
+//     with [T_x; c; 0; T_k] (c: x's embedding bias through local_0).
+//   * The wrapper's buffer (≈ 35 KB at config-berlin; ops/sampler_cuda.py::
+//     sampler_weights) is staged into shared memory once a block, and read
+//     from there; a buffer over 64 KB (hidden 64, or deep) is read through
+//     L1 instead.
+//   * The per-jet MLP (the global MLP, fc_local1's broadcast thirds) runs on
+//     warp 0, its weights laid out (in, out) so that a lane reads its
+//     output's column; the H-wide vectors are lane-held, the global vector g
+//     and the time embedding (any width) sit in shared memory, and a layer
+//     of g's width is computed 64 columns at a time. The time embedding's
+//     terms through local_0, g0, fg1 and fl1 are the same for every jet of a
+//     step (t is one scalar) and are computed once a block. A masked pool is a warp's
+//     partial column sums into shared memory and one barrier; fc_local1's
+//     per-jet term reaches the other warps through shared memory after a
+//     second. A jet takes 1 + 2·num_blocks barriers.
+//   * The telegraph update runs in two lanes of each quad, one row each,
+//     after the quad's logits are gathered by shuffles; it uses expf without
+//     fast-math: at the last step w ≈ 1e-4 and the rate divides by 1 − w, so
+//     jump decisions must follow the plain version's accurate exponential.
 //
-// The telegraph rate divides by 1 − w, w = exp(−Sγ(1−t)), which is about
-// 1e-4 at the last step: w is computed with expf as sampler_pallas.py:82-83
-// does, and the library is built without fast-math, so jump decisions follow
-// the plain version.
+// What bounds it. At config-berlin (hidden 16, 2 blocks, N = 128) the
+// function needs 1,384 multiply-adds a particle in the per-particle
+// products (local_0's particle part folded, 3·H + H/2; 2·H² a layer; the
+// output layer's 11 columns; the head), 8.3 kFLOP on the tensor cores as
+// three TF32 products; the kernel runs them padded (local_0 16 deep, the
+// output layer 16 columns: 1,664 multiply-adds, 78 mma.sync a warp of 16
+// particles). It reads x, k, mask and the two uniforms (28 bytes a
+// particle) and writes x', k' (16 bytes). At B = 32768 the bytes bound it
+// at 0.055 ms and the needed products on the tensor cores at 0.070 ms
+// (chip_smoke.py's products-only bound). What the kernel spends
+// (scripts/k2_variants.py on an H100, PERF.md §5) is each jet's chain of
+// dependent steps: ≈ 40% the per-jet MLP on warp 0, while the block's other
+// warps wait at a barrier, ≈ 30% the products' mma chains, the rest the
+// pools, the loads and the telegraph update; four blocks an SM (a register
+// bound) hide part of it.
 
 #include "epic_forward.cuh"
+#include "tf32x3.cuh"
 
 namespace mmp {
+namespace k2 {
 
-template <int H>
-__global__ void __launch_bounds__(MAX_THREADS)
-sampler_step_kernel(const float* __restrict__ w, Dims d, const float* __restrict__ x,
+constexpr int MAX_K2_THREADS = 512;  // ⌈256 / 16⌉ warps
+
+__host__ __device__ inline int pad4(int n) { return (n + 3) & ~3; }
+
+// Offsets in floats into the K2 buffer (ops/sampler_cuda.py::sampler_layout):
+// the per-jet weights (in, out) row-major, then the per-particle products'
+// fragments (2·K·N floats a (K, N) product) and biases, each entry padded to
+// a multiple of 4 floats. Block offsets are from `blocks` / `pblocks`.
+struct SLayout {
+  int t0, g0, bg0, g1, bg1, g2, bg2, blocks, block_stride;
+  int fg1, bfg1, fg2, bfg2, fl1b, bfl1;
+  int l0f, bl0, pblocks, pblock_stride, fl1f, fl2f, bfl2;
+  int outf, bout, h0f, bh0, h1f, bh1, total;
+};
+
+__host__ __device__ inline SLayout make_sampler_layout(const Dims& d) {
+  SLayout L;
+  const int H = d.hidden, Hg = d.hidden_glob, Et = d.emb_t;
+  int o = 0;
+  L.t0 = o;  o += pad4(Et * H);
+  L.g0 = o;  o += pad4((2 * H + Et) * H);
+  L.bg0 = o; o += pad4(H);
+  L.g1 = o;  o += pad4(H * H);
+  L.bg1 = o; o += pad4(H);
+  L.g2 = o;  o += pad4(H * Hg);
+  L.bg2 = o; o += pad4(Hg);
+  L.blocks = o;
+  int b = 0;
+  L.fg1 = b;  b += pad4((2 * H + Hg + Et) * H);
+  L.bfg1 = b; b += pad4(H);
+  L.fg2 = b;  b += pad4(H * Hg);
+  L.bfg2 = b; b += pad4(Hg);
+  L.fl1b = b; b += pad4((Hg + Et) * H);
+  L.bfl1 = b; b += pad4(H);
+  L.block_stride = b;
+  o += d.num_blocks * b;
+  L.l0f = o; o += 2 * 16 * H;
+  L.bl0 = o; o += pad4(H);
+  L.pblocks = o;
+  b = 0;
+  L.fl1f = b; b += 2 * H * H;
+  L.fl2f = b; b += 2 * H * H;
+  L.bfl2 = b; b += pad4(H);
+  L.pblock_stride = b;
+  o += d.num_blocks * b;
+  L.outf = o; o += 2 * H * 16;
+  L.bout = o; o += 16;
+  L.h0f = o;  o += 2 * V * V;
+  L.bh0 = o;  o += V;
+  L.h1f = o;  o += 2 * V * V;
+  L.bh1 = o;  o += V;
+  L.total = o;
+  return L;
+}
+
+// What the kernel is written for: a token input and a V-wide head (as every
+// narrow kernel but the forward).
+inline bool sampler_dims_supported(const Dims& d) {
+  return token_layout(d) && (d.hidden == 16 || d.hidden == 32 || d.hidden == 64) &&
+         d.hidden_glob >= 0 && d.emb_t >= 0 && d.num_blocks >= 0;
+}
+
+constexpr unsigned FULL = 0xffffffffu;
+
+// A lane-held vector of at most 64 (the H-wide ones): lane l holds elements
+// l and 32 + l.
+struct LaneVec {
+  float v[2];
+  __device__ __forceinline__ float at(int i) const {  // every lane gets element i
+    return __shfl_sync(FULL, i < 32 ? v[0] : v[1], i & 31);
+  }
+  // each lane gets its own element i; every lane's i lies in the 32 of base
+  __device__ __forceinline__ float get(int base, int i) const {
+    return __shfl_sync(FULL, base < 32 ? v[0] : v[1], i & 31);
+  }
+};
+
+// A vector of any length in shared memory (the time embedding, the global
+// vectors of width hidden_glob), read by the calling warp.
+struct SmemVec {
+  const float* p;
+  __device__ __forceinline__ float at(int i) const { return p[i]; }
+  __device__ __forceinline__ float get(int, int i) const { return p[i]; }
+};
+
+// The calling warp's partial sums of `cols` ≤ 64 columns of a dense layer
+// over one segment of its input (n values), W the segment's rows of the
+// layer's (n, stride) row-major matrix from its first column on (in shared
+// or global memory), eight inputs a step with their loads issued together.
+// For cols ≤ 16 lanes l and l + 16 both take column l, the first inputs 0–3
+// of each eight, the second 4–7; otherwise lane l takes the columns l and
+// l + 32 (a[q]), all eight inputs. a[q][p]: four partial sums, by the
+// input's place p in its group of four.
+template <class V>
+__device__ __forceinline__ void dense_seg(float (&a)[2][4], const V& in, int n,
+                                          const float* __restrict__ W, int stride, int cols) {
+  const int lane = threadIdx.x & 31;
+  if (cols <= 16) {
+    const int j = lane & 15, first = 4 * (lane >> 4);
+    const bool live = j < cols;
+    for (int i = 0; i < n; i += 8) {
+      // i is a multiple of 8: inputs i … i + 7 lie in one 32, so a lane-held
+      // vector's one register holds them all and each lane fetches its own four
+      float x[4], w[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = i + first + c;
+        x[c] = in.get(i, min(r, n - 1));
+        w[c] = live && r < n ? W[(size_t)r * stride + j] : 0.f;
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) a[0][c] = fmaf(w[c], x[c], a[0][c]);
+    }
+    return;
+  }
+  const bool o0 = lane < cols, o1 = lane + 32 < cols;
+  for (int i = 0; i < n; i += 4) {
+    float x[4], w0[4], w1[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int r = i + c;
+      x[c] = in.at(min(r, n - 1));
+      w0[c] = o0 && r < n ? W[(size_t)r * stride + lane] : 0.f;
+      w1[c] = o1 && r < n ? W[(size_t)r * stride + lane + 32] : 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      a[0][c] = fmaf(w0[c], x[c], a[0][c]);
+      a[1][c] = fmaf(w1[c], x[c], a[1][c]);
+    }
+  }
+}
+
+// One segment of a dense layer's concatenated input: a vector and its length.
+template <class V>
+struct Seg {
+  V v;
+  int n;
+};
+__device__ __forceinline__ Seg<LaneVec> seg(const LaneVec& v, int n) { return {v, n}; }
+__device__ __forceinline__ Seg<SmemVec> seg(const float* p, int n) { return {SmemVec{p}, n}; }
+
+// The lane's two outputs (columns c0 + lane and c0 + 32 + lane, 0 past
+// n_out) of act(W·[segments] + b (+ res)), the segments' weights stacked in
+// W's (·, n_out) rows in order, b may be null; every lane of the warp takes
+// part.
+template <bool LEAKY, bool RES, class... S>
+__device__ __forceinline__ void dense_cols(float (&z)[2], const float* __restrict__ W,
+                                           const float* __restrict__ b, int n_out, int c0,
+                                           const float (&res)[2], S... segs) {
+  const int cols = min(n_out - c0, 64);
+  float a[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+  const float* w = W + c0;
+  ((dense_seg(a, segs.v, segs.n, w, n_out, cols), w += (size_t)segs.n * n_out), ...);
+  const int lane = threadIdx.x & 31;
+  float sum[2] = {(a[0][0] + a[0][1]) + (a[0][2] + a[0][3]), (a[1][0] + a[1][1]) + (a[1][2] + a[1][3])};
+  if (cols <= 16) sum[0] += __shfl_xor_sync(FULL, sum[0], 16);
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int j = lane + 32 * q;
+    float v = 0.f;
+    if (j < cols) {
+      v = sum[q] + (b != nullptr ? b[c0 + j] : 0.f);
+      if (RES) v += res[q];
+      if (LEAKY) v = leaky(v);
+    }
+    z[q] = v;
+  }
+}
+
+// out = act(W·[segments] + b (+ res)) lane-held, n_out ≤ 64.
+template <bool LEAKY, bool RES = false, class... S>
+__device__ __forceinline__ LaneVec dense(const float* __restrict__ W, const float* __restrict__ b,
+                                         int n_out, LaneVec res, S... segs) {
+  LaneVec out;
+  dense_cols<LEAKY, RES>(out.v, W, b, n_out, 0, res.v, segs...);
+  return out;
+}
+
+// out[0, n_out) = act(W·[segments] + b (+ res)) into shared memory, 64
+// columns at a time; res (shared, may be out itself) may be null. No
+// segment may read out. Ends with the warp's writes visible to its lanes.
+template <bool LEAKY, bool RES = false, class... S>
+__device__ __forceinline__ void dense_to(float* out, const float* __restrict__ W,
+                                         const float* __restrict__ b, int n_out, const float* res,
+                                         S... segs) {
+  const int lane = threadIdx.x & 31;
+  for (int c0 = 0; c0 < n_out; c0 += 64) {
+    float r[2] = {0.f, 0.f}, z[2];
+    if (RES) {
+      r[0] = c0 + lane < n_out ? res[c0 + lane] : 0.f;
+      r[1] = c0 + 32 + lane < n_out ? res[c0 + 32 + lane] : 0.f;
+    }
+    dense_cols<LEAKY, RES>(z, W, b, n_out, c0, r, segs...);
+    if (c0 + lane < n_out) out[c0 + lane] = z[0];
+    if (c0 + 32 + lane < n_out) out[c0 + 32 + lane] = z[1];
+  }
+  __syncwarp();
+}
+
+// acc += A·W on the tensor cores at fp32 accuracy: A given as KS C fragments
+// (k-step kk is the n-tile kk of the product before; its inputs 2t, 2t + 1
+// sit at the mma's k positions t, t + 4), W as the wrapper's fragments F:
+// per k-step and n-tile, a lane's (hi b0, hi b1, lo b0, lo b1). The next
+// k-step's fragments are loaded while this one's products run; the two
+// small products of the split go to their own sums, added at the end, so
+// that 2·NTO chains of dependent mma are in flight and not NTO.
+template <int KS, int NTO>
+__device__ __forceinline__ void product(float (&acc)[NTO][4], const float (&a)[KS][4],
+                                        const float4* __restrict__ F) {
+  using namespace tf32x3;
+  const int lane = threadIdx.x & 31;
+  float small[NTO][4];
+  float4 f[NTO];
+#pragma unroll
+  for (int j = 0; j < NTO; ++j) {
+    f[j] = F[j * 32 + lane];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) small[j][e] = 0.f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t ah[4], al[4];
+    split_fast(a[kk][0], ah[0], al[0]);
+    split_fast(a[kk][2], ah[1], al[1]);
+    split_fast(a[kk][1], ah[2], al[2]);
+    split_fast(a[kk][3], ah[3], al[3]);
+    float4 next[NTO];
+#pragma unroll
+    for (int j = 0; j < NTO; ++j)
+      if (kk + 1 < KS) next[j] = F[((kk + 1) * NTO + j) * 32 + lane];
+#pragma unroll
+    for (int j = 0; j < NTO; ++j) {
+      const uint32_t bh[2] = {__float_as_uint(f[j].x), __float_as_uint(f[j].y)};
+      const uint32_t bl[2] = {__float_as_uint(f[j].z), __float_as_uint(f[j].w)};
+      mma(small[j], al, bh);
+      mma(acc[j], ah, bh);
+      mma(small[j], ah, bl);
+    }
+#pragma unroll
+    for (int j = 0; j < NTO; ++j)
+      if (kk + 1 < KS) f[j] = next[j];
+  }
+#pragma unroll
+  for (int j = 0; j < NTO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += small[j][e];
+}
+
+// acc[j][e] = the bias (global, by column) for every element.
+template <int NT>
+__device__ __forceinline__ void set_bias(float (&acc)[NT][4], const float* __restrict__ b) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const float2 v = *reinterpret_cast<const float2*>(b + 8 * j + 2 * tq);
+    acc[j][0] = acc[j][2] = v.x;
+    acc[j][1] = acc[j][3] = v.y;
+  }
+}
+
+// The lane-held vector's element at each of the thread's columns.
+template <int NT>
+__device__ __forceinline__ void at_columns(float (&out)[NT][2], const LaneVec& v) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      out[j][e] = __shfl_sync(FULL, 8 * j < 32 ? v.v[0] : v.v[1], (8 * j + 2 * tq + e) & 31);
+}
+
+// Column sums over the jet's rows of h (C fragments: an 8-column n-tile of a
+// 16-row product, e = 0, 1 row g at columns 2t, 2t + 1, e = 2, 3 row g + 8;
+// already times the mask): every warp gets them lane-held, in warp order, and
+// with MASK also Σ mask from mrows (the thread's rows' mask, given by one lane
+// of each quad). One barrier; `red` is this pool's buffer of nwarps × (H + 1).
+struct Pooled {
+  LaneVec s;
+  float msum;
+};
+
+template <int H, bool MASK>
+__device__ __forceinline__ Pooled pool(const float (&h)[H / 8][4], float mrows, float* red) {
+  constexpr int NT = H / 8;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  float* mine = red + warp * (H + 1);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s = h[j][e] + h[j][e + 2];
+      s += __shfl_xor_sync(FULL, s, 4);
+      s += __shfl_xor_sync(FULL, s, 8);
+      s += __shfl_xor_sync(FULL, s, 16);
+      if (g == 0) mine[8 * j + 2 * tq + e] = s;
+    }
+  if (MASK) {
+    float s = mrows;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
+    if (lane == 0) mine[H] = s;
+  }
+  __syncthreads();
+  Pooled out;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int c = lane + 32 * q;
+    float s = 0.f;
+    if (c < H)
+      for (int w = 0; w < nwarps; ++w) s += red[w * (H + 1) + c];
+    out.s.v[q] = s;
+  }
+  out.msum = 0.f;
+  if (MASK)
+    for (int w = 0; w < nwarps; ++w) out.msum += red[w * (H + 1) + H];
+  return out;
+}
+
+// Floats before the staged buffer in shared memory: the pool buffers, the
+// per-jet term, the per-launch time terms, the time embedding and the three
+// global vectors, rounded up to a float4.
+__host__ __device__ inline int staged_offset(int nwarps, const Dims& d) {
+  const int H = d.hidden;
+  return pad4(2 * nwarps * (H + 1) + H + (1 + 2 * d.num_blocks) * H + d.emb_t +
+              3 * d.hidden_glob);
+}
+
+__device__ __forceinline__ LaneVec lane_load(const float* p, int n) {
+  const int lane = threadIdx.x & 31;
+  LaneVec v;
+  v.v[0] = lane < n ? p[lane] : 0.f;
+  v.v[1] = lane + 32 < n ? p[32 + lane] : 0.f;
+  return v;
+}
+
+__device__ __forceinline__ void lane_store(float* p, const LaneVec& v, int n) {
+  const int lane = threadIdx.x & 31;
+  if (lane < n) p[lane] = v.v[0];
+  if (lane + 32 < n) p[32 + lane] = v.v[1];
+}
+// The buffer is staged into shared memory, once a block, when it takes at most
+// this many bytes (config-berlin's, hidden 16, takes ≈ 35 KB); a larger one is
+// read through L1.
+constexpr size_t MAX_STAGED_BYTES = 64 * 1024;
+
+// Registers a thread may take so that several jets' blocks share an SM: the
+// kernel is a chain of dependent steps a jet (products, pools, the MLP's
+// sums), and other blocks hide it. Jets of up to 128 slots take 256 threads.
+template <int H, int THREADS_MAX>
+constexpr int min_blocks() { return THREADS_MAX > 256 ? 1 : H == 16 ? 4 : H == 32 ? 2 : 1; }
+
+template <int H, int THREADS_MAX>
+__global__ void __launch_bounds__(THREADS_MAX, (min_blocks<H, THREADS_MAX>()))
+sampler_step_kernel(const float* __restrict__ gw, Dims d, const float* __restrict__ x,
                     const int* __restrict__ k, const float* __restrict__ mask,
                     const float* __restrict__ u, float* __restrict__ x_out,
-                    int* __restrict__ k_out, float t, float dt, float gamma, int B, int N) {
-  extern __shared__ float smem[];
-  const Layout L = make_layout(d);
-  const int jet = blockIdx.x, slot = threadIdx.x;
-  const bool active = slot < N;
-  const size_t p = (size_t)jet * N + slot;
-
-  float xv[DC] = {0.f, 0.f, 0.f};
-  int kv = 0;
-  float m = 0.f;
-  if (active) {
-#pragma unroll
-    for (int c = 0; c < DC; ++c) xv[c] = x[p * DC + c];
-    kv = k[p];
-    m = mask[p];
+                    int* __restrict__ k_out, float t, float dt, float gamma, int B, int N,
+                    int staged) {
+  constexpr int NT = H / 8;  // n-tiles of an H-wide product, and its k-steps
+  // two pool buffers of nwarps × (H + 1), fc_local1's per-jet term (H), the
+  // time terms, the time embedding, the global vectors, then with `staged`
+  // the whole buffer
+  extern __shared__ float red[];
+  const SLayout L = make_sampler_layout(d);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int Hg = d.hidden_glob, Et = d.emb_t;
+  float* jetv = red + 2 * nwarps * (H + 1);
+  // the time embedding's terms through g0 and every layer's fg1 and fl1b:
+  // the same for every jet of the launch (t is one scalar a step)
+  float* tconst = jetv + H;
+  float* temb = tconst + (1 + 2 * d.num_blocks) * H;
+  // the global vector g, its skip term and a layer's new g (warp 0's)
+  float* gv = temb + Et;
+  float* gskip = gv + Hg;
+  float* gnew = gskip + Hg;
+  // sinusoidal time embedding [cos | sin] (architectures/utils.py:15-34)
+  {
+    const int half = Et / 2;
+    for (int i = threadIdx.x; i < Et; i += blockDim.x) {
+      float v = 0.f;
+      if (i < 2 * half) {
+        const int f = i < half ? i : i - half;
+        const float freq = expf(-9.210340371976184f * (float)f / (float)half);
+        const float arg = t * freq;
+        v = i < half ? cosf(arg) : sinf(arg);
+      }
+      temb[i] = v;
+    }
   }
-  float cont[DC], logits[V];
-  epic_forward_particle<H>(w, d, L, smem, t, xv, kv, m, cont, logits);
-  if (!active) return;
+  const float* sw = gw;
+  if (staged) {
+    float* wsm = red + staged_offset(nwarps, d);
+    for (int i = threadIdx.x; i < L.total / 4; i += blockDim.x)
+      reinterpret_cast<float4*>(wsm)[i] = __ldg(reinterpret_cast<const float4*>(gw) + i);
+    sw = wsm;
+  }
+  __syncthreads();
+  const int rows[2] = {16 * warp + g, 16 * warp + g + 8};
+
+  // local_0's time third, the same for every particle of every jet (t is one
+  // scalar a step)
+  const LaneVec none{};
+  const LaneVec ct = dense<false>(sw + L.t0, nullptr, H, none, seg(temb, Et));
+  if (warp == 0) {
+    lane_store(tconst, dense<false>(sw + L.g0 + 2 * H * H, nullptr, H, none, seg(temb, Et)), H);
+    for (int blk = 0; blk < d.num_blocks; ++blk) {
+      const float* wb = sw + L.blocks + blk * L.block_stride;
+      lane_store(tconst + (1 + 2 * blk) * H,
+                 dense<false>(wb + L.fg1 + (2 * H + Hg) * H, nullptr, H, none, seg(temb, Et)), H);
+      lane_store(tconst + (2 + 2 * blk) * H,
+                 dense<false>(wb + L.fl1b + Hg * H, nullptr, H, none, seg(temb, Et)), H);
+    }
+    __syncwarp();
+  }
+
+
+  for (int jet = blockIdx.x; jet < B; jet += gridDim.x) {
+  const size_t p0 = (size_t)jet * N;
+  // the thread's two rows' inputs; rows past N are empty slots
+  float xv[2][DC], m[2];
+  int kv[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const bool real = rows[hr] < N;
+    const size_t p = p0 + rows[hr];
+#pragma unroll
+    for (int c = 0; c < DC; ++c) xv[hr][c] = real ? x[p * DC + c] : 0.f;
+    kv[hr] = real ? k[p] : 0;
+    m[hr] = real ? mask[p] : 0.f;
+  }
+  const float mcol[4] = {m[0], m[0], m[1], m[1]};
+
+  // ---- local_0 (epic.py:44-58): [x, 1, 0, 0, 0, 0 | onehot(k)]·[T_x; c; 0; T_k],
+  // then (· + ct)·m + b: local_0 sees the masked features
+  float h[NT][4], h0[NT][4];
+  {
+    float a[2][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int hr = e >> 1, i = 2 * tq + (e & 1);  // the row and input this element holds
+      a[0][e] = i < DC ? xv[hr][i] : (i == DC ? 1.f : 0.f);
+      a[1][e] = kv[hr] == i ? 1.f : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h[j][e] = 0.f;
+    product<2, NT>(h, a, reinterpret_cast<const float4*>(sw + L.l0f));
+    float ctc[NT][2], bl0[NT][4];
+    at_columns<NT>(ctc, ct);
+    set_bias<NT>(bl0, sw + L.bl0);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        h[j][e] = leaky((h[j][e] + ctc[j][e & 1]) * mcol[e] + bl0[j][e]) * mcol[e];
+        h0[j][e] = d.use_skip ? h[j][e] : 0.f;
+      }
+  }
+
+  // ---- the projection's global MLP (epic.py:44-58)
+  const Pooled pooled = pool<H, true>(h, tq == 0 ? m[0] + m[1] : 0.f, red);
+  const float denom = fmaxf(pooled.msum, 1.f);
+  LaneVec s = pooled.s, sm;
+  if (warp == 0) {
+    sm.v[0] = s.v[0] / denom;
+    sm.v[1] = s.v[1] / denom;
+    const LaneVec a0 = dense<true, true>(sw + L.g0, sw + L.bg0, H, lane_load(tconst, H),
+                                         seg(sm, H), seg(s, H));
+    const LaneVec a1 = dense<true>(sw + L.g1, sw + L.bg1, H, none, seg(a0, H));
+    dense_to<true>(gv, sw + L.g2, sw + L.bg2, Hg, nullptr, seg(a1, H));
+    for (int i = lane; i < Hg; i += 32) gskip[i] = d.use_skip ? gv[i] : 0.f;
+  }
+
+  // ---- EPiC layers (epic.py:61-88)
+  for (int blk = 0; blk < d.num_blocks; ++blk) {
+    const float* wb = sw + L.blocks + blk * L.block_stride;
+    const float* pb = sw + L.pblocks + blk * L.pblock_stride;
+    s = pool<H, false>(h, 0.f, red + ((blk + 1) & 1) * nwarps * (H + 1)).s;
+    if (warp == 0) {
+      sm.v[0] = s.v[0] / denom;
+      sm.v[1] = s.v[1] / denom;
+      const LaneVec fa = dense<true, true>(wb + L.fg1, wb + L.bfg1, H,
+                                           lane_load(tconst + (1 + 2 * blk) * H, H), seg(sm, H),
+                                           seg(s, H), seg(gv, Hg));
+      dense_to<true, true>(gnew, wb + L.fg2, wb + L.bfg2, Hg, gv, seg(fa, H));
+      const LaneVec cl1 = dense<false, true>(wb + L.fl1b, wb + L.bfl1, H,
+                                             lane_load(tconst + (2 + 2 * blk) * H, H),
+                                             seg(gnew, Hg));
+      for (int i = lane; i < Hg; i += 32) gv[i] = gnew[i] + gskip[i];
+      __syncwarp();
+      if (lane < H) jetv[lane] = cl1.v[0];
+      if (lane + 32 < H) jetv[32 + lane] = cl1.v[1];
+    }
+    __syncthreads();
+
+    // l1 = leaky(h·W_fl1[0:H] + cl1), the broadcast thirds and bias in cl1
+    float l1[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float2 c = *reinterpret_cast<const float2*>(jetv + 8 * j + 2 * tq);
+      l1[j][0] = l1[j][2] = c.x;
+      l1[j][1] = l1[j][3] = c.y;
+    }
+    product<NT, NT>(l1, h, reinterpret_cast<const float4*>(pb + L.fl1f));
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) l1[j][e] = leaky(l1[j][e]);
+    // h ← leaky(h + b + l1·W_fl2)·m + h0: the residual and bias first
+    float b2[NT][4];
+    set_bias<NT>(b2, pb + L.bfl2);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h[j][e] += b2[j][e];
+    product<NT, NT>(h, l1, reinterpret_cast<const float4*>(pb + L.fl2f));
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h[j][e] = leaky(h[j][e]) * mcol[e] + h0[j][e];
+  }
+
+  // ---- weight-normed output + heads (epic.py:122-125, mbm :65-72): n-tile
+  // 0 the discrete pre-logits, n-tile 1 the continuous outputs (3 of 8
+  // columns), both masked
+  float o[2][4];
+  set_bias<2>(o, sw + L.bout);
+  product<NT, 2>(o, h, reinterpret_cast<const float4*>(sw + L.outf));
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] *= mcol[e];
+  float disc[1][4];
+  if (d.add_discrete_head) {
+    // Dense(V) → SELU → Dense(V)
+    float z[1][4];
+    set_bias<1>(z, sw + L.bh0);
+    const float pre[1][4] = {{o[0][0], o[0][1], o[0][2], o[0][3]}};
+    product<1, 1>(z, pre, reinterpret_cast<const float4*>(sw + L.h0f));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) z[0][e] = selu(z[0][e]);
+    set_bias<1>(disc, sw + L.bh1);
+    product<1, 1>(disc, z, reinterpret_cast<const float4*>(sw + L.h1f));
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) disc[0][e] = o[0][e];
+  }
+
+  // ---- the quad's rows: lane tq = 0 takes row g, tq = 1 row g + 8
+  float logits[V], cont[DC];
+  const int mine = tq & 1;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int src = 4 * g + q;
+    const float r0a = __shfl_sync(FULL, disc[0][0], src), r0b = __shfl_sync(FULL, disc[0][1], src);
+    const float r1a = __shfl_sync(FULL, disc[0][2], src), r1b = __shfl_sync(FULL, disc[0][3], src);
+    logits[2 * q] = mine ? r1a : r0a;
+    logits[2 * q + 1] = mine ? r1b : r0b;
+  }
+  {
+    // the continuous columns 0, 1 in lane 4g, column 2 in lane 4g + 1
+    const float r0c0 = __shfl_sync(FULL, o[1][0], 4 * g), r1c0 = __shfl_sync(FULL, o[1][2], 4 * g);
+    const float r0c1 = __shfl_sync(FULL, o[1][1], 4 * g), r1c1 = __shfl_sync(FULL, o[1][3], 4 * g);
+    const float r0c2 = __shfl_sync(FULL, o[1][0], 4 * g + 1);
+    const float r1c2 = __shfl_sync(FULL, o[1][2], 4 * g + 1);
+    cont[0] = mine ? r1c0 : r0c0;
+    cont[1] = mine ? r1c1 : r0c1;
+    cont[2] = mine ? r1c2 : r0c2;
+  }
+  const int row = mine ? rows[1] : rows[0];
+  if (tq < 2 && row < N) {
+  const size_t p = p0 + row;
+  const float mr = mine ? m[1] : m[0];
+  const int kr = mine ? kv[1] : kv[0];
 
   // Euler ODE step (bridges.py:382-395)
 #pragma unroll
-  for (int c = 0; c < DC; ++c) x_out[p * DC + c] = (xv[c] + dt * cont[c]) * m;
+  for (int c = 0; c < DC; ++c)
+    x_out[p * DC + c] = ((mine ? xv[1][c] : xv[0][c]) + dt * cont[c]) * mr;
 
   // telegraph single-jump update (bridges.py:205-244, sampler_pallas.py:73-100)
   float mx = logits[0];
@@ -68,7 +663,7 @@ sampler_step_kernel(const float* __restrict__ w, Dims d, const float* __restrict
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     q[v] = q[v] / se;
-    qy += v == kv ? q[v] : 0.f;
+    qy += v == kr ? q[v] : 0.f;
   }
   const float S = (float)V;
   const float wt = expf(-S * gamma * (1.0f - t));
@@ -89,33 +684,67 @@ sampler_step_kernel(const float* __restrict__ w, Dims d, const float* __restrict
     target += u2 >= cdf ? 1 : 0;
   }
   target = min(max(target, 0), V - 1);
-  k_out[p] = (do_jump ? target : kv) * (int)m;
+  k_out[p] = (do_jump ? target : kr) * (int)mr;
+  }
+  __syncthreads();  // the pool and per-jet buffers are free for the next jet
+  }
 }
 
 template <int H>
-cudaError_t launch_sampler_step(const float* w, const Dims& d, const float* x, const int* k,
+cudaError_t launch_sampler_step(const float* sw, const Dims& d, const float* x, const int* k,
                                 const float* mask, const float* u, float* x_out, int* k_out,
                                 float t, float dt, float gamma, int B, int N,
                                 cudaStream_t stream) {
-  int threads;
-  size_t smem;
-  cudaError_t err = prepare_launch(sampler_step_kernel<H>, d, N, &threads, &smem);
+  const int threads = 32 * ((N + 15) / 16);
+  const size_t total = sizeof(float) * make_sampler_layout(d).total;
+  const int staged = total <= MAX_STAGED_BYTES;
+  const size_t smem =
+      sizeof(float) * staged_offset(threads / 32, d) + (staged ? total : 0);
+  auto kernel = threads <= 256 ? sampler_step_kernel<H, 256> : sampler_step_kernel<H, MAX_K2_THREADS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  sampler_step_kernel<H><<<B, threads, smem, stream>>>(w, d, x, k, mask, u, x_out, k_out, t, dt,
-                                                       gamma, B, N);
+  // blocks an SM, asked of the runtime once a (device, kernel, threads, shared
+  // memory) and not at each of a request's 99 launches: a request of 1024
+  // jets is bound by the host
+  struct Config {
+    int dev = -1, threads = 0;
+    const void* kernel = nullptr;
+    size_t smem = 0;
+    int blocks = 0;
+  };
+  static thread_local Config cfg;
+  int dev;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if (cfg.dev != dev || cfg.threads != threads || cfg.kernel != (const void*)kernel ||
+      cfg.smem != smem) {
+    int sms, per_sm;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cfg = Config{dev, threads, (const void*)kernel, smem, sms * per_sm};
+  }
+  // a persistent grid: every block walks over jets, so a staged buffer is
+  // copied once a block and not once a jet
+  const int grid = B < cfg.blocks ? B : cfg.blocks;
+  kernel<<<grid, threads, smem, stream>>>(sw, d, x, k, mask, u, x_out, k_out, t, dt, gamma, B, N,
+                                          staged);
   return cudaGetLastError();
 }
 
+}  // namespace k2
 }  // namespace mmp
 
-extern "C" int mmp_sampler_step(const void* w, const void* x, const void* k, const void* mask,
+extern "C" int mmp_sampler_step(const void* tcw, const void* x, const void* k, const void* mask,
                                 const void* u, void* x_out, void* k_out, float t, float dt,
                                 float gamma, int B, int N, const int* dims, void* stream) {
   using namespace mmp;
   const Dims d = dims_from(dims);
-  if (!token_layout(d)) return cudaErrorInvalidValue;  // written for a head as wide as the vocabulary and a token input
+  if (!k2::sampler_dims_supported(d) || N < 1 || N > MAX_THREADS) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  const auto* wf = static_cast<const float*>(w);
+  const auto* sw = static_cast<const float*>(tcw);
   const auto* xf = static_cast<const float*>(x);
   const auto* ki = static_cast<const int*>(k);
   const auto* mf = static_cast<const float*>(mask);
@@ -124,9 +753,9 @@ extern "C" int mmp_sampler_step(const void* w, const void* x, const void* k, con
   auto* ko = static_cast<int*>(k_out);
   auto s = static_cast<cudaStream_t>(stream);
   switch (d.hidden) {
-    case 16: return launch_sampler_step<16>(wf, d, xf, ki, mf, uf, xo, ko, t, dt, gamma, B, N, s);
-    case 32: return launch_sampler_step<32>(wf, d, xf, ki, mf, uf, xo, ko, t, dt, gamma, B, N, s);
-    case 64: return launch_sampler_step<64>(wf, d, xf, ki, mf, uf, xo, ko, t, dt, gamma, B, N, s);
+    case 16: return k2::launch_sampler_step<16>(sw, d, xf, ki, mf, uf, xo, ko, t, dt, gamma, B, N, s);
+    case 32: return k2::launch_sampler_step<32>(sw, d, xf, ki, mf, uf, xo, ko, t, dt, gamma, B, N, s);
+    case 64: return k2::launch_sampler_step<64>(sw, d, xf, ki, mf, uf, xo, ko, t, dt, gamma, B, N, s);
     default: return cudaErrorInvalidValue;
   }
 }

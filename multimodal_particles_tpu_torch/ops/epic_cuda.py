@@ -163,9 +163,11 @@ class PackedEncoder:
     tensors: Dict[str, torch.Tensor]  # named (out, in) views into `flat`
     dims: EpicDims
     layout: str = "narrow"  # a key of LAYOUT_VIEWS: which kernels read `flat`
-    # the wide forward kernel's (stages, tables), made from `flat` by
-    # `tensor_core_weights` where the wide packing is built (`pack_encoder`)
-    tensor_core: Optional[Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
+    # a tensor-core kernel's weights, made from `flat` once a packing by the
+    # pack function of the kernel that reads them: the wide forward's
+    # (stages, tables) by `pack_encoder` (`tensor_core_weights`), the sampler
+    # step's (buffer,) by ops/sampler_cuda.py::pack_sampler_params
+    tensor_core: Optional[Tuple[torch.Tensor, ...]] = dataclasses.field(
         default=None, repr=False, compare=False)
 
     def rebind(self, flat: torch.Tensor) -> "PackedEncoder":

@@ -10,8 +10,12 @@ autograd chains d(flat) to v, g and the rest.
   forward   the K4 kernel (ops/csrc/epic_wide_forward.cu): the JAX
             `_fwd_kernel` runs the same `_forward_acts_wide`
   backward  ops/csrc/epic_wide_backward.cu: recomputes the forward
-            activations and returns d(flat) for a cotangent g (B, N, 3 + 8);
-            t, x, k and mask get no gradient (epic_pallas_wide_vjp.py:362-369)
+            activations as K4 computes them and returns d(flat) for a
+            cotangent g (B, N, 3 + 8); t, x, k and mask get no gradient
+            (epic_pallas_wide_vjp.py:362-369). Its products run on the tensor
+            cores: it reads K4's stages and tables, which the wide packing
+            carries, and the transposed stages of its dz·Wᵀ products, which
+            its wrapper makes (`tensor_core_transposed_stages`)
 
 `epic_train_forward_wide` dispatches: CUDA tensors go to the kernels or
 raise, CPU tensors to `epic_train_forward_reference`, autograd through the
@@ -28,8 +32,11 @@ from multimodal_particles_tpu_torch.ops import _build
 from multimodal_particles_tpu_torch.ops.epic_cuda import (
     DIM_C,
     VOCAB,
+    EpicDims,
     PackedEncoder,
     check_kernel_inputs,
+    tensor_core_stages,
+    wide_flat_views,
 )
 from multimodal_particles_tpu_torch.ops.epic_vjp_cuda import (
     epic_backward_reference,
@@ -42,6 +49,20 @@ from multimodal_particles_tpu_torch.ops.epic_wide_cuda import (
 )
 
 _workspace_cache = {}
+
+
+def tensor_core_transposed_stages(flat: torch.Tensor, d: EpicDims):
+    """The wide backward kernel's dz·Wᵀ weights, made from a wide-layout
+    buffer: per EPiC layer the stages of fc_local2 transposed, then of
+    fc_local1's particle third transposed, laid out as `tensor_core_stages`
+    lays out the forward's (the transposes are the (in, out) matrices of the
+    backward's products: their input is the forward's output)."""
+    with torch.no_grad():
+        views = wide_flat_views(flat.detach(), d)
+        weights = [w for i in range(d.num_blocks)
+                   for w in (views[f"w_fl2_{i}"], views[f"w_fl1_{i}"][:, :d.hidden])]
+        stages = tensor_core_stages(torch.stack(weights)) if weights else flat.new_zeros(4)
+    return stages.contiguous()
 
 
 def _workspace(lib, B, N, dims, device):
@@ -72,6 +93,11 @@ def epic_backward_wide(packed: PackedEncoder, t, x, k, mask, g):
     out = torch.empty_like(packed.flat)
     if B == 0:
         return out.zero_()
+    if packed.tensor_core is None:
+        raise ValueError("the wide backward kernel reads the tensor-core stages and tables "
+                         "that pack_encoder makes with the wide packing")
+    stages, tables = packed.tensor_core
+    transposed = tensor_core_transposed_stages(packed.flat, packed.dims)
     lib = _build.load_library()
     grid, floats = _workspace(lib, B, N, packed.dims, x.device)
     scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
@@ -79,7 +105,8 @@ def epic_backward_wide(packed: PackedEncoder, t, x, k, mask, g):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.mmp_epic_wide_backward(
-            packed.flat.data_ptr(), t.data_ptr(), x.data_ptr(), k32.data_ptr(),
+            packed.flat.data_ptr(), stages.data_ptr(), tables.data_ptr(),
+            transposed.data_ptr(), t.data_ptr(), x.data_ptr(), k32.data_ptr(),
             mask.data_ptr(), g.data_ptr(), out.data_ptr(), scratch.data_ptr(),
             grid, B, N, packed.dims.c_array(), stream,
         )
@@ -99,14 +126,14 @@ class EpicWideTrainForward(torch.autograd.Function):
     def forward(ctx, flat, dims, tensor_core, t, x, k, mask):
         out = epic_forward_wide(PackedEncoder(flat, {}, dims, "wide", tensor_core), t, x, k, mask)
         ctx.save_for_backward(flat, t, x, k, mask)
-        ctx.dims = dims
+        ctx.dims, ctx.tensor_core = dims, tensor_core
         return out
 
     @staticmethod
     def backward(ctx, g):
         flat, t, x, k, mask = ctx.saved_tensors
-        d_flat = epic_backward_wide(PackedEncoder(flat, {}, ctx.dims, "wide"),
-                                    t, x, k, mask, g.float().contiguous())
+        packed = PackedEncoder(flat, {}, ctx.dims, "wide", ctx.tensor_core)
+        d_flat = epic_backward_wide(packed, t, x, k, mask, g.float().contiguous())
         return d_flat, None, None, None, None, None, None
 
 

@@ -34,10 +34,6 @@ B=4096, N=128) and at the `--scaled` one (Din=139), seeded weights.
 """
 
 import argparse
-import concurrent.futures
-import ctypes
-import json
-import shutil
 import sys
 import tempfile
 from pathlib import Path
@@ -49,8 +45,8 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
 
 import chip_smoke as cs  # noqa: E402
+import kernel_variants as kv  # noqa: E402
 import port_kernel_bits as pkb  # noqa: E402
-from multimodal_particles_tpu_torch.ops import _build  # noqa: E402
 from multimodal_particles_tpu_torch.ops.gsdm_stack_cuda import (  # noqa: E402
     gsdm_stack_reference,
     stack_time_embeddings,
@@ -60,12 +56,11 @@ from multimodal_particles_tpu_torch.ops.survival_cuda import (  # noqa: E402
     survival_head_reference,
 )
 
-CSRC = ROOT / "multimodal_particles_tpu_torch" / "ops" / "csrc"
 HEADER = "gsdm_blocks.cuh"
 SOURCES = ("survival_head.cu", "gsdm_stack.cu")
 TOL = 2e-4
 # variant → [(old text, new text)] in gsdm_blocks.cuh
-EDITS = {
+HEADER_EDITS = {
     "swizzled": [
         ("constexpr int LDT = 132;", "constexpr int LDT = 128;"),
         # for r mod 8 = 4a + 2b + c: (a, a ^ c, b) into column bits 2, 3, 4
@@ -87,40 +82,20 @@ EDITS = {
 }
 
 
-def build(name, csrc, workdir):
-    """K6's and K7's sources of `csrc` with the variant's edits, built and bound."""
-    src = workdir / name / "csrc"
-    src.mkdir(parents=True)
-    for path in [*(csrc / s for s in SOURCES), *csrc.glob("*.cuh")]:
-        shutil.copy(path, src / path.name)
-    header = (src / HEADER).read_text()
-    for old, new in EDITS.get(name, []):
-        if old not in header:
-            raise RuntimeError(f"variant {name}: its edit no longer matches {HEADER}")
-        header = header.replace(old, new)
-    (src / HEADER).write_text(header)
-    (src / "error_string.cu").write_text(pkb.ERROR_STRING_STUB)
-    objects, log = [], ""
-    for cu in (*SOURCES, "error_string.cu"):
-        obj = workdir / name / f"{cu}.o"
-        log += _build._run([_build.find_nvcc(), *_build.COMPILE_FLAGS, "-c", str(src / cu), "-o",
-                            str(obj)])[0]
-        objects.append(str(obj))
-    library = workdir / name / "libgsdm.so"
-    _build._run([_build.find_nvcc(), *_build.ARCH_FLAGS, "-shared", "-o", str(library), *objects])
-    lib = ctypes.CDLL(str(library))
-    lib.gsdm_tensor_core = "Ring" in header
+EDITS = {name: [(HEADER, old, new) for old, new in edits] for name, edits in HEADER_EDITS.items()}
+
+
+def bind(lib, src):
+    """K6's and K7's entry points: before their tensor-core products they
+    take no stream (port_kernel_bits reads `gsdm_tensor_core`)."""
+    lib.gsdm_tensor_core = "Ring" in (src / HEADER).read_text()
+    entries = {}
     for fn_name in ("mmp_survival_head", "mmp_gsdm_stack"):
-        fn = getattr(lib, fn_name)
-        argtypes = list(_build._SIGNATURES[fn_name])
+        argtypes = list(kv._build._SIGNATURES[fn_name])
         if not lib.gsdm_tensor_core:
-            del argtypes[1]  # before the tensor cores: no stream
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    lib.mmp_error_string.argtypes, lib.mmp_error_string.restype = [ctypes.c_int], ctypes.c_char_p
-    # ptxas -v: each entry's registers and spills, and the waits it injected
-    lib.ptxas = [line.split("info    : ")[-1].strip() for line in log.splitlines()
-                 if "registers" in line or "spill" in line]
-    return name, lib
+            del argtypes[1]
+        entries[fn_name] = argtypes
+    kv.bind_entries(lib, entries)
 
 
 def main():
@@ -133,14 +108,13 @@ def main():
     card = cs.card_line()
     print(card, flush=True)
     device = torch.device("cuda", 0)
-    sources = {"here": CSRC, **{name: CSRC for name in EDITS}}
+    builds = {"here": (kv.CSRC, []), **{name: (kv.CSRC, edits) for name, edits in EDITS.items()}}
     if args.other is not None:
-        sources["other"] = args.other
+        builds["other"] = (args.other, [])
     with tempfile.TemporaryDirectory() as tmp:
-        with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-            libs = dict(pool.map(lambda item: build(*item, Path(tmp)), sources.items()))
+        libs = kv.build_all(builds, SOURCES, bind, Path(tmp))
         for name, lib in libs.items():
-            print(json.dumps({"variant": name, "ptxas": lib.ptxas}), flush=True)
+            kv.emit({"variant": name, "ptxas": lib.ptxas})
         gen = torch.Generator(device=device).manual_seed(cs.SEED + 41)
 
         absorbing = cs.make_absorbing(device)
@@ -168,21 +142,15 @@ def main():
                 gsdm_stack_reference(vec_stack, tp7, x_in, n_heads=n_heads),
                 {"B": cs.TD_B, "N": cs.TD_N, "Din": vec_stack.dim_in})
 
-        order = list(libs) + list(libs)[::-1]
         for shape, (run, ref, where) in shapes.items():
-            times = {name: [] for name in libs}
-            for name in order:
-                _build.load_library = lambda lib=libs[name]: lib
-                times[name].append(cs.cuda_ms(lambda: run(libs[name]), iters=5))
+            times = kv.time_in_turns(libs, run, cs.cuda_ms, 5)
             for name, lib in libs.items():
-                _build.load_library = lambda lib=lib: lib
+                kv._build.load_library = lambda lib=lib: lib
                 out = run(lib)
                 torch.cuda.synchronize()
                 share = ((out - ref).abs() / (TOL + TOL * ref.abs())).max().item()
-                print(json.dumps({"kernel": shape, **where, "variant": name, "ms": times[name],
-                                  "share_of_gate": share,
-                                  "finite": bool(torch.isfinite(out).all().item()), "card": card}),
-                      flush=True)
+                kv.emit({"kernel": shape, **where, "variant": name, "ms": times[name],
+                         "share_of_gate": share, "finite": kv.finite(out), "card": card})
     print(cs.card_line(), flush=True)
     return 0
 

@@ -28,11 +28,6 @@ hidden output, B=4096, N=109), seeded weights.
 """
 
 import argparse
-import concurrent.futures
-import ctypes
-import json
-import shutil
-import subprocess
 import sys
 import tempfile
 from pathlib import Path
@@ -44,20 +39,22 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
 
 import chip_smoke as cs  # noqa: E402
+import kernel_variants as kv  # noqa: E402
 import port_kernel_bits as pkb  # noqa: E402
-from multimodal_particles_tpu_torch.ops import _build  # noqa: E402
 from multimodal_particles_tpu_torch.ops.epic_cuda import epic_forward_reference  # noqa: E402
 
-CSRC = ROOT / "multimodal_particles_tpu_torch" / "ops" / "csrc"
+SOURCE = "epic_wide_forward.cu"
 HEADER = "epic_wide.cuh"
-# variant → [(old text, new text)] in epic_wide.cuh
+# variant → [(file, old text, new text)]
 EDITS = {
     "no_products": [(
+        HEADER,
         "  uint32_t ah[2][4], al[2][4];\n  fence_operands(acc.v);\n",
         "  uint32_t ah[2][4], al[2][4];\n  fence_operands(acc.v);\n"
         "  if (npad > 0) { cp_async_wait<0>(); __syncthreads(); return; }\n",
     )],
     "no_jet_mlp": [(
+        HEADER,
         "  const int tid = threadIdx.x, cg = tid & 31, ks = tid >> 5;\n"
         "  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);",
         "  const int tid = threadIdx.x, cg = tid & 31, ks = tid >> 5;\n"
@@ -65,45 +62,19 @@ EDITS = {
         "  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);",
     )],
     "one_product": [(
+        HEADER,
         "      wgmma_m64n128k8(acc.v, al[s], w_hi);\n      wgmma_m64n128k8(acc.v, ah[s], w_lo);\n",
         "",
     )],
 }
-ERROR_STRING = """#include <cuda_runtime.h>
-extern "C" const char* mmp_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-"""
-
-
-def build(name, csrc, workdir):
-    """K4's source of `csrc` with the variant's edits, built and bound."""
-    src = workdir / name / "csrc"
-    src.mkdir(parents=True)
-    for path in [csrc / "epic_wide_forward.cu", *csrc.glob("*.cuh")]:
-        shutil.copy(path, src / path.name)
-    header = (src / HEADER).read_text()
-    for old, new in EDITS.get(name, []):
-        if old not in header:
-            raise RuntimeError(f"variant {name}: its edit no longer matches {HEADER}")
-        header = header.replace(old, new)
-    (src / HEADER).write_text(header)
-    (src / "error_string.cu").write_text(ERROR_STRING)
-    objects = []
-    for cu in ("epic_wide_forward.cu", "error_string.cu"):
-        obj = workdir / name / f"{cu}.o"
-        _build._run([_build.find_nvcc(), *_build.COMPILE_FLAGS, "-c", str(src / cu), "-o", str(obj)])
-        objects.append(str(obj))
-    library = workdir / name / "libk4.so"
-    _build._run([_build.find_nvcc(), *_build.ARCH_FLAGS, "-shared", "-o", str(library), *objects])
-    lib = ctypes.CDLL(str(library))
-    lib.k4_tensor_core = "tcw" in (src / "epic_wide_forward.cu").read_text()
-    argtypes = list(_build._SIGNATURES["mmp_epic_wide_forward"])
+def bind(lib, src):
+    """K4's entry point: before its tensor-core products it takes no prepared
+    weights (port_kernel_bits.wide_forward reads `k4_tensor_core`)."""
+    lib.k4_tensor_core = "tcw" in lib.text
+    argtypes = list(kv._build._SIGNATURES["mmp_epic_wide_forward"])
     if not lib.k4_tensor_core:
         del argtypes[1:3]
-    lib.mmp_epic_wide_forward.argtypes, lib.mmp_epic_wide_forward.restype = argtypes, ctypes.c_int
-    lib.mmp_error_string.argtypes, lib.mmp_error_string.restype = [ctypes.c_int], ctypes.c_char_p
-    return name, lib
+    kv.bind_entries(lib, {"mmp_epic_wide_forward": argtypes})
 
 
 def main():
@@ -116,12 +87,11 @@ def main():
     card = cs.card_line()
     print(card, flush=True)
     device = torch.device("cuda", 0)
-    sources = {"here": CSRC, **{name: CSRC for name in EDITS}}
+    builds = {"here": (kv.CSRC, []), **{name: (kv.CSRC, edits) for name, edits in EDITS.items()}}
     if args.other is not None:
-        sources["other"] = args.other
+        builds["other"] = (args.other, [])
     with tempfile.TemporaryDirectory() as tmp:
-        with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-            libs = dict(pool.map(lambda item: build(*item, Path(tmp)), sources.items()))
+        libs = kv.build_all(builds, (SOURCE,), bind, Path(tmp))
         gen = torch.Generator(device=device).manual_seed(cs.SEED + 40)
         mbm = cs.scaled_packed(device)
         t, x, k, mask = cs.random_inputs(cs.TRAIN_B, device, gen)
@@ -135,19 +105,15 @@ def main():
             lambda lib: pkb.wide_forward(lib, *absorbing, True),
             epic_forward_reference(*absorbing, output_hidden_local=True)[0],
             {"B": cs.ABS_B, "N": cs.ABS_N})
-        order = list(libs) + list(libs)[::-1]
         for shape, (run, ref, where) in shapes.items():
-            times = {name: [] for name in libs}
-            for name in order:
-                _build.load_library = lambda lib=libs[name]: lib
-                times[name].append(cs.cuda_ms(lambda: run(libs[name]), iters=5))
+            times = kv.time_in_turns(libs, run, cs.cuda_ms, 5)
             for name, lib in libs.items():
-                _build.load_library = lambda lib=lib: lib
+                kv._build.load_library = lambda lib=lib: lib
                 out = run(lib)[0]
                 torch.cuda.synchronize()
                 share = cs.compare(out, ref)["worst_particle_err_over_bound"]
-                print(json.dumps({"shape": shape, **where, "variant": name, "ms": times[name],
-                                  "share_of_gate": share, "card": card}), flush=True)
+                kv.emit({"shape": shape, **where, "variant": name, "ms": times[name],
+                         "share_of_gate": share, "card": card})
     print(cs.card_line(), flush=True)
     return 0
 

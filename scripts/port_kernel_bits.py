@@ -1,43 +1,50 @@
 #!/usr/bin/env python3
 """Hold the PyTorch/CUDA port's kernels to the output of another build.
 
-    python3 scripts/port_kernel_bits.py --other DIR [--kernels K1 K4 K5 K6 K7 K8]
+    python3 scripts/port_kernel_bits.py --other DIR [--kernels K1 K2 K3 K4 K5 K6 K7 K8]
 
 DIR holds another revision's sources of the kernels compared and the headers
 they include (`epic_forward.cu`, `epic_forward.cuh`, `epic_forward_kernel.cuh`
-for K1; `epic_wide_forward.cu`, `epic_wide.cuh` and, from the tensor-core K4
-on, `tf32x3.cuh` for K4; `epic_wide_backward.cu`, `epic_wide.cuh` for K5;
-`survival_head.cu`, `gsdm_blocks.cuh` and, from the tensor-core K6 on,
-`tf32x3.cuh` for K6; `gsdm_stack.cu` and the same headers for K7;
-`attention_core.cu`, `tf32x3.cuh` for K8), for example unpacked with `git
-archive REV multimodal_particles_tpu_torch/ops/csrc`. The script builds those
-sources of that directory and of the working tree's `ops/csrc/` with nvcc,
-each into a temporary directory, and compares on one GPU, with `torch.equal`:
+for K1; `sampler_step.cu` and, from its tensor-core kernel on, `tf32x3.cuh`
+for K2; `epic_backward.cu` for K3; `epic_wide_forward.cu`, `epic_wide.cuh`
+and, from the tensor-core K4 on, `tf32x3.cuh` for K4; `epic_wide_backward.cu`
+and the same headers for K5; `survival_head.cu`, `gsdm_blocks.cuh` and, from
+the tensor-core K6 on, `tf32x3.cuh` for K6; `gsdm_stack.cu` and the same
+headers for K7; `attention_core.cu`, `tf32x3.cuh` for K8), for example
+unpacked with `git archive REV multimodal_particles_tpu_torch/ops/csrc`. The
+script builds those sources of that directory and of the working tree's
+`ops/csrc/` with nvcc, each into a temporary directory, and compares on one
+GPU, with `torch.equal`:
 
   K1  the fused EPiC forward at config-berlin (B=1024, N=128) and as the
       absorbing family calls it (56-wide head, hidden output, B=512, N=109);
-  K5  the wide backward at the scaled MBM backbone (every width 128, 6 blocks,
-      B=512, N=128), a random cotangent: the weights' gradient;
+  K3  the narrow backward at config-berlin (B=1024, N=128), a random
+      cotangent: the weights' gradient;
   K8  the attention core at B=512, N=128 and 109, 2 heads, with a key mask
       and without.
 
-K4's, K6's and K7's bits are not held where the two builds run their
-products in another order (the tensor cores under the 3×TF32 split against
-the FFMA products before them). For each, the line gives the two builds'
-largest difference as a share of the kernel's gate against its plain
+K2's, K4's, K5's, K6's and K7's bits are not held where the two builds run
+their products in another order (the tensor cores under the 3×TF32 split
+against the FFMA products before them). For each, the line gives the two
+builds' largest difference as a share of the kernel's gate against its plain
 version, the other build's output taken as the reference; a share above 1
-fails. K4: each of its four instances (tokens or the folded input, times the
-8-wide or the 56-wide head; the hidden output of all but MBM's) at the scaled
-backbone, B=512, N=109 and 128, per particle |err| ≤ 1e-4 + 1e-4·max|other|
-over the particle's row. K6: the fused survival head at (B, N) = (512, 109),
-(7, 109), (64, 128); K7: the fused gsdm stack at the reference input widths
-24 and 27 (B=512, N=128; B=7, N=40) and the `--scaled` ones, 136 and 139
-(B=64, N=128); both elementwise, |err| ≤ 2e-4 + 2e-4·|other|.
+fails. K2: the sampler step at config-berlin (B=1024, N=128) at t = 0.0101,
+0.5 and 1 − 1e-4, x' elementwise |err| ≤ 1e-4 + 1e-4·|other|, and at most 1%
+of the real slots' tokens differing. K4: each of its four instances (tokens
+or the folded input, times the 8-wide or the 56-wide head; the hidden output
+of all but MBM's) at the scaled backbone, B=512, N=109 and 128, per particle
+|err| ≤ 1e-4 + 1e-4·max|other| over the particle's row. K5: the wide
+backward at the scaled MBM backbone (every width 128, 6 blocks, B=512,
+N=128), a random cotangent with none on jets near a kink, per leaf |err| ≤
+1e-4·max|other leaf| + 1e-3·|other|. K6: the fused survival head at (B, N) =
+(512, 109), (7, 109), (64, 128); K7: the fused gsdm stack at the reference
+input widths 24 and 27 (B=512, N=128; B=7, N=40) and the `--scaled` ones,
+136 and 139 (B=64, N=128); both elementwise, |err| ≤ 2e-4 + 2e-4·|other|.
 
-K1's source builds in minutes; `--kernels` leaves it out when its sources did
-not change. One JSON line a comparison; exit code 1 if any output held to the
-bits differs or a share exceeds 1. For a change to a header that several
-kernels share.
+K1's and K3's sources build in minutes; `--kernels` leaves them out when
+their sources did not change. One JSON line a comparison; exit code 1 if any
+output held to the bits differs or a share exceeds 1. For a change to a
+header that several kernels share.
 """
 
 import argparse
@@ -73,15 +80,19 @@ from multimodal_particles_tpu_torch.ops import (  # noqa: E402
     _build,
     attention_cuda,
     epic_cuda,
+    epic_vjp_cuda,
     epic_wide_cuda,
     epic_wide_vjp_cuda,
     gsdm_stack_cuda,
+    sampler_cuda,
     survival_cuda,
 )
 
 # kernel → (its source, its C entry point)
 KERNELS = {
     "K1": ("epic_forward.cu", "mmp_epic_forward"),
+    "K2": ("sampler_step.cu", "mmp_sampler_step"),
+    "K3": ("epic_backward.cu", "mmp_epic_backward"),
     "K4": ("epic_wide_forward.cu", "mmp_epic_wide_forward"),
     "K5": ("epic_wide_backward.cu", "mmp_epic_wide_backward"),
     "K6": ("survival_head.cu", "mmp_survival_head"),
@@ -92,6 +103,8 @@ HEADERS = ("epic_forward.cuh", "epic_forward_kernel.cuh", "epic_wide.cuh", "gsdm
            "tf32x3.cuh")
 K4_ATOL = K4_RTOL = 1e-4  # K4's gate against its plain version, per particle
 K6_TOL = K7_TOL = 2e-4  # K6's and K7's, elementwise (tests/test_ops/test_survival_pallas.py:86-88)
+K2_TOL = 1e-4  # K2's, elementwise on x' (atol = rtol), beside ≤ 1% of tokens differing
+K2_MAX_TOKEN_MISMATCH = 0.01
 # the error strings' entry point lives in K1's source; without it, a stub
 ERROR_STRING_STUB = """#include <cuda_runtime.h>
 extern "C" const char* mmp_error_string(int err) {
@@ -113,8 +126,14 @@ def build(csrc: Path, workdir: Path, kernels) -> ctypes.CDLL:
     _build.CSRC_DIR, _build.BUILD_DIR = src, workdir / "build"
     lib = ctypes.CDLL(str(_build.build_library().path))
     names = [KERNELS[k][1] for k in kernels]
+    if "K3" in kernels:
+        names.append("mmp_epic_backward_workspace")
     if "K5" in kernels:
         names.append("mmp_epic_wide_backward_workspace")
+    # which of K2's designs the build holds (`sampler_step` reads it), and
+    # each entry's source (K5's signature follows it)
+    lib.text = (src / KERNELS["K2"][0]).read_text() if "K2" in kernels else ""
+    text = {name: (src / KERNELS[k][0]).read_text() for k in kernels for name in [KERNELS[k][1]]}
     # K4 before its tensor-core products takes no prepared weights, nor K6 and
     # K7 before theirs their stream
     lib.k4_tensor_core = "K4" in kernels and "tcw" in (src / KERNELS["K4"][0]).read_text()
@@ -127,6 +146,8 @@ def build(csrc: Path, workdir: Path, kernels) -> ctypes.CDLL:
             del argtypes[1:3]
         if name in (KERNELS["K6"][1], KERNELS["K7"][1]) and not lib.gsdm_tensor_core:
             del argtypes[1]  # no stream
+        if name == KERNELS["K5"][1]:
+            argtypes = wide_backward_signature(text[name])
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
     lib.mmp_error_string.argtypes, lib.mmp_error_string.restype = [ctypes.c_int], ctypes.c_char_p
     return lib
@@ -148,6 +169,53 @@ def wide_forward(lib, packed, t, x, k, mask, hidden):
         torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "mmp_epic_wide_forward")
     return (out, hid) if hidden else (out,)
+
+
+def sampler_step(lib, packed, x, k, mask, u, t, dt, gamma):
+    """K2 through `lib`: the tensor-core kernel reads the buffer that the
+    sampler's packing carries (`pack_sampler_params`), the FFMA kernel before
+    it the packed weights, through the same signature: (x', k')."""
+    if "tf32x3.cuh" in lib.text:
+        _build.load_library = lambda: lib
+        return sampler_cuda.sampler_step(packed, x, k, mask, u, t, dt, gamma=gamma)
+    B, N = x.shape[:2]
+    k32 = k.to(torch.int32).contiguous()
+    x_out, k_out = torch.empty_like(x), torch.empty_like(k32)
+    rc = lib.mmp_sampler_step(
+        packed.flat.data_ptr(), x.data_ptr(), k32.data_ptr(), mask.data_ptr(), u.data_ptr(),
+        x_out.data_ptr(), k_out.data_ptr(), float(t), float(dt), float(gamma), B, N,
+        packed.dims.c_array(), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "mmp_sampler_step")
+    return x_out, k_out.to(k.dtype)
+
+
+def wide_backward_signature(text):
+    """K5's entry point's argument types: the tensor-core kernel takes the
+    forward's prepared weights and the transposed stages after the packed
+    ones, the FFMA kernel before it none."""
+    argtypes = list(_build._SIGNATURES["mmp_epic_wide_backward"])
+    if "tcw_t" not in text:
+        del argtypes[1:4]
+    return argtypes
+
+
+def wide_backward(lib, packed, t, x, k, mask, g):
+    """K5 through `lib` (bound by its own sources' signature): d(flat)."""
+    epic_wide_vjp_cuda._workspace_cache.clear()  # the two builds size their scratch apart
+    _build.load_library = lambda: lib
+    if len(lib.mmp_epic_wide_backward.argtypes) == len(_build._SIGNATURES["mmp_epic_wide_backward"]):
+        return epic_wide_vjp_cuda.epic_backward_wide(packed, t, x, k, mask, g)
+    B, N = x.shape[:2]
+    grid, floats = epic_wide_vjp_cuda._workspace(lib, B, N, packed.dims, x.device)
+    scratch = torch.empty(floats, dtype=torch.float32, device=x.device)
+    out = torch.empty_like(packed.flat)
+    k32 = k.to(torch.int32).contiguous()
+    rc = lib.mmp_epic_wide_backward(
+        packed.flat.data_ptr(), t.data_ptr(), x.data_ptr(), k32.data_ptr(), mask.data_ptr(),
+        g.data_ptr(), out.data_ptr(), scratch.data_ptr(), grid, B, N, packed.dims.c_array(),
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "mmp_epic_wide_backward")
+    return out
 
 
 def survival_head(lib, head, tp, last, mask_t, n_heads):
@@ -181,6 +249,15 @@ def gsdm_stack(lib, packed, tp, x_in, n_heads):
         torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "mmp_gsdm_stack")
     return out
+
+
+def leaf_share(packed, here, other):
+    """K5's per-leaf gate (|err| ≤ 1e-4·max|other leaf| + 1e-3·|other|): the
+    largest share of it, over the packed leaves."""
+    others = packed.rebind(other).tensors
+    return max(((a - others[name]).abs() / (1e-4 * max(others[name].abs().max().item(), 1e-6)
+                                             + 1e-3 * others[name].abs())).max().item()
+               for name, a in packed.rebind(here).tensors.items())
 
 
 def share_of_gate(here, other, atol, rtol):
@@ -278,6 +355,30 @@ def main():
             report("K1", both(lambda lib: epic_cuda.epic_forward(packed, t, x, k, mask)),
                    config="config-berlin", B=1024, N=128)
 
+        if "K2" in args.kernels or "K3" in args.kernels:
+            mbm = init_parameters(MultiModalBridgeMatching(MultimodalBridgeMatchingConfig()), 0)
+            berlin = epic_cuda.pack_mbm_encoder_params(mbm.to(device).encoder, mbm.config)
+            t, x, k, mask = inputs(1024, 128, device, gen)
+        if "K2" in args.kernels:
+            sampling = sampler_cuda.pack_sampler_params(mbm.encoder, mbm.config)
+            u = torch.rand((2, 1024, 128), generator=gen, device=device)
+            real = mask[..., 0] > 0
+            for step_t in (0.0101, 0.5, 1.0 - 1e-4):
+                outs = both(lambda lib: sampler_step(lib, sampling, x, k.to(torch.int32), mask, u,
+                                                     step_t, 0.0101, 0.125))
+                (x_other, k_other), (x_here, k_here) = outs
+                share = share_of_gate(x_here, x_other, K2_TOL, K2_TOL)
+                mismatch = ((k_here != k_other)[..., 0] & real).sum().item() / real.sum().item()
+                same.append(share <= 1.0 and mismatch <= K2_MAX_TOKEN_MISMATCH)
+                print(json.dumps({"kernel": "K2", "config": "config-berlin", "B": 1024, "N": 128,
+                                  "t": step_t, "share_of_gate": share, "token_mismatch": mismatch,
+                                  "same_bits": all(torch.equal(a, b) for a, b in zip(*outs))}),
+                      flush=True)
+        if "K3" in args.kernels:
+            g = torch.randn((1024, 128, 11), generator=gen, device=device)
+            report("K3", both(lambda lib: epic_vjp_cuda.epic_backward(berlin, t, x, k, mask, g)),
+                   config="config-berlin", B=1024, N=128)
+
         flow = init_parameters(AbsorbingFlow(AbsorbingConfig()), 0).to(device).eval()
         trunk, head = flow.pack_for_kernel()
         if "K1" in args.kernels:
@@ -300,9 +401,15 @@ def main():
             mbm = init_parameters(MultiModalBridgeMatching(scaled_config(MultimodalBridgeMatchingConfig())), 0)
             packed = epic_wide_cuda.pack_wide_encoder_params(mbm.to(device).encoder, mbm.config)
             t, x, k, mask = inputs(512, 128, device, gen)
-            g = torch.randn((512, 128, 11), generator=gen, device=device)
-            report("K5", both(lambda lib: epic_wide_vjp_cuda.epic_backward_wide(
-                packed, t, x, k, mask, g)), config="scaled MBM", B=512, N=128)
+            near = epic_vjp_cuda.near_kink_jets(packed, t, x, k, mask)
+            g = torch.randn((512, 128, 11), generator=gen, device=device) * (~near)[:, None, None]
+            outs = both(lambda lib: wide_backward(lib, packed, t, x, k, mask, g))
+            share = max(leaf_share(packed, here, other) for other, here in zip(*outs))
+            same.append(share <= 1.0)
+            print(json.dumps({"kernel": "K5", "config": "scaled MBM", "B": 512, "N": 128,
+                              "share_of_gate": share,
+                              "same_bits": all(torch.equal(a, b) for a, b in zip(*outs)),
+                              "max_abs": max(a.abs().max().item() for a in outs[0])}), flush=True)
 
         if "K6" in args.kernels:
             gen_cfg = flow.config.generator

@@ -83,6 +83,7 @@ from multimodal_particles_tpu_torch.ops.epic_wide_vjp_cuda import (
     epic_train_forward_wide,
 )
 from multimodal_particles_tpu_torch.ops.sampler_cuda import (
+    pack_sampler_params,
     sampler_step,
     sampler_step_reference,
 )
@@ -104,12 +105,18 @@ def device():
     return torch.device("cuda", 0)
 
 
-def packed_model(device, hidden=16, blocks=2, skip=True, head=True, wide=False):
+def packed_model(device, hidden=16, blocks=2, skip=True, head=True, wide=False, sampler=False,
+                 **encoder):
+    """A seeded MBM encoder packed for the narrow kernels, with `sampler` for
+    the sampler step (`pack_sampler_params`), or with `wide` for the wide
+    ones; `encoder` overrides encoder fields."""
     config = MultimodalBridgeMatchingConfig()
     config.encoder.dim_hidden_local = config.encoder.dim_hidden_glob = hidden
     if wide:  # every width 128, the wide kernels' layout
         e = config.encoder
         e.dim_emb_time = e.dim_emb_features_continuous = e.dim_emb_features_discrete = hidden
+    for name, value in encoder.items():
+        setattr(config.encoder, name, value)
     config.encoder.num_blocks = blocks
     config.encoder.skip_connection = skip
     config.encoder.add_discrete_head = head
@@ -121,7 +128,8 @@ def packed_model(device, hidden=16, blocks=2, skip=True, head=True, wide=False):
         for name, p in model.named_parameters():
             if name.endswith("bias"):
                 p.normal_(0.0, 0.1, generator=torch.Generator(device=device).manual_seed(1))
-    pack = pack_wide_encoder_params if wide else pack_mbm_encoder_params
+    pack = (pack_wide_encoder_params if wide else
+            pack_sampler_params if sampler else pack_mbm_encoder_params)
     return pack(model.encoder, config)
 
 
@@ -151,7 +159,7 @@ def test_epic_forward_matches_plain(device, hidden, blocks, N, skip, head):
 
 @pytest.mark.parametrize("t", [0.0101, 0.5, 1.0 - 1e-4])
 def test_sampler_step_matches_plain(device, t):
-    packed = packed_model(device)
+    packed = packed_model(device, sampler=True)
     _, x, k, mask, gen = inputs(device, 256, 128)
     k = k.to(torch.int32)
     u = torch.rand((2, 256, 128), generator=gen, device=device)
@@ -165,8 +173,53 @@ def test_sampler_step_matches_plain(device, t):
     assert k_new.dtype == torch.int32 and (k_new[~real] == 0).all()
 
 
+K2_N = [1, 15, 16, 17, 31, 32, 33, 100, 128, 129, 256]
+
+
+def sampler_case(device, hidden, N, t, B=133, **encoder):
+    """K2 against its plain version at (hidden, N, t): B jets (not a multiple
+    of any grid), the last two empty; x' within atol = rtol = 1e-4, tokens
+    differing on at most 1% of real slots, the same bits on a repeat."""
+    packed = packed_model(device, hidden, blocks=2, sampler=True, **encoder)
+    _, x, k, mask, gen = inputs(device, B, N)
+    k = k.to(torch.int32)
+    u = torch.rand((2, B, N), generator=gen, device=device)
+    before = sampler_step.launches
+    x_new, k_new = sampler_step(packed, x, k, mask, u, t, 0.0101, gamma=0.125)
+    x_again, k_again = sampler_step(packed, x, k, mask, u, t, 0.0101, gamma=0.125)
+    torch.cuda.synchronize()
+    assert sampler_step.launches == before + 2
+    x_ref, k_ref = sampler_step_reference(packed, x, k, mask, u, t, 0.0101, gamma=0.125)
+    torch.testing.assert_close(x_new, x_ref, atol=ATOL, rtol=RTOL)
+    real = mask[..., 0] > 0
+    mismatch = ((k_new != k_ref)[..., 0] & real).sum().item() / max(real.sum().item(), 1)
+    assert mismatch <= 0.01
+    assert (k_new[~real] == 0).all() and (x_new[-2:] == 0).all()
+    assert torch.equal(x_new, x_again) and torch.equal(k_new, k_again)
+
+
+@pytest.mark.parametrize("N", K2_N)
+@pytest.mark.parametrize("hidden", [16, 32, 64])
+def test_sampler_step_tensor_cores_across_n(device, hidden, N):
+    sampler_case(device, hidden, N, 0.5)
+
+
+@pytest.mark.parametrize("t", [0.0101, 0.5, 1.0 - 1e-4])
+@pytest.mark.parametrize("hidden", [16, 32, 64])
+def test_sampler_step_tensor_cores_at_every_time(device, hidden, t):
+    sampler_case(device, hidden, 128, t, B=1024)
+
+
+@pytest.mark.parametrize("hidden,glob,temb", [(16, 96, 80), (16, 200, 16), (64, 130, 100)])
+def test_sampler_step_with_per_jet_vectors_wider_than_64(device, hidden, glob, temb):
+    """The global vector and the time embedding wider than a warp's two
+    registers a lane (the kernel keeps them in shared memory, the global
+    MLP's outputs 64 columns at a time)."""
+    sampler_case(device, hidden, 128, 0.5, dim_hidden_glob=glob, dim_emb_time=temb)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(device):
-    packed = packed_model(device)
+    packed = packed_model(device, sampler=True)
     t, x, k, mask, _ = inputs(device, 8, 32)
     with pytest.raises(ValueError, match="contiguous"):
         epic_forward(packed, t, x.transpose(0, 1).contiguous().transpose(0, 1), k, mask)
@@ -274,6 +327,52 @@ def test_epic_backward_wide_matches_plain_autograd(device, blocks, N, skip, head
         scale = max(r.abs().max().item(), 1e-6)
         assert ((a - r).abs() <= 1e-4 * scale + 1e-3 * r.abs()).all(), name
     assert torch.equal(got, epic_backward_wide(packed, t, x, k, mask, g))
+
+
+def hold_wide_backward(packed, t, x, k, mask, g):
+    """K5 against plain autograd per leaf (|err| ≤ 1e-4·max|ref leaf| +
+    1e-3·|ref|), the same bits on a repeat."""
+    before = epic_backward_wide.launches
+    got = epic_backward_wide(packed, t, x, k, mask, g)
+    again = epic_backward_wide(packed, t, x, k, mask, g)
+    torch.cuda.synchronize()
+    assert epic_backward_wide.launches == before + 2
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    ref = sum(epic_backward_reference(packed, *(a[i:i + 512] for a in (t, x, k, mask, g)))
+              for i in range(0, x.shape[0], 512))
+    refs = packed.rebind(ref).tensors
+    for name, a in packed.rebind(got).tensors.items():
+        r = refs[name]
+        scale = max(r.abs().max().item(), 1e-6)
+        assert ((a - r).abs() <= 1e-4 * scale + 1e-3 * r.abs()).all(), name
+
+
+@pytest.mark.parametrize("N", [1, 63, 64, 65, 109, 128])
+@pytest.mark.parametrize("skip,head", [(True, True), (False, False)])
+def test_epic_backward_wide_tensor_cores_across_n(device, N, skip, head):
+    """K5's products on the tensor cores at N on both sides of their 8-, 16-
+    and 64-row edges, with the skip and head flips; B = 133, more jets than
+    SMs and not a multiple of the grid."""
+    packed = packed_model(device, 128, 2, skip, head, wide=True)
+    t, x, k, mask, gen = inputs(device, 133, N)
+    near = near_kink_jets(packed, t, x, k, mask)
+    g = torch.randn((133, N, 11), generator=gen, device=device) * (~near)[:, None, None]
+    hold_wide_backward(packed, t, x, k, mask, g)
+
+
+@pytest.mark.parametrize("B", [1, 131, 133, 2048])
+def test_epic_backward_wide_tensor_cores_across_b(device, B):
+    """K5 at the scaled backbone's depth (6 blocks), N = 128, with one jet a
+    block, about one, and up to 16 jets a block summed into its row."""
+    packed = packed_model(device, 128, 6, wide=True)
+    t, x, k, mask, gen = inputs(device, B, 128)
+    if B == 1:  # `inputs` empties the last jets
+        mask[0, :100] = 1.0
+        x = torch.randn((1, 128, 3), generator=gen, device=device) * mask
+    near = torch.cat([near_kink_jets(packed, *(a[i:i + 512] for a in (t, x, k, mask)))
+                      for i in range(0, B, 512)])
+    g = torch.randn((B, 128, 11), generator=gen, device=device) * (~near)[:, None, None]
+    hold_wide_backward(packed, t, x, k, mask, g)
 
 
 def test_epic_train_forward_wide_goes_through_both_kernels(device):

@@ -179,16 +179,16 @@ def replay_sampler_draws(key, cfg_sampler, b, n, flat_dim):
     return draws
 
 
-def random_state(seed=1):
-    """t (B,1,1), x (B,N,3), k (B,N,1) int32, mask (B,N,1) as numpy: random
+def random_state(seed=1, b=B, n=N):
+    """t (b,1,1), x (b,n,3), k (b,n,1) int32, mask (b,n,1) as numpy: random
     multiplicities, jet 0 empty."""
     rng = np.random.default_rng(seed)
-    t = rng.random((B, 1, 1), dtype=np.float32)
-    mult = rng.integers(1, N + 1, (B, 1))
+    t = rng.random((b, 1, 1), dtype=np.float32)
+    mult = rng.integers(1, n + 1, (b, 1))
     mult[0] = 0
-    mask = (np.arange(N)[None, :] < mult).astype(np.float32)[..., None]
-    x = rng.standard_normal((B, N, 3)).astype(np.float32) * mask
-    k = (rng.integers(0, 8, (B, N, 1)) * mask).astype(np.int32)
+    mask = (np.arange(n)[None, :] < mult).astype(np.float32)[..., None]
+    x = rng.standard_normal((b, n, 3)).astype(np.float32) * mask
+    k = (rng.integers(0, 8, (b, n, 1)) * mask).astype(np.int32)
     return t, x, k, mask
 
 
@@ -196,16 +196,16 @@ def to_torch(*arrays):
     return tuple(torch.from_numpy(np.array(a, order="C")) for a in arrays)
 
 
-def jax_step_fn(jax_model):
+def jax_step_fn(jax_model, b=B, n=N):
     """The JAX fused sampler step (ops/sampler_pallas.py) in interpret mode,
-    jitted once, for (B, N) state in lane layout."""
+    jitted once, for (b, n) state in lane layout."""
     cfg = jax_model.config
     make_for = make_fused_sampler_step(
         num_blocks=cfg.encoder.num_blocks, use_skip=cfg.encoder.skip_connection,
         add_discrete_head=cfg.encoder.add_discrete_head, dim_c=3, vocab=8,
         gamma=cfg.bridge.gamma, dim_emb_time=cfg.encoder.dim_emb_time, interpret=True,
     )
-    return jax.jit(make_for(N, B))
+    return jax.jit(make_for(n, b))
 
 
 # ---- a plain model of the 3×TF32 product of the tensor-core kernels (K4, K8;
@@ -340,3 +340,186 @@ def gsdm_stack_model(packed, temb_projected, x_in, n_heads, one_product=False):
     W = packed.tensors
     h = gsdm_product_model(x_in, W["w_in"][:packed.dim_in], one_product) + W["b_in"].double()
     return gsdm_blocks_model(W, h, temb_projected, packed.n_blocks, n_heads, one_product)
+
+
+# ---- a plain model of K2's arithmetic (the sampler step on the tensor
+# cores, multimodal_particles_tpu_torch/ops/csrc/sampler_step.cu), read from
+# the kernel's own buffer, in float64 apart from the split of each product's
+# operands
+
+
+def sampler_buffer_entries(packed):
+    """Name → view of each entry of the sampler step kernel's buffer
+    (`PackedEncoder.tensor_core`), by ops/sampler_cuda.py::sampler_layout."""
+    from multimodal_particles_tpu_torch.ops.sampler_cuda import sampler_layout
+
+    (buf,) = packed.tensor_core
+    entries, off = {}, 0
+    for name, n in sampler_layout(packed.dims):
+        entries[name] = buf[off:off + n]
+        off += n
+    assert off == buf.numel()
+    return entries
+
+
+def unpack_mma_fragments(frag, K, N):
+    """The (K, N) weights' TF32 (hi, lo) halves back from mma fragments
+    [kk][j][lane 4g + t][hi b0, hi b1, lo b0, lo b1], b0 = W[8kk + 2t, 8j + g],
+    b1 = W[8kk + 2t + 1, 8j + g]."""
+    f = frag[:2 * K * N].reshape(K // 8, N // 8, 8, 4, 4)  # kk, j, g, t, slot
+    halves = []
+    for s in (0, 2):
+        e = torch.stack([f[..., s], f[..., s + 1]], dim=-1)  # kk, j, g, t, e
+        halves.append(e.permute(0, 3, 4, 1, 2).reshape(K, N))  # (kk, t, e) × (j, g)
+    return tuple(halves)
+
+
+def sampler_step_model(packed, x, k, mask, u, t, dt, gamma, one_product=False):
+    """K2's function read from its buffer as the kernel reads it: every
+    per-particle product with its A operand split by truncation and the
+    buffer's hi/lo weights (or a_hi·w_hi alone), the rest in float64; the
+    token update by the port's plain telegraph step. Returns (x', k')."""
+    from multimodal_particles_tpu_torch.models.architectures.epic import leaky_relu
+    from multimodal_particles_tpu_torch.models.architectures.utils import (
+        sinusoidal_positional_encoding,
+    )
+    from multimodal_particles_tpu_torch.models.generative.bridges import (
+        telegraph_fused_solver_step,
+    )
+
+    d = packed.dims
+    E = sampler_buffer_entries(packed)
+    H, Hg, Et = d.hidden, d.hidden_glob, d.emb_t
+    B, N = x.shape[:2]
+
+    def mat(name, rows, cols):
+        return E[name][:rows * cols].reshape(rows, cols).double()
+
+    def vec(name, n):
+        return E[name][:n].double()
+
+    def mm(a, name, K, n_out):
+        w_hi, w_lo = (h.double() for h in unpack_mma_fragments(E[name], K, n_out))
+        a_hi, a_lo = (h.double() for h in tf32_split_truncated(a.float()))
+        return a_hi @ w_hi if one_product else a_lo @ w_hi + a_hi @ w_lo + a_hi @ w_hi
+
+    m = mask.double()
+    temb = sinusoidal_positional_encoding(torch.full((B,), float(t)), Et).double()
+    ct = temb @ mat("t0", Et, H)
+    onehot = (k.reshape(B, N, 1).long() == torch.arange(8)).double()
+    a0 = torch.cat([x.double(), torch.ones((B, N, 1), dtype=torch.float64),
+                    torch.zeros((B, N, 4), dtype=torch.float64), onehot], dim=-1)
+    h = leaky_relu((mm(a0, "l0f", 16, H) + ct[:, None]) * m + vec("b_l0", H)) * m
+    h0 = h if d.use_skip else torch.zeros_like(h)
+    denom = m.sum(dim=1).clamp_min(1.0)
+    s = h.sum(dim=1)
+    g = leaky_relu(torch.cat([s / denom, s, temb], -1) @ mat("g0", 2 * H + Et, H) + vec("b_g0", H))
+    g = leaky_relu(g @ mat("g1", H, H) + vec("b_g1", H))
+    g = leaky_relu(g @ mat("g2", H, Hg) + vec("b_g2", Hg))
+    gskip = g if d.use_skip else torch.zeros_like(g)
+    for i in range(d.num_blocks):
+        s = h.sum(dim=1)
+        fa = leaky_relu(torch.cat([s / denom, s, g, temb], -1) @ mat(f"fg1_{i}", 2 * H + Hg + Et, H)
+                        + vec(f"b_fg1_{i}", H))
+        gnew = leaky_relu(fa @ mat(f"fg2_{i}", H, Hg) + vec(f"b_fg2_{i}", Hg) + g)
+        cl1 = torch.cat([gnew, temb], -1) @ mat(f"fl1b_{i}", Hg + Et, H) + vec(f"b_fl1_{i}", H)
+        g = gnew + gskip
+        l1 = leaky_relu(cl1[:, None] + mm(h, f"fl1f_{i}", H, H))
+        h = leaky_relu(h + vec(f"b_fl2_{i}", H) + mm(l1, f"fl2f_{i}", H, H)) * m + h0
+    o = (vec("b_out", 16) + mm(h, "outf", H, 16)) * m
+    logits, cont = o[..., :8], o[..., 8:11]
+    if d.add_discrete_head:
+        a = torch.nn.functional.selu(vec("b_h0", 8) + mm(logits, "h0f", 8, 8))
+        logits = vec("b_h1", 8) + mm(a, "h1f", 8, 8)
+    x_new = ((x.double() + dt * cont) * m).float()
+    t_col = torch.full((B,), float(t))
+    k_new = telegraph_fused_solver_step(t_col, k, logits.float(), gamma, 8, dt, u)
+    return x_new, k_new * mask.to(k_new.dtype)
+
+
+# ---- a plain model of K5's arithmetic (the wide backward on the tensor
+# cores, multimodal_particles_tpu_torch/ops/csrc/epic_wide_backward.cu): the
+# port's plain forward in float64 with the per-particle products taken as the
+# kernels take them, differentiated by autograd
+
+
+def split_product(x, y, split_x, split_y, one_product=False):
+    """x·y of float32 operands as the tensor cores take them under the 3×TF32
+    split, each operand split by its function, the TF32 products summed in
+    float64 (or x_hi·y_hi alone)."""
+    x_hi, x_lo = (h.double() for h in split_x(x.float()))
+    y_hi, y_lo = (h.double() for h in split_y(y.float()))
+    return x_hi @ y_hi if one_product else x_lo @ y_hi + x_hi @ y_lo + x_hi @ y_hi
+
+
+class SplitProduct(torch.autograd.Function):
+    """a·w (w (in, out)) as K5 computes it: forward as K4's rerun (a
+    truncated, w rounded), d a = dz·wᵀ (dz truncated, wᵀ rounded: the
+    transposed stages), d w = aᵀ·dz (both truncated: mma.sync)."""
+
+    @staticmethod
+    def forward(ctx, a, w, one_product):
+        ctx.save_for_backward(a, w)
+        ctx.one_product = one_product
+        return split_product(a, w, tf32_split_truncated, tf32_split, one_product)
+
+    @staticmethod
+    def backward(ctx, dz):
+        a, w = ctx.saved_tensors
+        one = ctx.one_product
+        da = split_product(dz, w.T, tf32_split_truncated, tf32_split, one)
+        k, n = w.shape
+        dw = split_product(a.reshape(-1, k).T, dz.reshape(-1, n), tf32_split_truncated,
+                           tf32_split_truncated, one)
+        return da, dw, None
+
+
+def wide_backward_model(packed, t, x, k, mask, g, one_product=False):
+    """d(flat) of the wide forward (the port's `forward_from_temb`) for the
+    cotangent g, in float64 by autograd, with fc_local1's particle third and
+    fc_local2 of every layer taken as `SplitProduct`: the products K5 runs on
+    the tensor cores (its rerun's, dz·Wᵀ and aᵀ·dz). The rest (the per-jet
+    MLP, local_0 through the embeddings, the heads) in float64, as the
+    kernel's FFMA parts of them are within float32 rounding."""
+    from multimodal_particles_tpu_torch.models.architectures.epic import leaky_relu
+    from multimodal_particles_tpu_torch.models.architectures.utils import (
+        sinusoidal_positional_encoding,
+    )
+    from multimodal_particles_tpu_torch.ops.epic_cuda import _SELU, LAYOUT_VIEWS, VOCAB
+
+    d = packed.dims
+    flat = packed.flat.detach().double().requires_grad_(True)
+    W = LAYOUT_VIEWS[packed.layout](flat, d)
+    B, N = x.shape[:2]
+    H = d.hidden
+    m = mask.double()
+    temb = sinusoidal_positional_encoding(t.reshape(B), d.emb_t).double()
+    denom = torch.clamp(m.sum(dim=1), min=1.0)
+    x_emb = x.double() @ W["w_x"].T + W["b_x"]
+    onehot = (k.reshape(B, N, 1).long() == torch.arange(VOCAB)).double()
+    feats = torch.cat([temb[:, None].expand(B, N, d.emb_t), x_emb, onehot @ W["table"]], -1) * m
+    h = leaky_relu(feats @ W["w_l0"].T + W["b_l0"])
+    s0 = (h * m).sum(dim=1)
+    g_ = leaky_relu(torch.cat([s0 / denom, s0, temb], -1) @ W["w_g0"].T + W["b_g0"])
+    g_ = leaky_relu(g_ @ W["w_g1"].T + W["b_g1"])
+    g_ = leaky_relu(g_ @ W["w_g2"].T + W["b_g2"])
+    h = h * m
+    skip_l = h if d.use_skip else 0.0
+    skip_g = g_ if d.use_skip else 0.0
+    for i in range(d.num_blocks):
+        s = (h * m).sum(dim=1)
+        g1 = leaky_relu(torch.cat([s / denom, s, g_, temb], -1) @ W[f"w_fg1_{i}"].T + W[f"b_fg1_{i}"])
+        g_new = leaky_relu(g1 @ W[f"w_fg2_{i}"].T + W[f"b_fg2_{i}"] + g_)
+        w_fl1 = W[f"w_fl1_{i}"]
+        broadcast = torch.cat([g_new, temb], -1) @ w_fl1[:, H:].T + W[f"b_fl1_{i}"]
+        l1 = leaky_relu(SplitProduct.apply(h, w_fl1[:, :H].T, one_product) + broadcast[:, None])
+        z2 = SplitProduct.apply(l1, W[f"w_fl2_{i}"].T, one_product) + W[f"b_fl2_{i}"] + h
+        h = leaky_relu(z2) * m + skip_l
+        g_ = g_new + skip_g
+    cont = (h @ W["w_out_c"].T + W["b_out_c"]) * m
+    disc = (h @ W["w_out_d"].T + W["b_out_d"]) * m
+    if d.add_discrete_head:
+        disc = _SELU.apply(disc @ W["w_h0"].T + W["b_h0"]) @ W["w_h1"].T + W["b_h1"]
+    out = torch.cat([cont, disc], -1)
+    (grad,) = torch.autograd.grad(out, flat, g.double())
+    return grad
