@@ -6,11 +6,12 @@
 Phases, one JSON line each:
   1. device   the card's name and power limit (nvidia-smi); no card → fail
   2. build    compile ops/csrc/*.cu with nvcc (sm_90a) and load the library
-  3. K1       fused EPiC forward vs its plain PyTorch version, config-berlin
-              (elementwise atol/rtol 1e-4) and hidden 64 / 4 blocks (per
-              particle: rtol scaled by the particle's largest output),
-              B=1024, N=128, random masks with empty jets; then both timed
-              with CUDA events at B=32768
+  3. K1       fused EPiC forward (its per-particle products on the tensor
+              cores under the 3×TF32 split) vs its plain PyTorch version,
+              config-berlin (elementwise atol/rtol 1e-4) and hidden 64 / 4
+              blocks (per particle: rtol scaled by the particle's largest
+              output), B=1024, N=128, random masks with empty jets; then both
+              timed with CUDA events at B=32768
   4. K2       one fused sampler step vs its plain version at three times with
               the same uniforms; then both timed at B=32768
   5. slice    MultiModalBridgeMatching(config-berlin, 100 timesteps).predict
@@ -222,7 +223,10 @@ The line before the last lists every kernel with its launches on its own
 path's run, its two bounds from the shapes and the H100 data sheet's peaks
 (`bound_ms` with the operations on the CUDA cores in fp32, `tensor_bound_ms`
 with them on the tensor cores as three TF32 products, the 3×TF32 split that
-K4, K6, K7 and K8 run), and the times measured here; the last line is
+K1, K2, K4, K5, K6, K7 and K8 run), and the times measured here; K1's entry
+also the tensor bound of the per-particle products it needs
+(`products_tensor_bound_ms`) and the timed call's share of each bound at
+each of its three shapes (config-berlin, absorbing, transdim); the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. Uses
 torch, numpy, the standard library and the port only. fp32 with TF32 off.
 """
@@ -290,6 +294,7 @@ from multimodal_particles_tpu_torch.ops.epic_cuda import (
     epic_forward_reference,
     pack_encoder,
     pack_mbm_encoder_params,
+    with_narrow_buffer,
 )
 from multimodal_particles_tpu_torch.ops.epic_vjp_cuda import (
     epic_backward,
@@ -470,7 +475,7 @@ def phase_k1(device, card):
     # elementwise bound there, so that width is held per particle.
     for hidden, blocks, gate in ((16, 2, "within_tol"), (64, 4, "within_tol_per_particle")):
         model = make_model(device, hidden, blocks)
-        packed = pack_mbm_encoder_params(model.encoder, model.config)
+        packed = with_narrow_buffer(pack_mbm_encoder_params(model.encoder, model.config))
         t, x, k, mask = random_inputs(CHECK_B, device, gen)
         got = epic_forward(packed, t, x, k, mask)
         torch.cuda.synchronize()
@@ -484,15 +489,16 @@ def phase_k1(device, card):
             raise RuntimeError(f"K1 disagrees with its plain version: {cmp}")
 
     model = make_model(device)
-    packed = pack_mbm_encoder_params(model.encoder, model.config)
+    packed = with_narrow_buffer(pack_mbm_encoder_params(model.encoder, model.config))
     t, x, k, mask = random_inputs(TIMING_B, device, gen)
     ms, plain_ms = time_pair(lambda: epic_forward(packed, t, x, k, mask),
                              lambda: epic_forward_reference(packed, t, x, k, mask))
-    timing = {"phase": "K1_time", "B": TIMING_B, "N": N, "ms": ms, "plain_ms": plain_ms, "card": card}
-    emit(timing)
+    bounds = forward_bounds(packed, TIMING_B, "forward", N, ms)
+    emit({"phase": "K1_time", "B": TIMING_B, "N": N, "ms": ms, "plain_ms": plain_ms, **bounds,
+          "card": card})
     errors = [{"hidden": r["hidden"], "num_blocks": r["num_blocks"], "B": r["B"],
                "max_abs_err": r["max_abs_err"]} for r in results]
-    return results[0]["max_abs_err"], errors, ms, plain_ms
+    return results[0]["max_abs_err"], errors, ms, plain_ms, bounds
 
 
 def phase_k2(device, card):
@@ -529,7 +535,7 @@ def phase_k2(device, card):
     bound = kernel_bound(packed, TIMING_B, "sampler_step")
     emit({"phase": "K2_time", "B": TIMING_B, "N": N, "ms": ms, "plain_ms": plain_ms, **bound,
           **against_bounds(bound, ms),
-          "products_tensor_bound_ms": sampler_products_tensor_bound_ms(packed.dims, TIMING_B, N),
+          "products_tensor_bound_ms": needed_products_tensor_bound_ms(packed.dims, TIMING_B, N),
           "card": card})
     return worst, ms, plain_ms
 
@@ -949,15 +955,29 @@ def products_tensor_bound_ms(d, B, n):
     return roofline(2.0 * d.num_blocks * 2 * d.hidden ** 2 * B * n, 0)["tensor_bound_ms"]
 
 
-def sampler_products_tensor_bound_ms(d, B, n):
-    """The tensor-core bound of K2's per-particle products alone, at (B, n):
-    the multiply-adds the function needs a particle (`encoder_macs`' per
-    particle term: local_0's particle two thirds folded, fc_local1's particle
-    third and fc_local2 of every layer, the output layer's 11 columns, the
-    8 → 8 → 8 head), not the padded products the kernel runs (local_0 16
-    deep, the output layer 16 columns)."""
+def needed_products_tensor_bound_ms(d, B, n):
+    """The tensor-core bound of K1's or K2's per-particle products alone, at
+    (B, n): the multiply-adds the function needs a particle (`encoder_macs`'
+    per particle term: local_0's particle two thirds folded, fc_local1's
+    particle third and fc_local2 of every layer, the output layer's 11
+    columns, the 8 → head width → 8 head at its real width, or none), not the
+    padded products the kernels run (local_0 16 deep, the output layer 16
+    columns, the head in 8-column tiles)."""
     per_particle, _ = encoder_macs(d)
     return roofline(2.0 * per_particle * B * n, 0)["tensor_bound_ms"]
+
+
+def forward_bounds(packed, B, kind, n, ms):
+    """K1's bounds at (B, n) and a call of `ms`'s share of each (1 = at the
+    bound): the fp32 and the tensor bound of the whole function
+    (`kernel_bound`), and the tensor bound of the per-particle products it
+    needs (`needed_products_tensor_bound_ms`)."""
+    bound = kernel_bound(packed, B, kind, n)
+    products = needed_products_tensor_bound_ms(packed.dims, B, n)
+    return {**bound_fields(bound), "products_tensor_bound_ms": products,
+            "share_of_bound": bound["bound_ms"] / ms,
+            "share_of_tensor_bound": bound["tensor_bound_ms"] / ms,
+            "share_of_products_tensor_bound": products / ms}
 
 
 def wide_backward_products_tensor_bound_ms(d, B, n):
@@ -1452,11 +1472,11 @@ def phase_k1_hidden(device, card):
     ms, plain_ms = time_pair(
         lambda: epic_forward(trunk, t, x, k, mask, output_hidden_local=True),
         lambda: epic_forward_reference(trunk, t, x, k, mask, output_hidden_local=True))
-    bound = kernel_bound(trunk, ABS_B, "forward_hidden", ABS_N)
+    bounds = forward_bounds(trunk, ABS_B, "forward_hidden", ABS_N, ms)
     emit({"phase": "K1_hidden_time", "B": ABS_B, "N": ABS_N, "ms": ms, "plain_ms": plain_ms,
-          **bound, "card": card})
+          **bounds, "card": card})
     return {"max_abs_err": max(cmp_out["max_abs_err"], cmp_hid["max_abs_err"]), "ms": ms,
-            "plain_ms": plain_ms, **bound_fields(bound),
+            "plain_ms": plain_ms, **bounds,
             "B": ABS_B, "N": ABS_N, "head_hidden": trunk.dims.head_hidden}
 
 
@@ -1803,11 +1823,11 @@ def phase_k1_fold(device, card):
         raise RuntimeError(f"K1's folded input disagrees with its plain version: {rec}")
     ms, plain_ms = time_pair(lambda: epic_forward(*args, output_hidden_local=True),
                              lambda: epic_forward_reference(*args, output_hidden_local=True))
-    bound = kernel_bound(trunk, TD_B, "forward_hidden", TD_N)
-    emit({"phase": "K1_fold_time", "B": TD_B, "N": TD_N, "ms": ms, "plain_ms": plain_ms, **bound,
+    bounds = forward_bounds(trunk, TD_B, "forward_hidden", TD_N, ms)
+    emit({"phase": "K1_fold_time", "B": TD_B, "N": TD_N, "ms": ms, "plain_ms": plain_ms, **bounds,
           "card": card})
     return {"max_abs_err": max(cmp_out["max_abs_err"], cmp_hid["max_abs_err"]), "ms": ms,
-            "plain_ms": plain_ms, **bound_fields(bound),
+            "plain_ms": plain_ms, **bounds,
             "B": TD_B, "N": TD_N, "hidden_glob": 19, "fold_discrete": True}
 
 
@@ -2725,7 +2745,7 @@ def bound_keys(packed, B, kind):
 
 def narrow_phases(device, card, build_dir):
     """Phases 3-10 at config-berlin; the kernels line's entries for K1-K3."""
-    k1_err, k1_errors, k1_ms, k1_plain = phase_k1(device, card)
+    k1_err, k1_errors, k1_ms, k1_plain, k1_bounds = phase_k1(device, card)
     k2_err, k2_ms, k2_plain = phase_k2(device, card)
     serving = phase_slice(device, card)
     phase_paths(device)
@@ -2752,7 +2772,7 @@ def narrow_phases(device, card, build_dir):
          "also_replaces": "multimodal_particles_tpu/ops/epic_pallas_vjp.py:313",
          "launches": train["epic_forward"], "launches_by_path": by_path("epic_forward"),
          "max_abs_err": k1_err, "max_abs_err_by_check": k1_errors,
-         "ms": k1_ms, "plain_ms": k1_plain, **bound_keys(berlin, TIMING_B, "forward"),
+         "ms": k1_ms, "plain_ms": k1_plain, **k1_bounds,
          "library_ms": None, "timed_at": {"hidden": 16, "B": TIMING_B}},
         {"name": "sampler_step", "route": "cuda",
          "source": "multimodal_particles_tpu_torch/ops/csrc/sampler_step.cu",

@@ -39,6 +39,7 @@ from multimodal_particles_tpu_torch.ops.epic_cuda import (
     epic_supported,
     head_width,
     pack_mbm_encoder_params,
+    with_narrow_buffer,
 )
 from multimodal_particles_tpu_torch.ops.epic_wide_cuda import (
     epic_forward_wide,
@@ -174,7 +175,7 @@ class AbsorbingFlow(nn.Module):
         if wide_supported(self.config, head_hidden=head_width(head)):
             trunk = pack_wide_encoder_params(gen, self.config, head=head)
         elif epic_supported(self.config):
-            trunk = pack_mbm_encoder_params(gen, self.config, head=head)
+            trunk = with_narrow_buffer(pack_mbm_encoder_params(gen, self.config, head=head))
         return trunk, pack_survival_head_params(gen, self.config.generator.n_attn_blocks)
 
     @torch.no_grad()

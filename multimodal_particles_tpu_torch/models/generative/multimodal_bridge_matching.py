@@ -36,6 +36,7 @@ from multimodal_particles_tpu_torch.ops.epic_cuda import (
     epic_forward,
     epic_supported,
     pack_mbm_encoder_params,
+    with_narrow_buffer,
 )
 from multimodal_particles_tpu_torch.ops.epic_vjp_cuda import epic_train_forward
 from multimodal_particles_tpu_torch.ops.epic_wide_cuda import (
@@ -156,9 +157,14 @@ class MultiModalBridgeMatching(nn.Module):
 
     def pack_for_kernel(self, wide: bool, differentiable: bool = False):
         """The encoder's effective weights in the layout of the wide or the
-        narrow kernels."""
-        pack = pack_wide_encoder_params if wide else pack_mbm_encoder_params
-        return pack(self.encoder, self.config, differentiable=differentiable)
+        narrow kernels. The narrow serving packing carries the forward
+        kernel's tensor-core buffer (`with_narrow_buffer`); the training
+        forward makes its own from the differentiable packing at each step
+        (ops/epic_vjp_cuda.py)."""
+        if wide:
+            return pack_wide_encoder_params(self.encoder, self.config, differentiable=differentiable)
+        packed = pack_mbm_encoder_params(self.encoder, self.config, differentiable=differentiable)
+        return packed if differentiable else with_narrow_buffer(packed)
 
     def forward_train(self, state: HybridState) -> MultiHeadOutput:
         """Training-path forward (multimodal_bridge_matching.py:171-194):

@@ -51,6 +51,7 @@ from multimodal_particles_tpu_torch.ops.epic_cuda import (
     epic_forward,
     epic_supported,
     pack_bare_trunk_params,
+    with_narrow_buffer,
 )
 from multimodal_particles_tpu_torch.ops.epic_wide_cuda import epic_forward_wide, wide_supported
 from multimodal_particles_tpu_torch.ops.gsdm_stack_cuda import (
@@ -279,6 +280,8 @@ class TransdimensionalJumpDiffusion(nn.Module):
         net = self.network
         trunk = pack_bare_trunk_params(net, self.config, fold_discrete=net.linear_discrete,
                                        layout=layout)
+        if layout == "narrow":  # the forward kernel's tensor-core buffer
+            trunk = with_narrow_buffer(trunk)
         return (trunk,
                 pack_gsdm_stack_params(net.transformer_1_proj_in, *net.blocks()),
                 pack_gsdm_stack_params(net.vec_transformer_in_proj, *net.blocks("vec_")))

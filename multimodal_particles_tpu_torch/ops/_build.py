@@ -4,12 +4,14 @@
 source in parallel, and links the objects into one shared library with a
 plain C interface, in `ops/build/` (git-ignored). The library
 is rebuilt when a source or header is newer than it. Sources that share
-device code include a header: epic_forward.cuh (the narrow EPiC kernels;
+device code include a header: epic_forward.cuh (the narrow EPiC layout and
+the backward's FFMA rerun), narrow_tc.cuh (the per-warp tensor-core products
+and the buffer of the narrow forward and the sampler step;
 epic_forward_kernel.cuh the forward kernel's two instantiations),
 epic_wide.cuh (the wide ones and the tiled products), gsdm_blocks.cuh (the
 (ResnetBlock, AttnBlock) stack of the survival head and the gsdm stack) and
-tf32x3.cuh (tensor-core products at fp32 accuracy, for the attention core,
-the wide forward and the gsdm blocks). No fast-math: the
+tf32x3.cuh (tensor-core products at fp32 accuracy, for every kernel that
+runs its products on the tensor cores). No fast-math: the
 telegraph update divides by 1 − exp(−Sγ(1−t)), which is about 1e-4 at the
 last step, and its jump decisions must follow the accurate `expf`.
 """
@@ -39,11 +41,12 @@ _F = ctypes.c_float
 # the stream are c_void_p so that 64-bit addresses are not truncated.
 _SIGNATURES = {
     # dims[10]: EpicDims.c_array (ops/epic_cuda.py)
-    # weights, t, x, k (int tokens; the _fold entry: float channel values, for a layout
-    # that folds the discrete input), mask, out, hidden out (or null), B, N, dims[10], stream
+    # the buffer of K1 and K2 (ops/epic_cuda.py::narrow_buffer), t, x, k (int tokens; the
+    # _fold entry: float channel values, for a layout that folds the discrete input), mask,
+    # out, hidden out (or null), B, N, dims[10], stream
     "mmp_epic_forward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "mmp_epic_forward_fold": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
-    # the kernel's own buffer (ops/sampler_cuda.py::sampler_weights), x, k, mask, u,
+    # the buffer of K1 and K2 (ops/epic_cuda.py::narrow_buffer), x, k, mask, u,
     # x_out, k_out, t, dt, gamma, B, N, dims[10], stream
     "mmp_sampler_step": [_P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _I, _I, _P, _P],
     # B, N, dims[10], &grid (int), &scratch floats (long long)

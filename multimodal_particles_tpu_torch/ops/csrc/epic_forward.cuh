@@ -1,10 +1,14 @@
-// Shared EPiC forward for the hand-written Hopper kernels
-// (epic_forward.cu, epic_forward_fold.cu, sampler_step.cu, epic_backward.cu), as the JAX kernels
-// share `_forward_acts` (multimodal_particles_tpu/ops/epic_pallas.py:183-272).
+// The narrow EPiC layout and the FFMA forward of K3's recording rerun
+// (epic_backward.cu), as the JAX kernels share `_forward_acts`
+// (multimodal_particles_tpu/ops/epic_pallas.py:183-272). `Dims`, the packed
+// layout (`Layout`, ops/epic_cuda.py::weight_layout) and the activations are
+// also what the tensor-core kernels K1 and K2 (narrow_tc.cuh) build on; their
+// per-particle products do not go through `epic_forward_particle`.
 //
-// Design: one thread block per jet, one thread per particle slot.
+// Design of the FFMA forward: one thread block per jet, one thread per
+// particle slot.
 //   * A particle's activations (h, the skip copy h0, the local hidden l1)
-//     live in registers; the kernel is templated on the hidden width H so
+//     live in registers; the code is templated on the hidden width H so
 //     that the unrolled loops index them at compile time.
 //   * Packed weights are staged into shared memory one section at a time
 //     (embedding + projection, each EPiC block, the heads), so the largest
@@ -29,15 +33,15 @@ namespace mmp {
 
 constexpr int DC = 3;            // continuous features per particle
 constexpr int V = 8;             // token vocabulary
-constexpr int MAX_THREADS = 256; // particle slots per jet (one thread each)
+constexpr int MAX_THREADS = 256; // particle slots per jet (the FFMA forward: one thread each)
 
 // head_hidden: hidden width of the discrete head's MLP (V for MBM, 56 for the
 // absorbing generator). fold_discrete: the discrete input is the particle's V
 // channel values through a Dense (the transdimensional trunk's Linear-discrete
 // embedding) instead of a token's table row; the layout then holds the
-// Dense's bias after the table. The forward kernel takes any head width and
-// the fold; the sampler step and the backward kernel are written for a head
-// of width V and a token, and refuse anything else.
+// Dense's bias after the table. The forward kernel (K1) takes any head width
+// and the fold; the sampler step (K2) and the backward kernel (K3) are
+// written for a head of width V and a token, and refuse anything else.
 struct Dims {
   int hidden, hidden_glob, emb_t, emb_x, emb_k, num_blocks, use_skip, add_discrete_head;
   int head_hidden, fold_discrete;
@@ -47,7 +51,7 @@ inline Dims dims_from(const int* a) {
   return Dims{a[0], a[1], a[2], a[3], a[4], a[5], a[6], a[7], a[8], a[9]};
 }
 
-// What every kernel but the forward takes: the MBM layout.
+// What K2 and K3 take: the MBM layout.
 inline bool token_layout(const Dims& d) { return d.head_hidden == V && d.fold_discrete == 0; }
 
 // Offsets in floats. Stage 0 offsets are absolute; block offsets are from the
@@ -117,7 +121,7 @@ inline size_t shared_bytes(const Dims& d, int threads) {
   return sizeof(float) * (size_t)(make_layout(d).max_stage + scratch_floats(d, threads / 32));
 }
 
-// Receives nothing: the forward kernels keep no activations.
+// Receives nothing.
 struct NoRecord {
   __device__ __forceinline__ void z_l0(int, float) const {}
   __device__ __forceinline__ void h_in(int, int, float) const {}
@@ -206,14 +210,12 @@ __device__ __forceinline__ void warp_dense(const float* W, const float* b, const
 //   t    this jet's time
 //   x, k, m  the particle's kinematics, token and mask
 //   cont (DC) continuous head · mask; disc (V) discrete logits
-//   FOLD, kvals  the folded Linear-discrete input (d.fold_discrete): the
-//        particle's V channel values take the token's place, k is not read
-template <int H, class Rec = NoRecord, bool FOLD = false>
+template <int H, class Rec = NoRecord>
 __device__ void epic_forward_particle(const float* __restrict__ wglob, const Dims& d,
                                       const Layout& L, float* smem, float t,
                                       const float (&x)[DC], int k, float m,
                                       float (&cont)[DC], float (&disc)[V],
-                                      const Rec& rec = Rec(), const float* kvals = nullptr) {
+                                      const Rec& rec = Rec()) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, nwarps = blockDim.x >> 5;
   const int Hg = d.hidden_glob, Et = d.emb_t, Ex = d.emb_x, Ek = d.emb_k;
   float* sw = smem;
@@ -269,15 +271,7 @@ __device__ void epic_forward_particle(const float* __restrict__ wglob, const Dim
   }
   const bool k_valid = k >= 0 && k < V;
   for (int i = 0; i < Ek; ++i) {
-    float ke;
-    if constexpr (FOLD) {
-      ke = 0.f;
-#pragma unroll
-      for (int v = 0; v < V; ++v) ke = fmaf(kvals[v], sw[L.table + v * Ek + i], ke);
-      ke += sw[L.b_k + i];
-    } else {
-      ke = k_valid ? sw[L.table + k * Ek + i] : 0.f;
-    }
+    const float ke = k_valid ? sw[L.table + k * Ek + i] : 0.f;
     const float* w = sw + L.w_l0 + Et + Ex + i;
 #pragma unroll
     for (int j = 0; j < H; ++j) h[j] = fmaf(w[j * n_l0], ke, h[j]);

@@ -1,96 +1,305 @@
-// The narrow EPiC forward kernel and its launch, shared by the two sources
-// that instantiate it: epic_forward.cu (tokens as the discrete input) and
-// epic_forward_fold.cu (the folded Linear-discrete input). They are two
-// sources so that their instantiations compile side by side.
+// The narrow EPiC forward kernel (K1) and its launch, shared by the two
+// sources that instantiate it: epic_forward.cu (tokens as the discrete input)
+// and epic_forward_fold.cu (the folded Linear-discrete input). They are two
+// sources so that their instantiations compile side by side. epic_forward.cu
+// says what the kernel computes, how it is laid out and what bounds it.
 #pragma once
 
-#include "epic_forward.cuh"
+#include "narrow_tc.cuh"
 
 namespace mmp {
+namespace k1 {
 
-// Writes the particle's final hidden state to its row of (B, N, H).
-template <int H>
-struct HiddenOut {
-  float* row;  // null: the slot is past the jet's N, or no hidden output is asked for
-  __device__ __forceinline__ void z_l0(int, float) const {}
-  __device__ __forceinline__ void h_in(int, int, float) const {}
-  __device__ __forceinline__ void z_fl1(int, int, float) const {}
-  __device__ __forceinline__ void z_fl2(int, int, float) const {}
-  __device__ __forceinline__ void h_final(int j, float v) const {
-    if (row != nullptr) row[j] = v;
-  }
-  __device__ __forceinline__ void disc_pre(int, float) const {}
-  __device__ __forceinline__ void z_h0(int, float) const {}
-  __device__ __forceinline__ void p0(int, float) const {}
-  __device__ __forceinline__ void p(int, int, float) const {}
-};
+using namespace narrow;
 
-// FOLD: `k` points at (B, N, V) float channel values, else at (B, N) int tokens.
-template <int H, bool FOLD>
-__global__ void __launch_bounds__(MAX_THREADS)
-epic_forward_kernel(const float* __restrict__ w, Dims d, const float* __restrict__ t,
+constexpr int MAX_K1_THREADS = 512;  // ⌈256 / 16⌉ warps
+
+// What the kernel is written for: any head width (or none), either discrete
+// input, per-jet vectors of any width.
+inline bool forward_dims_supported(const Dims& d) {
+  return (d.hidden == 16 || d.hidden == 32 || d.hidden == 64) && d.head_hidden >= 1 &&
+         d.hidden_glob >= 0 && d.emb_t >= 0 && d.num_blocks >= 0;
+}
+
+// Floats before the staged buffer in shared memory: the two pool buffers,
+// fc_local1's per-jet term, the jet's time terms, each warp's copy of the
+// jet's time embedding and the three global vectors, rounded up to a float4.
+__host__ __device__ inline int staged_offset(int nwarps, const Dims& d) {
+  const int H = d.hidden;
+  return pad4(2 * nwarps * (H + 1) + H + (1 + 2 * d.num_blocks) * H + nwarps * pad4(d.emb_t) +
+              3 * d.hidden_glob);
+}
+
+// FOLD: `k` points at (B, N, V) float channel values, else at (B, N) int
+// tokens. `hidden` may be null (no hidden output).
+template <int H, int THREADS_MAX, bool FOLD>
+__global__ void __launch_bounds__(THREADS_MAX, (min_blocks<H, THREADS_MAX>()))
+epic_forward_kernel(const float* __restrict__ gw, Dims d, const float* __restrict__ t,
                     const float* __restrict__ x, const void* __restrict__ k,
                     const float* __restrict__ mask, float* __restrict__ out,
-                    float* __restrict__ hidden, int N) {
-  extern __shared__ float smem[];
-  const Layout L = make_layout(d);
-  const int jet = blockIdx.x, slot = threadIdx.x;
-  const bool active = slot < N;
-  const size_t p = (size_t)jet * N + slot;
-
-  float xv[DC] = {0.f, 0.f, 0.f};
-  int kv = 0;
-  float kvals[V];
-#pragma unroll
-  for (int v = 0; v < V; ++v) kvals[v] = 0.f;
-  float m = 0.f;
-  if (active) {
-#pragma unroll
-    for (int c = 0; c < DC; ++c) xv[c] = x[p * DC + c];
-    if constexpr (FOLD) {
-      const float4* kf = reinterpret_cast<const float4*>(static_cast<const float*>(k) + p * V);
-      const float4 lo = kf[0], hi = kf[1];
-      kvals[0] = lo.x; kvals[1] = lo.y; kvals[2] = lo.z; kvals[3] = lo.w;
-      kvals[4] = hi.x; kvals[5] = hi.y; kvals[6] = hi.z; kvals[7] = hi.w;
-    } else {
-      kv = static_cast<const int*>(k)[p];
-    }
-    m = mask[p];
+                    float* __restrict__ hidden, int B, int N, int staged) {
+  constexpr int NT = H / 8;  // n-tiles of an H-wide product, and its k-steps
+  // two pool buffers of nwarps × (H + 1), fc_local1's per-jet term (H), the
+  // jet's time terms, each warp's time embedding, the global vectors, then
+  // with `staged` the whole buffer
+  extern __shared__ float red[];
+  const TcLayout L = make_tc_layout(d);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int Hg = d.hidden_glob, Et = d.emb_t, n_time = 1 + 2 * d.num_blocks;
+  float* jetv = red + 2 * nwarps * (H + 1);
+  // the time embedding's terms through g0 and every layer's fg1 and fl1b
+  float* tconst = jetv + H;
+  float* temb = tconst + n_time * H + warp * pad4(Et);  // this warp's copy
+  // the global vector g, its skip term and a layer's new g (warp 0's)
+  float* gv = tconst + n_time * H + nwarps * pad4(Et);
+  float* gskip = gv + Hg;
+  float* gnew = gskip + Hg;
+  const float* sw = gw;
+  if (staged) {
+    float* wsm = red + staged_offset(nwarps, d);
+    for (int i = threadIdx.x; i < L.total / 4; i += blockDim.x)
+      reinterpret_cast<float4*>(wsm)[i] = __ldg(reinterpret_cast<const float4*>(gw) + i);
+    sw = wsm;
   }
-  float cont[DC], disc[V];
-  const HiddenOut<H> rec{active && hidden != nullptr ? hidden + p * H : nullptr};
-  epic_forward_particle<H, HiddenOut<H>, FOLD>(w, d, L, smem, t[jet], xv, kv, m, cont, disc, rec,
-                                               kvals);
-  if (active) {
-    float* o = out + p * (DC + V);
+  __syncthreads();
+  const int rows[2] = {16 * warp + g, 16 * warp + g + 8};
+  const LaneVec none{};
+
+  for (int jet = blockIdx.x; jet < B; jet += gridDim.x) {
+  const size_t p0 = (size_t)jet * N;
+
+  // ---- the jet's time: its sinusoidal embedding [cos | sin], a zero column
+  // when E_t is odd (architectures/utils.py:15-34), in each warp's own copy;
+  // local_0's time term in every warp, and the terms through g0, fg1 and
+  // fl1b spread over the warps, for warp 0's per-jet MLP after the first pool
+  {
+    const float tj = t[jet];
+    const int half = Et / 2;
+    for (int i = lane; i < Et; i += 32) {
+      float v = 0.f;
+      if (i < 2 * half) {
+        const int f = i < half ? i : i - half;
+        const float freq = expf(-9.210340371976184f * (float)f / (float)half);
+        const float arg = tj * freq;
+        v = i < half ? cosf(arg) : sinf(arg);
+      }
+      temb[i] = v;
+    }
+    __syncwarp();
+  }
+  const LaneVec ct = dense<false>(sw + L.t0, nullptr, H, none, seg(temb, Et));
+  for (int v = warp; v < n_time; v += nwarps) {
+    // v = 0: g0's time rows; v = 1 + 2·blk: fg1's, v = 2 + 2·blk: fl1b's
+    const float* w = sw + L.g0 + 2 * H * H;
+    if (v > 0) {
+      const float* wb = sw + L.blocks + ((v - 1) >> 1) * L.block_stride;
+      w = (v & 1) ? wb + L.fg1 + (2 * H + Hg) * H : wb + L.fl1b + Hg * H;
+    }
+    lane_store(tconst + v * H, dense<false>(w, nullptr, H, none, seg(temb, Et)), H);
+  }
+
+  // ---- the thread's two rows' inputs as local_0's A fragments: element e
+  // holds row e >> 1 at input 2·tq + (e & 1) of [x, 1, 0, 0, 0, 0 | onehot(k)
+  // or the channel values]; rows past N are empty slots
+  float m[2], a[2][4];
 #pragma unroll
-    for (int c = 0; c < DC; ++c) o[c] = cont[c];
+  for (int hr = 0; hr < 2; ++hr) {
+    const bool real = rows[hr] < N;
+    const size_t p = p0 + rows[hr];
+    m[hr] = real ? mask[p] : 0.f;
 #pragma unroll
-    for (int v = 0; v < V; ++v) o[DC + v] = disc[v];
+    for (int c = 0; c < 2; ++c) {
+      const int i = 2 * tq + c;
+      a[0][2 * hr + c] = i < DC ? (real ? x[p * DC + i] : 0.f) : (i == DC ? 1.f : 0.f);
+    }
+    if constexpr (FOLD) {
+      const float2 kv = real ? *reinterpret_cast<const float2*>(static_cast<const float*>(k) +
+                                                                p * V + 2 * tq)
+                             : make_float2(0.f, 0.f);
+      a[1][2 * hr] = kv.x;
+      a[1][2 * hr + 1] = kv.y;
+    } else {
+      const int kv = real ? static_cast<const int*>(k)[p] : 0;
+      a[1][2 * hr] = kv == 2 * tq ? 1.f : 0.f;
+      a[1][2 * hr + 1] = kv == 2 * tq + 1 ? 1.f : 0.f;
+    }
+  }
+  const float mcol[4] = {m[0], m[0], m[1], m[1]};
+
+  // ---- local_0 (epic.py:44-58): the folded 16-deep product, then
+  // (· + ct)·m + b: local_0 sees the masked features
+  float h[NT][4], h0[NT][4];
+  {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h[j][e] = 0.f;
+    product<2, NT>(h, a, reinterpret_cast<const float4*>(sw + L.l0f));
+    float ctc[NT][2], bl0[NT][4];
+    at_columns<NT>(ctc, ct);
+    set_bias<NT>(bl0, sw + L.bl0);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        h[j][e] = leaky((h[j][e] + ctc[j][e & 1]) * mcol[e] + bl0[j][e]) * mcol[e];
+        h0[j][e] = d.use_skip ? h[j][e] : 0.f;
+      }
+  }
+
+  // ---- the projection's global MLP (epic.py:44-58); the first pool's
+  // barrier also makes the time terms visible to warp 0
+  const Pooled pooled = pool<H, true>(h, tq == 0 ? m[0] + m[1] : 0.f, red);
+  const float denom = fmaxf(pooled.msum, 1.f);
+  LaneVec s = pooled.s, sm;
+  if (warp == 0) {
+    sm.v[0] = s.v[0] / denom;
+    sm.v[1] = s.v[1] / denom;
+    const LaneVec a0 = dense<true, true>(sw + L.g0, sw + L.bg0, H, lane_load(tconst, H),
+                                         seg(sm, H), seg(s, H));
+    const LaneVec a1 = dense<true>(sw + L.g1, sw + L.bg1, H, none, seg(a0, H));
+    dense_to<true>(gv, sw + L.g2, sw + L.bg2, Hg, nullptr, seg(a1, H));
+    for (int i = lane; i < Hg; i += 32) gskip[i] = d.use_skip ? gv[i] : 0.f;
+  }
+
+  // ---- EPiC layers (epic.py:61-88)
+  for (int blk = 0; blk < d.num_blocks; ++blk) {
+    const float* wb = sw + L.blocks + blk * L.block_stride;
+    const float* pb = sw + L.pblocks + blk * L.pblock_stride;
+    s = pool<H, false>(h, 0.f, red + ((blk + 1) & 1) * nwarps * (H + 1)).s;
+    if (warp == 0) {
+      sm.v[0] = s.v[0] / denom;
+      sm.v[1] = s.v[1] / denom;
+      const LaneVec fa = dense<true, true>(wb + L.fg1, wb + L.bfg1, H,
+                                           lane_load(tconst + (1 + 2 * blk) * H, H), seg(sm, H),
+                                           seg(s, H), seg(gv, Hg));
+      dense_to<true, true>(gnew, wb + L.fg2, wb + L.bfg2, Hg, gv, seg(fa, H));
+      const LaneVec cl1 = dense<false, true>(wb + L.fl1b, wb + L.bfl1, H,
+                                             lane_load(tconst + (2 + 2 * blk) * H, H),
+                                             seg(gnew, Hg));
+      for (int i = lane; i < Hg; i += 32) gv[i] = gnew[i] + gskip[i];
+      __syncwarp();
+      lane_store(jetv, cl1, H);
+    }
+    __syncthreads();
+
+    // l1 = leaky(h·W_fl1[0:H] + cl1), the broadcast thirds and bias in cl1
+    float l1[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float2 c = *reinterpret_cast<const float2*>(jetv + 8 * j + 2 * tq);
+      l1[j][0] = l1[j][2] = c.x;
+      l1[j][1] = l1[j][3] = c.y;
+    }
+    product<NT, NT>(l1, h, reinterpret_cast<const float4*>(pb + L.fl1f));
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) l1[j][e] = leaky(l1[j][e]);
+    // h ← leaky(h + b + l1·W_fl2)·m + h0: the residual and bias first
+    float b2[NT][4];
+    set_bias<NT>(b2, pb + L.bfl2);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h[j][e] += b2[j][e];
+    product<NT, NT>(h, l1, reinterpret_cast<const float4*>(pb + L.fl2f));
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h[j][e] = leaky(h[j][e]) * mcol[e] + h0[j][e];
+  }
+
+  // ---- weight-normed output + heads (epic.py:122-125, mbm :65-72): n-tile
+  // 0 the discrete pre-logits, n-tile 1 the continuous outputs (3 of 8
+  // columns), both masked
+  float o[2][4];
+  set_bias<2>(o, sw + L.bout);
+  product<NT, 2>(o, h, reinterpret_cast<const float4*>(sw + L.outf));
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] *= mcol[e];
+  float disc[1][4];
+  if (d.add_discrete_head) {
+    // Dense(head width) → SELU → Dense(V), 8 hidden units at a time: a tile's
+    // SELU output is the second product's k-step of the same index
+    const float pre[1][4] = {{o[0][0], o[0][1], o[0][2], o[0][3]}};
+    set_bias<1>(disc, sw + L.bh1);
+    const int tiles = (d.head_hidden + 7) / 8;
+    for (int jt = 0; jt < tiles; ++jt) {
+      float z[1][4];
+      set_bias<1>(z, sw + L.bh0 + 8 * jt);
+      product<1, 1>(z, pre, reinterpret_cast<const float4*>(sw + L.h0f) + jt * 32);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) z[0][e] = selu(z[0][e]);
+      product<1, 1>(disc, z, reinterpret_cast<const float4*>(sw + L.h1f) + jt * 32);
+    }
+  } else {
+    // the second output is the masked pre-logits (epic_pallas.py:288-290)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) disc[0][e] = o[0][e];
+  }
+
+  // ---- out (B, N, 3 + V) and the hidden state (B, N, H): each thread writes
+  // its own columns of its two rows
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (rows[hr] >= N) continue;
+    const size_t p = p0 + rows[hr];
+    float* op = out + p * (DC + V);
+    op[DC + 2 * tq] = disc[0][2 * hr];
+    op[DC + 2 * tq + 1] = disc[0][2 * hr + 1];
+    if (2 * tq < DC) op[2 * tq] = o[1][2 * hr];
+    if (2 * tq + 1 < DC) op[2 * tq + 1] = o[1][2 * hr + 1];
+    if (hidden != nullptr) {
+      float* hp = hidden + p * H + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        *reinterpret_cast<float2*>(hp + 8 * j) = make_float2(h[j][2 * hr], h[j][2 * hr + 1]);
+    }
+  }
+  __syncthreads();  // the pool, per-jet and time buffers are free for the next jet
   }
 }
 
 template <int H, bool FOLD>
-cudaError_t launch_epic_forward(const float* w, const Dims& d, const float* t, const float* x,
-                                   const void* k, const float* mask, float* out, float* hidden,
-                                   int B, int N, cudaStream_t stream) {
-  int threads;
-  size_t smem;
-  cudaError_t err = prepare_launch(epic_forward_kernel<H, FOLD>, d, N, &threads, &smem);
+cudaError_t launch_epic_forward(const float* sw, const Dims& d, const float* t, const float* x,
+                                const void* k, const float* mask, float* out, float* hidden,
+                                int B, int N, cudaStream_t stream) {
+  const int threads = 32 * ((N + 15) / 16);
+  const size_t total = sizeof(float) * make_tc_layout(d).total;
+  const int staged = total <= MAX_STAGED_BYTES;
+  const size_t smem = sizeof(float) * staged_offset(threads / 32, d) + (staged ? total : 0);
+  auto kernel = threads <= 256 ? epic_forward_kernel<H, 256, FOLD>
+                               : epic_forward_kernel<H, MAX_K1_THREADS, FOLD>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  epic_forward_kernel<H, FOLD><<<B, threads, smem, stream>>>(w, d, t, x, k, mask, out, hidden, N);
+  int blocks;
+  if ((err = resident_blocks((const void*)kernel, threads, smem, &blocks)) != cudaSuccess) return err;
+  // a persistent grid: every block walks over jets, so a staged buffer is
+  // copied once a block and not once a jet
+  const int grid = B < blocks ? B : blocks;
+  kernel<<<grid, threads, smem, stream>>>(sw, d, t, x, k, mask, out, hidden, B, N, staged);
   return cudaGetLastError();
 }
 
-// The C entry points' body: the launch at the layout's hidden width.
+}  // namespace k1
+
+// The C entry points' body: the launch at the layout's hidden width. `tcw`
+// is the buffer (ops/epic_cuda.py::narrow_buffer).
 template <bool FOLD>
-cudaError_t epic_forward_entry(const void* w, const void* t, const void* x, const void* k,
+cudaError_t epic_forward_entry(const void* tcw, const void* t, const void* x, const void* k,
                                const void* mask, void* out, void* hidden, int B, int N,
                                const int* dims, void* stream) {
   const Dims d = dims_from(dims);
-  if (d.head_hidden < 1 || d.fold_discrete != (FOLD ? 1 : 0)) return cudaErrorInvalidValue;
+  if (!k1::forward_dims_supported(d) || d.fold_discrete != (FOLD ? 1 : 0) || N < 1 ||
+      N > MAX_THREADS || B < 0)
+    return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  const auto* wf = static_cast<const float*>(w);
+  const auto* sw = static_cast<const float*>(tcw);
   const auto* tf = static_cast<const float*>(t);
   const auto* xf = static_cast<const float*>(x);
   const auto* mf = static_cast<const float*>(mask);
@@ -98,12 +307,11 @@ cudaError_t epic_forward_entry(const void* w, const void* t, const void* x, cons
   auto* hf = static_cast<float*>(hidden);
   auto s = static_cast<cudaStream_t>(stream);
   switch (d.hidden) {
-    case 16: return launch_epic_forward<16, FOLD>(wf, d, tf, xf, k, mf, of, hf, B, N, s);
-    case 32: return launch_epic_forward<32, FOLD>(wf, d, tf, xf, k, mf, of, hf, B, N, s);
-    case 64: return launch_epic_forward<64, FOLD>(wf, d, tf, xf, k, mf, of, hf, B, N, s);
+    case 16: return k1::launch_epic_forward<16, FOLD>(sw, d, tf, xf, k, mf, of, hf, B, N, s);
+    case 32: return k1::launch_epic_forward<32, FOLD>(sw, d, tf, xf, k, mf, of, hf, B, N, s);
+    case 64: return k1::launch_epic_forward<64, FOLD>(sw, d, tf, xf, k, mf, of, hf, B, N, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace mmp
-

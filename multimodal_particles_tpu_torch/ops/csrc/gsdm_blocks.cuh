@@ -18,10 +18,14 @@
 // tensor cores at fp32 accuracy by the 3×TF32 split (tf32x3.cuh).
 //   * The products, (N, 128)·(128, 128) each, are wgmma.m64n128k8: each
 //     warpgroup multiplies 64 rows, A from shared memory split in registers
-//     by truncation (`split_fast`), W as TF32 hi and lo halves rounded to
-//     nearest, laid out once by the wrapper in the tensor cores' core-matrix
-//     order (ops/gsdm_stack_cuda.py::tensor_core_stream). A warpgroup whose
-//     rows all lie at or past N skips its products.
+//     with both halves rounded to nearest (`split`), W as TF32 hi and lo
+//     halves rounded to nearest, laid out once by the wrapper in the tensor
+//     cores' core-matrix order (ops/gsdm_stack_cuda.py::tensor_core_stream).
+//     A warpgroup whose rows all lie at or past N skips its products.
+//     Truncating A (`split_fast`) and the attention's P left K7 at 1.04 of
+//     its gate against a float64 evaluation on a state that the seeded
+//     48-step transdimensional flow reaches; rounding both costs ≈ 6% of
+//     K7's time (PERF.md §6).
 //   * The weights are one stream of 8-row stages a jet, in the order the
 //     products read them; a ring of RING stages in shared memory takes it
 //     by cp.async, RING − 2 stages ahead, through products, GroupNorm,
@@ -32,8 +36,9 @@
 //     of squares), and the product's A fragment reads (x − mean)·rstd·scale +
 //     bias, swished in the ResnetBlock. No normalised tile is written.
 //   * The attention, as attention_core.cu (K8) does it: a warp for 16 query
-//     rows and every head, q·kᵀ and P·v on mma.sync.m16n8k8 under the same
-//     split, k's rows read as the B operand as they are stored, the softmax
+//     rows and every head, q·kᵀ and P·v on mma.sync.m16n8k8 under the split
+//     (q, k and v truncated, P rounded to nearest), k's rows read as the B
+//     operand as they are stored, the softmax
 //     online over chunks of 64 keys in registers, P from the score
 //     accumulator straight into the A fragment with v's rows read in the
 //     accumulator's order. Each head's output overwrites the warp's own q
@@ -289,7 +294,7 @@ __device__ __forceinline__ void gemm_tc(float (&acc)[64], const AF& afrag, int n
       float x[4];
       afrag(kt, x);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) split_fast(x[i], h[i], l[i]);  // k-step kt − 2's, completed
+      for (int i = 0; i < 4; ++i) split(x[i], h[i], l[i]);  // k-step kt − 2's, completed
     }
     cp_async_wait<RING - 3>();  // stage kt has landed, for this thread
     fence_proxy_async();
@@ -412,10 +417,10 @@ __device__ __forceinline__ void attend(float* Q, const float* K, const float* V,
       for (int j = 0; j < KC / 8; ++j) {
         if (j < nt) {
           uint32_t ah[4], al[4];
-          split_fast(s[j][0], ah[0], al[0]);
-          split_fast(s[j][2], ah[1], al[1]);
-          split_fast(s[j][1], ah[2], al[2]);
-          split_fast(s[j][3], ah[3], al[3]);
+          split(s[j][0], ah[0], al[0]);
+          split(s[j][2], ah[1], al[1]);
+          split(s[j][1], ah[2], al[2]);
+          split(s[j][3], ah[3], al[3]);
           const float* v0 = V + (kc + 8 * j + 2 * t) * LDT;
 #pragma unroll
           for (int n = 0; n < NB; ++n) {

@@ -3,15 +3,27 @@
 
 `pack_mbm_encoder_params` resolves weight normalization outside the kernel and
 lays every effective weight, (out, in) row-major, into one flat float32 buffer
-in the order that ops/csrc/epic_forward.cuh reads it (epic_pallas.py:40-104).
+in the order of `weight_layout` (epic_pallas.py:40-104): the layout that the
+backward kernel (ops/csrc/epic_backward.cu) and every plain version read.
 The sampling packing is detached; the training packing
 (`differentiable=True`) keeps the autograd graph, so that d(flat) chains to
 v, g, the biases, the table and the head weights (epic_pallas_vjp.py:15-17).
-`epic_forward` launches ops/csrc/epic_forward.cu on CUDA tensors;
-`epic_forward_reference` is its plain PyTorch version, which the wrapper takes
-for CPU tensors. With `output_hidden_local` both also return the trunk's last
-local hidden state (B, N, H), which the absorbing family's survival head
-reads (epic_pallas.py:291-292, :428-446). The discrete head's hidden width is
+
+The forward kernel (K1, ops/csrc/epic_forward.cu) and the sampler step (K2,
+ops/csrc/sampler_step.cu) run their per-particle products on the tensor cores
+and read another buffer, made from `flat` by `narrow_buffer` (layout
+`narrow_buffer_layout`, one gather by `narrow_buffer_plan`): TF32 hi/lo mma
+fragments with a permuted k order, local_0's particle part folded with the
+embeddings, the per-jet weights transposed. Each consumer makes it where it
+packs and carries it as `PackedEncoder.tensor_core` (`with_narrow_buffer`):
+a request's packing once, the training forward at each step from the
+non-leaf `flat` (ops/epic_vjp_cuda.py).
+
+`epic_forward` launches K1 on CUDA tensors; `epic_forward_reference` is its
+plain PyTorch version, which the wrapper takes for CPU tensors. With
+`output_hidden_local` both also return the trunk's last local hidden state
+(B, N, H), which the absorbing family's survival head reads
+(epic_pallas.py:291-292, :428-446). The discrete head's hidden width is
 a member of the layout (`EpicDims.head_hidden`): the vocabulary's 8 for MBM,
 `discrete_head_hidden_dim` for the absorbing generator; only `epic_forward`
 takes another width than 8, the other kernels' wrappers refuse it. So is
@@ -28,6 +40,7 @@ TPU layout, not semantics.
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -45,8 +58,8 @@ from multimodal_particles_tpu_torch.ops import _build
 DIM_C = 3
 VOCAB = 8
 HIDDEN_WIDTHS = (16, 32, 64)
-MAX_PARTICLES = 256  # one thread per particle slot, one block per jet
-MAX_HEAD_HIDDEN = 256  # the head's weights are staged in shared memory
+MAX_PARTICLES = 256  # K1 and K2: one warp per 16 particle slots, at most 16 warps
+MAX_HEAD_HIDDEN = 256  # the discrete head widths K1 takes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,10 +176,10 @@ class PackedEncoder:
     tensors: Dict[str, torch.Tensor]  # named (out, in) views into `flat`
     dims: EpicDims
     layout: str = "narrow"  # a key of LAYOUT_VIEWS: which kernels read `flat`
-    # a tensor-core kernel's weights, made from `flat` once a packing by the
-    # pack function of the kernel that reads them: the wide forward's
-    # (stages, tables) by `pack_encoder` (`tensor_core_weights`), the sampler
-    # step's (buffer,) by ops/sampler_cuda.py::pack_sampler_params
+    # a tensor-core kernel's weights, made from `flat` by the consumer that
+    # reads them: the wide forward's (stages, tables) by `pack_encoder`
+    # (`tensor_core_weights`), the (buffer,) of K1 and K2 by
+    # `with_narrow_buffer`
     tensor_core: Optional[Tuple[torch.Tensor, ...]] = dataclasses.field(
         default=None, repr=False, compare=False)
 
@@ -224,6 +237,139 @@ def tensor_core_weights(flat: torch.Tensor, d: "EpicDims"):
         tables = torch.cat([(views["w_x"].double().T @ w_x).reshape(-1),
                             (views["table"].double() @ w_k).reshape(-1), c]).float()
     return stages.contiguous(), tables.contiguous()
+
+
+# ------------------------------------------- the buffer of K1 and K2
+
+
+def _pad4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _pad8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def narrow_buffer_layout(d: EpicDims):
+    """(name, floats) of every entry of the buffer that K1 and K2 read, in
+    order, each padded to a multiple of 4 floats: the per-jet weights (in,
+    out), then the per-particle products' mma fragments (2·K·N floats a (K, N)
+    product) and biases; the discrete head's width padded to 8-column tiles.
+    Must match `make_tc_layout` in ops/csrc/narrow_tc.cuh."""
+    H, Hg, Et, Hd = d.hidden, d.hidden_glob, d.emb_t, _pad8(d.head_hidden)
+    entries = [("t0", Et * H), ("g0", (2 * H + Et) * H), ("b_g0", H), ("g1", H * H), ("b_g1", H),
+               ("g2", H * Hg), ("b_g2", Hg)]
+    for i in range(d.num_blocks):
+        entries += [(f"fg1_{i}", (2 * H + Hg + Et) * H), (f"b_fg1_{i}", H), (f"fg2_{i}", H * Hg),
+                    (f"b_fg2_{i}", Hg), (f"fl1b_{i}", (Hg + Et) * H), (f"b_fl1_{i}", H)]
+    entries += [("l0f", 2 * 16 * H), ("b_l0", H)]
+    for i in range(d.num_blocks):
+        entries += [(f"fl1f_{i}", 2 * H * H), (f"fl2f_{i}", 2 * H * H), (f"b_fl2_{i}", H)]
+    entries += [("outf", 2 * H * 16), ("b_out", 16), ("h0f", 2 * VOCAB * Hd), ("b_h0", Hd),
+                ("h1f", 2 * Hd * VOCAB), ("b_h1", VOCAB)]
+    return [(name, _pad4(n)) for name, n in entries]
+
+
+@functools.lru_cache(maxsize=None)
+def narrow_buffer_size(d: EpicDims) -> int:
+    """Floats of the buffer of K1 and K2."""
+    return sum(n for _, n in narrow_buffer_layout(d))
+
+
+@functools.lru_cache(maxsize=None)
+def narrow_buffer_plan(d: EpicDims):
+    """Where each float of the buffer of K1 and K2 comes from, once a layout:
+    (index, kind), both (n,) on the CPU. The index is into [flat ‖ local_0's
+    folded rows (16, H) ‖ one zero]; the kind is 0 for a copy, 1 for the TF32
+    hi half of an mma fragment's value, 2 for its lo half. A (K, N) product's
+    fragments (K, N multiples of 8), per k-step kk and n-tile j: lane 4g + t
+    holds (hi b0, hi b1, lo b0, lo b1) with b0 = W[8kk + 2t, 8j + g] and
+    b1 = W[8kk + 2t + 1, 8j + g], W (in, out): the mma's k positions t and
+    t + 4 take the inputs 2t and 2t + 1, the two columns a thread holds of
+    the product before (ops/csrc/narrow_tc.cuh)."""
+    n = sum(math.prod(shape) for _, shape in weight_layout(d))
+    H, Et, Hd = d.hidden, d.emb_t, d.head_hidden
+    zero = n + 16 * H
+    W = flat_views(torch.arange(n, dtype=torch.float64), d)
+    rows = (n + torch.arange(16 * H, dtype=torch.float64)).reshape(16, H)
+
+    def padded(w, shape):
+        """w in the top left of a `shape` matrix of the zero's index."""
+        out = torch.full(shape, float(zero), dtype=torch.float64)
+        out[:w.shape[0], :w.shape[1]] = w
+        return out
+
+    out = padded(torch.cat([W["w_out_d"].T, W["w_out_c"].T], dim=1), (H, 16))
+    b_out = padded(torch.cat([W["b_out_d"], W["b_out_c"]])[None], (1, 16))[0]
+
+    def copy(w):
+        w = w.reshape(-1)
+        return w, torch.zeros(w.numel(), dtype=torch.uint8)
+
+    def fragments(w):
+        K, N = w.shape
+        p = w.reshape(K // 8, 4, 2, N // 8, 8).permute(0, 3, 4, 1, 2)  # [kk, j, g, t, e]
+        index = torch.stack([p[..., 0], p[..., 1], p[..., 0], p[..., 1]], dim=-1).reshape(-1)
+        return index, torch.tensor([1, 1, 2, 2], dtype=torch.uint8).repeat(index.numel() // 4)
+
+    src = {"t0": copy(W["w_l0"][:, :Et].T), "g0": copy(W["w_g0"].T), "b_g0": copy(W["b_g0"]),
+           "g1": copy(W["w_g1"].T), "b_g1": copy(W["b_g1"]), "g2": copy(W["w_g2"].T),
+           "b_g2": copy(W["b_g2"]), "l0f": fragments(rows), "b_l0": copy(W["b_l0"]),
+           "outf": fragments(out), "b_out": copy(b_out),
+           "h0f": fragments(padded(W["w_h0"].T, (VOCAB, _pad8(Hd)))), "b_h0": copy(W["b_h0"]),
+           "h1f": fragments(padded(W["w_h1"].T, (_pad8(Hd), VOCAB))), "b_h1": copy(W["b_h1"])}
+    for i in range(d.num_blocks):
+        w_fl1 = W[f"w_fl1_{i}"]
+        src.update({f"fg1_{i}": copy(W[f"w_fg1_{i}"].T), f"b_fg1_{i}": copy(W[f"b_fg1_{i}"]),
+                    f"fg2_{i}": copy(W[f"w_fg2_{i}"].T), f"b_fg2_{i}": copy(W[f"b_fg2_{i}"]),
+                    f"fl1b_{i}": copy(w_fl1[:, H:].T), f"b_fl1_{i}": copy(W[f"b_fl1_{i}"]),
+                    f"fl1f_{i}": fragments(w_fl1[:, :H].T),
+                    f"fl2f_{i}": fragments(W[f"w_fl2_{i}"].T), f"b_fl2_{i}": copy(W[f"b_fl2_{i}"])})
+    index, kind = [], []
+    for name, size in narrow_buffer_layout(d):
+        i, k = src[name]
+        index += [i, torch.full((size - i.numel(),), float(zero), dtype=torch.float64)]
+        kind += [k, torch.zeros(size - k.numel(), dtype=torch.uint8)]
+    return torch.cat(index).long(), torch.cat(kind)
+
+
+@functools.lru_cache(maxsize=None)
+def _narrow_plan_on(d: EpicDims, device: torch.device):
+    return tuple(a.to(device) for a in narrow_buffer_plan(d))
+
+
+def narrow_buffer(flat: torch.Tensor, d: EpicDims) -> torch.Tensor:
+    """The buffer of K1 and K2 (`narrow_buffer_layout`, `narrow_buffer_plan`),
+    made from a narrow-layout buffer (left as it is, and detached) on its
+    device by one gather: a small request is bound by the host, and the
+    training forward makes it at every step. local_0's particle two thirds
+    are folded with the embeddings (Dense layers): the product of [x, 1, 0, 0,
+    0, 0, onehot(k) or the channel values] with the 16 rows [T_x; c; 0; T_k],
+    computed in float64, gives them (c: the embeddings' biases through
+    local_0). The output layer's 16 columns are the discrete pre-logits, then
+    the three continuous outputs and five zero columns. A fragment's hi half
+    is the nearest TF32 value, its lo half the rest rounded again."""
+    with torch.no_grad():
+        W = flat_views(flat.detach(), d)
+        Et, Ex = d.emb_t, d.emb_x
+        w_l0 = W["w_l0"].double()
+        w_x, w_k = w_l0[:, Et:Et + Ex].T, w_l0[:, Et + Ex:].T
+        c = W["b_x"].double() @ w_x
+        if d.fold_discrete:
+            c = c + W["b_k"].double() @ w_k
+        rows = torch.cat([W["w_x"].double().T @ w_x, c[None], w_x.new_zeros((4, d.hidden)),
+                          W["table"].double() @ w_k])
+        src = torch.cat([flat.detach().float(), rows.float().reshape(-1), flat.new_zeros(1)])
+        index, kind = _narrow_plan_on(d, flat.device)
+        value = src[index]
+        hi = tf32_round(value)
+        return torch.where(kind == 0, value, torch.where(kind == 1, hi, tf32_round(value - hi)))
+
+
+def with_narrow_buffer(packed: "PackedEncoder") -> "PackedEncoder":
+    """`packed` (the narrow layout) carrying the buffer of K1 and K2 as its
+    `tensor_core`: what `epic_forward` and the sampler step read on the card."""
+    return dataclasses.replace(packed, tensor_core=(narrow_buffer(packed.flat, packed.dims),))
 
 
 def effective_weights(encoder, d: EpicDims, head=None) -> Dict[str, torch.Tensor]:
@@ -517,16 +663,25 @@ def epic_forward(packed: PackedEncoder, t, x, k, mask, output_hidden_local=False
     packing the (B,N,8) float channel values), mask (B,N,1) → (B, N, 3 + 8)
     float32; with `output_hidden_local` also the trunk's last local hidden
     state (B, N, H), written by the same launch. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    version; CUDA tensors launch the kernel or raise. The kernel reads the
+    packing's `tensor_core` buffer (`with_narrow_buffer`)."""
     if x.device.type == "cpu":
         return epic_forward_reference(packed, t, x, k, mask, output_hidden_local)
     check_narrow_packing(packed, any_head_width=True)
-    B, N = check_kernel_inputs(packed, x, k, mask, t=t)
+    buffers = {} if packed.tensor_core is None else {"tensor_core": packed.tensor_core[0]}
+    B, N = check_kernel_inputs(packed, x, k, mask, t=t, **buffers)
+    if packed.tensor_core is None:
+        raise ValueError("the forward kernel reads the tensor-core buffer that "
+                         "with_narrow_buffer adds to the packing")
+    (buffer,) = packed.tensor_core
     if t.numel() != B:
         raise ValueError(f"t must hold one time per jet, got {tuple(t.shape)}")
+    if buffer.numel() != narrow_buffer_size(packed.dims):
+        raise ValueError(f"the forward kernel's buffer holds {narrow_buffer_size(packed.dims)} "
+                         f"floats at {packed.dims}, got {buffer.numel()}")
     k32 = k if packed.dims.fold_discrete else k.to(torch.int32).contiguous()
-    if k32.data_ptr() % 16 and packed.dims.fold_discrete:
-        raise ValueError("the channel values must be 16-byte aligned")
+    if k32.data_ptr() % 8 and packed.dims.fold_discrete:
+        raise ValueError("the channel values must be 8-byte aligned")
     out = torch.empty((B, N, DIM_C + VOCAB), dtype=torch.float32, device=x.device)
     hidden = (torch.empty((B, N, packed.dims.hidden), dtype=torch.float32, device=x.device)
               if output_hidden_local else None)
@@ -536,7 +691,7 @@ def epic_forward(packed: PackedEncoder, t, x, k, mask, output_hidden_local=False
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = entry(
-            packed.flat.data_ptr(), t.data_ptr(), x.data_ptr(), k32.data_ptr(),
+            buffer.data_ptr(), t.data_ptr(), x.data_ptr(), k32.data_ptr(),
             mask.data_ptr(), out.data_ptr(),
             hidden.data_ptr() if output_hidden_local else None,
             B, N, packed.dims.c_array(), stream,

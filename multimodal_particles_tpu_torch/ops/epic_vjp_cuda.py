@@ -8,7 +8,10 @@ and the module → buffer mapping run in plain PyTorch outside it
 d(flat) to v, g and the rest.
 
   forward   the K1 kernel (ops/csrc/epic_forward.cu): the JAX `_fwd_kernel`
-            runs the same `_forward_acts` as `epic_forward_pallas`
+            runs the same `_forward_acts` as `epic_forward_pallas`. K1 reads
+            its tensor-core buffer, made at each step from `flat` on the
+            device (`narrow_buffer`, detached), so the loss comes from K1's
+            3×TF32 products and the gradient from the backward's FFMA rerun
   backward  ops/csrc/epic_backward.cu: recomputes the forward activations
             and returns d(flat) for a cotangent g (B, N, 3 + 8); t, x, k and
             mask get no gradient (epic_pallas_vjp.py:362-369)
@@ -35,6 +38,7 @@ from multimodal_particles_tpu_torch.ops.epic_cuda import (
     check_narrow_packing,
     epic_forward,
     forward_from_temb,
+    narrow_buffer,
 )
 
 _workspace_cache = {}
@@ -159,11 +163,11 @@ epic_backward.launches = 0
 
 class EpicTrainForward(torch.autograd.Function):
     """Forward by the K1 kernel, backward by the K3 backward kernel; only
-    the flat weights get a gradient."""
+    the flat weights get a gradient, from the backward's rerun on `flat`."""
 
     @staticmethod
     def forward(ctx, flat, dims, t, x, k, mask):
-        packed = PackedEncoder(flat, {}, dims)
+        packed = PackedEncoder(flat, {}, dims, tensor_core=(narrow_buffer(flat, dims),))
         out = epic_forward(packed, t, x, k, mask)
         ctx.save_for_backward(flat, t, x, k, mask)
         ctx.dims = dims

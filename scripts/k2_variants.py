@@ -4,11 +4,12 @@ its source with one part taken out, on one GPU, in one process.
 
     python3 scripts/k2_variants.py [--other DIR]
 
-Each variant is `ops/csrc/sampler_step.cu` with it or its header edited as
+Each variant is `ops/csrc/sampler_step.cu` with it or its headers edited as
 text (EDITS below, one set for each of the two designs: the FFMA kernel
-before the tensor cores and the tensor-core kernel after them; the set is
-taken by which design the source is) and built with nvcc into a temporary
-directory, the builds in parallel. The variants compute wrong outputs on
+before the tensor cores and the tensor-core kernel after them, whose
+per-warp machinery `narrow_tc.cuh` K2 shares with K1 and whose edits
+kernel_variants.py holds; the set is taken by which design the source is)
+and built with nvcc into a temporary directory, the builds in parallel. The variants compute wrong outputs on
 purpose; each line gives its x' error against the plain version as a share
 of K2's gate (atol = rtol = 1e-4) and its token mismatch, so that a variant
 that leaves its part in place shows as one that agrees:
@@ -100,22 +101,15 @@ EDITS = {
         ],
     },
     "tensor_cores": {
-        "no_products": [(SOURCE, "      mma(small[j], al, bh);\n      mma(acc[j], ah, bh);\n"
-                                 "      mma(small[j], ah, bl);\n", "")],
-        "no_jet_mlp": [(SOURCE, "  ((dense_seg(a, segs.v, segs.n, w, n_out, cols), w += (size_t)segs.n * n_out), ...);",
-                        "  ((void)segs, ...);\n  (void)w;")],
-        "one_product": [(SOURCE, "      mma(small[j], al, bh);\n", ""),
-                        (SOURCE, "      mma(small[j], ah, bl);\n", "")],
+        **kv.NARROW_TC_EDITS,
         # the other designs: the buffer read through L1 by the persistent
         # blocks; one block a jet, the buffer staged by every jet's block;
         # one block a jet, the buffer read through L1
         "through_l1": [(SOURCE, "  const int staged = total <= MAX_STAGED_BYTES;", "  const int staged = 0;")],
-        "per_jet": [(SOURCE, "  const int grid = B < cfg.blocks ? B : cfg.blocks;", "  const int grid = B;")],
-        "three_blocks": [(SOURCE, "H == 16 ? 4 : H == 32 ? 2 : 1", "H == 16 ? 3 : H == 32 ? 2 : 1")],
-        "five_blocks": [(SOURCE, "H == 16 ? 4 : H == 32 ? 2 : 1", "H == 16 ? 5 : H == 32 ? 2 : 1")],
+        "per_jet": [(SOURCE, "  const int grid = B < blocks ? B : blocks;", "  const int grid = B;")],
         "per_jet_through_l1": [
             (SOURCE, "  const int staged = total <= MAX_STAGED_BYTES;", "  const int staged = 0;"),
-            (SOURCE, "  const int grid = B < cfg.blocks ? B : cfg.blocks;", "  const int grid = B;"),
+            (SOURCE, "  const int grid = B < blocks ? B : blocks;", "  const int grid = B;"),
         ],
     },
 }

@@ -1,7 +1,9 @@
-"""Shared machinery of the variants scripts (k2_variants.py, k4_variants.py,
-k5_variants.py, gsdm_variants.py): copy a kernel's sources and the headers
-into a temporary directory, apply text edits to them, build with nvcc and
-bind the entry points with ctypes; time the builds in turns.
+"""Shared machinery of the variants scripts (k1_variants.py, k2_variants.py,
+k4_variants.py, k5_variants.py, gsdm_variants.py): copy a kernel's sources
+and the headers into a temporary directory, apply text edits to them, build
+with nvcc and bind the entry points with ctypes; time the builds in turns.
+The edits of the per-warp tensor-core machinery that K1 and K2 share
+(ops/csrc/narrow_tc.cuh) are here, for both scripts.
 
 A variant's edits are (file, old text, new text) triples; each must match
 exactly once or more, or the build raises, so that a variant whose text has
@@ -21,6 +23,25 @@ from port_kernel_bits import ERROR_STRING_STUB
 
 CSRC = Path(__file__).resolve().parents[1] / "multimodal_particles_tpu_torch" / "ops" / "csrc"
 
+NARROW_TC = "narrow_tc.cuh"
+# variant → edits of narrow_tc.cuh, the same for K1 and K2:
+#   no_products  the per-particle products' mma skipped
+#   no_jet_mlp   the per-jet vector-matrix products skipped (`dense*`)
+#   one_product  a_hi·w_hi alone, the 3×TF32 split's two small products left out
+#   three_blocks, five_blocks  registers bounded for three or five blocks an SM
+#                at hidden 16, in place of four
+NARROW_TC_EDITS = {
+    "no_products": [(NARROW_TC, "      mma(small[j], al, bh);\n      mma(acc[j], ah, bh);\n"
+                                "      mma(small[j], ah, bl);\n", "")],
+    "no_jet_mlp": [(NARROW_TC,
+                    "  ((dense_seg(a, segs.v, segs.n, w, n_out, cols), w += (size_t)segs.n * n_out), ...);",
+                    "  ((void)segs, ...);\n  (void)w;")],
+    "one_product": [(NARROW_TC, "      mma(small[j], al, bh);\n", ""),
+                    (NARROW_TC, "      mma(small[j], ah, bl);\n", "")],
+    "three_blocks": [(NARROW_TC, "H == 16 ? 4 : H == 32 ? 2 : 1", "H == 16 ? 3 : H == 32 ? 2 : 1")],
+    "five_blocks": [(NARROW_TC, "H == 16 ? 4 : H == 32 ? 2 : 1", "H == 16 ? 5 : H == 32 ? 2 : 1")],
+}
+
 
 def build(name, csrc, sources, edits, bind, workdir):
     """`sources` (.cu files) of `csrc` with the headers, `edits` applied,
@@ -39,9 +60,12 @@ def build(name, csrc, sources, edits, bind, workdir):
         if old not in text:
             raise RuntimeError(f"variant {name}: its edit no longer matches {file}:\n{old}")
         (src / file).write_text(text.replace(old, new))
-    (src / "error_string.cu").write_text(ERROR_STRING_STUB)
+    # the error strings' entry point lives in K1's source; without it, a stub
+    if not any("mmp_error_string" in (src / cu).read_text() for cu in sources):
+        (src / "error_string.cu").write_text(ERROR_STRING_STUB)
+        sources = (*sources, "error_string.cu")
     objects, log = [], ""
-    for cu in (*sources, "error_string.cu"):
+    for cu in sources:
         obj = here / f"{cu}.o"
         log += _build._run([_build.find_nvcc(), *_build.COMPILE_FLAGS, "-c", str(src / cu), "-o",
                             str(obj)])[0]

@@ -4,9 +4,11 @@
     python3 scripts/port_kernel_bits.py --other DIR [--kernels K1 K2 K3 K4 K5 K6 K7 K8]
 
 DIR holds another revision's sources of the kernels compared and the headers
-they include (`epic_forward.cu`, `epic_forward.cuh`, `epic_forward_kernel.cuh`
-for K1; `sampler_step.cu` and, from its tensor-core kernel on, `tf32x3.cuh`
-for K2; `epic_backward.cu` for K3; `epic_wide_forward.cu`, `epic_wide.cuh`
+they include (`epic_forward.cu`, `epic_forward_fold.cu`, `epic_forward.cuh`,
+`epic_forward_kernel.cuh` and, from its tensor-core kernel on,
+`narrow_tc.cuh` and `tf32x3.cuh` for K1; `sampler_step.cu` and, from its
+tensor-core kernel on, `tf32x3.cuh` (and later `narrow_tc.cuh`) for K2;
+`epic_backward.cu` for K3; `epic_wide_forward.cu`, `epic_wide.cuh`
 and, from the tensor-core K4 on, `tf32x3.cuh` for K4; `epic_wide_backward.cu`
 and the same headers for K5; `survival_head.cu`, `gsdm_blocks.cuh` and, from
 the tensor-core K6 on, `tf32x3.cuh` for K6; `gsdm_stack.cu` and the same
@@ -16,35 +18,41 @@ script builds those sources of that directory and of the working tree's
 `ops/csrc/` with nvcc, each into a temporary directory, and compares on one
 GPU, with `torch.equal`:
 
-  K1  the fused EPiC forward at config-berlin (B=1024, N=128) and as the
-      absorbing family calls it (56-wide head, hidden output, B=512, N=109);
+  K2  the sampler step at config-berlin (B=1024, N=128) at t = 0.0101, 0.5
+      and 1 − 1e-4 (between two builds of the same design);
   K3  the narrow backward at config-berlin (B=1024, N=128), a random
       cotangent: the weights' gradient;
   K8  the attention core at B=512, N=128 and 109, 2 heads, with a key mask
       and without.
 
-K2's, K4's, K5's, K6's and K7's bits are not held where the two builds run
-their products in another order (the tensor cores under the 3×TF32 split
-against the FFMA products before them). For each, the line gives the two
-builds' largest difference as a share of the kernel's gate against its plain
-version, the other build's output taken as the reference; a share above 1
-fails. K2: the sampler step at config-berlin (B=1024, N=128) at t = 0.0101,
-0.5 and 1 − 1e-4, x' elementwise |err| ≤ 1e-4 + 1e-4·|other|, and at most 1%
-of the real slots' tokens differing. K4: each of its four instances (tokens
-or the folded input, times the 8-wide or the 56-wide head; the hidden output
-of all but MBM's) at the scaled backbone, B=512, N=109 and 128, per particle
-|err| ≤ 1e-4 + 1e-4·max|other| over the particle's row. K5: the wide
-backward at the scaled MBM backbone (every width 128, 6 blocks, B=512,
-N=128), a random cotangent with none on jets near a kink, per leaf |err| ≤
-1e-4·max|other leaf| + 1e-3·|other|. K6: the fused survival head at (B, N) =
-(512, 109), (7, 109), (64, 128); K7: the fused gsdm stack at the reference
-input widths 24 and 27 (B=512, N=128; B=7, N=40) and the `--scaled` ones,
-136 and 139 (B=64, N=128); both elementwise, |err| ≤ 2e-4 + 2e-4·|other|.
+K1's, K2's, K4's, K5's, K6's and K7's bits are not held where the two builds
+run their products in another order (the tensor cores under the 3×TF32
+split against the FFMA products before them). For each, the line gives the
+two builds' largest difference as a share of the kernel's gate against its
+plain version, the other build's output taken as the reference; a share
+above 1 fails. K1: the fused EPiC forward at config-berlin (B=1024, N=128),
+as the absorbing family calls it (56-wide head, hidden output, B=512,
+N=109) and as the transdimensional one does (folded input, no head, hidden
+output, B=512, N=128), elementwise |err| ≤ 1e-4 + 1e-4·|other| on the
+outputs and the hidden state. K2: the sampler step at config-berlin (B=1024,
+N=128) at t = 0.0101, 0.5 and 1 − 1e-4, x' elementwise |err| ≤ 1e-4 +
+1e-4·|other|, and at most 1% of the real slots' tokens differing. K4: each
+of its four instances (tokens or the folded input, times the 8-wide or the
+56-wide head; the hidden output of all but MBM's) at the scaled backbone,
+B=512, N=109 and 128, per particle |err| ≤ 1e-4 + 1e-4·max|other| over the
+particle's row. K5: the wide backward at the scaled MBM backbone (every
+width 128, 6 blocks, B=512, N=128), a random cotangent with none on jets
+near a kink, per leaf |err| ≤ 1e-4·max|other leaf| + 1e-3·|other|. K6: the
+fused survival head at (B, N) = (512, 109), (7, 109), (64, 128); K7: the
+fused gsdm stack at the reference input widths 24 and 27 (B=512, N=128;
+B=7, N=40) and the `--scaled` ones, 136 and 139 (B=64, N=128); both
+elementwise, |err| ≤ 2e-4 + 2e-4·|other|. Every line also says whether the
+bits are the same.
 
-K1's and K3's sources build in minutes; `--kernels` leaves them out when
-their sources did not change. One JSON line a comparison; exit code 1 if any
-output held to the bits differs or a share exceeds 1. For a change to a
-header that several kernels share.
+The FFMA K1's and K3's sources build in minutes; `--kernels` leaves them out
+when their sources did not change. One JSON line a comparison; exit code 1
+if any output held to the bits differs or a share exceeds 1. For a change
+to a header that several kernels share.
 """
 
 import argparse
@@ -100,8 +108,10 @@ KERNELS = {
     "K8": ("attention_core.cu", "mmp_attention_core"),
 }
 HEADERS = ("epic_forward.cuh", "epic_forward_kernel.cuh", "epic_wide.cuh", "gsdm_blocks.cuh",
-           "tf32x3.cuh")
-K4_ATOL = K4_RTOL = 1e-4  # K4's gate against its plain version, per particle
+           "narrow_tc.cuh", "tf32x3.cuh")
+K1_FOLD = ("epic_forward_fold.cu", "mmp_epic_forward_fold")  # K1's folded-input instantiation
+K1_TOL = 1e-4  # K1's gate, elementwise (atol = rtol), at the three shapes held
+K4_TOL = 1e-4  # K4's gate against its plain version, per particle (atol = rtol)
 K6_TOL = K7_TOL = 2e-4  # K6's and K7's, elementwise (tests/test_ops/test_survival_pallas.py:86-88)
 K2_TOL = 1e-4  # K2's, elementwise on x' (atol = rtol), beside ≤ 1% of tokens differing
 K2_MAX_TOKEN_MISMATCH = 0.01
@@ -118,7 +128,8 @@ def build(csrc: Path, workdir: Path, kernels) -> ctypes.CDLL:
     their entry points."""
     src = workdir / "csrc"
     src.mkdir(parents=True)
-    for name in [KERNELS[k][0] for k in kernels] + list(HEADERS):
+    sources = [KERNELS[k][0] for k in kernels] + ([K1_FOLD[0]] if "K1" in kernels else [])
+    for name in sources + list(HEADERS):
         if (csrc / name).exists():
             shutil.copy(csrc / name, src / name)
     if "K1" not in kernels:
@@ -126,6 +137,8 @@ def build(csrc: Path, workdir: Path, kernels) -> ctypes.CDLL:
     _build.CSRC_DIR, _build.BUILD_DIR = src, workdir / "build"
     lib = ctypes.CDLL(str(_build.build_library().path))
     names = [KERNELS[k][1] for k in kernels]
+    if "K1" in kernels:
+        names.append(K1_FOLD[1])
     if "K3" in kernels:
         names.append("mmp_epic_backward_workspace")
     if "K5" in kernels:
@@ -134,8 +147,11 @@ def build(csrc: Path, workdir: Path, kernels) -> ctypes.CDLL:
     # each entry's source (K5's signature follows it)
     lib.text = (src / KERNELS["K2"][0]).read_text() if "K2" in kernels else ""
     text = {name: (src / KERNELS[k][0]).read_text() for k in kernels for name in [KERNELS[k][1]]}
-    # K4 before its tensor-core products takes no prepared weights, nor K6 and
-    # K7 before theirs their stream
+    # K1 on the tensor cores reads the buffer it shares with K2, the FFMA K1
+    # before it the packed weights (one signature); K4 before its tensor-core
+    # products takes no prepared weights, nor K6 and K7 before theirs their
+    # stream
+    lib.k1_tensor_core = "K1" in kernels and "narrow_tc.cuh" in (src / KERNELS["K1"][0]).read_text()
     lib.k4_tensor_core = "K4" in kernels and "tcw" in (src / KERNELS["K4"][0]).read_text()
     lib.gsdm_tensor_core = (src / "gsdm_blocks.cuh").exists() and "Ring" in (
         src / "gsdm_blocks.cuh").read_text()
@@ -168,6 +184,25 @@ def wide_forward(lib, packed, t, x, k, mask, hidden):
         out.data_ptr(), hid.data_ptr() if hidden else None, B, N, packed.dims.c_array(),
         torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "mmp_epic_wide_forward")
+    return (out, hid) if hidden else (out,)
+
+
+def epic_forward(lib, packed, t, x, k, mask, hidden):
+    """K1 through `lib`: the tensor-core kernel reads the packing's buffer
+    (`with_narrow_buffer`), the FFMA kernel before it the packed weights,
+    through the same signature: (out,) or (out, hidden state)."""
+    if lib.k1_tensor_core:
+        out = epic_cuda.epic_forward(packed, t, x, k, mask, output_hidden_local=hidden)
+        return out if hidden else (out,)
+    B, N = x.shape[:2]
+    out = torch.empty((B, N, 11), device=x.device)
+    hid = torch.empty((B, N, packed.dims.hidden), device=x.device) if hidden else None
+    k_in = k if packed.dims.fold_discrete else k.to(torch.int32).contiguous()
+    entry = lib.mmp_epic_forward_fold if packed.dims.fold_discrete else lib.mmp_epic_forward
+    rc = entry(packed.flat.data_ptr(), t.data_ptr(), x.data_ptr(), k_in.data_ptr(), mask.data_ptr(),
+               out.data_ptr(), hid.data_ptr() if hidden else None, B, N, packed.dims.c_array(),
+               torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, rc, "mmp_epic_forward")
     return (out, hid) if hidden else (out,)
 
 
@@ -260,9 +295,11 @@ def leaf_share(packed, here, other):
                for name, a in packed.rebind(here).tensors.items())
 
 
-def share_of_gate(here, other, atol, rtol):
-    """The largest |here − other| as a share of atol + rtol·|other|, elementwise."""
-    return ((here - other).abs() / (atol + rtol * other.abs())).max().item()
+def share_of_gate(here, other, atol, rtol, per_particle=False):
+    """The largest |here − other| as a share of atol + rtol·|other|,
+    elementwise, or per particle: atol + rtol·max|other| over the last axis."""
+    scale = other.abs().amax(dim=-1, keepdim=True) if per_particle else other.abs()
+    return ((here - other).abs() / (atol + rtol * scale)).max().item()
 
 
 def inputs(B, N, device, gen):
@@ -336,13 +373,11 @@ def main():
         def report_share(name, outs, **where):
             """The two builds' largest difference as a share of the kernel's
             gate, taking the other build's output as the reference: K4's per
-            particle, K6's and K7's elementwise."""
-            if name == "K4":
-                share = max(((here - other).abs() / (
-                    K4_ATOL + K4_RTOL * other.abs().amax(dim=-1, keepdim=True))).max().item()
-                            for other, here in zip(*outs))
-            else:
-                share = max(share_of_gate(here, other, K6_TOL, K6_TOL) for other, here in zip(*outs))
+            particle, K1's, K6's and K7's elementwise."""
+            tol, per_particle = {"K1": (K1_TOL, False), "K4": (K4_TOL, True),
+                                 "K6": (K6_TOL, False), "K7": (K7_TOL, False)}[name]
+            share = max(share_of_gate(here, other, tol, tol, per_particle)
+                        for other, here in zip(*outs))
             same.append(share <= 1.0)
             print(json.dumps({"kernel": name, **where, "share_of_gate": share,
                               "same_bits": all(torch.equal(a, b) for a, b in zip(*outs)),
@@ -350,10 +385,11 @@ def main():
 
         if "K1" in args.kernels:
             mbm = init_parameters(MultiModalBridgeMatching(MultimodalBridgeMatchingConfig()), 0)
-            packed = epic_cuda.pack_mbm_encoder_params(mbm.to(device).encoder, mbm.config)
+            packed = epic_cuda.with_narrow_buffer(
+                epic_cuda.pack_mbm_encoder_params(mbm.to(device).encoder, mbm.config))
             t, x, k, mask = inputs(1024, 128, device, gen)
-            report("K1", both(lambda lib: epic_cuda.epic_forward(packed, t, x, k, mask)),
-                   config="config-berlin", B=1024, N=128)
+            report_share("K1", both(lambda lib: epic_forward(lib, packed, t, x, k, mask, False)),
+                         config="config-berlin", B=1024, N=128)
 
         if "K2" in args.kernels or "K3" in args.kernels:
             mbm = init_parameters(MultiModalBridgeMatching(MultimodalBridgeMatchingConfig()), 0)
@@ -383,9 +419,14 @@ def main():
         trunk, head = flow.pack_for_kernel()
         if "K1" in args.kernels:
             t, x, k, mask = inputs(512, 109, device, gen)
-            report("K1", both(lambda lib: epic_cuda.epic_forward(trunk, t, x, k, mask,
-                                                                 output_hidden_local=True)),
-                   config="absorbing", B=512, N=109)
+            report_share("K1", both(lambda lib: epic_forward(lib, trunk, t, x, k, mask, True)),
+                         config="absorbing", B=512, N=109)
+            model = init_parameters(TransdimensionalJumpDiffusion(TransdimensionalEpicConfig()), 0)
+            fold, _, _ = model.to(device).eval().pack_for_kernel()
+            t, x, _, mask = inputs(512, 128, device, gen)
+            values = torch.randn((512, 128, 8), generator=gen, device=device) * mask
+            report_share("K1", both(lambda lib: epic_forward(lib, fold, t, x, values, mask, True)),
+                         config="transdim (folded input, no head)", B=512, N=128)
 
         if "K4" in args.kernels:
             for name, packed, hidden in k4_instances(device):

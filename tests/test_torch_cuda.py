@@ -22,10 +22,12 @@ logits are held elementwise at rtol = atol = 2e-4, the JAX kernel's own test's
 tolerance (tests/test_ops/test_survival_pallas.py:86-88); K7's hidden state
 likewise (tests/test_ops/test_gsdm_stack_pallas.py:72). K8's output is held
 at atol 2e-5, the JAX kernel's own test's (tests/test_ops/test_attention_pallas.py:26).
-K8, K4, K6 and K7 run their products on the tensor cores under the 3×TF32
+Every kernel but K3 runs its products on the tensor cores under the 3×TF32
 split; K8 is held at every head width it takes (32, 64, 128 channels), K4's
 four template instances at N on both sides of their 16-row and 64-row edges,
-K6 and K7 at every head width and N on both sides of the same edges.
+K6 and K7 at every head width and N on both sides of the same edges, K1 and
+K2 at N from 1 to 256 (K1 per particle past N = 128, where no float32
+evaluation holds the elementwise form).
 """
 
 import dataclasses
@@ -57,11 +59,14 @@ from multimodal_particles_tpu_torch.models.generative.transdimensional.transdime
     TransdimensionalJumpDiffusion,
 )
 from multimodal_particles_tpu_torch.ops.epic_cuda import (
+    EpicDims,
     epic_forward,
     epic_forward_reference,
     flat_views,
+    narrow_buffer,
     pack_encoder,
     pack_mbm_encoder_params,
+    with_narrow_buffer,
 )
 from multimodal_particles_tpu_torch.ops.gsdm_stack_cuda import (
     gsdm_stack,
@@ -107,9 +112,10 @@ def device():
 
 def packed_model(device, hidden=16, blocks=2, skip=True, head=True, wide=False, sampler=False,
                  **encoder):
-    """A seeded MBM encoder packed for the narrow kernels, with `sampler` for
-    the sampler step (`pack_sampler_params`), or with `wide` for the wide
-    ones; `encoder` overrides encoder fields."""
+    """A seeded MBM encoder packed for the narrow kernels (with the buffer of
+    the forward kernel and the sampler step, `with_narrow_buffer`), with
+    `sampler` for the sampler step (`pack_sampler_params`), or with `wide`
+    for the wide ones; `encoder` overrides encoder fields."""
     config = MultimodalBridgeMatchingConfig()
     config.encoder.dim_hidden_local = config.encoder.dim_hidden_glob = hidden
     if wide:  # every width 128, the wide kernels' layout
@@ -128,9 +134,11 @@ def packed_model(device, hidden=16, blocks=2, skip=True, head=True, wide=False, 
         for name, p in model.named_parameters():
             if name.endswith("bias"):
                 p.normal_(0.0, 0.1, generator=torch.Generator(device=device).manual_seed(1))
-    pack = (pack_wide_encoder_params if wide else
-            pack_sampler_params if sampler else pack_mbm_encoder_params)
-    return pack(model.encoder, config)
+    if wide:
+        return pack_wide_encoder_params(model.encoder, config)
+    if sampler:
+        return pack_sampler_params(model.encoder, config)
+    return with_narrow_buffer(pack_mbm_encoder_params(model.encoder, config))
 
 
 def inputs(device, B, N, seed=2):
@@ -283,6 +291,174 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take(device):
         epic_backward(packed, t, x, k, mask, g.double())
     with pytest.raises(ValueError, match="g must be"):
         epic_backward(packed, t, x, k, mask, g[..., :10].contiguous())
+
+
+# ------------------------------- K1 on the tensor cores, every shape it takes
+
+
+K1_N = [1, 15, 16, 17, 31, 32, 33, 100, 109, 128, 129, 256]
+
+
+def k1_packed(device, hidden=16, blocks=2, head_width=8, fold=False, glob=None, temb=None):
+    """A seeded narrow packing with the buffer of K1: MBM's encoder, or with
+    `fold` the transdimensional trunk's (the Linear-discrete input); a
+    discrete head of `head_width` hidden units (Linear-SELU-Linear, seeded),
+    None for no head; `glob`, `temb` the global and time widths."""
+    config = TransdimensionalEpicConfig() if fold else MultimodalBridgeMatchingConfig()
+    e = config.encoder
+    e.dim_hidden_local = hidden
+    e.dim_hidden_glob = hidden if glob is None else glob
+    if temb is not None:
+        e.dim_emb_time = temb
+    e.num_blocks = blocks
+    if fold:
+        net = init_transdimensional_parameters(TransdimensionalJumpDiffusion(config), 0).network
+    else:
+        net = init_mbm_parameters(MultiModalBridgeMatching(config), 0).encoder
+    gen = torch.Generator().manual_seed(1)
+    head = None
+    with torch.no_grad():
+        if head_width is not None:
+            head = torch.nn.Sequential(torch.nn.Linear(8, head_width), torch.nn.SELU(),
+                                       torch.nn.Linear(head_width, 8))
+            for p in head.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen) * (p.shape[-1] ** -0.5 if p.dim() == 2 else 0.1))
+        for p in net.parameters():  # non-zero biases, so that a misplaced vector shows
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    d = EpicDims.from_config(config, head_hidden=8 if head_width is None else head_width,
+                             add_discrete_head=head_width is not None, fold_discrete=fold)
+    net, head = net.to(device), head.to(device) if head is not None else None
+    return with_narrow_buffer(pack_encoder(net, d, head=head))
+
+
+def k1_inputs(device, packed, B, N, seed=4):
+    """t, x, k (tokens, or with a folded packing noisy one-hot channel values,
+    8-byte aligned), mask: random non-prefix masks, the last two jets empty."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mask = (torch.rand((B, N, 1), generator=gen, device=device) < 0.7).float()
+    mask[-2:] = 0.0
+    x = torch.randn((B, N, 3), generator=gen, device=device) * mask
+    tokens = torch.randint(0, 8, (B, N, 1), generator=gen, device=device)
+    if packed.dims.fold_discrete:
+        k = torch.nn.functional.one_hot(tokens[..., 0], 8).float()
+        k = (k + 0.3 * torch.randn(k.shape, generator=gen, device=device)) * mask
+    else:
+        k = tokens * mask.long()
+    t = torch.rand((B, 1, 1), generator=gen, device=device)
+    return t, x, k, mask
+
+
+def k1_case(device, packed, N, B=133, per_particle=False):
+    """K1 against its plain version with the hidden output, at B jets (not a
+    multiple of any grid): the 11 outputs and the hidden state within K1's
+    gate (elementwise atol = rtol = 1e-4; per particle at hidden 64, as
+    chip_smoke.py holds it, and at N over 128), the empty jets' continuous
+    outputs 0, the same bits on a repeat and without the hidden output.
+
+    Past N = 128 no float32 evaluation holds the elementwise form: at N = 256
+    (jets of up to 256 particles, whose pooled sums feed the global MLP) the
+    plain version misses its own float64 evaluation, and the FFMA kernel
+    before the tensor cores missed the plain version, while every one of
+    them stays far inside the per-particle form
+    (`python3 scripts/k1_long_jets.py --other DIR`; PERF.md §6)."""
+    per_particle = per_particle or N > 128
+    t, x, k, mask = k1_inputs(device, packed, B, N)
+    before = epic_forward.launches
+    out, hid = epic_forward(packed, t, x, k, mask, output_hidden_local=True)
+    again = epic_forward(packed, t, x, k, mask)
+    torch.cuda.synchronize()
+    assert epic_forward.launches == before + 2
+    ref_out, ref_hid = epic_forward_reference(packed, t, x, k, mask, output_hidden_local=True)
+    assert tuple(out.shape) == (B, N, 11) and tuple(hid.shape) == (B, N, packed.dims.hidden)
+    for got, ref in ((out, ref_out), (hid, ref_hid)):
+        assert torch.isfinite(got).all()
+        if per_particle:
+            close_per_particle(got, ref)
+        else:
+            torch.testing.assert_close(got, ref, atol=ATOL, rtol=RTOL)
+    assert (out[-2:, :, :3] == 0).all()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("N", K1_N)
+@pytest.mark.parametrize("hidden", [16, 32, 64])
+def test_epic_forward_tensor_cores_across_n(device, hidden, N):
+    k1_case(device, k1_packed(device, hidden), N, per_particle=hidden == 64)
+
+
+@pytest.mark.parametrize("head_width", [1, 8, 56, None], ids=["head1", "head8", "head56", "no_head"])
+@pytest.mark.parametrize("fold", [False, True], ids=["tokens", "folded"])
+def test_epic_forward_tensor_cores_every_head_width(device, head_width, fold):
+    k1_case(device, k1_packed(device, head_width=head_width, fold=fold), 109)
+
+
+@pytest.mark.parametrize("hidden,glob,temb", [(16, 96, 80), (16, 200, 16), (64, 130, 100), (32, 19, 7)])
+def test_epic_forward_with_per_jet_vectors_wider_than_64(device, hidden, glob, temb):
+    """The global vector and the time embedding wider than a warp's two
+    registers a lane, and an odd time width (a zero column)."""
+    k1_case(device, k1_packed(device, hidden, glob=glob, temb=temb), 128, per_particle=hidden == 64)
+
+
+@pytest.mark.parametrize("hidden", [16, 32, 64])
+def test_epic_forward_folded_input_across_n(device, hidden):
+    packed = k1_packed(device, hidden, head_width=None, fold=True)
+    for N in (1, 17, 128, 256):
+        k1_case(device, packed, N, B=67, per_particle=hidden == 64)
+
+
+def test_epic_forward_takes_no_jets_and_empty_jets(device):
+    packed = k1_packed(device)
+    t, x, k, mask = k1_inputs(device, packed, 0, 128)
+    out, hid = epic_forward(packed, t, x, k, mask, output_hidden_local=True)
+    assert tuple(out.shape) == (0, 128, 11) and tuple(hid.shape) == (0, 128, 16)
+    t, x, k, mask = k1_inputs(device, packed, 5, 128)
+    mask.zero_()
+    out = epic_forward(packed, t, x, k, mask)
+    ref = epic_forward_reference(packed, t, x, k, mask)
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+    assert (out[..., :3] == 0).all()
+
+
+def test_epic_forward_refuses_a_packing_without_its_buffer(device):
+    packed = k1_packed(device)
+    t, x, k, mask = k1_inputs(device, packed, 4, 32)
+    stripped = dataclasses.replace(packed, tensor_core=None)
+    with pytest.raises(ValueError, match="tensor-core buffer"):
+        epic_forward(stripped, t, x, k, mask)
+    short = dataclasses.replace(packed, tensor_core=(packed.tensor_core[0][:-4].clone(),))
+    with pytest.raises(ValueError, match="buffer holds"):
+        epic_forward(short, t, x, k, mask)
+
+
+@pytest.mark.parametrize("hidden,blocks", [(16, 2), (32, 3), (64, 4)])
+def test_epic_train_forward_loss_and_gradient_match_plain_autograd(device, hidden, blocks):
+    """The training forward: the loss from K1 (its buffer made from the
+    non-leaf weights at the call) within K1's gate, and d(flat) from K3
+    within K3's per-leaf gate, off the jets near a kink."""
+    packed = packed_model(device, hidden, blocks)
+    t, x, k, mask, gen = inputs(device, 64, 128)
+    near = near_kink_jets(packed, t, x, k, mask)
+    g = torch.randn((64, 128, 11), generator=gen, device=device) * (~near)[:, None, None]
+    flat = packed.flat.detach().clone().requires_grad_(True)
+    leaf = dataclasses.replace(packed.rebind(flat * 1.0), tensor_core=None)  # a non-leaf, no buffer
+    before = epic_forward.launches, epic_backward.launches
+    out = epic_train_forward(leaf, t, x, k, mask)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (epic_forward.launches, epic_backward.launches) == (before[0] + 1, before[1] + 1)
+    ref = epic_forward_reference(packed, t, x, k, mask)
+    if hidden == 64:
+        close_per_particle(out.detach(), ref)
+    else:
+        torch.testing.assert_close(out.detach(), ref, atol=ATOL, rtol=RTOL)
+    d_ref = epic_backward_reference(packed, t, x, k, mask, g)
+    for name, a in flat_views(flat.grad, packed.dims).items():
+        r = flat_views(d_ref, packed.dims)[name]
+        scale = max(r.abs().max().item(), 1e-6)
+        assert ((a - r).abs() <= 1e-4 * scale + 1e-3 * r.abs()).all(), name
+    # the buffer the step made is the packing's own
+    assert torch.equal(narrow_buffer(flat, packed.dims), packed.tensor_core[0])
 
 
 # ------------------------------------------------------- the wide pair, K4/K5
@@ -730,7 +906,7 @@ def test_other_kernels_refuse_a_folded_packing(device):
 
     lib = _build.load_library()
     out = torch.empty((4, 128, 11), device=device)
-    rc = lib.mmp_epic_forward(trunk.flat.data_ptr(), ts.data_ptr(), state.continuous.data_ptr(),
+    rc = lib.mmp_epic_forward(trunk.tensor_core[0].data_ptr(), ts.data_ptr(), state.continuous.data_ptr(),
                               state.discrete.data_ptr(), mask.data_ptr(), out.data_ptr(), None,
                               4, 128, trunk.dims.c_array(), 0)
     assert rc == 1  # cudaErrorInvalidValue

@@ -12,8 +12,8 @@ stream (the flat buffer's, a per-row correction).
 
 The arithmetic cannot run here, so a float64 model of it
 (tests/torch_port_helpers.py: `survival_head_model`, `gsdm_stack_model`:
-each product's float32 activations split by truncation, the weights by
-rounding, as the kernels split them, both attention operands by truncation)
+each product's float32 activations and weights split by rounding, as the
+kernels split them, both attention operands by truncation)
 is held against the JAX package's own K6 and K7 in interpret mode, as its
 tests run them, at the kernels' gate atol = rtol = 2e-4
 (tests/test_ops/test_survival_pallas.py:86-88,

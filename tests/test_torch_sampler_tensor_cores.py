@@ -2,7 +2,8 @@
 checked on the CPU, which cannot run it:
 
 * the buffer it reads (`PackedEncoder.tensor_core` of the packing that
-  ops/sampler_cuda.py::pack_sampler_params makes, by `sampler_weights`):
+  ops/sampler_cuda.py::pack_sampler_params makes, by
+  ops/epic_cuda.py::narrow_buffer, the buffer K2 shares with K1):
   every per-particle weight as TF32 hi/lo
   mma fragments with the k order permuted (the mma's k positions t, t + 4
   take the inputs 2t, 2t + 1), local_0's particle part folded with the
@@ -10,7 +11,8 @@ checked on the CPU, which cannot run it:
   continuous columns and its zero columns, the per-jet weights transposed,
   every entry padded with zeros to 4 floats;
 * a float64 model of the kernel's arithmetic read from that buffer
-  (tests/torch_port_helpers.py::sampler_step_model: each product's A operand
+  (tests/torch_port_helpers.py::sampler_step_model, on the forward model it
+  shares with K1's tests: each product's A operand
   split by truncation, the buffer's hi/lo weights, three products) against
   the JAX package's own fused step in interpret mode
   (ops/sampler_pallas.py), at hidden 16, 32 and 64 and at per-jet vectors
@@ -33,21 +35,19 @@ import torch
 from multimodal_particles_tpu.ops.epic_pallas import pack_mbm_encoder_params as jax_pack
 from multimodal_particles_tpu_torch.ops.epic_cuda import (
     flat_views,
+    narrow_buffer,
+    narrow_buffer_layout,
     pack_mbm_encoder_params,
     tf32_round,
 )
-from multimodal_particles_tpu_torch.ops.sampler_cuda import (
-    pack_sampler_params,
-    sampler_layout,
-    sampler_weights,
-)
+from multimodal_particles_tpu_torch.ops.sampler_cuda import pack_sampler_params
 from torch_port_helpers import (
     B,
     N,
     jax_step_fn,
     model_pair,
     random_state,
-    sampler_buffer_entries,
+    narrow_buffer_entries,
     sampler_step_model,
     to_torch,
     unpack_mma_fragments,
@@ -87,7 +87,7 @@ def products(packed):
 
 def test_fragments_hold_each_weight_at_its_place(pair):
     packed = packing(pair)
-    E = sampler_buffer_entries(packed)
+    E = narrow_buffer_entries(packed)
     for name, K, n_out, w in products(packed):
         hi, lo = unpack_mma_fragments(E[name], K, n_out)
         assert torch.equal(hi, tf32_round(w)), name
@@ -107,13 +107,13 @@ def test_fragments_hold_each_weight_at_its_place(pair):
              "b_h0": 8}
     for name, n in sizes.items():
         assert (E[name][n:] == 0).all()
-    assert sum(n for _, n in sampler_layout(packed.dims)) % 4 == 0
+    assert sum(n for _, n in narrow_buffer_layout(packed.dims)) % 4 == 0
 
 
 def test_local0_rows_give_the_particle_part_of_local0(pair):
     packed = packing(pair)
     W, d = packed.tensors, packed.dims
-    E = sampler_buffer_entries(packed)
+    E = narrow_buffer_entries(packed)
     hi, lo = unpack_mma_fragments(E["l0f"], 16, d.hidden)
     rows = hi.double() + lo.double()
     assert (rows[4:8] == 0).all()  # the zero inputs' rows
@@ -131,7 +131,7 @@ def test_local0_rows_give_the_particle_part_of_local0(pair):
 def test_per_jet_weights_are_the_transposes(pair):
     packed = packing(pair)
     W, d = packed.tensors, packed.dims
-    E = sampler_buffer_entries(packed)
+    E = narrow_buffer_entries(packed)
     H, Et = d.hidden, d.emb_t
     expect = {"t0": W["w_l0"][:, :Et].T, "g0": W["w_g0"].T, "b_g0": W["b_g0"], "g1": W["w_g1"].T,
               "g2": W["w_g2"].T, "b_g2": W["b_g2"], "b_l0": W["b_l0"], "b_h1": W["b_h1"]}
@@ -191,14 +191,15 @@ def test_one_tf32_product_misses_k2_gate(pair):
 
 
 def test_sampler_packing_carries_k2_buffer_and_the_shared_packing_none(pair):
-    """Only the sampler's own packing builds K2's buffer: the narrow packing
-    that K1 and K3 read carries none."""
+    """The sampler's own packing builds K2's buffer (the one K1 reads too);
+    the shared narrow packing, which K3 and the plain versions read, carries
+    none: each consumer adds it where it packs."""
     torch_model = pair[2]
     packed = packing(pair)
     (buf,) = packed.tensor_core
     assert buf.dtype == torch.float32 and buf.is_contiguous()
-    assert buf.numel() == sum(n for _, n in sampler_layout(packed.dims))
-    assert torch.equal(buf, sampler_weights(packed.flat.clone(), packed.dims))
+    assert buf.numel() == sum(n for _, n in narrow_buffer_layout(packed.dims))
+    assert torch.equal(buf, narrow_buffer(packed.flat.clone(), packed.dims))
     assert flat_views(packed.flat, packed.dims).keys() == packed.tensors.keys()
     with torch.no_grad():
         shared = pack_mbm_encoder_params(torch_model.encoder, torch_model.config)

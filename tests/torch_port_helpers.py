@@ -277,18 +277,19 @@ def attention_core_model(q, k, v, bias, n_heads, matmul):
 
 def gsdm_product_model(a, w, one_product=False):
     """A product as K6's and K7's wgmma products take it: a (float32
-    activations) split by truncation, w (the weights) rounded to nearest,
-    the three TF32 products (or a_hi·w_hi alone) summed in float64."""
-    a_hi, a_lo = tf32_split_truncated(a.float())
+    activations) and w (the weights) split with both halves rounded to
+    nearest, the three TF32 products (or a_hi·w_hi alone) summed in float64."""
+    a_hi, a_lo = tf32_split(a.float())
     w_hi, w_lo = tf32_split(w.float())
     a_hi, a_lo, w_hi, w_lo = (x.double() for x in (a_hi, a_lo, w_hi, w_lo))
     return a_hi @ w_hi if one_product else a_lo @ w_hi + a_hi @ w_lo + a_hi @ w_hi
 
 
-def gsdm_attention_product_model(a, b, one_product=False):
+def gsdm_attention_product_model(a, b, one_product=False, split_a=tf32_split_truncated):
     """A product of the attention (q·kᵀ, P·v) as the kernels' mma.sync takes
-    it: both operands split by truncation."""
-    a_hi, a_lo = tf32_split_truncated(a.float())
+    it: b split by truncation, a by `split_a` (q truncated, P rounded to
+    nearest)."""
+    a_hi, a_lo = split_a(a.float())
     b_hi, b_lo = tf32_split_truncated(b.float())
     a_hi, a_lo, b_hi, b_lo = (x.double() for x in (a_hi, a_lo, b_hi, b_lo))
     return a_hi @ b_hi if one_product else a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
@@ -317,7 +318,7 @@ def gsdm_blocks_model(W, h, temb_projected, n_blocks, n_heads, one_product=False
         q, k, v = ((mm(hn, W[f"w{x}_{i}"]) + vec(f"b{x}_{i}")).reshape(B, N, n_heads, hd)
                    .transpose(1, 2) for x in "qkv")
         s = gsdm_attention_product_model(q * hd**-0.5, k.transpose(-1, -2), one_product)
-        o = gsdm_attention_product_model(torch.softmax(s, dim=-1), v, one_product)
+        o = gsdm_attention_product_model(torch.softmax(s, dim=-1), v, one_product, tf32_split)
         h = h + (mm(o.transpose(1, 2).reshape(B, N, C), W[f"wp_{i}"]) + vec(f"bp_{i}"))
     return h
 
@@ -342,20 +343,20 @@ def gsdm_stack_model(packed, temb_projected, x_in, n_heads, one_product=False):
     return gsdm_blocks_model(W, h, temb_projected, packed.n_blocks, n_heads, one_product)
 
 
-# ---- a plain model of K2's arithmetic (the sampler step on the tensor
-# cores, multimodal_particles_tpu_torch/ops/csrc/sampler_step.cu), read from
-# the kernel's own buffer, in float64 apart from the split of each product's
-# operands
+# ---- a plain model of the arithmetic of K1 and K2 (the narrow forward and
+# the sampler step on the tensor cores, multimodal_particles_tpu_torch/ops/
+# csrc/narrow_tc.cuh), read from the kernels' own buffer, in float64 apart
+# from the split of each product's operands
 
 
-def sampler_buffer_entries(packed):
-    """Name → view of each entry of the sampler step kernel's buffer
-    (`PackedEncoder.tensor_core`), by ops/sampler_cuda.py::sampler_layout."""
-    from multimodal_particles_tpu_torch.ops.sampler_cuda import sampler_layout
+def narrow_buffer_entries(packed):
+    """Name → view of each entry of the buffer of K1 and K2
+    (`PackedEncoder.tensor_core`), by ops/epic_cuda.py::narrow_buffer_layout."""
+    from multimodal_particles_tpu_torch.ops.epic_cuda import narrow_buffer_layout
 
     (buf,) = packed.tensor_core
     entries, off = {}, 0
-    for name, n in sampler_layout(packed.dims):
+    for name, n in narrow_buffer_layout(packed.dims):
         entries[name] = buf[off:off + n]
         off += n
     assert off == buf.numel()
@@ -374,22 +375,18 @@ def unpack_mma_fragments(frag, K, N):
     return tuple(halves)
 
 
-def sampler_step_model(packed, x, k, mask, u, t, dt, gamma, one_product=False):
-    """K2's function read from its buffer as the kernel reads it: every
-    per-particle product with its A operand split by truncation and the
-    buffer's hi/lo weights (or a_hi·w_hi alone), the rest in float64; the
-    token update by the port's plain telegraph step. Returns (x', k')."""
+def narrow_forward_model(packed, temb, x, k, mask, one_product=False):
+    """The forward of K1 and K2 read from their buffer as the kernels read it:
+    every per-particle product with its A operand split by truncation and the
+    buffer's hi/lo weights (or a_hi·w_hi alone), the rest in float64. temb
+    (B, E_t) the jets' time embeddings; k the (B, N, 1) tokens or, with a
+    folded packing, the (B, N, 8) channel values. Returns (cont (B, N, 3),
+    logits (B, N, 8), h (B, N, H)) in float64."""
     from multimodal_particles_tpu_torch.models.architectures.epic import leaky_relu
-    from multimodal_particles_tpu_torch.models.architectures.utils import (
-        sinusoidal_positional_encoding,
-    )
-    from multimodal_particles_tpu_torch.models.generative.bridges import (
-        telegraph_fused_solver_step,
-    )
 
     d = packed.dims
-    E = sampler_buffer_entries(packed)
-    H, Hg, Et = d.hidden, d.hidden_glob, d.emb_t
+    E = narrow_buffer_entries(packed)
+    H, Hg, Et, Hd = d.hidden, d.hidden_glob, d.emb_t, (d.head_hidden + 7) // 8 * 8
     B, N = x.shape[:2]
 
     def mat(name, rows, cols):
@@ -404,11 +401,14 @@ def sampler_step_model(packed, x, k, mask, u, t, dt, gamma, one_product=False):
         return a_hi @ w_hi if one_product else a_lo @ w_hi + a_hi @ w_lo + a_hi @ w_hi
 
     m = mask.double()
-    temb = sinusoidal_positional_encoding(torch.full((B,), float(t)), Et).double()
+    temb = temb.double()
     ct = temb @ mat("t0", Et, H)
-    onehot = (k.reshape(B, N, 1).long() == torch.arange(8)).double()
+    if d.fold_discrete:
+        discrete = k.double()
+    else:
+        discrete = (k.reshape(B, N, 1).long() == torch.arange(8)).double()
     a0 = torch.cat([x.double(), torch.ones((B, N, 1), dtype=torch.float64),
-                    torch.zeros((B, N, 4), dtype=torch.float64), onehot], dim=-1)
+                    torch.zeros((B, N, 4), dtype=torch.float64), discrete], dim=-1)
     h = leaky_relu((mm(a0, "l0f", 16, H) + ct[:, None]) * m + vec("b_l0", H)) * m
     h0 = h if d.use_skip else torch.zeros_like(h)
     denom = m.sum(dim=1).clamp_min(1.0)
@@ -429,8 +429,38 @@ def sampler_step_model(packed, x, k, mask, u, t, dt, gamma, one_product=False):
     o = (vec("b_out", 16) + mm(h, "outf", H, 16)) * m
     logits, cont = o[..., :8], o[..., 8:11]
     if d.add_discrete_head:
-        a = torch.nn.functional.selu(vec("b_h0", 8) + mm(logits, "h0f", 8, 8))
-        logits = vec("b_h1", 8) + mm(a, "h1f", 8, 8)
+        a = torch.nn.functional.selu(vec("b_h0", Hd) + mm(logits, "h0f", 8, Hd))
+        logits = vec("b_h1", 8) + mm(a, "h1f", Hd, 8)
+    return cont, logits, h
+
+
+def epic_forward_model(packed, t, x, k, mask, one_product=False):
+    """K1's function as the kernel computes it (`narrow_forward_model`, each
+    jet's own time): ((B, N, 3 + 8) outputs, (B, N, H) hidden state), float64."""
+    from multimodal_particles_tpu_torch.models.architectures.utils import (
+        sinusoidal_positional_encoding,
+    )
+
+    temb = sinusoidal_positional_encoding(t.reshape(-1), packed.dims.emb_t)
+    cont, logits, h = narrow_forward_model(packed, temb, x, k, mask, one_product)
+    return torch.cat([cont, logits], dim=-1), h
+
+
+def sampler_step_model(packed, x, k, mask, u, t, dt, gamma, one_product=False):
+    """K2's function read from its buffer as the kernel reads it
+    (`narrow_forward_model` at the step's one time), the token update by the
+    port's plain telegraph step. Returns (x', k')."""
+    from multimodal_particles_tpu_torch.models.architectures.utils import (
+        sinusoidal_positional_encoding,
+    )
+    from multimodal_particles_tpu_torch.models.generative.bridges import (
+        telegraph_fused_solver_step,
+    )
+
+    B = x.shape[0]
+    temb = sinusoidal_positional_encoding(torch.full((B,), float(t)), packed.dims.emb_t)
+    cont, logits, _ = narrow_forward_model(packed, temb, x, k, mask, one_product)
+    m = mask.double()
     x_new = ((x.double() + dt * cont) * m).float()
     t_col = torch.full((B,), float(t))
     k_new = telegraph_fused_solver_step(t_col, k, logits.float(), gamma, 8, dt, u)
