@@ -22,7 +22,9 @@ Phases, one JSON line each:
   6. paths    the 99-step kernel path vs the plain module path at B=1024
               with the same generator seed (informational, loose bounds:
               ≤ 1% token mismatch, median |Δx|/max(|x|, 1) ≤ 1e-4)
-  7. K3       EPiC forward + hand-written backward (epic_backward.cu) vs
+  7. K3       EPiC forward + hand-written backward (epic_backward.cu: its
+              rerun K1's forward, dz·Wᵀ and aᵀ·dz on the tensor cores under
+              the 3×TF32 split) vs
               plain autograd at config-berlin and hidden 64 / 4 blocks at
               B=1024, and at config-berlin at the training batch B=8192;
               N=128, random masks with empty jets, a random cotangent (0 on
@@ -30,8 +32,10 @@ Phases, one JSON line each:
               float32 rounding of its kink): the forward by the K1 gates,
               every packed weight's gradient per leaf
               (|err| ≤ 1e-4·max|ref leaf| + 1e-3·|ref|), and at least B/16
-              of the jets held must have more than 64 particles; then
-              forward+backward and the backward alone timed at B=8192
+              of the jets held must have more than 64 particles; at B=8192
+              the backward's rerun must give K1's output bits on the same
+              buffer; then forward+backward and the backward alone timed at
+              B=8192
   8. train    the training path, counted as one run: Trainer.fit at
               config-berlin, B=8192, N=128 (2 epochs of 8 synthetic
               batches + 1 validation batch, checkpoints to a temporary
@@ -223,10 +227,10 @@ The line before the last lists every kernel with its launches on its own
 path's run, its two bounds from the shapes and the H100 data sheet's peaks
 (`bound_ms` with the operations on the CUDA cores in fp32, `tensor_bound_ms`
 with them on the tensor cores as three TF32 products, the 3×TF32 split that
-K1, K2, K4, K5, K6, K7 and K8 run), and the times measured here; K1's entry
-also the tensor bound of the per-particle products it needs
-(`products_tensor_bound_ms`) and the timed call's share of each bound at
-each of its three shapes (config-berlin, absorbing, transdim); the last line is
+every kernel runs), and the times measured here; K1's and K3's entries
+also the tensor bound of the per-particle products they need
+(`products_tensor_bound_ms`) and the timed call's share of each bound (K1's
+at each of its three shapes: config-berlin, absorbing, transdim); the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero. Uses
 torch, numpy, the standard library and the port only. fp32 with TF32 off.
 """
@@ -633,7 +637,7 @@ def phase_k3(device, card):
                                     (64, 4, CHECK_B, "within_tol_per_particle"),
                                     (16, 2, TRAIN_B, "within_tol")):
         model = make_model(device, hidden, blocks)
-        packed = pack_mbm_encoder_params(model.encoder, model.config)
+        packed = with_narrow_buffer(pack_mbm_encoder_params(model.encoder, model.config))
         t, x, k, mask = random_inputs(B, device, gen)
         # jets with a leaky/SELU input within float32 rounding of its kink
         # get no cotangent: there the two float32 evaluations may take other
@@ -647,8 +651,8 @@ def phase_k3(device, card):
         fwd = compare(out.detach(), epic_forward_reference(packed, t, x, k, mask))
         bwd = leaf_compare(leaf.grad, epic_backward_reference(packed, t, x, k, mask, g), packed)
         mult = mask[..., 0].sum(dim=1)
-        # the kernel stages particles 64 slots at a time: the jets held must
-        # include enough with a second chunk
+        # the jets held must include enough of more than 64 particles, more
+        # than four of the kernel's warps of 16 slots
         kept_long = int(((~near) & (mult > 64)).sum().item())
         rec = {"phase": "K3", "hidden": hidden, "num_blocks": blocks, "B": B, "N": N,
                "forward_gate": gate, "forward": fwd, "backward": bwd,
@@ -663,6 +667,13 @@ def phase_k3(device, card):
             raise RuntimeError(f"K3 disagrees with plain autograd: {rec}")
         if kept_long < B // 16:
             raise RuntimeError(f"K3 check holds only {kept_long} jets of more than 64 particles")
+    # the backward's rerun is K1's forward on the same buffer: K1's bits
+    rerun = torch.empty((TRAIN_B, N, 11), device=device)
+    epic_backward(packed, t, x, k, mask, g, rerun_out=rerun)
+    rerun_bits = bool(torch.equal(rerun, epic_forward(packed, t, x, k, mask)))
+    emit({"phase": "K3_rerun", "B": TRAIN_B, "N": N, "rerun_equals_k1_bits": rerun_bits})
+    if not rerun_bits:
+        raise RuntimeError("K3's rerun of the forward does not give K1's bits")
 
     # the timing reuses the training-batch check's weights and inputs
     g = torch.randn((TRAIN_B, N, 11), generator=gen, device=device)
@@ -679,12 +690,13 @@ def phase_k3(device, card):
     fb_ms, fb_plain_ms = time_pair(kernel_fb, plain_fb)
     ms, plain_ms = time_pair(lambda: epic_backward(packed, t, x, k, mask, g),
                              lambda: epic_backward_reference(packed, t, x, k, mask, g))
+    bounds = backward_bounds(packed, TRAIN_B, N, ms)
     emit({"phase": "K3_time", "hidden": 16, "B": TRAIN_B, "N": N, "forward_backward_ms": fb_ms,
           "forward_backward_plain_ms": fb_plain_ms, "backward_ms": ms,
-          "backward_plain_ms": plain_ms, "card": card})
+          "backward_plain_ms": plain_ms, **bounds, "card": card})
     errors = [{"hidden": c["hidden"], "num_blocks": c["num_blocks"], "B": c["B"],
                "max_abs_err": c["backward"]["max_abs_err"]} for c in checks]
-    return checks[-1]["backward"]["max_abs_err"], errors, ms, plain_ms
+    return checks[-1]["backward"]["max_abs_err"], errors, ms, plain_ms, bounds
 
 
 def train_config(num_timesteps=100):
@@ -814,7 +826,8 @@ def phase_profile(trainer, dm, card, workdir, step_seconds, phase="profile"):
     device_ms = sum(k[0] for k in kernels)
     step_ms = step_seconds * 1e3
     rec = {"phase": phase, "steps": steps, "B": TRAIN_B, "profiled_wall_ms_per_step": wall_ms / steps,
-           "device_ms_per_step": device_ms, "bare_step_ms": step_ms,
+           "device_ms_per_step": device_ms, "launches_per_step": sum(k[1] for k in kernels),
+           "bare_step_ms": step_ms,
            "device_idle_share_of_bare_step": 1.0 - device_ms / step_ms,
            "ranges_device_ms_per_step": ranges,
            "kernels_ms_per_step": [{"ms": ms, "per_step": n, "name": name[:80]}
@@ -922,26 +935,24 @@ def phase_paths(device, model=None, B=CHECK_B, phase="paths"):
         raise RuntimeError(f"kernel path and plain path diverge: {rec}")
 
 
-def encoder_macs(d, embeddings_folded=True):
+def local_0_macs(d):
+    """Multiply-adds a particle of local_0's particle two thirds with the x
+    and discrete embeddings (Dense layers) folded into them as tables
+    (ops/epic_cuda.py::tensor_core_weights): x·T_x (3·H) plus the channel
+    values times T_k (8·H) with the folded input, or plus a token's row of T_k
+    (H additions, counted as H/2 multiply-adds); the tables are made once a
+    packing and left out."""
+    return 3 * d.hidden + (8 * d.hidden if d.fold_discrete else d.hidden / 2)
+
+
+def encoder_macs(d):
     """Multiply-adds of one EPiC forward, (per particle, per jet), with what
     is the same for every particle of a jet (the time third of local_0, the
-    [g ‖ temb] thirds of fc_local1, the global MLP) taken once a jet.
-
-    The x and discrete embeddings are Dense layers, so local_0's particle two
-    thirds fold with them into tables (ops/epic_cuda.py::tensor_core_weights),
-    and what the function needs of them a particle is x·T_x (3·H) plus the
-    channel values times T_k (8·H) with the folded input, or plus a token's
-    row of T_k (H additions, counted as H/2 multiply-adds); the tables are
-    made once a packing and left out. With `embeddings_folded` false, the
-    layers as the module has them: x's embedding (3·Ex), the folded input's
-    (8·Ek), local_0's particle thirds ((Ex + Ek)·H), which a backward that
-    gives each weight its gradient goes through."""
-    H, Hg, Et, Ex, Ek, nb = d.hidden, d.hidden_glob, d.emb_t, d.emb_x, d.emb_k, d.num_blocks
-    if embeddings_folded:
-        local_0 = 3 * H + (8 * H if d.fold_discrete else H / 2)
-    else:
-        local_0 = 3 * Ex + (Ex + Ek) * H + (8 * Ek if d.fold_discrete else 0)
-    per_particle = (local_0 + nb * 2 * H * H + H * 11
+    [g ‖ temb] thirds of fc_local1, the global MLP) taken once a jet, and
+    local_0's particle two thirds folded with the embeddings
+    (`local_0_macs`)."""
+    H, Hg, Et, nb = d.hidden, d.hidden_glob, d.emb_t, d.num_blocks
+    per_particle = (local_0_macs(d) + nb * 2 * H * H + H * 11
                     + (2 * 8 * d.head_hidden if d.add_discrete_head else 0))
     per_jet = (Et * H + (2 * H + Et) * H + H * H + H * Hg
                + nb * ((2 * H + Hg + Et) * H + H * Hg + (Hg + Et) * H))
@@ -974,6 +985,46 @@ def forward_bounds(packed, B, kind, n, ms):
     needs (`needed_products_tensor_bound_ms`)."""
     bound = kernel_bound(packed, B, kind, n)
     products = needed_products_tensor_bound_ms(packed.dims, B, n)
+    return {**bound_fields(bound), "products_tensor_bound_ms": products,
+            "share_of_bound": bound["bound_ms"] / ms,
+            "share_of_tensor_bound": bound["tensor_bound_ms"] / ms,
+            "share_of_products_tensor_bound": products / ms}
+
+
+def backward_macs(d):
+    """Multiply-adds of the EPiC backward (the weights' gradient), (per
+    particle, per jet): the forward's rerun (`encoder_macs`), then dz·Wᵀ and
+    aᵀ·dz of each layer, as many multiply-adds each as the layer's forward,
+    save what no gradient needs. t, x, k and mask get none, so no dz·Wᵀ runs
+    into local_0's input (its time third, its particle two thirds and the
+    embeddings behind them) or into the time embedding's columns of g0,
+    fc_global1 and fc_local1's broadcast third. The gradients of local_0's
+    particle two thirds and of the embeddings all follow from Rᵀ·dz_l0, R the
+    folded input (x, 1, and the token's one-hot or the channel values): as
+    many multiply-adds a particle as the folded forward (`local_0_macs`); the
+    products that turn it into them are made once a call and left out."""
+    rerun, rerun_jet = encoder_macs(d)
+    local_0 = local_0_macs(d)
+    per_particle = rerun + 2 * (rerun - local_0) + local_0
+    per_jet = 3 * rerun_jet - d.emb_t * d.hidden * (2 + 2 * d.num_blocks)
+    return per_particle, per_jet
+
+
+def narrow_backward_products_tensor_bound_ms(d, B, n):
+    """The tensor-core bound of K3's per-particle products alone, at (B, n):
+    the per-particle multiply-adds the function needs (`backward_macs`), not
+    the padded products the kernel runs."""
+    per_particle, _ = backward_macs(d)
+    return roofline(2.0 * per_particle * B * n, 0)["tensor_bound_ms"]
+
+
+def backward_bounds(packed, B, n, ms):
+    """K3's bounds at (B, n) and a call of `ms`'s share of each (1 = at the
+    bound): the fp32 and the tensor bound of the whole function
+    (`kernel_bound`), and the tensor bound of the per-particle products it
+    needs (`narrow_backward_products_tensor_bound_ms`)."""
+    bound = kernel_bound(packed, B, "backward", n)
+    products = narrow_backward_products_tensor_bound_ms(packed.dims, B, n)
     return {**bound_fields(bound), "products_tensor_bound_ms": products,
             "share_of_bound": bound["bound_ms"] / ms,
             "share_of_tensor_bound": bound["tensor_bound_ms"] / ms,
@@ -1028,13 +1079,13 @@ def bound_fields(bound):
 def kernel_bound(packed, B, kind, n=N):
     """The least time the card could take for one call at (B, n): the larger
     of the function's operations at the fp32 peak and its bytes (each input
-    read once, each output written once) at the HBM rate. The backward is the
-    forward rerun plus two products per product of the module's layers."""
-    def flops(folded):
-        per_particle, per_jet = encoder_macs(packed.dims, folded)
+    read once, each output written once) at the HBM rate. The backward's
+    operations are `backward_macs`."""
+    def flops(macs):
+        per_particle, per_jet = macs
         return 2.0 * (per_particle * B * n + per_jet * B)
 
-    forward_flops = flops(True)
+    forward_flops = flops(encoder_macs(packed.dims))
     weights = 4 * packed.flat.numel()
     slots = B * n
     # t, x, k (int32, or with the folded input the 8 float channel values), mask
@@ -1046,7 +1097,7 @@ def kernel_bound(packed, B, kind, n=N):
         # + uniforms in, (x, k) out; ~60 operations a slot for the two updates
         "sampler_step": (forward_flops + 60.0 * slots, inputs + slots * (8 + 16) + weights),
         # + cotangent in, d(weights) out
-        "backward": (forward_flops + 2.0 * flops(False), inputs + slots * 44 + 2 * weights),
+        "backward": (flops(backward_macs(packed.dims)), inputs + slots * 44 + 2 * weights),
     }[kind]
     return roofline(flops, nbytes)
 
@@ -2749,7 +2800,7 @@ def narrow_phases(device, card, build_dir):
     k2_err, k2_ms, k2_plain = phase_k2(device, card)
     serving = phase_slice(device, card)
     phase_paths(device)
-    k3_err, k3_errors, k3_ms, k3_plain = phase_k3(device, card)
+    k3_err, k3_errors, k3_ms, k3_plain, k3_bounds = phase_k3(device, card)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         trainer, dm, train, rate = phase_train(device, card, Path(tmp))
         phase_profile(trainer, dm, card, Path(tmp), rate["step_seconds"])
@@ -2786,7 +2837,7 @@ def narrow_phases(device, card, build_dir):
          "replaces": "multimodal_particles_tpu/ops/epic_pallas_vjp.py:351",
          "launches": train["epic_backward"], "launches_by_path": by_path("epic_backward"),
          "max_abs_err": k3_err, "max_abs_err_by_check": k3_errors,
-         "ms": k3_ms, "plain_ms": k3_plain, **bound_keys(berlin, TRAIN_B, "backward"),
+         "ms": k3_ms, "plain_ms": k3_plain, **k3_bounds,
          "library_ms": None, "timed_at": {"hidden": 16, "B": TRAIN_B}},
     ]
 

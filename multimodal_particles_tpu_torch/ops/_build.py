@@ -4,10 +4,10 @@
 source in parallel, and links the objects into one shared library with a
 plain C interface, in `ops/build/` (git-ignored). The library
 is rebuilt when a source or header is newer than it. Sources that share
-device code include a header: epic_forward.cuh (the narrow EPiC layout and
-the backward's FFMA rerun), narrow_tc.cuh (the per-warp tensor-core products
-and the buffer of the narrow forward and the sampler step;
-epic_forward_kernel.cuh the forward kernel's two instantiations),
+device code include a header: epic_forward.cuh (the narrow EPiC layout),
+narrow_tc.cuh (the per-warp tensor-core products and the buffer of the narrow
+forward, the sampler step and the narrow backward; epic_forward_kernel.cuh the
+forward kernel, its two instantiations and the backward's rerun),
 epic_wide.cuh (the wide ones and the tiled products), gsdm_blocks.cuh (the
 (ResnetBlock, AttnBlock) stack of the survival head and the gsdm stack) and
 tf32x3.cuh (tensor-core products at fp32 accuracy, for every kernel that
@@ -51,8 +51,9 @@ _SIGNATURES = {
     "mmp_sampler_step": [_P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _I, _I, _P, _P],
     # B, N, dims[10], &grid (int), &scratch floats (long long)
     "mmp_epic_backward_workspace": [_I, _I, _P, _P, _P],
-    # weights, t, x, k, mask, g, d_weights, scratch, grid, B, N, dims[10], stream
-    "mmp_epic_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    # the buffer (ops/epic_cuda.py::narrow_buffer), weights, t, x, k, mask,
+    # g, d_weights, the rerun's out (or null), scratch, grid, B, N, dims[10], stream
+    "mmp_epic_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     # the wide pair (hidden 128) takes the narrow one's arguments; the forward
     # also the tensor-core stages and local_0's tables after the weights, the
     # backward those and the transposed stages

@@ -2,8 +2,8 @@
 // (epic_wide_forward.cu, epic_wide_backward.cu), as the JAX wide kernels share
 // `_forward_acts_wide` (multimodal_particles_tpu/ops/epic_pallas_wide.py:97-191).
 //
-// The narrow kernels (epic_forward.cuh) keep a particle's hidden vectors in
-// one thread's registers and a whole stage's weights in shared memory. At
+// The narrow kernels (narrow_tc.cuh) keep a warp's 16 particles' hidden
+// vectors in its mma fragments and their whole buffer in shared memory. At
 // hidden 128 neither fits: one fc_local1 weight is 192 KB. The wide kernels
 // are a chain of matrix products through shared memory instead.
 //

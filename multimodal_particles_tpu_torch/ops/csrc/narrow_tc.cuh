@@ -1,6 +1,7 @@
 // The per-warp tensor-core machinery of the narrow kernels K1 (the fused EPiC
-// forward, epic_forward_kernel.cuh) and K2 (the fused sampler step,
-// sampler_step.cu), and the buffer both read.
+// forward, epic_forward_kernel.cuh), K2 (the fused sampler step,
+// sampler_step.cu) and K3 (the backward, epic_backward.cu, whose rerun is
+// K1's forward), and the buffer they read.
 //
 // A block gives each warp 16 particle slots. A warp's rows go through every
 // per-particle product as mma.sync.m16n8k8 TF32 products under the 3×TF32
@@ -22,7 +23,8 @@
 // [T_x; c; 0; T_k]; the output layer's 16 columns are the 8 discrete
 // pre-logits, the 3 continuous outputs and 5 zero columns; the discrete head
 // is Dense(8 → head width) → SELU → Dense(head width → 8), its width padded
-// to 8-column tiles.
+// to 8-column tiles. The fragments of K3's transposed weights follow
+// (`make_tc_layout_t`); K1 and K2 do not read them.
 #pragma once
 
 #include "epic_forward.cuh"
@@ -79,6 +81,31 @@ __host__ __device__ inline TcLayout make_tc_layout(const Dims& d) {
   L.bh0 = o;  o += Hd;
   L.h1f = o;  o += 2 * Hd * V;
   L.bh1 = o;  o += V;
+  L.total = o;
+  return L;
+}
+
+// K3's part of the buffer, after K1's and K2's (`make_tc_layout(d).total`): the
+// fragments of the transposed per-particle weights of its dz·Wᵀ products,
+// each a (K, N) product's fragments laid out as K1's: the output layer's (16,
+// H), per layer fc_local2's and fc_local1's particle third (H, H), the
+// head's second layer (V, head width) and first (head width, V).
+struct TcLayoutT {
+  int outT, blocks, block_stride, fl2T, fl1T, h1T, h0T, total;
+};
+
+__host__ __device__ inline TcLayoutT make_tc_layout_t(const Dims& d) {
+  TcLayoutT L;
+  const int H = d.hidden, Hd = pad8(d.head_hidden);
+  int o = make_tc_layout(d).total;
+  L.outT = o; o += 2 * 16 * H;
+  L.blocks = o;
+  L.fl2T = 0;
+  L.fl1T = 2 * H * H;
+  L.block_stride = 4 * H * H;
+  o += d.num_blocks * L.block_stride;
+  L.h1T = o; o += 2 * V * Hd;
+  L.h0T = o; o += 2 * Hd * V;
   L.total = o;
   return L;
 }

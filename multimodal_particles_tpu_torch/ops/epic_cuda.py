@@ -3,8 +3,9 @@
 
 `pack_mbm_encoder_params` resolves weight normalization outside the kernel and
 lays every effective weight, (out, in) row-major, into one flat float32 buffer
-in the order of `weight_layout` (epic_pallas.py:40-104): the layout that the
-backward kernel (ops/csrc/epic_backward.cu) and every plain version read.
+in the order of `weight_layout` (epic_pallas.py:40-104): the layout of the
+weights' gradient that the backward kernel (ops/csrc/epic_backward.cu) writes,
+and the one every plain version reads.
 The sampling packing is detached; the training packing
 (`differentiable=True`) keeps the autograd graph, so that d(flat) chains to
 v, g, the biases, the table and the head weights (epic_pallas_vjp.py:15-17).
@@ -12,12 +13,14 @@ v, g, the biases, the table and the head weights (epic_pallas_vjp.py:15-17).
 The forward kernel (K1, ops/csrc/epic_forward.cu) and the sampler step (K2,
 ops/csrc/sampler_step.cu) run their per-particle products on the tensor cores
 and read another buffer, made from `flat` by `narrow_buffer` (layout
-`narrow_buffer_layout`, one gather by `narrow_buffer_plan`): TF32 hi/lo mma
+`narrow_buffer_layout`, gathers by `narrow_buffer_plan`): TF32 hi/lo mma
 fragments with a permuted k order, local_0's particle part folded with the
-embeddings, the per-jet weights transposed. Each consumer makes it where it
-packs and carries it as `PackedEncoder.tensor_core` (`with_narrow_buffer`):
-a request's packing once, the training forward at each step from the
-non-leaf `flat` (ops/epic_vjp_cuda.py).
+embeddings, the per-jet weights transposed, and after them the fragments
+of the backward kernel's (K3's) dz·Wᵀ products' transposed weights, which K1
+and K2 do not read. Each consumer makes it where it packs and carries it as
+`PackedEncoder.tensor_core` (`with_narrow_buffer`): a request's packing
+once, the training forward at each step from the non-leaf `flat`, and K3
+reads the one K1 read (ops/epic_vjp_cuda.py).
 
 `epic_forward` launches K1 on CUDA tensors; `epic_forward_reference` is its
 plain PyTorch version, which the wrapper takes for CPU tensors. With
@@ -54,11 +57,12 @@ from multimodal_particles_tpu_torch.models.architectures.utils import (
 )
 from multimodal_particles_tpu_torch.ops import _build
 
-# widths the kernels are compiled for (ops/csrc/epic_forward.cuh)
+# widths the narrow kernels are compiled for (ops/csrc/epic_forward.cuh's DC, V and
+# MAX_THREADS; each kernel's instances at hidden 16, 32 and 64)
 DIM_C = 3
 VOCAB = 8
 HIDDEN_WIDTHS = (16, 32, 64)
-MAX_PARTICLES = 256  # K1 and K2: one warp per 16 particle slots, at most 16 warps
+MAX_PARTICLES = 256  # K1, K2 and K3: one warp per 16 particle slots, at most 16 warps
 MAX_HEAD_HIDDEN = 256  # the discrete head widths K1 takes
 
 
@@ -178,7 +182,7 @@ class PackedEncoder:
     layout: str = "narrow"  # a key of LAYOUT_VIEWS: which kernels read `flat`
     # a tensor-core kernel's weights, made from `flat` by the consumer that
     # reads them: the wide forward's (stages, tables) by `pack_encoder`
-    # (`tensor_core_weights`), the (buffer,) of K1 and K2 by
+    # (`tensor_core_weights`), the (buffer,) of K1, K2 and K3 by
     # `with_narrow_buffer`
     tensor_core: Optional[Tuple[torch.Tensor, ...]] = dataclasses.field(
         default=None, repr=False, compare=False)
@@ -239,7 +243,7 @@ def tensor_core_weights(flat: torch.Tensor, d: "EpicDims"):
     return stages.contiguous(), tables.contiguous()
 
 
-# ------------------------------------------- the buffer of K1 and K2
+# ------------------------------------------- the buffer of K1, K2 and K3
 
 
 def _pad4(n: int) -> int:
@@ -251,11 +255,15 @@ def _pad8(n: int) -> int:
 
 
 def narrow_buffer_layout(d: EpicDims):
-    """(name, floats) of every entry of the buffer that K1 and K2 read, in
-    order, each padded to a multiple of 4 floats: the per-jet weights (in,
+    """(name, floats) of every entry of the buffer that K1, K2 and K3 read,
+    in order, each padded to a multiple of 4 floats: the per-jet weights (in,
     out), then the per-particle products' mma fragments (2·K·N floats a (K, N)
     product) and biases; the discrete head's width padded to 8-column tiles.
-    Must match `make_tc_layout` in ops/csrc/narrow_tc.cuh."""
+    K3's entries follow (K1 and K2 read the part before them): the fragments
+    of the transposed per-particle weights of its dz·Wᵀ products (the output
+    layer, every layer's fc_local2 and fc_local1's particle third, the head's
+    two layers). Must match `make_tc_layout` and `make_tc_layout_t` in
+    ops/csrc/narrow_tc.cuh."""
     H, Hg, Et, Hd = d.hidden, d.hidden_glob, d.emb_t, _pad8(d.head_hidden)
     entries = [("t0", Et * H), ("g0", (2 * H + Et) * H), ("b_g0", H), ("g1", H * H), ("b_g1", H),
                ("g2", H * Hg), ("b_g2", Hg)]
@@ -266,38 +274,54 @@ def narrow_buffer_layout(d: EpicDims):
     for i in range(d.num_blocks):
         entries += [(f"fl1f_{i}", 2 * H * H), (f"fl2f_{i}", 2 * H * H), (f"b_fl2_{i}", H)]
     entries += [("outf", 2 * H * 16), ("b_out", 16), ("h0f", 2 * VOCAB * Hd), ("b_h0", Hd),
-                ("h1f", 2 * Hd * VOCAB), ("b_h1", VOCAB)]
+                ("h1f", 2 * Hd * VOCAB), ("b_h1", VOCAB), ("outT", 2 * 16 * H)]
+    for i in range(d.num_blocks):
+        entries += [(f"fl2T_{i}", 2 * H * H), (f"fl1T_{i}", 2 * H * H)]
+    entries += [("h1T", 2 * VOCAB * Hd), ("h0T", 2 * Hd * VOCAB)]
     return [(name, _pad4(n)) for name, n in entries]
 
 
 @functools.lru_cache(maxsize=None)
 def narrow_buffer_size(d: EpicDims) -> int:
-    """Floats of the buffer of K1 and K2."""
+    """Floats of the buffer of K1, K2 and K3."""
     return sum(n for _, n in narrow_buffer_layout(d))
 
 
 @functools.lru_cache(maxsize=None)
 def narrow_buffer_plan(d: EpicDims):
-    """Where each float of the buffer of K1 and K2 comes from, once a layout:
-    (index, kind), both (n,) on the CPU. The index is into [flat ‖ local_0's
-    folded rows (16, H) ‖ one zero]; the kind is 0 for a copy, 1 for the TF32
-    hi half of an mma fragment's value, 2 for its lo half. A (K, N) product's
+    """Where each float of the buffer of K1, K2 and K3 comes from, once a layout: (rows_in, weights_in, index, kind), on the
+    CPU. local_0's folded rows (16, H) are rows_in's (16, Ex + Ek) gather from
+    [flat ‖ 0] times weights_in's (Ex + Ek, H) gather from flat. The index is
+    into [flat ‖ 0 ‖ those rows]; the kind is 0 for a copy, 1 for the TF32 hi
+    half of an mma fragment's value, 2 for its lo half. A (K, N) product's
     fragments (K, N multiples of 8), per k-step kk and n-tile j: lane 4g + t
     holds (hi b0, hi b1, lo b0, lo b1) with b0 = W[8kk + 2t, 8j + g] and
     b1 = W[8kk + 2t + 1, 8j + g], W (in, out): the mma's k positions t and
     t + 4 take the inputs 2t and 2t + 1, the two columns a thread holds of
-    the product before (ops/csrc/narrow_tc.cuh)."""
+    the product before (ops/csrc/narrow_tc.cuh). K3's transposed weights are
+    the flat (out, in) matrices read as (in, out) ones: dz·Wᵀ."""
     n = sum(math.prod(shape) for _, shape in weight_layout(d))
-    H, Et, Hd = d.hidden, d.emb_t, d.head_hidden
-    zero = n + 16 * H
+    H, Et, Ex, Ek, Hd = d.hidden, d.emb_t, d.emb_x, d.emb_k, d.head_hidden
+    zero = n
     W = flat_views(torch.arange(n, dtype=torch.float64), d)
-    rows = (n + torch.arange(16 * H, dtype=torch.float64)).reshape(16, H)
+    rows = (n + 1 + torch.arange(16 * H, dtype=torch.float64)).reshape(16, H)
 
     def padded(w, shape):
         """w in the top left of a `shape` matrix of the zero's index."""
         out = torch.full(shape, float(zero), dtype=torch.float64)
         out[:w.shape[0], :w.shape[1]] = w
         return out
+
+    # rows_in: x's three columns of the x embedding (w_x (Ex, 3), transposed),
+    # the biases through local_0 (b_x, and with the folded input b_k), four
+    # zero rows, the token table (V, Ek) or the folded Dense's transpose
+    rows_in = torch.full((16, Ex + Ek), float(zero), dtype=torch.float64)
+    rows_in[:3, :Ex] = W["w_x"].T
+    rows_in[3, :Ex] = W["b_x"]
+    if d.fold_discrete:
+        rows_in[3, Ex:] = W["b_k"]
+    rows_in[8:, Ex:] = W["table"]
+    weights_in = W["w_l0"][:, Et:].T  # (Ex + Ek, H)
 
     out = padded(torch.cat([W["w_out_d"].T, W["w_out_c"].T], dim=1), (H, 16))
     b_out = padded(torch.cat([W["b_out_d"], W["b_out_c"]])[None], (1, 16))[0]
@@ -317,58 +341,63 @@ def narrow_buffer_plan(d: EpicDims):
            "b_g2": copy(W["b_g2"]), "l0f": fragments(rows), "b_l0": copy(W["b_l0"]),
            "outf": fragments(out), "b_out": copy(b_out),
            "h0f": fragments(padded(W["w_h0"].T, (VOCAB, _pad8(Hd)))), "b_h0": copy(W["b_h0"]),
-           "h1f": fragments(padded(W["w_h1"].T, (_pad8(Hd), VOCAB))), "b_h1": copy(W["b_h1"])}
+           "h1f": fragments(padded(W["w_h1"].T, (_pad8(Hd), VOCAB))), "b_h1": copy(W["b_h1"]),
+           "outT": fragments(out.T.contiguous()),
+           "h1T": fragments(padded(W["w_h1"], (VOCAB, _pad8(Hd)))),
+           "h0T": fragments(padded(W["w_h0"], (_pad8(Hd), VOCAB)))}
     for i in range(d.num_blocks):
         w_fl1 = W[f"w_fl1_{i}"]
         src.update({f"fg1_{i}": copy(W[f"w_fg1_{i}"].T), f"b_fg1_{i}": copy(W[f"b_fg1_{i}"]),
                     f"fg2_{i}": copy(W[f"w_fg2_{i}"].T), f"b_fg2_{i}": copy(W[f"b_fg2_{i}"]),
                     f"fl1b_{i}": copy(w_fl1[:, H:].T), f"b_fl1_{i}": copy(W[f"b_fl1_{i}"]),
                     f"fl1f_{i}": fragments(w_fl1[:, :H].T),
-                    f"fl2f_{i}": fragments(W[f"w_fl2_{i}"].T), f"b_fl2_{i}": copy(W[f"b_fl2_{i}"])})
+                    f"fl2f_{i}": fragments(W[f"w_fl2_{i}"].T), f"b_fl2_{i}": copy(W[f"b_fl2_{i}"]),
+                    f"fl2T_{i}": fragments(W[f"w_fl2_{i}"]),
+                    f"fl1T_{i}": fragments(w_fl1[:, :H].contiguous())})
     index, kind = [], []
     for name, size in narrow_buffer_layout(d):
         i, k = src[name]
         index += [i, torch.full((size - i.numel(),), float(zero), dtype=torch.float64)]
         kind += [k, torch.zeros(size - k.numel(), dtype=torch.uint8)]
-    return torch.cat(index).long(), torch.cat(kind)
+    return (rows_in.reshape(-1).long(), weights_in.reshape(-1).long(), torch.cat(index).long(),
+            torch.cat(kind))
 
 
 @functools.lru_cache(maxsize=None)
 def _narrow_plan_on(d: EpicDims, device: torch.device):
-    return tuple(a.to(device) for a in narrow_buffer_plan(d))
+    """The plan on `device`: the three gathers' indices, and the kinds as
+    the two masks the buffer's last step takes."""
+    rows_in, weights_in, index, kind = narrow_buffer_plan(d)
+    return (rows_in.to(device), weights_in.to(device), index.to(device),
+            (kind == 0).to(device), (kind == 1).to(device))
 
 
 def narrow_buffer(flat: torch.Tensor, d: EpicDims) -> torch.Tensor:
-    """The buffer of K1 and K2 (`narrow_buffer_layout`, `narrow_buffer_plan`),
-    made from a narrow-layout buffer (left as it is, and detached) on its
-    device by one gather: a small request is bound by the host, and the
-    training forward makes it at every step. local_0's particle two thirds
-    are folded with the embeddings (Dense layers): the product of [x, 1, 0, 0,
-    0, 0, onehot(k) or the channel values] with the 16 rows [T_x; c; 0; T_k],
-    computed in float64, gives them (c: the embeddings' biases through
-    local_0). The output layer's 16 columns are the discrete pre-logits, then
-    the three continuous outputs and five zero columns. A fragment's hi half
-    is the nearest TF32 value, its lo half the rest rounded again."""
+    """The buffer of K1, K2 and K3 (`narrow_buffer_layout`,
+    `narrow_buffer_plan`), made
+    from a narrow-layout buffer (left as it is, and detached) on its device by
+    three gathers and one product: a small request is bound by the host, and
+    the training forward makes it at every step. local_0's particle two
+    thirds are folded with the embeddings (Dense layers): the product of [x,
+    1, 0, 0, 0, 0, onehot(k) or the channel values] with the 16 rows [T_x; c;
+    0; T_k], computed in float64, gives them (c: the embeddings' biases
+    through local_0). The output layer's 16 columns are the discrete
+    pre-logits, then the three continuous outputs and five zero columns. A
+    fragment's hi half is the nearest TF32 value, its lo half the rest
+    rounded again."""
     with torch.no_grad():
-        W = flat_views(flat.detach(), d)
-        Et, Ex = d.emb_t, d.emb_x
-        w_l0 = W["w_l0"].double()
-        w_x, w_k = w_l0[:, Et:Et + Ex].T, w_l0[:, Et + Ex:].T
-        c = W["b_x"].double() @ w_x
-        if d.fold_discrete:
-            c = c + W["b_k"].double() @ w_k
-        rows = torch.cat([W["w_x"].double().T @ w_x, c[None], w_x.new_zeros((4, d.hidden)),
-                          W["table"].double() @ w_k])
-        src = torch.cat([flat.detach().float(), rows.float().reshape(-1), flat.new_zeros(1)])
-        index, kind = _narrow_plan_on(d, flat.device)
-        value = src[index]
+        rows_in, weights_in, index, copied, high = _narrow_plan_on(d, flat.device)
+        ext = torch.cat([flat.detach().float(), flat.new_zeros(1, dtype=torch.float32)])
+        rows = ext[rows_in].view(16, -1).double() @ ext[weights_in].view(-1, d.hidden).double()
+        value = torch.cat([ext, rows.float().view(-1)])[index]
         hi = tf32_round(value)
-        return torch.where(kind == 0, value, torch.where(kind == 1, hi, tf32_round(value - hi)))
+        return torch.where(copied, value, torch.where(high, hi, tf32_round(value - hi)))
 
 
 def with_narrow_buffer(packed: "PackedEncoder") -> "PackedEncoder":
-    """`packed` (the narrow layout) carrying the buffer of K1 and K2 as its
-    `tensor_core`: what `epic_forward` and the sampler step read on the card."""
+    """`packed` (the narrow layout) carrying the buffer of K1, K2 and K3 as
+    its `tensor_core`: what `epic_forward`, the sampler step and
+    `epic_backward` read on the card."""
     return dataclasses.replace(packed, tensor_core=(narrow_buffer(packed.flat, packed.dims),))
 
 
@@ -664,7 +693,7 @@ def epic_forward(packed: PackedEncoder, t, x, k, mask, output_hidden_local=False
     float32; with `output_hidden_local` also the trunk's last local hidden
     state (B, N, H), written by the same launch. CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise. The kernel reads the
-    packing's `tensor_core` buffer (`with_narrow_buffer`)."""
+    packing's first `tensor_core` buffer (`with_narrow_buffer`)."""
     if x.device.type == "cpu":
         return epic_forward_reference(packed, t, x, k, mask, output_hidden_local)
     check_narrow_packing(packed, any_head_width=True)
@@ -673,7 +702,7 @@ def epic_forward(packed: PackedEncoder, t, x, k, mask, output_hidden_local=False
     if packed.tensor_core is None:
         raise ValueError("the forward kernel reads the tensor-core buffer that "
                          "with_narrow_buffer adds to the packing")
-    (buffer,) = packed.tensor_core
+    buffer = packed.tensor_core[0]
     if t.numel() != B:
         raise ValueError(f"t must hold one time per jet, got {tuple(t.shape)}")
     if buffer.numel() != narrow_buffer_size(packed.dims):

@@ -10,11 +10,11 @@ d(flat) to v, g and the rest.
   forward   the K1 kernel (ops/csrc/epic_forward.cu): the JAX `_fwd_kernel`
             runs the same `_forward_acts` as `epic_forward_pallas`. K1 reads
             its tensor-core buffer, made at each step from `flat` on the
-            device (`narrow_buffer`, detached), so the loss comes from K1's
-            3×TF32 products and the gradient from the backward's FFMA rerun
-  backward  ops/csrc/epic_backward.cu: recomputes the forward activations
-            and returns d(flat) for a cotangent g (B, N, 3 + 8); t, x, k and
-            mask get no gradient (epic_pallas_vjp.py:362-369)
+            device (`narrow_buffer`, detached), kept for the backward
+  backward  ops/csrc/epic_backward.cu: reruns K1's forward on the same
+            buffer, so the gradient is taken where the loss was, and returns
+            d(flat) for a cotangent g (B, N, 3 + 8); t, x, k and mask get no
+            gradient (epic_pallas_vjp.py:362-369)
 
 `epic_train_forward` dispatches: CUDA tensors go to the kernels or raise, CPU
 tensors to `epic_train_forward_reference`, autograd through the plain
@@ -39,6 +39,7 @@ from multimodal_particles_tpu_torch.ops.epic_cuda import (
     epic_forward,
     forward_from_temb,
     narrow_buffer,
+    narrow_buffer_size,
 )
 
 _workspace_cache = {}
@@ -127,18 +128,34 @@ def _workspace(lib, B, N, dims, device):
     return _workspace_cache[key]
 
 
-def epic_backward(packed: PackedEncoder, t, x, k, mask, g):
+def epic_backward(packed: PackedEncoder, t, x, k, mask, g, rerun_out=None):
     """d(flat) (n,) float32 for the cotangent g (B, N, 3 + 8) of the EPiC
     forward at (t, x, k, mask). CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernel or raise. The kernel reads the packing's
+    tensor-core buffer (`with_narrow_buffer`) and the packed weights. `rerun_out`, a (B, N, 3 + 8) float32 tensor,
+    receives the outputs of the kernel's rerun of the forward."""
     if x.device.type == "cpu":
         return epic_backward_reference(packed, t, x, k, mask, g)
     check_narrow_packing(packed)
-    B, N = check_kernel_inputs(packed, x, k, mask, t=t, g=g)
+    if packed.tensor_core is None:
+        raise ValueError("the backward kernel reads the tensor-core buffer that "
+                         "with_narrow_buffer adds to the packing")
+    (buffer,) = packed.tensor_core
+    B, N = check_kernel_inputs(packed, x, k, mask, t=t, g=g, tensor_core=buffer)
     if t.numel() != B:
         raise ValueError(f"t must hold one time per jet, got {tuple(t.shape)}")
     if tuple(g.shape) != (B, N, DIM_C + VOCAB):
         raise ValueError(f"g must be ({B}, {N}, {DIM_C + VOCAB}), got {tuple(g.shape)}")
+    size = narrow_buffer_size(packed.dims)
+    if buffer.numel() != size:
+        raise ValueError(f"the backward kernel's buffer holds {size} floats at {packed.dims}, "
+                         f"got {buffer.numel()}")
+    if rerun_out is not None and (tuple(rerun_out.shape) != (B, N, DIM_C + VOCAB)
+                                  or rerun_out.dtype != torch.float32
+                                  or rerun_out.device != x.device
+                                  or not rerun_out.is_contiguous()):
+        raise ValueError(f"rerun_out must be a contiguous float32 ({B}, {N}, {DIM_C + VOCAB}) "
+                         f"tensor on {x.device}")
     out = torch.empty_like(packed.flat)
     if B == 0:
         return out.zero_()
@@ -149,8 +166,9 @@ def epic_backward(packed: PackedEncoder, t, x, k, mask, g):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.mmp_epic_backward(
-            packed.flat.data_ptr(), t.data_ptr(), x.data_ptr(), k32.data_ptr(),
-            mask.data_ptr(), g.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            buffer.data_ptr(), packed.flat.data_ptr(), t.data_ptr(), x.data_ptr(),
+            k32.data_ptr(), mask.data_ptr(), g.data_ptr(), out.data_ptr(),
+            None if rerun_out is None else rerun_out.data_ptr(), scratch.data_ptr(),
             grid, B, N, packed.dims.c_array(), stream,
         )
     _build.check(lib, rc, "mmp_epic_backward")
@@ -163,21 +181,22 @@ epic_backward.launches = 0
 
 class EpicTrainForward(torch.autograd.Function):
     """Forward by the K1 kernel, backward by the K3 backward kernel; only
-    the flat weights get a gradient, from the backward's rerun on `flat`."""
+    the flat weights get a gradient, from the backward's rerun of K1 on the
+    buffer K1 read."""
 
     @staticmethod
     def forward(ctx, flat, dims, t, x, k, mask):
-        packed = PackedEncoder(flat, {}, dims, tensor_core=(narrow_buffer(flat, dims),))
-        out = epic_forward(packed, t, x, k, mask)
-        ctx.save_for_backward(flat, t, x, k, mask)
+        buffer = narrow_buffer(flat, dims)
+        out = epic_forward(PackedEncoder(flat, {}, dims, tensor_core=(buffer,)), t, x, k, mask)
+        ctx.save_for_backward(flat, buffer, t, x, k, mask)
         ctx.dims = dims
         return out
 
     @staticmethod
     def backward(ctx, g):
-        flat, t, x, k, mask = ctx.saved_tensors
-        d_flat = epic_backward(PackedEncoder(flat, {}, ctx.dims), t, x, k, mask,
-                               g.float().contiguous())
+        flat, buffer, t, x, k, mask = ctx.saved_tensors
+        d_flat = epic_backward(PackedEncoder(flat, {}, ctx.dims, tensor_core=(buffer,)), t, x, k,
+                               mask, g.float().contiguous())
         return d_flat, None, None, None, None, None
 
 

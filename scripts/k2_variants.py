@@ -62,6 +62,8 @@ from multimodal_particles_tpu_torch.ops.sampler_cuda import (  # noqa: E402
 )
 
 SOURCE = "sampler_step.cu"
+# the FFMA design's forward lived in this header; only an earlier revision's
+# sources (given with --other) still hold it, and its edits apply to them alone
 FFMA_HEADER = "epic_forward.cuh"
 # design → variant → [(file, old text, new text)]
 EDITS = {

@@ -22,15 +22,18 @@ logits are held elementwise at rtol = atol = 2e-4, the JAX kernel's own test's
 tolerance (tests/test_ops/test_survival_pallas.py:86-88); K7's hidden state
 likewise (tests/test_ops/test_gsdm_stack_pallas.py:72). K8's output is held
 at atol 2e-5, the JAX kernel's own test's (tests/test_ops/test_attention_pallas.py:26).
-Every kernel but K3 runs its products on the tensor cores under the 3×TF32
-split; K8 is held at every head width it takes (32, 64, 128 channels), K4's
-four template instances at N on both sides of their 16-row and 64-row edges,
-K6 and K7 at every head width and N on both sides of the same edges, K1 and
-K2 at N from 1 to 256 (K1 per particle past N = 128, where no float32
-evaluation holds the elementwise form).
+Every kernel runs its products on the tensor cores under the 3×TF32 split;
+K8 is held at every head width it takes (32, 64, 128 channels), K4's four
+template instances at N on both sides of their 16-row and 64-row edges, K6
+and K7 at every head width and N on both sides of the same edges, K1 and K2
+at N from 1 to 256 (K1 per particle past N = 128, where no float32
+evaluation holds the elementwise form), K3 at N from 1 to 256 at hidden 16,
+32 and 64, with skip and head on and off, at B from 0 to 8192 and on empty
+jets, its rerun of the forward held to K1's bits on the same buffer.
 """
 
 import dataclasses
+import itertools
 
 import pytest
 import torch
@@ -64,6 +67,7 @@ from multimodal_particles_tpu_torch.ops.epic_cuda import (
     epic_forward_reference,
     flat_views,
     narrow_buffer,
+    narrow_buffer_layout,
     pack_encoder,
     pack_mbm_encoder_params,
     with_narrow_buffer,
@@ -113,9 +117,10 @@ def device():
 def packed_model(device, hidden=16, blocks=2, skip=True, head=True, wide=False, sampler=False,
                  **encoder):
     """A seeded MBM encoder packed for the narrow kernels (with the buffer of
-    the forward kernel and the sampler step, `with_narrow_buffer`), with
-    `sampler` for the sampler step (`pack_sampler_params`), or with `wide`
-    for the wide ones; `encoder` overrides encoder fields."""
+    the forward kernel and the backward kernel, `with_narrow_buffer`), with
+    `sampler` for the sampler step
+    (`pack_sampler_params`), or with `wide` for the wide ones; `encoder`
+    overrides encoder fields."""
     config = MultimodalBridgeMatchingConfig()
     config.encoder.dim_hidden_local = config.encoder.dim_hidden_glob = hidden
     if wide:  # every width 128, the wide kernels' layout
@@ -291,6 +296,99 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take(device):
         epic_backward(packed, t, x, k, mask, g.double())
     with pytest.raises(ValueError, match="g must be"):
         epic_backward(packed, t, x, k, mask, g[..., :10].contiguous())
+
+
+# ------------------------------- K3 on the tensor cores, every shape it takes
+
+
+K3_N = [1, 17, 64, 65, 128, 129, 256]
+
+
+def k3_inputs(device, B, N, seed=6):
+    """t, x, k, mask: random non-prefix masks, the last two jets empty."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mask = (torch.rand((B, N, 1), generator=gen, device=device) < 0.7).float()
+    mask[max(B - 2, 0):] = 0.0
+    x = torch.randn((B, N, 3), generator=gen, device=device) * mask
+    k = torch.randint(0, 8, (B, N, 1), generator=gen, device=device) * mask.long()
+    t = torch.rand((B, 1, 1), generator=gen, device=device)
+    return t, x, k, mask, gen
+
+
+def hold_k3(packed, t, x, k, mask, gen):
+    """K3 against plain autograd per packed leaf (|err| ≤ 1e-4·max|ref leaf| +
+    1e-3·|ref|), no cotangent on the jets `near_kink_jets` flags; the same
+    bits on a repeat; its rerun of the forward K1's bits on the same buffer."""
+    B, N = x.shape[:2]
+    near = near_kink_jets(packed, t, x, k, mask)
+    g = torch.randn((B, N, 11), generator=gen, device=x.device) * (~near)[:, None, None]
+    rerun = torch.empty((B, N, 11), device=x.device)
+    before = epic_backward.launches
+    got = epic_backward(packed, t, x, k, mask, g, rerun_out=rerun)
+    again = epic_backward(packed, t, x, k, mask, g)
+    torch.cuda.synchronize()
+    assert epic_backward.launches == before + 2
+    ref = epic_backward_reference(packed, t, x, k, mask, g)
+    assert torch.isfinite(got).all()
+    for name, a in flat_views(got, packed.dims).items():
+        r = flat_views(ref, packed.dims)[name]
+        scale = max(r.abs().max().item(), 1e-6)
+        assert ((a - r).abs() <= 1e-4 * scale + 1e-3 * r.abs()).all(), name
+    assert torch.equal(got, again)
+    assert torch.equal(rerun, epic_forward(packed, t, x, k, mask))
+
+
+@pytest.mark.parametrize("N", K3_N)
+@pytest.mark.parametrize("hidden", [16, 32, 64])
+def test_epic_backward_tensor_cores_across_n(device, hidden, N):
+    """Jets of 1 to 256 slots, on both sides of a warp's 16 and of 64 and
+    128, at B=133 (not a multiple of any grid)."""
+    hold_k3(packed_model(device, hidden, {16: 2, 32: 3, 64: 4}[hidden]), *k3_inputs(device, 133, N))
+
+
+@pytest.mark.parametrize("skip", [True, False], ids=["skip", "no_skip"])
+@pytest.mark.parametrize("head", [True, False], ids=["head", "no_head"])
+def test_epic_backward_tensor_cores_skip_and_head(device, skip, head):
+    hold_k3(packed_model(device, 16, 2, skip, head), *k3_inputs(device, 133, 109))
+
+
+@pytest.mark.parametrize("B", [1, 133, 8192])
+def test_epic_backward_tensor_cores_across_b(device, B):
+    """One jet (and so one block), a few jets a block, and the training
+    batch, where each block walks ~30 jets through its partial sums."""
+    hold_k3(packed_model(device), *k3_inputs(device, B, 128))
+
+
+def test_epic_backward_takes_no_jets_and_empty_jets(device):
+    """B=0 launches nothing and gives zeros; jets with every slot masked
+    reach the weights only through the discrete head, as plain autograd
+    has it."""
+    packed = packed_model(device)
+    t, x, k, mask, gen = k3_inputs(device, 0, 128)
+    before = epic_backward.launches
+    out = epic_backward(packed, t, x, k, mask, torch.zeros((0, 128, 11), device=device))
+    assert epic_backward.launches == before and (out == 0).all()
+    t, x, k, mask, gen = k3_inputs(device, 6, 40)
+    mask.zero_()
+    hold_k3(packed, t, x, k, mask, gen)
+
+
+def test_epic_backward_refuses_a_packing_without_its_buffers(device):
+    """K3 reads the buffer's K1 entries and its transposed fragments after
+    them: a packing with no buffer, or with K1's entries alone, or a short
+    one is refused."""
+    packed = packed_model(device)
+    t, x, k, mask, gen = k3_inputs(device, 4, 32)
+    g = torch.randn((4, 32, 11), generator=gen, device=device)
+    with pytest.raises(ValueError, match="tensor-core buffer"):
+        epic_backward(dataclasses.replace(packed, tensor_core=None), t, x, k, mask, g)
+    (buf,) = packed.tensor_core
+    k1_entries = sum(n for name, n in itertools.takewhile(
+        lambda entry: entry[0] != "outT", narrow_buffer_layout(packed.dims)))
+    for cut in (buf[:k1_entries], buf[:-4]):
+        short = dataclasses.replace(packed, tensor_core=(cut.clone(),))
+        with pytest.raises(ValueError, match="buffer holds"):
+            epic_backward(short, t, x, k, mask, g)
 
 
 # ------------------------------- K1 on the tensor cores, every shape it takes

@@ -553,3 +553,102 @@ def wide_backward_model(packed, t, x, k, mask, g, one_product=False):
     out = torch.cat([cont, disc], -1)
     (grad,) = torch.autograd.grad(out, flat, g.double())
     return grad
+
+
+# ---- a plain model of K3's arithmetic (the narrow backward on the tensor
+# cores, multimodal_particles_tpu_torch/ops/csrc/epic_backward.cu): the
+# port's plain forward in float64 with every per-particle product taken as
+# the kernels take it, differentiated by autograd
+
+
+class FoldedLocal0(torch.autograd.Function):
+    """local_0's particle part as K1 computes it and K3 differentiates it:
+    forward a0·rows, a0 = [x, 1, 0, 0, 0, 0, onehot(k)] truncated and the
+    buffer's folded rows (hi, lo); backward Q = a0ᵀ·dP over the particles
+    (both truncated, as K3's R·dz_l0 on the tensor cores), and from Q the
+    gradients of local_0's x and token columns, w_x, b_x and the table."""
+
+    @staticmethod
+    def forward(ctx, a0, rows_hi, rows_lo, w_l0, w_x, b_x, table, d, one_product):
+        ctx.save_for_backward(a0, w_l0, w_x, b_x, table)
+        ctx.d, ctx.one_product = d, one_product
+        a_hi, a_lo = (h.double() for h in tf32_split_truncated(a0.float()))
+        out = a_hi @ rows_hi
+        return out if one_product else out + a_lo @ rows_hi + a_hi @ rows_lo
+
+    @staticmethod
+    def backward(ctx, dp):
+        a0, w_l0, w_x, b_x, table = ctx.saved_tensors
+        d = ctx.d
+        Et, Ex = d.emb_t, d.emb_x
+        Q = split_product(a0.reshape(-1, 16).T, dp.reshape(-1, dp.shape[-1]),
+                          tf32_split_truncated, tf32_split_truncated, ctx.one_product)
+        d_w_l0 = torch.zeros_like(w_l0)
+        d_w_l0[:, Et:Et + Ex] = (w_x @ Q[:3] + b_x[:, None] * Q[3]).T
+        d_w_l0[:, Et + Ex:] = (table.T @ Q[8:]).T
+        wx_cols = w_l0[:, Et:Et + Ex]  # (H, Ex)
+        d_w_x = (Q[:3] @ wx_cols).T
+        d_b_x = Q[3] @ wx_cols
+        d_table = Q[8:] @ w_l0[:, Et + Ex:]
+        return None, None, None, d_w_l0, d_w_x, d_b_x, d_table, None, None
+
+
+def narrow_backward_model(packed, t, x, k, mask, g, one_product=False):
+    """d(flat) of the narrow forward for the cotangent g, as K3 computes it,
+    in float64 by autograd: the forward is K1's (`narrow_forward_model`'s
+    products read from the buffer of `with_narrow_buffer`), every other
+    per-particle product (fc_local1's particle third and fc_local2 of every
+    layer, the output layer, the head's two layers) a `SplitProduct` (the
+    rerun a truncated and W rounded, dz·Wᵀ dz truncated and Wᵀ rounded, aᵀ·dz
+    both truncated) and local_0's particle part a `FoldedLocal0`; the per-jet
+    MLP in float64, as the kernel's FFMA parts of it are within float32
+    rounding. `one_product` takes a_hi·w_hi alone in every product."""
+    from multimodal_particles_tpu_torch.models.architectures.epic import leaky_relu
+    from multimodal_particles_tpu_torch.models.architectures.utils import (
+        sinusoidal_positional_encoding,
+    )
+    from multimodal_particles_tpu_torch.ops.epic_cuda import _SELU, VOCAB, flat_views
+
+    d = packed.dims
+    flat = packed.flat.detach().double().requires_grad_(True)
+    W = flat_views(flat, d)
+    E = narrow_buffer_entries(packed)
+    rows_hi, rows_lo = (h.double() for h in unpack_mma_fragments(E["l0f"], 16, d.hidden))
+    B, N = x.shape[:2]
+    H, Et = d.hidden, d.emb_t
+    m = mask.double()
+    temb = sinusoidal_positional_encoding(t.reshape(B), Et).double()
+    denom = torch.clamp(m.sum(dim=1), min=1.0)
+    onehot = (k.reshape(B, N, 1).long() == torch.arange(VOCAB)).double()
+    a0 = torch.cat([x.double(), torch.ones((B, N, 1), dtype=torch.float64),
+                    torch.zeros((B, N, 4), dtype=torch.float64), onehot], -1)
+
+    def mm(a, w):  # a·wᵀ for a packed (out, in) w, as the kernels take it
+        return SplitProduct.apply(a, w.T, one_product)
+
+    particle = FoldedLocal0.apply(a0, rows_hi, rows_lo, W["w_l0"], W["w_x"], W["b_x"],
+                                  W["table"], d, one_product)
+    ct = temb @ W["w_l0"][:, :Et].T
+    h = leaky_relu((particle + ct[:, None]) * m + W["b_l0"]) * m
+    s0 = h.sum(dim=1)
+    g_ = leaky_relu(torch.cat([s0 / denom, s0, temb], -1) @ W["w_g0"].T + W["b_g0"])
+    g_ = leaky_relu(g_ @ W["w_g1"].T + W["b_g1"])
+    g_ = leaky_relu(g_ @ W["w_g2"].T + W["b_g2"])
+    skip_l = h if d.use_skip else 0.0
+    skip_g = g_ if d.use_skip else 0.0
+    for i in range(d.num_blocks):
+        s = h.sum(dim=1)
+        g1 = leaky_relu(torch.cat([s / denom, s, g_, temb], -1) @ W[f"w_fg1_{i}"].T + W[f"b_fg1_{i}"])
+        g_new = leaky_relu(g1 @ W[f"w_fg2_{i}"].T + W[f"b_fg2_{i}"] + g_)
+        w_fl1 = W[f"w_fl1_{i}"]
+        broadcast = torch.cat([g_new, temb], -1) @ w_fl1[:, H:].T + W[f"b_fl1_{i}"]
+        l1 = leaky_relu(mm(h, w_fl1[:, :H]) + broadcast[:, None])
+        z2 = mm(l1, W[f"w_fl2_{i}"]) + W[f"b_fl2_{i}"] + h
+        h = leaky_relu(z2) * m + skip_l
+        g_ = g_new + skip_g
+    cont = (mm(h, W["w_out_c"]) + W["b_out_c"]) * m
+    disc = (mm(h, W["w_out_d"]) + W["b_out_d"]) * m
+    if d.add_discrete_head:
+        disc = mm(_SELU.apply(mm(disc, W["w_h0"]) + W["b_h0"]), W["w_h1"]) + W["b_h1"]
+    (grad,) = torch.autograd.grad(torch.cat([cont, disc], -1), flat, g.double())
+    return grad
