@@ -223,6 +223,32 @@ Phases, one JSON line each:
               the kernel path vs the module path from the same draws at
               B=256 as phase 27 (paths_transdim_scaled)
 
+ 36. experiment  the user's MBM run from a YAML config on real jets:
+              MultimodalBridgeMatchingExperiment(config-mbm-test.yaml: the
+              config-berlin encoder, N=128, 100 timesteps, 3 epochs) on the
+              bundled AspenOpenJets shard (100 jets, read from its .npz), in a
+              run directory under the build directory. train() must launch K3
+              once a train step and K1 once a train step and a validation
+              batch, and its epoch loss fall; generate() (after
+              load_checkpoint("best")) K2 99 times a batch, no plain version
+              in either. The generated jets post-processed: finite, tokens in
+              [0, 8), dead slots 0; their KL/W1 against the shard printed
+              (informational). A second experiment built by
+              load_from_experiment_dir on the run directory must generate the
+              same bits (experiment_generate)
+ 37. experiment_absorbing  AbsorbingExperiment(config-absorbing-test.yaml:
+              N=109, 1000 timesteps) on the shard, the YAML's 200 epochs cut
+              to 2 (the line prints both): the fit launches no kernel (as in
+              JAX), generate() K1 (hidden output) and K6 999 times a batch;
+              the generated jets pass phase 20's checks
+ 38. experiment_transdim  TransdimensionalExperiment(TransdimensionalEpicConfig
+              defaults: dt 0.001, 1000 network evaluations) on the shard, 2
+              epochs: the fit launches no kernel, generate() K1 (folded
+              input) once and K7 twice a network evaluation; a request of
+              1024 jets (the shard's jets repeated as the template) through
+              Trainer.predict launches the same and its mean multiplicity
+              lies within 10% of the data's
+
 The line before the last lists every kernel with its launches on its own
 path's run, its two bounds from the shapes and the H100 data sheet's peaks
 (`bound_ms` with the operations on the CUDA cores in fp32, `tensor_bound_ms`
@@ -230,13 +256,16 @@ with them on the tensor cores as three TF32 products, the 3×TF32 split that
 every kernel runs), and the times measured here; K1's and K3's entries
 also the tensor bound of the per-particle products they need
 (`products_tensor_bound_ms`) and the timed call's share of each bound (K1's
-at each of its three shapes: config-berlin, absorbing, transdim); the last line is
-{"ok": true, "device": {...}}. Any failure raises and exits non-zero. Uses
-torch, numpy, the standard library and the port only. fp32 with TF32 off.
+at each of its three shapes: config-berlin, absorbing, transdim), and in
+`launches_by_path` each path's own count, phases 36-38's among them; the last
+line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
+Uses torch, numpy, scipy (the port's jet metrics), the standard library and
+the port only. fp32 with TF32 off.
 """
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -244,6 +273,7 @@ import time
 from pathlib import Path
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 from multimodal_particles_tpu_torch.config_classes import (
@@ -259,6 +289,8 @@ from multimodal_particles_tpu_torch.data import (
     synthetic_training_batch,
     transdim_training_batch,
 )
+from multimodal_particles_tpu_torch.data.particle_clouds.jets import JetClassHighLevelFeatures
+from multimodal_particles_tpu_torch.data.particle_clouds.particles import ParticleClouds
 from multimodal_particles_tpu_torch.models.architectures.gsdm import AttnBlock
 from multimodal_particles_tpu_torch.models.architectures.utils import WeightNormLinear
 from multimodal_particles_tpu_torch.models.generative.absorbing.absorbing_flows import (
@@ -282,6 +314,9 @@ from multimodal_particles_tpu_torch.models.generative.transdimensional.structure
 )
 from multimodal_particles_tpu_torch.models.generative.transdimensional import (
     transdimensional_model as transdim_module,
+)
+from multimodal_particles_tpu_torch.models.generative.transdimensional.sampler import (
+    _build_time_grid,
 )
 from multimodal_particles_tpu_torch.models.generative.transdimensional.transdimensional_model import (
     TransdimensionalJumpDiffusion,
@@ -329,6 +364,11 @@ from multimodal_particles_tpu_torch.ops.survival_cuda import (
     project_time_embeddings,
     survival_head,
     survival_head_reference,
+)
+from multimodal_particles_tpu_torch.training import (
+    AbsorbingExperiment,
+    MultimodalBridgeMatchingExperiment,
+    TransdimensionalExperiment,
 )
 from multimodal_particles_tpu_torch.training.trainer import Trainer
 from multimodal_particles_tpu_torch.utils.experiment_files import ExperimentsFiles
@@ -382,6 +422,12 @@ MIN_EQUAL_DIMS = 0.95
 PART_FACTOR, PART_SLACK = 3, 4
 ULP = 2.0 ** -23
 MAX_MULTIPLICITY_SHIFT = 0.10
+# phases 36-38: the experiments from the repo's test configs on the bundled jets (.npz)
+MBM_EXPERIMENT_YAML = ROOT / "tests" / "resources" / "configs_files" / "config-mbm-test.yaml"
+ABS_EXPERIMENT_YAML = ROOT / "tests" / "resources" / "configs_files" / "config-absorbing-test.yaml"
+EXPERIMENT_ABS_EPOCHS = 2  # the YAML's 200 cut
+EXPERIMENT_TD_EPOCHS = 2
+EXPERIMENT_TD_B = 1024  # the multiplicity check's request
 # NVIDIA's H100 SXM data sheet: fp32 outside the tensor cores, dense TF32 on
 # the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -2738,6 +2784,251 @@ def scaled_family_phases(device, card):
             "k8_entry": k8_entry, "absorbing": absorbing, "transdim": transdim}
 
 
+# ------------------------------------------------ phases 36-38: the experiments
+
+
+def all_counts():
+    """Every kernel's launch count."""
+    return {**narrow_counts(), **wide_counts(), "survival_head": survival_head.launches,
+            "gsdm_stack": gsdm_stack.launches, "attention_core": attention_core.launches}
+
+
+def launched(expected):
+    """The kernels launched since the last reset_counts(), and whether they are
+    exactly `expected` (every other kernel at 0) with no plain version called."""
+    counts = {k: v for k, v in all_counts().items() if v}
+    return counts, counts == {k: v for k, v in expected.items() if v} and plain_calls() == 0
+
+
+def finite_or_none(x):
+    x = float(x)
+    return x if math.isfinite(x) else None
+
+
+def jets_against_data(states, config):
+    """Generated jets in physics space against the shard's: the checks that
+    must hold (the sampler's dead slots 0 before postprocess() masks them,
+    finite jets) and the KL/W1 of the jet observables (informational, as in
+    the JAX package)."""
+    state = HybridState(
+        continuous=torch.cat([s.continuous for s in states]),
+        discrete=torch.cat([s.discrete for s in states]),
+        absorbing=torch.cat([s.absorbing for s in states]))
+    dead = state.absorbing[..., 0] == 0
+    dead_slots_zero = bool((state.continuous[dead] == 0).all().item()
+                           and (state.discrete[dead] == 0).all().item())
+    cloud = ParticleClouds(state)
+    cloud.postprocess(config.data.target_preprocess_continuous,
+                      config.data.target_preprocess_discrete,
+                      stats=config.data.target_preprocess_stats)
+    generated = JetClassHighLevelFeatures(cloud)
+    data = JetClassHighLevelFeatures(ParticleClouds(
+        config.data.target_name, config.data.target_path,
+        max_num_particles=config.data.max_num_particles, num_jets=config.data.num_jets))
+    checks = {
+        "finite": bool(np.isfinite(cloud.continuous).all()),
+        "dead_slots_zero": dead_slots_zero,
+        "jet_observables_finite": bool(np.isfinite(generated.pt).all()
+                                       and np.isfinite(generated.m).all()),
+    }
+    metrics = {f"{kind}_{f}": finite_or_none(getattr(generated, metric)(f, data))
+               for f in ("pt", "eta", "phi", "m", "tau21", "tau32", "d2")
+               for kind, metric in (("KL", "KLmetric1D"), ("W1", "Wassertein1D"))}
+    return checks, metrics
+
+
+def check_tokens(states):
+    ok = all(bool(((s.discrete >= 0) & (s.discrete < 8)).all().item()) for s in states)
+    if not ok:
+        raise RuntimeError("generated tokens outside [0, 8)")
+    return ok
+
+
+def phase_experiment(device, card, workdir):
+    """The user's MBM run from config-mbm-test.yaml on the AspenOpenJets .npz
+    shard: train() for the YAML's epochs (K3 once a train step, K1 once a
+    train step and a validation batch), generate() (K2 99 times a batch), the
+    jets post-processed and scored against the shard, then the run reloaded
+    by load_from_experiment_dir to the same bits."""
+    config = MultimodalBridgeMatchingConfig.from_yaml(str(MBM_EXPERIMENT_YAML))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    experiment = MultimodalBridgeMatchingExperiment(config, str(workdir / "mbm"), seed=SEED,
+                                                    device=device)
+    setup_seconds = time.perf_counter() - start
+    dm = experiment.datamodule
+    epochs = config.train.epochs
+    steps, valid = len(dm.train) * epochs, len(dm.valid) * epochs
+
+    reset_counts()  # the experiment's training run starts here
+    start = time.perf_counter()
+    history = experiment.train()
+    torch.cuda.synchronize()
+    fit_seconds = time.perf_counter() - start
+    fit_launches, fit_ok = launched({"epic_forward": steps + valid, "epic_backward": steps})
+    losses = [r["train_loss"] for r in history]
+    emit({"phase": "experiment", "config": str(MBM_EXPERIMENT_YAML.relative_to(ROOT)),
+          "jets": len(dm.dataset), "N": config.data.max_num_particles,
+          "batch_size": config.data.batch_size, "epochs": epochs, "train_steps": steps,
+          "train_losses": losses, "val_losses": [r["val_loss"] for r in history],
+          "launches": fit_launches, "plain_calls": plain_calls(), "setup_seconds": setup_seconds,
+          "fit_seconds": fit_seconds, "card": card})
+    if not fit_ok:
+        raise RuntimeError(f"the experiment's training launched {fit_launches}, "
+                           f"{plain_calls()} plain calls")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"the experiment's loss is not finite or did not fall: {losses}")
+
+    experiment.trainer.load_checkpoint("best")
+    reset_counts()
+    start = time.perf_counter()
+    generated = experiment.generate()
+    torch.cuda.synchronize()
+    generate_seconds = time.perf_counter() - start
+    batches = len(generated)
+    gen_launches, gen_ok = launched({"sampler_step": 99 * batches})
+    tokens_ok = check_tokens(generated)
+    checks, metrics = jets_against_data(generated, experiment.config)
+
+    start = time.perf_counter()
+    again = MultimodalBridgeMatchingExperiment(experiment_dir=str(workdir / "mbm"), seed=SEED,
+                                               device=device)
+    regenerated = again.generate()
+    torch.cuda.synchronize()
+    reload_seconds = time.perf_counter() - start
+    same_bits = all(torch.equal(a.continuous, b.continuous) and torch.equal(a.discrete, b.discrete)
+                    for a, b in zip(generated, regenerated))
+    emit({"phase": "experiment_generate", "jets": sum(s.continuous.shape[0] for s in generated),
+          "batches": batches, "launches": gen_launches, "plain_calls": plain_calls(),
+          "tokens_in_range": tokens_ok, **checks, "against_data": metrics,
+          "reload_same_bits": same_bits, "generate_seconds": generate_seconds,
+          "reload_seconds": reload_seconds, "card": card})
+    if not gen_ok or not all(checks.values()) or not same_bits:
+        raise RuntimeError("the experiment's generate() failed its checks")
+    return {"train": fit_launches, "generate": gen_launches}
+
+
+def phase_experiment_absorbing(device, card, workdir):
+    """The absorbing run from config-absorbing-test.yaml (N = 109, 1000
+    timesteps) on the shard, its 200 epochs cut to EXPERIMENT_ABS_EPOCHS: the
+    fit launches no kernel (as in JAX), generate() launches K1 (hidden output)
+    and K6 once a solver step."""
+    config = AbsorbingConfig.from_yaml(str(ABS_EXPERIMENT_YAML))
+    yaml_epochs = config.train.epochs
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    experiment = AbsorbingExperiment(config, str(workdir / "absorbing"), seed=SEED,
+                                     device=device)
+    setup_seconds = time.perf_counter() - start
+    reset_counts()
+    start = time.perf_counter()
+    history = experiment.train(EXPERIMENT_ABS_EPOCHS)
+    torch.cuda.synchronize()
+    fit_seconds = time.perf_counter() - start
+    fit_launches, fit_ok = launched({})
+    losses = [r["train_loss"] for r in history]
+
+    reset_counts()
+    start = time.perf_counter()
+    generated = experiment.generate()
+    torch.cuda.synchronize()
+    generate_seconds = time.perf_counter() - start
+    solver_steps = (config.bridge.num_timesteps - 1) * len(generated)
+    gen_launches, gen_ok = launched({"epic_forward": solver_steps, "survival_head": solver_steps})
+    valid = list(experiment.datamodule.valid)
+    checks = [check_generated_absorbing(out, batch, out.continuous.shape[0])
+              for out, batch in zip(generated, valid)]
+    multiplicity = torch.cat([s.mask_t.sum(dim=(1, 2)) for s in generated]).float()
+    emit({"phase": "experiment_absorbing", "config": str(ABS_EXPERIMENT_YAML.relative_to(ROOT)),
+          "epochs_in_yaml": yaml_epochs, "epochs_run": EXPERIMENT_ABS_EPOCHS,
+          "N": config.data.max_num_particles, "num_timesteps": config.bridge.num_timesteps,
+          "train_losses": losses, "fit_launches": fit_launches, "generate_launches": gen_launches,
+          "plain_calls": plain_calls(), "checks": checks[0],
+          "multiplicity_out_mean": multiplicity.mean().item(),
+          "setup_seconds": setup_seconds, "fit_seconds": fit_seconds,
+          "generate_seconds": generate_seconds, "card": card})
+    if not fit_ok or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"the absorbing experiment's fit: {fit_launches}, losses {losses}")
+    if not gen_ok:
+        raise RuntimeError(f"the absorbing experiment's generate() launched {gen_launches}")
+    return {"generate": gen_launches}
+
+
+def phase_experiment_transdim(device, card, workdir):
+    """The transdimensional run at TransdimensionalEpicConfig() on the shard,
+    EXPERIMENT_TD_EPOCHS epochs: the fit launches no kernel (as in JAX),
+    generate() launches K1 (folded input) once and K7 twice a network
+    evaluation; a request of EXPERIMENT_TD_B jets' mean multiplicity within
+    MAX_MULTIPLICITY_SHIFT of the data's."""
+    config = TransdimensionalEpicConfig()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    experiment = TransdimensionalExperiment(config, str(workdir / "transdim"), seed=SEED,
+                                            device=device)
+    setup_seconds = time.perf_counter() - start
+    dm = experiment.datamodule
+    reset_counts()
+    start = time.perf_counter()
+    history = experiment.train(EXPERIMENT_TD_EPOCHS)
+    torch.cuda.synchronize()
+    fit_seconds = time.perf_counter() - start
+    fit_launches, fit_ok = launched({})
+    losses = [r["train_loss"] for r in history]
+
+    # without corrector steps, one network evaluation a step of the time grid
+    if config.sampler_kwargs.corrector_steps:
+        raise RuntimeError("the phase counts one network evaluation a sampler step")
+    nfe = len(_build_time_grid(config.sampler_kwargs)[0])
+    reset_counts()
+    start = time.perf_counter()
+    generated = experiment.generate()
+    torch.cuda.synchronize()
+    generate_seconds = time.perf_counter() - start
+    gen_launches, gen_ok = launched({"epic_forward": nfe * len(generated),
+                                     "gsdm_stack": 2 * nfe * len(generated)})
+    template = dm.dataset.gather(np.arange(EXPERIMENT_TD_B) % len(dm.dataset))
+    reset_counts()
+    start = time.perf_counter()
+    request = experiment.trainer.predict([template])[0]
+    torch.cuda.synchronize()
+    request_seconds = time.perf_counter() - start
+    request_launches, request_ok = launched({"epic_forward": nfe, "gsdm_stack": 2 * nfe})
+    data_hist = dm.histogram_target
+    data_mean = sum(k * v for k, v in data_hist.items()) / sum(data_hist.values())
+    mean_out = request.dims.float().mean().item()
+    emit({"phase": "experiment_transdim", "N": config.data.max_num_particles,
+          "epochs": EXPERIMENT_TD_EPOCHS, "train_losses": losses, "fit_launches": fit_launches,
+          "nfe": nfe, "generate_launches": gen_launches, "request_launches": request_launches,
+          "plain_calls": plain_calls(),
+          "generated_jets": sum(s.dims.shape[0] for s in generated),
+          "request_jets": EXPERIMENT_TD_B, "multiplicity_data": data_mean,
+          "multiplicity_out": mean_out, "setup_seconds": setup_seconds,
+          "fit_seconds": fit_seconds, "generate_seconds": generate_seconds,
+          "request_seconds": request_seconds, "card": card})
+    if not fit_ok or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"the transdim experiment's fit: {fit_launches}, losses {losses}")
+    if not (gen_ok and request_ok):
+        raise RuntimeError(f"the transdim experiment's generate() launched {gen_launches}, "
+                           f"its request {request_launches}")
+    for out in generated + [request]:
+        finite = torch.isfinite(out.continuous).all() and torch.isfinite(out.discrete).all()
+        in_range = ((out.dims >= 1) & (out.dims <= config.data.max_num_particles)).all()
+        if not (finite and in_range):
+            raise RuntimeError("generated transdimensional jets are not finite or out of range")
+    if abs(mean_out - data_mean) > MAX_MULTIPLICITY_SHIFT * data_mean:
+        raise RuntimeError(f"mean multiplicity {mean_out} against the data's {data_mean}")
+    return {"generate": gen_launches}
+
+
+def experiment_phases(device, card, build_dir):
+    """Phases 36-38, each in a run directory under the build directory."""
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        mbm = phase_experiment(device, card, Path(tmp))
+        absorbing = phase_experiment_absorbing(device, card, Path(tmp))
+        transdim = phase_experiment_transdim(device, card, Path(tmp))
+    return mbm, absorbing, transdim
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU")
@@ -2783,6 +3074,17 @@ def main():
     k7["wide_input"] = scaled["k7_wide"]
     k7["launches_by_path"]["serving_transdim_scaled"] = scaled["transdim"]["gsdm_stack"]
     kernels.append(scaled["k8_entry"])
+    # the user's runs from a config on the jets
+    mbm, absorbing, transdim = experiment_phases(device, card, build_dir)
+    k1, k2, k3 = kernels[0], kernels[1], kernels[2]
+    k1["launches_by_path"].update(
+        experiment_train=mbm["train"]["epic_forward"],
+        experiment_absorbing_generate=absorbing["generate"]["epic_forward"],
+        experiment_transdim_generate=transdim["generate"]["epic_forward"])
+    k2["launches_by_path"]["experiment_generate"] = mbm["generate"]["sampler_step"]
+    k3["launches_by_path"]["experiment_train"] = mbm["train"]["epic_backward"]
+    k6["launches_by_path"]["experiment_absorbing_generate"] = absorbing["generate"]["survival_head"]
+    k7["launches_by_path"]["experiment_transdim_generate"] = transdim["generate"]["gsdm_stack"]
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

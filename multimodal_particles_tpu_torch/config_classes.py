@@ -146,6 +146,18 @@ class MultimodalBridgeMatchingConfig:
             parallel=_build(ParallelConfig, config_dict.get("parallel", {})),
         )
 
+    @staticmethod
+    def from_yaml(file_path: str) -> "MultimodalBridgeMatchingConfig":
+        """Read a YAML file (multimodal_bridge_matching_config.py:139-143)."""
+        return MultimodalBridgeMatchingConfig.from_dict(_read_yaml(file_path))
+
+    def to_yaml(self, file_path: str):
+        """The YAML the JAX config writes (multimodal_bridge_matching_config.py:156-158)."""
+        _write_yaml(self, file_path)
+
+    def to_dict(self) -> dict:
+        return asdict(self)
+
 
 @dataclass
 class AbsorbingJetsDataConfig(JetsDataConfig):
@@ -219,6 +231,18 @@ class AbsorbingConfig:
             train=_build(TrainingConfig, config_dict.get("train", {})),
             parallel=_build(ParallelConfig, config_dict.get("parallel", {})),
         )
+
+    @staticmethod
+    def from_yaml(file_path: str) -> "AbsorbingConfig":
+        """Read a YAML file (absorbing_flows_config.py:130-134)."""
+        return AbsorbingConfig.from_dict(_read_yaml(file_path))
+
+    def to_yaml(self, file_path: str):
+        """The YAML the JAX config writes (absorbing_flows_config.py:151-153)."""
+        _write_yaml(self, file_path)
+
+    def to_dict(self) -> dict:
+        return asdict(self)
 
 
 # ------------------------------------------------- the transdimensional family
@@ -441,6 +465,20 @@ class TransdimensionalEpicConfig:
 
     def to_dict(self) -> dict:
         return asdict(self)
+
+
+def _read_yaml(file_path: str) -> dict:
+    import yaml
+
+    with open(file_path, "r") as f:
+        return yaml.safe_load(f)
+
+
+def _write_yaml(config, file_path: str):
+    import yaml
+
+    with open(file_path, "w") as f:
+        yaml.dump(asdict(config), f, default_flow_style=False)
 
 
 def _build(cls, d: dict):

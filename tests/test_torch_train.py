@@ -54,6 +54,7 @@ from multimodal_particles_tpu_torch.training.trainer import (
 from multimodal_particles_tpu_torch.utils.losses import multihead_loss, multihead_weights
 from multimodal_particles_tpu_torch.utils.transplant import params_from_flax
 from torch_port_helpers import B, N, model_pair, random_state, to_torch
+from torch_port_helpers import jax_bridge_draws as jax_draws
 
 torch.backends.cuda.matmul.allow_tf32 = False
 BRIDGE_ATOL = 1e-6
@@ -161,17 +162,6 @@ def test_telegraph_sample_follows_the_golden_posterior():
 
 
 # ------------------------------------------------------------ model and loss
-
-
-def jax_draws(key, batch):
-    """The draws that JAX sample_bridges makes from `key` (:260-269)."""
-    key_t, key_x, key_k = jax.random.split(key, 3)
-    x1 = batch.target_continuous
-    Bb, Nn = x1.shape[0], x1.shape[1]
-    t = jax.random.uniform(key_t, (Bb,), dtype=x1.dtype)
-    z = jax.random.normal(key_x, x1.shape, dtype=x1.dtype)
-    u = jax.random.uniform(key_k, (Bb, Nn), dtype=jnp.float32)
-    return tuple(torch.tensor(np.asarray(a)) for a in (t, z, u))
 
 
 def torch_batch(batch):

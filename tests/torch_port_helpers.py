@@ -3,7 +3,8 @@ model (MBM, the absorbing family's `absorbing_pair`, or the transdimensional
 family's `transdim_pair`) and its port twin with the same transplanted
 weights, and inputs made from a seed with numpy; `replay_sampler_draws`
 replays the JAX jump sampler's key schedule so that both samplers take the
-same draws. Both sides run in float32 on the CPU."""
+same draws; `jet_pair` builds both packages' JetDataclass from one config
+and data seed. Both sides run in float32 on the CPU."""
 
 import os
 
@@ -20,6 +21,7 @@ from multimodal_particles_tpu.config_classes import (
 from multimodal_particles_tpu.config_classes.transdimensional_unconditional_config import (
     TransdimensionalEpicConfig,
 )
+from multimodal_particles_tpu.data.particle_clouds.jets import JetDataclass
 from multimodal_particles_tpu.data.particle_clouds.jets_dataloader import (
     JetsDataloaderModule,
 )
@@ -54,9 +56,15 @@ from multimodal_particles_tpu_torch.models.generative.multimodal_bridge_matching
 from multimodal_particles_tpu_torch.models.generative.transdimensional.transdimensional_model import (
     TransdimensionalJumpDiffusion as TorchTransdim,
 )
+from multimodal_particles_tpu_torch.data import MultimodalDatabatch
+from multimodal_particles_tpu_torch.data.particle_clouds.jets import (
+    JetDataclass as TorchJetDataclass,
+)
 from multimodal_particles_tpu_torch.utils.transplant import params_from_flax
 
 CONFIG_PATH = os.path.join(test_resources_dir, "configs_files", "config-mbm-test.yaml")
+ABSORBING_CONFIG_PATH = os.path.join(test_resources_dir, "configs_files",
+                                     "config-absorbing-test.yaml")
 B, N = 8, 16
 
 
@@ -652,3 +660,62 @@ def narrow_backward_model(packed, t, x, k, mask, g, one_product=False):
         disc = mm(_SELU.apply(mm(disc, W["w_h0"]) + W["b_h0"]), W["w_h1"]) + W["b_h1"]
     (grad,) = torch.autograd.grad(torch.cat([cont, disc], -1), flat, g.double())
     return grad
+
+
+# ---------------------------------------------------------------- jet data
+
+
+def config_pair(family, **data):
+    """(JAX config, port config) of a family with data overrides; the JAX
+    data section gets the `seed` attribute its JetDataclass reads."""
+    if family == "mbm":
+        jax_cfg, cfg = (MultimodalBridgeMatchingConfig.from_yaml(CONFIG_PATH),
+                        TorchConfig.from_yaml(CONFIG_PATH))
+    elif family == "absorbing":
+        jax_cfg, cfg = (AbsorbingConfig.from_yaml(ABSORBING_CONFIG_PATH),
+                        TorchAbsorbingConfig.from_yaml(ABSORBING_CONFIG_PATH))
+    else:
+        jax_cfg, cfg = TransdimensionalEpicConfig(), TorchTransdimConfig()
+        jax_cfg.data.return_type = cfg.data.return_type = "list"
+    for name, value in data.items():
+        setattr(jax_cfg.data, name, value)
+        setattr(cfg.data, name, value)
+    return jax_cfg, cfg
+
+
+def jet_pair(family, seed=4, **data):
+    """(JAX config, port config, JAX JetDataclass, port JetDataclass) of a
+    family from the same data seed."""
+    jax_cfg, cfg = config_pair(family, **data)
+    jax_cfg.data.seed = seed
+    return jax_cfg, cfg, JetDataclass(jax_cfg), TorchJetDataclass(cfg, seed=seed)
+
+
+def assert_batch_equals(got, ref):
+    """A port batch (MultimodalDatabatch or 'list' of CPU tensors) equals a
+    JAX numpy batch cast to the port's dtypes (JAX puts float64 arrays on
+    its device as float32)."""
+    if isinstance(got, MultimodalDatabatch):
+        assert set(ref._fields) <= {f for f in vars(got) if getattr(got, f) is not None}
+        pairs = [(getattr(got, f), np.asarray(getattr(ref, f))) for f in ref._fields]
+    else:
+        assert len(got) == len(ref)
+        pairs = [(g, np.asarray(r)) for g, r in zip(got, ref)]
+    for g, r in pairs:
+        assert isinstance(g, torch.Tensor) and g.device.type == "cpu"
+        g = g.numpy()
+        assert g.shape == r.shape
+        np.testing.assert_array_equal(g, r.astype(g.dtype))
+
+
+def jax_bridge_draws(key, batch):
+    """The draws that the JAX MBM sample_bridges makes from `key`
+    (multimodal_bridge_matching.py:260-269), as tensors for the port's."""
+    key_t, key_x, key_k = jax.random.split(key, 3)
+    x1 = batch.target_continuous
+    b, n = x1.shape[0], x1.shape[1]
+    t = jax.random.uniform(key_t, (b,), dtype=x1.dtype)
+    z = jax.random.normal(key_x, x1.shape, dtype=x1.dtype)
+    u = jax.random.uniform(key_k, (b, n), dtype=jnp.float32)
+    return tuple(torch.tensor(np.asarray(a)) for a in (t, z, u))
+
