@@ -5,7 +5,8 @@
 
 Phases, one JSON line each:
   1. device   the card's name and power limit (nvidia-smi); no card → fail
-  2. build    compile ops/csrc/*.cu with nvcc (sm_90a) and load the library
+  2. build    compile ops/csrc/*.cu with nvcc (sm_90a) and load the library;
+              build the C++ substructure library with g++ (native/)
   3. K1       fused EPiC forward (its per-particle products on the tensor
               cores under the 3×TF32 split) vs its plain PyTorch version,
               config-berlin (elementwise atol/rtol 1e-4) and hidden 64 / 4
@@ -249,6 +250,40 @@ Phases, one JSON line each:
               Trainer.predict launches the same and its mean multiplicity
               lies within 10% of the data's
 
+ 39. bulk_mbm  the million-jet sweep: bulk_sample(config-berlin seeded model,
+              1,000,000 jets in chunks of 32,768, sources drawn on the card
+              from the bundled shard's multiplicity histogram, collect=False):
+              K2 exactly 99 × (31 chunks + the warm-up) = 3,168 times, no
+              other kernel, no plain version; its jets/s. Then collect=True
+              on 65,536 jets: shapes (65536, 128, ·), finite, tokens in
+              [0, 8), dead slots 0, and a rerun from the same seed the same
+              bits
+ 40. bulk_absorbing, bulk_transdim  bulk_sample at B=4096, 3 chunks and the
+              warm-up, collected: absorbing K1 (hidden output) and K6 exactly
+              99 a chunk, transdim K1 (folded input) 48 and K7 96 a chunk, no
+              plain version; the absorbing mask 0/1 with dead slots 0, the
+              transdim dims in [1, 128] and their mean within 10% of the
+              prior's
+ 41. substructure_native  the port's C++ substructure library
+              (native/substructure.cpp, built with g++ at first use) against
+              its numpy version on the shard's 100 jets and on the first 128 of
+              phase 39's collected jets (post-processed with the shard's
+              stats) whose particles all lie at |φ| < π (outside that domain
+              the JAX package's two versions part too): the library's valid
+              flags equal to the numpy selection,
+              tau1/2/3, tau21/32, D2 within rtol 1e-6 (atol 1e-9, the JAX
+              tests' bound); both versions' jets/s and the library's seconds
+              on all 65,536 jets
+ 42. conditioned_transdim  reconstruction guidance: the transdimensional
+              model (TransdimensionalEpicConfig(), dt cut to 1/100 as the JAX
+              demo's default, do_conditioning, guidance_weight 2.0, seeded
+              weights) completes 256 jets of the shard, gathered through the
+              port's datamodule, from their first 3 particles: finite, dims
+              in [1, 128], a trajectory other than the unguided one from the
+              same generator seed, and (the guided score differentiates the
+              module path, as in JAX) no kernel launched and no plain version
+              called; its seconds
+
 The line before the last lists every kernel with its launches on its own
 path's run, its two bounds from the shapes and the H100 data sheet's peaks
 (`bound_ms` with the operations on the CUDA cores in fp32, `tensor_bound_ms`
@@ -257,7 +292,7 @@ every kernel runs), and the times measured here; K1's and K3's entries
 also the tensor bound of the per-particle products they need
 (`products_tensor_bound_ms`) and the timed call's share of each bound (K1's
 at each of its three shapes: config-berlin, absorbing, transdim), and in
-`launches_by_path` each path's own count, phases 36-38's among them; the last
+`launches_by_path` each path's own count, phases 36-40's among them; the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Uses torch, numpy, scipy (the port's jet metrics), the standard library and
 the port only. fp32 with TF32 off.
@@ -289,8 +324,17 @@ from multimodal_particles_tpu_torch.data import (
     synthetic_training_batch,
     transdim_training_batch,
 )
-from multimodal_particles_tpu_torch.data.particle_clouds.jets import JetClassHighLevelFeatures
+from multimodal_particles_tpu_torch.data.particle_clouds.jets import (
+    JetClassHighLevelFeatures,
+    JetDataclass,
+)
+from multimodal_particles_tpu_torch.data.particle_clouds.jets_dataloader import (
+    JetsDataloaderModule,
+)
 from multimodal_particles_tpu_torch.data.particle_clouds.particles import ParticleClouds
+from multimodal_particles_tpu_torch.data.particle_clouds.substructure import (
+    substructure_observables,
+)
 from multimodal_particles_tpu_torch.models.architectures.gsdm import AttnBlock
 from multimodal_particles_tpu_torch.models.architectures.utils import WeightNormLinear
 from multimodal_particles_tpu_torch.models.generative.absorbing.absorbing_flows import (
@@ -311,17 +355,20 @@ from multimodal_particles_tpu_torch.models.generative.states import (
 from multimodal_particles_tpu_torch.models.generative.transdimensional.structure import (
     DistributionNodes,
     StructuredState,
+    adjust_state,
 )
 from multimodal_particles_tpu_torch.models.generative.transdimensional import (
     transdimensional_model as transdim_module,
 )
 from multimodal_particles_tpu_torch.models.generative.transdimensional.sampler import (
+    Condition,
     _build_time_grid,
 )
 from multimodal_particles_tpu_torch.models.generative.transdimensional.transdimensional_model import (
     TransdimensionalJumpDiffusion,
     sample_gumbel,
 )
+from multimodal_particles_tpu_torch import native
 from multimodal_particles_tpu_torch.ops import _build
 from multimodal_particles_tpu_torch.ops.attention_cuda import (
     attention_core,
@@ -365,6 +412,7 @@ from multimodal_particles_tpu_torch.ops.survival_cuda import (
     survival_head,
     survival_head_reference,
 )
+from multimodal_particles_tpu_torch.parallel.bulk_sampling import bulk_sample
 from multimodal_particles_tpu_torch.training import (
     AbsorbingExperiment,
     MultimodalBridgeMatchingExperiment,
@@ -428,6 +476,14 @@ ABS_EXPERIMENT_YAML = ROOT / "tests" / "resources" / "configs_files" / "config-a
 EXPERIMENT_ABS_EPOCHS = 2  # the YAML's 200 cut
 EXPERIMENT_TD_EPOCHS = 2
 EXPERIMENT_TD_B = 1024  # the multiplicity check's request
+# phases 39-42: the bulk sweep (BASELINE.md workload 5), the C++ substructure library and
+# reconstruction guidance
+BULK_JETS, BULK_B, BULK_COLLECT_JETS = 1_000_000, 32768, 65536
+BULK_FAMILY_B, BULK_FAMILY_CHUNKS = 4096, 3
+SUBSTRUCTURE_RTOL, SUBSTRUCTURE_ATOL = 1e-6, 1e-9  # tests/test_data/test_substructure.py:34-42
+SUBSTRUCTURE_NUMPY_JETS = 128  # of phase 39's jets, the numpy loop's share (≈ 25 jets/s)
+COND_JETS, COND_OBSERVED, COND_WEIGHT = 256, 3, 2.0
+COND_STEPS = 100  # the JAX demo's default (examples/conditional_generation_demo.py:29)
 # NVIDIA's H100 SXM data sheet: fp32 outside the tensor cores, dense TF32 on
 # the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -3029,6 +3085,227 @@ def experiment_phases(device, card, build_dir):
     return mbm, absorbing, transdim
 
 
+# ---------------------------------- phases 39-42: the bulk sweep, substructure, guidance
+
+
+def check_bulk(result, jets, n):
+    """What a collected sweep must hold: shapes (jets, n, ·), finite
+    kinematics, tokens in [0, 8), a 0/1 mask with dead slots 0."""
+    x, k, mask = result["continuous"], result["discrete"], result["mask"]
+    dead = mask[..., 0] == 0
+    ok = {
+        "shape": (x.shape[:2] == (jets, n) and k.shape == (jets, n, 1)
+                  and mask.shape == (jets, n, 1)),
+        "finite": bool(np.isfinite(x).all()),
+        "tokens_in_range": bool(((k >= 0) & (k < 8)).all()),
+        "mask_is_0_or_1": bool(np.isin(mask, (0, 1)).all()),
+        "dead_slots_zero": bool((x[dead] == 0).all() and (k[dead] == 0).all()),
+    }
+    if not all(ok.values()):
+        raise RuntimeError(f"the sweep's jets fail their checks: {ok}")
+    return ok
+
+
+def phase_bulk_mbm(device, card, multiplicities):
+    """The 1M-jet sweep at config-berlin through K2 alone, then a collected
+    sweep of BULK_COLLECT_JETS checked and rerun to the same bits."""
+    model = make_model(device)
+    chunks = math.ceil(BULK_JETS / BULK_B)
+    torch.cuda.synchronize()
+    reset_counts()  # the sweep's run starts here
+    _, stats = bulk_sample(model, model.config, BULK_JETS, batch_size=BULK_B, seed=SEED,
+                           target_multiplicity=multiplicities, collect=False)
+    launches, ok = launched({"sampler_step": 99 * (chunks + 1)})
+    emit({"phase": "bulk_mbm", "B": BULK_B, "N": N, "chunks": chunks, **stats,
+          "launches": launches, "plain_calls": plain_calls(), "card": card})
+    if not ok:
+        raise RuntimeError(f"the 1M-jet sweep launched {launches}, {plain_calls()} plain calls")
+
+    collected, cstats = bulk_sample(model, model.config, BULK_COLLECT_JETS, batch_size=BULK_B,
+                                    seed=SEED, target_multiplicity=multiplicities)
+    again, _ = bulk_sample(model, model.config, BULK_COLLECT_JETS, batch_size=BULK_B, seed=SEED,
+                           target_multiplicity=multiplicities)
+    checks = check_bulk(collected, BULK_COLLECT_JETS, N)
+    same_bits = all(np.array_equal(collected[key], again[key]) for key in collected)
+    emit({"phase": "bulk_mbm_collect", **cstats, **checks, "same_seed_same_bits": same_bits,
+          "multiplicity_mean": float(collected["mask"].sum(axis=(1, 2)).mean()),
+          "card": card})
+    if not same_bits:
+        raise RuntimeError("the collected sweep did not rerun to the same bits")
+    return launches, collected
+
+
+def phase_bulk_family(device, card, family, multiplicities):
+    """The sweep of the absorbing or the transdimensional family at
+    BULK_FAMILY_B, BULK_FAMILY_CHUNKS chunks and the warm-up, collected."""
+    runs = BULK_FAMILY_CHUNKS + 1
+    jets = BULK_FAMILY_B * BULK_FAMILY_CHUNKS
+    extra = {}
+    if family == "absorbing":
+        model, n = make_absorbing(device), ABS_N
+        expected = {"epic_forward": 99 * runs, "survival_head": 99 * runs}
+        extra["target_multiplicity"] = multiplicities
+    else:
+        gen = torch.Generator(device=device).manual_seed(SEED + 40)
+        prior = transdim_training_batch(BULK_FAMILY_B, TD_N, 3, 8, gen, device=device)
+        model, n = make_transdim(device, prior), TD_N
+        prior_mean = prior[0].float().mean().item()
+        expected = {"epic_forward": TD_STEPS * runs, "gsdm_stack": 2 * TD_STEPS * runs}
+    torch.cuda.synchronize()
+    reset_counts()  # the family's sweep starts here
+    result, stats = bulk_sample(model, model.config, jets, batch_size=BULK_FAMILY_B, seed=SEED,
+                                **extra)
+    launches, ok = launched(expected)
+    checks = check_bulk(result, jets, n)
+    multiplicity = result["mask"].sum(axis=(1, 2))
+    line = {"phase": f"bulk_{family}", "B": BULK_FAMILY_B, "N": n,
+            "chunks": BULK_FAMILY_CHUNKS, **stats, "launches": launches,
+            "plain_calls": plain_calls(), **checks,
+            "multiplicity_mean": float(multiplicity.mean()), "card": card}
+    if family == "transdim":
+        in_range = bool(((multiplicity >= 1) & (multiplicity <= n)).all())
+        shift = abs(float(multiplicity.mean()) - prior_mean) / prior_mean
+        line.update(dims_in_range=in_range, multiplicity_prior=prior_mean,
+                    multiplicity_shift=shift)
+        if not in_range or shift > MAX_MULTIPLICITY_SHIFT:
+            raise RuntimeError(f"transdim sweep: dims in range {in_range}, shift {shift}")
+    emit(line)
+    if not ok:
+        raise RuntimeError(f"the {family} sweep launched {launches}, "
+                           f"{plain_calls()} plain calls")
+    return launches
+
+
+def substructure_against_numpy(pt, eta, phi, mask):
+    """The library on the jets against the numpy loop: its valid flags equal
+    to the numpy selection, each observable within SUBSTRUCTURE_RTOL; each
+    version's seconds."""
+    start = time.perf_counter()
+    lib = native.substructure_batch_native(pt, eta, phi, mask)
+    native_seconds = time.perf_counter() - start
+    start = time.perf_counter()
+    ref = substructure_observables(pt, eta, phi, mask, use_native=False)
+    numpy_seconds = time.perf_counter() - start
+    sel = ref["selection"]
+    got = substructure_observables(pt, eta, phi, mask)
+    worst = 0.0
+    for key in ("tau1", "tau2", "tau3", "tau21", "tau32", "d2"):
+        a, b = got[key], ref[key]
+        if not (np.isnan(a) == np.isnan(b)).all():
+            raise RuntimeError(f"substructure {key}: NaN where the other is not")
+        a, b = a[~np.isnan(b)], b[~np.isnan(b)]
+        worst = max(worst, float((np.abs(a - b) / (SUBSTRUCTURE_ATOL + SUBSTRUCTURE_RTOL
+                                                    * np.abs(b))).max(initial=0.0)))
+    return {"jets": len(pt), "valid": int(sel.sum()),
+            "valid_equal": bool(np.array_equal(lib["valid"], sel)), "native": got["native"],
+            "worst_err_over_bound": worst, "native_seconds": native_seconds,
+            "numpy_seconds": numpy_seconds, "native_jets_per_s": len(pt) / native_seconds,
+            "numpy_jets_per_s": len(pt) / numpy_seconds}
+
+
+def phase_substructure_native(card, shard, collected):
+    """The C++ library (built with the kernels, `main`) held against the numpy
+    version on the shard's jets and on phase 39's (post-processed with the
+    shard's stats), then timed on all of phase 39's collected jets."""
+    cloud = ParticleClouds(np.concatenate(
+        [collected["continuous"], collected["discrete"], collected["mask"]], axis=-1))
+    cloud.postprocess("standardize", "tokens", stats=shard.summary_stats())
+    # Both JAX versions wrap a φ difference once and the numpy one re-derives
+    # each φ from the four-momentum into (−π, π], where the library keeps the
+    # input's: they part on a jet with a particle at |φ| ≥ π, which the seeded
+    # model generates (|φ| up to 80). The comparison takes jets within the angle
+    # domain.
+    in_domain = ((np.abs(cloud.phi_rel) < np.pi) | (cloud.mask[..., 0] == 0)).all(axis=1)
+    held = {"shard": substructure_against_numpy(shard.pt, shard.eta_rel, shard.phi_rel,
+                                                shard.mask[..., 0])}
+    rows = np.flatnonzero(in_domain)[:SUBSTRUCTURE_NUMPY_JETS]
+    held["bulk_mbm"] = substructure_against_numpy(cloud.pt[rows], cloud.eta_rel[rows],
+                                                  cloud.phi_rel[rows], cloud.mask[rows, :, 0])
+    held["bulk_mbm"]["jets_in_angle_domain"] = int(in_domain.sum())
+    start = time.perf_counter()
+    every = substructure_observables(cloud.pt, cloud.eta_rel, cloud.phi_rel, cloud.mask[..., 0])
+    seconds = time.perf_counter() - start
+    emit({"phase": "substructure_native", "against_numpy": held,
+          "all_collected": {"jets": len(cloud), "native": every["native"], "seconds": seconds,
+                            "jets_per_s": len(cloud) / seconds,
+                            "valid": int(every["selection"].sum())},
+          "card": card})
+    for name, h in held.items():
+        if not (h["native"] and h["valid_equal"] and h["worst_err_over_bound"] <= 1.0):
+            raise RuntimeError(f"the C++ substructure library against numpy on {name}: {h}")
+    if not every["native"]:
+        raise RuntimeError("the collected jets were not scored by the C++ library")
+
+
+def phase_conditioned_transdim(device, card):
+    """Reconstruction guidance on the card: jets of the shard, gathered by the
+    port's datamodule, completed from their first COND_OBSERVED particles;
+    the guided sampler runs the module path under autograd (no kernel, as in
+    JAX); the unguided run from the same generator seed differs."""
+    config = TransdimensionalEpicConfig()
+    config.data.return_type = "list"
+    sk = config.sampler_kwargs
+    dt_in_config, sk.dt = sk.dt, 1.0 / COND_STEPS
+    sk.do_conditioning, sk.guidance_weight = True, COND_WEIGHT
+    jets = JetDataclass(config, seed=SEED)
+    jets.preprocess()
+    dm = JetsDataloaderModule(config, jets, device=device)
+    model = init_transdimensional_parameters(TransdimensionalJumpDiffusion(config, dm), SEED)
+    model = model.to(device).eval()
+    state = model._as_state(dm.dataset.gather(np.arange(COND_JETS) % len(dm.dataset)))
+    condition = Condition.observe(state, torch.full((COND_JETS,), COND_OBSERVED))
+    torch.cuda.synchronize()
+    reset_counts()  # the guided run starts here
+    start = time.perf_counter()
+    guided, nfe = model.sample(state, torch.Generator(device=device).manual_seed(SEED + 42),
+                               condition=condition)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches, ok = launched({})
+    sk.do_conditioning = False
+    reset_counts()
+    start = time.perf_counter()
+    plain, _ = model.sample(state, torch.Generator(device=device).manual_seed(SEED + 42))
+    torch.cuda.synchronize()
+    plain_seconds = time.perf_counter() - start
+    plain_launches, _ = launched({})
+
+    def observed_miss(out):
+        """Mean |x − observation| over the observed entries, in the geometry
+        the guidance compares in (the observed rows, centred over them)."""
+        observed, _ = adjust_state(out.delete_dims(condition.dims))
+        return (condition.mask * (observed.get_flat_lats() - condition.lats)).abs().mean().item()
+
+    checks = {
+        "finite": bool(torch.isfinite(guided.continuous).all().item()
+                       and torch.isfinite(guided.discrete).all().item()),
+        "dims_in_range": bool(((guided.dims >= 1) & (guided.dims <= TD_N)).all().item()),
+        "differs_from_unguided": not torch.equal(guided.get_flat_lats(), plain.get_flat_lats()),
+    }
+    emit({"phase": "conditioned_transdim", "jets": COND_JETS, "observed_particles": COND_OBSERVED,
+          "guidance_weight": COND_WEIGHT, "steps": nfe, "dt_in_config": dt_in_config,
+          "launches": launches, "plain_calls": plain_calls(), **checks,
+          "mean_dims": guided.dims.float().mean().item(),
+          "data_mean_dims": state.dims.float().mean().item(),
+          "observed_mean_abs_miss": observed_miss(guided),
+          "unguided_observed_mean_abs_miss": observed_miss(plain),
+          "seconds": seconds, "unguided_seconds": plain_seconds,
+          "unguided_launches": plain_launches, "card": card})
+    if not ok or not all(checks.values()):
+        raise RuntimeError(f"the guided sampler: launches {launches}, checks {checks}")
+
+
+def bulk_phases(device, card):
+    """Phases 39-42; the sweeps' launch counts for the kernels line."""
+    shard = ParticleClouds("AspenOpenJets", max_num_particles=N)  # the bundled 100 jets (.npz)
+    mbm, collected = phase_bulk_mbm(device, card, shard.multiplicity)
+    absorbing = phase_bulk_family(device, card, "absorbing", shard.multiplicity)
+    transdim = phase_bulk_family(device, card, "transdim", None)
+    phase_substructure_native(card, shard, collected)
+    phase_conditioned_transdim(device, card)
+    return mbm, absorbing, transdim
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU")
@@ -3046,8 +3323,15 @@ def main():
     _build.load_library()
     ptxas = [line.strip() for line in build.log.splitlines()
              if "registers" in line or "spill" in line or "Compiling entry function" in line]
+    # the C++ substructure library (g++, host side) that phases 36-38 and 41 score with
+    start = time.perf_counter()
+    if native.load_substructure_lib() is None:
+        raise RuntimeError("the C++ substructure library did not build (g++)")
+    substructure_seconds = time.perf_counter() - start
     emit({"phase": "build", "seconds": build.seconds, "source_seconds": build.source_seconds,
-          "library": str(build.path.relative_to(ROOT)), "ptxas": ptxas})
+          "library": str(build.path.relative_to(ROOT)), "ptxas": ptxas,
+          "substructure_library": str(native.build_library().relative_to(ROOT)),
+          "substructure_build_seconds": substructure_seconds})
 
     build_dir = ROOT / "multimodal_particles_tpu_torch" / "ops" / "build"
     kernels = narrow_phases(device, card, build_dir) + scaled_phases(device, card, build_dir)
@@ -3085,6 +3369,13 @@ def main():
     k3["launches_by_path"]["experiment_train"] = mbm["train"]["epic_backward"]
     k6["launches_by_path"]["experiment_absorbing_generate"] = absorbing["generate"]["survival_head"]
     k7["launches_by_path"]["experiment_transdim_generate"] = transdim["generate"]["gsdm_stack"]
+    # the bulk sweeps of the three families
+    bulk_mbm, bulk_absorbing, bulk_transdim = bulk_phases(device, card)
+    k2["launches_by_path"]["bulk_mbm"] = bulk_mbm["sampler_step"]
+    k1["launches_by_path"].update(bulk_absorbing=bulk_absorbing["epic_forward"],
+                                  bulk_transdim=bulk_transdim["epic_forward"])
+    k6["launches_by_path"]["bulk_absorbing"] = bulk_absorbing["survival_head"]
+    k7["launches_by_path"]["bulk_transdim"] = bulk_transdim["gsdm_stack"]
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,10 @@
 """JetDataclass (the source–target coupling) and JetClassHighLevelFeatures
 (jet observables and the 1D KL/W1 metrics), the counterparts of
-multimodal_particles_tpu/data/particle_clouds/jets.py:18-168.
+multimodal_particles_tpu/data/particle_clouds/jets.py:18-229.
 
 Host-side numpy and scipy, as in the JAX package; scipy.stats (seconds to
-import) is imported by the metrics that use it. The plots (:169-229) are not
-ported yet.
+import) is imported by the metrics that use it, matplotlib by each plot
+(:169-229).
 """
 
 import numpy as np
@@ -131,6 +131,7 @@ class JetClassHighLevelFeatures:
         self.tau32 = obs["tau32"]
         self.d2 = obs["d2"]
         self.substructure_selection = obs["selection"]
+        self.substructure_native = obs["native"]  # whether the C++ library computed them
 
     def histogram(self, features="pt", density=True, num_bins=100, use_quantiles=False):
         x = np.asarray(getattr(self, features)).reshape(-1)
@@ -158,3 +159,65 @@ class JetClassHighLevelFeatures:
         y = np.asarray(getattr(reference, feature)).reshape(-1)
         x, y = x[np.isfinite(x)], y[np.isfinite(y)]
         return scipy.stats.wasserstein_distance(x, y)
+
+    def histplot_multiplicities(self, state=None, xlim=None, ylim=None, xlabel=None,
+                                ylabel=None, figsize=(3, 3), fontsize=12, ax=None,
+                                **kwargs):
+        """Histogram of per-jet multiplicities, optionally restricted to a
+        set of token states (reference: jets.py:143-175)."""
+        import matplotlib.pyplot as plt
+
+        if state is not None:
+            if isinstance(state, int):
+                state = [state]
+            tokens = np.argmax(self.constituents.discrete, axis=-1)[..., None]
+            multiplicity = np.zeros(self.constituents.discrete.shape[0])
+            for s in state:
+                x = (tokens == s) * self.constituents.mask
+                multiplicity += x.sum(axis=(1, 2))
+        else:
+            multiplicity = np.asarray(self.multiplicity)
+
+        if ax is None:
+            _, ax = plt.subplots(figsize=figsize)
+        vals = multiplicity.reshape(-1)
+        bins = np.arange(vals.min() - 0.5, vals.max() + 1.5)
+        ax.hist(vals, bins=bins, histtype="step", **kwargs)
+        ax.set_xlabel(xlabel, fontsize=fontsize)
+        ax.set_ylabel(ylabel, fontsize=fontsize)
+        ax.set_xlim(xlim)
+        ax.set_ylim(ylim)
+        return ax
+
+    def flavor_fractions(self, figsize=(3, 3), fontsize=12, ax=None, **kwargs):
+        """Token-state occupancy over valid particles
+        (reference: jets.py:177-202)."""
+        import matplotlib.pyplot as plt
+
+        if ax is None:
+            _, ax = plt.subplots(figsize=figsize)
+        tokens = np.argmax(self.constituents.discrete, axis=-1)
+        valid = self.constituents.mask[..., 0] > 0
+        ax.hist(tokens[valid].reshape(-1), bins=np.arange(-0.5, 8.5),
+                histtype="step", **kwargs)
+        ax.set_xlabel("Particle flavor", fontsize=fontsize)
+        ax.set_xticks(np.arange(8))
+        ax.set_xticklabels(
+            [r"$\gamma$", r"$h^0$", r"$h^-$", r"$h^+$",
+             r"$e^-$", r"$e^+$", r"$\mu^-$", r"$\mu^+$"]
+        )
+        return ax
+
+    def histplot(self, features="pt", xlim=None, ylim=None, xlabel=None, ylabel=None,
+                 figsize=(3, 3), fontsize=12, ax=None, **kwargs):
+        import matplotlib.pyplot as plt
+
+        x = np.asarray(getattr(self, features)).reshape(-1)
+        if ax is None:
+            _, ax = plt.subplots(figsize=figsize)
+        ax.hist(x[np.isfinite(x)], histtype="step", **kwargs)
+        ax.set_xlabel(features if xlabel is None else xlabel, fontsize=fontsize)
+        ax.set_ylabel(ylabel, fontsize=fontsize)
+        ax.set_xlim(xlim)
+        ax.set_ylim(ylim)
+        return ax

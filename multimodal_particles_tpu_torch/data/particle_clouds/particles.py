@@ -1,10 +1,10 @@
 """ParticleClouds: the host-side container of padded particle clouds
 (continuous kinematics, discrete flavour and charge, existence mask), the
-counterpart of multimodal_particles_tpu/data/particle_clouds/particles.py:30-191.
+counterpart of multimodal_particles_tpu/data/particle_clouds/particles.py:30-228.
 
 Plain numpy, as in the JAX package. The bridge-state branch takes the port's
 states (`HybridState`, `AbsorbingBridgeState`) of tensors on any device. The
-plots (`histplot`, `display_cloud`, :193-228) are not ported yet.
+plots (`histplot`, `display_cloud`, :193-228) import matplotlib when called.
 """
 
 import os
@@ -179,3 +179,42 @@ class ParticleClouds:
             self.discrete = np.concatenate([flavor, charge], axis=-1) * self.mask
 
         self._refresh_views()
+
+    # plots (particles.py:193-228); matplotlib is imported by each
+
+    def histplot(self, feature="pt", idx=None, xlim=None, ylim=None, xlabel=None,
+                 ylabel=None, figsize=(3, 3), fontsize=12, ax=None, **kwargs):
+        import matplotlib.pyplot as plt
+
+        mask = self.mask[..., 0] > 0
+        if ax is None:
+            _, ax = plt.subplots(figsize=figsize)
+        x = getattr(self, feature)[mask] if idx is None else getattr(self, feature)[:, idx]
+        ax.hist(np.asarray(x).reshape(-1), histtype="step", **kwargs)
+        ax.set_xlabel(feature if xlabel is None else xlabel, fontsize=fontsize)
+        ax.set_ylabel(ylabel, fontsize=fontsize)
+        ax.set_xlim(xlim)
+        ax.set_ylim(ylim)
+        return ax
+
+    def display_cloud(self, idx, scale_marker=1.0, ax=None, figsize=(3, 3), **kwargs):
+        import matplotlib.pyplot as plt
+
+        valid = self.mask[idx, :, 0] > 0
+        eta = self.eta_rel[idx][valid]
+        phi = self.phi_rel[idx][valid]
+        pt = self.pt[idx][valid] * scale_marker
+        flavor = np.argmax(self.flavor[idx][valid], axis=-1)
+        charge = self.charge[idx][valid]
+        if ax is None:
+            _, ax = plt.subplots(figsize=figsize)
+        colors = {0: "gold", 1: "darkred", 2: "darkred", 3: "blue", 4: "green"}
+        for fl in range(5):
+            for q, marker in ((-1, "^"), (0, "o"), (1, "v")):
+                sel = (flavor == fl) & (charge == q)
+                if sel.any():
+                    ax.scatter(eta[sel], phi[sel], s=pt[sel], marker=marker,
+                               color=colors[fl], alpha=0.5)
+        ax.set_xticks([])
+        ax.set_yticks([])
+        return ax

@@ -24,7 +24,16 @@ dict over the T-step grid: "init" (B, D), "em_noise" (T, B, D), "birth_noise"
 (T, B, D), "u_jump" (T, B) for the single birth or "u_chain" (T, B, K) for the
 chain, and with `sample_near_atom` "gumbel" (T, B, N), the noise added to the
 nearest-atom logits before the argmax. The corrector's draws always come from
-`generator`. Reconstruction-guidance conditioning is not ported.
+`generator`.
+
+Reconstruction guidance (`do_conditioning` with a `Condition`, JAX
+:238-303): at every network evaluation the x0 prediction's error on the
+observed entries, projected into the observed state's geometry, is
+differentiated through the network's module path with respect to the
+latents (`guidance`), and the score is formed from the x0 prediction moved
+by that gradient and held at the observed values. Like JAX's conditioned
+branch, which differentiates through flax, it launches no kernel: the
+kernels are forward-only.
 """
 
 from dataclasses import dataclass
@@ -110,6 +119,44 @@ class Condition:
     mask: torch.Tensor
     dims: torch.Tensor
 
+    @classmethod
+    def observe(cls, state: StructuredState, dims) -> "Condition":
+        """The first `dims` (B,) rows of each jet of `state` observed, in the
+        geometry the guidance compares in: the rows kept, the centre of mass
+        taken over them (examples/conditional_generation_demo.py:76-84)."""
+        dims = torch.as_tensor(dims, dtype=torch.int32, device=state.continuous.device)
+        observed, _ = adjust_state(state.delete_dims(dims))
+        mask = state.get_mask_flat(dims)
+        return cls(lats=observed.get_flat_lats() * mask, mask=mask, dims=dims)
+
+
+def guidance(model, state: StructuredState, t_b, condition: Condition, guidance_weight,
+             sample_nearest_atom=False, generator=None, gumbel=None, with_rate=True):
+    """The reconstruction-guidance term of one network evaluation
+    (sampler.py:257-286): the network's module path under autograd, its x0
+    prediction's observed entries projected into the condition's geometry
+    (`set_flat_lats(mask · x0).delete_dims(condition.dims)`, centred), and
+    w = Σ_b −½ · guidance_weight · α_t · Σ mask · (x0_c − lats)².
+
+    Returns (w, dw/d(flat latents) (B, D), x0_pred, rate, (mean, std_raw),
+    x0_dim_logits), all detached."""
+    noise_schedule = model.noise_schedule
+    with torch.enable_grad():
+        x_flat = state.get_flat_lats().detach().requires_grad_(True)
+        D_eps, rate, (mean, std_raw), x0_logits, _, _ = model.net_forward(
+            state.set_flat_lats(x_flat), t_b, nearest_atom=None,
+            sample_nearest_atom=sample_nearest_atom, generator=generator, gumbel=gumbel,
+            predict="eps", with_rate=with_rate)
+        x0_pred = noise_schedule.predict_x0_from_xt(x_flat, D_eps, t_b)
+        observed, _ = adjust_state(
+            state.set_flat_lats(condition.mask * x0_pred).delete_dims(condition.dims))
+        l2 = (condition.mask * (observed.get_flat_lats() - condition.lats) ** 2).sum(dim=1)
+        alpha_t = noise_schedule.get_p0t_stats(torch.ones_like(x_flat), t_b)[0][:, 0]
+        weighted = (-0.5 * guidance_weight * alpha_t * l2).sum()
+        (grad,) = torch.autograd.grad(weighted, x_flat)
+    return (weighted.detach(), grad, x0_pred.detach(), None if rate is None else rate.detach(),
+            (mean.detach(), std_raw.detach()), x0_logits.detach())
+
 
 def _rows_broadcast(state: StructuredState, flat):
     """A flat array that is zero outside one row → that row's values on
@@ -134,15 +181,19 @@ class JumpSampler:
         (final_state, nfe, diag) with `collect_diagnostics`, where diag holds
         per-step scalars stacked over the time grid (ts, max_abs_x, mean_dims,
         birth_frac, rate_mean). `template_state` gives the shapes and the
-        device."""
+        device. With `do_conditioning` in the config, `condition` (a
+        `Condition`) steers every network evaluation by reconstruction
+        guidance; either without the other raises ValueError."""
         cfg = self.config
-        if cfg.do_conditioning:
-            raise NotImplementedError(
-                "reconstruction-guidance conditioning (do_conditioning=True) is not ported"
-            )
-        if condition is not None:
+        if cfg.do_conditioning and condition is None:
             raise ValueError(
-                "a Condition was supplied but config.sampler_kwargs.do_conditioning is False"
+                "do_conditioning=True requires a Condition (observed lats/mask/dims), "
+                "e.g. Condition.observe(state, dims)"
+            )
+        if not cfg.do_conditioning and condition is not None:
+            raise ValueError(
+                "a Condition was supplied but config.sampler_kwargs.do_conditioning is False: "
+                "the guidance would be skipped; set do_conditioning=True"
             )
         ts_arr, dt_arr, will_finish_arr, corrector_on_arr, finish_at = _build_time_grid(cfg)
         B, N = template_state.B, template_state.N
@@ -155,8 +206,10 @@ class JumpSampler:
         need_rate = K == 1 or not x0_pred or collect_diagnostics or cfg.corrector_steps > 0
         if dims_prior_log_probs is not None:
             dims_prior_log_probs = dims_prior_log_probs.to(device)
-        # the weights do not change under the loop, so they are packed once
-        packed = model.pack_for_kernel() if model._pallas_enabled(device) else None
+        # the weights do not change under the loop, so they are packed once; the
+        # guided score runs the module path
+        packed = (model.pack_for_kernel()
+                  if condition is None and model._pallas_enabled(device) else None)
 
         def draw(name, step, shape, normal=True):
             if draws is not None:
@@ -170,12 +223,26 @@ class JumpSampler:
             return noise_state.get_flat_lats()
 
         def get_score(state, t_b, gumbel):
-            D_eps, rate_xt, mean_std, x0_logits, _, _ = model.net_forward(
-                state, t_b, nearest_atom=None, sample_nearest_atom=sample_near,
-                generator=generator, gumbel=gumbel, predict="eps", fused=True, packed=packed,
-                with_rate=need_rate)
-            _, std_p0t = noise_schedule.get_p0t_stats(state.get_flat_lats(), t_b)
-            return -(1.0 / torch.clamp(std_p0t, min=0.001)) * D_eps, rate_xt, mean_std, x0_logits
+            """(score, rate, (mean, std_raw), x0_dim_logits): plain, or
+            reconstruction-guided (sampler.py:238-303)."""
+            xt = state.get_flat_lats()
+            _, std_p0t = noise_schedule.get_p0t_stats(xt, t_b)
+            if condition is None:
+                eps_pred, rate_xt, mean_std, x0_logits, _, _ = model.net_forward(
+                    state, t_b, nearest_atom=None, sample_nearest_atom=sample_near,
+                    generator=generator, gumbel=gumbel, predict="eps", fused=True,
+                    packed=packed, with_rate=need_rate)
+            else:
+                _, grad, x0, rate_xt, mean_std, x0_logits = guidance(
+                    model, state, t_b, condition, cfg.guidance_weight, sample_near, generator,
+                    gumbel, need_rate)
+                x0_adjusted = condition.mask * condition.lats + (1.0 - condition.mask) * (
+                    x0 + grad)
+                adjusted, _ = adjust_state(
+                    state.set_flat_lats(x0_adjusted).delete_dims(state.dims))
+                eps_pred = noise_schedule.predict_eps_from_x0_xt(
+                    xt, adjusted.get_flat_lats(), t_b)
+            return -(1.0 / torch.clamp(std_p0t, min=0.001)) * eps_pred, rate_xt, mean_std, x0_logits
 
         def diffusion_and_jump(state, step, t_b, dt, will_finish, no_noise_gate):
             """One Euler-Maruyama + birth move; (new state, diagnostics)."""

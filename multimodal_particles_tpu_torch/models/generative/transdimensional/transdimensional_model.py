@@ -379,7 +379,8 @@ class TransdimensionalJumpDiffusion(nn.Module):
                collect_diagnostics=False):
         """Reverse-time jump-diffusion sampling from dims = 1, x ~ N(0, I):
         (final_state, nfe), with `collect_diagnostics` also the per-step
-        trajectory scalars (see JumpSampler.sample)."""
+        trajectory scalars; `condition` with `sampler_kwargs.do_conditioning`
+        for reconstruction guidance (see JumpSampler.sample)."""
         return self.sampler.sample(
             self, template_state, generator=generator, draws=draws, condition=condition,
             collect_diagnostics=collect_diagnostics,

@@ -5,7 +5,8 @@
     train section as `build_optimizer` builds it, trainer.py:90-123);
   * EMA of the parameters and skipping of non-finite updates (:214-258);
   * best/last checkpoints on val_loss with `torch.save` (:394-464);
-  * JSONL metrics with the JAX record fields (:346-355, :466-469);
+  * JSONL metrics with the JAX record fields (:346-355, :466-469), and to an
+    active MLflow run when mlflow is installed (:470-483);
   * a torch.profiler window (`profile`).
 
 The model is an `nn.Module` that owns its parameters and exposes
@@ -329,6 +330,15 @@ class Trainer:
         if self.files is not None:
             with open(self.files.metrics_file, "a") as fh:
                 fh.write(json.dumps(record) + "\n")
+        # the record's numbers to the active MLflow run, when mlflow is installed
+        # (trainer.py:470-483)
+        try:
+            import mlflow
+        except ImportError:
+            return
+        if mlflow.active_run() is not None:
+            mlflow.log_metrics({k: v for k, v in record.items() if isinstance(v, (int, float))},
+                               step=record.get("step", 0))
 
     # ------------------------------------------------------------ profiling
 

@@ -144,19 +144,28 @@ def test_forward_kernel_matches_module_forward(pair):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py's imports, load neither
+    """Every module of the port, chip_smoke.py's imports and the port's two
+    example scripts (run end to end on the CPU at a tiny size) load neither
     JAX, flax, optax nor the JAX package: the card's machine has none of them."""
     code = (
-        "import pkgutil, sys\n"
+        "import pkgutil, runpy, sys\n"
         "import multimodal_particles_tpu_torch as port\n"
         "names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + '.')]\n"
         "for name in names:\n"
         "    __import__(name)\n"
         "import chip_smoke\n"
+        "for argv in (['examples/torch_bulk_generation_sweep.py', '--num-jets', '20',\n"
+        "              '--batch-size', '16', '--steps', '3', '--device', 'cpu', '--substructure'],\n"
+        "             ['examples/torch_conditional_generation_demo.py', '--epochs', '1',\n"
+        "              '--sampler-steps', '3', '--device', 'cpu']):\n"
+        "    sys.argv = argv\n"
+        "    runpy.run_path(argv[0], run_name='__main__')\n"
         "need = {'ops.attention_cuda', 'ops.gsdm_stack_cuda', 'ops.survival_cuda',\n"
         "        'models.generative.absorbing.absorbing_flows', 'config_classes',\n"
         "        'models.generative.transdimensional.transdimensional_model',\n"
-        "        'models.generative.transdimensional.sampler', 'training.trainer'}\n"
+        "        'models.generative.transdimensional.sampler', 'training.trainer',\n"
+        "        'parallel.bulk_sampling', 'native', 'utils.tensor_operations',\n"
+        "        'utils.callbacks', 'utils.experiment_configs', 'data.transdimensional_base'}\n"
         "missing = {n for n in need if port.__name__ + '.' + n not in names}\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'multimodal_particles_tpu')]\n"

@@ -867,11 +867,14 @@ def test_corrector_segment_counts_its_evaluations(pair):
 
 
 def test_conditioning_is_not_ported(pair):
+    """Guidance is ported now (tests/test_torch_conditioning.py holds it
+    against JAX); a half-set request raises as in JAX (sampler.py:193-204):
+    do_conditioning without a Condition, a Condition without do_conditioning."""
     *_, model, batch = pair
     cfg = model.config.sampler_kwargs
     cfg.do_conditioning = True
     try:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError):
             model.sample(_torch_state(batch), torch.Generator().manual_seed(0))
     finally:
         cfg.do_conditioning = False
