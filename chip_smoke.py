@@ -284,6 +284,38 @@ Phases, one JSON line each:
               module path, as in JAX) no kernel launched and no plain version
               called; its seconds
 
+ 43. switches  MBM at config-berlin widths, N=128, under each encoder switch
+              that the trunk kernels do not take (time "Linear", continuous
+              None, a Dense over the token id), with a continuous context (2
+              values), a discrete one (one token of 10) and both (each
+              embedded 16 wide), seeded weights: the module forward at
+              B=4096 on the card against the port's CPU forward on the same
+              weights and inputs (atol = rtol = 1e-4), a 99-step request of
+              4096 jets (finite, tokens in [0, 8), masked slots 0; jets/s,
+              the conditional model's second request the steady one), and 8
+              Trainer steps of the conditional model at B=8192 (finite
+              losses); K1, K2 and K3 launched 0 times, no plain version
+              called. Beside them config-berlin's kernel path at 4096 jets
+ 44. conditional_absorbing  AbsorbingFlow(AbsorbingConfig defaults) with both
+              contexts: no trunk kernel takes a context, so a step is the
+              module trunk and K6. K6 against its plain version on one step's
+              states at B=4096, N=109 (atol = rtol = 2e-4); two requests of
+              4096 jets: K6 99 times each, K1 none, the checks of phase 20;
+              then 4 train steps, finite, no kernel
+ 45. bf16     `parallel.compute_dtype: "bfloat16"`, whose gates the kernels do
+              not read (as in JAX): config-berlin serves 32768 jets through
+              K2 (99 launches) and takes a train step through K1 and K3 with
+              the float32 config's bits from the same draws; the conditional
+              MBM (module path, cast to bf16): its card forward at B=4096
+              against the port's CPU bf16 forward, the gap as a share of the
+              CPU's own float32-vs-bf16 gap (mean ≤ 0.05, largest ≤ 1: the
+              card parts from the CPU on more jets than the CPU from JAX,
+              scripts/bf16_card_gap.py), 8 train steps finite with
+              float32 parameters; AbsorbingFlow trains 4 steps under bf16 and
+              serves 1024 jets through K1 and K6 (99 each) with the float32
+              bits. Information only: the scaled MBM's request of 8192 jets
+              through K4, and through the module path in float32 and in bf16
+
 The line before the last lists every kernel with its launches on its own
 path's run, its two bounds from the shapes and the H100 data sheet's peaks
 (`bound_ms` with the operations on the CUDA cores in fp32, `tensor_bound_ms`
@@ -292,12 +324,15 @@ every kernel runs), and the times measured here; K1's and K3's entries
 also the tensor bound of the per-particle products they need
 (`products_tensor_bound_ms`) and the timed call's share of each bound (K1's
 at each of its three shapes: config-berlin, absorbing, transdim), and in
-`launches_by_path` each path's own count, phases 36-40's among them; the last
+`launches_by_path` each path's own count, phases 36-40's and 43-45's among
+them (`switches`, `conditional_absorbing`, `bf16_predict`, `bf16_train`,
+`bf16_absorbing_predict`); the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Uses torch, numpy, scipy (the port's jet metrics), the standard library and
-the port only. fp32 with TF32 off.
+the port only. fp32 with TF32 off (phase 45 also computes in bf16 on the module path).
 """
 
+import copy
 import dataclasses
 import json
 import math
@@ -318,6 +353,7 @@ from multimodal_particles_tpu_torch.config_classes import (
 )
 from multimodal_particles_tpu_torch.data import (
     InMemoryDataModule,
+    MultimodalDatabatch,
     absorbing_training_batch,
     gauss_noise_source_batch,
     multiplicity_histogram,
@@ -484,6 +520,32 @@ SUBSTRUCTURE_RTOL, SUBSTRUCTURE_ATOL = 1e-6, 1e-9  # tests/test_data/test_substr
 SUBSTRUCTURE_NUMPY_JETS = 128  # of phase 39's jets, the numpy loop's share (≈ 25 jets/s)
 COND_JETS, COND_OBSERVED, COND_WEIGHT = 256, 3, 2.0
 COND_STEPS = 100  # the JAX demo's default (examples/conditional_generation_demo.py:29)
+# phases 43-45: every encoder switch and both contexts (the module path, every trunk kernel's
+# gate off), and the bfloat16 compute dtype. The contexts: 2 continuous values and one
+# token of a vocabulary of 10, each embedded 16 wide
+CONTEXT = {"data": {"dim_context_continuous": 2, "dim_context_discrete": 1,
+                    "vocab_size_context": 10},
+           "encoder": {"dim_emb_context_continuous": 16, "dim_emb_context_discrete": 16}}
+SWITCHES = {
+    "time_linear": {"encoder": {"embedding_time": "Linear"}},
+    "continuous_none": {"encoder": {"embedding_features_continuous": None}},
+    "discrete_linear": {"encoder": {"embedding_features_discrete": "Linear"}},
+    "context_continuous": {"data": {"dim_context_continuous": 2},
+                           "encoder": {"dim_emb_context_continuous": 16}},
+    "context_discrete": {"data": {"dim_context_discrete": 1, "vocab_size_context": 10},
+                         "encoder": {"dim_emb_context_discrete": 16}},
+    "both_contexts": CONTEXT,
+}
+SWITCH_B, SWITCH_TRAIN_B, SWITCH_TRAIN_STEPS = 4096, 8192, 8
+COND_ABS_TRAIN_STEPS = 4
+BF16_TRAIN_STEPS, BF16_ABS_B = 8, 1024
+# the bf16 module forward on the card against the port's own on the CPU, as shares of the
+# CPU's float32-vs-bf16 gap (mean, largest). cuBLAS sums the bf16 products in another order
+# than the CPU, and an early rounding flipped by it moves a whole jet: the card parts from
+# the CPU on more jets than the CPU from JAX (scripts/bf16_card_gap.py), so the card is held
+# to a mean share of 0.05 (the CPU tests' 0.02) and to a largest gap below the control's
+BF16_MEAN_SHARE, BF16_MAX_SHARE = 0.05, 1.0
+SCALED_BF16_B = 8192  # the informational scaled timing
 # NVIDIA's H100 SXM data sheet: fp32 outside the tensor cores, dense TF32 on
 # the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -3306,6 +3368,323 @@ def bulk_phases(device, card):
     return mbm, absorbing, transdim
 
 
+# ------------------------------- phases 43-45: encoder switches, contexts, bf16
+
+
+def apply_sections(config, sections):
+    """The config with `sections` ({section: {field: value}}) set."""
+    for section, fields in sections.items():
+        for name, value in fields.items():
+            setattr(getattr(config, section), name, value)
+    return config
+
+
+def with_contexts(batch, config, gen, device):
+    """The batch with the contexts the config asks for: normal continuous
+    values, tokens uniform in the context vocabulary."""
+    B, d = batch.source_continuous.shape[0], config.data
+    if d.dim_context_continuous:
+        batch.context_continuous = torch.randn((B, d.dim_context_continuous), generator=gen,
+                                               device=device)
+    if d.dim_context_discrete:
+        batch.context_discrete = torch.randint(0, d.vocab_size_context,
+                                               (B, d.dim_context_discrete), generator=gen,
+                                               device=device)
+    return batch
+
+
+def on_cpu(batch):
+    return MultimodalDatabatch(**{f.name: (None if getattr(batch, f.name) is None
+                                           else getattr(batch, f.name).cpu())
+                                  for f in dataclasses.fields(batch)})
+
+
+def timed_predict(model, batch, gen):
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = model.predict(batch, generator=gen)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - start
+
+
+def card_against_cpu(model, state, batch):
+    """The module forward on the card and on the CPU from the same weights
+    and inputs: (card heads, CPU heads)."""
+    with torch.no_grad():
+        heads = model.forward(state, batch)
+        cpu_model = copy.deepcopy(model).cpu()
+        ref = cpu_model.forward(dataclasses.replace(
+            state, **{f.name: getattr(state, f.name).cpu() for f in dataclasses.fields(state)}),
+            on_cpu(batch))
+    return heads, ref
+
+
+def phase_switches(device, card):
+    """Phase 43: MBM at config-berlin widths under each encoder switch and
+    with both contexts, through the module path (every kernel gate off, as
+    in JAX): the forward on the card against the CPU, a 99-step request of
+    SWITCH_B jets, and 8 train steps of the conditional model; K1, K2 and K3
+    launched 0 times. Beside them the kernel path's jets/s at the same size."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 43)
+    kernel_model = make_model(device)
+    source = gauss_noise_source_batch(SWITCH_B, N, 3, 8, gen, device=device, num_empty=1)
+    timed_predict(kernel_model, source, gen)  # the allocator's first request of this size
+    _, kernel_seconds = timed_predict(kernel_model, source, gen)
+    del kernel_model
+
+    torch.cuda.synchronize()
+    reset_counts()  # the switch paths' run starts here
+    records = {}
+    for name, sections in SWITCHES.items():
+        config = apply_sections(make_config(), sections)
+        model = init_mbm_parameters(MultiModalBridgeMatching(config), SEED).to(device).eval()
+        if model.kernel_enabled(device) or model.wide_kernel_enabled(device):
+            raise RuntimeError(f"a kernel gate holds for the {name} switch")
+        t, x, k, mask = random_inputs(SWITCH_B, device, gen)
+        batch = with_contexts(MultimodalDatabatch(x, k, mask), config, gen, device)
+        heads, ref = card_against_cpu(model, HybridState(t, x, k, mask), batch)
+        forward = {head: compare(getattr(heads, head).cpu(), getattr(ref, head))
+                   for head in ("continuous", "discrete")}
+        source = with_contexts(gauss_noise_source_batch(SWITCH_B, N, 3, 8, gen, device=device,
+                                                        num_empty=1), config, gen, device)
+        out, seconds = timed_predict(model, source, gen)
+        if name == "both_contexts":  # the steady request
+            out, seconds = timed_predict(model, source, gen)
+        rec = {"forward_vs_cpu": forward, "seconds": seconds, "jets_per_s": SWITCH_B / seconds,
+               **check_generated(out, source, SWITCH_B)}
+        records[name] = rec
+        emit({"phase": "switches", "switch": name, "B": SWITCH_B, "N": N, **rec, "card": card})
+        if not all(f["within_tol"] for f in forward.values()):
+            raise RuntimeError(f"the {name} forward on the card parts from the CPU: {forward}")
+
+    config = apply_sections(make_config(), CONTEXT)
+    trainer = Trainer(MultiModalBridgeMatching(config).to(device), config, seed=SEED)
+    trainer.setup()
+    batches = [with_contexts(synthetic_training_batch(SWITCH_TRAIN_B, N, 3, 8, gen,
+                                                      device=device), config, gen, device)
+               for _ in range(SWITCH_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    losses = [trainer.train_step(b)["loss"].item() for b in batches]
+    train_seconds = time.perf_counter() - start
+    launches, ok = launched({})
+    finite = all(math.isfinite(v) for v in losses)
+    emit({"phase": "switches_train", "B": SWITCH_TRAIN_B, "N": N, "steps": len(losses),
+          "losses": losses, "finite": finite, "steps_per_s": len(losses) / train_seconds,
+          "launches": launches, "plain_calls": plain_calls(),
+          "conditional_jets_per_s": records["both_contexts"]["jets_per_s"],
+          "kernel_path_jets_per_s": SWITCH_B / kernel_seconds, "card": card})
+    if not ok or not finite:
+        raise RuntimeError(f"switch paths: launches {launches}, losses {losses}")
+    return {name: all_counts()[name] for name in ("epic_forward", "sampler_step", "epic_backward")}
+
+
+def phase_conditional_absorbing(device, card):
+    """Phase 44: AbsorbingFlow with both contexts. No trunk kernel takes a
+    context, so a step is the module trunk and K6 (as in JAX): K6 against its
+    plain version on one step's states, then two requests of ABS_B jets
+    (K6 99 times each, K1 none), then 4 train steps (no kernel)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 44)
+    config = apply_sections(AbsorbingConfig(), CONTEXT)
+    config.bridge.num_timesteps = 100  # as phase 20's model
+    model = init_absorbing_parameters(AbsorbingFlow(config), SEED).to(device).eval()
+    trunk, head = model.pack_for_kernel()
+    if trunk is not None or not model._pallas_enabled(device):
+        raise RuntimeError("the conditional absorbing model should take the module trunk and K6")
+    cfg_g = config.generator
+    t, x, k, mask = scattered_inputs(ABS_B, ABS_N, device, gen)
+    state = AbsorbingBridgeState(t, x, k, mask.long())
+    batch = with_contexts(absorbing_training_batch(ABS_B, ABS_N, 3, 8, gen, device=device,
+                                                   num_empty=1), config, gen, device)
+    with torch.no_grad():
+        _, _, last = model.generator.trunk_and_heads(state, batch)
+        tp = project_time_embeddings(model.generator, t, cfg_g.n_attn_blocks, cfg_g.transformer_dim)
+        got = survival_head(head, tp, last.contiguous(), state.mask_t, n_heads=cfg_g.n_heads)
+        ref = survival_head_reference(head, tp, last.contiguous(), state.mask_t,
+                                      n_heads=cfg_g.n_heads)
+    err = (got - ref).abs()
+    k6 = {"max_abs_err": err.max().item(), "max_abs_ref": ref.abs().max().item(),
+          "within_tol": bool((err <= K6_TOL + K6_TOL * ref.abs()).all().item())}
+    emit({"phase": "conditional_absorbing_k6", "B": ABS_B, "N": ABS_N, "atol": K6_TOL,
+          "rtol": K6_TOL, **k6})
+    if not k6["within_tol"]:
+        raise RuntimeError(f"K6 on the conditional trunk's states disagrees: {k6}")
+
+    steps = len(model.time_grid()[0]) - 1
+    torch.cuda.synchronize()
+    reset_counts()  # the conditional absorbing serving path's run starts here
+    for request in range(2):
+        before = survival_head.launches
+        out, seconds = timed_predict(model, batch, gen)
+        checks = check_generated_absorbing(out, batch, ABS_B)
+        k6_launches = survival_head.launches - before
+        emit({"phase": "conditional_absorbing", "request": request, "B": ABS_B, "N": ABS_N,
+              "K6_launches": k6_launches, "K1_launches": epic_forward.launches,
+              "seconds": seconds, "jets_per_s": ABS_B / seconds,
+              "multiplicity_out": out.mask_t.sum().item() / ABS_B, "card": card, **checks})
+        if k6_launches != steps:
+            raise RuntimeError(f"a conditional absorbing request launched K6 {k6_launches} times")
+    serving, ok = launched({"survival_head": 2 * steps})
+    if not ok:
+        raise RuntimeError(f"the conditional absorbing path launched {serving}")
+
+    trainer = Trainer(AbsorbingFlow(config).to(device), config, seed=SEED)
+    trainer.setup()
+    batches = [with_contexts(absorbing_training_batch(ABS_B, ABS_N, 3, 8, gen, device=device),
+                             config, gen, device) for _ in range(COND_ABS_TRAIN_STEPS)]
+    reset_counts()
+    losses = [trainer.train_step(b)["loss"].item() for b in batches]
+    launches, ok = launched({})
+    finite = all(math.isfinite(v) for v in losses)
+    emit({"phase": "conditional_absorbing_train", "B": ABS_B, "N": ABS_N, "losses": losses,
+          "finite": finite, "launches": launches, "card": card})
+    if not ok or not finite:
+        raise RuntimeError(f"conditional absorbing training: launches {launches}, {losses}")
+    return serving
+
+
+def twin(model, config):
+    """A model of `config` (another compute dtype) with `model`'s weights."""
+    other = type(model)(config)
+    other.load_state_dict(model.state_dict())
+    return other.to(next(model.parameters()).device).eval()
+
+
+def bf16_config(config):
+    config = copy.deepcopy(config)
+    config.parallel.compute_dtype = "bfloat16"
+    return config
+
+
+def bf16_gap(got, ref_bf16, ref_f32):
+    """The card's bf16 head against the CPU's, as shares of the CPU's own
+    float32-vs-bf16 gap (mean, largest)."""
+    gap, control = (got.cpu() - ref_bf16).abs(), (ref_f32 - ref_bf16).abs()
+    return {"mean_share": (gap.mean() / control.mean()).item(),
+            "max_share": (gap.max() / control.max()).item()}
+
+
+def phase_bf16(device, card):
+    """Phase 45: `compute_dtype: "bfloat16"`. The kernels' gates do not read
+    the dtype (as in JAX): config-berlin serves through K2 and trains through
+    K1/K3 with the float32 config's bits. The module path casts: the
+    conditional MBM's forward on the card against the CPU's, 8 train steps;
+    AbsorbingFlow trains under bf16 and serves through K1 and K6 in float32.
+    Then, as information, the scaled MBM's module path in float32 and bf16
+    beside its K4 path."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 45)
+    f32 = make_model(device)
+    bf16 = twin(f32, bf16_config(f32.config))
+    batch = gauss_noise_source_batch(TIMING_B, N, 3, 8, gen, device=device, num_empty=1)
+    torch.cuda.synchronize()
+    reset_counts()  # the bf16 serving run
+    out, seconds = timed_predict(bf16, batch, torch.Generator(device=device).manual_seed(SEED + 46))
+    predict_counts, predict_ok = launched({"sampler_step": len(f32.time_grid()[0]) - 1})
+    ref = f32.predict(batch, generator=torch.Generator(device=device).manual_seed(SEED + 46))
+    predict_bits = bool(torch.equal(out.continuous, ref.continuous)
+                        and torch.equal(out.discrete, ref.discrete))
+
+    train_batch = synthetic_training_batch(TRAIN_B, N, 3, 8, gen, device=device)
+    draws = (torch.rand((TRAIN_B,), generator=gen, device=device),
+             torch.randn((TRAIN_B, N, 3), generator=gen, device=device),
+             torch.rand((TRAIN_B, N), generator=gen, device=device))
+    steps = []
+    for config in (bf16_config(train_config()), train_config()):
+        trainer = Trainer(MultiModalBridgeMatching(config).to(device), config, seed=SEED)
+        trainer.setup()
+        reset_counts()
+        loss = trainer.train_step(train_batch, draws)["loss"]
+        steps.append((loss, {k: p.detach().clone() for k, p in trainer.state.params.items()},
+                      all_counts(), plain_calls()))
+    train_counts = {k: v for k, v in steps[0][2].items() if v}
+    train_bits = bool(torch.equal(steps[0][0], steps[1][0]) and all(
+        torch.equal(p, steps[1][1][k]) for k, p in steps[0][1].items()))
+    emit({"phase": "bf16_kernel_paths", "predict_B": TIMING_B, "predict_launches": predict_counts,
+          "predict_same_bits_as_float32": predict_bits, "predict_jets_per_s": TIMING_B / seconds,
+          "train_B": TRAIN_B, "train_launches": train_counts,
+          "train_step_same_bits_as_float32": train_bits, "card": card})
+    if not (predict_ok and predict_bits and train_bits and steps[0][3] == 0
+            and train_counts == {"epic_forward": 1, "epic_backward": 1}):
+        raise RuntimeError("the bf16 config-berlin model left its float32 kernel path")
+
+    # the conditional MBM under bf16: the module path, which casts
+    config = bf16_config(apply_sections(make_config(), CONTEXT))
+    model = init_mbm_parameters(MultiModalBridgeMatching(config), SEED).to(device).eval()
+    t, x, k, mask = random_inputs(SWITCH_B, device, gen)
+    cbatch = with_contexts(MultimodalDatabatch(x, k, mask), config, gen, device)
+    state = HybridState(t, x, k, mask)
+    heads, ref_bf16 = card_against_cpu(model, state, cbatch)
+    _, ref_f32 = card_against_cpu(twin(model, apply_sections(
+        copy.deepcopy(config), {"parallel": {"compute_dtype": "float32"}})), state, cbatch)
+    shares = {h: bf16_gap(getattr(heads, h), getattr(ref_bf16, h), getattr(ref_f32, h))
+              for h in ("continuous", "discrete")}
+    trainer = Trainer(MultiModalBridgeMatching(config).to(device), config, seed=SEED)
+    trainer.setup()
+    reset_counts()
+    losses = [trainer.train_step(with_contexts(synthetic_training_batch(
+        TRAIN_B, N, 3, 8, gen, device=device), config, gen, device))["loss"].item()
+        for _ in range(BF16_TRAIN_STEPS)]
+    cond_counts, cond_ok = launched({})
+    float32_params = all(p.dtype == torch.float32 for p in trainer.model.parameters())
+    rec = {"phase": "bf16_conditional", "B": SWITCH_B, "forward_vs_cpu_shares": shares,
+           "mean_share_bound": BF16_MEAN_SHARE, "max_share_bound": BF16_MAX_SHARE,
+           "train_B": TRAIN_B, "losses": losses, "params_float32": float32_params,
+           "launches": cond_counts, "card": card}
+    emit(rec)
+    if not (all(s["mean_share"] <= BF16_MEAN_SHARE and s["max_share"] <= BF16_MAX_SHARE
+                for s in shares.values()) and cond_ok and float32_params
+            and all(math.isfinite(v) for v in losses)):
+        raise RuntimeError(f"the conditional bf16 MBM: {rec}")
+
+    # AbsorbingFlow under bf16: trains on the cast module forward, serves in float32
+    config = bf16_config(AbsorbingConfig())
+    trainer = Trainer(AbsorbingFlow(config).to(device), config, seed=SEED)
+    trainer.setup()
+    losses = [trainer.train_step(absorbing_training_batch(ABS_B, ABS_N, 3, 8, gen,
+                                                          device=device))["loss"].item()
+              for _ in range(COND_ABS_TRAIN_STEPS)]
+    f32_abs = make_absorbing(device)
+    bf16_abs = twin(f32_abs, bf16_config(f32_abs.config))
+    abs_batch = absorbing_training_batch(BF16_ABS_B, ABS_N, 3, 8, gen, device=device,
+                                         num_empty=1)
+    reset_counts()  # the bf16 absorbing serving run
+    out = bf16_abs.predict(abs_batch, generator=torch.Generator(device=device).manual_seed(SEED))
+    steps = len(f32_abs.time_grid()[0]) - 1
+    abs_counts, abs_ok = launched({"epic_forward": steps, "survival_head": steps})
+    ref = f32_abs.predict(abs_batch, generator=torch.Generator(device=device).manual_seed(SEED))
+    abs_bits = all(torch.equal(getattr(out, f), getattr(ref, f))
+                   for f in ("continuous", "discrete", "mask_t"))
+    rec = {"phase": "bf16_absorbing", "train_B": ABS_B, "losses": losses,
+           "predict_B": BF16_ABS_B, "predict_launches": abs_counts,
+           "predict_same_bits_as_float32": abs_bits, "card": card}
+    emit(rec)
+    if not (abs_ok and abs_bits and all(math.isfinite(v) for v in losses)):
+        raise RuntimeError(f"bf16 AbsorbingFlow: {rec}")
+
+    # information only: the scaled MBM's module path in float32 and bf16 beside K4
+    model = make_model(device, **SCALED)
+    data_dependent_gains(model, device)
+    scaled_batch = gauss_noise_source_batch(SCALED_BF16_B, N, 3, 8, gen, device=device)
+    timings = {}
+    for name, use_pallas, dtype in (("k4", "auto", "float32"), ("module_float32", False, "float32"),
+                                    ("module_bfloat16", False, "bfloat16")):
+        model.config.parallel.use_pallas, model.config.parallel.compute_dtype = use_pallas, dtype
+        out, seconds = timed_predict(model, scaled_batch, gen)
+        timings[name] = {"seconds": seconds, "jets_per_s": SCALED_BF16_B / seconds,
+                         "finite": bool(torch.isfinite(out.continuous).all().item())}
+    emit({"phase": "bf16_scaled_timing", "B": SCALED_BF16_B, "N": N, **timings, "card": card})
+    return {"bf16_predict": predict_counts, "bf16_train": train_counts,
+            "bf16_absorbing_predict": abs_counts}
+
+
+def switch_phases(device, card):
+    """Phases 43-45; the launch counts of their paths for the kernels line."""
+    switches = phase_switches(device, card)
+    conditional = phase_conditional_absorbing(device, card)
+    bf16 = phase_bf16(device, card)
+    return switches, conditional, bf16
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU")
@@ -3376,6 +3755,17 @@ def main():
                                   bulk_transdim=bulk_transdim["epic_forward"])
     k6["launches_by_path"]["bulk_absorbing"] = bulk_absorbing["survival_head"]
     k7["launches_by_path"]["bulk_transdim"] = bulk_transdim["gsdm_stack"]
+    # every encoder switch and context on the module path, and the bf16 compute dtype
+    switches, conditional, bf16 = switch_phases(device, card)
+    for entry, name in ((k1, "epic_forward"), (k2, "sampler_step"), (k3, "epic_backward")):
+        entry["launches_by_path"]["switches"] = switches[name]
+    k1["launches_by_path"]["conditional_absorbing"] = conditional.get("epic_forward", 0)
+    k6["launches_by_path"]["conditional_absorbing"] = conditional["survival_head"]
+    k2["launches_by_path"]["bf16_predict"] = bf16["bf16_predict"]["sampler_step"]
+    k1["launches_by_path"]["bf16_train"] = bf16["bf16_train"]["epic_forward"]
+    k3["launches_by_path"]["bf16_train"] = bf16["bf16_train"]["epic_backward"]
+    k1["launches_by_path"]["bf16_absorbing_predict"] = bf16["bf16_absorbing_predict"]["epic_forward"]
+    k6["launches_by_path"]["bf16_absorbing_predict"] = bf16["bf16_absorbing_predict"]["survival_head"]
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

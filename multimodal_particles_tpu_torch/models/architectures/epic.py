@@ -14,6 +14,7 @@ from torch import nn
 from multimodal_particles_tpu_torch.models.architectures.utils import (
     InputEmbeddings,
     WeightNormLinear,
+    constant_as,
 )
 
 
@@ -21,17 +22,18 @@ class _LeakyReLU(torch.autograd.Function):
     """leaky_relu with slope 0.01 whose derivative at exactly 0 is 1, as
     flax's `jnp.where(x >= 0, x, 0.01 x)` differentiates and as the JAX
     backward kernel's `_dleaky` (ops/epic_pallas_vjp.py:68-69) has it;
-    F.leaky_relu's own backward gives 0.01 there."""
+    F.leaky_relu's own backward gives 0.01 there. In a dtype narrower than
+    float32 the slope is 0.01 as that dtype holds it, as in jnp."""
 
     @staticmethod
     def forward(ctx, x):
         ctx.save_for_backward(x)
-        return F.leaky_relu(x, negative_slope=0.01)
+        return F.leaky_relu(x, negative_slope=constant_as(x, 0.01))
 
     @staticmethod
     def backward(ctx, grad):
         (x,) = ctx.saved_tensors
-        return torch.where(x >= 0, grad, 0.01 * grad)
+        return torch.where(x >= 0, grad, constant_as(x, 0.01) * grad)
 
 
 def leaky_relu(x):
@@ -124,9 +126,10 @@ class EPiCNetwork(nn.Module):
 
 
 class EPiCWrapper(nn.Module):
-    """Embeds (t, x, k) then runs the EPiC network (epic.py:128-161). With
-    `discrete_channel_values` the caller may feed the (B, N, V) channel values
-    as k (the Linear discrete embedding)."""
+    """Embeds (t, x, k, context) then runs the EPiC network (epic.py:128-161).
+    The network's context is as wide as the embedding's: the time embedding
+    and the context embeddings. With `discrete_channel_values` the caller may
+    feed the (B, N, V) channel values as k (the Linear discrete embedding)."""
 
     def __init__(self, config, discrete_channel_values: bool = False):
         super().__init__()
@@ -134,7 +137,7 @@ class EPiCWrapper(nn.Module):
         self.embedding = InputEmbeddings(config, discrete_channel_values)
         self.epic = EPiCNetwork(
             dim_in=self.embedding.dim_local,
-            dim_context=self.embedding.dim_emb_time,
+            dim_context=self.embedding.dim_context,
             dim_output=cfg_d.dim_features_continuous
             + cfg_d.dim_features_discrete * cfg_d.vocab_size_features,
             num_blocks=cfg_e.num_blocks,
@@ -143,8 +146,10 @@ class EPiCWrapper(nn.Module):
             use_skip_connection=cfg_e.skip_connection,
         )
 
-    def forward(self, t, x, k, mask, output_hidden_local=False):
+    def forward(self, t, x, k, mask, context_continuous=None, context_discrete=None,
+                output_hidden_local=False):
         """With `output_hidden_local`, also the last block's local hidden
         state (B, N, H), which the survival head reads (epic.py:122-125)."""
-        x_local_emb, context_emb = self.embedding(t, x, k, mask)
+        x_local_emb, context_emb = self.embedding(t, x, k, mask, context_continuous,
+                                                  context_discrete)
         return self.epic(x_local_emb, context_emb, mask, output_hidden_local)

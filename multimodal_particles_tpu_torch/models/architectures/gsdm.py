@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from multimodal_particles_tpu_torch.models.architectures.utils import Dense, promoted, sigmoid
 from multimodal_particles_tpu_torch.ops.attention_cuda import (
     AttentionCore,
     attention_core_supported,
@@ -23,11 +24,13 @@ GN_EPS = 1e-6
 
 
 def swish(x):
-    return x * torch.sigmoid(x)
+    return x * sigmoid(x)
 
 
 def group_norm(x, weight, bias, groups: int = GN_GROUPS, eps: float = GN_EPS):
-    """GroupNorm of (B, N, C) over (N, C/groups) per jet and group."""
+    """GroupNorm of (B, N, C) over (N, C/groups) per jet and group, in the
+    promoted dtype of x and the parameters."""
+    x, weight, bias = promoted(x, weight, bias)
     return F.group_norm(x.transpose(1, 2), groups, weight, bias, eps).transpose(1, 2)
 
 
@@ -50,11 +53,11 @@ class ResnetBlock(nn.Module):
     def __init__(self, channels: int, dropout: float = 0.0, temb_channels: int = 512):
         super().__init__()
         self.norm1 = GroupNorm(channels)
-        self.conv1 = nn.Linear(channels, channels)
-        self.temb_proj = nn.Linear(temb_channels, channels)
+        self.conv1 = Dense(channels, channels)
+        self.temb_proj = Dense(temb_channels, channels)
         self.norm2 = GroupNorm(channels)
         self.dropout = nn.Dropout(dropout)
-        self.conv2 = nn.Linear(channels, channels)
+        self.conv2 = Dense(channels, channels)
 
     def forward(self, x, temb):
         """x: (B, N, C); temb: (B, temb_channels)."""
@@ -86,10 +89,10 @@ class AttnBlock(nn.Module):
         self.attn_dim_reduce = attn_dim_reduce
         self.use_pallas = use_pallas
         self.norm = GroupNorm(in_channels)
-        self.q = nn.Linear(in_channels, c)
-        self.k = nn.Linear(in_channels, c)
-        self.v = nn.Linear(in_channels, c)
-        self.proj_out = nn.Linear(c, in_channels)
+        self.q = Dense(in_channels, c)
+        self.k = Dense(in_channels, c)
+        self.v = Dense(in_channels, c)
+        self.proj_out = Dense(c, in_channels)
 
     def _core_on(self, q) -> bool:
         """Whether the fused core computes the attention (`_pallas_on`)."""

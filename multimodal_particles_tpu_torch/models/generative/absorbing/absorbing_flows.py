@@ -11,7 +11,11 @@ absorbing → continuous → discrete solver steps; with the kernel gate on, eac
 step's forward is two launches, the fused EPiC trunk with its hidden output
 (ops/epic_cuda.py; at every width 128, the wide one of ops/epic_wide_cuda.py)
 and the fused survival head (ops/survival_cuda.py), and the solver steps stay
-plain PyTorch (the JAX package has no fused absorbing step).
+plain PyTorch (the JAX package has no fused absorbing step). A config that
+no trunk kernel takes (another encoder switch, a context) samples through the
+module trunk and the fused survival head. `parallel.compute_dtype:
+"bfloat16"` casts the module forward (training, and sampling with the gate
+off); the sampling path with the gate on stays float32, as in JAX.
 Randomness is an input throughout: every draw comes from a caller's generator
 or is injected as tensors.
 """
@@ -19,11 +23,16 @@ or is injected as tensors.
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 from torch.profiler import record_function
 
 from multimodal_particles_tpu_torch.models.architectures.epic import EPiCWrapper
 from multimodal_particles_tpu_torch.models.architectures.gsdm import AttnBlock, ResnetBlock
-from multimodal_particles_tpu_torch.models.architectures.utils import get_timestep_embedding
+from multimodal_particles_tpu_torch.models.architectures.utils import (
+    SELU,
+    Dense,
+    get_timestep_embedding,
+)
 from multimodal_particles_tpu_torch.models.generative.bridges import (
     AbsorbingBridge,
     LinearUniformBridge,
@@ -52,6 +61,7 @@ from multimodal_particles_tpu_torch.ops.survival_cuda import (
     survival_head,
     survival_supported,
 )
+from multimodal_particles_tpu_torch.utils.dtype import cast_floating, compute_dtype_of
 from multimodal_particles_tpu_torch.utils.losses import multihead_loss
 
 
@@ -68,28 +78,29 @@ class AbsorbingGenerator(nn.Module):
         self.epic = EPiCWrapper(config)
         if config.encoder.add_discrete_head:
             self.discrete_head_mlp = nn.Sequential(
-                nn.Linear(dim_discrete_out, gen.discrete_head_hidden_dim),
-                nn.SELU(),
-                nn.Linear(gen.discrete_head_hidden_dim, dim_discrete_out),
+                Dense(dim_discrete_out, gen.discrete_head_hidden_dim),
+                SELU(),
+                Dense(gen.discrete_head_hidden_dim, dim_discrete_out),
             )
         # the time embedding is as wide as the transformer, whatever the
         # config's `temb_dim` says (absorbing_flows.py:62)
         C = self.temb_dim = gen.transformer_dim
         self.n_attn_blocks = gen.n_attn_blocks
-        self.temb_net = nn.Linear(C, C)
-        self.transformer_1_proj_in = nn.Linear(config.encoder.dim_hidden_local + 2, C)
+        self.temb_net = Dense(C, C)
+        self.transformer_1_proj_in = Dense(config.encoder.dim_hidden_local + 2, C)
         for i in range(gen.n_attn_blocks):
             self.add_module(f"res_block_{i}", ResnetBlock(C, dropout=0.0, temb_channels=C))
             self.add_module(f"attn_block_{i}", AttnBlock(C, n_heads=gen.n_heads, attn_dim_reduce=1))
-        self.pre_rate_proj = nn.Linear(C, C)
-        self.post_rate_proj = nn.Linear(C, 1)
+        self.pre_rate_proj = Dense(C, C)
+        self.post_rate_proj = Dense(C, 1)
 
     def absorbing_head(self, state: AbsorbingBridgeState, net_last_layer):
         """Survival-logit head: one-hot(mask_t) ‖ trunk hidden → projection →
         n × (ResnetBlock, AttnBlock) with the time embedding → a logit a slot,
         (B, N, 1). The attention runs over all N slots, without a mask."""
         B = state.mask_t.shape[0]
-        mask_one_hot = F.one_hot(state.mask_t[..., 0].long(), 2).to(net_last_layer.dtype)
+        # float32 whatever the compute dtype, as jax.nn.one_hot gives it
+        mask_one_hot = F.one_hot(state.mask_t[..., 0].long(), 2).to(torch.float32)
         if self.config.generator.detach_last_layer:
             net_last_layer = net_last_layer.detach()
         temb = self.temb_net(get_timestep_embedding(state.time.reshape(B) * 1000.0, self.temb_dim))
@@ -99,12 +110,16 @@ class AbsorbingGenerator(nn.Module):
             h = getattr(self, f"attn_block_{i}")(h)
         return self.post_rate_proj(self.pre_rate_proj(h))
 
-    def trunk_and_heads(self, state: AbsorbingBridgeState):
+    def trunk_and_heads(self, state: AbsorbingBridgeState, batch=None):
         """EPiC trunk + continuous and discrete heads, and the trunk's local
-        hidden state for the survival head."""
+        hidden state for the survival head; the trunk reads the batch's
+        context where the config has one (absorbing_flows.py:111-129)."""
         net_out, net_last_layer = self.epic(
             state.time, state.continuous, state.discrete,
-            state.mask_t.to(state.continuous.dtype), output_hidden_local=True,
+            state.mask_t.to(state.continuous.dtype),
+            getattr(batch, "context_continuous", None),
+            getattr(batch, "context_discrete", None),
+            output_hidden_local=True,
         )
         continuous_head = net_out[..., : self.dim_features_continuous]
         discrete_head = net_out[..., self.dim_features_continuous:]
@@ -112,8 +127,8 @@ class AbsorbingGenerator(nn.Module):
             discrete_head = self.discrete_head_mlp(discrete_head)
         return continuous_head, discrete_head, net_last_layer
 
-    def forward(self, state: AbsorbingBridgeState) -> OutputHeads:
-        continuous_head, discrete_head, net_last_layer = self.trunk_and_heads(state)
+    def forward(self, state: AbsorbingBridgeState, batch=None) -> OutputHeads:
+        continuous_head, discrete_head, net_last_layer = self.trunk_and_heads(state, batch)
         return OutputHeads(continuous_head, discrete_head,
                            self.absorbing_head(state, net_last_layer))
 
@@ -125,10 +140,7 @@ class AbsorbingFlow(nn.Module):
 
     def __init__(self, config):
         super().__init__()
-        if config.parallel.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {config.parallel.compute_dtype!r}: the port computes in float32"
-            )
+        compute_dtype_of(config)  # an unknown dtype name raises KeyError here
         if config.bridge.continuous != "LinearUniformBridge":
             raise NotImplementedError(f"continuous bridge {config.bridge.continuous!r}")
         if config.bridge.discrete != "TelegraphBridge":
@@ -158,9 +170,22 @@ class AbsorbingFlow(nn.Module):
             return supported and torch.device(device).type == "cuda"
         return bool(flag) and supported
 
-    def forward(self, state: AbsorbingBridgeState) -> OutputHeads:
-        """Eager module forward (absorbing_flows.py:269-287)."""
-        return self.generator(state)
+    def forward(self, state: AbsorbingBridgeState, batch=None) -> OutputHeads:
+        """Eager module forward (absorbing_flows.py:269-287), with the batch's
+        context where the config has one. Under another compute dtype than
+        float32 the generator runs on copies of its parameters in that dtype
+        (`torch.func.functional_call`; the gradients reach the float32
+        parameters through the cast) with the state's time and kinematics
+        cast (the context is not, as in JAX); the three heads come back in
+        float32."""
+        dtype = compute_dtype_of(self.config)
+        if dtype == torch.float32:
+            return self.generator(state, batch)
+        params = cast_floating(dict(self.generator.named_parameters()), dtype)
+        cast = state.replace(time=state.time.to(dtype), continuous=state.continuous.to(dtype))
+        heads = functional_call(self.generator, params, (cast, batch))
+        return OutputHeads(*(h.float() for h in (heads.continuous, heads.discrete,
+                                                  heads.absorbing)))
 
     def pack_for_kernel(self):
         """(packed trunk or None, packed survival head) of the current
@@ -179,13 +204,16 @@ class AbsorbingFlow(nn.Module):
         return trunk, pack_survival_head_params(gen, self.config.generator.n_attn_blocks)
 
     @torch.no_grad()
-    def forward_sampling(self, state: AbsorbingBridgeState, packed=None) -> OutputHeads:
+    def forward_sampling(self, state: AbsorbingBridgeState, packed=None,
+                         batch=None) -> OutputHeads:
         """Sampling-path forward (absorbing_flows.py:178-267): with the gate
-        on, the fused EPiC trunk (narrow or wide) with its hidden output, then
-        the fused survival head; else the modules. `packed` is a packing of the current
-        weights to reuse (`pack_for_kernel`)."""
+        on, the fused EPiC trunk (narrow or wide) with its hidden output, or
+        where no trunk kernel takes the encoder (another switch, a context)
+        the module trunk, uncast, then the fused survival head, all in
+        float32 whatever the compute dtype; else the module forward. `packed`
+        is a packing of the current weights to reuse (`pack_for_kernel`)."""
         if not self._pallas_enabled(state.continuous.device):
-            return self.forward(state)
+            return self.forward(state, batch)
         trunk, head = packed if packed is not None else self.pack_for_kernel()
         gen, cfg_g = self.generator, self.config.generator
         if trunk is not None:
@@ -197,7 +225,7 @@ class AbsorbingFlow(nn.Module):
             dc = self.config.data.dim_features_continuous
             continuous_head, discrete_head = out[..., :dc], out[..., dc:]
         else:
-            continuous_head, discrete_head, last = gen.trunk_and_heads(state)
+            continuous_head, discrete_head, last = gen.trunk_and_heads(state, batch)
         temb_proj = project_time_embeddings(gen, state.time, cfg_g.n_attn_blocks,
                                             cfg_g.transformer_dim)
         absorbing_head = survival_head(head, temb_proj, last.contiguous(), state.mask_t,
@@ -264,7 +292,7 @@ class AbsorbingFlow(nn.Module):
         with record_function("absorbing.sample_bridges"):
             state = self.sample_bridges(batch, generator, draws)
         with record_function("absorbing.forward"):
-            heads = self.forward(state)
+            heads = self.forward(state, batch)
         with record_function("absorbing.loss"):
             loss_c = self.loss_continuous(heads, state, batch)
             loss_d = self.loss_discrete(heads, batch)
@@ -292,11 +320,12 @@ class AbsorbingFlow(nn.Module):
 
     @torch.no_grad()
     def simulate_dynamics(self, state: AbsorbingBridgeState, generator=None,
-                          uniforms=None) -> AbsorbingBridgeState:
+                          uniforms=None, batch=None) -> AbsorbingBridgeState:
         """Absorbing → continuous → discrete solver steps at time_steps[1:]
         (absorbing_flows.py:361-386). The three steps share one forward, taken
         with the mask before the step; the continuous and discrete steps
-        multiply by the mask after it.
+        multiply by the mask after it. The batch's context, where it has one,
+        is the same at every step.
 
         Each step draws (step_draws, B, N) uniforms from `generator` on the
         state's device; `uniforms` of shape (steps, step_draws, B, N) replaces
@@ -315,7 +344,7 @@ class AbsorbingFlow(nn.Module):
             state = state.replace(
                 time=torch.full((B, 1, 1), t, dtype=state.continuous.dtype, device=device)
             )
-            heads = self.forward_sampling(state, packed)
+            heads = self.forward_sampling(state, packed, batch)
             state = self.bridge_absorbing.solver_step(
                 state, heads, delta_t, *(u[j][..., None] for j in range(n_mask))
             )
@@ -335,4 +364,4 @@ class AbsorbingFlow(nn.Module):
             discrete=batch.source_discrete,
             mask_t=batch.source_mask.long(),
         )
-        return self.simulate_dynamics(initial_state, generator, uniforms)
+        return self.simulate_dynamics(initial_state, generator, uniforms, batch)

@@ -12,6 +12,10 @@ Sampler half:
   LinearUniformBridge.solver_step   Euler ODE step           (bridges.py:382-395)
   SchrodingerBridge.solver_step     Euler–Maruyama step      (bridges.py:416-425)
   telegraph_rate                    reverse-time jump rates  (bridges.py:139-159)
+  tau_leaping_step                  single-jump update on explicit uniforms
+                                                                  (bridges.py:162-202)
+  tau_leaping_step_poisson          the reference's Poisson tau-leaping, the
+                                    golden law of the test only (bridges.py:247-263)
   telegraph_fused_solver_step       rate + single-jump update (bridges.py:205-244)
   TelegraphBridge.solver_step       masked token update      (bridges.py:460-473)
 Absorbing (survival) bridge on the existence mask (bridges.py:266-355, :475-523):
@@ -149,6 +153,46 @@ def telegraph_rate(t, k, logits, gamma, vocab_size):
     return 1.0 + (w * S) / (1.0 - w) * qx + w * qy
 
 
+def tau_leaping_step(k, rates, delta_t, vocab_size, u_jump, u_target):
+    """Tau-leaping update of the tokens in its single-jump closed form
+    (bridges.py:162-202), on explicit uniforms: a particle jumps iff u_jump <
+    ΛΔt·e^{−ΛΔt} (Λ = Σ_j λ_j), to the state j drawn by inverse CDF of λ_j/Λ
+    with u_target, clipped to [0, S−1]. This is the law of the reference's S
+    Poisson draws kept only when their total is at most 1
+    (`tau_leaping_step_poisson`).
+
+    Args:
+      k:        (B, N, 1) current tokens
+      rates:    (B, N, S) nonnegative jump rates
+      u_jump, u_target: (B, N) uniforms in [0, 1)
+    Returns:
+      (B, N, 1) updated tokens, dtype of k.
+    """
+    k_sq = k[..., 0].long()
+    lam = rates * delta_t
+    lam_total = torch.sum(lam, dim=-1)
+    do_jump = u_jump < lam_total * torch.exp(-lam_total)
+    cdf = torch.cumsum(lam, dim=-1)
+    u2 = u_target * lam_total
+    target = torch.sum((u2[..., None] >= cdf).long(), dim=-1)
+    target = torch.clamp(target, 0, vocab_size - 1)
+    k_new = torch.where(do_jump, target, k_sq)
+    return k_new[..., None].to(k.dtype)
+
+
+def tau_leaping_step_poisson(k, rates, delta_t, vocab_size, generator=None):
+    """The reference's tau-leaping (bridges.py:247-263): S Poisson counts a
+    particle, the net jump kept when their total is at most 1. The golden law
+    that `tau_leaping_step` is held to in distribution; no sampler calls it."""
+    k_sq = k[..., 0].long()
+    all_jumps = torch.poisson(rates * delta_t, generator=generator).long()
+    jump_mask = (torch.sum(all_jumps, dim=-1) <= 1).long()
+    diff = torch.arange(vocab_size, device=k.device)[None, None, :] - k_sq[:, :, None]
+    net_jumps = torch.sum(all_jumps * diff, dim=-1)
+    k_new = torch.clamp(k_sq + net_jumps * jump_mask, 0, vocab_size - 1)
+    return k_new[..., None].to(k.dtype)
+
+
 def telegraph_fused_solver_step(t, k, logits, gamma, vocab_size, delta_t, u):
     """Reverse rate + closed-form single-jump update with explicit uniforms.
 
@@ -262,6 +306,10 @@ class LinearUniformBridge:
     def drift(self, t, x, x0, x1):
         return linear_uniform_drift(t, x, x0, x1)
 
+    def diffusion(self, t):
+        """No diffusion: zeros of t's shape (bridges.py:379-380)."""
+        return torch.zeros_like(torch.as_tensor(t, dtype=torch.float32))
+
     def solver_step(self, state, heads: MultiHeadOutput, delta_t, multimodal: bool = True):
         """Euler ODE step, masked to existing particles."""
         mask = _solver_mask(state, heads, multimodal)
@@ -314,6 +362,16 @@ class TelegraphBridge:
 
     def sample(self, t, k0, k1, u):
         return telegraph_sample(t, k0, k1, self.gamma, self.vocab_size, u)
+
+    def rate(self, t, k, logits):
+        return telegraph_rate(t, k, logits, self.gamma, self.vocab_size)
+
+    def transition_probability(self, t, k0, k1):
+        return telegraph_transition_probability(t, k0, k1, self.gamma, self.vocab_size)
+
+    def conditional_probability(self, t_in, t_out, k_in, k_out):
+        return telegraph_conditional_probability(t_in, t_out, k_in, k_out, self.gamma,
+                                                 self.vocab_size)
 
     def solver_step(self, state, heads: MultiHeadOutput, delta_t, u, multimodal: bool = True):
         new_discrete = telegraph_fused_solver_step(

@@ -12,16 +12,22 @@ Sampling: `predict` takes the source batch and an explicit `torch.Generator`;
 with the narrow gate on, each sampler step is one launch of the fused CUDA
 kernel (ops/sampler_cuda.py); with the wide gate on, each step is one launch
 of the wide forward kernel followed by the bridges' plain solver steps.
-Randomness is an input throughout: every draw comes
+Every encoder switch and both contexts of the JAX package are taken; the
+kernel gates are off for each, so such a config trains and serves on the
+module path, as in JAX. `parallel.compute_dtype: "bfloat16"` casts the module
+forward (`forward`); the kernels, whose gates do not read the dtype, stay
+float32. Randomness is an input throughout: every draw comes
 from a caller's generator or is injected as tensors.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 from torch.profiler import record_function
 
 from multimodal_particles_tpu_torch.models.architectures.epic import EPiCWrapper
+from multimodal_particles_tpu_torch.models.architectures.utils import SELU, Dense
 from multimodal_particles_tpu_torch.models.generative.bridges import (
     LinearUniformBridge,
     SchrodingerBridge,
@@ -46,6 +52,7 @@ from multimodal_particles_tpu_torch.ops.epic_wide_cuda import (
 )
 from multimodal_particles_tpu_torch.ops.epic_wide_vjp_cuda import epic_train_forward_wide
 from multimodal_particles_tpu_torch.ops.sampler_cuda import fused_simulate_dynamics
+from multimodal_particles_tpu_torch.utils.dtype import cast_floating, compute_dtype_of
 from multimodal_particles_tpu_torch.utils.losses import multihead_loss
 
 CONTINUOUS_BRIDGES = {
@@ -67,13 +74,13 @@ class MultiModalEPiC(nn.Module):
         self.epic = EPiCWrapper(config)
         if self.add_discrete_head:
             self.fc_layer = nn.Sequential(
-                nn.Linear(dim_discrete_out, dim_discrete_out),
-                nn.SELU(),
-                nn.Linear(dim_discrete_out, dim_discrete_out),
+                Dense(dim_discrete_out, dim_discrete_out),
+                SELU(),
+                Dense(dim_discrete_out, dim_discrete_out),
             )
 
-    def forward(self, t, x, k, mask):
-        h = self.epic(t, x, k, mask)
+    def forward(self, t, x, k, mask, context_continuous=None, context_discrete=None):
+        h = self.epic(t, x, k, mask, context_continuous, context_discrete)
         continuous_head = h[..., : self.dim_features_continuous]
         discrete_head = h[..., self.dim_features_continuous:]
         if self.add_discrete_head:
@@ -89,13 +96,7 @@ class MultiModalBridgeMatching(nn.Module):
 
     def __init__(self, config):
         super().__init__()
-        if config.parallel.compute_dtype != "float32":
-            # the JAX model casts weights and inputs to this dtype
-            # (multimodal_bridge_matching.py:234-253); the port computes in
-            # float32 only, so another setting must not pass unnoticed
-            raise NotImplementedError(
-                f"compute_dtype {config.parallel.compute_dtype!r}: the port computes in float32"
-            )
+        compute_dtype_of(config)  # an unknown dtype name raises KeyError here
         if config.bridge.continuous not in CONTINUOUS_BRIDGES:
             raise NotImplementedError(
                 f"continuous bridge {config.bridge.continuous!r} is not ported"
@@ -134,12 +135,28 @@ class MultiModalBridgeMatching(nn.Module):
         and its backward."""
         return self._gate(wide_supported(self.config), device)
 
-    def forward(self, state: HybridState) -> MultiHeadOutput:
-        """Eager module forward (multimodal_bridge_matching.py:234-253)."""
-        continuous, discrete, absorbing = self.encoder(
-            state.time, state.continuous, state.discrete, state.absorbing
-        )
-        return MultiHeadOutput(continuous, discrete, absorbing)
+    def forward(self, state: HybridState, batch=None) -> MultiHeadOutput:
+        """Eager module forward (multimodal_bridge_matching.py:234-253), with
+        the batch's `context_continuous` / `context_discrete` where it has
+        them. Under another compute dtype than float32 the encoder runs on
+        copies of its parameters in that dtype (`torch.func.functional_call`;
+        the gradients reach the float32 parameters through the cast) with t,
+        x, the mask and the continuous context cast; both heads come back in
+        float32 and the absorbing head is the state's own mask."""
+        ctx_c = getattr(batch, "context_continuous", None)
+        ctx_d = getattr(batch, "context_discrete", None)
+        dtype = compute_dtype_of(self.config)
+        if dtype == torch.float32:
+            continuous, discrete, absorbing = self.encoder(
+                state.time, state.continuous, state.discrete, state.absorbing, ctx_c, ctx_d
+            )
+            return MultiHeadOutput(continuous, discrete, absorbing)
+        t, x, mask, ctx_c = cast_floating(
+            (state.time, state.continuous, state.absorbing, ctx_c), dtype)
+        params = cast_floating(dict(self.encoder.named_parameters()), dtype)
+        continuous, discrete, _ = functional_call(
+            self.encoder, params, (t, x, state.discrete, mask, ctx_c, ctx_d))
+        return MultiHeadOutput(continuous.float(), discrete.float(), state.absorbing)
 
     def forward_kernel(self, state: HybridState, packed=None) -> MultiHeadOutput:
         """Fused-kernel forward, one launch for the whole encoder
@@ -166,15 +183,16 @@ class MultiModalBridgeMatching(nn.Module):
         packed = pack_mbm_encoder_params(self.encoder, self.config, differentiable=differentiable)
         return packed if differentiable else with_narrow_buffer(packed)
 
-    def forward_train(self, state: HybridState) -> MultiHeadOutput:
+    def forward_train(self, state: HybridState, batch=None) -> MultiHeadOutput:
         """Training-path forward (multimodal_bridge_matching.py:171-194):
         with a kernel gate on, the forward kernel with its backward kernel
-        behind it (narrow or wide), on the differentiable packing; else the
+        behind it (narrow or wide), on the differentiable packing, in float32
+        whatever the compute dtype (the gates do not read it); else the
         module."""
         device = state.continuous.device
         wide = self.wide_kernel_enabled(device)
         if not (wide or self.kernel_enabled(device)):
-            return self.forward(state)
+            return self.forward(state, batch)
         packed = self.pack_for_kernel(wide, differentiable=True)
         out = (epic_train_forward_wide if wide else epic_train_forward)(
             packed, state.time, state.continuous, state.discrete, state.absorbing
@@ -233,7 +251,7 @@ class MultiModalBridgeMatching(nn.Module):
         with record_function("mbm.sample_bridges"):
             state = self.sample_bridges(batch, generator, draws)
         with record_function("mbm.forward_train"):
-            heads = self.forward_train(state)
+            heads = self.forward_train(state, batch)
         with record_function("mbm.loss"):
             loss_0 = self.loss_continuous(heads, state, batch)
             loss_1 = self.loss_discrete(heads, state, batch)
@@ -255,9 +273,13 @@ class MultiModalBridgeMatching(nn.Module):
         return time_grid(self.config.bridge)
 
     @torch.no_grad()
-    def simulate_dynamics(self, state: HybridState, generator=None, uniforms=None) -> HybridState:
+    def simulate_dynamics(self, state: HybridState, generator=None, uniforms=None,
+                          batch=None) -> HybridState:
         """Generate target data from the source state: Euler + single-jump
         telegraph steps at time_steps[1:] (multimodal_bridge_matching.py:314-356).
+        The batch's context, where it has one, is the same at every step; a
+        batch with a context reaches only the module path (every kernel gate
+        is off for a config with a context).
 
         Each step draws (2, B, N) uniforms from `generator` on the state's
         device; `uniforms` of shape (steps, 2, B, N) replaces the draws. The
@@ -272,7 +294,7 @@ class MultiModalBridgeMatching(nn.Module):
         # the wide regime has no fused step: the wide forward kernel, then
         # the bridges' solver steps (multimodal_bridge_matching.py:338-352);
         # the weights do not change under the loop, so they are packed once
-        forward = self.forward
+        forward = lambda st: self.forward(st, batch)
         if self.wide_kernel_enabled(device):
             packed = self.pack_for_kernel(wide=True)
             forward = lambda st: self.forward_kernel(st, packed)
@@ -295,7 +317,8 @@ class MultiModalBridgeMatching(nn.Module):
 
     @torch.no_grad()
     def predict(self, batch, generator=None, uniforms=None) -> HybridState:
-        """Source batch → generated target (multimodal_bridge_matching.py:358-366)."""
+        """Source batch → generated target (multimodal_bridge_matching.py:358-366),
+        conditioned on the batch's context where the config has one."""
         x = batch.source_continuous
         initial_state = HybridState(
             time=torch.zeros((x.shape[0], 1, 1), dtype=x.dtype, device=x.device),
@@ -303,4 +326,4 @@ class MultiModalBridgeMatching(nn.Module):
             discrete=batch.source_discrete,
             absorbing=batch.source_mask.to(x.dtype),
         )
-        return self.simulate_dynamics(initial_state, generator, uniforms)
+        return self.simulate_dynamics(initial_state, generator, uniforms, batch)

@@ -31,6 +31,13 @@ Linear-discrete input; the Dense layers `temb_net`, `transformer_1_proj_in`,
 `vec_weighting_proj`, `pre_auto_proj`, `post_auto_proj`, and the blocks `res_i`,
 `attn_i`, `vec_res_i`, `vec_attn_i` with the survival head's leaves.
 
+Under the other encoder switches and with a context the embedding's leaves
+follow the flax names too: `embedding.embedding_time` (a Dense over t),
+`embedding.embedding_discrete` as a Dense (`kernel (dim_features_discrete,
+E)`) over the token id, `embedding.embedding_continuous_context` (a Dense) and
+`embedding.embedding_context_discrete.embedding`; under
+`embedding_features_continuous: None` there is no `embedding_continuous`.
+
 A Dense `kernel (in, out)` becomes `Linear.weight (out, in)`, a weight-normed
 `v (in, out)` becomes `v (out, in)`, `Embed.embedding` becomes
 `Embedding.weight`, a GroupNorm's `scale` its `weight`. Every source leaf must be consumed and every target key

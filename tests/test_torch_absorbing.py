@@ -397,9 +397,22 @@ def test_kernel_gate(pair):
 
 @pytest.mark.parametrize("field,value", [("compute_dtype", "bfloat16")])
 def test_unported_switches_raise(field, value):
+    """bfloat16, once refused, builds and casts the module forward
+    (tests/test_torch_bf16.py holds it against JAX); an unknown dtype name and
+    the Schrödinger bridge, which the JAX family does not take, raise."""
     cfg = port_cfg.AbsorbingConfig()
+    cfg.data.max_num_particles = N
     setattr(cfg.parallel, field, value)
-    with pytest.raises(NotImplementedError):
+    model = init_absorbing_parameters(AbsorbingFlow(cfg), 0)
+    state = AbsorbingBridgeState(*to_torch(*sampled_state(absorbing_training_batch(
+        B, N, 3, 8, torch.Generator().manual_seed(0)))))
+    state = state.replace(mask_t=state.mask_t.long())
+    with torch.no_grad():
+        heads = model.forward(state)
+    assert all(h.dtype == torch.float32 and torch.isfinite(h).all()
+               for h in (heads.continuous, heads.discrete, heads.absorbing))
+    setattr(cfg.parallel, field, "float16")
+    with pytest.raises(KeyError):
         AbsorbingFlow(cfg)
     cfg = port_cfg.AbsorbingConfig()
     cfg.bridge.continuous = "SchrodingerBridge"

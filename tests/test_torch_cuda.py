@@ -32,6 +32,7 @@ evaluation holds the elementwise form), K3 at N from 1 to 256 at hidden 16,
 jets, its rerun of the forward held to K1's bits on the same buffer.
 """
 
+import copy
 import dataclasses
 import itertools
 
@@ -43,7 +44,7 @@ from multimodal_particles_tpu_torch.config_classes import (
     MultimodalBridgeMatchingConfig,
     TransdimensionalEpicConfig,
 )
-from multimodal_particles_tpu_torch.data import gauss_noise_source_batch
+from multimodal_particles_tpu_torch.data import MultimodalDatabatch, gauss_noise_source_batch
 from multimodal_particles_tpu_torch.models.generative.absorbing.absorbing_flows import (
     AbsorbingFlow,
 )
@@ -1297,3 +1298,131 @@ def test_attention_wrapper_rejects_what_the_kernel_does_not_take(device):
     rc = lib.mmp_attention_core(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(),
                                 4, 4, 32, 128, 3, 0)
     assert rc == 1  # cudaErrorInvalidValue
+
+
+# ------------------------------------------- encoder switches, contexts, bf16
+
+SWITCHES = {
+    "time_linear": {"encoder": {"embedding_time": "Linear"}},
+    "continuous_none": {"encoder": {"embedding_features_continuous": None}},
+    "discrete_linear": {"encoder": {"embedding_features_discrete": "Linear"}},
+    "both_contexts": {"data": {"dim_context_continuous": 2, "dim_context_discrete": 1,
+                               "vocab_size_context": 10},
+                      "encoder": {"dim_emb_context_continuous": 16,
+                                  "dim_emb_context_discrete": 16}},
+}
+
+
+def switched_model(device, family, sections, dtype="float32"):
+    """A seeded MBM or AbsorbingFlow with `sections` ({section: {field:
+    value}}) and the compute dtype, on the card, and a (B = 64) state and
+    batch with the contexts it asks for."""
+    from multimodal_particles_tpu_torch.models.generative.states import (
+        AbsorbingBridgeState,
+        HybridState,
+    )
+
+    config = MultimodalBridgeMatchingConfig() if family == "mbm" else AbsorbingConfig()
+    config.parallel.compute_dtype = dtype
+    for section, fields in sections.items():
+        for name, value in fields.items():
+            setattr(getattr(config, section), name, value)
+    cls, init = ((MultiModalBridgeMatching, init_mbm_parameters) if family == "mbm"
+                 else (AbsorbingFlow, init_absorbing_parameters))
+    model = init(cls(config), 0).to(device).eval()
+    n = config.data.max_num_particles
+    t, x, k, mask = scattered_inputs(device, 64, n)
+    gen = torch.Generator(device=device).manual_seed(1)
+    batch = MultimodalDatabatch(x, k, mask)
+    if config.data.dim_context_continuous:
+        batch.context_continuous = torch.randn((64, 2), generator=gen, device=device)
+        batch.context_discrete = torch.randint(0, 10, (64, 1), generator=gen, device=device)
+    state = (HybridState(t, x, k, mask) if family == "mbm"
+             else AbsorbingBridgeState(t, x, k, mask.long()))
+    return model, state, batch
+
+
+def cpu_forward(model, state, batch):
+    """The model's module forward on the CPU from the same weights and inputs."""
+    cpu = dataclasses.replace(state, **{f.name: getattr(state, f.name).cpu()
+                                        for f in dataclasses.fields(state)})
+    cpu_batch = MultimodalDatabatch(**{f.name: None if getattr(batch, f.name) is None
+                                       else getattr(batch, f.name).cpu()
+                                       for f in dataclasses.fields(batch)})
+    with torch.no_grad():
+        return copy.deepcopy(model).cpu().forward(cpu, cpu_batch)
+
+
+@pytest.mark.parametrize("family", ["mbm", "absorbing"])
+@pytest.mark.parametrize("switch", list(SWITCHES))
+def test_switch_module_forward_on_the_card_matches_the_cpu(device, family, switch):
+    """Each switch the trunk kernels do not take runs the module path on the
+    card (no kernel launched) and gives the CPU's heads within 1e-4."""
+    model, state, batch = switched_model(device, family, SWITCHES[switch])
+    counts = epic_forward.launches, epic_forward_wide.launches, sampler_step.launches
+    with torch.no_grad():
+        heads = model.forward(state, batch)
+    torch.cuda.synchronize()
+    assert (epic_forward.launches, epic_forward_wide.launches, sampler_step.launches) == counts
+    ref = cpu_forward(model, state, batch)
+    for name in ("continuous", "discrete", "absorbing"):
+        torch.testing.assert_close(getattr(heads, name).cpu(), getattr(ref, name),
+                                   rtol=RTOL, atol=ATOL)
+
+
+def test_conditional_absorbing_sampling_takes_the_module_trunk_and_k6(device):
+    """A context turns the trunk kernels off: forward_sampling is the module
+    trunk and one launch of K6, within K6's tolerance of the module path."""
+    model, state, batch = switched_model(device, "absorbing", SWITCHES["both_contexts"])
+    assert model.pack_for_kernel()[0] is None
+    counts = epic_forward.launches, survival_head.launches
+    heads = model.forward_sampling(state, batch=batch)
+    torch.cuda.synchronize()
+    assert (epic_forward.launches, survival_head.launches) == (counts[0], counts[1] + 1)
+    with torch.no_grad():
+        ref = model.forward(state, batch)
+    for name in ("continuous", "discrete", "absorbing"):
+        torch.testing.assert_close(getattr(heads, name), getattr(ref, name), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("family", ["mbm", "absorbing"])
+def test_bf16_module_forward_on_the_card_matches_the_cpu(device, family):
+    """The bf16 module forward (the conditional model, whose gates are off)
+    on the card against the CPU's: the gap a small share of the CPU's own
+    float32-vs-bf16 gap (chip_smoke.py's BF16_MEAN_SHARE 0.05 on average, and
+    below the control at its largest: cuBLAS's order of the bf16 sums flips
+    an early rounding in a few jets, scripts/bf16_card_gap.py); heads in
+    float32."""
+    model, state, batch = switched_model(device, family, SWITCHES["both_contexts"], "bfloat16")
+    with torch.no_grad():
+        heads = model.forward(state, batch)
+    ref = cpu_forward(model, state, batch)
+    model.config.parallel.compute_dtype = "float32"
+    ref_f32 = cpu_forward(model, state, batch)
+    for name in ("continuous", "discrete") + (("absorbing",) if family == "absorbing" else ()):
+        got = getattr(heads, name)
+        assert got.dtype == torch.float32
+        gap = (got.cpu() - getattr(ref, name)).abs()
+        control = (getattr(ref_f32, name) - getattr(ref, name)).abs()
+        assert gap.mean() <= 0.05 * control.mean(), name
+        assert gap.max() <= control.max(), name
+
+
+def test_bf16_config_berlin_keeps_the_float32_kernels(device):
+    """A bf16 config-berlin model serves through K2 with the float32
+    config's bits: the kernel gates do not read the dtype (as in JAX)."""
+    f32 = init_mbm_parameters(MultiModalBridgeMatching(MultimodalBridgeMatchingConfig()), 0)
+    config = MultimodalBridgeMatchingConfig()
+    config.parallel.compute_dtype = "bfloat16"
+    config.bridge.num_timesteps = f32.config.bridge.num_timesteps = 6
+    bf16 = MultiModalBridgeMatching(config)
+    bf16.load_state_dict(f32.state_dict())
+    batch = gauss_noise_source_batch(64, 128, 3, 8, torch.Generator(device=device).manual_seed(2),
+                                     device=device)
+    outs = []
+    for model in (f32.to(device).eval(), bf16.to(device).eval()):
+        before = sampler_step.launches
+        outs.append(model.predict(batch, generator=torch.Generator(device=device).manual_seed(3)))
+        assert sampler_step.launches == before + 5
+    assert torch.equal(outs[0].continuous, outs[1].continuous)
+    assert torch.equal(outs[0].discrete, outs[1].discrete)

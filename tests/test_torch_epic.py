@@ -208,8 +208,19 @@ def test_init_mirrors_flax_defaults(pair):
     ("embedding_features_discrete", "Linear"),
 ])
 def test_unported_embedding_switch_raises(field, value):
+    """Each switch, once refused, now builds (tests/test_torch_embedding_switches.py
+    holds it against JAX), turns every kernel gate off and runs the module
+    forward; a name the JAX module does not know still raises."""
     cfg = torch_cfgs.MultimodalBridgeMatchingConfig()
     setattr(cfg.encoder, field, value)
+    cfg.parallel.use_pallas = True
+    model = init_mbm_parameters(TorchMBM(cfg), 0)
+    assert not model.kernel_enabled("cuda") and not model.wide_kernel_enabled("cuda")
+    assert not epic_cuda.epic_supported(cfg)
+    with torch.no_grad():
+        heads = model.forward_train(HybridState(*to_torch(*random_state())))
+    assert torch.isfinite(heads.continuous).all() and tuple(heads.discrete.shape) == (8, 16, 8)
+    setattr(cfg.encoder, field, "Fourier")
     with pytest.raises(NotImplementedError):
         TorchMBM(cfg)
 

@@ -165,7 +165,8 @@ def test_port_imports_no_jax():
         "        'models.generative.transdimensional.transdimensional_model',\n"
         "        'models.generative.transdimensional.sampler', 'training.trainer',\n"
         "        'parallel.bulk_sampling', 'native', 'utils.tensor_operations',\n"
-        "        'utils.callbacks', 'utils.experiment_configs', 'data.transdimensional_base'}\n"
+        "        'utils.callbacks', 'utils.experiment_configs', 'data.transdimensional_base',\n"
+        "        'utils.dtype'}\n"
         "missing = {n for n in need if port.__name__ + '.' + n not in names}\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'multimodal_particles_tpu')]\n"

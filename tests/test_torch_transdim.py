@@ -23,6 +23,9 @@ from multimodal_particles_tpu.models.generative.diffusion import noising as jax_
 from multimodal_particles_tpu.models.generative.transdimensional import loss as jax_loss
 from multimodal_particles_tpu.models.generative.transdimensional import sampler as jax_sampler
 from multimodal_particles_tpu.models.generative.transdimensional import structure as jax_structure
+from multimodal_particles_tpu.models.generative.transdimensional.transdimensional_model import (
+    TransdimensionalJumpDiffusion as JaxTransdim,
+)
 from multimodal_particles_tpu.training import trainer as jax_trainer
 from multimodal_particles_tpu_torch import config_classes as torch_cfgs
 from multimodal_particles_tpu_torch.data import (
@@ -547,11 +550,34 @@ def test_kernel_gate_follows_the_heads_and_a_wide_trunk_raises():
         wider.pack_for_kernel()
 
 
-def test_compute_dtype_other_than_float32_raises():
-    cfg = torch_cfgs.TransdimensionalEpicConfig()
-    cfg.parallel.compute_dtype = "bfloat16"
-    with pytest.raises(NotImplementedError):
-        TransdimensionalJumpDiffusion(cfg)
+def test_compute_dtype_other_than_float32_raises(pair):
+    """The JAX model never reads `compute_dtype`: under "bfloat16" its network
+    gives the float32 config's bits, and the port's does too (it computes in
+    float32 whatever the config says). A context, which the port's
+    transdimensional model does not take yet, raises."""
+    jax_model, params, model, _ = pair
+    noisy, ts, nearest = _net_inputs(pair, 6)
+    cfg = dataclasses.replace(jax_model.config, parallel=dataclasses.replace(
+        jax_model.config.parallel, compute_dtype="bfloat16"))
+    refs = [m.net_forward(params, _jax_state(noisy), jnp.asarray(ts),
+                          nearest_atom=jnp.asarray(nearest))
+            for m in (jax_model, JaxTransdim(cfg))]
+    for a, b in zip(jax.tree_util.tree_leaves(refs[0]), jax.tree_util.tree_leaves(refs[1])):
+        np.testing.assert_array_equal(_np(a), _np(b))
+    port_cfg = torch_cfgs.TransdimensionalEpicConfig.from_dict(cfg.to_dict())
+    assert port_cfg.parallel.compute_dtype == "bfloat16"
+    bf16 = TransdimensionalJumpDiffusion(port_cfg)
+    bf16.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        got = [m.net_forward(_torch_state(noisy), _t(ts), nearest_atom=_t(nearest).long())
+               for m in (model, bf16)]
+    for a, b in zip(jax.tree_util.tree_leaves(got[0]), jax.tree_util.tree_leaves(got[1])):
+        assert a.dtype != torch.bfloat16 and torch.equal(a, b)
+    for field in ("dim_context_continuous", "dim_context_discrete"):
+        conditional = torch_cfgs.TransdimensionalEpicConfig()
+        setattr(conditional.data, field, 1)
+        with pytest.raises(NotImplementedError, match="context"):
+            TransdimensionalJumpDiffusion(conditional)
 
 
 # --------------------------------------------------------------------- loss

@@ -6,6 +6,7 @@ replays the JAX jump sampler's key schedule so that both samplers take the
 same draws; `jet_pair` builds both packages' JetDataclass from one config
 and data seed. Both sides run in float32 on the CPU."""
 
+import functools
 import os
 
 import jax
@@ -719,3 +720,94 @@ def jax_bridge_draws(key, batch):
     u = jax.random.uniform(key_k, (b, n), dtype=jnp.float32)
     return tuple(torch.tensor(np.asarray(a)) for a in (t, z, u))
 
+
+
+# ------------------------------------------- encoder switches and contexts
+
+CONTEXT_DATA = {"dim_context_continuous": 2, "dim_context_discrete": 1, "vocab_size_context": 10}
+CONTEXT_ENCODER = {"dim_emb_context_continuous": 16, "dim_emb_context_discrete": 16}
+
+
+def with_context(batch, cfg, seed):
+    """The JAX batch with the contexts its config asks for, from a numpy seed:
+    (B, dim_context_continuous) normals and (B, dim_context_discrete) tokens."""
+    rng = np.random.default_rng(seed + 200)
+    b, d = batch.source_continuous.shape[0], cfg.data
+    ctx_c = ctx_d = None
+    if d.dim_context_continuous:
+        ctx_c = jnp.asarray(rng.standard_normal((b, d.dim_context_continuous)).astype(np.float32))
+    if d.dim_context_discrete:
+        ctx_d = jnp.asarray(rng.integers(0, d.vocab_size_context, (b, d.dim_context_discrete))
+                            .astype(np.int32))
+    return batch._replace(context_continuous=ctx_c, context_discrete=ctx_d)
+
+
+def switch_pair(family="mbm", seed=0, n=N, b=B, num_timesteps=8, sections=None):
+    """(jax_model, jax_params, torch_model, jax_batch) of MBM (the test
+    config) or the absorbing family (its defaults) at `n` slots and `b` jets,
+    with `sections` mapping a config section to field overrides (encoder
+    switches, context widths, the compute dtype); the batch carries the
+    contexts the config asks for. Flax-initialised weights plus seeded noise,
+    transplanted."""
+    if family == "mbm":
+        cfg = jax_config(num_timesteps)
+        jax_cls, port_cfg_cls, port_cls = MultiModalBridgeMatching, TorchConfig, TorchMBM
+    else:
+        cfg = AbsorbingConfig()
+        cfg.bridge.num_timesteps = num_timesteps
+        jax_cls, port_cfg_cls, port_cls = AbsorbingFlow, TorchAbsorbingConfig, TorchAbsorbingFlow
+    cfg.data.batch_size, cfg.data.max_num_particles = b, n
+    for section, fields in (sections or {}).items():
+        for name, value in fields.items():
+            setattr(getattr(cfg, section), name, value)
+    batch = jax.tree_util.tree_map(jnp.asarray, JetsDataloaderModule.random_databatch(cfg))
+    batch = with_context(batch, cfg, seed)
+    jax_model = jax_cls(cfg)
+    params_np = noisy_params(jax_model.init(jax.random.PRNGKey(seed), batch), seed)
+    torch_cfg = port_cfg_cls.from_dict(cfg.to_dict())
+    torch_model = port_cls(torch_cfg)
+    torch_model.load_state_dict(params_from_flax(params_np, torch_cfg, port_cls))
+    return jax_model, jax.tree_util.tree_map(jnp.asarray, params_np), torch_model, batch
+
+
+@functools.lru_cache(maxsize=None)
+def context_pair(family):
+    """`switch_pair` of a family with both contexts (seed 2, 8 timesteps),
+    built once a process and shared by the test files; a test that changes
+    its configs or gradients sets them back."""
+    return switch_pair(family, seed=2, num_timesteps=8,
+                       sections={"data": CONTEXT_DATA, "encoder": CONTEXT_ENCODER})
+
+
+def port_batch(batch) -> MultimodalDatabatch:
+    """A JAX MultimodalDatabatch as the port's, its contexts included."""
+    return MultimodalDatabatch(**{
+        name: torch.from_numpy(np.array(value)) for name, value in batch._asdict().items()
+        if value is not None})
+
+
+def replay_mbm_uniforms(key, steps, b, n):
+    """The (steps, 2, B, N) uniforms that the JAX MBM module-path sampler
+    draws from `key` (multimodal_bridge_matching.py:344-352 with
+    bridges.py:205-244): a step splits (key, key_cont, key_disc) and the
+    telegraph update draws (2, B, N) uniforms from key_disc."""
+    out = []
+    for _ in range(steps):
+        key, _, key_disc = jax.random.split(key, 3)
+        out.append(np.asarray(jax.random.uniform(key_disc, (2, b, n), dtype=jnp.float32)))
+    return torch.from_numpy(np.stack(out))
+
+
+def replay_absorbing_uniforms(key, steps, b, n):
+    """The (steps, 3, B, N) uniforms that the JAX absorbing sampler draws from
+    `key` (absorbing_flows.py:369-384, bridges.py:325-355 and :205-244): a
+    step splits (key, key_m, key_k); the birth-only mask step draws
+    bernoulli(key_m) = uniform(key_m) < p, the telegraph update (2, B, N)
+    uniforms from key_k."""
+    out = []
+    for _ in range(steps):
+        key, key_m, key_k = jax.random.split(key, 3)
+        births = np.asarray(jax.random.uniform(key_m, (b, n, 1), dtype=jnp.float32))[None, ..., 0]
+        telegraph = np.asarray(jax.random.uniform(key_k, (2, b, n), dtype=jnp.float32))
+        out.append(np.concatenate([births, telegraph]))
+    return torch.from_numpy(np.stack(out))
