@@ -316,6 +316,32 @@ Phases, one JSON line each:
               bits. Information only: the scaled MBM's request of 8192 jets
               through K4, and through the module path in float32 and in bf16
 
+ 46. synth_shard  scripts/torch_make_jetclass_synth.py writes the synthetic
+              JetClass shard (20,000 jets, 64 slots) as .npz; the port's
+              JetClass reader takes it back: every jet's multiplicity equal to
+              the shard's mask count (5 to 64), the mask 0/1 and a prefix,
+              the kinematics finite and 0 on dead slots
+ 47. quality_absorbing  scripts/torch_quality_families.py --family absorbing:
+              AbsorbingFlow (config-absorbing-test) trained QUALITY_ABS_EPOCHS
+              epochs on the bundled shard, 4096 jets in requests of 1024 at
+              100 sampler steps, scored against the shard; and the harness on
+              the seeded weights. K1 (hidden output) and K6 99 times a
+              request, no plain call; the loss falls; every reading finite;
+              KL_mult_hist below the untrained model's (its readings, seconds,
+              and KL_mult_hist against the source masks' KL_mult_hist_init)
+ 48. quality_transdim  the same for the transdimensional family with the
+              tuned block at the 96-step headline (4096 jets): K1 (folded
+              input) once and K7 twice a network evaluation, no plain call;
+              the loss falls; every reading finite; the diverged share below
+              the untrained model's; the mean multiplicity within 10% of the
+              data's (KL_mult_gen_vs_data and the standardized pt's W1 of both
+              printed). Then phase 27 on the trained weights
+              (paths_transdim_trained, its gates): the worst K7 call's share
+              of K7's gate
+ 49. evaluate scripts/torch_evaluate.py on phase 36's run directory, reloaded
+              on the card: K2 99 times a request, no plain call; every KL/W1
+              of pt, m, η and φ finite
+
 The line before the last lists every kernel with its launches on its own
 path's run, its two bounds from the shapes and the H100 data sheet's peaks
 (`bound_ms` with the operations on the CUDA cores in fp32, `tensor_bound_ms`
@@ -324,12 +350,14 @@ every kernel runs), and the times measured here; K1's and K3's entries
 also the tensor bound of the per-particle products they need
 (`products_tensor_bound_ms`) and the timed call's share of each bound (K1's
 at each of its three shapes: config-berlin, absorbing, transdim), and in
-`launches_by_path` each path's own count, phases 36-40's and 43-45's among
-them (`switches`, `conditional_absorbing`, `bf16_predict`, `bf16_train`,
-`bf16_absorbing_predict`); the last
+`launches_by_path` each path's own count, phases 36-40's, 43-45's and 47-49's
+among them (`switches`, `conditional_absorbing`, `bf16_predict`, `bf16_train`,
+`bf16_absorbing_predict`, `quality_absorbing`, `quality_transdim`,
+`evaluate`: the trained runs'), and K7's worst share of its gate on the trained
+flow; the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
-Uses torch, numpy, scipy (the port's jet metrics), the standard library and
-the port only. fp32 with TF32 off (phase 45 also computes in bf16 on the module path).
+Uses torch, numpy, scipy (the port's jet metrics), the standard library, the
+port and the port's scripts under scripts/ (torch_*.py) only. fp32 with TF32 off (phase 45 also computes in bf16 on the module path).
 """
 
 import copy
@@ -458,6 +486,11 @@ from multimodal_particles_tpu_torch.training.trainer import Trainer
 from multimodal_particles_tpu_torch.utils.experiment_files import ExperimentsFiles
 
 ROOT = Path(__file__).resolve().parent
+sys.path.append(str(ROOT / "scripts"))  # the port's quality scripts (phases 46-49)
+
+import torch_evaluate  # noqa: E402
+import torch_make_jetclass_synth as synth  # noqa: E402
+import torch_quality_families as quality  # noqa: E402
 ATOL = RTOL = 1e-4
 MAX_TOKEN_MISMATCH = 0.01
 N = 128
@@ -546,6 +579,15 @@ BF16_TRAIN_STEPS, BF16_ABS_B = 8, 1024
 # to a mean share of 0.05 (the CPU tests' 0.02) and to a largest gap below the control's
 BF16_MEAN_SHARE, BF16_MAX_SHARE = 0.05, 1.0
 SCALED_BF16_B = 8192  # the informational scaled timing
+# phases 46-49: the quality path. The synthetic shard at the JAX script's defaults
+# (scripts/make_jetclass_synth.py:51); the families' quality harness at the JAX
+# harness's generation size and the 96-step transdimensional headline
+# (benchmarks/quality_*.json), the epochs cut to the phases' time budget (JAX: 400
+# absorbing at 1000 sampler steps, 3000 transdim)
+SYNTH_JETS, SYNTH_SLOTS = 20000, 64
+QUALITY_GEN_JETS, QUALITY_GEN_CHUNK = 4096, 1024
+QUALITY_ABS_EPOCHS, QUALITY_ABS_STEPS = 200, 100
+QUALITY_TD_EPOCHS, QUALITY_TD_STEPS = 200, 96
 # NVIDIA's H100 SXM data sheet: fp32 outside the tensor cores, dense TF32 on
 # the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -2282,7 +2324,7 @@ def nudged_draws(draws):
             "em_noise_up": {**draws, "em_noise": draws["em_noise"] * (1 + ULP)}}
 
 
-def phase_paths_transdim(device, scaled=False, phase="paths_transdim"):
+def phase_paths_transdim(device, scaled=False, phase="paths_transdim", weights=None):
     """The 48-step kernel path against the module path from the same injected
     draws. Beside it, as the yardstick of the flow's own sensitivity, the
     module path against itself from draws 1 ulp away (`nudged_draws`): a
@@ -2291,11 +2333,15 @@ def phase_paths_transdim(device, scaled=False, phase="paths_transdim"):
     final dims equal on ≥ 95% of the jets; at most PART_FACTOR × the worst
     nudge's parted jets and PART_SLACK more; every kernel call of the kernel
     path within its bound of its plain version on the same inputs
-    (`KernelShadow`), the states on which jets part included."""
+    (`KernelShadow`), the states on which jets part included. `weights`
+    (by name) replace the seeded ones: a trained model's flow. Returns the
+    line."""
     B = TD_PATHS_B
     gen = torch.Generator(device=device).manual_seed(SEED + 25)
     batch = transdim_training_batch(B, TD_N, 3, 8, gen, device=device)
     model = make_transdim(device, batch, scaled=scaled, gains=scaled)
+    if weights is not None:
+        quality.load_weights(model, weights)
     draws = transdim_path_draws(B, gen, device)
     model.config.parallel.use_pallas = True
     with KernelShadow() as shadow:
@@ -2319,6 +2365,7 @@ def phase_paths_transdim(device, scaled=False, phase="paths_transdim"):
     if (rec["equal_dims_share"] < MIN_EQUAL_DIMS or by_jet["jets_over_1e-3_of_their_scale"] > allowed
             or not (worst["trunk"] <= 1.0 and worst["gsdm_stack"] <= 1.0)):
         raise RuntimeError(f"transdim kernel path and module path diverge: {rec}")
+    return rec
 
 
 def phase_train_transdim(device, card, workdir):
@@ -3023,7 +3070,7 @@ def phase_experiment(device, card, workdir):
           "reload_seconds": reload_seconds, "card": card})
     if not gen_ok or not all(checks.values()) or not same_bits:
         raise RuntimeError("the experiment's generate() failed its checks")
-    return {"train": fit_launches, "generate": gen_launches}
+    return {"train": fit_launches, "generate": gen_launches, "generate_batches": batches}
 
 
 def phase_experiment_absorbing(device, card, workdir):
@@ -3138,12 +3185,12 @@ def phase_experiment_transdim(device, card, workdir):
     return {"generate": gen_launches}
 
 
-def experiment_phases(device, card, build_dir):
-    """Phases 36-38, each in a run directory under the build directory."""
-    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        mbm = phase_experiment(device, card, Path(tmp))
-        absorbing = phase_experiment_absorbing(device, card, Path(tmp))
-        transdim = phase_experiment_transdim(device, card, Path(tmp))
+def experiment_phases(device, card, runs):
+    """Phases 36-38, each in a run directory under `runs` (phase 49 scores
+    phase 36's)."""
+    mbm = phase_experiment(device, card, runs)
+    absorbing = phase_experiment_absorbing(device, card, runs)
+    transdim = phase_experiment_transdim(device, card, runs)
     return mbm, absorbing, transdim
 
 
@@ -3685,6 +3732,205 @@ def switch_phases(device, card):
     return switches, conditional, bf16
 
 
+# ------------------------- phases 46-49: the quality path (shard, harness, evaluation)
+
+
+def phase_synth_shard(card, runs):
+    """The synthetic JetClass shard (scripts/torch_make_jetclass_synth.py) at
+    20,000 jets of 64 slots, written as .npz and read back through the port's
+    JetClass reader: its jets and slots, each jet's multiplicity equal to the
+    shard's mask count (5 to 64), the mask 0/1 and a prefix after the reader
+    sorts by pt, the kinematics finite and zero on dead slots."""
+    path = runs / "jetclass_synth.npz"
+    start = time.perf_counter()
+    synth.write_synthetic_jetclass_npz(str(path), SYNTH_JETS, SYNTH_SLOTS)
+    write_seconds = time.perf_counter() - start
+    start = time.perf_counter()
+    jets = ParticleClouds("JetClass", [str(path)], max_num_particles=SYNTH_SLOTS,
+                          num_jets=SYNTH_JETS)
+    read_seconds = time.perf_counter() - start
+    with np.load(path) as f:
+        counts = f["mask"].sum(axis=1)
+    mask = jets.mask[..., 0]
+    mult = mask.sum(axis=1)
+    checks = {
+        "jets_and_slots": mask.shape == (SYNTH_JETS, SYNTH_SLOTS),
+        "counts_equal": bool((mult == counts).all()),
+        "counts_in_range": bool(counts.min() >= 5 and counts.max() <= SYNTH_SLOTS),
+        "mask_01_prefix": bool((mask == (np.arange(SYNTH_SLOTS)[None, :] < mult[:, None])).all()),
+        "finite": bool(np.isfinite(jets.continuous).all()),
+        "dead_slots_zero": bool((jets.continuous[mask == 0] == 0).all()),
+    }
+    emit({"phase": "synth_shard", "jets": SYNTH_JETS, "slots": SYNTH_SLOTS,
+          "bytes": path.stat().st_size, "multiplicity_mean": float(mult.mean()),
+          "multiplicity_min_max": [int(counts.min()), int(counts.max())], **checks,
+          "write_seconds": write_seconds, "read_seconds": read_seconds, "card": card})
+    if not all(checks.values()):
+        raise RuntimeError(f"the synthetic shard failed its checks: {checks}")
+
+
+def quality_args(family, epochs, steps, workdir, device):
+    return quality.parse_args([
+        "--family", family, "--epochs", str(epochs), "--gen-jets", str(QUALITY_GEN_JETS),
+        "--gen-chunk", str(QUALITY_GEN_CHUNK), "--sampler-steps", str(steps),
+        "--device", str(device), "--workdir", str(workdir), "--skip-ref-mode"])
+
+
+def all_finite(*sections):
+    """Every reading of the sections a number and finite."""
+    return all(v is not None and math.isfinite(v) for sec in sections for v in sec.values())
+
+
+def quality_runs(device, family, epochs, steps, runs, expected):
+    """The harness of `family` untrained (its seeded weights) and trained for
+    `epochs`, each counted: {name: (result, launches, exactly as
+    `expected(result)` with no plain call, seconds)}."""
+    out = {}
+    for name, n_epochs in (("untrained", 0), ("trained", epochs)):
+        reset_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = quality.run(quality_args(family, n_epochs, steps,
+                                          runs / f"quality_{family}_{name}", device))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches, ok = launched(expected(result))
+        out[name] = (result, launches, ok, seconds)
+    return out
+
+
+def quality_line(phase, runs, card, **extra):
+    """The phase's line: per run the readings, launches and seconds."""
+    def summary(result, launches, ok, seconds):
+        keep = {k: v for k, v in result.items() if k not in ("protocol", "config")}
+        return {**keep, "launches": launches, "launches_as_expected": ok, "seconds": seconds}
+    emit({"phase": phase, **{name: summary(*run) for name, run in runs.items()},
+          "plain_calls": plain_calls(), **extra, "card": card})
+
+
+def phase_quality_absorbing(device, card, runs):
+    """scripts/torch_quality_families.py --family absorbing on the card: the
+    AbsorbingFlow of config-absorbing-test trained QUALITY_ABS_EPOCHS epochs
+    on the bundled shard, 4096 jets generated in requests of 1024 at 100
+    sampler steps, scored against the shard; beside it the same harness on the
+    seeded weights (0 epochs). Gates: K1 (hidden output) and K6 launched 99
+    times a request in each run (training launches none, as in JAX), no plain
+    call; the training loss falls; every reading finite; the trained model's
+    multiplicity histogram closer to the data's (KL_mult_hist) than the
+    untrained model's. KL_mult_hist against KL_mult_hist_init (the source
+    masks', drawn from the data's histogram) is printed: the solver only
+    births, so it can move a jet only away from its draw, and the JAX
+    package's own reading has KL_mult_hist above KL_mult_hist_init."""
+    def expected(result):
+        steps = (QUALITY_ABS_STEPS - 1) * result["predict_calls"]
+        return {"epic_forward": steps, "survival_head": steps}
+
+    done = quality_runs(device, "absorbing", QUALITY_ABS_EPOCHS, QUALITY_ABS_STEPS, runs, expected)
+    trained, untrained = done["trained"][0], done["untrained"][0]
+    mask, mask_untrained = trained["mask_dynamics"], untrained["mask_dynamics"]
+    gates = {
+        "launches": done["trained"][2] and done["untrained"][2],
+        "loss_falls": trained["final_train_loss"] < trained["train_loss_first"],
+        "readings_finite": all_finite(trained["metrics"], mask),
+        "KL_mult_hist_below_untrained": mask["KL_mult_hist"] < mask_untrained["KL_mult_hist"],
+    }
+    quality_line("quality_absorbing", done, card, gates=gates,
+                 KL_mult_hist_below_init=mask["KL_mult_hist"] < mask["KL_mult_hist_init"])
+    if not all(gates.values()):
+        raise RuntimeError(f"quality_absorbing failed its gates: {gates}")
+    return done["trained"][1]
+
+
+def phase_quality_transdim(device, card, runs):
+    """scripts/torch_quality_families.py --family transdimensional on the
+    card: the tuned block (ce_w 200, rate_w 100, lr 1e-3, EMA half-life 10
+    kimg) trained QUALITY_TD_EPOCHS epochs on the bundled shard, 4096 jets at
+    the 96-step headline (multi_birth 16, the analytic posterior at every
+    state), scored against the shard and the prior; beside it the seeded
+    weights (0 epochs). Gates: K1 (folded input) once and K7 twice a network
+    evaluation in each run, no plain call; the training loss falls; every
+    reading finite; the trained model's share of diverged constituents
+    (|pt| ≥ 50 standardized) below the untrained model's; its mean
+    multiplicity within MAX_MULTIPLICITY_SHIFT of the data's. Printed for both
+    runs: KL_mult_gen_vs_data, which is the same number (with the analytic
+    posterior at every state the births follow the prior whatever the
+    weights, from the same draws), and the standardized pt's W1 over the
+    constituents that did not diverge (a few hundred epochs leave most of the
+    trained flow's constituents diverged: the JAX reading took 3000). Then,
+    with the trained weights, phase 27's kernel-vs-module comparison
+    (paths_transdim_trained): its worst K7 call's share of K7's gate."""
+    config = quality.tuned_transdim_config(QUALITY_TD_STEPS)
+    if config.sampler_kwargs.corrector_steps:
+        raise RuntimeError("the phase counts one network evaluation a sampler step")
+    nfe = len(_build_time_grid(config.sampler_kwargs)[0])
+
+    def expected(result):
+        calls = nfe * result["predict_calls"]
+        return {"epic_forward": calls, "gsdm_stack": 2 * calls}
+
+    done = quality_runs(device, "transdimensional", QUALITY_TD_EPOCHS, QUALITY_TD_STEPS, runs,
+                        expected)
+    trained, untrained = done["trained"][0], done["untrained"][0]
+    metrics, metrics_untrained = trained["metrics"], untrained["metrics"]
+    gates = {
+        "launches": done["trained"][2] and done["untrained"][2],
+        "loss_falls": trained["final_train_loss"] < trained["train_loss_first"],
+        "readings_finite": all_finite(metrics, trained["physics_metrics"]),
+        "diverged_below_untrained": (metrics["diverged_constituent_frac"]
+                                     < metrics_untrained["diverged_constituent_frac"]),
+        "multiplicity_near_data": (abs(metrics["mult_mean_gen"] - metrics["mult_mean_data"])
+                                   <= MAX_MULTIPLICITY_SHIFT * metrics["mult_mean_data"]),
+    }
+    quality_line("quality_transdim", done, card, nfe_a_request=nfe, gates=gates,
+                 KL_mult_gen_vs_data_below_untrained=(
+                     metrics["KL_mult_gen_vs_data"] < metrics_untrained["KL_mult_gen_vs_data"]),
+                 W1_pt_standardized_below_untrained=(
+                     metrics["W1_pt_standardized"]
+                     < metrics_untrained.get("W1_pt_standardized", math.inf)))
+    if not all(gates.values()):
+        raise RuntimeError(f"quality_transdim failed its gates: {gates}")
+
+    weights = torch.load(runs / "quality_transdimensional_trained" / quality.PARAMS_FILE,
+                         map_location=device, weights_only=True)
+    rec = phase_paths_transdim(device, phase="paths_transdim_trained", weights=weights)
+    share = rec["kernel_err_over_bound"]["gsdm_stack"]
+    emit({"phase": "paths_transdim_trained_k7", "worst_share_of_K7_gate": share,
+          "trunk_worst_share_of_gate": rec["kernel_err_over_bound"]["trunk"], "card": card})
+    return {**done["trained"][1], "k7_share_of_gate": share}
+
+
+def phase_evaluate(device, card, runs, mbm):
+    """scripts/torch_evaluate.py on phase 36's run directory: the MBM run
+    reloaded from its params.yaml and 'best' checkpoint on the card, its
+    validation batches generated (K2 99 times a request, no plain call) and
+    scored; every KL/W1 of pt, m, η and φ finite."""
+    steps = MultimodalBridgeMatchingConfig.from_yaml(str(MBM_EXPERIMENT_YAML)).bridge.num_timesteps - 1
+    reset_counts()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    metrics = torch_evaluate.evaluate_experiment(experiment_dir=str(runs / "mbm"), device=device,
+                                                 seed=SEED)
+    seconds = time.perf_counter() - start
+    launches, ok = launched({"sampler_step": steps * mbm["generate_batches"]})
+    finite = all(metrics[f"{kind}_{f}"] is not None and math.isfinite(metrics[f"{kind}_{f}"])
+                 for f in ("pt", "m", "eta", "phi") for kind in ("KL", "W1"))
+    emit({"phase": "evaluate", "experiment": "phase 36's run directory",
+          "requests": mbm["generate_batches"], "launches": launches, "plain_calls": plain_calls(),
+          "metrics": metrics, "kinematics_finite": finite, "seconds": seconds, "card": card})
+    if not (ok and finite):
+        raise RuntimeError(f"evaluate launched {launches}; kinematic metrics finite: {finite}")
+    return launches
+
+
+def quality_phases(device, card, runs, mbm):
+    """Phases 46-49; the launch counts of their paths for the kernels line."""
+    phase_synth_shard(card, runs)
+    absorbing = phase_quality_absorbing(device, card, runs)
+    transdim = phase_quality_transdim(device, card, runs)
+    evaluated = phase_evaluate(device, card, runs, mbm)
+    return absorbing, transdim, evaluated
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU")
@@ -3737,8 +3983,11 @@ def main():
     k7["wide_input"] = scaled["k7_wide"]
     k7["launches_by_path"]["serving_transdim_scaled"] = scaled["transdim"]["gsdm_stack"]
     kernels.append(scaled["k8_entry"])
-    # the user's runs from a config on the jets
-    mbm, absorbing, transdim = experiment_phases(device, card, build_dir)
+    # the user's runs from a config on the jets; their run directories live on
+    # for phase 49
+    runs_dir = tempfile.TemporaryDirectory(dir=build_dir)
+    runs = Path(runs_dir.name)
+    mbm, absorbing, transdim = experiment_phases(device, card, runs)
     k1, k2, k3 = kernels[0], kernels[1], kernels[2]
     k1["launches_by_path"].update(
         experiment_train=mbm["train"]["epic_forward"],
@@ -3766,6 +4015,15 @@ def main():
     k3["launches_by_path"]["bf16_train"] = bf16["bf16_train"]["epic_backward"]
     k1["launches_by_path"]["bf16_absorbing_predict"] = bf16["bf16_absorbing_predict"]["epic_forward"]
     k6["launches_by_path"]["bf16_absorbing_predict"] = bf16["bf16_absorbing_predict"]["survival_head"]
+    # the quality path: a shard, the families' harness trained and scored, the evaluation
+    with runs_dir:
+        q_absorbing, q_transdim, evaluated = quality_phases(device, card, runs, mbm)
+    k1["launches_by_path"].update(quality_absorbing=q_absorbing["epic_forward"],
+                                  quality_transdim=q_transdim["epic_forward"])
+    k6["launches_by_path"]["quality_absorbing"] = q_absorbing["survival_head"]
+    k7["launches_by_path"]["quality_transdim"] = q_transdim["gsdm_stack"]
+    k7["paths_transdim_trained_worst_share_of_gate"] = q_transdim["k7_share_of_gate"]
+    k2["launches_by_path"]["evaluate"] = evaluated["sampler_step"]
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

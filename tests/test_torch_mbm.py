@@ -144,22 +144,39 @@ def test_forward_kernel_matches_module_forward(pair):
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, chip_smoke.py's imports and the port's two
-    example scripts (run end to end on the CPU at a tiny size) load neither
-    JAX, flax, optax nor the JAX package: the card's machine has none of them."""
+    """Every module of the port, chip_smoke.py's imports, the port's example
+    scripts and its quality scripts (the shard writer, the evaluation, the
+    metric floors and the families' harness; each run end to end on the CPU at
+    a tiny size) load neither JAX, flax, optax nor the JAX package: the card's
+    machine has none of them."""
     code = (
-        "import pkgutil, runpy, sys\n"
+        "import os, pkgutil, runpy, shutil, sys, tempfile\n"
         "import multimodal_particles_tpu_torch as port\n"
         "names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + '.')]\n"
         "for name in names:\n"
         "    __import__(name)\n"
         "import chip_smoke\n"
+        "tmp = tempfile.mkdtemp()\n"
+        "mbm, shard = os.path.join(tmp, 'mbm'), os.path.join(tmp, 'synth.npz')\n"
+        "tiny = ['--epochs', '1', '--sampler-steps', '3', '--device', 'cpu']\n"
+        "quality = ['scripts/torch_quality_families.py', '--epochs', '0', '--gen-jets', '16',\n"
+        "           '--gen-chunk', '16', '--sampler-steps', '3', '--device', 'cpu']\n"
         "for argv in (['examples/torch_bulk_generation_sweep.py', '--num-jets', '20',\n"
         "              '--batch-size', '16', '--steps', '3', '--device', 'cpu', '--substructure'],\n"
-        "             ['examples/torch_conditional_generation_demo.py', '--epochs', '1',\n"
-        "              '--sampler-steps', '3', '--device', 'cpu']):\n"
+        "             ['examples/torch_conditional_generation_demo.py', *tiny],\n"
+        "             ['examples/torch_train_and_generate.py', *tiny, '--out', mbm],\n"
+        "             ['examples/torch_absorbing_flow_demo.py', *tiny],\n"
+        "             ['examples/torch_transdimensional_demo.py', *tiny],\n"
+        "             ['scripts/torch_make_jetclass_synth.py', '--n-jets', '50',\n"
+        "              '--max-particles', '16', '--out', shard],\n"
+        "             ['scripts/torch_evaluate.py', mbm, '--device', 'cpu'],\n"
+        "             ['scripts/torch_metric_floors.py', '--gen-jets', '32', '--boots', '1',\n"
+        "              '--no-substructure'],\n"
+        "             [*quality, '--family', 'absorbing'],\n"
+        "             [*quality, '--family', 'transdimensional', '--skip-ref-mode']):\n"
         "    sys.argv = argv\n"
         "    runpy.run_path(argv[0], run_name='__main__')\n"
+        "shutil.rmtree(tmp)\n"
         "need = {'ops.attention_cuda', 'ops.gsdm_stack_cuda', 'ops.survival_cuda',\n"
         "        'models.generative.absorbing.absorbing_flows', 'config_classes',\n"
         "        'models.generative.transdimensional.transdimensional_model',\n"
@@ -173,6 +190,9 @@ def test_port_imports_no_jax():
         "print(len(names), sorted(missing), bad)\n"
         "sys.exit(1 if bad or missing or len(names) < 30 else 0)\n"
     )
+    # one intra-op thread: the scripts' tensors are tiny, and the test suite's
+    # workers already share the machine's cores
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          timeout=300, cwd=ROOT)
+                          timeout=300, cwd=ROOT, env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
