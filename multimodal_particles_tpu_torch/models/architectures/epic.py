@@ -129,12 +129,13 @@ class EPiCWrapper(nn.Module):
     """Embeds (t, x, k, context) then runs the EPiC network (epic.py:128-161).
     The network's context is as wide as the embedding's: the time embedding
     and the context embeddings. With `discrete_channel_values` the caller may
-    feed the (B, N, V) channel values as k (the Linear discrete embedding)."""
+    feed the (B, N, V) channel values as k (the Linear discrete embedding);
+    `context_tokens` as in `InputEmbeddings`."""
 
-    def __init__(self, config, discrete_channel_values: bool = False):
+    def __init__(self, config, discrete_channel_values: bool = False, context_tokens=None):
         super().__init__()
         cfg_d, cfg_e = config.data, config.encoder
-        self.embedding = InputEmbeddings(config, discrete_channel_values)
+        self.embedding = InputEmbeddings(config, discrete_channel_values, context_tokens)
         self.epic = EPiCNetwork(
             dim_in=self.embedding.dim_local,
             dim_context=self.embedding.dim_context,

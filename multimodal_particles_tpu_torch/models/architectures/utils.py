@@ -193,9 +193,13 @@ class InputEmbeddings(nn.Module):
                                      (B, Dcd · dim_emb_context_discrete)
 
     flax infers the widths from the arrays; here they follow from the config
-    at construction (`dim_local`, `dim_context`)."""
+    at construction (`dim_local`, `dim_context`). `context_tokens` is how
+    many discrete context tokens a jet carries when that is not the config's
+    `dim_context_discrete`: the transdimensional family's 'list' batches
+    carry the one-hot of the first token, `vocab_size_context` entries of 0
+    or 1, and JAX embeds each entry as a token."""
 
-    def __init__(self, config, discrete_channel_values: bool = False):
+    def __init__(self, config, discrete_channel_values: bool = False, context_tokens=None):
         super().__init__()
         cfg_d, cfg_e = config.data, config.encoder
         if cfg_e.embedding_time not in ("SinusoidalPositionalEncoding", "Linear"):
@@ -237,7 +241,9 @@ class InputEmbeddings(nn.Module):
         if self.dim_context_discrete:
             self.embedding_context_discrete = nn.Embedding(
                 cfg_d.vocab_size_context, cfg_e.dim_emb_context_discrete)
-            self.dim_context += cfg_d.dim_context_discrete * cfg_e.dim_emb_context_discrete
+            if context_tokens is None:
+                context_tokens = cfg_d.dim_context_discrete
+            self.dim_context += context_tokens * cfg_e.dim_emb_context_discrete
 
     def forward(self, t, x, k, mask, context_continuous=None, context_discrete=None):
         """k: (B, N, 1) tokens, or with the Linear discrete input over channel

@@ -6,7 +6,8 @@ network passes (x_t and the delete-one-dim batch), and the weighted sum of
 score matching, the birth-rate loss rate(x_t) − f·log rate(del x_t), the
 creation Gaussian NLL on the deleted particle, the x0-dimension cross-entropy
 and the nearest-atom cross-entropy. Rows with a non-finite term get weight 0
-and the mean runs over the valid rows.
+and the mean runs over the valid rows. The batch's contexts ride on every
+corrupted state (they are not latents), so both network passes see them.
 """
 
 from dataclasses import dataclass

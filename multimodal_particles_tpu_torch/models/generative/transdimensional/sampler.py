@@ -26,6 +26,11 @@ chain, and with `sample_near_atom` "gumbel" (T, B, N), the noise added to the
 nearest-atom logits before the argmax. The corrector's draws always come from
 `generator`.
 
+A context (the template state's `context_continuous`, `context_discrete`) is
+observed, not sampled: every state of the walk is the template's with other
+latents and dims, so the network sees the context at every evaluation (the
+corrector's and the guidance's too) and the final state carries it unchanged.
+
 Reconstruction guidance (`do_conditioning` with a `Condition`, JAX
 :238-303): at every network evaluation the x0 prediction's error on the
 observed entries, projected into the observed state's geometry, is

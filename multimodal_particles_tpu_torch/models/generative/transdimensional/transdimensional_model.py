@@ -19,6 +19,16 @@ Linear-discrete input and its hidden output (ops/epic_cuda.py; at every width
 and after them stay plain PyTorch, as they stay XLA in JAX. Randomness is an
 input throughout: every draw comes from a caller's generator or is injected
 as tensors.
+
+A context (`data.dim_context_continuous`, `data.dim_context_discrete`) is
+observed, not latent: the state carries it beside the latents, every network
+evaluation feeds it to the EPiC trunk's global context (JAX
+transdimensional_model.py:130-138), and the sampler and the loss pass it on
+unchanged. The discrete context is read as the 'list' loader delivers it,
+the one-hot of the first token (B, vocab_size_context), each entry embedded
+as a token, as JAX's flax module does with the loader's batches
+(jets_dataloader.py:94-95). No trunk kernel takes a context, so with one the
+kernel gate is off for the gsdm stacks too, as JAX's `_pallas_enabled` is.
 """
 
 import warnings
@@ -86,7 +96,11 @@ class TransdimensionalEPiC(nn.Module):
         self.config = config
         self.Dc, self.V = cfg_d.dim_features_continuous, cfg_d.vocab_size_features
         self.linear_discrete = enc.embedding_features_discrete == "Linear"
-        self.epic = EPiCWrapper(config, discrete_channel_values=True)
+        # the 'list' batches carry the discrete context as the one-hot of its
+        # first token: vocab_size_context tokens of 0 or 1 a jet
+        context_tokens = cfg_d.vocab_size_context if cfg_d.dim_context_discrete else 0
+        self.epic = EPiCWrapper(config, discrete_channel_values=True,
+                                context_tokens=context_tokens)
 
         C = self.transformer_dim = self.temb_dim = enc.transformer_dim
         self.n_attn_blocks = enc.n_attn_blocks
@@ -184,6 +198,7 @@ class TransdimensionalEPiC(nn.Module):
         node_mask = state.particle_mask()[:, :, None]
         net_out, net_last_layer = self.epic(ts.reshape(state.B, 1, 1), state.continuous,
                                             self.trunk_input(state), node_mask,
+                                            state.context_continuous, state.context_discrete,
                                             output_hidden_local=True)
         if self.config.encoder.detach_last_layer:
             net_last_layer = net_last_layer.detach()
@@ -223,11 +238,6 @@ class TransdimensionalJumpDiffusion(nn.Module):
         super().__init__()
         # the JAX model never reads `parallel.compute_dtype`: it computes in
         # float32 whatever the config says, and so does this one
-        if config.data.dim_context_continuous or config.data.dim_context_discrete:
-            raise NotImplementedError(
-                "a transdimensional model with a context is not ported (ROADMAP Queue 1, "
-                "transdim context): its list loader and its sampler's births carry none"
-            )
         self.config = config
         self.network = TransdimensionalEPiC(config)
         lk = config.loss_kwargs
@@ -259,10 +269,22 @@ class TransdimensionalJumpDiffusion(nn.Module):
         flag = self.config.parallel.use_pallas
         if flag is False:
             return False
-        supported = gsdm_stack_supported(self.config) and self._trunk_layout() is not None
+        supported = gsdm_stack_supported(self.config) and self.kernel_refusal() is None
         if flag == "auto":
             return supported and torch.device(device).type == "cuda"
         return bool(flag) and supported
+
+    def kernel_refusal(self):
+        """Why no trunk kernel takes this config, or None when one does. A
+        context turns off JAX's trunk pattern (`epic_pattern_supported`), and
+        with it the whole fused path."""
+        d = self.config.data
+        if d.dim_context_continuous or d.dim_context_discrete:
+            return ("a context: no trunk kernel takes one (JAX's epic_pattern_supported is "
+                    "False), so the network runs its modules, the gsdm stacks too")
+        if self._trunk_layout() is None:
+            return "no trunk kernel takes this encoder (see `_pallas_enabled`)"
+        return None
 
     def _trunk_layout(self):
         """The trunk's kernel (transdimensional_model.py:325-337): "wide" when
@@ -277,9 +299,10 @@ class TransdimensionalJumpDiffusion(nn.Module):
     def pack_for_kernel(self):
         """(packed trunk, packed rate stack, packed creation stack) of the
         current weights, detached: what `forward_kernel` reads."""
+        refusal = self.kernel_refusal()
+        if refusal is not None:
+            raise ValueError(refusal)
         layout = self._trunk_layout()
-        if layout is None:
-            raise ValueError("no trunk kernel takes this encoder (see `_pallas_enabled`)")
         net = self.network
         trunk = pack_bare_trunk_params(net, self.config, fold_discrete=net.linear_discrete,
                                        layout=layout)
@@ -298,6 +321,9 @@ class TransdimensionalJumpDiffusion(nn.Module):
         forward` returns. Sampling only: no gradient. `packed` is a packing
         of the current weights to reuse (`pack_for_kernel`)."""
         net, enc = self.network, self.config.encoder
+        refusal = self.kernel_refusal()
+        if refusal is not None:
+            raise ValueError(refusal)
         trunk, rate_stack, vec_stack = packed if packed is not None else self.pack_for_kernel()
         node_mask = state.particle_mask()[:, :, None]
         trunk_fn = epic_forward_wide if trunk.layout == "wide" else epic_forward

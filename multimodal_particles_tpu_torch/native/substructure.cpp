@@ -43,7 +43,10 @@ inline double delta_r2(double eta1, double phi1, double eta2, double phi2) {
 }
 
 // Exclusive-kt clustering down to n_jets axes (E-scheme recombination).
-// Fills axes_eta/axes_phi (pt-descending). Returns number of axes produced.
+// Fills axes_eta/axes_phi (pt-descending). Returns number of axes produced:
+// more than n_jets when no pair has a finite distance below 1e300 (non-finite
+// kinematics stop the clustering early); only the first n_jets are written,
+// the arrays hold no more.
 int exclusive_kt_axes(const double* pt, const double* eta, const double* phi,
                       int n, int n_jets, double R, double* axes_eta,
                       double* axes_phi) {
@@ -97,7 +100,7 @@ int exclusive_kt_axes(const double* pt, const double* eta, const double* phi,
   for (size_t a = 0; a < idx.size(); ++a)
     for (size_t b = a + 1; b < idx.size(); ++b)
       if (cpt2[idx[b]] > cpt2[idx[a]]) std::swap(idx[a], idx[b]);
-  for (size_t a = 0; a < idx.size(); ++a) {
+  for (size_t a = 0; a < idx.size() && a < static_cast<size_t>(n_jets); ++a) {
     axes_eta[a] = ceta[idx[a]];
     axes_phi[a] = cphi[idx[a]];
   }

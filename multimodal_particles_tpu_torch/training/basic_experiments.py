@@ -13,6 +13,7 @@ seed.
 import os
 from abc import ABC, abstractmethod
 
+import numpy as np
 import torch
 
 from multimodal_particles_tpu_torch.data.particle_clouds.jets import JetDataclass
@@ -35,17 +36,43 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def attach_contexts(jets, config, contexts):
+    """Set on `jets` the contexts that the config asks for, from `contexts`
+    ({"context_continuous": (num_jets, Dcc) floats, "context_discrete":
+    (num_jets, Dcd) tokens}, one row a jet in the shard's order); the
+    datamodule then carries them in every batch. The bundled jet readers give
+    no context, in the JAX package too, so a config with one needs them from
+    the caller."""
+    d, contexts = config.data, contexts or {}
+    for name, width in (("context_continuous", d.dim_context_continuous),
+                        ("context_discrete", d.dim_context_discrete)):
+        if not width:
+            continue
+        if name not in contexts:
+            raise ValueError(
+                f"the config has a {name} of width {width}, and the jet readers give no "
+                f"context: pass it as contexts={{'{name}': array (num_jets, {width})}}")
+        value = np.asarray(contexts[name])
+        if value.shape != (len(jets.target), width):
+            raise ValueError(f"{name} has shape {value.shape}; the shard's jets want "
+                             f"{(len(jets.target), width)}")
+        setattr(jets, name, value)
+
+
 class BasicExperiment(ABC):
     """A new run from `config` (into `experiment_dir`, or the config's, or
     results/<timestamp>), or, with `config=None`, the run in `experiment_dir`
     reloaded: its params.yaml, the datamodule and model rebuilt, and the
     'best' checkpoint. Subclasses name their `config_class` and build the
-    datamodule and the model."""
+    datamodule and the model. A config with a context takes `contexts` (see
+    `attach_contexts`), for a reloaded run too."""
 
     config_class = None
 
-    def __init__(self, config=None, experiment_dir=None, seed: int = 0, device=None):
+    def __init__(self, config=None, experiment_dir=None, seed: int = 0, device=None,
+                 contexts=None):
         self.seed = seed
+        self.contexts = contexts
         self.device = resolve_device(device)
         if config is not None:
             self.config = config
@@ -64,9 +91,11 @@ class BasicExperiment(ABC):
 
     def jet_datamodule(self) -> JetsDataloaderModule:
         """The config's jets, preprocessed (which writes the stats into the
-        config), in a datamodule on the experiment's device."""
+        config), with the experiment's contexts, in a datamodule on the
+        experiment's device."""
         jets = JetDataclass(self.config, seed=self.seed)
         jets.preprocess()
+        attach_contexts(jets, self.config, self.contexts)
         return JetsDataloaderModule(self.config, jets, device=self.device)
 
     @abstractmethod

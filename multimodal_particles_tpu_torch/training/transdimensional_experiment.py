@@ -21,7 +21,9 @@ class TransdimensionalExperiment(BasicExperiment):
         self.model = TransdimensionalJumpDiffusion(self.config, self.datamodule).to(self.device)
 
 
-def train_transdimensional(config: TransdimensionalEpicConfig, device=None, seed: int = 0, experiment_dir=None):
-    experiment = TransdimensionalExperiment(config, experiment_dir, seed=seed, device=device)
+def train_transdimensional(config: TransdimensionalEpicConfig, device=None, seed: int = 0,
+                           experiment_dir=None, contexts=None):
+    experiment = TransdimensionalExperiment(config, experiment_dir, seed=seed, device=device,
+                                            contexts=contexts)
     experiment.train()
     return experiment

@@ -113,6 +113,33 @@ def state_to_cloud(continuous, discrete, mask, stats):
     return cloud
 
 
+def noise_source(config, n_jets, target_multiplicity, seed):
+    """Fresh noise clouds of the config's source, preprocessed, with source
+    masks drawn from `target_multiplicity` (the reference's generation
+    protocol)."""
+    src_kwargs = dict(config.data.__dict__)
+    src_kwargs.update(num_jets=n_jets, target_multiplicity=target_multiplicity, seed=seed)
+    src = ParticleClouds(dataset=config.data.source_name, **src_kwargs)
+    src.preprocess(output_continuous=config.data.source_preprocess_continuous,
+                   output_discrete=config.data.source_preprocess_discrete,
+                   stats=config.data.source_preprocess_stats)
+    return src
+
+
+def chunks_of(n_jets, chunk):
+    """Row indices of `n_jets` jets in requests of at most `chunk`."""
+    return [np.arange(i, min(i + chunk, n_jets)) for i in range(0, n_jets, chunk)]
+
+
+def data_cloud_of(target, config):
+    """The data's physics-space cloud that generated jets are scored against."""
+    cloud = copy.deepcopy(target)
+    cloud.postprocess(input_continuous=config.data.target_preprocess_continuous,
+                      input_discrete=config.data.target_preprocess_discrete,
+                      stats=config.data.target_preprocess_stats)
+    return cloud
+
+
 def make_gen_databatch(src, chunk, device):
     """Generation batch on `device`: the source half from the noise cloud
     (what the samplers read)."""
@@ -195,18 +222,11 @@ def run_absorbing(args):
     # generation sources: fresh noise, multiplicities from the data histogram
     # (the reference predict_step protocol); the absorbing bridge then
     # evolves the mask along the trajectory
-    src_kwargs = dict(config.data.__dict__)
-    src_kwargs.update(num_jets=args.gen_jets, target_multiplicity=target.multiplicity,
-                      seed=args.seed + 1)
-    gen_src = ParticleClouds(dataset=config.data.source_name, **src_kwargs)
-    gen_src.preprocess(output_continuous=config.data.source_preprocess_continuous,
-                       output_discrete=config.data.source_preprocess_discrete,
-                       stats=config.data.source_preprocess_stats)
+    gen_src = noise_source(config, args.gen_jets, target.multiplicity, args.seed + 1)
 
     trainer = experiment.trainer
     _save_params(sampled_weights(trainer), args.workdir)
-    chunks = [np.arange(i, min(i + args.gen_chunk, args.gen_jets))
-              for i in range(0, args.gen_jets, args.gen_chunk)]
+    chunks = chunks_of(args.gen_jets, args.gen_chunk)
     batches = [make_gen_databatch(gen_src, chunk, device) for chunk in chunks]
     generator = torch.Generator(device=device).manual_seed(args.seed + 2)
     synchronize(device)
@@ -219,11 +239,7 @@ def run_absorbing(args):
     gen_cloud = state_to_cloud(torch.cat([o.continuous for o in outs]).cpu().numpy(),
                                torch.cat([o.discrete for o in outs]).cpu().numpy(),
                                mask_gen, config.data.target_preprocess_stats)
-    data_cloud = copy.deepcopy(target)
-    data_cloud.postprocess(input_continuous=config.data.target_preprocess_continuous,
-                           input_discrete=config.data.target_preprocess_discrete,
-                           stats=config.data.target_preprocess_stats)
-    hl_data = JetClassHighLevelFeatures(data_cloud)
+    hl_data = JetClassHighLevelFeatures(data_cloud_of(target, config))
     features = ["pt", "m", "eta", "phi", "multiplicity", "Q_total", "Q_jet"]
     metrics = score(JetClassHighLevelFeatures(gen_cloud), hl_data, features)
 
@@ -322,11 +338,7 @@ def run_transdimensional(args):
     m_data = np.asarray(dm.dataset.arrays["target_mask"][..., 0]) > 0
     pt_data = x_data[..., 0][m_data]
 
-    data_cloud = copy.deepcopy(dm.dataclass.target)
-    data_cloud.postprocess(input_continuous=config.data.target_preprocess_continuous,
-                           input_discrete=config.data.target_preprocess_discrete,
-                           stats=config.data.target_preprocess_stats)
-    hl_data = JetClassHighLevelFeatures(data_cloud)
+    hl_data = JetClassHighLevelFeatures(data_cloud_of(dm.dataclass.target, config))
     features = ["pt", "m", "eta", "phi", "multiplicity", "Q_total", "Q_jet",
                 "tau21", "tau32", "d2"]
     calls = {}

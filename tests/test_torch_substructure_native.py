@@ -51,6 +51,23 @@ def test_library_matches_the_jax_library_exactly(B):
         np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
 
 
+def test_library_takes_non_finite_kinematics():
+    """Generated jets of an undertrained model can carry inf and NaN: no pair
+    of constituents then has a finite kt distance, the clustering stops with
+    more subjets than axes, and the library wrote past its axes (a heap
+    overrun that aborted the process). Now such a jet's τ is NaN and the
+    other jets hold the JAX library's bits."""
+    pt, eta, phi, mask = goldens._random_jets(B=6, N=32, seed=3)
+    eta[2, :] = np.inf
+    phi[4, :] = np.nan
+    got = native.substructure_batch_native(pt, eta, phi, mask)
+    assert np.isnan(got["tau1"][[2, 4]]).all() and np.isnan(got["tau3"][[2, 4]]).all()
+    finite = [0, 1, 3, 5]
+    ref = jax_native(pt[finite], eta[finite], phi[finite], mask[finite])
+    for key in ("tau1", "tau2", "tau3", "d2"):
+        np.testing.assert_array_equal(got[key][finite], ref[key], err_msg=key)
+
+
 def test_native_matches_both_numpy_versions():
     pt, eta, phi, mask = goldens._random_jets()
     mask[3, 2:] = 0  # a jet below min_constituents

@@ -553,8 +553,9 @@ def test_kernel_gate_follows_the_heads_and_a_wide_trunk_raises():
 def test_compute_dtype_other_than_float32_raises(pair):
     """The JAX model never reads `compute_dtype`: under "bfloat16" its network
     gives the float32 config's bits, and the port's does too (it computes in
-    float32 whatever the config says). A context, which the port's
-    transdimensional model does not take yet, raises."""
+    float32 whatever the config says). A context, which the port took
+    later, builds and runs its forward (tests/test_torch_transdim_context.py
+    holds it against JAX)."""
     jax_model, params, model, _ = pair
     noisy, ts, nearest = _net_inputs(pair, 6)
     cfg = dataclasses.replace(jax_model.config, parallel=dataclasses.replace(
@@ -573,11 +574,21 @@ def test_compute_dtype_other_than_float32_raises(pair):
                for m in (model, bf16)]
     for a, b in zip(jax.tree_util.tree_leaves(got[0]), jax.tree_util.tree_leaves(got[1])):
         assert a.dtype != torch.bfloat16 and torch.equal(a, b)
+    state = _torch_state(noisy)
     for field in ("dim_context_continuous", "dim_context_discrete"):
-        conditional = torch_cfgs.TransdimensionalEpicConfig()
+        conditional = torch_cfgs.TransdimensionalEpicConfig.from_dict(cfg.to_dict())
         setattr(conditional.data, field, 1)
-        with pytest.raises(NotImplementedError, match="context"):
-            TransdimensionalJumpDiffusion(conditional)
+        conditional.data.vocab_size_context = 5
+        conditional.encoder.dim_emb_context_continuous = 4
+        conditional.encoder.dim_emb_context_discrete = 4
+        with_context = init_transdimensional_parameters(TransdimensionalJumpDiffusion(conditional), 0)
+        context = {"context_continuous": torch.ones(B, 1)} if field == "dim_context_continuous" \
+            else {"context_discrete": torch.eye(5)[torch.arange(B) % 5]}
+        with torch.no_grad():
+            out = with_context.net_forward(state.replace(**context), _t(ts),
+                                           nearest_atom=_t(nearest).long())
+        assert not with_context._pallas_enabled("cuda")
+        assert all(torch.isfinite(o).all() for o in jax.tree_util.tree_leaves(out))
 
 
 # --------------------------------------------------------------------- loss

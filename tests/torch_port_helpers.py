@@ -35,6 +35,9 @@ from multimodal_particles_tpu.models.generative.multimodal_bridge_matching impor
 from multimodal_particles_tpu.models.generative.transdimensional.sampler import (
     _build_time_grid,
 )
+from multimodal_particles_tpu.models.generative.transdimensional.structure import (
+    StructuredState as JaxStructuredState,
+)
 from multimodal_particles_tpu.models.generative.transdimensional.transdimensional_model import (
     TransdimensionalJumpDiffusion,
 )
@@ -130,32 +133,86 @@ def absorbing_pair(seed=0, n=N, b=B, num_timesteps=8, sections=None):
     return jax_model, jax.tree_util.tree_map(jnp.asarray, params_np), torch_model, batch
 
 
-def transdim_list_batch(seed, b, n):
-    """The 'list' databatch [n_particles, continuous, one-hot] as numpy:
-    multiplicities in [1, n] with jet 0 at 1 and jet 1 at n, rows past a jet's
-    multiplicity zero."""
+def transdim_list_batch(seed, b, n, context_continuous=0, vocab_size_context=0):
+    """The 'list' databatch [n_particles, continuous, one-hot, contexts...] as
+    numpy: multiplicities in [1, n] with jet 0 at 1 and jet 1 at n, rows past
+    a jet's multiplicity zero; with `context_continuous` > 0 a (b, that)
+    normal context, with `vocab_size_context` > 0 the one-hot of a uniform
+    token (b, vocab_size_context), after it, as the loader appends them."""
     rng = np.random.default_rng(seed)
     dims = rng.integers(1, n + 1, b).astype(np.int32)
     dims[0], dims[1] = 1, n
     live = (np.arange(n)[None, :] < dims[:, None]).astype(np.float32)[..., None]
     x = rng.standard_normal((b, n, 3)).astype(np.float32) * live
     one_hot = np.eye(8, dtype=np.float32)[rng.integers(0, 8, (b, n))] * live
-    return [dims, x, one_hot]
+    batch = [dims, x, one_hot]
+    if context_continuous:
+        batch.append(rng.standard_normal((b, context_continuous)).astype(np.float32))
+    if vocab_size_context:
+        batch.append(np.eye(vocab_size_context, dtype=np.float32)[
+            rng.integers(0, vocab_size_context, b)])
+    return batch
 
 
-def transdim_pair(seed=0, n=16, b=6, sections=None):
+def transdim_contexts(batch, config):
+    """(context_continuous, context_discrete) of a `transdim_list_batch` by
+    the config (None where it has none), not by list position: with only a
+    discrete context the loader puts it at index 3, where
+    `state_from_list_batch` reads a continuous one."""
+    d, rest = config.data, list(batch[3:])
+    cont = rest.pop(0) if d.dim_context_continuous else None
+    disc = rest.pop(0) if d.dim_context_discrete else None
+    return cont, disc
+
+
+def drawn_params(init, key, *args, seed=0):
+    """A parameter tree of flax's shapes with leaves drawn by numpy from
+    flax's default laws (kernels, weight-norm directions and embeddings
+    normal with std 1/√fan-in, scales and weight-norm gains 1, biases 0):
+    `jax.eval_shape` traces the init without compiling it, where flax's eager
+    init compiles each operation alone (~20 s for the transdimensional
+    network)."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, shape):
+        name = path[-1].key
+        if name in ("kernel", "v", "embedding"):
+            fan_in = shape.shape[-1] if name == "embedding" else int(np.prod(shape.shape[:-1]))
+            return (rng.standard_normal(shape.shape) / np.sqrt(fan_in)).astype(np.float32)
+        if name in ("scale", "g"):
+            return np.ones(shape.shape, np.float32)
+        return np.zeros(shape.shape, np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, jax.eval_shape(init, key, *args))
+
+
+def transdim_pair(seed=0, n=16, b=6, sections=None, drawn_init=False):
     """(jax_model, jax_params, torch_model, numpy 'list' batch) of the
     transdimensional family at its default config with `n` slots and `b` jets:
     flax-initialised weights plus seeded noise, transplanted. `sections` maps
-    a config section to field overrides, e.g. {"sampler_kwargs": {"dt": 0.25}}."""
+    a config section to field overrides, e.g. {"sampler_kwargs": {"dt": 0.25}};
+    a context in the data section gives the batch that context
+    (`transdim_list_batch`). With `drawn_init` the weights before the noise
+    come from `drawn_params`, not from flax's init."""
     cfg = TransdimensionalEpicConfig()
     cfg.data.batch_size, cfg.data.max_num_particles = b, n
     for section, fields in (sections or {}).items():
         for name, value in fields.items():
             setattr(getattr(cfg, section), name, value)
-    batch = transdim_list_batch(seed + 100, b, n)
+    d = cfg.data
+    batch = transdim_list_batch(seed + 100, b, n, d.dim_context_continuous,
+                                d.vocab_size_context if d.dim_context_discrete else 0)
     jax_model = TransdimensionalJumpDiffusion(cfg)
-    params_np = noisy_params(jax_model.init(jax.random.PRNGKey(seed), batch), seed)
+    cont, disc = transdim_contexts(batch, cfg)
+    init_state = JaxStructuredState(
+        continuous=jnp.asarray(batch[1]), discrete=jnp.asarray(batch[2]),
+        dims=jnp.asarray(batch[0]),
+        context_continuous=None if cont is None else jnp.asarray(cont),
+        context_discrete=None if disc is None else jnp.asarray(disc))
+    key = jax.random.PRNGKey(seed)
+    params = (drawn_params(jax_model.init, key, init_state, seed=seed) if drawn_init
+              else jax_model.init(key, init_state))
+    params_np = noisy_params(params, seed)
     torch_cfg = TorchTransdimConfig.from_dict(cfg.to_dict())
     torch_model = TorchTransdim(torch_cfg)
     torch_model.load_state_dict(params_from_flax(params_np, torch_cfg, TorchTransdim))
