@@ -391,6 +391,33 @@ Phases, one JSON line each:
               network evaluation, no plain call; the table finite; mean dims
               in [1, N]
 
+ 55. dp_nccl  a world-size-1 NCCL process group (FileStore rendezvous),
+              `Trainer(mesh=make_device_mesh())` for one epoch of 8 batches
+              at config-berlin, B=8192: the gradients and metrics through
+              NCCL's all-reduce, K1 and K3 once a step, no plain call; the
+              losses the single-device Trainer's bit for bit
+ 56. dp_train  two gloo ranks on the card (spawned processes, FileStore
+              rendezvous; NCCL refuses two ranks on one card, gloo
+              all-reduces CUDA tensors), 'jit' mode, config-berlin, global
+              B=8192 (4096 a rank), 5 steps: each rank K1 5 and K3 5 times, no
+              plain call; the losses within rtol 2e-4 of the single-process
+              run from the same seed and batches, every parameter within
+              1e-3·max|leaf| (phase 10's gate); steps/s beside phase 8's
+ 57. dp_train_scaled  the same at the scaled backbone (its gains from
+              `data_dependent_gains`), 3 steps through K4/K5 (3 and 3 a rank);
+              the losses held, the parameters printed
+ 58. tp_train  the two ranks at model 2 (the Megatron pairs split): scaled MBM
+              (B=2048) and the reference transdimensional model (B=512), both
+              with data-dependent gains, 3 steps each; both ranks' losses
+              within rtol 2e-4, atol 1e-5 of the replicated module path on the
+              card; no kernel launches (every gate is off at model_axis > 1,
+              as in JAX)
+ 59. bulk_dp  the 2-rank MBM sweep at config-berlin: 4 chunks of 65,536 jets
+              (32,768 a rank) through K2, 99 launches a chunk a rank and the
+              warm-up chunk's; the summed and per-rank jets/s beside phase
+              39's. A rank that fails or outlives 300 s fails phases 56-59;
+              both ranks are joined or killed.
+
 The line before the last lists every kernel with its launches on its own
 path's run, its two bounds from the shapes and the H100 data sheet's peaks
 (`bound_ms` with the operations on the CUDA cores in fp32, `tensor_bound_ms`
@@ -404,8 +431,9 @@ among them (`switches`, `conditional_absorbing`, `bf16_predict`, `bf16_train`,
 `bf16_absorbing_predict`, `quality_absorbing`, `quality_transdim`,
 `evaluate`: the trained runs'; `transdim_context` (0), `quality_parity_train`,
 `quality_parity_generate`, `scaled_data_<family>` (training and generation),
-`absorbing_stress`, `transdim_sweeps`), and K7's worst share of its gate on the
-trained flow; the last
+`absorbing_stress`, `transdim_sweeps`, `dp_nccl`, and each rank's own
+`dp_train_rank<r>`, `dp_train_scaled_rank<r>`, `bulk_dp_rank<r>`), and K7's
+worst share of its gate on the trained flow; the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Uses torch, numpy, scipy (the port's jet metrics), the standard library, the
 port and the port's scripts under scripts/ (torch_*.py) only. fp32 with TF32 off (phase 45 also computes in bf16 on the module path).
@@ -413,17 +441,21 @@ port and the port's scripts under scripts/ (torch_*.py) only. fp32 with TF32 off
 
 import copy
 import dataclasses
+import datetime
 import json
 import math
+import multiprocessing
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multimodal_particles_tpu_torch.config_classes import (
     AbsorbingConfig,
@@ -528,6 +560,7 @@ from multimodal_particles_tpu_torch.ops.survival_cuda import (
     survival_head_reference,
 )
 from multimodal_particles_tpu_torch.parallel.bulk_sampling import bulk_sample
+from multimodal_particles_tpu_torch.parallel.mesh import LocalMesh, make_device_mesh, mesh_shape
 from multimodal_particles_tpu_torch.training import (
     AbsorbingExperiment,
     MultimodalBridgeMatchingExperiment,
@@ -1073,6 +1106,7 @@ def phase_train(device, card, workdir):
     rate = {"phase": "train_rate", "B": TRAIN_B, "steps_per_s": 1.0 / step_seconds,
             "jets_per_s": TRAIN_B / step_seconds, "step_seconds": step_seconds, "card": card}
     emit(rate)
+    READINGS["train_steps_per_s"] = rate["steps_per_s"]
     return trainer, dm, launches, rate
 
 
@@ -3311,6 +3345,7 @@ def phase_bulk_mbm(device, card, multiplicities):
     launches, ok = launched({"sampler_step": 99 * (chunks + 1)})
     emit({"phase": "bulk_mbm", "B": BULK_B, "N": N, "chunks": chunks, **stats,
           "launches": launches, "plain_calls": plain_calls(), "card": card})
+    READINGS["bulk_jets_per_s"] = stats["jets_per_sec"]
     if not ok:
         raise RuntimeError(f"the 1M-jet sweep launched {launches}, {plain_calls()} plain calls")
 
@@ -4332,6 +4367,312 @@ def sweep_phases(device, card, runs):
 
 
 
+# ------------------------------- phases 55-59: data and tensor parallelism
+
+DP_STEPS, DP_SCALED_STEPS, TP_STEPS = 5, 3, 3
+TP_MBM_B, TP_TD_B = 2048, 512
+BULK_DP_CHUNKS, BULK_DP_B = 4, 2 * BULK_B  # global chunks: BULK_B jets a rank a chunk
+RANKS = 2
+RANK_TIMEOUT = 300  # seconds for the two ranks' start and phases 56-59
+TP_RTOL, TP_ATOL = 2e-4, 1e-5  # tests/test_parallel/test_tensor_parallel.py's bound
+READINGS = {}  # phase 8's steps/s and phase 39's jets/s, printed beside phases 56 and 59
+
+
+def parallel_batches(B, steps, device, family="mbm"):
+    """`steps` training batches of B jets from a fixed seed, the same in every
+    process."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    if family == "transdim":
+        return [transdim_training_batch(B, TD_N, 3, 8, gen, device=device) for _ in range(steps)]
+    return [synthetic_training_batch(B, N, 3, 8, gen, device=device) for _ in range(steps)]
+
+
+def parallel_config(family, model_axis=1, use_pallas="auto"):
+    if family == "transdim":
+        config = TransdimensionalEpicConfig()
+        config.data.max_num_particles = TD_N
+    else:
+        config = make_config(**SCALED) if family == "mbm_scaled" else train_config()
+    config.parallel.model_axis, config.parallel.use_pallas = model_axis, use_pallas
+    return config
+
+
+def parallel_model(family, config, device):
+    if family == "transdim":
+        return TransdimensionalJumpDiffusion(config).to(device)
+    return MultiModalBridgeMatching(config).to(device)
+
+
+def gained_weights(family, device):
+    """A family's seeded weights with `data_dependent_gains` set on the module
+    path, whole: every process computes the same. (Seeded alone, the scaled
+    backbone's heads reach 1e5 and the reference transdimensional model's
+    first loss 1e14 on these batches.)"""
+    init = init_transdimensional_parameters if family == "transdim" else init_mbm_parameters
+    model = init(parallel_model(family, parallel_config(family), device), SEED)
+    data_dependent_gains(model, device, transdim_probe if family == "transdim" else mbm_probe)
+    return {k: v.detach().clone() for k, v in model.named_parameters()}
+
+
+def parallel_run(family, config, batches, device, mesh=None, weights=None):
+    """A trainer from SEED (then `weights`, whole, where given) and one
+    train step a batch on this rank's rows, counted from 0: (losses, the
+    parameters whole, launches, plain calls, seconds of the steps after the
+    first)."""
+    trainer = Trainer(parallel_model(family, config, device), config, seed=SEED, mesh=mesh)
+    trainer.setup()
+    if weights is not None:
+        trainer.copy_params(weights)
+    rows = [trainer.shard(b)[0] for b in batches]
+    torch.cuda.synchronize()
+    reset_counts()
+    losses = [trainer.train_step(rows[0])["loss"].item()]
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    losses += [trainer.train_step(b)["loss"].item() for b in rows[1:]]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = {k: v for k, v in all_counts().items() if v}
+    params = {k: trainer.whole(k, p.detach()).clone() for k, p in trainer.state.params.items()}
+    return losses, params, launches, plain_calls(), seconds
+
+
+def rank_phases(rank, store, outdir, device_type="cuda"):
+    """One of the RANKS gloo ranks on the card: phases 56-59's runs, written
+    to outdir/rank{rank}.pt; a failure's traceback to rank{rank}.err."""
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        device = torch.device(device_type, 0)
+        if device_type == "cuda":
+            torch.cuda.set_device(device)
+            _build.load_library()
+        dist.init_process_group("gloo", store=dist.FileStore(store, RANKS), rank=rank,
+                                world_size=RANKS, timeout=datetime.timedelta(seconds=120))
+        data_mesh = make_device_mesh(device_type=device_type)
+        model_mesh = make_device_mesh(data_axis=1, model_axis=RANKS, device_type=device_type)
+        gains = {f: gained_weights(f, device) for f in ("mbm_scaled", "transdim")}
+        shard = ParticleClouds("AspenOpenJets", max_num_particles=N)
+        while not (Path(outdir) / "go").exists():  # the parent's references first
+            time.sleep(0.05)
+        out = {"dp_train": parallel_run("mbm", parallel_config("mbm"),
+                                        parallel_batches(TRAIN_B, DP_STEPS, device), device,
+                                        data_mesh),
+               "dp_train_scaled": parallel_run(
+                   "mbm_scaled", parallel_config("mbm_scaled"),
+                   parallel_batches(TRAIN_B, DP_SCALED_STEPS, device), device, data_mesh,
+                   gains["mbm_scaled"])}
+        for family, B in (("mbm_scaled", TP_MBM_B), ("transdim", TP_TD_B)):
+            out[f"tp_{family}"] = parallel_run(
+                family, parallel_config(family, model_axis=RANKS),
+                parallel_batches(B, TP_STEPS, device, family), device, model_mesh, gains[family])
+        model = make_model(device)
+        torch.cuda.synchronize()
+        reset_counts()
+        _, stats = bulk_sample(model, model.config, BULK_DP_CHUNKS * BULK_DP_B,
+                               batch_size=BULK_DP_B, seed=SEED,
+                               target_multiplicity=shard.multiplicity, collect=False,
+                               mesh=data_mesh)
+        out["bulk_dp"] = (stats, {k: v for k, v in all_counts().items() if v}, plain_calls())
+        torch.save(out, Path(outdir) / f"rank{rank}.pt")
+        dist.destroy_process_group()
+    except BaseException:
+        (Path(outdir) / f"rank{rank}.err").write_text(traceback.format_exc())
+        raise
+
+
+def start_ranks(outdir, device_type, target=None):
+    """RANKS processes running `rank_phases` (or `target`), started by spawn."""
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target or rank_phases,
+                         args=(r, str(outdir / "store"), str(outdir), device_type))
+             for r in range(RANKS)]
+    for p in procs:
+        p.start()
+    return procs
+
+
+def join_ranks(procs, outdir):
+    """Every rank's record, or a failure as soon as a rank fails or the
+    RANK_TIMEOUT passes (the other ranks are stopped)."""
+    deadline = time.monotonic() + RANK_TIMEOUT
+    while any(p.is_alive() for p in procs):
+        failed = [p for p in procs if p.exitcode not in (None, 0)]
+        if failed or time.monotonic() > deadline:
+            for p in procs:
+                p.kill()
+                p.join()
+            errors = [f.read_text() for f in sorted(outdir.glob("rank*.err"))]
+            raise RuntimeError(f"a rank failed or hung (exit codes {[p.exitcode for p in procs]}): "
+                               f"{errors}")
+        time.sleep(0.1)
+    if any(p.exitcode for p in procs):
+        raise RuntimeError(f"the ranks exited with {[p.exitcode for p in procs]}: "
+                           f"{[f.read_text() for f in sorted(outdir.glob('rank*.err'))]}")
+    return [torch.load(outdir / f"rank{r}.pt", weights_only=False) for r in range(RANKS)]
+
+
+def worst_param_diff(got, ref):
+    """The largest |Δ| of a leaf over its reference's largest |value|, and that leaf."""
+    return max((((got[k] - ref[k]).abs().max() / ref[k].abs().max().clamp_min(1e-12)).item(), k)
+               for k in ref)
+
+
+def phase_dp_nccl(device, card):
+    """Phase 55: a world-size-1 NCCL group, `Trainer(mesh)` for one epoch at
+    config-berlin, B=8192: K1 and K3 once a step, no plain call, the losses
+    the single-device Trainer's bit for bit."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    dm = InMemoryDataModule(train=[synthetic_training_batch(TRAIN_B, N, 3, 8, gen, device=device)
+                                   for _ in range(TRAIN_BATCHES)])
+
+    def epoch(mesh):
+        config = train_config()
+        trainer = Trainer(MultiModalBridgeMatching(config).to(device), config, seed=SEED,
+                          mesh=mesh)
+        losses, train_step = [], trainer.train_step
+
+        def recording_step(batch, draws=None):
+            metrics = train_step(batch, draws)
+            losses.append(metrics["loss"])
+            return metrics
+
+        trainer.train_step = recording_step
+        reset_counts()
+        trainer.fit(dm, epochs=1)
+        torch.cuda.synchronize()
+        return ([v.item() for v in losses], {k: v for k, v in all_counts().items() if v},
+                plain_calls())
+
+    single = epoch(LocalMesh("cuda"))
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(str(Path(tmp) / "store"), 1),
+                                rank=0, world_size=1, device_id=device)
+        try:
+            mesh = make_device_mesh(device_type="cuda")
+            losses, launches, plain = epoch(mesh)
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    rec = {"phase": "dp_nccl", "B": TRAIN_B, "steps": TRAIN_BATCHES, "backend": backend,
+           "world_size": 1, "mesh": mesh_shape(mesh), "launches": launches, "plain_calls": plain,
+           "losses": losses, "single_device_losses": single[0],
+           "same_bits": losses == single[0], "card": card}
+    emit(rec)
+    expected = {"epic_forward": TRAIN_BATCHES, "epic_backward": TRAIN_BATCHES}
+    if launches != expected or plain or not rec["same_bits"] or backend != "nccl":
+        raise RuntimeError(f"the NCCL one-rank trainer: {rec}")
+    return launches
+
+
+def phase_parallel_train(card, phase, ranks, ref, expected, steps):
+    """Phases 56-57: the ranks' 'jit' data-parallel run against the
+    single-process run at the global batch."""
+    losses = [r[phase][0] for r in ranks]
+    ref_losses, ref_params = ref[0], ref[1]
+    loss_diff = max(abs(a - b) / abs(b) for a, b in zip(losses[0], ref_losses))
+    param_diff, leaf = worst_param_diff(ranks[0][phase][1], ref_params)
+    rate = (steps - 1) / ranks[0][phase][4]
+    rec = {"phase": phase, "ranks": RANKS, "backend": "gloo", "global_B": TRAIN_B,
+           "rank_B": TRAIN_B // RANKS, "steps": steps, "spmd_mode": "jit",
+           "launches": {f"rank{i}": r[phase][2] for i, r in enumerate(ranks)},
+           "plain_calls": [r[phase][3] for r in ranks], "losses": losses[0],
+           "single_process_losses": ref_losses, "max_rel_loss_diff": loss_diff,
+           "loss_rtol": TP_RTOL, "max_rel_param_diff": param_diff, "worst_leaf": leaf,
+           "param_bound": PARAM_BOUND, "steps_per_s": rate,
+           "single_process_steps_per_s": (steps - 1) / ref[4],
+           "phase8_steps_per_s": READINGS.get("train_steps_per_s"), "card": card}
+    emit(rec)
+    held = (losses[0] == losses[1] and loss_diff <= TP_RTOL
+            and (phase == "dp_train_scaled" or param_diff <= PARAM_BOUND))
+    if not held or any(r[phase][2] != expected or r[phase][3] for r in ranks):
+        raise RuntimeError(f"{phase}: {rec}")
+
+
+def phase_tp_train(card, ranks, refs):
+    """Phase 58: 2 ranks at model 2 (the Megatron pairs split), scaled MBM and
+    the reference transdimensional model, against the replicated module path
+    on the card, and the two ranks' losses against each other (each rank
+    computes the pair's loss itself: the card's reductions need not give
+    both the same bits); no kernel launches (the gates are off under
+    model_axis > 1)."""
+    rec = {"phase": "tp_train", "ranks": RANKS, "backend": "gloo", "mesh": {"data": 1,
+                                                                           "model": RANKS},
+           "steps": TP_STEPS, "card": card}
+    held = True
+    for family, B in (("mbm_scaled", TP_MBM_B), ("transdim", TP_TD_B)):
+        got = [r[f"tp_{family}"] for r in ranks]
+        ref = refs[family]
+        diff = max(abs(a - b) - TP_RTOL * abs(b) for a, b in zip(got[0][0] + got[1][0], ref[0] * 2))
+        rec[family] = {"B": B, "losses": got[0][0], "rank1_losses": got[1][0],
+                       "replicated_losses": ref[0],
+                       "max_abs_loss_diff_over_rtol_bound": diff,
+                       "max_rel_param_diff": worst_param_diff(got[0][1], ref[1])[0],
+                       "launches": [g[2] for g in got], "plain_calls": [g[3] for g in got],
+                       "replicated_launches": ref[2]}
+        held &= diff <= TP_ATOL and all(not g[2] and not g[3] for g in got) and not ref[2]
+    rec["loss_rtol"], rec["loss_atol"] = TP_RTOL, TP_ATOL
+    emit(rec)
+    if not held:
+        raise RuntimeError(f"tp_train: {rec}")
+
+
+def phase_bulk_dp(card, ranks):
+    """Phase 59: the 2-rank MBM sweep, BULK_DP_CHUNKS chunks of BULK_DP_B
+    jets (BULK_B a rank), K2 99 times a chunk a rank (and the warm-up)."""
+    stats = [r["bulk_dp"][0] for r in ranks]
+    expected = {"sampler_step": 99 * (BULK_DP_CHUNKS + 1)}
+    rec = {"phase": "bulk_dp", "ranks": RANKS, "chunks": BULK_DP_CHUNKS, "global_B": BULK_DP_B,
+           "rank_B": BULK_DP_B // RANKS, "N": N, "num_jets": stats[0]["num_jets"],
+           "mesh": stats[0]["mesh"], "jets_per_s": stats[0]["jets_per_sec"],
+           "rank_jets_per_s": [s["rank_jets_per_sec"] for s in stats],
+           "single_process_jets_per_s": READINGS.get("bulk_jets_per_s"),
+           "launches": {f"rank{i}": r["bulk_dp"][1] for i, r in enumerate(ranks)},
+           "plain_calls": [r["bulk_dp"][2] for r in ranks], "card": card}
+    emit(rec)
+    if (any(r["bulk_dp"][1] != expected or r["bulk_dp"][2] for r in ranks)
+            or rec["num_jets"] != BULK_DP_CHUNKS * BULK_DP_B or rec["mesh"] != {"data": RANKS}):
+        raise RuntimeError(f"bulk_dp: {rec}")
+
+
+def parallel_phases(device, card, build_dir, rank_target=None):
+    """Phases 55-59; each path's launches for the kernels line."""
+    nccl = phase_dp_nccl(device, card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        outdir = Path(tmp)
+        procs = start_ranks(outdir, device.type, rank_target)
+        try:
+            # the single-process references, while the ranks start
+            gains = {f: gained_weights(f, device) for f in ("mbm_scaled", "transdim")}
+            refs = {"dp_train": parallel_run("mbm", parallel_config("mbm"),
+                                             parallel_batches(TRAIN_B, DP_STEPS, device), device),
+                    "dp_train_scaled": parallel_run(
+                        "mbm_scaled", parallel_config("mbm_scaled"),
+                        parallel_batches(TRAIN_B, DP_SCALED_STEPS, device), device, None,
+                        gains["mbm_scaled"])}
+            tp_refs = {family: parallel_run(
+                family, parallel_config(family, use_pallas=False),
+                parallel_batches(B, TP_STEPS, device, family), device, None, gains[family])
+                for family, B in (("mbm_scaled", TP_MBM_B), ("transdim", TP_TD_B))}
+            del gains
+            torch.cuda.empty_cache()
+        finally:
+            (outdir / "go").touch()
+        ranks = join_ranks(procs, outdir)
+    phase_parallel_train(card, "dp_train", ranks, refs["dp_train"],
+                         {"epic_forward": DP_STEPS, "epic_backward": DP_STEPS}, DP_STEPS)
+    phase_parallel_train(card, "dp_train_scaled", ranks, refs["dp_train_scaled"],
+                         {"epic_wide_forward": DP_SCALED_STEPS,
+                          "epic_wide_backward": DP_SCALED_STEPS}, DP_SCALED_STEPS)
+    phase_tp_train(card, ranks, tp_refs)
+    phase_bulk_dp(card, ranks)
+    by_rank = {f"{phase}_rank{i}": r[phase][2] for phase in ("dp_train", "dp_train_scaled")
+               for i, r in enumerate(ranks)}
+    by_rank.update({f"bulk_dp_rank{i}": r["bulk_dp"][1] for i, r in enumerate(ranks)})
+    return nccl, by_rank
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU")
@@ -4443,6 +4784,14 @@ def main():
     k6["launches_by_path"]["absorbing_stress"] = stress["survival_head"]
     k1["launches_by_path"]["transdim_sweeps"] = sweeps["epic_forward"]
     k7["launches_by_path"]["transdim_sweeps"] = sweeps["gsdm_stack"]
+    # data and tensor parallelism: one NCCL rank, then two gloo ranks on the card
+    nccl, by_rank = parallel_phases(device, card, build_dir)
+    k1["launches_by_path"]["dp_nccl"] = nccl["epic_forward"]
+    k3["launches_by_path"]["dp_nccl"] = nccl["epic_backward"]
+    for path, launches in by_rank.items():
+        for entry in kernels[:5]:
+            if launches.get(entry["name"]):
+                entry["launches_by_path"][path] = launches[entry["name"]]
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -61,6 +61,7 @@ from multimodal_particles_tpu_torch.ops.survival_cuda import (
     survival_head,
     survival_supported,
 )
+from multimodal_particles_tpu_torch.parallel import spmd
 from multimodal_particles_tpu_torch.utils.dtype import cast_floating, compute_dtype_of
 from multimodal_particles_tpu_torch.utils.losses import multihead_loss
 
@@ -244,11 +245,14 @@ class AbsorbingFlow(nn.Module):
         x1 = batch.target_continuous
         B, N = x1.shape[0], x1.shape[1]
         if draws is None:
+            # drawn for the global batch under spmd.global_batch, this rank's rows kept
             kw = dict(generator=generator, device=x1.device)
-            draws = (torch.rand((B,), **kw), torch.randn(tuple(x1.shape), **kw),
-                     torch.rand((B, N), **kw),
-                     *(torch.rand((B, N, 1), **kw)
-                       for _ in range(self.bridge_absorbing.sample_draws)))
+            Bg = spmd.rows(B)
+            draws = tuple(spmd.local(d) for d in (
+                torch.rand((Bg,), **kw), torch.randn((Bg, *x1.shape[1:]), **kw),
+                torch.rand((Bg, N), **kw),
+                *(torch.rand((Bg, N, 1), **kw)
+                  for _ in range(self.bridge_absorbing.sample_draws))))
         t01, z, u_k, *u_m = (d.to(device=x1.device, dtype=x1.dtype) for d in draws)
         time = (self.min_t + (1.0 - self.min_t) * t01).reshape(B, 1, 1)
         continuous = self.bridge_continuous.sample(time, batch.source_continuous, x1, z)
@@ -266,7 +270,7 @@ class AbsorbingFlow(nn.Module):
         ut = self.bridge_continuous.drift(
             state.time, state.continuous, batch.source_continuous, batch.target_continuous
         )
-        return ((heads.continuous - ut) ** 2).sum(dim=1).mean()
+        return spmd.mean(((heads.continuous - ut) ** 2).sum(dim=1))
 
     def loss_discrete(self, heads, batch):
         """Token cross-entropy, summed over the N slots, meaned over the
@@ -275,7 +279,7 @@ class AbsorbingFlow(nn.Module):
         log_probs = F.log_softmax(heads.discrete.reshape(-1, self.vocab_size), dim=-1)
         targets = batch.target_discrete.reshape(-1).long()
         ce = -torch.gather(log_probs, 1, targets[:, None])[:, 0]
-        return ce.reshape(B, N).sum(dim=1).mean()
+        return spmd.mean(ce.reshape(B, N).sum(dim=1))
 
     def loss_absorbing(self, heads, batch):
         """BCE-with-logits of the survival head against the target mask, a
@@ -283,7 +287,7 @@ class AbsorbingFlow(nn.Module):
         logits = heads.absorbing.reshape(-1)
         targets = batch.target_mask.reshape(-1).to(logits.dtype)
         bce = torch.clamp(logits, min=0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
-        return bce.mean()
+        return spmd.mean(bce)
 
     def loss_fn(self, batch, generator=None, draws=None):
         """Bridge sampling + module forward + multi-head combine

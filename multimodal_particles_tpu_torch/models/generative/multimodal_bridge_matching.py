@@ -52,6 +52,7 @@ from multimodal_particles_tpu_torch.ops.epic_wide_cuda import (
 )
 from multimodal_particles_tpu_torch.ops.epic_wide_vjp_cuda import epic_train_forward_wide
 from multimodal_particles_tpu_torch.ops.sampler_cuda import fused_simulate_dynamics
+from multimodal_particles_tpu_torch.parallel import spmd
 from multimodal_particles_tpu_torch.utils.dtype import cast_floating, compute_dtype_of
 from multimodal_particles_tpu_torch.utils.losses import multihead_loss
 
@@ -210,9 +211,12 @@ class MultiModalBridgeMatching(nn.Module):
         x1 = batch.target_continuous
         B, N = x1.shape[0], x1.shape[1]
         if draws is None:
+            # drawn for the global batch under spmd.global_batch, this rank's rows kept
             kw = dict(generator=generator, device=x1.device)
-            draws = (torch.rand((B,), **kw), torch.randn(tuple(x1.shape), **kw),
-                     torch.rand((B, N), **kw))
+            Bg = spmd.rows(B)
+            draws = tuple(spmd.local(d) for d in (
+                torch.rand((Bg,), **kw), torch.randn((Bg, *x1.shape[1:]), **kw),
+                torch.rand((Bg, N), **kw)))
         t, z, u = (d.to(device=x1.device, dtype=x1.dtype) for d in draws)
         time = t.reshape(B, 1, 1)
         continuous = self.bridge_continuous.sample(time, batch.source_continuous, x1, z)
@@ -226,13 +230,14 @@ class MultiModalBridgeMatching(nn.Module):
 
     def loss_continuous(self, heads: MultiHeadOutput, state: HybridState, batch):
         """Masked MSE against the conditional drift, summed over features and
-        divided by max(Σmask, 1) (multimodal_bridge_matching.py:275-286)."""
+        divided by max(Σmask, 1) (multimodal_bridge_matching.py:275-286); the
+        global batch's Σmask under spmd.global_batch."""
         targets = self.bridge_continuous.drift(
             state.time, state.continuous, batch.source_continuous, batch.target_continuous
         )
         mask = state.absorbing
         mse = (heads.continuous - targets) ** 2 * mask
-        return torch.sum(mse) / torch.clamp(torch.sum(mask), min=1.0)
+        return torch.sum(mse) / torch.clamp(spmd.total(torch.sum(mask)), min=1.0)
 
     def loss_discrete(self, heads: MultiHeadOutput, state: HybridState, batch):
         """Masked cross-entropy on the target tokens
@@ -242,7 +247,7 @@ class MultiModalBridgeMatching(nn.Module):
         mask = state.absorbing.reshape(-1)
         log_probs = F.log_softmax(logits, dim=-1)
         ce = -torch.gather(log_probs, 1, targets[:, None])[:, 0]
-        return torch.sum(ce * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        return torch.sum(ce * mask) / torch.clamp(spmd.total(torch.sum(mask)), min=1.0)
 
     def loss_fn(self, batch, generator=None, draws=None):
         """Bridge sampling + forward + multi-head combine

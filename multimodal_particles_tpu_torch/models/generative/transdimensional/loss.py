@@ -15,6 +15,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from multimodal_particles_tpu_torch.parallel import spmd
 from multimodal_particles_tpu_torch.models.generative.transdimensional.structure import (
     StructuredState,
     adjust_state,
@@ -44,12 +45,21 @@ def add_noise(state: StructuredState, noise_schedule, forward_rate, min_t, gener
               draws=None):
     """Forward corruption (loss.py:55-66): t = min_t + (1 − min_t)·u, dims by
     Poisson deletion, then `corrupt_with`. `draws` = (u (B,), deleted (B,)
-    Poisson counts, noise_raw (B, D)) replaces the draws from `generator`."""
+    Poisson counts, noise_raw (B, D)) replaces the draws from `generator`.
+    Under spmd.global_batch the draws are the global batch's, this rank's
+    rows kept."""
     B, device = state.B, state.continuous.device
     if draws is None:
-        u = torch.rand((B,), generator=generator, device=device)
+        u = torch.rand((spmd.rows(B),), generator=generator, device=device)
         deleted = None
-        noise_raw = torch.randn((B, state.flat_dim), generator=generator, device=device)
+        noise_raw = torch.randn((spmd.rows(B), state.flat_dim), generator=generator,
+                                device=device)
+        if spmd.active():
+            # the global batch's deletion counts from its times, this rank's rows kept
+            ts = min_t + (1.0 - min_t) * u.to(torch.float32)
+            deleted = spmd.local(torch.poisson(
+                forward_rate.get_rate_integral(ts).to(torch.float32), generator=generator))
+            u, noise_raw = spmd.local(u), spmd.local(noise_raw)
     else:
         u, deleted, noise_raw = (d.to(device) for d in draws)
     ts = min_t + (1.0 - min_t) * u.to(torch.float32)
@@ -158,7 +168,7 @@ class JumpLossFinalDim:
         else:
             raise ValueError(self.mean_or_sum_over_dim)
 
-        denom = torch.clamp(valid_f.sum(), min=1.0)
+        denom = torch.clamp(spmd.total(valid_f.sum()), min=1.0)
 
         def valid_mean(rows):
             return (rows * valid_f).sum() / denom

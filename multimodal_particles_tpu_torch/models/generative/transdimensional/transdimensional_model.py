@@ -234,6 +234,11 @@ class TransdimensionalJumpDiffusion(nn.Module):
     """Jump-diffusion model over particle clouds of variable multiplicity
     (transdimensional_model.py:230-705)."""
 
+    # the loss's metrics that are extremes over the batch: a data-parallel
+    # trainer reduces them so, and sums the others (parallel/spmd.py)
+    metric_reductions = {"max_rate_xt": "max", "min_rate_delxt": "min",
+                         "min_auto_std": "min", "max_auto_L2": "max"}
+
     def __init__(self, config, datamodule=None):
         super().__init__()
         # the JAX model never reads `parallel.compute_dtype`: it computes in

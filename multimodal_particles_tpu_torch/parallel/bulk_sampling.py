@@ -16,6 +16,12 @@ The transdimensional family draws its own start (x ~ N(0, I) at dims = 1)
 and its multiplicity by birth jumps, so its source is a template of shapes
 only, and a histogram for it is refused. On a CUDA device the sweep runs
 the model's kernel path or raises: there is no fallback to the module path.
+
+Over a mesh's 'data' axis (bulk_sampling.py:94-96, :139-141, :207-209) each
+chunk is split: every data rank draws and generates its share of the chunk
+on its own device, from its own generator (the chunk's seed folded with the
+rank's index), through its own kernel path; `collect` gathers the shares
+onto rank 0.
 """
 
 import math
@@ -27,6 +33,8 @@ import torch
 from multimodal_particles_tpu_torch.data.batches import MultimodalDatabatch
 from multimodal_particles_tpu_torch.data.particle_clouds.utils import sizes_to_histograms
 from multimodal_particles_tpu_torch.models.generative.bridges import LinearUniformBridge
+from multimodal_particles_tpu_torch.parallel.collectives import all_gather_data, axis_size
+from multimodal_particles_tpu_torch.parallel.mesh import make_device_mesh
 
 
 def token_probs_from_cat_probs(cat_probs):
@@ -111,10 +119,15 @@ def runs_kernels(model, device) -> bool:
     return model._pallas_enabled(device)
 
 
-def chunk_seeds(seed, n_chunks):
+def chunk_seeds(seed, n_chunks, rank=None):
     """One generator seed a chunk, from `seed`: chunk i's draws do not depend
-    on how many chunks run."""
-    return [int(s) for s in np.random.SeedSequence(seed).generate_state(n_chunks, np.uint64)]
+    on how many chunks run. With a data `rank`, that rank's seeds (the chunk's
+    entropy and the rank)."""
+    seeds = [int(s) for s in np.random.SeedSequence(seed).generate_state(n_chunks, np.uint64)]
+    if rank is None:
+        return seeds
+    return [int(np.random.SeedSequence([s, rank]).generate_state(1, np.uint64)[0])
+            for s in seeds]
 
 
 def model_device(model) -> torch.device:
@@ -122,9 +135,10 @@ def model_device(model) -> torch.device:
 
 
 def bulk_sample(model, config, num_jets, batch_size=8192, seed=0, target_multiplicity=None,
-                multiplicity_hist=None, collect=True):
+                multiplicity_hist=None, collect=True, mesh=None):
     """Generate `num_jets` particle clouds with `model` on its device
-    (bulk_sampling.py:75-216).
+    (bulk_sampling.py:75-216), over the 'data' ranks of `mesh` (None: the
+    process group's mesh, `make_device_mesh`; one rank without one).
 
     Chunk i draws its source and its sampler noise from one generator seeded
     with `chunk_seeds(seed, n_chunks)[i]`; the last chunk is trimmed. Chunk 0
@@ -133,11 +147,22 @@ def bulk_sample(model, config, num_jets, batch_size=8192, seed=0, target_multipl
     histogram of `target_multiplicity` (per-jet sizes), else
     `multiplicity_hist`, else the config's `target_info["hist_num_particles"]`.
 
+    Over D data ranks a chunk's rows are split in D blocks of batch_size / D
+    (a multiple of D), rank r's block drawn from `chunk_seeds(seed,
+    n_chunks, r)`; with one rank, `chunk_seeds(seed, n_chunks)`.
+
     Returns (dict of numpy arrays "continuous" (num_jets, N, Dc), "discrete"
     (num_jets, N, 1) tokens and "mask" (num_jets, N, 1), or None without
-    `collect`; stats with the JAX package's keys). With `collect=False` a
-    chunk syncs on a 4-byte checksum."""
+    `collect` and on ranks other than 0; stats with the JAX package's keys,
+    the wall time the slowest rank's, and the rank's own jets/s). With
+    `collect=False` a chunk syncs on a 4-byte checksum."""
     device = model_device(model)
+    mesh = mesh if mesh is not None else make_device_mesh(device_type=device.type)
+    ranks = axis_size(mesh, "data")
+    if batch_size % ranks:
+        raise ValueError(f"batch_size {batch_size} does not split over {ranks} data ranks")
+    rank = mesh.get_local_rank("data")
+    share = batch_size // ranks
     if device.type == "cuda" and not runs_kernels(model, device):
         raise RuntimeError("bulk_sample on a CUDA device runs the model's kernel path; "
                            "this model's kernel gate is off (parallel.use_pallas or its widths)")
@@ -149,7 +174,7 @@ def bulk_sample(model, config, num_jets, batch_size=8192, seed=0, target_multipl
             multiplicity_hist = sizes_to_histograms(target_multiplicity)
         if multiplicity_hist is None:
             multiplicity_hist = (config.data.target_info or {}).get("hist_num_particles")
-        source_sampler = make_device_source_sampler(config, batch_size, multiplicity_hist,
+        source_sampler = make_device_source_sampler(config, share, multiplicity_hist,
                                                     device=device)
     else:
         if multiplicity_hist is not None or target_multiplicity is not None:
@@ -161,9 +186,9 @@ def bulk_sample(model, config, num_jets, batch_size=8192, seed=0, target_multipl
 
         def source_sampler(generator):
             # shapes only: the jump sampler starts from dims = 1, x ~ N(0, I)
-            return [torch.ones((batch_size,), dtype=torch.int32, device=device),
-                    torch.zeros((batch_size, N, Dc), device=device),
-                    torch.zeros((batch_size, N, V), device=device)]
+            return [torch.ones((share,), dtype=torch.int32, device=device),
+                    torch.zeros((share, N, Dc), device=device),
+                    torch.zeros((share, N, V), device=device)]
 
     generator = torch.Generator(device=device)
 
@@ -183,29 +208,44 @@ def bulk_sample(model, config, num_jets, batch_size=8192, seed=0, target_multipl
         return out, checksum
 
     n_chunks = max(math.ceil(num_jets / batch_size), 1)
-    seeds = chunk_seeds(seed, n_chunks)
+    seeds = chunk_seeds(seed, n_chunks, rank if ranks > 1 else None)
     _, warm = chunk(seeds[0])
     warm.item()
-    chunks, done = [], 0
+    chunks, done, own = [], 0, 0
+    if ranks > 1:
+        torch.distributed.barrier(group=mesh.get_group("data"))
     start = time.perf_counter()
     for i in range(n_chunks):
         out, checksum = chunk(seeds[i])
         take = min(batch_size, num_jets - done)
+        own += min(max(take - rank * share, 0), share)
         if collect:
-            chunks.append({k: v[:take].cpu().numpy() for k, v in out.items()})
+            # the chunk's rows in rank order, on rank 0
+            out = {k: all_gather_data(v, mesh) for k, v in out.items()}
+            if rank == 0:
+                chunks.append({k: v[:take].cpu().numpy() for k, v in out.items()})
         else:
             checksum.item()  # a 4-byte sync a chunk
         done += take
     seconds = time.perf_counter() - start
+    wall = seconds
+    if ranks > 1:
+        wall = torch.tensor(seconds, dtype=torch.float64, device=device)
+        torch.distributed.all_reduce(wall, op=torch.distributed.ReduceOp.MAX,
+                                     group=mesh.get_group("data"))
+        wall = wall.item()
 
     stats = {
         "num_jets": done,
-        "wall_time_s": seconds,
-        "jets_per_sec": done / seconds,
-        "jets_per_sec_per_chip": done / seconds,  # one device
-        "devices": 1,
-        "mesh": {"data": 1},
+        "wall_time_s": wall,
+        "jets_per_sec": done / wall,
+        "jets_per_sec_per_chip": done / wall / ranks,
+        "devices": ranks,
+        "mesh": {"data": ranks},
     }
-    if collect:
+    if ranks > 1:
+        stats.update(rank=rank, rank_jets=own, rank_wall_time_s=seconds,
+                     rank_jets_per_sec=own / seconds)
+    if collect and rank == 0:
         return {k: np.concatenate([c[k] for c in chunks], axis=0) for k in chunks[0]}, stats
     return None, stats

@@ -7,7 +7,10 @@ the card unless the caller asks for another device: `device=None` means
 `cuda`, and with no CUDA device that raises (pass `device="cpu"` to run on
 the CPU). `seed` seeds the parameters, the bridge noise and the data's noise
 (the source clouds): a run directory reloads to the same state with the same
-seed.
+seed. Under `torchrun` the process group starts with the experiment
+(`parallel/mesh.py::init_from_env`), `cuda` is the rank's own card, and
+every rank writes into the same run directory (give it: the default is a
+timestamp), rank 0 alone its files.
 """
 
 import os
@@ -15,24 +18,29 @@ from abc import ABC, abstractmethod
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multimodal_particles_tpu_torch.data.particle_clouds.jets import JetDataclass
 from multimodal_particles_tpu_torch.data.particle_clouds.jets_dataloader import (
     JetsDataloaderModule,
 )
+from multimodal_particles_tpu_torch.parallel.mesh import init_from_env
 from multimodal_particles_tpu_torch.training.trainer import Trainer
 from multimodal_particles_tpu_torch.utils.experiment_files import ExperimentsFiles
 
 
 def resolve_device(device=None) -> torch.device:
     """`cuda` unless `device` names another; a CUDA device that is not there
-    raises rather than falling back to the CPU."""
+    raises rather than falling back to the CPU. Under torchrun the process
+    group starts here and `cuda` is the rank's card (LOCAL_RANK)."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available: the experiments run on the GPU by default; "
             "pass device='cpu' (or --device cpu) to run on the CPU"
         )
+    if init_from_env(device.type) and device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -82,7 +90,8 @@ class BasicExperiment(ABC):
             )
             self.setup_datamodule()
             self.setup_model()
-            self.config.to_yaml(self.experiment_files.params_yaml)
+            if not dist.is_initialized() or dist.get_rank() == 0:
+                self.config.to_yaml(self.experiment_files.params_yaml)
             self.trainer = Trainer(self.model, self.config, self.experiment_files, seed=seed)
         elif experiment_dir is not None:
             self.load_from_experiment_dir(experiment_dir)

@@ -1,4 +1,6 @@
-"""Single-device trainer (counterpart of multimodal_particles_tpu/training/trainer.py:40-489).
+"""The trainer (counterpart of multimodal_particles_tpu/training/trainer.py:40-489),
+on one device or data- and tensor-parallel over a ('data', 'model') mesh of
+torch.distributed ranks:
 
   * AdamW/Adam with per-epoch cosine annealing, after global-norm gradient
     clipping in optax's form (`ClippedOptimizer`, built from the config's
@@ -15,7 +17,35 @@ The model is an `nn.Module` that owns its parameters and exposes
 The transdimensional family's config tree has `optimizer_kwargs` where the
 others have a `train` section: `resolve_train_config` synthesizes the one from
 the other (:60-87), and its EMA decay comes from `ema_halflife_kimg`
-(:142-149). Mesh, DDP and tensor parallelism are not ported.
+(:142-149).
+
+Parallelism (trainer.py:137-196, :270-293, :316-384, :426-455). The mesh
+comes from `config.parallel` (`parallel/mesh.py::make_device_mesh`) unless one
+is given; each rank reads the same global batches, pads them to a multiple of
+the data axis and keeps its rows (`pad_to_multiple`, `shard_batch`). After
+`backward` the gradients are all-reduced over 'data' in a few flat buckets
+(not DDP: the trainer calls `model.loss_fn`, not the module's forward, so
+DDP's reducer would never be prepared). `parallel.spmd_mode`:
+
+  * "jit" (JAX's default): the loss of the global batch, as XLA computes it.
+    Every draw is made for the global batch from a generator seeded alike on
+    every rank, each rank keeps its rows, the normalisers are global and the
+    ranks' shares of the loss sum to it (`parallel/spmd.py`); gradients and
+    metrics are summed over 'data'. An R-rank run equals the one-process run
+    from the same seed, up to the order of the sums.
+  * "shard_map" (collectives.py:57-117): each rank's loss on its rows, with
+    its generator seeded by (seed, data index); gradients and metrics are
+    averaged over 'data'.
+
+At `parallel.model_axis` > 1 the Megatron pairs go tensor-parallel
+(`parallel/tp.py`; "shard_map" refuses it, as JAX does); the clip takes the
+global norm (a split parameter's squares summed over 'model', a replicated
+one counted once), AdamW and the EMA act on the local shards, and a
+checkpoint holds the whole (gathered) parameters, so that it loads into a
+trainer of any layout. Only rank 0 writes checkpoints, metrics and MLflow.
+`parallel.donate_buffers` is read by the JAX trainer only (buffer donation
+has no PyTorch counterpart). With no process group the mesh has one rank and
+the trainer runs on its device alone, as before.
 """
 
 import contextlib
@@ -27,10 +57,27 @@ import time
 from types import SimpleNamespace
 from typing import Dict, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from multimodal_particles_tpu_torch.models.generative.init import init_parameters
+from multimodal_particles_tpu_torch.parallel import spmd
+from multimodal_particles_tpu_torch.parallel.collectives import (
+    all_gather_data,
+    all_reduce_coalesced,
+)
+from multimodal_particles_tpu_torch.parallel.mesh import (
+    LocalMesh,
+    batch_size,
+    make_device_mesh,
+    mesh_shape,
+    pad_to_multiple,
+    shard_batch,
+    tree_map,
+)
+from multimodal_particles_tpu_torch.parallel.tp import gather_full, local_block, shard_params_tp
 
 
 def cosine_annealing_schedule(lr: float, eta_min: float, t_max: int, steps_per_epoch: int):
@@ -82,9 +129,10 @@ class ClippedOptimizer:
     """optax.chain(clip_by_global_norm(c), adamw(schedule)) over one group of
     parameters. Weight decay applies to every parameter. The schedule is read
     at the count of applied updates before this one, so the first update uses
-    lr(0); a skipped step does not advance the count."""
+    lr(0); a skipped step does not advance the count. Under tensor
+    parallelism `sharded` names the parameters split over `model_group`."""
 
-    def __init__(self, train_config, steps_per_epoch: int, params):
+    def __init__(self, train_config, steps_per_epoch: int, params, sharded=(), model_group=None):
         params = list(params)
         sched = train_config.scheduler_params or {}
         if train_config.scheduler_name == "CosineAnnealingLR":
@@ -108,15 +156,29 @@ class ClippedOptimizer:
         self.params = params
         self.clip = float(train_config.gradient_clip_val or 0.0)
         self.count = 0
+        self.sharded = {id(p) for p in sharded}
+        self.model_group = model_group
 
     def clip_gradients(self):
         """optax.clip_by_global_norm: g ← (g / ‖g‖)·c when ‖g‖ ≥ c. (Not
         clip_grad_norm_, which divides by ‖g‖ + 1e-6.) Multi-tensor kernels:
-        a few launches for all the gradients, not a few per gradient."""
+        a few launches for all the gradients, not a few per gradient. Under
+        tensor parallelism ‖g‖ is the whole model's: the split parameters'
+        squares summed over the 'model' group, the replicated ones once."""
         grads = [p.grad for p in self.params if p.grad is not None]
         if not self.clip or not grads:
             return
-        norm = torch.nn.utils.get_total_norm(grads)
+        if self.model_group is None:
+            norm = torch.nn.utils.get_total_norm(grads)
+        else:
+            split = [p.grad for p in self.params if p.grad is not None and id(p) in self.sharded]
+            whole = [p.grad for p in self.params
+                     if p.grad is not None and id(p) not in self.sharded]
+            split_sq = (torch.nn.utils.get_total_norm(split) ** 2 if split
+                        else grads[0].new_zeros(()))
+            dist.all_reduce(split_sq, group=self.model_group)
+            whole_sq = torch.nn.utils.get_total_norm(whole) ** 2 if whole else 0.0
+            norm = torch.sqrt(split_sq + whole_sq)
         torch._foreach_mul_(grads, torch.where(norm < self.clip, 1.0, self.clip / norm))
 
     def step(self):
@@ -147,19 +209,23 @@ class TrainState:
 
 
 class Trainer:
-    """Single-device trainer.
+    """Trainer on one device, or data- and tensor-parallel over a mesh.
 
     Args:
-      model: the model (an nn.Module on its device).
+      model: the model (an nn.Module on this rank's device).
       config: full config tree (train and parallel sections used).
       experiment_files: any object with `checkpoint_path(tag)`,
         `get_checkpoint_path(tag)` and `metrics_file`, or None.
       seed: seeds the initial parameters and the bridge noise.
       ema_decay: EMA decay d (e ← d·e + (1−d)·p); None takes the config's
         `ema_halflife_kimg` where it has one, else no EMA.
+      mesh: a ('data', 'model') mesh (`parallel/mesh.py`); None builds one
+        from `config.parallel.data_axis` / `model_axis` over the process
+        group's ranks (the one-rank mesh without a process group).
     """
 
-    def __init__(self, model, config, experiment_files=None, seed: int = 0, ema_decay=None):
+    def __init__(self, model, config, experiment_files=None, seed: int = 0, ema_decay=None,
+                 mesh=None):
         self.model = model
         self.config = config
         self.files = experiment_files
@@ -167,6 +233,21 @@ class Trainer:
         self.seed = seed
         par = getattr(config, "parallel", None)
         self.skip_nonfinite_updates = bool(getattr(par, "skip_nonfinite_updates", False))
+        self.mesh = mesh if mesh is not None else make_device_mesh(
+            data_axis=getattr(par, "data_axis", -1), model_axis=getattr(par, "model_axis", 1),
+            device_type=self.device.type)
+        shape = mesh_shape(self.mesh)
+        self.data_parallel, self.model_parallel = shape["data"], shape["model"]
+        if self.model_parallel > 1 and getattr(par, "model_axis", 1) != self.model_parallel:
+            # the kernel gates read config.parallel.model_axis
+            raise ValueError(f"the mesh's model axis is {self.model_parallel}; "
+                             f"config.parallel.model_axis must say so")
+        # 'jit': the global batch's loss; 'shard_map': each rank's, averaged
+        self.spmd_mode = getattr(par, "spmd_mode", "jit") or "jit"
+        if self.spmd_mode not in ("jit", "shard_map"):
+            raise ValueError(f"unknown parallel.spmd_mode {self.spmd_mode!r}")
+        self.distributed = not isinstance(self.mesh, LocalMesh)
+        self.tp_dims: Dict[str, int] = {}
         self.state: Optional[TrainState] = None
         self.generator: Optional[torch.Generator] = None
 
@@ -174,36 +255,102 @@ class Trainer:
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
+    @property
+    def rank(self) -> int:
+        """This process's rank in the process group (0 without one): rank 0
+        writes the checkpoints and metrics."""
+        return dist.get_rank() if dist.is_initialized() else 0
+
+    def _group(self, axis):
+        return self.mesh.get_group(axis) if self.distributed else None
+
     # ------------------------------------------------------------- build
 
     def setup(self, steps_per_epoch: int = 1):
-        """Initialize the parameters from the seed, the optimizer, the EMA
-        copy and the noise generator."""
+        """Initialize the parameters from the seed (the same on every rank),
+        put them in tensor-parallel form at model_axis > 1, build the
+        optimizer, the EMA copy and the noise generator."""
         init_parameters(self.model, self.seed)
+        if self.model_parallel > 1:
+            if self.spmd_mode == "shard_map":
+                raise ValueError(
+                    "spmd_mode='shard_map' is the explicit data-parallel formulation "
+                    "(it replicates the parameters); tensor parallelism "
+                    "(parallel.model_axis > 1) requires spmd_mode='jit'")
+            self.tp_dims = shard_params_tp(self.model, self.mesh)
         params = dict(self.model.named_parameters())
-        opt = ClippedOptimizer(resolve_train_config(self.config), steps_per_epoch, params.values())
+        opt = ClippedOptimizer(resolve_train_config(self.config), steps_per_epoch, params.values(),
+                               sharded=[params[k] for k in self.tp_dims],
+                               model_group=self._group("model") if self.tp_dims else None)
         ema = ({k: p.detach().clone() for k, p in params.items()}
                if self.ema_decay is not None else None)
         self.state = TrainState(step=0, params=params, opt_state=opt, ema_params=ema)
-        self.generator = torch.Generator(device=self.device).manual_seed(self.seed + 1)
+        seed = self.seed + 1
+        if self.spmd_mode == "shard_map" and self.data_parallel > 1:
+            # each rank's own draws, as JAX folds in axis_index (collectives.py:68-69)
+            seed = _folded_seed(seed, self.mesh.get_local_rank("data"))
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         return self.state
 
+    def _global_batch(self, batch) -> Optional[spmd.GlobalBatch]:
+        """The 'jit' semantics of this rank's rows of the global batch."""
+        if self.data_parallel == 1:
+            return None
+        b = batch_size(batch)
+        r = self.mesh.get_local_rank("data")
+        return spmd.GlobalBatch(rows=slice(r * b, (r + 1) * b), size=b * self.data_parallel,
+                                group=self._group("data"), first=r == 0)
+
+    def _reduce_metrics(self, metrics, mode: str):
+        """The metrics over 'data': summed shares ('jit', extremes by the
+        model's `metric_reductions`) or averaged ('shard_map')."""
+        group = self._group("data")
+        if group is None:
+            return metrics
+        ops = getattr(self.model, "metric_reductions", {}) if mode == "jit" else {}
+        out = dict(metrics)
+        for op in ("sum", "max", "min"):
+            names = [k for k in metrics if ops.get(k, "sum") == op]
+            if not names:
+                continue
+            values = torch.stack([torch.as_tensor(metrics[k], device=self.device).float()
+                                  for k in names])
+            dist.all_reduce(values, op=_REDUCE_OPS[op], group=group)
+            if mode == "shard_map":
+                values = values / self.data_parallel
+            out.update(zip(names, values.unbind()))
+        return out
+
     def train_step(self, batch, draws=None) -> Dict[str, torch.Tensor]:
-        """One update: loss and gradients, clip + optimizer (skipped when a
-        gradient is non-finite and skip_nonfinite_updates is on), EMA. The
-        metrics stay on the device."""
+        """One update on this rank's rows of a global batch (the whole batch
+        on one rank): loss and gradients, their reduction over 'data', clip +
+        optimizer (skipped when a reduced gradient is non-finite and
+        skip_nonfinite_updates is on, on every rank alike), EMA. `draws`
+        replaces the bridge draws of this rank's rows. The metrics stay on
+        the device."""
         state = self.state
         self.model.train()
         for p in state.params.values():
             p.grad = None
-        loss, metrics = self.model.loss_fn(batch, self.generator, draws)
+        jit = self.spmd_mode == "jit"
+        with spmd.global_batch(self._global_batch(batch) if jit else None):
+            loss, metrics = self.model.loss_fn(batch, self.generator, draws)
         with record_function("train.backward"):
             loss.backward()
+        if self.distributed:
+            with record_function("train.reduce"):
+                grads = [p.grad for p in state.params.values() if p.grad is not None]
+                all_reduce_coalesced(grads, self._group("data"))
+                if not jit:
+                    torch._foreach_div_(grads, self.data_parallel)
+                metrics = self._reduce_metrics(metrics, self.spmd_mode)
         with record_function("train.optimizer"):
             if self.skip_nonfinite_updates:
                 grads = [p.grad for p in state.params.values() if p.grad is not None]
-                finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
-                metrics = {**metrics, "nonfinite_grads": 1.0 - finite.float()}
+                finite = torch.stack([torch.isfinite(g).all() for g in grads]).all().float()
+                if self.tp_dims:  # a split gradient's shard lives on one rank of the pair
+                    dist.all_reduce(finite, op=dist.ReduceOp.MIN, group=self._group("model"))
+                metrics = {**metrics, "nonfinite_grads": 1.0 - finite}
                 if bool(finite):
                     state.opt_state.step()
             else:
@@ -219,12 +366,24 @@ class Trainer:
 
     @torch.no_grad()
     def eval_step(self, batch, epoch: int, batch_idx: int) -> Dict[str, torch.Tensor]:
-        """Validation loss with bridge noise fixed by (epoch, batch index)."""
+        """Validation loss with bridge noise fixed by (epoch, batch index), of
+        the global batch in either mode (JAX's eval step is always jitted)."""
         self.model.eval()
         gen = torch.Generator(device=self.device).manual_seed(
             (self.seed + 7919 + batch_idx) * 1000003 + epoch)
-        _, metrics = self.model.loss_fn(batch, gen)
-        return metrics
+        with spmd.global_batch(self._global_batch(batch)):
+            _, metrics = self.model.loss_fn(batch, gen)
+        return self._reduce_metrics(metrics, "jit")
+
+    def shard(self, batch):
+        """This rank's rows of a global batch, padded to a multiple of the data
+        axis by repeating its last sample (trainer.py:316-330); the batch as
+        it is on a one-rank data axis. Returns (rows, the global batch's
+        size before padding)."""
+        if self.data_parallel == 1:
+            return batch, batch_size(batch)
+        batch, size = pad_to_multiple(batch, self.data_parallel)
+        return shard_batch(batch, self.mesh, self.device), size
 
     # -------------------------------------------------------------- loops
 
@@ -240,12 +399,12 @@ class Trainer:
         history = []
         for epoch in range(epochs):
             t0 = time.time()
-            train_metrics = [self.train_step(batch) for batch in datamodule.train]
+            train_metrics = [self.train_step(self.shard(batch)[0]) for batch in datamodule.train]
             record_metrics = _epoch_means(train_metrics)
             train_loss = record_metrics.pop("loss", float("nan"))
             val_loss = None
             if datamodule.valid is not None:
-                val = [float(self.eval_step(batch, epoch, i)["loss"])
+                val = [float(self.eval_step(self.shard(batch)[0], epoch, i)["loss"])
                        for i, batch in enumerate(datamodule.valid)]
                 val_loss = sum(val) / len(val) if val else None
             record = {
@@ -269,49 +428,97 @@ class Trainer:
     def predict(self, datamodule_or_batches, generator=None, use_ema: bool = True):
         """Run the model's sampler over all (test/val) batches and return the
         final states, with the EMA parameters when EMA is on
-        (trainer.py:364-390)."""
+        (trainer.py:364-390). Over a data axis each rank samples its rows,
+        from a generator seeded by (seed, data index) unless one is given;
+        every rank returns the gathered states, the padding dropped."""
         batches = datamodule_or_batches
         if hasattr(batches, "test") or hasattr(batches, "valid"):
             batches = list(getattr(batches, "test", None) or batches.valid or batches.train)
         if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(self.seed + 2)
+            seed = self.seed + 2
+            if self.data_parallel > 1:
+                seed = _folded_seed(seed, self.mesh.get_local_rank("data"))
+            generator = torch.Generator(device=self.device).manual_seed(seed)
         self.model.eval()
         swap = use_ema and self.state.ema_params is not None
         if swap:
             saved = {k: p.detach().clone() for k, p in self.state.params.items()}
-            self._copy_params(self.state.ema_params)
+            self.copy_params(self.state.ema_params)
         try:
-            return [self.model.predict(batch, generator=generator) for batch in batches]
+            outs = []
+            for batch in batches:
+                rows, size = self.shard(batch)
+                out = self.model.predict(rows, generator=generator)
+                if self.data_parallel > 1:
+                    local = batch_size(rows)
+                    out = tree_map(lambda x: all_gather_data(x, self.mesh)[:size]
+                                   if torch.is_tensor(x) and x.dim() and x.shape[0] == local
+                                   else x, out)
+                outs.append(out)
+            return outs
         finally:
             if swap:
-                self._copy_params(saved)
+                self.copy_params(saved)
 
-    def _copy_params(self, values: Dict[str, torch.Tensor]):
+    def copy_params(self, values: Dict[str, torch.Tensor]):
+        """Copy values by name into the live parameters: this rank's block of
+        a whole (gathered) value for a tensor-parallel parameter."""
         with torch.no_grad():
             for name, p in self.state.params.items():
-                p.copy_(values[name])
+                p.copy_(self.local(name, values[name]))
+
+    def local(self, name, value):
+        """This rank's block of a parameter's whole value (the value itself
+        when it already has the parameter's shape)."""
+        if name in self.tp_dims and value.shape != self.state.params[name].shape:
+            return local_block(value, self.tp_dims[name], self.mesh.get_local_rank("model"),
+                               self.model_parallel)
+        return value
+
+    def whole(self, name, value):
+        """A parameter's whole value from this rank's block of it."""
+        if name not in self.tp_dims:
+            return value
+        return gather_full(value, self.tp_dims[name], self._group("model"), self.model_parallel)
+
+    def _moments(self, opt_state, convert):
+        """The optimizer's state dict with `convert(name, moment)` applied to
+        each parameter's moments (the inner optimizer keys them by position)."""
+        names = list(self.state.params)
+        inner = opt_state["inner"]
+        return {**opt_state, "inner": {**inner, "state": {
+            i: {k: convert(names[i], v) if torch.is_tensor(v) and v.dim() else v
+                for k, v in st.items()} for i, st in inner["state"].items()}}}
 
     # -------------------------------------------------------- check/metrics
 
     def save_checkpoint(self, tag: str):
         """torch.save of step, params, optimizer state and EMA into the
-        directory `files.checkpoint_path(tag)`."""
-        path = os.path.abspath(self.files.checkpoint_path(tag))
-        os.makedirs(path, exist_ok=True)
+        directory `files.checkpoint_path(tag)`, the whole (gathered) tensors
+        under tensor parallelism; every rank takes part, rank 0 writes."""
         payload = {
             "step": self.state.step,
-            "params": {k: p.detach().cpu().clone() for k, p in self.state.params.items()},
-            "opt_state": self.state.opt_state.state_dict(),
+            "params": {k: self.whole(k, p.detach()).cpu().clone()
+                       for k, p in self.state.params.items()},
+            "opt_state": self._moments(self.state.opt_state.state_dict(),
+                                       lambda k, v: self.whole(k, v).cpu()),
         }
         if self.state.ema_params is not None:
-            payload["ema_params"] = {k: v.cpu().clone() for k, v in self.state.ema_params.items()}
-        tmp = os.path.join(path, "state.pt.tmp")
-        torch.save(payload, tmp)
-        os.replace(tmp, os.path.join(path, "state.pt"))
+            payload["ema_params"] = {k: self.whole(k, v).cpu().clone()
+                                     for k, v in self.state.ema_params.items()}
+        if self.rank == 0:
+            path = os.path.abspath(self.files.checkpoint_path(tag))
+            os.makedirs(path, exist_ok=True)
+            tmp = os.path.join(path, "state.pt.tmp")
+            torch.save(payload, tmp)
+            os.replace(tmp, os.path.join(path, "state.pt"))
+        if self.distributed:
+            dist.barrier()
 
     def load_checkpoint(self, tag_or_path: str):
         """Restore step, params, optimizer state and EMA from a checkpoint
-        directory or a files tag ('best', 'last')."""
+        directory or a files tag ('best', 'last'), whichever layout saved it:
+        under tensor parallelism each rank takes its blocks."""
         path = (tag_or_path if os.path.isdir(tag_or_path)
                 else self.files.get_checkpoint_path(tag_or_path))
         # on the CPU: the optimizer moves its moments to the parameters' device
@@ -319,14 +526,17 @@ class Trainer:
         # read them back with a synchronizing .item() per tensor and step)
         payload = torch.load(os.path.join(path, "state.pt"), map_location="cpu",
                              weights_only=True)
-        self._copy_params(payload["params"])
-        self.state.opt_state.load_state_dict(payload["opt_state"])
+        self.copy_params(payload["params"])
+        self.state.opt_state.load_state_dict(self._moments(payload["opt_state"], self.local))
         if "ema_params" in payload:
-            self.state.ema_params = {k: v.to(self.device) for k, v in payload["ema_params"].items()}
+            self.state.ema_params = {k: self.local(k, v).to(self.device)
+                                     for k, v in payload["ema_params"].items()}
         self.state.step = int(payload["step"])
         return self.state
 
     def _log_metrics(self, record: dict):
+        if self.rank != 0:
+            return
         if self.files is not None:
             with open(self.files.metrics_file, "a") as fh:
                 fh.write(json.dumps(record) + "\n")
@@ -355,6 +565,14 @@ class Trainer:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+
+
+def _folded_seed(seed: int, index: int) -> int:
+    """A generator seed from (seed, index), as jax.random.fold_in derives a key."""
+    return int(np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)[0])
 
 
 def _epoch_means(metrics_list):

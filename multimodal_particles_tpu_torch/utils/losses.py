@@ -9,6 +9,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from multimodal_particles_tpu_torch.parallel import spmd
+
 
 def multihead_loss(
     losses: Sequence[torch.Tensor], weights: torch.Tensor, mode: str = "learnable"
@@ -18,7 +20,9 @@ def multihead_loss(
     'fixed' → Σ w_i·L_i."""
     losses = list(losses)
     if mode == "learnable":
-        combined = sum(torch.exp(-weights[i]) * losses[i] + weights[i] for i in range(len(losses)))
+        # under spmd.global_batch each rank's losses are its shares; + w_i counts once
+        combined = sum(torch.exp(-weights[i]) * losses[i] + spmd.once(weights[i])
+                       for i in range(len(losses)))
     elif mode == "fixed":
         combined = sum(weights[i] * losses[i] for i in range(len(losses)))
     else:

@@ -42,7 +42,7 @@ def guided_pair():
     single birth, and the JAX 'list' batch."""
     return transdim_pair(seed=7, n=N, b=B, sections={"sampler_kwargs": {
         "dt": 1 / STEPS, "multi_birth": 1, "do_conditioning": True,
-        "guidance_weight": 2.0}})
+        "guidance_weight": 2.0}}, drawn_init=True)
 
 
 def _states(batch):

@@ -232,7 +232,7 @@ def test_unported_embedding_switch_raises(field, value):
 def fold_pair():
     """The transdimensional family at hidden 16 / global 19: its trunk is a
     bare EPiCWrapper whose discrete embedding is a Dense over the V values."""
-    return transdim_pair(seed=0, n=16, b=8)
+    return transdim_pair(seed=0, n=16, b=8, drawn_init=True)
 
 
 def _fold_inputs(seed=1):

@@ -86,7 +86,7 @@ def case(request):
         packed, _ = model.pack_for_kernel()
         return name, packed, jax_forward(jax_packed, cfg.encoder, True, False)
     if name == "transdim_folded_no_head":
-        jax_model, params, model, _ = transdim_pair()
+        jax_model, params, model, _ = transdim_pair(drawn_init=True)
         cfg = jax_model.config
         jax_packed = jax_pack_fold({"epic": params["network"]["epic"]}, cfg.encoder.num_blocks, 3)
         packed, _, _ = model.pack_for_kernel()

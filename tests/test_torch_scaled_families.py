@@ -74,7 +74,8 @@ def absorbing(request):
 
 @pytest.fixture(scope="module", params=[16, 13], ids=["N16", "N13"])
 def transdim(request):
-    return transdim_pair(seed=6, n=request.param, b=B, sections={"encoder": SCALED})
+    return transdim_pair(seed=6, n=request.param, b=B, sections={"encoder": SCALED},
+                         drawn_init=True)
 
 
 def absorbing_state(batch, seed=2):

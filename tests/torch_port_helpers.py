@@ -193,7 +193,8 @@ def transdim_pair(seed=0, n=16, b=6, sections=None, drawn_init=False):
     a config section to field overrides, e.g. {"sampler_kwargs": {"dt": 0.25}};
     a context in the data section gives the batch that context
     (`transdim_list_batch`). With `drawn_init` the weights before the noise
-    come from `drawn_params`, not from flax's init."""
+    come from `drawn_params`, not from flax's init, whose first eager run in a
+    process compiles each operation alone (~16 s)."""
     cfg = TransdimensionalEpicConfig()
     cfg.data.batch_size, cfg.data.max_num_particles = b, n
     for section, fields in (sections or {}).items():
