@@ -418,6 +418,34 @@ Phases, one JSON line each:
               39's. A rank that fails or outlives 300 s fails phases 56-59;
               both ranks are joined or killed.
 
+ 60. head_widths  K6, K7 and K8 at every transformer width and head count
+              the head kernels take beyond 128 × 2 heads (WIDTH_PAIRS: 128 ×
+              8; 256 × 8 and 64 (heads 4 wide); 384 × 4 (heads 96 wide across
+              two blocks of the cluster, GroupNorm groups too), 6 and 128
+              (heads 3 wide, one across two blocks); 512 × 16) against their
+              plain versions with the gates of phases 19, 25 and 33: K6 at
+              phase 19's shapes, K7 at phase 25's, K8 at N 17 and 128 (B=1024)
+              with a key mask and without, the same bits on a repeat (the
+              plain versions in chunks of 512 jets); then each timed at B=4096
+              (K6 N=109, K7 N=128 and Din 27, K8 N=128 with the mask) beside
+              its plain version and (K8) scaled_dot_product_attention (in
+              chunks of 512 jets where the heads are no multiple of 8
+              channels: its math path holds the (B, heads, N, N) scores); and
+              K8's path, AttnBlock(use_pallas=True) forward at each pair, one
+              launch, against AttnBlock(use_pallas=False) (1e-4 + 1e-4·|ref|)
+ 61. slice_absorbing_c256_h8, slice_absorbing_c128_h8  AbsorbingFlow at
+              AbsorbingConfig() with its survival head 256 wide with 8 heads,
+              then 128 wide with 8 heads: one predict request of 4096 jets at
+              N=109, 99 steps, K1 and K6 99 times each, no plain version
+              called, phase 20's checks (finite kinematics, tokens in range,
+              dead slots zero, source slots alive)
+ 62. slice_transdim_c256_h8, slice_transdim_c128_h8  the transdimensional
+              model at TransdimensionalEpicConfig() with its gsdm stacks 256
+              wide with 8 heads, then 128 wide with 8 heads: one predict
+              request of 4096 jets, 48 steps × multi_birth 24, K1 once and K7
+              twice a network evaluation, no plain version called, phase 26's
+              checks
+
 The line before the last lists every kernel with its launches on its own
 path's run, its two bounds from the shapes and the H100 data sheet's peaks
 (`bound_ms` with the operations on the CUDA cores in fp32, `tensor_bound_ms`
@@ -432,7 +460,10 @@ among them (`switches`, `conditional_absorbing`, `bf16_predict`, `bf16_train`,
 `evaluate`: the trained runs'; `transdim_context` (0), `quality_parity_train`,
 `quality_parity_generate`, `scaled_data_<family>` (training and generation),
 `absorbing_stress`, `transdim_sweeps`, `dp_nccl`, and each rank's own
-`dp_train_rank<r>`, `dp_train_scaled_rank<r>`, `bulk_dp_rank<r>`), and K7's
+`dp_train_rank<r>`, `dp_train_scaled_rank<r>`, `bulk_dp_rank<r>`, and phases
+60-62's `attn_block_C<c>_h<h>`, `serving_absorbing_c<c>_h<h>`,
+`serving_transdim_c<c>_h<h>`), K6's, K7's and K8's checks and times at
+every pair of phase 60 (`widths`), and K7's
 worst share of its gate on the trained flow; the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Uses torch, numpy, scipy (the port's jet metrics), the standard library, the
@@ -624,6 +655,11 @@ K7_TOL = 2e-4  # tests/test_ops/test_gsdm_stack_pallas.py:72
 SCALED_FAMILY_REQUEST_SIZES = (4096, 4096, 1024, 1024)
 K8_TOL = 2e-5  # tests/test_ops/test_attention_pallas.py:26
 K8_HEADS = 2
+# phase 60: (transformer width, heads) beyond 128 × 2 heads; phases 61-62's predicts
+WIDTH_PAIRS = ((128, 8), (256, 8), (256, 64), (384, 4), (384, 6), (384, 128), (512, 16))
+WIDTH_SLICES = ((256, 8), (128, 8))
+WIDTH_K8_N = (17, TD_N)
+WIDTH_PLAIN_CHUNK = 512  # jets a plain call: its attention holds (B, heads, N, N) scores
 MIN_EQUAL_DIMS = 0.95
 # paths_transdim: the kernel path may part (|Δx| > 1e-3 of the jet's scale) PART_FACTOR
 # times as many jets as the worst 1-ulp nudge of the module path does, and PART_SLACK more
@@ -1362,11 +1398,10 @@ def wide_backward_products_tensor_bound_ms(d, B, n):
     return roofline(2.0 * d.num_blocks * 6 * d.hidden ** 2 * B * n, 0)["tensor_bound_ms"]
 
 
-def gsdm_products_tensor_bound_ms(dim_in, n_blocks, B, n, pre_rate=False):
+def gsdm_products_tensor_bound_ms(dim_in, n_blocks, B, n, pre_rate=False, C=128):
     """The tensor-core bound of K6's or K7's products alone (proj_in over the
     real input width, six (n, C)·(C, C) a block, K6's pre_rate; not the
-    attention), at (B, n)."""
-    C = 128
+    attention), at (B, n) and transformer width C."""
     macs = n * (dim_in * C + n_blocks * 6 * C * C + (C * C if pre_rate else 0))
     return roofline(2.0 * macs * B, 0)["tensor_bound_ms"]
 
@@ -1427,23 +1462,25 @@ def kernel_bound(packed, B, kind, n=N):
 
 
 def survival_bound(head, B, n):
-    """K6's bound at (B, n): proj_in, per block six (n, C)·(C, C) products and
-    the heads' n·n scores and values (C multiply-adds a pair of slots over
-    the heads together, whatever their count), pre_rate, post_rate; in: the hidden state, the mask
-    as the caller holds it (int64), the time rows, the weights; out: the
+    """K6's bound at (B, n) and the head's transformer width C: proj_in, per
+    block six (n, C)·(C, C) products and the heads' n·n scores and values (C
+    multiply-adds a pair of slots over the heads together, whatever their
+    count and width), pre_rate, post_rate; in: the hidden state, the mask as
+    the caller holds it (int64), the time rows, the weights; out: the
     logits."""
-    C, dh, nb = 128, head.dim_hidden, head.n_blocks
+    C, dh, nb = head.channels, head.dim_hidden, head.n_blocks
     macs_per_jet = n * dh * C + nb * (6 * n * C * C + 2 * n * n * C) + n * C * C + n * C
     nbytes = B * n * (4 * dh + 8 + 4) + 4 * nb * B * C + 4 * head.flat.numel()
     return roofline(2.0 * macs_per_jet * B, nbytes)
 
 
 def gsdm_stack_bound(packed, B, n):
-    """K7's bound at (B, n): proj_in over the real input width, per block six
-    (n, C)·(C, C) products and the heads' n·n scores and values (C
-    multiply-adds a pair of slots over the heads together); in: the input,
-    the time rows, the weights; out: the hidden state (B, n, C)."""
-    C, din, nb = 128, packed.dim_in, packed.n_blocks
+    """K7's bound at (B, n) and the stack's transformer width C: proj_in over
+    the real input width, per block six (n, C)·(C, C) products and the
+    heads' n·n scores and values (C multiply-adds a pair of slots over the
+    heads together, whatever their count and width); in: the input, the
+    time rows, the weights; out: the hidden state (B, n, C)."""
+    C, din, nb = packed.channels, packed.dim_in, packed.n_blocks
     macs_per_jet = n * din * C + nb * (6 * n * C * C + 2 * n * n * C)
     nbytes = B * n * 4 * (din + C) + 4 * nb * B * C + 4 * packed.flat.numel()
     return roofline(2.0 * macs_per_jet * B, nbytes)
@@ -1798,12 +1835,15 @@ def scale_encoder(config):
     e.dim_emb_features_continuous = e.dim_emb_features_discrete = SCALED_HIDDEN
 
 
-def make_absorbing(device, num_timesteps=100, scaled=False, gains=False):
+def make_absorbing(device, num_timesteps=100, scaled=False, gains=False, heads=None):
     """AbsorbingFlow at AbsorbingConfig's defaults (EPiC 2 blocks, hidden 16;
     survival head 128 wide, 2 heads, 2 blocks; N=109), seeded weights; with
-    `scaled` at the `--scaled` backbone, with `gains` `data_dependent_gains`."""
+    `scaled` at the `--scaled` backbone, with `gains` `data_dependent_gains`,
+    with `heads` = (width, count) the survival head at that width and count."""
     config = AbsorbingConfig()
     config.bridge.num_timesteps = num_timesteps
+    if heads:
+        config.generator.transformer_dim, config.generator.n_heads = heads
     if scaled:
         scale_encoder(config)
     model = init_absorbing_parameters(AbsorbingFlow(config), SEED).to(device).eval()
@@ -1924,18 +1964,20 @@ def check_generated_absorbing(out, batch, B):
     return ok
 
 
-def phase_slice_absorbing(device, card):
-    """predict at the absorbing family's reference config: per step one launch
-    of K1 (with its hidden output) and one of K6, the solver steps in plain
-    PyTorch, no plain version of a kernel."""
-    model = make_absorbing(device)
+def phase_slice_absorbing(device, card, heads=None, sizes=ABS_REQUEST_SIZES,
+                          phase="slice_absorbing"):
+    """predict at the absorbing family's reference config (with `heads` =
+    (width, count) its survival head's): per step one launch of K1 (with its
+    hidden output) and one of K6, the solver steps in plain PyTorch, no plain
+    version of a kernel."""
+    model = make_absorbing(device, heads=heads)
     gen = torch.Generator(device=device).manual_seed(SEED + 17)
     batches = [absorbing_training_batch(B, ABS_N, 3, 8, gen, device=device, num_empty=1)
-               for B in ABS_REQUEST_SIZES]
+               for B in sizes]
     torch.cuda.synchronize()
 
     reset_counts()  # the absorbing serving path's run starts here
-    for B, batch in zip(ABS_REQUEST_SIZES, batches):
+    for B, batch in zip(sizes, batches):
         before = absorbing_counts()
         torch.cuda.synchronize()
         start = time.perf_counter()
@@ -1945,7 +1987,7 @@ def phase_slice_absorbing(device, card):
         k1 = epic_forward.launches - before["epic_forward"]
         k6 = survival_head.launches - before["survival_head"]
         checks = check_generated_absorbing(out, batch, B)
-        emit({"phase": "slice_absorbing", "B": B, "N": ABS_N, "steps": k6, "K1_launches": k1,
+        emit({"phase": phase, "heads": heads, "B": B, "N": ABS_N, "steps": k6, "K1_launches": k1,
               "K6_launches": k6, "seconds": seconds, "jets_per_s": B / seconds,
               "multiplicity_in": batch.source_mask.sum().item() / B,
               "multiplicity_out": out.mask_t.sum().item() / B,
@@ -1955,7 +1997,7 @@ def phase_slice_absorbing(device, card):
     launches = absorbing_counts()
     others = {**narrow_counts(), **wide_counts()}
     del others["epic_forward"]
-    emit({"phase": "slice_absorbing_counts", "launches": launches, "other_launches": others,
+    emit({"phase": f"{phase}_counts", "launches": launches, "other_launches": others,
           "plain_calls": plain_calls()})
     if plain_calls() != 0 or any(others.values()):
         raise RuntimeError("the absorbing serving path left its kernels")
@@ -2133,12 +2175,15 @@ def absorbing_phases(device, card, build_dir):
     return entry, k1
 
 
-def make_transdim(device, prior_batch=None, scaled=False, gains=False):
+def make_transdim(device, prior_batch=None, scaled=False, gains=False, heads=None):
     """The transdimensional model at its reference config with the sampler of
     the JAX bench's transdim line (48 steps, multi_birth 24), seeded weights,
     and a multiplicity prior from `prior_batch`'s multiplicities; with
-    `scaled` at the `--scaled` backbone, with `gains` `data_dependent_gains`."""
+    `scaled` at the `--scaled` backbone, with `gains` `data_dependent_gains`,
+    with `heads` = (width, count) the gsdm stacks at that width and count."""
     config = TransdimensionalEpicConfig()
+    if heads:
+        config.encoder.transformer_dim, config.encoder.n_heads = heads
     config.data.max_num_particles = TD_N
     config.sampler_kwargs.dt = 1.0 / TD_STEPS
     config.sampler_kwargs.multi_birth = TD_MULTI_BIRTH
@@ -2285,19 +2330,20 @@ def check_generated_transdim(out, B):
     return {**ok, "max_abs_x": scale, "centre_of_mass": centre}
 
 
-def phase_slice_transdim(device, card):
-    """predict at the transdimensional family's reference config: per network
-    evaluation one launch of K1 (folded input, hidden output) and two of K7,
-    everything between them plain PyTorch, no plain version of a kernel."""
+def phase_slice_transdim(device, card, heads=None, sizes=TD_REQUEST_SIZES,
+                         phase="slice_transdim"):
+    """predict at the transdimensional family's reference config (with
+    `heads` = (width, count) its gsdm stacks'): per network evaluation one
+    launch of K1 (folded input, hidden output) and two of K7, everything
+    between them plain PyTorch, no plain version of a kernel."""
     gen = torch.Generator(device=device).manual_seed(SEED + 24)
-    batches = [transdim_training_batch(B, TD_N, 3, 8, gen, device=device)
-               for B in TD_REQUEST_SIZES]
-    model = make_transdim(device, batches[0])
+    batches = [transdim_training_batch(B, TD_N, 3, 8, gen, device=device) for B in sizes]
+    model = make_transdim(device, batches[0], heads=heads)
     prior_mean = batches[0][0].float().mean().item()
     torch.cuda.synchronize()
 
     reset_counts()  # the transdimensional serving path's run starts here
-    for B, batch in zip(TD_REQUEST_SIZES, batches):
+    for B, batch in zip(sizes, batches):
         before = transdim_counts()
         torch.cuda.synchronize()
         start = time.perf_counter()
@@ -2309,7 +2355,7 @@ def phase_slice_transdim(device, card):
         nfe = k1  # a network evaluation launches K1 once
         checks = check_generated_transdim(out, B)
         mean_out = out.dims.float().mean().item()
-        emit({"phase": "slice_transdim", "B": B, "N": TD_N, "steps": TD_STEPS, "nfe": nfe,
+        emit({"phase": phase, "heads": heads, "B": B, "N": TD_N, "steps": TD_STEPS, "nfe": nfe,
               "K1_launches": k1, "K7_launches": k7, "seconds": seconds,
               "jets_per_s": B / seconds, "multiplicity_prior": prior_mean,
               "multiplicity_out": mean_out, "card": card, **checks})
@@ -2320,7 +2366,7 @@ def phase_slice_transdim(device, card):
     launches = transdim_counts()
     others = {**narrow_counts(), **wide_counts(), "survival_head": survival_head.launches}
     del others["epic_forward"]
-    emit({"phase": "slice_transdim_counts", "launches": launches, "other_launches": others,
+    emit({"phase": f"{phase}_counts", "launches": launches, "other_launches": others,
           "plain_calls": plain_calls()})
     if plain_calls() != 0 or any(others.values()):
         raise RuntimeError("the transdimensional serving path left its kernels")
@@ -4673,6 +4719,204 @@ def parallel_phases(device, card, build_dir, rank_target=None):
     return nccl, by_rank
 
 
+# ------------------------------------ phases 60-62: the head kernels at every width
+
+
+def chunked(fn, B, *tensors, chunk=WIDTH_PLAIN_CHUNK):
+    """fn over jet chunks of `chunk` (each tensor, or each tensor of a tuple,
+    cut along its batch axis, 1 for the stacked time rows), concatenated."""
+    def cut(t, lo, hi):
+        if isinstance(t, (tuple, list)):
+            return type(t)(x[lo:hi] for x in t)
+        return None if t is None else t[lo:hi]
+    return torch.cat([fn(*(cut(t, lo, min(lo + chunk, B)) for t in tensors))
+                      for lo in range(0, B, chunk)])
+
+
+def width_check(kernel, C, heads, shape, got, again, ref, tol, relative=True):
+    """One check line of phase 60: |err| ≤ tol (+ tol·|ref| when
+    `relative`), the same bits on a repeat, finite."""
+    err = (got - ref).abs()
+    bound = tol + (tol * ref.abs() if relative else 0.0)
+    rec = {"phase": "head_widths", "kernel": kernel, "C": C, "n_heads": heads,
+           "head_width": C // heads, **shape, "max_abs_err": err.max().item(),
+           "max_abs_ref": ref.abs().max().item(), "tol": tol, "relative": relative,
+           "worst_err_over_bound": (err / bound).max().item(),
+           "within_tol": bool((err <= bound).all().item()),
+           "same_bits_on_repeat": bool(torch.equal(got, again)),
+           "finite": bool(torch.isfinite(got).all().item())}
+    emit(rec)
+    if not (rec["within_tol"] and rec["same_bits_on_repeat"] and rec["finite"]):
+        raise RuntimeError(f"{kernel} at width {C} with {heads} heads disagrees with its plain "
+                           f"version: {rec}")
+    return rec["max_abs_err"]
+
+
+def width_time(kernel, C, heads, timed_at, kernel_fn, plain_fn, bound, card, **extra):
+    """One time line of phase 60: the kernel and its plain version in turns."""
+    ms, plain_ms = time_pair(kernel_fn, plain_fn)
+    emit({"phase": "head_widths_time", "kernel": kernel, "C": C, "n_heads": heads,
+          **timed_at, "ms": ms, "plain_ms": plain_ms, **bound, **against_bounds(bound, ms),
+          **extra, "card": card})
+    return {"ms": ms, "plain_ms": plain_ms, **bound_fields(bound), "timed_at": timed_at, **extra}
+
+
+def phase_head_widths(device, card):
+    """K6, K7 and K8 at every pair of WIDTH_PAIRS against their plain versions,
+    timed at B=4096; K8's path at each pair. Returns per kernel {pair: its
+    error, times and bounds} and the AttnBlock launches by pair."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 60)
+    torch.cuda.empty_cache()  # what the earlier phases left cached
+    out = {"survival_head": {}, "gsdm_stack": {}, "attention_core": {}}
+    attn_launches = {}
+    for C, heads in WIDTH_PAIRS:
+        key = f"C{C}_h{heads}"
+        # K6
+        model = make_absorbing(device, heads=(C, heads))
+        _, head = model.pack_for_kernel()
+        errors = []
+        for B, n in ABS_K6_SHAPES:
+            t, _, _, mask = scattered_inputs(B, n, device, gen)
+            last = torch.randn((B, n, head.dim_hidden), generator=gen, device=device)
+            tp = project_time_embeddings(model.generator, t, head.n_blocks, C)
+            got = survival_head(head, tp, last, mask.long(), n_heads=heads)
+            again = survival_head(head, tp, last, mask.long(), n_heads=heads)
+            torch.cuda.synchronize()
+            ref = chunked(lambda tp_, last_, m_: survival_head_reference(
+                head, tp_, last_, m_, n_heads=heads), B, tp, last, mask.long())
+            errors.append(width_check("K6", C, heads, {"B": B, "N": n}, got, again, ref, K6_TOL))
+
+        t, _, _, mask = scattered_inputs(ABS_B, ABS_N, device, gen)  # the timed call's
+        mask_t = mask.long()
+        last = torch.randn((ABS_B, ABS_N, head.dim_hidden), generator=gen, device=device)
+        tp = project_time_embeddings(model.generator, t, head.n_blocks, C)
+        out["survival_head"][key] = {"max_abs_err": max(errors), **width_time(
+            "K6", C, heads, {"B": ABS_B, "N": ABS_N},
+            lambda: survival_head(head, tp, last, mask_t, n_heads=heads),
+            lambda: chunked(lambda tp_, last_, m_: survival_head_reference(
+                head, tp_, last_, m_, n_heads=heads), ABS_B, tp, last, mask_t),
+            survival_bound(head, ABS_B, ABS_N), card, products_tensor_bound_ms=
+            gsdm_products_tensor_bound_ms(head.dim_hidden, head.n_blocks, ABS_B, ABS_N, True, C))}
+        del model, head, t, mask, mask_t, last, tp, got, again, ref
+
+        # K7
+        model = make_transdim(device, heads=(C, heads))
+        net = model.network
+        _, rate_stack, vec_stack = model.pack_for_kernel()
+        stacks = {24: (rate_stack, net.blocks()[0]), 27: (vec_stack, net.blocks("vec_")[0])}
+
+        def case(B, n, din):
+            packed, res_blocks = stacks[din]
+            x_in = torch.randn((B, n, din), generator=gen, device=device)
+            ts = torch.rand((B,), generator=gen, device=device)
+            with torch.no_grad():
+                tp = stack_time_embeddings(net.time_embedding(ts), res_blocks)
+            return packed, tp, x_in
+
+        errors = []
+        for B, n, din in TD_K7_SHAPES:
+            packed, tp, x_in = case(B, n, din)
+            got = gsdm_stack(packed, tp, x_in, n_heads=heads)
+            again = gsdm_stack(packed, tp, x_in, n_heads=heads)
+            torch.cuda.synchronize()
+            ref = chunked(lambda tp_, x_: gsdm_stack_reference(packed, tp_, x_, n_heads=heads),
+                          B, tp, x_in)
+            errors.append(width_check("K7", C, heads, {"B": B, "N": n, "Din": din}, got, again,
+                                      ref, K7_TOL))
+        packed, tp, x_in = case(TD_B, TD_N, 27)
+        out["gsdm_stack"][key] = {"max_abs_err": max(errors), **width_time(
+            "K7", C, heads, {"B": TD_B, "N": TD_N, "Din": 27},
+            lambda: gsdm_stack(packed, tp, x_in, n_heads=heads),
+            lambda: chunked(lambda tp_, x_: gsdm_stack_reference(packed, tp_, x_, n_heads=heads),
+                            TD_B, tp, x_in),
+            gsdm_stack_bound(packed, TD_B, TD_N), card, products_tensor_bound_ms=
+            gsdm_products_tensor_bound_ms(27, packed.n_blocks, TD_B, TD_N, C=C))}
+        del model, net, stacks, packed, tp, x_in, got, again, ref
+
+        # K8
+        errors = []
+        for n in WIDTH_K8_N:
+            q, k, v = (torch.randn((K8_CHECK_B, n, C), generator=gen, device=device)
+                       for _ in range(3))
+            mask = (torch.rand((K8_CHECK_B, n, 1), generator=gen, device=device) < 0.6).float()
+            mask[0] = 0.0
+            for m in (mask, None):
+                got = attention_core(q, k, v, m, n_heads=heads)
+                again = attention_core(q, k, v, m, n_heads=heads)
+                torch.cuda.synchronize()
+                ref = chunked(lambda q_, k_, v_, m_: attention_core_reference(
+                    q_, k_, v_, m_, n_heads=heads), K8_CHECK_B, q, k, v, m)
+                errors.append(width_check("K8", C, heads, {"B": K8_CHECK_B, "N": n,
+                                                           "masked": m is not None},
+                                          got, again, ref, K8_TOL, relative=False))
+        B, hd = TD_B, C // heads
+        q, k, v = (torch.randn((B, TD_N, C), generator=gen, device=device) for _ in range(3))
+        mask = (torch.rand((B, TD_N, 1), generator=gen, device=device) < 0.6).float()
+        q4, k4, v4 = (a.view(B, TD_N, heads, hd).transpose(1, 2) for a in (q, k, v))
+        bias4 = key_bias(mask, B, TD_N, q)[:, None]
+        # heads that are no multiple of 8 channels take SDPA's math path, which holds
+        # the (B, heads, N, N) scores: there in chunks of WIDTH_PLAIN_CHUNK jets
+        sdpa_chunk = B if hd % 8 == 0 else WIDTH_PLAIN_CHUNK
+
+        def sdpa():
+            return chunked(lambda q_, k_, v_, b_: torch.nn.functional.scaled_dot_product_attention(
+                q_, k_, v_, attn_mask=b_), B, q4, k4, v4, bias4, chunk=sdpa_chunk)
+        library_ms = (cuda_ms(sdpa) + cuda_ms(sdpa)) / 2
+        out["attention_core"][key] = {"max_abs_err": max(errors), **width_time(
+            "K8", C, heads, {"B": B, "N": TD_N, "masked": True},
+            lambda: attention_core(q, k, v, mask, n_heads=heads),
+            lambda: chunked(lambda q_, k_, v_, m_: attention_core_reference(
+                q_, k_, v_, m_, n_heads=heads), B, q, k, v, mask),
+            attention_bound(B, TD_N, C), card, library_ms=library_ms,
+            library="torch.nn.functional.scaled_dot_product_attention, float mask",
+            library_chunk=sdpa_chunk)}
+        del q, k, v, q4, k4, v4, bias4, mask, got, again, ref
+
+        # K8's path at this pair: AttnBlock(use_pallas=True) forward, one launch
+        fused = init_transdimensional_parameters(AttnBlock(C, heads, use_pallas=True), SEED)
+        fused = fused.to(device)
+        einsum = AttnBlock(C, heads, use_pallas=False).to(device)
+        einsum.load_state_dict(fused.state_dict())
+        x = torch.randn((K8_CHECK_B, ABS_N, C), generator=gen, device=device)
+        mask = (torch.rand((K8_CHECK_B, ABS_N, 1), generator=gen, device=device) < 0.6).float()
+        torch.cuda.synchronize()
+        reset_counts()  # K8's path at this pair
+        with torch.no_grad():
+            y = fused(x, mask)
+        torch.cuda.synchronize()
+        attn_launches[key] = attention_core.launches
+        calls = plain_calls()
+        with torch.no_grad():
+            ref = einsum(x, mask)
+        rec = {"phase": "head_widths_attn_block", "C": C, "n_heads": heads, "B": K8_CHECK_B,
+               "N": ABS_N, "launches": attn_launches[key], "plain_calls": calls,
+               "max_abs_err": (y - ref).abs().max().item(),
+               "within_tol": bool(((y - ref).abs() <= 1e-4 + 1e-4 * ref.abs()).all().item())}
+        emit(rec)
+        if rec["launches"] != 1 or calls or not rec["within_tol"]:
+            raise RuntimeError(f"AttnBlock(use_pallas=True) at width {C}, {heads} heads: {rec}")
+        del fused, einsum, x, mask, y, ref
+        torch.cuda.empty_cache()
+    return out, attn_launches
+
+
+def head_width_phases(device, card):
+    """Phases 60-62. Returns phase 60's per-kernel results and each path's
+    launches by kernel name."""
+    widths, attn_launches = phase_head_widths(device, card)
+    paths = {f"attn_block_C{c}_h{h}": {"attention_core": n}
+             for (c, h), n in zip(WIDTH_PAIRS, attn_launches.values())}
+    for c, h in WIDTH_SLICES:
+        paths[f"serving_absorbing_c{c}_h{h}"] = phase_slice_absorbing(
+            device, card, heads=(c, h), sizes=(ABS_B,), phase=f"slice_absorbing_c{c}_h{h}")
+        torch.cuda.empty_cache()
+    for c, h in WIDTH_SLICES:
+        paths[f"serving_transdim_c{c}_h{h}"] = phase_slice_transdim(
+            device, card, heads=(c, h), sizes=(TD_B,), phase=f"slice_transdim_c{c}_h{h}")
+        torch.cuda.empty_cache()
+    return widths, paths
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU")
@@ -4790,6 +5034,15 @@ def main():
     k3["launches_by_path"]["dp_nccl"] = nccl["epic_backward"]
     for path, launches in by_rank.items():
         for entry in kernels[:5]:
+            if launches.get(entry["name"]):
+                entry["launches_by_path"][path] = launches[entry["name"]]
+    # the head kernels at every width and head count, and the four predicts beside them
+    widths, paths = head_width_phases(device, card)
+    k8 = kernels[7]
+    for entry in (k6, k7, k8):
+        entry["widths"] = widths[entry["name"]]
+    for entry in (k1, k6, k7, k8):
+        for path, launches in paths.items():
             if launches.get(entry["name"]):
                 entry["launches_by_path"][path] = launches[entry["name"]]
     emit({"kernels": kernels})

@@ -9,7 +9,9 @@ narrow_tc.cuh (the per-warp tensor-core products and the buffer of the narrow
 forward, the sampler step and the narrow backward; epic_forward_kernel.cuh the
 forward kernel, its two instantiations and the backward's rerun),
 epic_wide.cuh (the wide ones and the tiled products), gsdm_blocks.cuh (the
-(ResnetBlock, AttnBlock) stack of the survival head and the gsdm stack) and
+(ResnetBlock, AttnBlock) stack of the survival head and the gsdm stack, whose
+kernels survival_head.cuh and gsdm_stack.cuh instantiate, a source a
+transformer width) and
 tf32x3.cuh (tensor-core products at fp32 accuracy, for every kernel that
 runs its products on the tensor cores). No fast-math: the
 telegraph update divides by 1 − exp(−Sγ(1−t)), which is about 1e-4 at the
@@ -61,13 +63,13 @@ _SIGNATURES = {
     "mmp_epic_wide_backward_workspace": [_I, _I, _P, _P, _P],
     "mmp_epic_wide_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
     # weights, tensor-core stream, temb_proj (n_blocks, B, C), last (B, N, Dh),
-    # mask (B, N), out (B, N), scratch (grid, 128, 132), grid, B, N, Dh, n_blocks,
-    # n_heads, stream
-    "mmp_survival_head": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # mask (B, N), out (B, N), scratch (grid, 2, 128, 132), grid, B, N, Dh,
+    # n_blocks, n_heads, C, stream
+    "mmp_survival_head": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # weights, tensor-core stream, temb_proj (n_blocks, B, C), x (B, N, Din),
-    # out (B, N, C), scratch (grid, 128, 132), grid, B, N, Din, n_blocks, n_heads,
-    # stream
-    "mmp_gsdm_stack": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # out (B, N, C), scratch (grid, 2, 128, 132), grid, B, N, Din, n_blocks,
+    # n_heads, C, stream
+    "mmp_gsdm_stack": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k, v, mask (B, N) or null, out (B, N, C), grid, B, N, C, n_heads, stream
     "mmp_attention_core": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

@@ -19,8 +19,11 @@ import torch
 
 from multimodal_particles_tpu_torch.ops import _build
 
-# what the kernel is compiled for (ops/csrc/attention_core.cu)
-CHANNELS = 128
+# what the kernel takes (ops/csrc/attention_core.cu): the transformer widths
+# of the head kernels (ops/gsdm_stack_cuda.py, which imports this module
+# through gsdm.py), heads of at most 128 channels, N ≤ 128
+WIDTHS = (128, 256, 384, 512)
+MAX_HEAD_WIDTH = 128
 MAX_PARTICLES = 128
 MASKED_KEY_BIAS = -1e9  # attention_pallas.py:149
 
@@ -55,12 +58,14 @@ attention_core_reference.calls = 0
 
 def attention_core_supported(shape, n_heads: int) -> bool:
     """True when the kernel takes q of `shape` (B, N, C) with `n_heads`
-    heads: C = 128, 1 ≤ N ≤ 128, heads of a multiple of 32 channels."""
+    heads: C one of 128, 256, 384, 512, 1 ≤ N ≤ 128, heads of at most 128
+    channels that divide C (a width that is not a multiple of 8 is
+    zero-padded inside the kernel)."""
     if len(shape) != 3:
         return False
     _, N, C = shape
-    return (C == CHANNELS and 1 <= N <= MAX_PARTICLES and n_heads >= 1 and C % n_heads == 0
-            and (C // n_heads) % 32 == 0)
+    return (C in WIDTHS and 1 <= N <= MAX_PARTICLES and n_heads >= 1 and C % n_heads == 0
+            and C // n_heads <= MAX_HEAD_WIDTH)
 
 
 def attention_core(q, k, v, mask=None, *, n_heads: int):
@@ -70,9 +75,9 @@ def attention_core(q, k, v, mask=None, *, n_heads: int):
     if q.device.type == "cpu":
         return attention_core_reference(q, k, v, mask, n_heads=n_heads)
     if not attention_core_supported(q.shape, n_heads):
-        raise ValueError(f"the attention kernel takes (B, N ≤ {MAX_PARTICLES}, {CHANNELS}) with "
-                         f"heads of a multiple of 32 channels, got {tuple(q.shape)} and "
-                         f"{n_heads} heads")
+        raise ValueError(f"the attention kernel takes (B, N ≤ {MAX_PARTICLES}, C in {WIDTHS}) "
+                         f"with heads of at most {MAX_HEAD_WIDTH} channels, got "
+                         f"{tuple(q.shape)} and {n_heads} heads")
     B, N, C = q.shape
     tensors = {"q": q, "k": k, "v": v}
     if mask is not None:

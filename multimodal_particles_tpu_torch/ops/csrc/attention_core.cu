@@ -6,7 +6,8 @@
 // and head, softmax over the keys of q·kᵀ/√d plus an additive key bias, times
 // v. The bias is −1e9 on the keys whose (B, N, 1) mask is 0, and there is
 // none without a mask. q, k, v and the output are (B, N, C), before proj_out
-// and the residual, heads contiguous channel ranges of C / n_heads. The
+// and the residual, heads contiguous channel ranges of C / n_heads (C, the
+// row stride, any multiple of 4; the wrapper takes 128 … 512). The
 // gradient is not a kernel: the JAX package's custom VJP is autodiff of the
 // einsum (:123-128), and ops/attention_cuda.py's autograd Function does the
 // same with the plain version.
@@ -38,6 +39,12 @@
 //   * The 1/√d scale multiplies the fp32 score, as the einsum does.
 //   * Each warp stages its 16 output rows in its own q rows and stores them
 //     as float4.
+//   * A head of hd channels runs in the instance for HD = 8, 16, 32, 64 or
+//     128 ≥ hd. Where hd < HD (3, 12, 48, 96, …: the PADDED instances) the
+//     head's channels are loaded by plain loads and zero-padded to HD
+//     inside the kernel: the padded q·k columns add 0, and the padded output
+//     columns are not stored. Where hd = HD the loads and stores are the
+//     ones above.
 //
 // C interface (bound with ctypes by ops/attention_cuda.py): returns the
 // cudaError_t of the launch, 0 on success.
@@ -50,7 +57,6 @@ namespace mmpa {
 
 using namespace tf32x3;
 
-constexpr int C = 128;        // channels, all heads
 constexpr int ROWS = 128;     // particle slots per jet
 constexpr int THREADS = 256;  // 8 warps of 16 query rows
 constexpr int KC = 64;        // keys a softmax chunk
@@ -64,11 +70,14 @@ struct Smem {
   static_assert(BYTES <= 232448, "over a block's 227 KB of shared memory");
 };
 
-template <int HD, bool MASKED>
+// HD: the instance's head width; hd the head's channels, HD unless PADDED
+// (hd < HD, the rest zero-padded); C: the row stride, n_heads · hd.
+template <int HD, bool MASKED, bool PADDED>
 __global__ void __launch_bounds__(THREADS, HD == 128 ? 1 : 2)
 attention_core_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ mask,
-                      float* __restrict__ out, int B, int N, int n_heads, float scale) {
+                      float* __restrict__ out, int B, int N, int C, int n_heads, int hd,
+                      float scale) {
   constexpr int LD = Smem<HD>::LD, F4 = HD / 4, NT = HD / 8;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
@@ -82,21 +91,32 @@ attention_core_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int item = blockIdx.x; item < B * n_heads; item += gridDim.x) {
     const int jet = item / n_heads, head = item % n_heads;
-    const size_t base = (size_t)jet * N * C + (size_t)head * HD;
-    for (int idx = tid; idx < npad * F4; idx += THREADS) {
-      const int r = idx / F4, c = (idx % F4) * 4;
-      const bool real = r < N;
-      const size_t src = base + (size_t)(real ? r : 0) * C + c;
-      cp_async16(Qs + r * LD + c, q + src, real);
-      cp_async16(Ks + r * LD + c, k + src, real);
+    const size_t base = (size_t)jet * N * C + (size_t)head * hd;
+    if constexpr (!PADDED) {
+      for (int idx = tid; idx < npad * F4; idx += THREADS) {
+        const int r = idx / F4, c = (idx % F4) * 4;
+        const bool real = r < N;
+        const size_t src = base + (size_t)(real ? r : 0) * C + c;
+        cp_async16(Qs + r * LD + c, q + src, real);
+        cp_async16(Ks + r * LD + c, k + src, real);
+      }
+      cp_async_commit();
+      for (int idx = tid; idx < npad * F4; idx += THREADS) {
+        const int r = idx / F4, c = (idx % F4) * 4;
+        const bool real = r < N;
+        cp_async16(Vs + r * LD + c, v + base + (size_t)(real ? r : 0) * C + c, real);
+      }
+      cp_async_commit();
+    } else {  // a head narrower than the instance: zero past hd and N
+      for (int idx = tid; idx < npad * HD; idx += THREADS) {
+        const int r = idx / HD, c = idx % HD;
+        const bool real = r < N && c < hd;
+        const size_t src = base + (size_t)r * C + c;
+        Qs[r * LD + c] = real ? q[src] : 0.f;
+        Ks[r * LD + c] = real ? k[src] : 0.f;
+        Vs[r * LD + c] = real ? v[src] : 0.f;
+      }
     }
-    cp_async_commit();
-    for (int idx = tid; idx < npad * F4; idx += THREADS) {
-      const int r = idx / F4, c = (idx % F4) * 4;
-      const bool real = r < N;
-      cp_async16(Vs + r * LD + c, v + base + (size_t)(real ? r : 0) * C + c, real);
-    }
-    cp_async_commit();
     if (tid < N) kbias[tid] = MASKED && !(mask[(size_t)jet * N + tid] > 0.f) ? MASKED_KEY_BIAS : 0.f;
     cp_async_wait<1>();
     __syncthreads();
@@ -219,10 +239,17 @@ attention_core_kernel(const float* __restrict__ q, const float* __restrict__ k,
       }
       __syncwarp();
       const int rows = min(16, N - row0);
-      for (int idx = lane; idx < rows * F4; idx += 32) {
-        const int r = row0 + idx / F4, c = (idx % F4) * 4;
-        *reinterpret_cast<float4*>(out + base + (size_t)r * C + c) =
-            *reinterpret_cast<const float4*>(Qs + r * LD + c);
+      if constexpr (!PADDED) {
+        for (int idx = lane; idx < rows * F4; idx += 32) {
+          const int r = row0 + idx / F4, c = (idx % F4) * 4;
+          *reinterpret_cast<float4*>(out + base + (size_t)r * C + c) =
+              *reinterpret_cast<const float4*>(Qs + r * LD + c);
+        }
+      } else {
+        for (int idx = lane; idx < rows * hd; idx += 32) {
+          const int r = row0 + idx / hd, c = idx % hd;
+          out[base + (size_t)r * C + c] = Qs[r * LD + c];
+        }
       }
     }
     __syncthreads();  // the tiles are free for the block's next pair
@@ -231,13 +258,18 @@ attention_core_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int HD>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* mask, float* out,
-                   int grid, int B, int N, int n_heads, cudaStream_t stream) {
-  auto kernel = mask != nullptr ? attention_core_kernel<HD, true> : attention_core_kernel<HD, false>;
+                   int grid, int B, int N, int C, int n_heads, cudaStream_t stream) {
+  const int hd = C / n_heads;
+  auto kernel = hd == HD ? (mask != nullptr ? attention_core_kernel<HD, true, false>
+                                            : attention_core_kernel<HD, false, false>)
+                         : (mask != nullptr ? attention_core_kernel<HD, true, true>
+                                            : attention_core_kernel<HD, false, true>);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)Smem<HD>::BYTES);
   if (err != cudaSuccess) return err;
-  const float scale = (float)(1.0 / sqrt((double)HD));  // hd**-0.5 as the einsum takes it
-  kernel<<<grid, THREADS, Smem<HD>::BYTES, stream>>>(q, k, v, mask, out, B, N, n_heads, scale);
+  const float scale = (float)(1.0 / sqrt((double)hd));  // hd**-0.5 as the einsum takes it
+  kernel<<<grid, THREADS, Smem<HD>::BYTES, stream>>>(q, k, v, mask, out, B, N, C, n_heads, hd,
+                                                     scale);
   return cudaGetLastError();
 }
 
@@ -245,13 +277,14 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
 
 // q, k, v, out: (B, N, C) float32, 16-byte aligned; mask: (B, N) float32 or
 // null. A block a (jet, head) pair: grid = B · n_heads, or fewer blocks that
-// walk the pairs. Heads of 32, 64 or 128 channels.
+// walk the pairs. C a multiple of 4, heads of 1 … 128 channels.
 extern "C" int mmp_attention_core(const void* q, const void* k, const void* v, const void* mask,
                                   void* out, int grid, int B, int N, int channels, int n_heads,
                                   void* stream) {
   using namespace mmpa;
-  if (N < 1 || N > ROWS || channels != C || n_heads < 1 || C % n_heads != 0 ||
-      (C / n_heads) % 32 != 0 || grid < 1)
+  const int C = channels;
+  if (N < 1 || N > ROWS || C < 4 || C % 4 != 0 || n_heads < 1 || C % n_heads != 0 ||
+      C / n_heads > 128 || grid < 1)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const auto* qf = static_cast<const float*>(q);
@@ -260,9 +293,8 @@ extern "C" int mmp_attention_core(const void* q, const void* k, const void* v, c
   const auto* mf = static_cast<const float*>(mask);
   auto* of = static_cast<float*>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C / n_heads) {
-    case 32: return launch<32>(qf, kf, vf, mf, of, grid, B, N, n_heads, s);
-    case 64: return launch<64>(qf, kf, vf, mf, of, grid, B, N, n_heads, s);
-    default: return launch<128>(qf, kf, vf, mf, of, grid, B, N, n_heads, s);
-  }
+  const int hd = C / n_heads;
+  auto run = hd <= 8 ? launch<8> : hd <= 16 ? launch<16> : hd <= 32 ? launch<32>
+           : hd <= 64 ? launch<64> : launch<128>;
+  return run(qf, kf, vf, mf, of, grid, B, N, C, n_heads, s);
 }

@@ -50,17 +50,60 @@
 //     device memory (64 KB, L2-resident), parked after the AttnBlock's
 //     GroupNorm statistics and added back in proj_out's epilogue.
 // Rows from N on of h, the work tile and v are kept at 0.
+//
+// Wider stacks (transformer width 256, 384, 512: CL = width / 128 = 2 … 4).
+// A jet no longer fits one block: at width 128 the three tiles, the ring and
+// the vectors already take 224.5 of the 227 KB a block may have. So a jet
+// becomes a thread-block cluster of CL blocks on CL SMs of one GPC, block
+// `rank` owning channels 128·rank … + 127 of all N rows of every tile: each
+// block's plan is the one above, byte for byte, and its products are the
+// same m64n128k8 tiles, CL times as deep.
+//   * A product's A operand (all 128·CL input channels) is read from the
+//     peer blocks' shared memory (distributed shared memory, through the
+//     cluster's generic addresses); each block streams its own 128 output
+//     columns of every weight (the wrapper lays the CL column slices one
+//     after the other) and writes its own 128 columns.
+//   * GroupNorm's 32 groups (4·CL channels each; at 384 group 10 is
+//     channels 120–131, across two blocks): each block sums its own
+//     channels, and each group's sums are reduced across the cluster; every
+//     block keeps the per-channel rstd·scale and per-group means of all
+//     channels, and reads the biases from device memory.
+//   * Attention: each block computes the heads that hold any of its
+//     channels, and P·v only for its own channels. A head that lies across
+//     two blocks (a width that does not divide 128: 96, or 3, whose head 42
+//     is channels 126–128 at width 384) reads its other channels of q and k
+//     from the peer; its output goes to the block's second scratch tile and
+//     back into its own columns once every block has attended.
+//   * The cluster synchronises (barrier.cluster) wherever a block is about
+//     to overwrite a tile that its peers may still read, and wherever it
+//     reads what its peers wrote; a cluster is resident as a whole, so the
+//     barrier cannot deadlock.
+//   What bounds it: a jet's products grow as CL² (CL blocks, each product
+//   CL times as deep), its attention as CL, its bytes hardly at all, so the
+//   operations bound it as at width 128; besides, a block reads (CL − 1)/CL
+//   of its products' A operands from its peers' shared memory, at several
+//   times a local read's latency, and waits at the cluster's barriers (two
+//   a GroupNorm, three to five an AttnBlock).
+// Heads of a width that is not a multiple of 8 (1, 2, 3, 4, …) take the
+// general attention with their channels zero-padded to 8: the padded q·k
+// columns add 0, the padded output columns are not stored. At width 128
+// with heads of a multiple of 8 the code is the one above: every cluster
+// step is `if constexpr (CL > 1)`.
 #pragma once
 
 #include <math.h>
+
+#include <cooperative_groups.h>
 
 #include "tf32x3.cuh"
 
 namespace mmps {
 
 using namespace tf32x3;
+namespace cg = cooperative_groups;
 
-constexpr int C = 128;        // transformer width
+constexpr int C = 128;        // channels a block owns: the transformer width at CL = 1
+constexpr int MAX_CL = 4;     // blocks a jet: transformer width up to 512
 constexpr int ROWS = 128;     // particle slots per jet
 constexpr int THREADS = 256;  // two warpgroups
 constexpr int GROUPS = 32;    // GroupNorm groups
@@ -91,9 +134,49 @@ constexpr int TILE = ROWS * LDT;
 constexpr int S_RING = 3 * TILE;
 constexpr int S_VEC = S_RING + RING * STAGE;
 constexpr int V_RED = 0, V_RED2 = 2 * C, V_MU = 4 * C, V_END = 5 * C;
-constexpr size_t HEAD_SMEM_BYTES = sizeof(float) * (size_t)(S_VEC + V_END);
-static_assert(HEAD_SMEM_BYTES <= 232448, "over a block's 227 KB of shared memory");
 static_assert(RING >= 3, "the ring refills the slot read two k-steps before");
+// A cluster's vectors (CL > 1): the block's partial sums of both passes, the
+// 32 group means and rstds, the survival head's per-row partials of
+// post_rate, and every channel's rstd·scale.
+constexpr int VC_RED = 0, VC_RED2 = 2 * C, VC_MU = 4 * C, VC_RSTD = VC_MU + GROUPS,
+              VC_POST = VC_RSTD + GROUPS, VC_RS = VC_POST + ROWS;
+template <int CL>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (size_t)(S_VEC + (CL == 1 ? V_END : VC_RS + C * CL));
+}
+static_assert(smem_bytes<1>() <= 232448 && smem_bytes<MAX_CL>() <= 232448,
+              "over a block's 227 KB of shared memory");
+// A block's scratch in device memory: the parked residual tile, then the
+// tile of the heads that lie across two blocks.
+constexpr int SCRATCH_FLOATS = 2 * TILE;
+
+// The jet's blocks: the cluster of CL blocks, this one `rank`, owning
+// channels col0() … + 127. At CL = 1 every call is the single block's.
+template <int CL>
+struct Jet {
+  int rank;
+  __device__ __forceinline__ int col0() const { return CL == 1 ? 0 : C * rank; }
+  // Every thread of the jet's blocks; a block barrier at CL = 1.
+  __device__ __forceinline__ void sync() const {
+    if constexpr (CL == 1) {
+      __syncthreads();
+    } else {
+      cg::this_cluster().sync();
+    }
+  }
+  // `p` in this block's shared memory → the same place in block r's.
+  __device__ __forceinline__ const float* peer(const float* p, int r) const {
+    if constexpr (CL == 1) {
+      return p;
+    } else {
+      return r == rank ? p : cg::this_cluster().map_shared_rank(const_cast<float*>(p), r);
+    }
+  }
+  // Row 0 of channel gc (0 … 128·CL − 1) of tile T.
+  __device__ __forceinline__ const float* channel(const float* T, int gc) const {
+    return peer(T, gc / C) + (gc % C);
+  }
+};
 
 // Offsets in floats of one block's weights from the block's start (the
 // per-block entries of ops/gsdm_stack_cuda.py::block_layout); vectors only
@@ -104,33 +187,34 @@ struct BlockLayout {
   int stride;
 };
 
-__host__ __device__ inline BlockLayout make_block_layout() {
+// W: the transformer width, 128·CL.
+__host__ __device__ inline BlockLayout make_block_layout(int W) {
   BlockLayout L;
   int b = 0;
-  L.gn1_s = b; b += C;
-  L.gn1_b = b; b += C;
-  L.w_c1 = b;  b += C * C;
-  L.b_c1 = b;  b += C;
-  L.gn2_s = b; b += C;
-  L.gn2_b = b; b += C;
-  L.w_c2 = b;  b += C * C;
-  L.b_c2 = b;  b += C;
-  L.gna_s = b; b += C;
-  L.gna_b = b; b += C;
-  L.wq = b;    b += C * C;
-  L.bq = b;    b += C;
-  L.wk = b;    b += C * C;
-  L.bk = b;    b += C;
-  L.wv = b;    b += C * C;
-  L.bv = b;    b += C;
-  L.wp = b;    b += C * C;
-  L.bp = b;    b += C;
+  L.gn1_s = b; b += W;
+  L.gn1_b = b; b += W;
+  L.w_c1 = b;  b += W * W;
+  L.b_c1 = b;  b += W;
+  L.gn2_s = b; b += W;
+  L.gn2_b = b; b += W;
+  L.w_c2 = b;  b += W * W;
+  L.b_c2 = b;  b += W;
+  L.gna_s = b; b += W;
+  L.gna_b = b; b += W;
+  L.wq = b;    b += W * W;
+  L.bq = b;    b += W;
+  L.wk = b;    b += W * W;
+  L.bk = b;    b += W;
+  L.wv = b;    b += W * W;
+  L.bv = b;    b += W;
+  L.wp = b;    b += W * W;
+  L.bp = b;    b += W;
   L.stride = b;
   return L;
 }
 
-// Stages of a block in the stream: conv1, conv2, k, v, q, proj_out.
-constexpr int BLOCK_STAGES = 6 * KSTEPS;
+// Stages of a block in a block's stream: conv1, conv2, k, v, q, proj_out.
+constexpr int BLOCK_STAGES = 6 * KSTEPS;  // × CL
 
 // No IEEE division in the kernels: its slow path is a called subroutine,
 // which makes ptxas spill registers and wait for wgmma results in flight.
@@ -202,29 +286,48 @@ __device__ __forceinline__ float2 ldg2(const float* p) {
 // (mma.m16n8k8's: rows r0, r0 + 8, r0, r0 + 8 at fragment columns t, t, t + 4,
 // t + 4).
 //
-// From a tile, column 8kt + t and 8kt + t + 4, through f(column, value).
-template <class F>
+// From a tile, column 8kt + t and 8kt + t + 4, through f(column, value). At
+// CL > 1 the columns are the cluster's, k-step kt in block kt / KSTEPS's tile.
+template <class F, int CL = 1>
 struct TileA {
   const float* T;
   F f;
+  Jet<CL> jet;
   __device__ __forceinline__ void operator()(int kt, float (&x)[4]) const {
     const int r0 = frag_row0(), sg = swz(r0), c = 8 * kt + (threadIdx.x & 3);
-    const float* row = T + r0 * LDT;
-    x[0] = f(c, row[c ^ sg]);
-    x[1] = f(c, row[8 * LDT + (c ^ sg)]);
-    x[2] = f(c + 4, row[(c + 4) ^ sg]);
-    x[3] = f(c + 4, row[8 * LDT + ((c + 4) ^ sg)]);
+    if constexpr (CL == 1) {
+      const float* row = T + r0 * LDT;
+      x[0] = f(c, row[c ^ sg]);
+      x[1] = f(c, row[8 * LDT + (c ^ sg)]);
+      x[2] = f(c + 4, row[(c + 4) ^ sg]);
+      x[3] = f(c + 4, row[8 * LDT + ((c + 4) ^ sg)]);
+    } else {
+      const int owner = kt / KSTEPS, lc = c - C * owner;
+      const float* row = jet.peer(T, owner) + r0 * LDT;
+      x[0] = f(c, row[lc ^ sg]);
+      x[1] = f(c, row[8 * LDT + (lc ^ sg)]);
+      x[2] = f(c + 4, row[(lc + 4) ^ sg]);
+      x[3] = f(c + 4, row[8 * LDT + ((lc + 4) ^ sg)]);
+    }
   }
 };
 struct Plain {
   __device__ __forceinline__ float operator()(int, float x) const { return x; }
 };
-// GroupNorm by gn_stats' vectors, then swish if SWISH.
-template <bool SWISH>
+// GroupNorm by gn_stats' vectors, then swish if SWISH. At CL > 1 by
+// gn_stats_cluster's, with the biases `bias` (all channels) from device
+// memory.
+template <bool SWISH, int CL = 1>
 struct Norm {
   const float* vec;
+  const float* __restrict__ bias;
   __device__ __forceinline__ float operator()(int c, float x) const {
-    const float y = fmaf(x - vec[V_MU + c], vec[V_RED + c], vec[V_RED + C + c]);
+    float y;
+    if constexpr (CL == 1) {
+      y = fmaf(x - vec[V_MU + c], vec[V_RED + c], vec[V_RED + C + c]);
+    } else {
+      y = fmaf(x - vec[VC_MU + c / (GSIZE * CL)], vec[VC_RS + c], __ldg(bias + c));
+    }
     return SWISH ? swish(y) : y;
   }
 };
@@ -263,6 +366,68 @@ __device__ __forceinline__ void gn_stats(const float* T, const float* __restrict
     red[C + c] = bias[c];
   }
   __syncthreads();
+}
+
+// gn_stats at CL > 1, for the cluster's channels: each block sums its own
+// channels over rows < N, each group's sums are reduced across the blocks
+// (8 threads a group, each over a share of its channels), and every block
+// keeps the 32 group means (VC_MU) and the rstd·scale of every channel
+// (VC_RS). `scale`: all channels. Every thread of the cluster calls it; the
+// two passes' partial sums alternate between VC_RED and VC_RED2, so that a
+// peer still reading one pass's sums after a cluster barrier never finds the
+// next call's. It ends with a block barrier.
+template <int CL>
+__device__ __forceinline__ void gn_stats_cluster(const float* T, const float* __restrict__ scale,
+                                                 int N, float* vec, const Jet<CL>& jet) {
+  constexpr int GS = GSIZE * CL;  // channels a group
+  const int tid = threadIdx.x, c = tid & (C - 1), half = tid >> 7;
+  const int grp = (jet.col0() + c) / GS;
+  const int red_group = tid >> 3, part = tid & 7;  // the group this thread reduces, its share
+  const float inv_count = __fdividef(1.f, (float)(N * GS));
+  // the group's sum over the cluster of partial sums at `off`
+  auto group_total = [&](int off) {
+    float total = 0.f;
+    for (int q = part; q < GS; q += 8) {
+      const float* red = jet.channel(vec + off, red_group * GS + q);
+      total += red[0] + red[C];
+    }
+#pragma unroll
+    for (int m = 1; m < 8; m <<= 1) total += __shfl_xor_sync(0xffffffffu, total, m);
+    return total;
+  };
+  float s = 0.f;
+  for (int r = half; r < N; r += 2) s += T[tix(r, c)];
+  vec[VC_RED + half * C + c] = s;
+  jet.sync();  // every block's sums
+  float total = group_total(VC_RED);
+  if (part == 0) vec[VC_MU + red_group] = total * inv_count;
+  __syncthreads();
+  const float mu = vec[VC_MU + grp];
+  s = 0.f;
+  for (int r = half; r < N; r += 2) {
+    const float dv = T[tix(r, c)] - mu;
+    s = fmaf(dv, dv, s);
+  }
+  vec[VC_RED2 + half * C + c] = s;
+  jet.sync();
+  total = group_total(VC_RED2);
+  if (part == 0) vec[VC_RSTD + red_group] = rsqrtf(total * inv_count + GN_EPS);
+  __syncthreads();
+  for (int ch = tid; ch < C * CL; ch += THREADS) vec[VC_RS + ch] = vec[VC_RSTD + ch / GS] * scale[ch];
+  __syncthreads();
+}
+
+// GroupNorm's statistics for the Norm of the jet's tile T: `scale`, `bias`
+// the cluster's (all channels).
+template <int CL>
+__device__ __forceinline__ void group_stats(const float* T, const float* __restrict__ scale,
+                                            const float* __restrict__ bias, int N, float* vec,
+                                            const Jet<CL>& jet) {
+  if constexpr (CL == 1) {
+    gn_stats(T, scale, bias, N, vec);
+  } else {
+    gn_stats_cluster<CL>(T, scale, N, vec, jet);
+  }
 }
 
 // One k-step: acc += a·w on the tensor cores, a_lo·w_hi + a_hi·w_lo +
@@ -314,6 +479,26 @@ __device__ __forceinline__ void gemm_tc(float (&acc)[64], const AF& afrag, int n
   fence_operands(acc);
   __syncthreads();
   ring.seq += nkt;
+}
+
+// proj_in's product acc += x·W of a (N, Din) input x (rows of Din floats),
+// W's ⌈Din/8⌉ stages next in the ring (zero rows past Din): the input's
+// columns go through the work tile `a` in passes of up to 128 (zero past N
+// and Din), each pass accumulating into the same registers. Every thread of
+// the block calls it; it ends with a barrier (`a` is free).
+__device__ __forceinline__ void project_in(float (&acc)[64], const float* __restrict__ x, int N,
+                                           int Din, float* a, Ring& ring, bool live) {
+  const int Dp = (Din + STAGE_ROWS - 1) / STAGE_ROWS * STAGE_ROWS;
+  for (int c0 = 0; c0 < Dp; c0 += C) {
+    const int width = Dp - c0 < C ? Dp - c0 : C;
+    for (int idx = threadIdx.x; idx < ROWS * width; idx += THREADS) {
+      const int r = idx / width, c = idx - r * width;
+      a[tix(r, c)] = (r < N && c0 + c < Din) ? x[r * Din + c0 + c] : 0.f;
+    }
+    __syncthreads();
+    // ends with a barrier: `a` is free for the next pass
+    gemm_tc(acc, TileA<Plain>{a, {}}, width / STAGE_ROWS, ring, live);
+  }
 }
 
 // d += a·b at fp32 accuracy on mma.sync: a_lo·b_hi + a_hi·b_lo + a_hi·b_hi.
@@ -451,46 +636,211 @@ __device__ __forceinline__ void attend(float* Q, const float* K, const float* V,
   __syncwarp();  // the rows are the warp's A operand of proj_out
 }
 
+// attend for heads of any width hd ≤ 8·NB (1 … 128) and at CL > 1: the
+// warp's 16 rows of Q attend over the keys < N, head by head over the heads
+// that hold any of this block's channels; each head's output goes to this
+// block's own channels of it. A head's channels are taken 8 at a time, those
+// past hd as 0 (they add 0 to q·kᵀ, and their output is not stored). A head
+// that lies across two blocks reads its peer's channels of q and k, and its
+// output goes to `spill` (a tile in device memory, same layout), since the
+// peer may still read this block's q; the caller copies it back after a
+// cluster barrier (`unspill`). Only the warp's own rows are written.
+template <int CL, int NB>
+__device__ __forceinline__ void attend_any(float* Q, const float* K, const float* V, int N, int hd,
+                                           const Jet<CL>& jet, float* spill) {
+  constexpr int KC = NB == 16 ? 32 : 64;  // keys a softmax chunk
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = 64 * (warp >> 2) + 16 * (warp & 3);
+  if (row0 >= N) return;
+  const int kpad = (N + 7) & ~7;
+  const int own = jet.col0(), hdp = (hd + 7) & ~7;
+  const int qr = (row0 + g) * LDT;  // the thread's rows g and g + 8 of Q
+  for (int head = own / hd; head * hd < own + C; ++head) {
+    const int hc = head * hd;
+    const int lo = max(hc, own) - own, hi = min(hc + hd, own + C) - own;  // own columns of the head
+    const bool across = hc < own || hc + hd > own + C;
+    float o[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    float row_max[2] = {-INFINITY, -INFINITY}, row_sum[2] = {0.f, 0.f};
+    for (int kc = 0; kc < kpad; kc += KC) {
+      const int nt = min(KC, kpad - kc) / 8;
+      float s[KC / 8][4];
+#pragma unroll
+      for (int j = 0; j < KC / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int kk = 0; kk < hdp; kk += 8) {
+        const int e0 = kk + t, e1 = kk + t + 4;  // the head's channels of this k-step
+        const bool in0 = e0 < hd, in1 = e1 < hd;
+        const float* q0 = jet.channel(Q, hc + min(e0, hd - 1));
+        const float* q1 = jet.channel(Q, hc + min(e1, hd - 1));
+        const float* k0 = jet.channel(K, hc + min(e0, hd - 1));
+        const float* k1 = jet.channel(K, hc + min(e1, hd - 1));
+        uint32_t ah[4], al[4];
+        split_fast(in0 ? q0[qr] : 0.f, ah[0], al[0]);
+        split_fast(in0 ? q0[qr + 8 * LDT] : 0.f, ah[1], al[1]);
+        split_fast(in1 ? q1[qr] : 0.f, ah[2], al[2]);
+        split_fast(in1 ? q1[qr + 8 * LDT] : 0.f, ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < KC / 8; ++j) {
+          if (j < nt) {
+            const int kr = (kc + 8 * j + g) * LDT;
+            uint32_t bh[2], bl[2];
+            split_fast(in0 ? k0[kr] : 0.f, bh[0], bl[0]);
+            split_fast(in1 ? k1[kr] : 0.f, bh[1], bl[1]);
+            mma3_split(s[j], ah, al, bh, bl);
+          }
+        }
+      }
+      float cmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < KC / 8; ++j) {
+        if (j < nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = kc + 8 * j + 2 * t + (e & 1);
+            const float x = key < N ? s[j][e] : -INFINITY;
+            s[j][e] = x;
+            cmax[e >> 1] = fmaxf(cmax[e >> 1], x);
+          }
+        }
+      }
+      float factor[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        cmax[h] = fmaxf(cmax[h], __shfl_xor_sync(0xffffffffu, cmax[h], 1));
+        cmax[h] = fmaxf(cmax[h], __shfl_xor_sync(0xffffffffu, cmax[h], 2));
+        const float m = fmaxf(row_max[h], cmax[h]);
+        factor[h] = expf(row_max[h] - m);
+        row_max[h] = m;
+        row_sum[h] *= factor[h];
+      }
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        o[n][0] *= factor[0];
+        o[n][1] *= factor[0];
+        o[n][2] *= factor[1];
+        o[n][3] *= factor[1];
+      }
+#pragma unroll
+      for (int j = 0; j < KC / 8; ++j) {
+        if (j < nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[j][e] = expf(s[j][e] - row_max[e >> 1]);
+            row_sum[e >> 1] += s[j][e];
+          }
+        }
+      }
+      // O += P·v over the head's own columns lo … hi − 1, 8 a block
+#pragma unroll
+      for (int j = 0; j < KC / 8; ++j) {
+        if (j < nt) {
+          uint32_t ah[4], al[4];
+          split(s[j][0], ah[0], al[0]);
+          split(s[j][2], ah[1], al[1]);
+          split(s[j][1], ah[2], al[2]);
+          split(s[j][3], ah[3], al[3]);
+          const float* v0 = V + (kc + 8 * j + 2 * t) * LDT;
+#pragma unroll
+          for (int n = 0; n < NB; ++n) {
+            if (lo + 8 * n < hi) {
+              const int c = lo + 8 * n + g;
+              uint32_t bh[2], bl[2];
+              split_fast(c < hi ? v0[c] : 0.f, bh[0], bl[0]);
+              split_fast(c < hi ? v0[LDT + c] : 0.f, bh[1], bl[1]);
+              mma3_split(o[n], ah, al, bh, bl);
+            }
+          }
+        }
+      }
+    }
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 1);
+      row_sum[h] += __shfl_xor_sync(0xffffffffu, row_sum[h], 2);
+      inv[h] = __fdividef(1.f, row_sum[h]);
+    }
+    __syncwarp();  // every lane has read the head's q
+    float* dst = across ? spill : Q;
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = lo + 8 * n + 2 * t + e;
+        if (c < hi) {
+          dst[qr + c] = o[n][e] * inv[0];
+          dst[qr + 8 * LDT + c] = o[n][2 + e] * inv[1];
+        }
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// After attend_any at CL > 1, once every block of the cluster has attended:
+// the outputs of the heads that lie across two blocks, from `spill` into
+// this block's columns of Q, rows < N. Every thread of the block calls it.
+template <int CL>
+__device__ __forceinline__ void unspill(float* Q, const float* spill, int N, int hd,
+                                        const Jet<CL>& jet) {
+  const int own = jet.col0();
+  const int first = own % hd ? hd - own % hd : 0;  // own columns of a head begun in the block before
+  const int last = (own + C) % hd;                 // own columns of a head that goes on in the next
+  for (int idx = threadIdx.x; idx < N * C; idx += THREADS) {
+    const int r = idx / C, c = idx - r * C;
+    if (c < first || c >= C - last) Q[r * LDT + c] = spill[r * LDT + c];
+  }
+  __syncthreads();
+}
+
 // n_blocks × (ResnetBlock, AttnBlock) on the residual stream h, the first
 // tile of `smem` (rows from N on 0); the other two tiles are work space.
-// `wblocks` points at the first block's weights (vectors read from there),
-// `tp` at the jet's time row of the first block, the next block's
-// tp_block_stride floats on; the ring's next stages are the blocks'; `park`
-// is the block's scratch tile in device memory. Every thread of the block
-// calls it. HD: channels a head.
-template <int HD>
+// `wblocks` points at the first block's weights (vectors read from there, of
+// the cluster's 128·CL channels), `tp` at the jet's time row of the first
+// block at this block's channels, the next block's tp_block_stride floats
+// on; the ring's next stages are the blocks'; `park` is the block's scratch
+// in device memory (SCRATCH_FLOATS). Every thread of the cluster calls it.
+// HD: channels a head, for `attend`; HD = 0: heads of `hd` channels through
+// attend_any<CL, NB> (always at CL > 1). At CL > 1 it ends with a cluster
+// barrier.
+template <int CL, int HD, int NB>
 __device__ __forceinline__ void gsdm_blocks(const float* __restrict__ wblocks,
                                             const BlockLayout& L, float* smem,
                                             const float* __restrict__ tp, size_t tp_block_stride,
-                                            Ring& ring, float* park, int N, int n_blocks) {
+                                            Ring& ring, float* park, int N, int n_blocks, int hd,
+                                            float q_scale, const Jet<CL>& jet) {
+  static_assert(CL == 1 || HD == 0, "a cluster attends through attend_any");
   float* h = smem;             // the residual stream
   float* a = smem + TILE;      // the ResnetBlock's hidden, then k
   float* v = smem + 2 * TILE;  // v
   float* vec = smem + S_VEC;
   const bool live = 64 * (threadIdx.x >> 7) < N;  // the warpgroup's rows reach below N
-  const float q_scale = 1.f / sqrtf((float)HD);
+  const int own = jet.col0();
+  constexpr int KW = KSTEPS * CL;  // k-steps of a block's product
   float acc[64];
 
   for (int blk = 0; blk < n_blocks; ++blk) {
     const float* wb = wblocks + (size_t)blk * L.stride;
+    const float* wo = wb + own;  // this block's channels of the vectors
     const float* tpb = tp + blk * tp_block_stride;
 
     // ---- ResnetBlock
-    gn_stats(h, wb + L.gn1_s, wb + L.gn1_b, N, vec);
+    group_stats(h, wb + L.gn1_s, wb + L.gn1_b, N, vec, jet);
     zero(acc);
-    gemm_tc(acc, TileA<Norm<true>>{h, {vec}}, KSTEPS, ring, live);
+    gemm_tc(acc, TileA<Norm<true, CL>, CL>{h, {vec, wb + L.gn1_b}, jet}, KW, ring, live);
     each_pair(acc, [&](int r, int c, int at, float v0, float v1) {
-      const float2 b = ldg2(wb + L.b_c1 + c), tr = ldg2(tpb + c);
+      const float2 b = ldg2(wo + L.b_c1 + c), tr = ldg2(tpb + c);
       const bool real = r < N;
       store2(a, at, real ? (v0 + b.x) + tr.x : 0.f, real ? (v1 + b.y) + tr.y : 0.f);
     });
     __syncthreads();
-    gn_stats(a, wb + L.gn2_s, wb + L.gn2_b, N, vec);
+    group_stats(a, wb + L.gn2_s, wb + L.gn2_b, N, vec, jet);
     zero(acc);
-    gemm_tc(acc, TileA<Norm<true>>{a, {vec}}, KSTEPS, ring, live);
+    gemm_tc(acc, TileA<Norm<true, CL>, CL>{a, {vec, wb + L.gn2_b}, jet}, KW, ring, live);
     each_pair(acc, [&](int r, int c, int at, float v0, float v1) {
       if (r < N) {
-        const float2 b = ldg2(wb + L.b_c2 + c);
+        const float2 b = ldg2(wo + L.b_c2 + c);
         float2* p = reinterpret_cast<float2*>(h + at);
         const float2 x = *p;
         *p = make_float2(x.x + (v0 + b.x), x.y + (v1 + b.y));
@@ -499,43 +849,100 @@ __device__ __forceinline__ void gsdm_blocks(const float* __restrict__ wblocks,
     __syncthreads();
 
     // ---- AttnBlock: h parked, k into `a`, v into `v`, q into h's tile
-    gn_stats(h, wb + L.gna_s, wb + L.gna_b, N, vec);
+    group_stats(h, wb + L.gna_s, wb + L.gna_b, N, vec, jet);
     for (int idx = threadIdx.x; idx < TILE / 4; idx += THREADS)
       reinterpret_cast<float4*>(park)[idx] = reinterpret_cast<const float4*>(h)[idx];
+    const TileA<Norm<false, CL>, CL> hn{h, {vec, wb + L.gna_b}, jet};
     zero(acc);
-    gemm_tc(acc, TileA<Norm<false>>{h, {vec}}, KSTEPS, ring, live);
+    gemm_tc(acc, hn, KW, ring, live);
     each_pair(acc, [&](int r, int c, int at, float v0, float v1) {
-      const float2 b = ldg2(wb + L.bk + c);
+      const float2 b = ldg2(wo + L.bk + c);
       const bool real = r < N;
       store2(a, at, real ? v0 + b.x : 0.f, real ? v1 + b.y : 0.f);
     });
     zero(acc);
-    gemm_tc(acc, TileA<Norm<false>>{h, {vec}}, KSTEPS, ring, live);
+    gemm_tc(acc, hn, KW, ring, live);
     each_pair(acc, [&](int r, int c, int at, float v0, float v1) {
-      const float2 b = ldg2(wb + L.bv + c);
+      const float2 b = ldg2(wo + L.bv + c);
       const bool real = r < N;
       store2(v, at, real ? v0 + b.x : 0.f, real ? v1 + b.y : 0.f);
     });
     zero(acc);
-    gemm_tc(acc, TileA<Norm<false>>{h, {vec}}, KSTEPS, ring, live);  // its barriers end h's reads
+    gemm_tc(acc, hn, KW, ring, live);  // its barriers end h's reads
+    if constexpr (CL > 1) jet.sync();  // and the peers'
     each_pair(acc, [&](int r, int c, int at, float v0, float v1) {
-      const float2 b = ldg2(wb + L.bq + c);
+      const float2 b = ldg2(wo + L.bq + c);
       store2(h, at, (v0 + b.x) * q_scale, (v1 + b.y) * q_scale);
     });
-    __syncthreads();  // k, v and q stored
-    attend<HD>(h, a, v, N);
+    jet.sync();  // k, v and q stored
+    if constexpr (HD > 0) {
+      attend<HD>(h, a, v, N);
+    } else {
+      float* spill = park + TILE;
+      attend_any<CL, NB>(h, a, v, N, hd, jet, spill);
+      if constexpr (CL > 1) {
+        if (C % hd) {  // heads across two blocks
+          jet.sync();
+          unspill(h, spill, N, hd, jet);
+        }
+        jet.sync();  // every block's output is in place: proj_out's A
+      }
+    }
     zero(acc);
-    // the warps' A fragments are the rows they attended for: no barrier before
-    gemm_tc(acc, TileA<Plain>{h, {}}, KSTEPS, ring, live);
+    // the warps' A fragments are the rows they attended for: no barrier before (CL = 1)
+    gemm_tc(acc, TileA<Plain, CL>{h, {}, jet}, KW, ring, live);
+    if constexpr (CL > 1) jet.sync();  // the peers have read h
     each_pair(acc, [&](int r, int c, int at, float v0, float v1) {
       float2 y = make_float2(0.f, 0.f);
       if (r < N) {
-        const float2 b = ldg2(wb + L.bp + c), x = *reinterpret_cast<const float2*>(park + at);
+        const float2 b = ldg2(wo + L.bp + c), x = *reinterpret_cast<const float2*>(park + at);
         y = make_float2(x.x + (v0 + b.x), x.y + (v1 + b.y));
       }
       store2(h, at, y.x, y.y);
     });
-    __syncthreads();
+    jet.sync();
+  }
+}
+
+// Heads of hd channels at CL > 1, or of a width not a multiple of 8: the NB
+// of attend_any (channel blocks of 8, a power of two ≥ ⌈hd / 8⌉).
+__host__ __device__ constexpr int head_blocks(int hd) {
+  return hd <= 8 ? 1 : hd <= 16 ? 2 : hd <= 32 ? 4 : hd <= 64 ? 8 : 16;
+}
+
+// Launch a jet kernel: at CL = 1 `grid` blocks that walk the jets; at CL > 1
+// clusters of CL blocks, as many as are resident at once (and at most
+// grid / CL, B), that walk the jets.
+template <int CL, class... Params, class... Args>
+cudaError_t launch_jets(void (*kernel)(Params...), int grid, int B, size_t smem, cudaStream_t s,
+                        Args... args) {
+  if constexpr (CL == 1) {
+    kernel<<<grid, THREADS, smem, s>>>(args...);
+    return cudaGetLastError();
+  } else {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CL;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(CL);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int resident = 0;
+    cudaError_t err =
+        cudaOccupancyMaxActiveClusters(&resident, reinterpret_cast<const void*>(kernel), &cfg);
+    if (err != cudaSuccess) return err;
+    if (resident < 1) return cudaErrorInvalidConfiguration;
+    int clusters = grid / CL < resident ? grid / CL : resident;
+    clusters = clusters < B ? clusters : B;
+    if (clusters < 1) return cudaErrorInvalidValue;
+    cfg.gridDim = dim3(clusters * CL);
+    err = cudaLaunchKernelEx(&cfg, kernel, args...);
+    return err != cudaSuccess ? err : cudaGetLastError();
   }
 }
 

@@ -19,6 +19,11 @@ rows as TF32 hi and lo halves in the tensor cores' core-matrix order
 (Din = 24 → 3 stages, 27 → 4; at the `--scaled` trunk 136 → 17, 139 → 18,
 which the kernel takes in passes of 128 columns). The kernel reads the
 vectors (biases, GroupNorm's scales) from the flat buffer.
+At transformer widths 256, 384 and 512 a jet is a cluster of C / 128 blocks
+on the card, each owning 128 channels (ops/csrc/gsdm_blocks.cuh): the
+stream holds each block's 128 output columns of every matrix, block after
+block (`tensor_core_stream`), and the flat buffer's vectors are the whole
+width's. Heads of any width up to 128 channels that divides C.
 `stack_time_embeddings` computes the per-block time rows from an already
 projected time embedding; they depend on the (B,) times only and stay plain
 PyTorch as they stay XLA in JAX (:63-70). `gsdm_stack` launches
@@ -36,19 +41,25 @@ from multimodal_particles_tpu_torch.models.architectures.gsdm import group_norm,
 from multimodal_particles_tpu_torch.ops import _build
 from multimodal_particles_tpu_torch.ops.epic_cuda import STAGE_ROWS, tensor_core_stages
 
-# what the kernels are compiled for (ops/csrc/gsdm_blocks.cuh)
+# what the kernels are compiled for (ops/csrc/gsdm_blocks.cuh): channels a
+# block owns, the transformer widths (a cluster of width / 128 blocks a jet),
+# the widest head, the slots of a jet
 CHANNELS = 128
+WIDTHS = (128, 256, 384, 512)
+MAX_HEAD_WIDTH = 128
 MAX_PARTICLES = 128
 # proj_in's rows in the flat buffer: zero rows up to a multiple of this
 # (ops/csrc/gsdm_stack.cu finds proj_in's bias after them)
 WEIGHT_TILE_ROWS = 16
-PARK_FLOATS = MAX_PARTICLES * 132  # a block's scratch tile (ops/csrc/gsdm_blocks.cuh TILE)
+# a block's scratch: its parked residual tile and the tile of the heads that
+# lie across two blocks (ops/csrc/gsdm_blocks.cuh SCRATCH_FLOATS)
+SCRATCH_FLOATS = 2 * MAX_PARTICLES * 132
 
 
-def block_layout(i: int):
-    """(name, shape) of block i's packed weights, in buffer order; matrices
-    (in, out). Must match `make_block_layout` in ops/csrc/gsdm_blocks.cuh."""
-    C = CHANNELS
+def block_layout(i: int, C: int = CHANNELS):
+    """(name, shape) of block i's packed weights at transformer width C, in
+    buffer order; matrices (in, out). Must match `make_block_layout` in
+    ops/csrc/gsdm_blocks.cuh."""
     return [
         (f"gn1_s_{i}", (C,)), (f"gn1_b_{i}", (C,)), (f"w_c1_{i}", (C, C)), (f"b_c1_{i}", (C,)),
         (f"gn2_s_{i}", (C,)), (f"gn2_b_{i}", (C,)), (f"w_c2_{i}", (C, C)), (f"b_c2_{i}", (C,)),
@@ -108,9 +119,16 @@ def blocks_reference(W: Dict[str, torch.Tensor], h, temb_projected, n_blocks: in
     return h
 
 
-def check_heads(n_heads: int):
-    if n_heads < 1 or CHANNELS % n_heads or (CHANNELS // n_heads) % 32:
-        raise ValueError(f"n_heads={n_heads}: heads must be a multiple of 32 channels of {CHANNELS}")
+def heads_supported(C: int, n_heads: int) -> bool:
+    """True when the kernels take n_heads heads at transformer width C: C
+    one of WIDTHS, heads of any width up to 128 channels that divides C."""
+    return C in WIDTHS and n_heads >= 1 and C % n_heads == 0 and C // n_heads <= MAX_HEAD_WIDTH
+
+
+def check_heads(n_heads: int, C: int):
+    if not heads_supported(C, n_heads):
+        raise ValueError(f"n_heads={n_heads} at width {C}: the kernels take widths {WIDTHS} with "
+                         f"heads of at most {MAX_HEAD_WIDTH} channels that divide the width")
 
 
 def check_float32_on(device, **tensors):
@@ -125,43 +143,52 @@ def check_float32_on(device, **tensors):
 
 
 def check_stream(stream, stages: int, device):
-    """A packing's tensor-core stream as its kernel reads it: `stages` stages,
-    float32, contiguous, 16-byte aligned, on `device`."""
+    """A packing's tensor-core stream as its kernel reads it: `stages` stages
+    (over all blocks of a cluster), float32, contiguous, 16-byte aligned, on
+    `device`."""
     check_float32_on(device, tensor_core=stream)
     if stream.numel() != stages * 2 * STAGE_ROWS * CHANNELS or stream.data_ptr() % 16:
         raise ValueError(f"the tensor-core stream must be {stages} stages, 16-byte aligned")
 
 
-def stacked_time_rows(temb_projected, n_blocks: int, B: int):
+def stacked_time_rows(temb_projected, n_blocks: int, B: int, C: int = CHANNELS):
     """n_blocks tensors (B, C) → one (n_blocks, B, C) tensor as the kernels read it."""
     if len(temb_projected) != n_blocks:
         raise ValueError(f"{len(temb_projected)} time rows for {n_blocks} blocks")
     tp = torch.stack(tuple(temb_projected))
-    if tuple(tp.shape) != (n_blocks, B, CHANNELS):
-        raise ValueError(f"time rows must be ({B}, {CHANNELS}) each, got {tuple(tp.shape[1:])}")
+    if tuple(tp.shape) != (n_blocks, B, C):
+        raise ValueError(f"time rows must be ({B}, {C}) each, got {tuple(tp.shape[1:])}")
     return tp
 
 
-def block_grid_and_scratch(B: int, device):
-    """One block an SM walks over the jets; each parks its residual tile in
-    its row of the scratch while it attends."""
-    grid = min(B, torch.cuda.get_device_properties(device).multi_processor_count)
-    return grid, torch.empty((grid, PARK_FLOATS), dtype=torch.float32, device=device)
+def block_grid_and_scratch(B: int, device, C: int = CHANNELS):
+    """One block an SM walks over the jets, in clusters of C / 128 blocks a
+    jet (the kernel launches no more clusters than are resident at once); each
+    block parks its residual tile in its row of the scratch while it attends."""
+    cl = C // CHANNELS
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    grid = min(B * cl, sms // cl * cl)
+    return grid, torch.empty((grid, SCRATCH_FLOATS), dtype=torch.float32, device=device)
 
 
 def tensor_core_stream(matrices):
-    """(K, 128) weights, (in, out), → one flat stream of their stages as the
-    kernels' weight ring reads them, matrix after matrix: each matrix padded
-    with zero rows to a multiple of 8, then per stage of 8 input rows the TF32
-    hi half and the lo half (w − hi), rounded to nearest, in core-matrix
-    order (ops/epic_cuda.py::tensor_core_stages)."""
+    """(K, C) weights, (in, out), → one flat stream of their stages as the
+    kernels' weight rings read them: for each block of a cluster (C / 128 of
+    them) its 128 output columns of every matrix, matrix after matrix, each
+    padded with zero rows to a multiple of 8, then per stage of 8 input rows
+    the TF32 hi half and the lo half (w − hi), rounded to nearest, in
+    core-matrix order (ops/epic_cuda.py::tensor_core_stages). At C = 128 one
+    block's stream."""
+    width = matrices[0].shape[1]
     with torch.no_grad():
         parts = []
-        for w in matrices:
-            pad = -w.shape[0] % STAGE_ROWS
-            if pad:
-                w = torch.cat([w, w.new_zeros((pad, w.shape[1]))])
-            parts.append(tensor_core_stages(w.detach().float()[None]))
+        for c0 in range(0, width, CHANNELS):
+            for w in matrices:
+                w = w[:, c0:c0 + CHANNELS]
+                pad = -w.shape[0] % STAGE_ROWS
+                if pad:
+                    w = torch.cat([w, w.new_zeros((pad, w.shape[1]))])
+                parts.append(tensor_core_stages(w.detach().float()[None]))
         return torch.cat(parts).contiguous()
 
 
@@ -178,19 +205,21 @@ def padded_width(dim_in: int) -> int:
     return -(-dim_in // WEIGHT_TILE_ROWS) * WEIGHT_TILE_ROWS
 
 
-def stream_stages(dim_in: int, n_blocks: int) -> int:
-    """Stages of a stack's tensor-core stream: proj_in's ⌈Din/8⌉, then 6 × 16
-    a block."""
-    return -(-dim_in // STAGE_ROWS) + n_blocks * 6 * (CHANNELS // STAGE_ROWS)
+def stream_stages(dim_in: int, n_blocks: int, C: int = CHANNELS) -> int:
+    """Stages of a stack's tensor-core stream at transformer width C, over
+    its C / 128 blocks: each block's proj_in ⌈Din/8⌉, then 6 × C / 8 a
+    block."""
+    return C // CHANNELS * (-(-dim_in // STAGE_ROWS) + n_blocks * 6 * (C // STAGE_ROWS))
 
 
-def stack_layout(dim_in: int, n_blocks: int):
-    """(name, shape) of every packed weight of a stack, in buffer order:
-    proj_in's weight with zero rows up to `padded_width(dim_in)`, its bias,
-    then the blocks. ops/csrc/gsdm_stack.cu reads the buffer in this order."""
-    entries = [("w_in", (padded_width(dim_in), CHANNELS)), ("b_in", (CHANNELS,))]
+def stack_layout(dim_in: int, n_blocks: int, C: int = CHANNELS):
+    """(name, shape) of every packed weight of a stack at transformer width
+    C, in buffer order: proj_in's weight with zero rows up to
+    `padded_width(dim_in)`, its bias, then the blocks. ops/csrc/gsdm_stack.cuh
+    reads the buffer in this order."""
+    entries = [("w_in", (padded_width(dim_in), C)), ("b_in", (C,))]
     for i in range(n_blocks):
-        entries += block_layout(i)
+        entries += block_layout(i, C)
     return entries
 
 
@@ -201,6 +230,7 @@ class PackedGsdmStack:
     dim_in: int
     n_blocks: int
     tensor_core: torch.Tensor  # the kernel's stream of weight stages (`stack_stream`)
+    channels: int = CHANNELS  # the transformer width
 
 
 def stack_stream(W: Dict[str, torch.Tensor], dim_in: int, n_blocks: int):
@@ -217,14 +247,14 @@ def pack_gsdm_stack_params(proj_in, res_blocks, attn_blocks) -> PackedGsdmStack:
     one flat buffer (gsdm_stack_pallas.py:41-60), and their tensor-core
     stream."""
     w_in = proj_in.weight.T  # (Din, C)
-    dim_in, n_blocks = w_in.shape[0], len(res_blocks)
-    pad = w_in.new_zeros((padded_width(dim_in) - dim_in, w_in.shape[1]))
+    (dim_in, C), n_blocks = w_in.shape, len(res_blocks)
+    pad = w_in.new_zeros((padded_width(dim_in) - dim_in, C))
     src = {"w_in": torch.cat([w_in, pad]), "b_in": proj_in.bias}
     for i, (res, att) in enumerate(zip(res_blocks, attn_blocks)):
         src.update(block_weights(res, att, i))
-    flat, tensors = pack_flat(src, stack_layout(dim_in, n_blocks))
+    flat, tensors = pack_flat(src, stack_layout(dim_in, n_blocks, C))
     return PackedGsdmStack(flat, tensors, dim_in, n_blocks,
-                           stack_stream(tensors, dim_in, n_blocks))
+                           stack_stream(tensors, dim_in, n_blocks), C)
 
 
 def stack_time_embeddings(temb, res_blocks):
@@ -238,8 +268,9 @@ def stack_time_embeddings(temb, res_blocks):
 def gsdm_stack_supported(config) -> bool:
     """True when the transdimensional heads match what the kernel is compiled
     for (transdimensional_model.py:329-333 without the TPU-only parts): no
-    tensor-parallel 'model' axis, channel width 128, heads of a multiple of 32
-    channels, at least one block, at most 128 slots. The stacks' input width
+    tensor-parallel 'model' axis, transformer width 128, 256, 384 or 512 with
+    heads of at most 128 channels that divide it (`heads_supported`), at least
+    one block, at most 128 slots. The stacks' input width
     (the trunk's hidden width + V, and + 3) may be any: the kernel's first
     product runs over it in passes of 128 columns, as the JAX kernel takes any
     width (gsdm_stack_pallas.py:138, :152, :168)."""
@@ -247,10 +278,7 @@ def gsdm_stack_supported(config) -> bool:
         return False
     e, d = config.encoder, config.data
     return (
-        e.transformer_dim == CHANNELS
-        and e.n_heads >= 1
-        and CHANNELS % e.n_heads == 0
-        and (CHANNELS // e.n_heads) % 32 == 0
+        heads_supported(e.transformer_dim, e.n_heads)
         and e.n_attn_blocks >= 1
         and 1 <= d.max_num_particles <= MAX_PARTICLES
     )
@@ -281,24 +309,25 @@ def gsdm_stack(packed: PackedGsdmStack, temb_projected, x_in, *, n_heads: int):
         raise ValueError(f"input width {dim_in}: packed for {packed.dim_in}")
     if not 1 <= N <= MAX_PARTICLES:
         raise ValueError(f"N={N} outside [1, {MAX_PARTICLES}]")
-    check_heads(n_heads)
-    tp = stacked_time_rows(temb_projected, packed.n_blocks, B)
+    C = packed.channels
+    check_heads(n_heads, C)
+    tp = stacked_time_rows(temb_projected, packed.n_blocks, B, C)
     check_float32_on(x_in.device, x_in=x_in, time_rows=tp, weights=packed.flat)
     if packed.flat.data_ptr() % 16:
         raise ValueError("the packed weights must be 16-byte aligned")
-    out = torch.empty((B, N, CHANNELS), dtype=torch.float32, device=x_in.device)
+    out = torch.empty((B, N, C), dtype=torch.float32, device=x_in.device)
     if B == 0:
         return out
     lib = _build.load_library()
     # the stream is checked where the kernel reads it
-    check_stream(packed.tensor_core, stream_stages(dim_in, packed.n_blocks), x_in.device)
-    grid, scratch = block_grid_and_scratch(B, x_in.device)
+    check_stream(packed.tensor_core, stream_stages(dim_in, packed.n_blocks, C), x_in.device)
+    grid, scratch = block_grid_and_scratch(B, x_in.device, C)
     with torch.cuda.device(x_in.device):
         stream = torch.cuda.current_stream(x_in.device).cuda_stream
         rc = lib.mmp_gsdm_stack(
             packed.flat.data_ptr(), packed.tensor_core.data_ptr(), tp.data_ptr(),
             x_in.data_ptr(), out.data_ptr(), scratch.data_ptr(), grid, B, N, dim_in,
-            packed.n_blocks, n_heads, stream,
+            packed.n_blocks, n_heads, C, stream,
         )
     _build.check(lib, rc, "mmp_gsdm_stack")
     gsdm_stack.launches += 1

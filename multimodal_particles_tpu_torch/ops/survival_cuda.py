@@ -15,7 +15,9 @@ the (B,) times only and stay plain PyTorch as they stay XLA in JAX (:336-352).
 takes for CPU tensors. The (ResnetBlock, AttnBlock) blocks are the gsdm
 stack's: their packing, their plain version and the wrappers' common checks
 come from ops/gsdm_stack_cuda.py, their device code from
-ops/csrc/gsdm_blocks.cuh.
+ops/csrc/gsdm_blocks.cuh. The head takes the stack's transformer widths and
+head counts (`heads_supported`: 128 … 512, heads of up to 128 channels) and
+a trunk of any hidden width up to the transformer width.
 """
 
 import dataclasses
@@ -38,21 +40,20 @@ from multimodal_particles_tpu_torch.ops.gsdm_stack_cuda import (
     check_float32_on,
     check_heads,
     check_stream,
+    heads_supported,
     pack_flat,
     stacked_time_rows,
     tensor_core_stream,
 )
 
-HIDDEN_MULTIPLE = 16  # the trunk's hidden width: a multiple of 16 up to CHANNELS
 
-
-def head_layout(dim_hidden: int, n_blocks: int):
-    """(name, shape) of every packed weight, in buffer order; matrices
-    (in, out). Must match `make_head_layout` in ops/csrc/survival_head.cu."""
-    C = CHANNELS
+def head_layout(dim_hidden: int, n_blocks: int, C: int = CHANNELS):
+    """(name, shape) of every packed weight at transformer width C, in buffer
+    order; matrices (in, out). Must match `make_head_layout` in
+    ops/csrc/survival_head.cuh."""
     entries = [("w_in_h", (dim_hidden, C)), ("w_oh0", (C,)), ("w_oh1", (C,)), ("b_in", (C,))]
     for i in range(n_blocks):
-        entries += block_layout(i)
+        entries += block_layout(i, C)
     entries += [("w_pre", (C, C)), ("b_pre", (C,)), ("w_post", (C,)), ("b_post", (1,))]
     return entries
 
@@ -64,6 +65,7 @@ class PackedSurvivalHead:
     dim_hidden: int
     n_blocks: int
     tensor_core: torch.Tensor  # the kernel's stream of weight stages (`head_stream`)
+    channels: int = CHANNELS  # the transformer width
 
 
 def head_stream(W: Dict[str, torch.Tensor], n_blocks: int):
@@ -75,10 +77,11 @@ def head_stream(W: Dict[str, torch.Tensor], n_blocks: int):
     return tensor_core_stream(matrices + [W["w_pre"]])
 
 
-def head_stages(dim_hidden: int, n_blocks: int) -> int:
-    """Stages of a head's tensor-core stream: proj_in's Dh / 8, then 6 × 16 a
-    block and 16 for pre_rate."""
-    return dim_hidden // STAGE_ROWS + (n_blocks * 6 + 1) * (CHANNELS // STAGE_ROWS)
+def head_stages(dim_hidden: int, n_blocks: int, C: int = CHANNELS) -> int:
+    """Stages of a head's tensor-core stream at transformer width C, over its
+    C / 128 blocks: each block's proj_in ⌈Dh/8⌉, then 6 × C / 8 a block and
+    C / 8 for pre_rate."""
+    return C // CHANNELS * (-(-dim_hidden // STAGE_ROWS) + (n_blocks * 6 + 1) * (C // STAGE_ROWS))
 
 
 def pack_survival_head_params(generator, n_blocks: int) -> PackedSurvivalHead:
@@ -86,7 +89,7 @@ def pack_survival_head_params(generator, n_blocks: int) -> PackedSurvivalHead:
     (survival_pallas.py:56-91). proj_in's weight is split into the rows that
     multiply the trunk's hidden state and the two rows of the mask's one-hot."""
     w_in = generator.transformer_1_proj_in.weight.T  # (Dh + 2, C)
-    dh = w_in.shape[0] - 2
+    dh, C = w_in.shape[0] - 2, w_in.shape[1]
     src = {"w_in_h": w_in[:dh], "w_oh0": w_in[dh], "w_oh1": w_in[dh + 1],
            "b_in": generator.transformer_1_proj_in.bias}
     for i in range(n_blocks):
@@ -94,8 +97,8 @@ def pack_survival_head_params(generator, n_blocks: int) -> PackedSurvivalHead:
                                  getattr(generator, f"attn_block_{i}"), i))
     src.update(w_pre=generator.pre_rate_proj.weight.T, b_pre=generator.pre_rate_proj.bias,
                w_post=generator.post_rate_proj.weight[0], b_post=generator.post_rate_proj.bias)
-    flat, tensors = pack_flat(src, head_layout(dh, n_blocks))
-    return PackedSurvivalHead(flat, tensors, dh, n_blocks, head_stream(tensors, n_blocks))
+    flat, tensors = pack_flat(src, head_layout(dh, n_blocks, C))
+    return PackedSurvivalHead(flat, tensors, dh, n_blocks, head_stream(tensors, n_blocks), C)
 
 
 @torch.no_grad()
@@ -110,21 +113,17 @@ def project_time_embeddings(generator, t, n_blocks: int, temb_dim: int):
 def survival_supported(config) -> bool:
     """True when the head matches what the kernel is compiled for
     (survival_pallas.py:355-366 without the TPU-only parts): no tensor-parallel
-    'model' axis, channel width 128, heads of a multiple of 32 channels, at
-    least one block, at most 128 slots, and a trunk whose hidden width the
-    kernel's first product takes."""
+    'model' axis, transformer width 128, 256, 384 or 512 with heads of at
+    most 128 channels that divide it (`heads_supported`), at least one block,
+    at most 128 slots, and a trunk hidden width up to the transformer width."""
     if getattr(getattr(config, "parallel", None), "model_axis", 1) > 1:
         return False
     g, hidden = config.generator, config.encoder.dim_hidden_local
     return (
-        g.transformer_dim == CHANNELS
-        and g.n_heads >= 1
-        and CHANNELS % g.n_heads == 0
-        and (CHANNELS // g.n_heads) % 32 == 0
+        heads_supported(g.transformer_dim, g.n_heads)
         and g.n_attn_blocks >= 1
         and 1 <= config.data.max_num_particles <= MAX_PARTICLES
-        and hidden % HIDDEN_MULTIPLE == 0
-        and hidden <= CHANNELS
+        and 1 <= hidden <= g.transformer_dim
     )
 
 
@@ -162,34 +161,34 @@ def survival_head(packed: PackedSurvivalHead, temb_projected, last_layer, mask_t
     if last_layer.dim() != 3:
         raise ValueError(f"last_layer must be (B, N, Dh), got {tuple(last_layer.shape)}")
     B, N, dh = last_layer.shape
-    C = CHANNELS
-    if dh != packed.dim_hidden or dh % HIDDEN_MULTIPLE or not HIDDEN_MULTIPLE <= dh <= C:
+    C = packed.channels
+    if dh != packed.dim_hidden or not 1 <= dh <= C:
         raise ValueError(f"hidden width {dh}: packed for {packed.dim_hidden}, the kernel takes "
-                         f"multiples of {HIDDEN_MULTIPLE} up to {C}")
+                         f"1 to {C}")
     if not 1 <= N <= MAX_PARTICLES:
         raise ValueError(f"N={N} outside [1, {MAX_PARTICLES}]")
-    check_heads(n_heads)
+    check_heads(n_heads, C)
     if tuple(mask_t.shape) != (B, N, 1):
         raise ValueError(f"mask_t must be ({B}, {N}, 1), got {tuple(mask_t.shape)}")
-    tp = stacked_time_rows(temb_projected, packed.n_blocks, B)
+    tp = stacked_time_rows(temb_projected, packed.n_blocks, B, C)
     mask = mask_t.to(torch.float32).contiguous()
     check_float32_on(last_layer.device, last_layer=last_layer, mask_t=mask, time_rows=tp,
                      weights=packed.flat)
-    if packed.flat.data_ptr() % 16 or last_layer.data_ptr() % 16:
-        raise ValueError("the packed weights and last_layer must be 16-byte aligned")
+    if packed.flat.data_ptr() % 16:
+        raise ValueError("the packed weights must be 16-byte aligned")
     out = torch.empty((B, N, 1), dtype=torch.float32, device=last_layer.device)
     if B == 0:
         return out
     lib = _build.load_library()
     # the stream is checked where the kernel reads it
-    check_stream(packed.tensor_core, head_stages(dh, packed.n_blocks), last_layer.device)
-    grid, scratch = block_grid_and_scratch(B, last_layer.device)
+    check_stream(packed.tensor_core, head_stages(dh, packed.n_blocks, C), last_layer.device)
+    grid, scratch = block_grid_and_scratch(B, last_layer.device, C)
     with torch.cuda.device(last_layer.device):
         stream = torch.cuda.current_stream(last_layer.device).cuda_stream
         rc = lib.mmp_survival_head(
             packed.flat.data_ptr(), packed.tensor_core.data_ptr(), tp.data_ptr(),
             last_layer.data_ptr(), mask.data_ptr(), out.data_ptr(), scratch.data_ptr(), grid, B,
-            N, dh, packed.n_blocks, n_heads, stream,
+            N, dh, packed.n_blocks, n_heads, C, stream,
         )
     _build.check(lib, rc, "mmp_survival_head")
     survival_head.launches += 1

@@ -5,9 +5,10 @@ GPU, in one process.
 
     python3 scripts/gsdm_variants.py [--other DIR]
 
-Each variant is `ops/csrc/survival_head.cu` and `gsdm_stack.cu` with
+Each variant is `ops/csrc/survival_head.cu` and `gsdm_stack.cu` (with the
+sources of their wider widths, which their entry points call) with
 `gsdm_blocks.cuh` edited as text (EDITS below) and built with nvcc into a
-temporary directory, the builds in parallel. Some variants compute wrong
+temporary directory, the builds and their sources in parallel. Some variants compute wrong
 outputs on purpose; each line gives its largest error against the plain
 version as a share of the kernels' gate (|err| ≤ 2e-4 + 2e-4·|ref|), so that
 a variant that leaves its part in place shows as one that agrees:
@@ -57,7 +58,10 @@ from multimodal_particles_tpu_torch.ops.survival_cuda import (  # noqa: E402
 )
 
 HEADER = "gsdm_blocks.cuh"
-SOURCES = ("survival_head.cu", "gsdm_stack.cu")
+# width 128's instances and the entry points, and the wider widths' instances
+# that the entry points call (a revision before them has none)
+SOURCES = ("survival_head.cu", "gsdm_stack.cu",
+           *(f"{stem}_c{w}.cu" for stem in ("survival_head", "gsdm_stack") for w in (256, 384, 512)))
 TOL = 2e-4
 # variant → [(old text, new text)] in gsdm_blocks.cuh
 HEADER_EDITS = {
@@ -87,11 +91,15 @@ EDITS = {name: [(HEADER, old, new) for old, new in edits] for name, edits in HEA
 
 def bind(lib, src):
     """K6's and K7's entry points: before their tensor-core products they
-    take no stream (port_kernel_bits reads `gsdm_tensor_core`)."""
+    take no stream, before any width but 128 no width (port_kernel_bits reads
+    `gsdm_tensor_core` and `gsdm_width`)."""
     lib.gsdm_tensor_core = "Ring" in (src / HEADER).read_text()
+    lib.gsdm_width = "MAX_CL" in (src / HEADER).read_text()
     entries = {}
     for fn_name in ("mmp_survival_head", "mmp_gsdm_stack"):
         argtypes = list(kv._build._SIGNATURES[fn_name])
+        if not lib.gsdm_width:
+            del argtypes[-2]
         if not lib.gsdm_tensor_core:
             del argtypes[1]
         entries[fn_name] = argtypes

@@ -53,6 +53,7 @@ def build(name, csrc, sources, edits, bind, workdir):
     here = workdir / name.replace(":", "_")
     src = here / "csrc"
     src.mkdir(parents=True)
+    sources = tuple(s for s in sources if (csrc / s).exists())  # another revision may lack some
     for path in [*(csrc / s for s in sources), *csrc.glob("*.cuh")]:
         shutil.copy(path, src / path.name)
     for file, old, new in edits:
@@ -64,12 +65,11 @@ def build(name, csrc, sources, edits, bind, workdir):
     if not any("mmp_error_string" in (src / cu).read_text() for cu in sources):
         (src / "error_string.cu").write_text(ERROR_STRING_STUB)
         sources = (*sources, "error_string.cu")
-    objects, log = [], ""
-    for cu in sources:
-        obj = here / f"{cu}.o"
-        log += _build._run([_build.find_nvcc(), *_build.COMPILE_FLAGS, "-c", str(src / cu), "-o",
-                            str(obj)])[0]
-        objects.append(str(obj))
+    objects = [str(here / f"{cu}.o") for cu in sources]
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        log = "".join(text for text, _ in pool.map(
+            lambda so: _build._run([_build.find_nvcc(), *_build.COMPILE_FLAGS, "-c",
+                                    str(src / so[0]), "-o", so[1]]), zip(sources, objects)))
     library = here / "libvariant.so"
     _build._run([_build.find_nvcc(), *_build.ARCH_FLAGS, "-shared", "-o", str(library), *objects])
     lib = ctypes.CDLL(str(library))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Hold the PyTorch/CUDA port's kernels to the output of another build.
 
-    python3 scripts/port_kernel_bits.py --other DIR [--kernels K1 K2 K3 K4 K5 K6 K7 K8]
+    python3 scripts/port_kernel_bits.py --other DIR [--kernels K1 K2 K3 K4 K5 K6 K7 K8] [--time]
 
 DIR holds another revision's sources of the kernels compared and the headers
 they include (`epic_forward.cu`, `epic_forward_fold.cu`, `epic_forward.cuh`,
@@ -11,8 +11,10 @@ tensor-core kernel on, `tf32x3.cuh` (and later `narrow_tc.cuh`) for K2;
 `epic_backward.cu` and, from its tensor-core kernel on, K1's headers for K3; `epic_wide_forward.cu`, `epic_wide.cuh`
 and, from the tensor-core K4 on, `tf32x3.cuh` for K4; `epic_wide_backward.cu`
 and the same headers for K5; `survival_head.cu`, `gsdm_blocks.cuh` and, from
-the tensor-core K6 on, `tf32x3.cuh` for K6; `gsdm_stack.cu` and the same
-headers for K7; `attention_core.cu`, `tf32x3.cuh` for K8), for example
+the tensor-core K6 on, `tf32x3.cuh` and, from the K6 of any width on,
+`survival_head.cuh` and `survival_head_c{256,384,512}.cu` for K6;
+`gsdm_stack.cu` and the same headers (`gsdm_stack.cuh`, `gsdm_stack_c*.cu`)
+for K7; `attention_core.cu`, `tf32x3.cuh` for K8), for example
 unpacked with `git archive REV multimodal_particles_tpu_torch/ops/csrc`. The
 script builds those sources of that directory and of the working tree's
 `ops/csrc/` with nvcc, each into a temporary directory, and compares on one
@@ -49,7 +51,9 @@ elementwise, |err| ≤ 2e-4 + 2e-4·|other|. Every line also says whether the
 bits are the same.
 
 The FFMA K1's and K3's sources (before their tensor-core kernels) build in
-minutes; `--kernels` leaves them out when their sources did not change. One JSON line a comparison; exit code 1
+minutes; `--kernels` leaves them out when their sources did not change.
+With `--time`, K6, K7 and K8 (those chosen) are also timed under both builds
+in turns at their main paths' shapes (`time_head_kernels`). One JSON line a comparison; exit code 1
 if any output held to the bits differs or a share exceeds 1. For a change
 to a header that several kernels share.
 """
@@ -107,7 +111,11 @@ KERNELS = {
     "K8": ("attention_core.cu", "mmp_attention_core"),
 }
 HEADERS = ("epic_forward.cuh", "epic_forward_kernel.cuh", "epic_wide.cuh", "gsdm_blocks.cuh",
-           "narrow_tc.cuh", "tf32x3.cuh")
+           "gsdm_stack.cuh", "narrow_tc.cuh", "survival_head.cuh", "tf32x3.cuh")
+# K6's and K7's sources of their widths 256, 384 and 512 (their cluster
+# instances), where the revision has them
+WIDE_SOURCES = {k: tuple(f"{stem}_c{w}.cu" for w in (256, 384, 512))
+                for k, stem in (("K6", "survival_head"), ("K7", "gsdm_stack"))}
 K1_FOLD = ("epic_forward_fold.cu", "mmp_epic_forward_fold")  # K1's folded-input instantiation
 K1_TOL = 1e-4  # K1's gate, elementwise (atol = rtol), at the three shapes held
 K4_TOL = 1e-4  # K4's gate against its plain version, per particle (atol = rtol)
@@ -128,6 +136,7 @@ def build(csrc: Path, workdir: Path, kernels) -> ctypes.CDLL:
     src = workdir / "csrc"
     src.mkdir(parents=True)
     sources = [KERNELS[k][0] for k in kernels] + ([K1_FOLD[0]] if "K1" in kernels else [])
+    sources += [name for k in kernels for name in WIDE_SOURCES.get(k, ())]
     for name in sources + list(HEADERS):
         if (csrc / name).exists():
             shutil.copy(csrc / name, src / name)
@@ -154,11 +163,16 @@ def build(csrc: Path, workdir: Path, kernels) -> ctypes.CDLL:
     lib.k4_tensor_core = "K4" in kernels and "tcw" in (src / KERNELS["K4"][0]).read_text()
     lib.gsdm_tensor_core = (src / "gsdm_blocks.cuh").exists() and "Ring" in (
         src / "gsdm_blocks.cuh").read_text()
+    # K6 and K7 at any transformer width take it after the head count
+    lib.gsdm_width = (src / "gsdm_blocks.cuh").exists() and "MAX_CL" in (
+        src / "gsdm_blocks.cuh").read_text()
     for name in names:
         fn = getattr(lib, name)
         argtypes = list(_build._SIGNATURES[name])
         if name == KERNELS["K4"][1] and not lib.k4_tensor_core:
             del argtypes[1:3]
+        if name in (KERNELS["K6"][1], KERNELS["K7"][1]) and not lib.gsdm_width:
+            del argtypes[-2]  # no transformer width
         if name in (KERNELS["K6"][1], KERNELS["K7"][1]) and not lib.gsdm_tensor_core:
             del argtypes[1]  # no stream
         if name == KERNELS["K5"][1]:
@@ -286,32 +300,36 @@ def wide_backward(lib, packed, t, x, k, mask, g):
 
 
 def survival_head(lib, head, tp, last, mask_t, n_heads):
-    """K6 through `lib`, the tensor-core build or the FFMA build before it."""
-    if lib.gsdm_tensor_core:
+    """K6 through `lib`: the build of any width, the tensor-core build of
+    width 128 or the FFMA build before it."""
+    if lib.gsdm_width:
         return survival_cuda.survival_head(head, tp, last, mask_t, n_heads=n_heads)
     B, N, dh = last.shape
     tp = gsdm_stack_cuda.stacked_time_rows(tp, head.n_blocks, B)
     mask = mask_t.to(torch.float32).contiguous()
     out = torch.empty((B, N, 1), device=last.device)
     grid, scratch = gsdm_stack_cuda.block_grid_and_scratch(B, last.device)
+    stream = [head.tensor_core.data_ptr()] if lib.gsdm_tensor_core else []
     rc = lib.mmp_survival_head(
-        head.flat.data_ptr(), tp.data_ptr(), last.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), grid, B, N, dh, head.n_blocks, n_heads,
+        head.flat.data_ptr(), *stream, tp.data_ptr(), last.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), grid, B, N, dh, head.n_blocks, n_heads,
         torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "mmp_survival_head")
     return out
 
 
 def gsdm_stack(lib, packed, tp, x_in, n_heads):
-    """K7 through `lib`, the tensor-core build or the FFMA build before it."""
-    if lib.gsdm_tensor_core:
+    """K7 through `lib`: the build of any width, the tensor-core build of
+    width 128 or the FFMA build before it."""
+    if lib.gsdm_width:
         return gsdm_stack_cuda.gsdm_stack(packed, tp, x_in, n_heads=n_heads)
     B, N, dim_in = x_in.shape
     tp = gsdm_stack_cuda.stacked_time_rows(tp, packed.n_blocks, B)
     out = torch.empty((B, N, 128), device=x_in.device)
     grid, scratch = gsdm_stack_cuda.block_grid_and_scratch(B, x_in.device)
+    stream = [packed.tensor_core.data_ptr()] if lib.gsdm_tensor_core else []
     rc = lib.mmp_gsdm_stack(
-        packed.flat.data_ptr(), tp.data_ptr(), x_in.data_ptr(), out.data_ptr(),
+        packed.flat.data_ptr(), *stream, tp.data_ptr(), x_in.data_ptr(), out.data_ptr(),
         scratch.data_ptr(), grid, B, N, dim_in, packed.n_blocks, n_heads,
         torch.cuda.current_stream().cuda_stream)
     _build.check(lib, rc, "mmp_gsdm_stack")
@@ -374,6 +392,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--other", required=True, type=Path, help="the other revision's csrc files")
     parser.add_argument("--kernels", nargs="+", choices=sorted(KERNELS), default=sorted(KERNELS))
+    parser.add_argument("--time", action="store_true",
+                        help="also time K6, K7 and K8 (those chosen) under both builds")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("port_kernel_bits: needs a GPU")
@@ -526,7 +546,56 @@ def main():
                 for m in (mask, None):
                     report("K8", both(lambda lib: attention_cuda.attention_core(q, k, v, m, n_heads=2)),
                            B=512, N=N, masked=m is not None)
+
+        if args.time:
+            time_head_kernels(libs, args.kernels, flow, device, gen)
     return 0 if all(same) else 1
+
+
+def time_head_kernels(libs, kernels, flow, device, gen):
+    """K6, K7 and K8 (those in `kernels`) at their main paths' shapes under
+    each build, in turns (other, here, here, other): K6 at the absorbing
+    reference head (B=4096, N=109), K7 at the transdimensional creation stack
+    (B=4096, N=128, Din=27), K8 at B=4096, N=128, 2 heads, with a key mask.
+    One JSON line a kernel, with the card's name and power limit."""
+    import chip_smoke  # its timer and card line; it imports the scripts that import this one
+
+    card = chip_smoke.card_line()
+    runs = {}
+    if "K6" in kernels:
+        gen_cfg = flow.config.generator
+        _, head = flow.pack_for_kernel()
+        t, _, _, mask = inputs(4096, 109, device, gen)
+        last = torch.randn((4096, 109, head.dim_hidden), generator=gen, device=device)
+        tp = survival_cuda.project_time_embeddings(flow.generator, t, gen_cfg.n_attn_blocks,
+                                                   gen_cfg.transformer_dim)
+        runs["K6"] = ({"B": 4096, "N": 109}, lambda lib: survival_head(
+            lib, head, tp, last, mask.long(), gen_cfg.n_heads))
+    if "K7" in kernels:
+        model = init_parameters(TransdimensionalJumpDiffusion(TransdimensionalEpicConfig()), 0)
+        net = model.to(device).eval().network
+        _, _, vec_stack = model.pack_for_kernel()
+        x_in = torch.randn((4096, 128, vec_stack.dim_in), generator=gen, device=device)
+        with torch.no_grad():
+            tp7 = gsdm_stack_cuda.stack_time_embeddings(
+                net.time_embedding(torch.rand((4096,), generator=gen, device=device)),
+                net.blocks("vec_")[0])
+        runs["K7"] = ({"B": 4096, "N": 128, "Din": vec_stack.dim_in},
+                      lambda lib: gsdm_stack(lib, vec_stack, tp7, x_in, 2))
+    if "K8" in kernels:
+        q, k, v = (torch.randn((4096, 128, 128), generator=gen, device=device) for _ in range(3))
+        m = (torch.rand((4096, 128, 1), generator=gen, device=device) < 0.6).float()
+        runs["K8"] = ({"B": 4096, "N": 128, "n_heads": 2, "masked": True},
+                      lambda lib: attention_cuda.attention_core(q, k, v, m, n_heads=2))
+    for name, (where, run) in runs.items():
+        times = {build: [] for build in libs}
+        for build in ("other", "here", "here", "other"):
+            _build.load_library = lambda lib=libs[build]: lib
+            times[build].append(chip_smoke.cuda_ms(lambda: run(libs[build])))
+        mean = {build: sum(ms) / len(ms) for build, ms in times.items()}
+        print(json.dumps({"kernel": name, **where, "ms": times, "mean_ms": mean,
+                          "here_over_other": mean["here"] / mean["other"], "card": card}),
+              flush=True)
 
 
 if __name__ == "__main__":

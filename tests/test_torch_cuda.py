@@ -696,12 +696,13 @@ def scale_encoder(config, blocks):
     e.dim_emb_features_continuous = e.dim_emb_features_discrete = 128
 
 
-def absorbing_model(device, hidden=16, n_heads=2, n_blocks=2, scaled_blocks=None):
+def absorbing_model(device, hidden=16, n_heads=2, n_blocks=2, scaled_blocks=None, width=128):
     config = AbsorbingConfig()
     config.encoder.dim_hidden_local = config.encoder.dim_hidden_glob = hidden
     if scaled_blocks is not None:
         scale_encoder(config, scaled_blocks)
     config.generator.n_heads, config.generator.n_attn_blocks = n_heads, n_blocks
+    config.generator.transformer_dim = width
     model = init_absorbing_parameters(AbsorbingFlow(config), 0).to(device)
     # non-zero biases and GroupNorm offsets, so that a misplaced vector shows
     with torch.no_grad():
@@ -794,7 +795,7 @@ def test_survival_wrapper_rejects_what_the_kernel_does_not_take(device):
     with pytest.raises(ValueError):
         survival_head(head, tp, last[..., :8].contiguous(), mask, n_heads=2)
     with pytest.raises(ValueError):
-        survival_head(head, tp, last, mask, n_heads=8)
+        survival_head(head, tp, last, mask, n_heads=3)
     with pytest.raises(TypeError):
         survival_head(head, tp, last.double(), mask, n_heads=2)
     with pytest.raises(ValueError):
@@ -808,16 +809,19 @@ def test_survival_wrapper_rejects_what_the_kernel_does_not_take(device):
 # ------------------------------------------- the transdimensional family, K7
 
 
-def transdim_model(device, hidden=16, n_heads=2, n_blocks=2, n=128, scaled_blocks=None):
+def transdim_model(device, hidden=16, n_heads=2, n_blocks=2, n=128, scaled_blocks=None,
+                   width=128):
     """TransdimensionalJumpDiffusion at its reference config (global 19,
     Linear-discrete input) with seeded weights and noise on every vector;
-    with `scaled_blocks` at the `--scaled` widths."""
+    with `scaled_blocks` at the `--scaled` widths, with `width` its gsdm
+    stacks' transformer width."""
     config = TransdimensionalEpicConfig()
     config.data.max_num_particles = n
     config.encoder.dim_hidden_local = hidden
     if scaled_blocks is not None:
         scale_encoder(config, scaled_blocks)
     config.encoder.n_heads, config.encoder.n_attn_blocks = n_heads, n_blocks
+    config.encoder.transformer_dim = width
     model = init_transdimensional_parameters(TransdimensionalJumpDiffusion(config), 0).to(device)
     gen = torch.Generator(device=device).manual_seed(1)
     with torch.no_grad():
@@ -1285,7 +1289,7 @@ def test_attention_wrapper_rejects_what_the_kernel_does_not_take(device):
 
     q, k, v, mask = attention_inputs(device, 4, 32)
     with pytest.raises(ValueError):
-        attention_core(q, k, v, mask, n_heads=8)  # heads of 16 channels
+        attention_core(q, k, v, mask, n_heads=3)  # heads that do not divide 128
     with pytest.raises(ValueError):
         attention_core(q[..., :64].contiguous(), k[..., :64].contiguous(),
                        v[..., :64].contiguous(), n_heads=2)
@@ -1298,6 +1302,66 @@ def test_attention_wrapper_rejects_what_the_kernel_does_not_take(device):
     rc = lib.mmp_attention_core(q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(),
                                 4, 4, 32, 128, 3, 0)
     assert rc == 1  # cudaErrorInvalidValue
+
+
+# ------------------------------------------- K6, K7 and K8 at every width and head count
+
+WIDTHS = [(128, 8), (128, 128), (256, 8), (256, 64), (384, 4), (384, 6), (384, 128), (512, 16)]
+
+
+@pytest.mark.parametrize("width,n_heads", WIDTHS,
+                         ids=[f"C{c}-heads{h}" for c, h in WIDTHS])
+def test_head_kernels_at_every_width(device, width, n_heads):
+    """K6, K7 and K8 at transformer widths 128-512 (a cluster of width / 128
+    blocks a jet) and heads 1 to 128 channels wide against their plain
+    versions: K6 and K7 at 2e-4 (atol = rtol), K8 at 2e-5 (atol), N on both
+    sides of the 64-row warpgroups, a jet count that is no multiple of the
+    grid's clusters, a trunk hidden width that is no multiple of 8 (K6); the
+    same bits on a repeat."""
+    B = 133
+    absorbing = absorbing_model(device, hidden=20, n_heads=n_heads, n_blocks=1, width=width)
+    _, head = absorbing.pack_for_kernel()
+    t, _, _, mask = scattered_inputs(device, B, 109)
+    last = torch.randn((B, 109, 20), generator=torch.Generator(device=device).manual_seed(5),
+                       device=device)
+    tp = project_time_embeddings(absorbing.generator, t, 1, width)
+    got = survival_head(head, tp, last, mask.long(), n_heads=n_heads)
+    again = survival_head(head, tp, last, mask.long(), n_heads=n_heads)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, survival_head_reference(head, tp, last, mask.long(),
+                                                            n_heads=n_heads),
+                               atol=2e-4, rtol=2e-4)
+    assert torch.equal(got, again)
+
+    model = transdim_model(device, n_heads=n_heads, n_blocks=1, width=width)
+    net = model.network
+    _, _, vec_stack = model.pack_for_kernel()
+    gen = torch.Generator(device=device).manual_seed(6)
+    for n in (40, 128):
+        x_in = torch.randn((B, n, vec_stack.dim_in), generator=gen, device=device)
+        with torch.no_grad():
+            tp7 = stack_time_embeddings(net.time_embedding(torch.rand((B,), generator=gen,
+                                                                      device=device)),
+                                        net.blocks("vec_")[0])
+        got = gsdm_stack(vec_stack, tp7, x_in, n_heads=n_heads)
+        again = gsdm_stack(vec_stack, tp7, x_in, n_heads=n_heads)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, gsdm_stack_reference(vec_stack, tp7, x_in,
+                                                             n_heads=n_heads),
+                                   atol=2e-4, rtol=2e-4)
+        assert torch.equal(got, again)
+
+    from multimodal_particles_tpu_torch.ops.attention_cuda import (
+        attention_core,
+        attention_core_reference,
+    )
+    for n in (17, 128):
+        q, k, v, mask = attention_inputs(device, 64, n, C=width)
+        for m in (mask, None):
+            got = attention_core(q, k, v, m, n_heads=n_heads)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, attention_core_reference(q, k, v, m, n_heads=n_heads),
+                                       atol=2e-5, rtol=0)
 
 
 # ------------------------------------------- encoder switches, contexts, bf16

@@ -169,23 +169,31 @@ def test_survival_head_reference_matches_pallas_and_flax(n, b):
 
 def test_survival_gate_matches_jax():
     """transformer_dim 96 → off; a tensor-parallel model axis → off, as
-    survival_pallas_supported; and what only the CUDA kernel rules out."""
+    survival_pallas_supported; 8 heads, width 256 and a trunk hidden width
+    of 24 → on, as in JAX; and what only the CUDA kernel rules out: N past
+    128, a head wider than 128 channels."""
     from multimodal_particles_tpu.config_classes import AbsorbingConfig
     from multimodal_particles_tpu_torch.config_classes import AbsorbingConfig as TorchConfig
 
-    for section, name, value in ((None, None, None), ("generator", "transformer_dim", 96),
-                                 ("parallel", "model_axis", 2), ("generator", "n_attn_blocks", 0)):
+    for section, name, value, on in ((None, None, None, True),
+                                     ("generator", "transformer_dim", 96, False),
+                                     ("parallel", "model_axis", 2, False),
+                                     ("generator", "n_attn_blocks", 0, False),
+                                     ("generator", "n_heads", 8, True),
+                                     ("encoder", "dim_hidden_local", 24, True),
+                                     ("generator", "transformer_dim", 256, True)):
         cfg = AbsorbingConfig()
         if section:
             setattr(getattr(cfg, section), name, value)
         ours = TorchConfig.from_dict(cfg.to_dict())
         assert survival_cuda.survival_supported(ours) == survival_pallas.survival_pallas_supported(cfg)
-        assert survival_cuda.survival_supported(ours) == (section is None)
-    for section, name, value in (("generator", "n_heads", 8), ("data", "max_num_particles", 129),
-                                 ("encoder", "dim_hidden_local", 24),
-                                 ("generator", "transformer_dim", 256)):
+        assert survival_cuda.survival_supported(ours) == on
+    for sections in ({"data": {"max_num_particles": 129}},
+                     {"generator": {"transformer_dim": 256, "n_heads": 1}}):
         ours = TorchConfig()
-        setattr(getattr(ours, section), name, value)
+        for section, fields in sections.items():
+            for name, value in fields.items():
+                setattr(getattr(ours, section), name, value)
         assert not survival_cuda.survival_supported(ours)
 
 
@@ -213,7 +221,7 @@ def test_survival_wrapper_raises_off_the_cpu(pair, monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="mask_t"):
         survival_cuda.survival_head(packed, tp, last, mask[:, :8], n_heads=2)
     with pytest.raises(ValueError, match="n_heads"):
-        survival_cuda.survival_head(packed, tp, last, mask, n_heads=8)
+        survival_cuda.survival_head(packed, tp, last, mask, n_heads=3)
     with pytest.raises(ValueError, match="time rows"):
         survival_cuda.survival_head(packed, tp[:1], last, mask, n_heads=2)
     with pytest.raises(TypeError, match="float32"):

@@ -419,7 +419,13 @@ def test_categorical_is_argmax_of_logits_plus_gumbel():
 
 def test_sampled_nearest_atom_matches_flax(pair):
     """`sample_nearest_atom` with the Gumbel noise of JAX's key injected picks
-    JAX's atom, and the creation head follows it."""
+    JAX's atom, bit for bit, and the creation head follows it: its mean within
+    rtol 2e-4 and atol 2e-5 × the output's largest |value| (28 here), as
+    tests/test_torch_transdim_context.py holds the network's outputs. At an
+    atol of 2e-5 alone one element in 96 missed by 5e-6 on some CPUs: the
+    port parts from JAX by 1.09e-4 there, JAX's own evaluations (the test's
+    dispatch, jit, `disable_jit`) by up to 7.0e-5 from one another
+    (scripts/transdim_network_gap.py), float32 rounding at the scale 28."""
     jax_model, params, model, _ = pair
     noisy, ts, _ = _net_inputs(pair, 2)
     key = jax.random.PRNGKey(11)
@@ -430,7 +436,8 @@ def test_sampled_nearest_atom_matches_flax(pair):
         got = model.network(_torch_state(noisy), _t(ts), torch.zeros(B, dtype=torch.long), True,
                             None, gumbel)
     np.testing.assert_array_equal(got[5].numpy(), _np(ref[5]))
-    np.testing.assert_allclose(got[3].numpy(), _np(ref[3]), rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(got[3].numpy(), _np(ref[3]), rtol=2e-4,
+                               atol=2e-5 * max(1.0, float(np.abs(_np(ref[3])).max())))
 
 
 def test_gumbel_draws_pick_by_softmax():

@@ -103,21 +103,28 @@ def model_pair(seed=0, num_timesteps=8, **encoder):
     return jax_model, jax_params, torch_model, batch
 
 
-def noisy_params(params, seed):
+def noisy_params(params, seed, vectors_only=False):
     """flax-initialised params plus seeded noise as numpy leaves, so that
-    biases and GroupNorm offsets are not zero."""
+    biases and GroupNorm offsets are not zero. With `vectors_only` the noise
+    goes to the 1-D leaves alone (biases, scales) and every matrix keeps its
+    initialiser's law, whatever its width."""
     rng = np.random.default_rng(seed)
-    return jax.tree_util.tree_map(
-        lambda a: (np.asarray(a) + 0.1 * rng.standard_normal(a.shape)).astype(np.float32),
-        params,
-    )
+
+    def leaf(a):
+        a = np.asarray(a)
+        noise = 0.1 * rng.standard_normal(a.shape)
+        return (a + (noise if a.ndim == 1 or not vectors_only else 0.0)).astype(np.float32)
+    return jax.tree_util.tree_map(leaf, params)
 
 
-def absorbing_pair(seed=0, n=N, b=B, num_timesteps=8, sections=None):
+def absorbing_pair(seed=0, n=N, b=B, num_timesteps=8, sections=None, drawn_init=False,
+                   vector_noise=False):
     """(jax_model, jax_params, torch_model, jax_batch) of the absorbing family
     at its default config with `n` slots and `b` jets: flax-initialised
     weights plus seeded noise, transplanted. `sections` maps a config section
-    to field overrides, e.g. {"generator": {"detach_last_layer": False}}."""
+    to field overrides, e.g. {"generator": {"detach_last_layer": False}}. With
+    `drawn_init` the weights before the noise come from `drawn_params`; with
+    `vector_noise` the noise goes to the 1-D leaves alone (`noisy_params`)."""
     cfg = AbsorbingConfig()
     cfg.data.batch_size, cfg.data.max_num_particles = b, n
     cfg.bridge.num_timesteps = num_timesteps
@@ -126,7 +133,10 @@ def absorbing_pair(seed=0, n=N, b=B, num_timesteps=8, sections=None):
             setattr(getattr(cfg, section), name, value)
     batch = jax.tree_util.tree_map(jnp.asarray, JetsDataloaderModule.random_databatch(cfg))
     jax_model = AbsorbingFlow(cfg)
-    params_np = noisy_params(jax_model.init(jax.random.PRNGKey(seed), batch), seed)
+    key = jax.random.PRNGKey(seed)
+    params = (drawn_params(jax_model.init, key, batch, seed=seed) if drawn_init
+              else jax_model.init(key, batch))
+    params_np = noisy_params(params, seed, vector_noise)
     torch_cfg = TorchAbsorbingConfig.from_dict(cfg.to_dict())
     torch_model = TorchAbsorbingFlow(torch_cfg)
     torch_model.load_state_dict(params_from_flax(params_np, torch_cfg, TorchAbsorbingFlow))
@@ -186,7 +196,7 @@ def drawn_params(init, key, *args, seed=0):
     return jax.tree_util.tree_map_with_path(leaf, jax.eval_shape(init, key, *args))
 
 
-def transdim_pair(seed=0, n=16, b=6, sections=None, drawn_init=False):
+def transdim_pair(seed=0, n=16, b=6, sections=None, drawn_init=False, vector_noise=False):
     """(jax_model, jax_params, torch_model, numpy 'list' batch) of the
     transdimensional family at its default config with `n` slots and `b` jets:
     flax-initialised weights plus seeded noise, transplanted. `sections` maps
@@ -194,7 +204,8 @@ def transdim_pair(seed=0, n=16, b=6, sections=None, drawn_init=False):
     a context in the data section gives the batch that context
     (`transdim_list_batch`). With `drawn_init` the weights before the noise
     come from `drawn_params`, not from flax's init, whose first eager run in a
-    process compiles each operation alone (~16 s)."""
+    process compiles each operation alone (~16 s). With `vector_noise` the
+    noise goes to the 1-D leaves alone (`noisy_params`)."""
     cfg = TransdimensionalEpicConfig()
     cfg.data.batch_size, cfg.data.max_num_particles = b, n
     for section, fields in (sections or {}).items():
@@ -213,7 +224,7 @@ def transdim_pair(seed=0, n=16, b=6, sections=None, drawn_init=False):
     key = jax.random.PRNGKey(seed)
     params = (drawn_params(jax_model.init, key, init_state, seed=seed) if drawn_init
               else jax_model.init(key, init_state))
-    params_np = noisy_params(params, seed)
+    params_np = noisy_params(params, seed, vector_noise)
     torch_cfg = TorchTransdimConfig.from_dict(cfg.to_dict())
     torch_model = TorchTransdim(torch_cfg)
     torch_model.load_state_dict(params_from_flax(params_np, torch_cfg, TorchTransdim))
