@@ -9,13 +9,14 @@ runs the modules under autograd, as the JAX package's `loss_fn` runs flax: it
 has no hand-written kernel on this path. Sampling (`predict`) interleaves
 absorbing → continuous → discrete solver steps; with the kernel gate on, each
 step's forward is two launches, the fused EPiC trunk with its hidden output
-(ops/epic_cuda.py; at every width 128, the wide one of ops/epic_wide_cuda.py)
-and the fused survival head (ops/survival_cuda.py), and the solver steps stay
-plain PyTorch (the JAX package has no fused absorbing step). A config that
-no trunk kernel takes (another encoder switch, a context) samples through the
-module trunk and the fused survival head. `parallel.compute_dtype:
-"bfloat16"` casts the module forward (training, and sampling with the gate
-off); the sampling path with the gate on stays float32, as in JAX.
+(ops/epic_cuda.py; at the wide widths 128 to 512, the wide one of
+ops/epic_wide_cuda.py) and the fused survival head (ops/survival_cuda.py),
+and the solver steps stay plain PyTorch (the JAX package has no fused
+absorbing step). A config that no trunk kernel takes (another encoder
+switch, a context) samples through the module trunk and the fused survival
+head. `parallel.compute_dtype: "bfloat16"` casts the module forward
+(training, and sampling with the gate off); the sampling path with the gate
+on stays float32, as in JAX.
 Randomness is an input throughout: every draw comes from a caller's generator
 or is injected as tensors.
 """

@@ -292,9 +292,9 @@ class TransdimensionalJumpDiffusion(nn.Module):
         return None
 
     def _trunk_layout(self):
-        """The trunk's kernel (transdimensional_model.py:325-337): "wide" when
-        every width is 128, "narrow" at the hidden widths K1 is compiled for,
-        None when neither takes it."""
+        """The trunk's kernel (transdimensional_model.py:325-337): "wide" at
+        the widths 128 to 512 of `wide_supported`, "narrow" at the hidden
+        widths K1 is compiled for, None when neither takes it."""
         if wide_supported(self.config, allow_linear_discrete=True):
             return "wide"
         if epic_supported(self.config, allow_linear_discrete=True):

@@ -56,9 +56,10 @@ _SIGNATURES = {
     # the buffer (ops/epic_cuda.py::narrow_buffer), weights, t, x, k, mask,
     # g, d_weights, the rerun's out (or null), scratch, grid, B, N, dims[10], stream
     "mmp_epic_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    # the wide pair (hidden 128) takes the narrow one's arguments; the forward
-    # also the tensor-core stages and local_0's tables after the weights, the
-    # backward those and the transposed stages
+    # the wide pair (hidden, global and embedding widths 128 to 512) takes the
+    # narrow one's arguments; the forward also the tensor-core stages and
+    # local_0's tables after the weights, the backward those and the
+    # transposed stages
     "mmp_epic_wide_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "mmp_epic_wide_backward_workspace": [_I, _I, _P, _P, _P],
     "mmp_epic_wide_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],

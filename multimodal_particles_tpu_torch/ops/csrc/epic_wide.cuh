@@ -7,7 +7,8 @@
 // hidden 128 neither fits: one fc_local1 weight is 192 KB. The wide kernels
 // are a chain of matrix products through shared memory instead.
 //
-// Design: one thread block of 256 threads per jet, every width 128.
+// Design: one thread block of 256 threads per jet, every width 128 (the other
+// widths up to 512 and heads past 64: a cluster of blocks, epic_wide_any.cuh).
 //   * A jet's activations are (128 rows, 128 features) float32 tiles in
 //     shared memory, rows padded to LDA_TC floats: h and the local hidden
 //     l1; the skip copy h0 lives in registers. Rows past the jet's N carry
@@ -72,7 +73,9 @@ inline bool dims_supported(const Dims& d) {
          d.emb_k == WD && d.num_blocks >= 0 && d.head_hidden == V && d.fold_discrete == 0;
 }
 
-constexpr int MAX_WIDE_HEAD = 64;  // the forward kernel's widest discrete head
+// the widest discrete head of this header's forward kernel (its weights staged
+// in shared memory); a wider one takes the general kernel (epic_wide_any.cuh)
+constexpr int MAX_WIDE_HEAD = 64;
 
 inline bool forward_dims_supported(const Dims& d) {
   return d.hidden == WD && d.hidden_glob == WD && d.emb_t == WD && d.emb_x == WD &&
@@ -201,14 +204,16 @@ struct WgAcc {
 };
 
 // Stage `stage` (TC_STAGE floats) of a product's prepared weights into its
-// ring slot by cp.async, two float4 a thread, committed as a group; a null
-// Wt commits an empty group. The wrapper lays each stage out as the tensor
-// cores read it (ops/epic_cuda.py::tensor_core_weights): the TF32 hi
-// and lo halves of 8 input rows, each K-major in 8 × 4 core matrices.
+// slot of a ring of RING stages by cp.async, two float4 a thread, committed
+// as a group; a null Wt commits an empty group. The wrapper lays each stage
+// out as the tensor cores read it (ops/epic_cuda.py::tensor_core_weights):
+// the TF32 hi and lo halves of 8 input rows, each K-major in 8 × 4 core
+// matrices.
+template <int RING = TC_STAGES>
 __device__ __forceinline__ void ring_fetch(const float* __restrict__ Wt, int stage, float* ring) {
   if (Wt != nullptr) {
     const float* src = Wt + (size_t)stage * TC_STAGE;
-    float* dst = ring + (stage % TC_STAGES) * TC_STAGE;
+    float* dst = ring + (stage % RING) * TC_STAGE;
 #pragma unroll
     for (int q = 0; q < TC_STAGE / (4 * THREADS); ++q) {
       const int idx = 4 * (threadIdx.x + THREADS * q);
@@ -218,10 +223,11 @@ __device__ __forceinline__ void ring_fetch(const float* __restrict__ Wt, int sta
   tf32x3::cp_async_commit();
 }
 
-// The first TC_STAGES − 2 stages of Wt, before the gemm_wg that reads it.
+// The first RING − 2 stages of Wt, before the product that reads it.
+template <int RING = TC_STAGES>
 __device__ __forceinline__ void ring_prefetch(const float* __restrict__ Wt, float* ring) {
 #pragma unroll
-  for (int kt = 0; kt < TC_STAGES - 2; ++kt) ring_fetch(Wt, kt, ring);
+  for (int kt = 0; kt < RING - 2; ++kt) ring_fetch<RING>(Wt, kt, ring);
 }
 
 // acc += A·W on the tensor cores at fp32 accuracy (the 3×TF32 split): A
@@ -281,18 +287,19 @@ __device__ __forceinline__ void gemm_wg(WgAcc& acc, const float* A, const float*
   __syncthreads();
 }
 
-// z[j] = Σ_k v[k]·W[k, j] for a per-jet vector v (n_in, shared memory) and W
-// (n_in, 128) row-major in global memory; thread j < 128 then calls
+// z[j] = Σ_k v[k]·W[k·ld + c0 + j] for a per-jet vector v (n_in, shared
+// memory) and the 128 columns from c0 of W, rows of ld floats in global
+// memory (at every width 128: ld = 128, c0 = 0); thread j < 128 then calls
 // post(j, z[j]). Every thread calls it; it ends with a barrier.
 // UNROLL: the weight rows a thread has in flight (the sums' order is the same).
 template <int UNROLL = 4, class Post>
 __device__ __forceinline__ void jet_matvec(const float* v, const float* __restrict__ Wg, int n_in,
-                                           float* red, Post post) {
+                                           int ld, int c0, float* red, Post post) {
   const int tid = threadIdx.x, cg = tid & 31, ks = tid >> 5;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll (UNROLL)
   for (int k = ks; k < n_in; k += 8) {
-    const float4 w = __ldg(reinterpret_cast<const float4*>(Wg + (size_t)k * WD) + cg);
+    const float4 w = __ldg(reinterpret_cast<const float4*>(Wg + (size_t)k * ld + c0) + cg);
     const float vk = v[k];
     acc.x = fmaf(vk, w.x, acc.x);
     acc.y = fmaf(vk, w.y, acc.y);
@@ -511,7 +518,7 @@ __device__ void wide_forward_jet_ext(const float* __restrict__ w, const float* _
   denom = fmaxf(denom, 1.f);
 
   // the time third of local_0 is the same for every particle of the jet
-  jet_matvec<MATVEC_UNROLL>(temb, w + L.w_l0, WD, red, [&](int j, float s) { ct[j] = s; });
+  jet_matvec<MATVEC_UNROLL>(temb, w + L.w_l0, WD, WD, 0, red, [&](int j, float s) { ct[j] = s; });
 
   // ---- projection (epic.py:164-191): local_0 sees the masked features,
   // W·(f·m) + b = (W·f)·m + b
@@ -562,17 +569,17 @@ __device__ void wide_forward_jet_ext(const float* __restrict__ w, const float* _
     S0[at] = v;
   }
   for (int i = tid; i < 3 * WD; i += THREADS) rec.proj(R_P0 + i, pv[i]);
-  jet_matvec<MATVEC_UNROLL>(pv, w + L.w_g0, 3 * WD, red, [&](int j, float s) {
+  jet_matvec<MATVEC_UNROLL>(pv, w + L.w_g0, 3 * WD, WD, 0, red, [&](int j, float s) {
     const float z = s + w[L.b_g0 + j];
     rec.proj(R_ZG0 + j, z);
     va[j] = leaky(z);
   });
-  jet_matvec<MATVEC_UNROLL>(va, w + L.w_g1, WD, red, [&](int j, float s) {
+  jet_matvec<MATVEC_UNROLL>(va, w + L.w_g1, WD, WD, 0, red, [&](int j, float s) {
     const float z = s + w[L.b_g1 + j];
     rec.proj(R_ZG1 + j, z);
     vb[j] = leaky(z);
   });
-  jet_matvec<MATVEC_UNROLL>(vb, w + L.w_g2, WD, red, [&](int j, float s) {
+  jet_matvec<MATVEC_UNROLL>(vb, w + L.w_g2, WD, WD, 0, red, [&](int j, float s) {
     const float z = s + w[L.b_g2 + j];
     rec.proj(R_ZG2 + j, z);
     g[j] = leaky(z);
@@ -591,18 +598,18 @@ __device__ void wide_forward_jet_ext(const float* __restrict__ w, const float* _
       pv[3 * WD + c] = temb[c];
     });
     for (int i = tid; i < 4 * WD; i += THREADS) rec.glob(blk, R_P + i, pv[i]);
-    jet_matvec<MATVEC_UNROLL>(pv, wb + L.fg1, 4 * WD, red, [&](int j, float s) {
+    jet_matvec<MATVEC_UNROLL>(pv, wb + L.fg1, 4 * WD, WD, 0, red, [&](int j, float s) {
       const float z = s + wb[L.bfg1 + j];
       rec.glob(blk, R_ZFG1 + j, z);
       va[j] = leaky(z);
     });
-    jet_matvec<MATVEC_UNROLL>(va, wb + L.fg2, WD, red, [&](int j, float s) {
+    jet_matvec<MATVEC_UNROLL>(va, wb + L.fg2, WD, WD, 0, red, [&](int j, float s) {
       const float z = s + wb[L.bfg2 + j] + g[j];
       rec.glob(blk, R_ZFG2 + j, z);
       gnew[j] = leaky(z);
     });
     // fc_local1's broadcast inputs [g_new ‖ temb], once per jet
-    jet_matvec<MATVEC_UNROLL>(gnew, wb + L.fl1 + WD * WD, 2 * WD, red, [&](int j, float s) {
+    jet_matvec<MATVEC_UNROLL>(gnew, wb + L.fl1 + WD * WD, 2 * WD, WD, 0, red, [&](int j, float s) {
       cl1[j] = s + wb[L.bfl1 + j];
       g[j] = gnew[j] + gskip[j];
     });

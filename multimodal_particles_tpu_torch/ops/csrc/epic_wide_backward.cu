@@ -1,6 +1,8 @@
 // K5 backward: d(packed weights) of the wide fused EPiC forward for a
 // cotangent g (B, N, 3 + 8), in one persistent launch plus a deterministic
-// reduction.
+// reduction. This file's kernel takes every width 128; the general kernel
+// (epic_wide_backward_any.cuh, a cluster of hidden / 128 blocks a jet,
+// instantiated by epic_wide_backward_h*.cu) the other widths up to 512.
 //
 // Replaces the TPU kernel multimodal_particles_tpu/ops/epic_pallas_wide_vjp.py
 // (`make_epic_train_forward_wide`, body `_bwd_kernel`, :90-238). The forward
@@ -66,22 +68,9 @@
 // C interface (bound with ctypes by ops/epic_wide_vjp_cuda.py): each entry
 // point returns the cudaError_t of its calls, 0 on success.
 
-#include "epic_wide.cuh"
+#include "epic_wide_backward_any.cuh"
 
 namespace mmpw {
-
-constexpr int NQ = DC + 1 + V + 1;  // rows of Q in the local_0 backward
-
-__device__ __forceinline__ float dleaky(float z) { return z >= 0.f ? 1.f : 0.01f; }
-
-__device__ __forceinline__ float dselu(float z) {
-  const float alpha = 1.6732632423543772f, scale = 1.0507009873554805f;
-  return scale * (z >= 0.f ? 1.f : alpha * expf(z));
-}
-
-// A tile's signs, a bit an element: what the walk back needs of z_l0 and of
-// each block's z_fl2 (their leaky's slope), a 32nd of the tile's bytes.
-constexpr int SIGN_WORDS = MAT / 32;
 
 // Floats of one block's records: (h_in, z_fl1) per EPiC block, the skip
 // cotangent's sum, the signs of z_l0 and of each block's z_fl2, then the
@@ -90,47 +79,6 @@ __host__ __device__ inline long long record_floats(int num_blocks) {
   return (long long)(1 + 2 * num_blocks) * MAT + (long long)(1 + num_blocks) * SIGN_WORDS +
          R_PROJ + (long long)num_blocks * R_GLOB;
 }
-
-struct GlobalRecord {
-  static constexpr bool HEADS = false;
-  float* mats;
-  unsigned* signs;
-  float* projv;
-  float* globv;
-
-  __device__ __forceinline__ float* mat(int i) const { return mats + (size_t)i * MAT; }
-  __device__ __forceinline__ float* h_in_mat(int b) const { return mat(2 * b); }
-  __device__ __forceinline__ float* z_fl1_mat(int b) const { return mat(2 * b + 1); }
-  __device__ __forceinline__ float* dsl_mat(int nb) const { return mat(2 * nb); }
-  __device__ __forceinline__ unsigned* z_l0_signs() const { return signs; }
-  __device__ __forceinline__ unsigned* z_fl2_signs(int b) const {
-    return signs + (size_t)(1 + b) * SIGN_WORDS;
-  }
-
-  // z ≥ 0 of element i (WgAcc's index) over the warp's 32 threads: word
-  // 64·warp + i of the tile's signs, bit lane. Every thread calls it.
-  __device__ __forceinline__ static void put_sign(unsigned* words, int i, float z) {
-    const unsigned bits = __ballot_sync(0xffffffffu, z >= 0.f);
-    if ((threadIdx.x & 31) == 0) words[64 * (threadIdx.x >> 5) + i] = bits;
-  }
-  __device__ __forceinline__ void z_l0(int i, int, int, float z) const {
-    put_sign(z_l0_signs(), i, z);
-  }
-  __device__ __forceinline__ void z_fl1(int b, int r, int c, float v) const {
-    z_fl1_mat(b)[r * WD + c] = v;
-  }
-  __device__ __forceinline__ void z_fl2(int b, int i, int, int, float z) const {
-    put_sign(z_fl2_signs(b), i, z);
-  }
-  // the tile S (rows of ld floats) into rows of 128
-  __device__ __forceinline__ void h_in(int b, const float* S, int ld) const {
-    float4* dst = reinterpret_cast<float4*>(h_in_mat(b));
-    for (int i = threadIdx.x; i < MAT / 4; i += THREADS)
-      dst[i] = *reinterpret_cast<const float4*>(S + (i >> 5) * ld + 4 * (i & 31));
-  }
-  __device__ __forceinline__ void proj(int i, float v) const { projv[i] = v; }
-  __device__ __forceinline__ void glob(int b, int i, float v) const { globv[b * R_GLOB + i] = v; }
-};
 
 // The backward's shared memory: the tensor-core forward's plan (three tiles
 // of rows of LDA_TC floats, the staging area, the forward's vectors), the
@@ -143,103 +91,7 @@ constexpr size_t SMEM_BYTES_BWD = sizeof(float) * (size_t)(S_VEC_TC + B_END);
 static_assert(SMEM_BYTES_BWD <= 232448, "over a block's 227 KB of shared memory");
 static_assert(B_END >= V_END_TC, "the walk back's vectors end past the forward's");
 
-// Float4 i of a (128, 128) tile, counted row by row, in a tile with rows of
-// LDA_TC floats.
-__device__ __forceinline__ int at4(int i) { return (i >> 5) * (LDA_TC / 4) + (i & 31); }
-
-// gm (128, 128, rows of 128 floats) += aᵀ·dz over the tiles' rows below
-// 8·ksteps: A (a) and D (dz) in shared memory with rows of LDA_TC floats. On
-// the tensor cores at fp32 accuracy: mma.sync.m16n8k8 with the particle axis
-// as K, both fragments loaded by hand and split by truncation, three TF32
-// products. Warp w takes the a-columns 32·(w >> 1) … + 31 and the dz-columns
-// 64·(w & 1) … + 63, and adds its piece into gm (the same thread always owns
-// the same elements). Every thread calls it; no barrier.
-__device__ __forceinline__ void outer_mma(float* gm, const float* A, const float* D, int ksteps) {
-  using namespace tf32x3;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int i0 = 32 * (warp >> 1), o0 = 64 * (warp & 1);
-  float acc[2][8][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
-  for (int ks = 0; ks < ksteps; ++ks) {
-    // mma's A (16 a-columns × 8 rows): a0 = a[t][g], a1 = a[t][g + 8],
-    // a2 = a[t + 4][g], a3 = a[t + 4][g + 8]; B (8 rows × 8 dz-columns):
-    // b0 = dz[t][g], b1 = dz[t + 4][g]
-    const float* ar = A + (8 * ks + t) * LDA_TC + i0 + g;
-    const float* dr = D + (8 * ks + t) * LDA_TC + o0 + g;
-    Frag<4> a[2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      split_fast(ar[16 * mi], a[mi].hi[0], a[mi].lo[0]);
-      split_fast(ar[16 * mi + 8], a[mi].hi[1], a[mi].lo[1]);
-      split_fast(ar[4 * LDA_TC + 16 * mi], a[mi].hi[2], a[mi].lo[2]);
-      split_fast(ar[4 * LDA_TC + 16 * mi + 8], a[mi].hi[3], a[mi].lo[3]);
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      Frag<2> b;
-      split_fast(dr[8 * j], b.hi[0], b.lo[0]);
-      split_fast(dr[4 * LDA_TC + 8 * j], b.hi[1], b.lo[1]);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) mma3(acc[mi][j], a[mi], b);
-    }
-  }
-  // c0, c1: a-column g, dz-columns 2t, 2t + 1; c2, c3: a-column g + 8. Every
-  // load before any store, so that the 32 loads are in flight together
-  float2* p[2][8][2];
-  float2 v[2][8][2];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        p[mi][j][h] = reinterpret_cast<float2*>(gm + (i0 + 16 * mi + g + 8 * h) * WD + o0 + 8 * j + 2 * t);
-        v[mi][j][h] = *p[mi][j][h];
-      }
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        v[mi][j][h].x += acc[mi][j][2 * h];
-        v[mi][j][h].y += acc[mi][j][2 * h + 1];
-        *p[mi][j][h] = v[mi][j][h];
-      }
-}
-
-// leaky'(z) of element (r, c) from its tile's signs (GlobalRecord::put_sign:
-// WgAcc's places), in shared memory.
-__device__ __forceinline__ float dleaky_at(const unsigned* signs, int r, int c) {
-  const int warp = 4 * (r >> 6) + ((r >> 4) & 3), i = 4 * (c >> 3) + 2 * ((r >> 3) & 1) + (c & 1);
-  return (signs[64 * warp + i] >> (4 * (r & 7) + ((c >> 1) & 3))) & 1u ? 1.f : 0.01f;
-}
-
-// cp.async of a tile's signs into shared memory, committed as one group; the
-// caller waits.
-__device__ __forceinline__ void signs_to_smem_async(unsigned* dst, const unsigned* __restrict__ src) {
-  for (int i = threadIdx.x; i < SIGN_WORDS / 4; i += THREADS) tf32x3::cp_async16(dst + 4 * i, src + 4 * i);
-  tf32x3::cp_async_commit();
-}
-
-// cp.async of a record's (128, 128) tile (rows of 128 floats) into a shared
-// tile with rows of LDA_TC floats, committed as one group; the caller waits.
-__device__ __forceinline__ void tile_to_smem_async(float* dst, const float* __restrict__ src) {
-  for (int i = threadIdx.x; i < MAT / 4; i += THREADS)
-    tf32x3::cp_async16(dst + 4 * at4(i), src + 4 * i);
-  tf32x3::cp_async_commit();
-}
-
-// Rank-1 weight gradients a ⊗ dz of one jet, logged and not applied: `put`
-// copies the pair to this jet's record and notes (gradient offset, rows,
-// record offset) in the block's group table; every jet logs the same groups
-// in the same order. Every thread of the block calls `put`.
-constexpr int GROUP_INTS = 3;
+// Pairs, and groups of the group table, that a block logs for a jet.
 __host__ __device__ inline int pair_groups(int num_blocks) { return 3 * num_blocks + 4; }
 __host__ __device__ inline int pair_floats(int num_blocks) {
   return num_blocks * (2 + 1 + 4 + 3) * WD + (1 + 1 + 3 + 1 + 4) * WD;
@@ -249,109 +101,6 @@ __host__ __device__ inline int pair_floats(int num_blocks) {
 __host__ __device__ inline long long pair_block_floats(int num_blocks, int jets_per_block) {
   return (long long)jets_per_block * pair_floats(num_blocks) +
          ((GROUP_INTS * pair_groups(num_blocks) + 3) & ~3);
-}
-
-struct PairLog {
-  float* rec;
-  int* groups;
-  int off, idx;
-
-  __device__ __forceinline__ void put(int grad_offset, const float* a, int n_a, const float* dz) {
-    const int tid = threadIdx.x;
-    for (int i = tid; i < n_a; i += THREADS) rec[off + i] = a[i];
-    if (tid < WD) rec[off + n_a + tid] = dz[tid];
-    if (tid == 0) {
-      groups[GROUP_INTS * idx] = grad_offset;
-      groups[GROUP_INTS * idx + 1] = n_a;
-      groups[GROUP_INTS * idx + 2] = off;
-    }
-    off += n_a + WD;
-    ++idx;
-  }
-};
-
-// grad[g.offset + i·128 + o] += Σ_jets a_jet[i]·dz_jet[o] for every logged
-// group, jets in the order the block walked them. A thread owns 4 rows × 4
-// columns at a time. Every thread of the block calls it.
-__device__ __forceinline__ void contract_pairs(const float* pairs, int n_jets, int stride,
-                                               const int* groups, int n_groups, float* grad) {
-  const int o4 = (threadIdx.x & 31) * 4, ig = (threadIdx.x >> 5) * 4;
-  for (int g = 0; g < n_groups; ++g) {
-    const int goff = groups[GROUP_INTS * g], n_a = groups[GROUP_INTS * g + 1];
-    const float* base = pairs + groups[GROUP_INTS * g + 2];
-    for (int i0 = ig; i0 < n_a; i0 += 32) {
-      float4 acc[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 8
-      for (int j = 0; j < n_jets; ++j) {
-        const float* rec = base + (size_t)j * stride;
-        const float4 dz = __ldg(reinterpret_cast<const float4*>(rec + n_a + o4));
-        const float4 a = __ldg(reinterpret_cast<const float4*>(rec + i0));
-        const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          acc[r].x = fmaf(av[r], dz.x, acc[r].x);
-          acc[r].y = fmaf(av[r], dz.y, acc[r].y);
-          acc[r].z = fmaf(av[r], dz.z, acc[r].z);
-          acc[r].w = fmaf(av[r], dz.w, acc[r].w);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        float4* p = reinterpret_cast<float4*>(grad + goff + (size_t)(i0 + r) * WD + o4);
-        float4 v = *p;
-        v.x += acc[r].x; v.y += acc[r].y; v.z += acc[r].z; v.w += acc[r].w;
-        *p = v;
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void vec_add(float* gb, const float* dz) {
-  if (threadIdx.x < WD) gb[threadIdx.x] += dz[threadIdx.x];
-}
-
-// out[j] = Σ_o v[o]·W[j, o] for j < n_out, W rows of 128 in global memory:
-// one warp a row, MATVEC_T_ROWS rows a warp at once (their loads in flight
-// together: one block an SM hides no L2 latency); lane u of the warp calls
-// post(j, out[j]) for its u-th row. Ends with a barrier.
-constexpr int MATVEC_T_ROWS = 8;
-template <class Post>
-__device__ __forceinline__ void jet_matvec_t(const float* v, const float* __restrict__ Wg,
-                                             int n_out, Post post) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  constexpr int WARPS = THREADS / 32;
-  const float4 vv = *reinterpret_cast<const float4*>(v + lane * 4);
-  for (int j0 = warp; j0 < n_out; j0 += WARPS * MATVEC_T_ROWS) {
-    float4 w[MATVEC_T_ROWS];
-#pragma unroll
-    for (int u = 0; u < MATVEC_T_ROWS; ++u) {
-      const int j = j0 + WARPS * u;
-      w[u] = j < n_out ? __ldg(reinterpret_cast<const float4*>(Wg + (size_t)j * WD) + lane)
-                       : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    float s[MATVEC_T_ROWS];
-#pragma unroll
-    for (int u = 0; u < MATVEC_T_ROWS; ++u) {
-      s[u] = vv.x * w[u].x;
-      s[u] = fmaf(vv.y, w[u].y, s[u]);
-      s[u] = fmaf(vv.z, w[u].z, s[u]);
-      s[u] = fmaf(vv.w, w[u].w, s[u]);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-      for (int u = 0; u < MATVEC_T_ROWS; ++u) s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
-    // lane u posts row u: the posts that read or add to global memory run
-    // side by side
-    float mine = s[0];
-#pragma unroll
-    for (int u = 1; u < MATVEC_T_ROWS; ++u)
-      if (lane == u) mine = s[u];
-    if (lane < MATVEC_T_ROWS && j0 + WARPS * lane < n_out) post(j0 + WARPS * lane, mine);
-  }
-  __syncthreads();
 }
 
 // The backward of one jet after the recording forward (S0 holds h_final);
@@ -580,7 +329,7 @@ __device__ void wide_backward_jet(const float* __restrict__ w, const float* __re
     }
     __syncthreads();
     // fc_local2: dW = l1ᵀ·dz_fl2, db = Σ_rows dz_fl2
-    outer_mma(gb + L.fl2, S2, S0, ksteps);
+    outer_mma(gb + L.fl2, WD, [&](int r, int c) { return S2[r * LD + c]; }, S0, ksteps);
     column_sums<LD>(S0, red, [](int, float v) { return v; },
                     [&](int c, float s) { gb[L.bfl2 + c] += s; });
     // dz_fl1 = (dz_fl2·W_fl2ᵀ)·leaky'(z_fl1), in place of z_fl1
@@ -593,29 +342,29 @@ __device__ void wide_backward_jet(const float* __restrict__ w, const float* __re
     __syncthreads();
     // fc_local1: the per-particle third, then the broadcast [g_new ‖ temb]
     // thirds from the per-jet sum of dz_fl1
-    outer_mma(gb + L.fl1, S2, S1, ksteps);
+    outer_mma(gb + L.fl1, WD, [&](int r, int c) { return S2[r * LD + c]; }, S1, ksteps);
     column_sums<LD>(S1, red, [](int, float v) { return v; }, [&](int c, float s) {
       sdz[c] = s;
       gb[L.bfl1 + c] += s;
     });
-    pairs.put(boff + L.fl1 + WD * WD, gnew, 2 * WD, sdz);
+    pairs.put(boff + L.fl1 + WD * WD, gnew, 2 * WD, sdz, WD);
     // dh_in = dz_fl2 (residual) + dz_fl1·W_fl1[0:128]ᵀ
     ring_prefetch(tb + TC_FL2, S2);
     acc.zero();
     gemm_wg(acc, S1, tb + TC_FL2, S2, nullptr, npad);
     acc.each([&](int, int r, int c, float a) { S0[r * LD + c] += a; });
     // global MLP: dz_fg2 = (dg + W_fl1[128:256]·Σdz_fl1)·leaky'(z_fg2)
-    jet_matvec_t(sdz, wb + L.fl1 + WD * WD, WD, [&](int j, float s) {
+    jet_matvec_t(sdz, wb + L.fl1 + WD * WD, WD, WD, WD, [&](int j, float s) {
       dza[j] = (dg[j] + s) * dleaky(gv[R_ZFG2 + j]);
     });
-    pairs.put(boff + L.fg2, va, WD, dza);
+    pairs.put(boff + L.fg2, va, WD, dza, WD);
     vec_add(gb + L.bfg2, dza);
-    jet_matvec_t(dza, wb + L.fg2, WD, [&](int j, float s) {
+    jet_matvec_t(dza, wb + L.fg2, WD, WD, WD, [&](int j, float s) {
       dzb[j] = s * dleaky(gv[R_ZFG1 + j]);
     });
-    pairs.put(boff + L.fg1, pv, 4 * WD, dzb);
+    pairs.put(boff + L.fg1, pv, 4 * WD, dzb, WD);
     vec_add(gb + L.bfg1, dzb);
-    jet_matvec_t(dzb, wb + L.fg1, 4 * WD, [&](int j, float s) { dp[j] = s; });
+    jet_matvec_t(dzb, wb + L.fg1, WD, WD, 4 * WD, [&](int j, float s) { dp[j] = s; });
     if (tid < WD) {
       dsum[tid] = dp[WD + tid] + dp[tid] / denom;
       dg[tid] = dza[tid] + dp[2 * WD + tid];
@@ -647,15 +396,15 @@ __device__ void wide_backward_jet(const float* __restrict__ w, const float* __re
       dza[tid] = dg[tid] * dleaky(pj[R_ZG2 + tid]);
     }
     __syncthreads();
-    pairs.put(L.w_g2, vb, WD, dza);
+    pairs.put(L.w_g2, vb, WD, dza, WD);
     vec_add(grad + L.b_g2, dza);
-    jet_matvec_t(dza, w + L.w_g2, WD, [&](int j, float s) { dzb[j] = s * dleaky(pj[R_ZG1 + j]); });
-    pairs.put(L.w_g1, va, WD, dzb);
+    jet_matvec_t(dza, w + L.w_g2, WD, WD, WD, [&](int j, float s) { dzb[j] = s * dleaky(pj[R_ZG1 + j]); });
+    pairs.put(L.w_g1, va, WD, dzb, WD);
     vec_add(grad + L.b_g1, dzb);
-    jet_matvec_t(dzb, w + L.w_g1, WD, [&](int j, float s) { dzc[j] = s * dleaky(pj[R_ZG0 + j]); });
-    pairs.put(L.w_g0, pv, 3 * WD, dzc);
+    jet_matvec_t(dzb, w + L.w_g1, WD, WD, WD, [&](int j, float s) { dzc[j] = s * dleaky(pj[R_ZG0 + j]); });
+    pairs.put(L.w_g0, pv, 3 * WD, dzc, WD);
     vec_add(grad + L.b_g0, dzc);
-    jet_matvec_t(dzc, w + L.w_g0, 2 * WD, [&](int j, float s) { dp[j] = s; });
+    jet_matvec_t(dzc, w + L.w_g0, WD, WD, 2 * WD, [&](int j, float s) { dp[j] = s; });
     if (tid < WD) dsum[tid] = dp[WD + tid] + dp[tid] / denom;
     __syncthreads();
   }
@@ -715,7 +464,7 @@ __device__ void wide_backward_jet(const float* __restrict__ w, const float* __re
   __syncthreads();
   vec_add(grad + L.b_l0, Q + (NQ - 1) * WD);
   // w_l0 (384, 128): rows of temb, of x_emb = x·w_x + b_x, of k_emb = table[k]
-  pairs.put(L.w_l0, temb, WD, Q + DC * WD);
+  pairs.put(L.w_l0, temb, WD, Q + DC * WD, WD);
   for (int i0 = tid; i0 < MAT / 4; i0 += 4 * THREADS) {
     float4* gx[4];
     float4* gk[4];
@@ -757,11 +506,11 @@ __device__ void wide_backward_jet(const float* __restrict__ w, const float* __re
   // dfeats = dz_l0·W_l0ᵀ·m reaches w_x, b_x and the table through Q
   for (int c = 0; c <= DC; ++c) {
     float* dst = c < DC ? grad + L.w_x + c * WD : grad + L.b_x;
-    jet_matvec_t(Q + c * WD, w + L.w_l0 + WD * WD, WD, [&](int j, float s) { dst[j] += s; });
+    jet_matvec_t(Q + c * WD, w + L.w_l0 + WD * WD, WD, WD, WD, [&](int j, float s) { dst[j] += s; });
   }
   for (int v = 0; v < V; ++v) {
     float* dst = grad + L.table + v * WD;
-    jet_matvec_t(Q + (DC + 1 + v) * WD, w + L.w_l0 + 2 * WD * WD, WD,
+    jet_matvec_t(Q + (DC + 1 + v) * WD, w + L.w_l0 + 2 * WD * WD, WD, WD, WD,
                  [&](int j, float s) { dst[j] += s; });
   }
 }
@@ -781,7 +530,7 @@ epic_wide_backward_kernel(const float* __restrict__ w, const float* __restrict__
   float* base = records + (size_t)blockIdx.x * record_floats(d.num_blocks);
   auto* signs = reinterpret_cast<unsigned*>(base + (size_t)(1 + 2 * d.num_blocks) * MAT);
   float* projv = reinterpret_cast<float*>(signs + (size_t)(1 + d.num_blocks) * SIGN_WORDS);
-  const GlobalRecord rec{base, signs, projv, projv + R_PROJ};
+  const GlobalRecord rec{base, signs, projv, projv + R_PROJ, R_GLOB};
   const int stride = pair_floats(d.num_blocks);
   float* pairs = pair_log + (size_t)blockIdx.x * pair_block_floats(d.num_blocks, jets_per_block);
   int* groups = reinterpret_cast<int*>(pairs + (size_t)jets_per_block * stride);
@@ -820,13 +569,37 @@ inline cudaError_t backward_grid(int B, int* grid) {
   return cudaSuccess;
 }
 
+// The general kernel's grid: clusters of H / 128 blocks, at most one block
+// an SM, at most one cluster a jet.
+inline cudaError_t backward_grid_any(const Dims& d, int B, int* grid) {
+  int sms;
+  cudaError_t err = backward_grid(1 << 30, &sms);
+  if (err != cudaSuccess) return err;
+  const int CL = d.hidden / WD;
+  int clusters = sms / CL < B ? sms / CL : B;
+  if (clusters < 1) clusters = 1;
+  *grid = clusters * CL;
+  return cudaSuccess;
+}
+
 }  // namespace mmpw
 
+// Every width 128 takes this file's kernel; every other width the wide gate
+// takes (MBM's token input and vocabulary-wide head) epic_wide_backward_any.cuh's.
 extern "C" int mmp_epic_wide_backward_workspace(int B, int N, const int* dims, int* grid,
                                                 long long* floats) {
   using namespace mmpw;
   const Dims d = dims_from(dims);
-  if (!dims_supported(d) || N < 1 || N > ROWS) return cudaErrorInvalidValue;
+  if (!any_dims_supported(d, false) || N < 1 || N > ROWS) return cudaErrorInvalidValue;
+  if (!dims_supported(d)) {
+    cudaError_t err = backward_grid_any(d, B, grid);
+    if (err != cudaSuccess) return err;
+    const int CL = d.hidden / WD, clusters = *grid / CL;
+    const int jets_per_cluster = (B + clusters - 1) / clusters;
+    *floats = (long long)*grid * ((long long)make_layout(d).row_stride + record_floats_any(d) +
+                                  pair_block_floats_any(d, CL, jets_per_cluster));
+    return cudaSuccess;
+  }
   cudaError_t err = backward_grid(B, grid);
   if (err != cudaSuccess) return err;
   const int jets_per_block = (B + *grid - 1) / *grid;
@@ -838,7 +611,8 @@ extern "C" int mmp_epic_wide_backward_workspace(int B, int N, const int* dims, i
 
 // w: the packed weights; tcw, l0t: the forward's tensor-core stages and
 // local_0's tables (as mmp_epic_wide_forward takes them); tcw_t: the
-// transposed stages of the walk back's dz·Wᵀ
+// transposed stages of the walk back's dz·Wᵀ (per layer and column block);
+// grid and scratch as mmp_epic_wide_backward_workspace gives them.
 extern "C" int mmp_epic_wide_backward(const void* w, const void* tcw, const void* l0t,
                                       const void* tcw_t, const void* t, const void* x,
                                       const void* k, const void* mask, const void* g, void* out,
@@ -846,18 +620,34 @@ extern "C" int mmp_epic_wide_backward(const void* w, const void* tcw, const void
                                       void* stream) {
   using namespace mmpw;
   const Dims d = dims_from(dims);
-  if (!dims_supported(d) || N < 1 || N > ROWS || grid < 1) return cudaErrorInvalidValue;
+  if (!any_dims_supported(d, false) || N < 1 || N > ROWS || grid < 1) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(epic_wide_backward_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES_BWD);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* partials = static_cast<float*>(scratch);
+  cudaError_t err;
+  if (!dims_supported(d)) {
+    const int CL = d.hidden / WD;
+    if (grid % CL != 0) return cudaErrorInvalidValue;
+    const Layout L = make_layout(d);
+    const int clusters = grid / CL, jets_per_cluster = (B + clusters - 1) / clusters;
+    float* records = partials + (size_t)grid * L.row_stride;
+    float* pair_log = records + (size_t)grid * record_floats_any(d);
+    auto launch = CL == 1 ? launch_backward_any<1> : CL == 2 ? launch_backward_any<2>
+                : CL == 3 ? launch_backward_any<3> : launch_backward_any<4>;
+    if ((err = launch(w, tcw, l0t, tcw_t, d, t, x, k, mask, g, partials, records, pair_log,
+                      jets_per_cluster, grid, B, N, s)) != cudaSuccess)
+      return err;
+    wide_reduce_partials<<<(L.total + 255) / 256, 256, 0, s>>>(
+        partials, grid, L.row_stride, L.total, static_cast<float*>(out));
+    return cudaGetLastError();
+  }
+  err = cudaFuncSetAttribute(epic_wide_backward_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES_BWD);
   if (err != cudaSuccess) return err;
   const Layout L = make_layout(d.num_blocks);
-  auto* partials = static_cast<float*>(scratch);
   float* records = partials + (size_t)grid * L.row_stride;
   float* pair_log = records + (size_t)grid * record_floats(d.num_blocks);
   const int jets_per_block = (B + grid - 1) / grid;
-  auto s = static_cast<cudaStream_t>(stream);
   epic_wide_backward_kernel<<<grid, THREADS, SMEM_BYTES_BWD, s>>>(
       static_cast<const float*>(w), static_cast<const float*>(tcw), static_cast<const float*>(l0t),
       static_cast<const float*>(tcw_t), d, static_cast<const float*>(t), static_cast<const float*>(x),

@@ -1,0 +1,10 @@
+// K5 at local hidden width 512 (a cluster of 4 blocks a jet) with any
+// global, time-embedding and token-embedding widths the wide gate takes
+// (epic_wide_backward_any.cuh); its own source so that nvcc builds it beside
+// the others.
+
+#include "epic_wide_backward_any.cuh"
+
+namespace mmpw {
+MMPW_BACKWARD_ANY(4)
+}  // namespace mmpw

@@ -1,4 +1,8 @@
-// K4: fused EPiC forward at hidden 128, one launch for the whole encoder.
+// K4: fused EPiC forward at the wide widths, one launch for the whole
+// encoder. This file's kernel takes every width 128 with a discrete head of
+// at most 64; the general kernel (epic_wide_forward_any.cuh, a cluster of
+// hidden / 128 blocks a jet, instantiated by epic_wide_forward_h*.cu) every
+// other width the JAX wide gate takes up to 512, mixed, and heads up to 512.
 //
 // Replaces the TPU kernel multimodal_particles_tpu/ops/epic_pallas_wide.py
 // (`epic_forward_pallas_wide`, body `_epic_wide_kernel` / `_forward_acts_wide`):
@@ -43,7 +47,7 @@
 // C interface (bound with ctypes by ops/epic_wide_cuda.py): returns the
 // cudaError_t of the launch, 0 on success.
 
-#include "epic_wide.cuh"
+#include "epic_wide_forward_any.cuh"
 
 namespace mmpw {
 
@@ -81,20 +85,29 @@ cudaError_t launch(const void* w, const void* tcw, const void* l0t, const Dims& 
 
 }  // namespace mmpw
 
-// w: the packed weights; tcw: the tensor-core stages of fc_local1 and fc_local2,
-// TC_LAYER floats a layer, and l0t: local_0's tables, L0_END floats
-// (ops/epic_cuda.py::tensor_core_weights), 16-byte aligned; k: (B, N)
-// int tokens, or with fold_discrete (B, N, V) float channel values; hidden:
-// (B, N, 128) or null.
+// w: the packed weights; tcw: the tensor-core stages of fc_local1 and fc_local2
+// and l0t: local_0's tables (ops/epic_cuda.py::tensor_core_weights), per layer
+// and per column block of 128 of the local hidden width H, 16-byte aligned;
+// k: (B, N) int tokens, or with fold_discrete (B, N, V) float channel values;
+// hidden: (B, N, H) or null. Every width 128 with a head of at most 64 takes
+// this file's kernel; every other width the wide gate takes, and heads up to
+// 512, take epic_wide_forward_any.cuh's, a cluster of H / 128 blocks a jet.
 extern "C" int mmp_epic_wide_forward(const void* w, const void* tcw, const void* l0t,
                                      const void* t, const void* x, const void* k,
                                      const void* mask, void* out, void* hidden, int B, int N,
                                      const int* dims, void* stream) {
   using namespace mmpw;
   const Dims d = dims_from(dims);
-  if (!forward_dims_supported(d) || N < 1 || N > ROWS) return cudaErrorInvalidValue;
+  if (!any_dims_supported(d, true) || N < 1 || N > ROWS) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!forward_dims_supported(d)) {
+    auto launch = d.hidden == 128   ? launch_forward_any<1>
+                  : d.hidden == 256 ? launch_forward_any<2>
+                  : d.hidden == 384 ? launch_forward_any<3>
+                                    : launch_forward_any<4>;
+    return launch(w, tcw, l0t, d, t, x, k, mask, out, hidden, B, N, s);
+  }
   const bool wide_head = d.head_hidden != V;
   if (d.fold_discrete)
     return wide_head ? launch<true, true>(w, tcw, l0t, d, t, x, k, mask, out, hidden, B, N, s)

@@ -40,7 +40,7 @@
 // B, W) per-block time rows; last: (B, N, Dh); mask: (B, N) float; out: (B,
 // N); scratch: two tiles of 128 × 132 floats for each of the grid's blocks.
 // W (channels): 128, 256, 384 or 512; heads of W / n_heads ≤ 128 channels;
-// Dh from 1 to W; grid ≥ W / 128.
+// any Dh ≥ 1 (proj_in runs over it in passes of 128 columns); grid ≥ W / 128.
 extern "C" int mmp_survival_head(const void* w, const void* stream, const void* tp,
                                  const void* last, const void* mask, void* out, void* scratch,
                                  int grid, int B, int N, int Dh, int n_blocks, int n_heads,
@@ -48,7 +48,7 @@ extern "C" int mmp_survival_head(const void* w, const void* stream, const void* 
   using namespace mmps;
   const int CL = channels / C;
   if (channels % C != 0 || CL < 1 || CL > MAX_CL || N < 1 || N > ROWS || Dh < 1 ||
-      Dh > channels || n_blocks < 1 || n_heads < 1 || channels % n_heads != 0 ||
+      n_blocks < 1 || n_heads < 1 || channels % n_heads != 0 ||
       channels / n_heads > C || grid < CL)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;

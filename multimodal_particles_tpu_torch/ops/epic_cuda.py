@@ -220,26 +220,43 @@ def tensor_core_stages(w_in_out):
     return torch.stack([hi, tf32_round(blocks - hi)], dim=1).reshape(-1)
 
 
+# the columns of a wide kernel's block: a jet at local hidden width H is a
+# cluster of H / 128 blocks, each owning 128 columns of every activation tile
+# (ops/csrc/epic_wide_any.cuh)
+BLOCK_COLUMNS = 128
+
+
+def column_blocks(w):
+    """(K, H) → its H / 128 column blocks (K, 128), in order."""
+    return [w[:, c0:c0 + BLOCK_COLUMNS] for c0 in range(0, w.shape[1], BLOCK_COLUMNS)]
+
+
 def tensor_core_weights(flat: torch.Tensor, d: "EpicDims"):
     """The weights the wide forward kernel's tensor-core products read, made
     from a wide-layout buffer (left as it is): (stages, tables). `stages`: per
-    EPiC layer the stages of fc_local1's particle third (its first 128 input
-    rows), then fc_local2's. `tables`: local_0's particle two thirds folded
-    with the embeddings, which are Dense layers, so that a particle's local_0
-    input term is x·T_x + (values·T_k, or a token's row of T_k) + c: T_x
-    (3, 128), T_k (V, 128), c (128), computed in float64."""
+    EPiC layer the stages of fc_local1's particle third (its first H input
+    rows), then fc_local2's, each as its H / 128 column blocks one after the
+    other (a block of the jet's cluster streams its own). `tables`: local_0's
+    particle two thirds folded with the embeddings, which are Dense layers, so
+    that a particle's local_0 input term is x·T_x + (values·T_k, or a token's
+    row of T_k) + c: per column block T_x (3, 128), T_k (V, 128), c (128),
+    computed in float64. At H = 128 one block's of each."""
     with torch.no_grad():
         views = wide_flat_views(flat.detach(), d)
-        weights = [w for i in range(d.num_blocks)
-                   for w in (views[f"w_fl1_{i}"][:, :d.hidden].T, views[f"w_fl2_{i}"].T)]
+        weights = [block for i in range(d.num_blocks)
+                   for w in (views[f"w_fl1_{i}"][:, :d.hidden].T, views[f"w_fl2_{i}"].T)
+                   for block in column_blocks(w)]
         stages = tensor_core_stages(torch.stack(weights)) if weights else flat.new_zeros(4)
         w_l0 = views["w_l0"].double()
         w_x, w_k = w_l0[:, d.emb_t:d.emb_t + d.emb_x].T, w_l0[:, d.emb_t + d.emb_x:].T
         c = views["b_x"].double() @ w_x
         if d.fold_discrete:
             c = c + views["b_k"].double() @ w_k
-        tables = torch.cat([(views["w_x"].double().T @ w_x).reshape(-1),
-                            (views["table"].double() @ w_k).reshape(-1), c]).float()
+        t_x = views["w_x"].double().T @ w_x
+        t_k = views["table"].double() @ w_k
+        tables = torch.cat([torch.cat([bx.reshape(-1), bk.reshape(-1), bc.reshape(-1)])
+                            for bx, bk, bc in zip(column_blocks(t_x), column_blocks(t_k),
+                                                  column_blocks(c[None]))]).float()
     return stages.contiguous(), tables.contiguous()
 
 

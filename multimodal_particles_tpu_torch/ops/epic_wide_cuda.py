@@ -1,4 +1,4 @@
-"""Fused EPiC forward at hidden 128 as one hand-written CUDA kernel
+"""Fused EPiC forward at the wide widths as one hand-written CUDA kernel
 (counterpart of multimodal_particles_tpu/ops/epic_pallas_wide.py).
 
 The wide kernel is a chain of matrix products through shared memory
@@ -25,6 +25,16 @@ transdimensional network's bare trunk with the folded Linear-discrete input
 epic_pallas_wide.py:72-80), which takes the (B, N, V) channel values where
 MBM's takes tokens. The backward kernel (ops/epic_wide_vjp_cuda.py) takes
 MBM's packing only.
+
+Widths: the local hidden width, the global one and the time embedding's
+each 128, 256, 384 or 512, mixed, and the token embeddings too (with the
+folded input two widths whose sum is a multiple of 128), N ≤ 128, a
+discrete head up to 512 wide. At every width 128 with a head of at most 64
+a jet is one block (ops/csrc/epic_wide.cuh); otherwise a cluster of
+hidden / 128 blocks (ops/csrc/epic_wide_any.cuh), each owning 128 columns of
+every activation tile, the stages and tables laid out a column block after
+the other. JAX's gate also takes widths above 512 and any N; those go to
+the module path here.
 """
 
 import torch
@@ -43,11 +53,11 @@ from multimodal_particles_tpu_torch.ops.epic_cuda import (
     pack_encoder,
 )
 
-# the width, the particle slots and the widest discrete head the wide kernels
-# are compiled for (ops/csrc/epic_wide.cuh)
-WIDE_WIDTH = 128
+# the widths, the particle slots and the widest discrete head the wide kernels
+# are compiled for (ops/csrc/epic_wide.cuh, epic_wide_any.cuh)
+WIDE_WIDTHS = (128, 256, 384, 512)
 WIDE_MAX_PARTICLES = 128
-MAX_WIDE_HEAD = 64
+MAX_WIDE_HEAD = 512
 
 
 def pack_wide_encoder_params(encoder, config, differentiable: bool = False,
@@ -62,37 +72,52 @@ def pack_wide_encoder_params(encoder, config, differentiable: bool = False,
     return pack_encoder(encoder, d, "wide", differentiable, head)
 
 
+def embedding_widths_supported(d_x: int, d_k: int, linear_discrete: bool) -> bool:
+    """The token embeddings' widths the wide kernels take: each one of
+    WIDE_WIDTHS; with the folded Linear-discrete input two widths up to 512
+    whose sum is a multiple of 128 (epic_pallas_wide.py:363-369), the
+    discrete one a multiple of 4 so that the packed matrices after it stay
+    16-byte aligned."""
+    if linear_discrete:
+        return (1 <= d_x <= WIDE_WIDTHS[-1] and 1 <= d_k <= WIDE_WIDTHS[-1]
+                and (d_x + d_k) % 128 == 0 and d_k % 4 == 0)
+    return d_x in WIDE_WIDTHS and d_k in WIDE_WIDTHS
+
+
 def wide_supported(config, allow_linear_discrete: bool = False, head_hidden: int = VOCAB) -> bool:
     """True when the encoder matches what the wide kernels are compiled for:
-    the pattern of `epic_supported` with every feature width 128 and a
+    the pattern of `epic_supported` with the local hidden, global and time
+    widths each one of WIDE_WIDTHS (mixed), the token embeddings as
+    `embedding_widths_supported` takes them, at most 128 particle slots and a
     discrete head at most MAX_WIDE_HEAD wide (`head_hidden`: the absorbing
     generator's `discrete_head_hidden_dim`); with `allow_linear_discrete`
     also the Linear-discrete input. Only the forward kernel takes the
-    Linear-discrete input or a head other than the vocabulary's
-    (epic_pallas_wide.py:335-369). The JAX gate takes every multiple of 128
-    (for the Linear-discrete input, a sum of the two embedding widths that is
-    one); other widths go to the module path here."""
+    Linear-discrete input or a head other than the vocabulary's. The JAX gate
+    (epic_pallas_wide.py:335-369) takes the same at these widths, and also
+    every wider multiple of 128 and any N, which go to the module path here."""
     e = config.encoder
-    widths = (e.dim_hidden_local, e.dim_hidden_glob, e.dim_emb_time,
-              e.dim_emb_features_continuous, e.dim_emb_features_discrete)
+    linear = allow_linear_discrete and e.embedding_features_discrete == "Linear"
     return (
         epic_pattern_supported(config, allow_linear_discrete)
-        and all(w == WIDE_WIDTH for w in widths)
+        and all(w in WIDE_WIDTHS for w in (e.dim_hidden_local, e.dim_hidden_glob, e.dim_emb_time))
+        and embedding_widths_supported(e.dim_emb_features_continuous,
+                                       e.dim_emb_features_discrete, linear)
         and 1 <= config.data.max_num_particles <= WIDE_MAX_PARTICLES
         and 1 <= head_hidden <= MAX_WIDE_HEAD
     )
 
 
 def check_wide_packing(packed: PackedEncoder, any_head_width: bool = False):
-    """The wide kernels take the wide layout at width 128, 16-byte aligned
-    (they read it as float4). Only the forward kernel (`any_head_width`)
-    takes a discrete head of another hidden width than the vocabulary's (up
-    to MAX_WIDE_HEAD) or the folded Linear-discrete input."""
+    """The wide kernels take the wide layout at the widths `wide_supported`
+    takes, 16-byte aligned (they read it as float4). Only the forward kernel
+    (`any_head_width`) takes a discrete head of another hidden width than the
+    vocabulary's (up to MAX_WIDE_HEAD) or the folded Linear-discrete input."""
     d = packed.dims
     if packed.layout != "wide":
         raise ValueError("the wide kernels read the pack_wide_encoder_params layout")
-    if any(w != WIDE_WIDTH for w in (d.hidden, d.hidden_glob, d.emb_t, d.emb_x, d.emb_k)):
-        raise ValueError(f"the wide kernels are compiled for width {WIDE_WIDTH} throughout, got {d}")
+    if (any(w not in WIDE_WIDTHS for w in (d.hidden, d.hidden_glob, d.emb_t))
+            or not embedding_widths_supported(d.emb_x, d.emb_k, d.fold_discrete)):
+        raise ValueError(f"the wide kernels are compiled for widths {WIDE_WIDTHS}, got {d}")
     if any_head_width:
         if not 1 <= d.head_hidden <= MAX_WIDE_HEAD:
             raise ValueError(f"head width {d.head_hidden} outside [1, {MAX_WIDE_HEAD}]")
@@ -103,10 +128,10 @@ def check_wide_packing(packed: PackedEncoder, any_head_width: bool = False):
 
 
 def epic_forward_wide(packed: PackedEncoder, t, x, k, mask, output_hidden_local=False):
-    """Fused EPiC forward at hidden 128. t (B,1,1), x (B,N,3), k (B,N,1) int
-    (with a folded packing the (B,N,8) float channel values), mask (B,N,1) →
+    """Fused wide EPiC forward. t (B,1,1), x (B,N,3), k (B,N,1) int (with a
+    folded packing the (B,N,8) float channel values), mask (B,N,1) →
     (B, N, 3 + 8) float32; with `output_hidden_local` also the trunk's last
-    local hidden state (B, N, 128), written by the same launch. CPU tensors
+    local hidden state (B, N, H), written by the same launch. CPU tensors
     take the plain version; CUDA tensors launch the kernel or raise."""
     if x.device.type == "cpu":
         return epic_forward_reference(packed, t, x, k, mask, output_hidden_local)
@@ -116,7 +141,7 @@ def epic_forward_wide(packed: PackedEncoder, t, x, k, mask, output_hidden_local=
         raise ValueError(f"t must hold one time per jet, got {tuple(t.shape)}")
     k_in = k if packed.dims.fold_discrete else k.to(torch.int32).contiguous()
     out = torch.empty((B, N, DIM_C + VOCAB), dtype=torch.float32, device=x.device)
-    hidden = (torch.empty((B, N, WIDE_WIDTH), dtype=torch.float32, device=x.device)
+    hidden = (torch.empty((B, N, packed.dims.hidden), dtype=torch.float32, device=x.device)
               if output_hidden_local else None)
     if packed.tensor_core is None:
         raise ValueError("the wide forward kernel reads the tensor-core weights that "

@@ -17,6 +17,11 @@ autograd chains d(flat) to v, g and the rest.
             carries, and the transposed stages of its dz·Wᵀ products, which
             its wrapper makes (`tensor_core_transposed_stages`)
 
+At every width 128 the backward is one block a jet; at the other widths
+`wide_supported` takes (MBM's token input and 8-wide head) a cluster of
+hidden / 128 blocks (ops/csrc/epic_wide_backward_any.cuh), its transposed
+stages a 128-column block after the other.
+
 `epic_train_forward_wide` dispatches: CUDA tensors go to the kernels or
 raise, CPU tensors to `epic_train_forward_reference`, autograd through the
 plain `forward_from_temb`. `epic_backward_wide` exposes the backward alone;
@@ -35,6 +40,7 @@ from multimodal_particles_tpu_torch.ops.epic_cuda import (
     EpicDims,
     PackedEncoder,
     check_kernel_inputs,
+    column_blocks,
     tensor_core_stages,
     wide_flat_views,
 )
@@ -54,13 +60,15 @@ _workspace_cache = {}
 def tensor_core_transposed_stages(flat: torch.Tensor, d: EpicDims):
     """The wide backward kernel's dz·Wᵀ weights, made from a wide-layout
     buffer: per EPiC layer the stages of fc_local2 transposed, then of
-    fc_local1's particle third transposed, laid out as `tensor_core_stages`
-    lays out the forward's (the transposes are the (in, out) matrices of the
-    backward's products: their input is the forward's output)."""
+    fc_local1's particle third transposed, each as its column blocks, laid
+    out as `tensor_core_weights` lays out the forward's (the transposes are
+    the (in, out) matrices of the backward's products: their input is the
+    forward's output)."""
     with torch.no_grad():
         views = wide_flat_views(flat.detach(), d)
-        weights = [w for i in range(d.num_blocks)
-                   for w in (views[f"w_fl2_{i}"], views[f"w_fl1_{i}"][:, :d.hidden])]
+        weights = [block for i in range(d.num_blocks)
+                   for w in (views[f"w_fl2_{i}"], views[f"w_fl1_{i}"][:, :d.hidden])
+                   for block in column_blocks(w)]
         stages = tensor_core_stages(torch.stack(weights)) if weights else flat.new_zeros(4)
     return stages.contiguous()
 

@@ -17,7 +17,9 @@ stack's: their packing, their plain version and the wrappers' common checks
 come from ops/gsdm_stack_cuda.py, their device code from
 ops/csrc/gsdm_blocks.cuh. The head takes the stack's transformer widths and
 head counts (`heads_supported`: 128 … 512, heads of up to 128 channels) and
-a trunk of any hidden width up to the transformer width.
+a trunk of any hidden width: the kernel's first product runs over it in
+passes of 128 columns, as the gsdm stack's does (a `--scaled` trunk at
+hidden 256 feeds a head of C = 128).
 """
 
 import dataclasses
@@ -114,16 +116,15 @@ def survival_supported(config) -> bool:
     """True when the head matches what the kernel is compiled for
     (survival_pallas.py:355-366 without the TPU-only parts): no tensor-parallel
     'model' axis, transformer width 128, 256, 384 or 512 with heads of at
-    most 128 channels that divide it (`heads_supported`), at least one block,
-    at most 128 slots, and a trunk hidden width up to the transformer width."""
+    most 128 channels that divide it (`heads_supported`), at least one block
+    and at most 128 slots. The trunk's hidden width may be any, as in JAX."""
     if getattr(getattr(config, "parallel", None), "model_axis", 1) > 1:
         return False
-    g, hidden = config.generator, config.encoder.dim_hidden_local
+    g = config.generator
     return (
         heads_supported(g.transformer_dim, g.n_heads)
         and g.n_attn_blocks >= 1
         and 1 <= config.data.max_num_particles <= MAX_PARTICLES
-        and 1 <= hidden <= g.transformer_dim
     )
 
 
@@ -162,9 +163,8 @@ def survival_head(packed: PackedSurvivalHead, temb_projected, last_layer, mask_t
         raise ValueError(f"last_layer must be (B, N, Dh), got {tuple(last_layer.shape)}")
     B, N, dh = last_layer.shape
     C = packed.channels
-    if dh != packed.dim_hidden or not 1 <= dh <= C:
-        raise ValueError(f"hidden width {dh}: packed for {packed.dim_hidden}, the kernel takes "
-                         f"1 to {C}")
+    if dh != packed.dim_hidden or dh < 1:
+        raise ValueError(f"hidden width {dh}: packed for {packed.dim_hidden}")
     if not 1 <= N <= MAX_PARTICLES:
         raise ValueError(f"N={N} outside [1, {MAX_PARTICLES}]")
     check_heads(n_heads, C)

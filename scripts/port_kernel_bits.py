@@ -12,7 +12,10 @@ tensor-core kernel on, `tf32x3.cuh` (and later `narrow_tc.cuh`) for K2;
 and, from the tensor-core K4 on, `tf32x3.cuh` for K4; `epic_wide_backward.cu`
 and the same headers for K5; `survival_head.cu`, `gsdm_blocks.cuh` and, from
 the tensor-core K6 on, `tf32x3.cuh` and, from the K6 of any width on,
-`survival_head.cuh` and `survival_head_c{256,384,512}.cu` for K6;
+`survival_head.cuh` and `survival_head_c{256,384,512}.cu` for K6 (and,
+from K4 and K5 at every width on, `epic_wide_any.cuh`,
+`epic_wide_forward_any.cuh`, `epic_wide_backward.cuh`,
+`epic_wide_backward_any.cuh` and `epic_wide_{forward,backward}_h*.cu`);
 `gsdm_stack.cu` and the same headers (`gsdm_stack.cuh`, `gsdm_stack_c*.cu`)
 for K7; `attention_core.cu`, `tf32x3.cuh` for K8), for example
 unpacked with `git archive REV multimodal_particles_tpu_torch/ops/csrc`. The
@@ -52,8 +55,8 @@ bits are the same.
 
 The FFMA K1's and K3's sources (before their tensor-core kernels) build in
 minutes; `--kernels` leaves them out when their sources did not change.
-With `--time`, K6, K7 and K8 (those chosen) are also timed under both builds
-in turns at their main paths' shapes (`time_head_kernels`). One JSON line a comparison; exit code 1
+With `--time`, K4, K5, K6, K7 and K8 (those chosen) are also timed under both
+builds in turns at their main paths' shapes (`time_head_kernels`). One JSON line a comparison; exit code 1
 if any output held to the bits differs or a share exceeds 1. For a change
 to a header that several kernels share.
 """
@@ -110,12 +113,17 @@ KERNELS = {
     "K7": ("gsdm_stack.cu", "mmp_gsdm_stack"),
     "K8": ("attention_core.cu", "mmp_attention_core"),
 }
-HEADERS = ("epic_forward.cuh", "epic_forward_kernel.cuh", "epic_wide.cuh", "gsdm_blocks.cuh",
-           "gsdm_stack.cuh", "narrow_tc.cuh", "survival_head.cuh", "tf32x3.cuh")
+HEADERS = ("epic_forward.cuh", "epic_forward_kernel.cuh", "epic_wide.cuh", "epic_wide_any.cuh",
+           "epic_wide_forward_any.cuh", "epic_wide_backward.cuh", "epic_wide_backward_any.cuh",
+           "gsdm_blocks.cuh", "gsdm_stack.cuh", "narrow_tc.cuh", "survival_head.cuh",
+           "tf32x3.cuh")
 # K6's and K7's sources of their widths 256, 384 and 512 (their cluster
-# instances), where the revision has them
+# instances), and K4's and K5's of their local hidden widths 128 … 512 (the
+# general kernels), where the revision has them
 WIDE_SOURCES = {k: tuple(f"{stem}_c{w}.cu" for w in (256, 384, 512))
                 for k, stem in (("K6", "survival_head"), ("K7", "gsdm_stack"))}
+WIDE_SOURCES.update({k: tuple(f"{stem}_h{w}.cu" for w in (128, 256, 384, 512))
+                     for k, stem in (("K4", "epic_wide_forward"), ("K5", "epic_wide_backward"))})
 K1_FOLD = ("epic_forward_fold.cu", "mmp_epic_forward_fold")  # K1's folded-input instantiation
 K1_TOL = 1e-4  # K1's gate, elementwise (atol = rtol), at the three shapes held
 K4_TOL = 1e-4  # K4's gate against its plain version, per particle (atol = rtol)
@@ -393,7 +401,7 @@ def main():
     parser.add_argument("--other", required=True, type=Path, help="the other revision's csrc files")
     parser.add_argument("--kernels", nargs="+", choices=sorted(KERNELS), default=sorted(KERNELS))
     parser.add_argument("--time", action="store_true",
-                        help="also time K6, K7 and K8 (those chosen) under both builds")
+                        help="also time K4 to K8 (those chosen) under both builds")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("port_kernel_bits: needs a GPU")
@@ -553,15 +561,28 @@ def main():
 
 
 def time_head_kernels(libs, kernels, flow, device, gen):
-    """K6, K7 and K8 (those in `kernels`) at their main paths' shapes under
-    each build, in turns (other, here, here, other): K6 at the absorbing
-    reference head (B=4096, N=109), K7 at the transdimensional creation stack
-    (B=4096, N=128, Din=27), K8 at B=4096, N=128, 2 heads, with a key mask.
-    One JSON line a kernel, with the card's name and power limit."""
+    """K4 to K8 (those in `kernels`) at their main paths' shapes under each
+    build, in turns (other, here, here, other): K4 and K5 at the scaled MBM
+    backbone (every width 128, 6 blocks, B=8192, N=128; K5 for a random
+    cotangent), K6 at the absorbing reference head (B=4096, N=109), K7 at the
+    transdimensional creation stack (B=4096, N=128, Din=27), K8 at B=4096,
+    N=128, 2 heads, with a key mask. One JSON line a kernel, with the card's
+    name and power limit."""
     import chip_smoke  # its timer and card line; it imports the scripts that import this one
 
     card = chip_smoke.card_line()
     runs = {}
+    if "K4" in kernels or "K5" in kernels:
+        mbm = init_parameters(MultiModalBridgeMatching(scaled_config(MultimodalBridgeMatchingConfig())), 0)
+        scaled = epic_wide_cuda.pack_wide_encoder_params(mbm.to(device).encoder, mbm.config)
+        t8, x8, k8, mask8 = inputs(8192, 128, device, gen)
+        g8 = torch.randn((8192, 128, 11), generator=gen, device=device)
+    if "K4" in kernels:
+        runs["K4"] = ({"config": "scaled MBM", "B": 8192, "N": 128},
+                      lambda lib: wide_forward(lib, scaled, t8, x8, k8, mask8, False))
+    if "K5" in kernels:
+        runs["K5"] = ({"config": "scaled MBM", "B": 8192, "N": 128},
+                      lambda lib: wide_backward(lib, scaled, t8, x8, k8, mask8, g8))
     if "K6" in kernels:
         gen_cfg = flow.config.generator
         _, head = flow.pack_for_kernel()

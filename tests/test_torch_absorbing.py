@@ -380,10 +380,13 @@ def test_kernel_gate(pair):
     check_wide_packing(trunk, any_head_width=True)
     wide.parallel.use_pallas = False
     assert not wide_model._pallas_enabled("cuda")  # the module path stays open
-    # a head wider than K4 is compiled for (64): the module trunk, then the fused head
-    assert wide_supported(wide, head_hidden=64) and not wide_supported(wide, head_hidden=65)
+    # a head wider than K4 takes (512): the module trunk, then the fused head
+    assert wide_supported(wide, head_hidden=512) and not wide_supported(wide, head_hidden=513)
     wide.parallel.use_pallas = True
-    wide.generator.discrete_head_hidden_dim = 96
+    wide.generator.discrete_head_hidden_dim = 96  # past the 64 of K4's width-128 kernel
+    trunk, head = AbsorbingFlow(wide).pack_for_kernel()
+    assert trunk.layout == "wide" and trunk.dims.head_hidden == 96 and head.dim_hidden == 128
+    wide.generator.discrete_head_hidden_dim = 513
     trunk, head = AbsorbingFlow(wide).pack_for_kernel()
     assert trunk is None and head.dim_hidden == 128
 

@@ -650,6 +650,137 @@ def test_epic_backward_wide_tensor_cores_across_b(device, B):
     hold_wide_backward(packed, t, x, k, mask, g)
 
 
+# K4 and K5 at every width the wide gate takes up to 512 (a cluster of
+# hidden / 128 blocks a jet), mixed; the encoder overrides of `packed_model`
+WIDE_WIDTH_CASES = {
+    "all256": dict(hidden=256),
+    "local256-glob128": dict(hidden=256, dim_hidden_glob=128),
+    "local128-glob256-time384": dict(hidden=128, dim_hidden_glob=256, dim_emb_time=384),
+    "local384-emb256": dict(hidden=384, dim_emb_features_continuous=256),
+    "all512": dict(hidden=512),
+    "local512-glob256-time128": dict(hidden=512, dim_hidden_glob=256, dim_emb_time=128,
+                                     dim_emb_features_discrete=128),
+}
+
+
+def wide_width_packing(device, case, blocks, skip=True, head=True, head_hidden=None):
+    """A seeded MBM encoder at a WIDE_WIDTH_CASES case, packed for the wide
+    kernels; with `head_hidden` a seeded discrete head of that hidden width
+    (the absorbing generator's Dense-SELU-Dense) in place of the module's."""
+    overrides = dict(WIDE_WIDTH_CASES[case])
+    hidden = overrides.pop("hidden")
+    packed = packed_model(device, hidden, blocks, skip, head, wide=True, **overrides)
+    if head_hidden is None:
+        return packed
+    config = MultimodalBridgeMatchingConfig()
+    e = config.encoder
+    e.dim_hidden_local = e.dim_hidden_glob = e.dim_emb_time = hidden
+    e.dim_emb_features_continuous = e.dim_emb_features_discrete = hidden
+    for name, value in overrides.items():
+        setattr(e, name, value)
+    e.num_blocks, e.skip_connection, e.add_discrete_head = blocks, skip, True
+    model = MultiModalBridgeMatching(config)
+    init_mbm_parameters(model, 0)
+    torch.manual_seed(7)
+    mlp = torch.nn.Sequential(torch.nn.Linear(8, head_hidden), torch.nn.SELU(),
+                              torch.nn.Linear(head_hidden, 8))
+    return pack_wide_encoder_params(model.to(device).encoder, config, head=mlp.to(device))
+
+
+def hold_wide_forward(packed, t, x, k, mask, hidden_output=False):
+    """K4 against its plain version per particle (|err| ≤ 1e-4 + 1e-4·the
+    particle's largest |output|; the hidden output per particle the same way),
+    the same bits on a repeat, empty jets' continuous outputs 0."""
+    before = epic_forward_wide.launches
+    got = epic_forward_wide(packed, t, x, k, mask, output_hidden_local=hidden_output)
+    again = epic_forward_wide(packed, t, x, k, mask, output_hidden_local=hidden_output)
+    torch.cuda.synchronize()
+    assert epic_forward_wide.launches == before + 2
+    ref = epic_forward_reference(packed, t, x, k, mask, output_hidden_local=hidden_output)
+    pairs = zip(got, again, ref) if hidden_output else [(got, again, ref)]
+    for a, b, r in pairs:
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+        bound = ATOL + RTOL * r.abs().amax(dim=-1, keepdim=True)
+        assert ((a - r).abs() <= bound).all(), (a - r).abs().max().item()
+    out = got[0] if hidden_output else got
+    assert (out[-2:, :, :3] == 0).all()  # empty jets
+
+
+@pytest.mark.parametrize("N", [128, 37])
+@pytest.mark.parametrize("case", list(WIDE_WIDTH_CASES))
+def test_epic_forward_wide_at_every_width(device, case, N):
+    """K4 at every width case (clusters of 1 to 4 blocks), 2 blocks with skip
+    and head, and 1 block without; N on both sides of the 64-row warpgroups."""
+    t, x, k, mask, _ = inputs(device, 48, N)
+    hold_wide_forward(wide_width_packing(device, case, 2), t, x, k, mask)
+    hold_wide_forward(wide_width_packing(device, case, 1, skip=False, head=False), t, x, k, mask)
+
+
+@pytest.mark.parametrize("case,head_hidden", [("all256", 56), ("all256", 128), ("local384-emb256", 8),
+                                              ("local128-glob256-time384", 128),
+                                              ("local512-glob256-time128", 512)])
+def test_epic_forward_wide_heads_and_hidden_output_at_every_width(device, case, head_hidden):
+    """K4's discrete head up to 512 wide (the absorbing generator's MLP) with
+    the trunk's last hidden state (B, N, H) as a second output."""
+    packed = wide_width_packing(device, case, 2, head_hidden=head_hidden)
+    assert packed.dims.head_hidden == head_hidden
+    t, x, k, mask, _ = inputs(device, 40, 109)
+    hold_wide_forward(packed, t, x, k, mask, hidden_output=True)
+
+
+@pytest.mark.parametrize("head_hidden", [56, 64, 65, 128, 512])
+def test_epic_forward_wide_heads_at_width_128(device, head_hidden):
+    """At every width 128, a head of at most 64 takes the width-128 kernel and
+    a wider one the general kernel (a one-block cluster): both against the
+    plain version, with the hidden output."""
+    config = MultimodalBridgeMatchingConfig()
+    scale_encoder(config, 2)
+    model = MultiModalBridgeMatching(config)
+    init_mbm_parameters(model, 0)
+    torch.manual_seed(8)
+    mlp = torch.nn.Sequential(torch.nn.Linear(8, head_hidden), torch.nn.SELU(),
+                              torch.nn.Linear(head_hidden, 8))
+    packed = pack_wide_encoder_params(model.to(device).encoder, config, head=mlp.to(device))
+    t, x, k, mask, _ = inputs(device, 24, 109)
+    hold_wide_forward(packed, t, x, k, mask, hidden_output=True)
+
+
+@pytest.mark.parametrize("N", [128, 50])
+@pytest.mark.parametrize("case", list(WIDE_WIDTH_CASES))
+def test_epic_backward_wide_at_every_width(device, case, N):
+    """K5 at every width case against plain autograd per leaf, with the skip
+    and head flips, over more jets than the grid has clusters; the same bits
+    on a repeat."""
+    B = 140
+    for skip, head in ((True, True), (False, False)):
+        packed = wide_width_packing(device, case, 2, skip, head)
+        t, x, k, mask, gen = inputs(device, B, N)
+        near = near_kink_jets(packed, t, x, k, mask)
+        g = torch.randn((B, N, 11), generator=gen, device=device) * (~near)[:, None, None]
+        hold_wide_backward(packed, t, x, k, mask, g)
+
+
+@pytest.mark.parametrize("hidden", [256, 300])
+def test_survival_head_on_a_trunk_wider_than_its_width(device, hidden):
+    """K6 at transformer width 128 on a trunk hidden width above it (its
+    first product in passes of 128 columns) against its plain version at
+    2e-4, the same bits on a repeat."""
+    B, N = 133, 109
+    model = absorbing_model(device, hidden=hidden)
+    _, head = model.pack_for_kernel()
+    assert head.dim_hidden == hidden
+    t, _, _, mask = scattered_inputs(device, B, N)
+    last = torch.randn((B, N, hidden), generator=torch.Generator(device=device).manual_seed(9),
+                       device=device)
+    tp = project_time_embeddings(model.generator, t, 2, 128)
+    got = survival_head(head, tp, last, mask.long(), n_heads=2)
+    again = survival_head(head, tp, last, mask.long(), n_heads=2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, survival_head_reference(head, tp, last, mask.long(), n_heads=2),
+                               atol=2e-4, rtol=2e-4)
+    assert torch.equal(got, again)
+
+
 def test_epic_train_forward_wide_goes_through_both_kernels(device):
     config = MultimodalBridgeMatchingConfig()
     e = config.encoder

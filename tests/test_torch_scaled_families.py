@@ -251,6 +251,7 @@ def test_wide_wrappers_take_and_refuse_the_new_packings(absorbing, transdim):
     fold, _, _ = transdim[2].pack_for_kernel()
     check_wide_packing(trunk, any_head_width=True)
     check_wide_packing(fold, any_head_width=True)
+    assert MAX_WIDE_HEAD == 512  # K4 takes heads up to 512 wide
     meta = dict(device="meta")
     t, x = torch.empty((4, 1, 1), **meta), torch.empty((4, 16, 3), **meta)
     mask, g = torch.empty((4, 16, 1), **meta), torch.empty((4, 16, 11), **meta)

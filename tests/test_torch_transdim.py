@@ -549,8 +549,15 @@ def test_kernel_gate_follows_the_heads_and_a_wide_trunk_raises():
     for got, ref in zip(fused[0::4], module[0::4]):  # the score and the nearest-atom logits
         assert torch.isfinite(ref).all()
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
-    # a wide trunk no kernel is compiled for (256): the gate is off and the packing raises
+    # a trunk of 256 takes the wide kernel's clusters (two blocks a jet), beside K7 at 264, 267
     e.dim_hidden_local = e.dim_hidden_glob = 256
+    at_256 = TransdimensionalJumpDiffusion(cfg)
+    assert at_256._pallas_enabled("cuda")
+    trunk, rate_stack, vec_stack = at_256.pack_for_kernel()
+    assert trunk.layout == "wide" and trunk.dims.hidden == 256
+    assert (rate_stack.dim_in, vec_stack.dim_in) == (264, 267)
+    # a wide trunk no kernel is compiled for (640): the gate is off and the packing raises
+    e.dim_hidden_local = e.dim_hidden_glob = 640
     wider = TransdimensionalJumpDiffusion(cfg)
     assert not wider._pallas_enabled("cuda")
     with pytest.raises(ValueError, match="no trunk kernel"):

@@ -266,14 +266,20 @@ def test_gates_match_the_jax_gates(case):
 
 
 def test_widths_the_port_has_no_kernel_for_take_the_module_path():
-    """JAX sends every multiple of 128 to its wide kernel; the port's is
-    compiled for 128 alone, so 256 goes to neither gate."""
+    """JAX sends every multiple of 128 to its wide kernel, at any N; the
+    port's take 128 to 512 (256 is the wide gate's) and N ≤ 128, so 640 and
+    N = 256 go to neither gate."""
     w256 = {name: 256 for name in WIDE if name != "num_blocks"}
-    cfg = _gate_case(**w256)
+    port_cfg = TorchConfig.from_dict(_gate_case(**w256).to_dict())
+    assert wide_supported(port_cfg) and not epic_supported(port_cfg)
+    w640 = {name: 640 for name in WIDE if name != "num_blocks"}
+    cfg = _gate_case(**w640)
     assert wide_pallas_supported(cfg)
     port_cfg = TorchConfig.from_dict(cfg.to_dict())
     assert not wide_supported(port_cfg) and not epic_supported(port_cfg)
-    port_cfg = TorchConfig.from_dict(_gate_case(**WIDE, max_num_particles=256).to_dict())
+    cfg = _gate_case(**WIDE, max_num_particles=256)
+    assert wide_pallas_supported(cfg)
+    port_cfg = TorchConfig.from_dict(cfg.to_dict())
     assert not wide_supported(port_cfg)  # 128 particle slots a jet
 
 

@@ -83,14 +83,17 @@ def jax_config(num_timesteps=8, **encoder):
     return cfg
 
 
-def model_pair(seed=0, num_timesteps=8, **encoder):
+def model_pair(seed=0, num_timesteps=8, drawn_init=False, **encoder):
     """(jax_model, jax_params, torch_model, jax_batch): flax-initialised
     weights plus seeded noise (so that biases are not zero), transplanted.
-    `encoder` overrides encoder fields of the test config."""
+    `encoder` overrides encoder fields of the test config. With `drawn_init`
+    the weights before the noise come from `drawn_params`."""
     cfg = jax_config(num_timesteps, **encoder)
     batch = jax.tree_util.tree_map(jnp.asarray, JetsDataloaderModule.random_databatch(cfg))
     jax_model = MultiModalBridgeMatching(cfg)
-    params = jax_model.init(jax.random.PRNGKey(seed), batch)
+    key = jax.random.PRNGKey(seed)
+    params = (drawn_params(jax_model.init, key, batch, seed=seed) if drawn_init
+              else jax_model.init(key, batch))
     rng = np.random.default_rng(seed)
     params_np = jax.tree_util.tree_map(
         lambda a: (np.asarray(a) + 0.1 * rng.standard_normal(a.shape)).astype(np.float32),
