@@ -477,6 +477,30 @@ Phases, one JSON line each:
               stacks read 264 and 267 columns) serves 4096 jets: K4 48 and K7 96
               times; then paths_transdim_scaled256 (phase 35's check)
 
+ 70. long_heads  K6, K7 and K8 on jets of 129, 200 and 256 slots (two row
+              blocks a jet: K6 and K7 clusters of C/128 × 2 blocks, K8 a block
+              a query half) at 128 × 2 heads and every pair of phase 60 against
+              their plain versions with the gates of phases 19, 25 and 33 at
+              B=64 (K7 at Din 24 for N=200, 27 else; K8 with a key mask that
+              masks every key of one jet, whose output must be its values'
+              mean, and without), the same bits on a repeat; then each timed
+              at B=4096, N=256, 128 × 2 heads beside its plain version (in
+              chunks of 512 jets), its bounds and (K8) SDPA; and K7 checked and
+              timed at the scaled-256 stacks' inputs (Din 264 and 267, N=128)
+ 71. slice_absorbing_n256, slice_absorbing_n200  AbsorbingFlow at
+              AbsorbingConfig() with max_num_particles 256: two predict
+              requests of 4096 jets (the second the steady one), then at 200
+              one of 1024; each K1 and K6 99 times, no plain version called,
+              phase 20's checks
+ 72. paths_absorbing_n256  phase 21's check at N=256
+ 73. slice_transdim_n256, slice_transdim_n200  the transdimensional model
+              at TransdimensionalEpicConfig() with max_num_particles 256: two
+              requests of 4096 jets, then at 200 one of 1024; K1 48 and K7 96
+              times each, no plain version called, phase 26's checks
+ 74. paths_transdim_n256  phase 27's check at N=256 (dims equal on ≥ 95% of
+              jets, parted jets ≤ 3 × a 1-ulp nudge's + 4, every kernel call
+              within its bound of its plain version)
+
 The line before the last lists every kernel with its launches on its own
 path's run, its two bounds from the shapes and the H100 data sheet's peaks
 (`bound_ms` with the operations on the CUDA cores in fp32, `tensor_bound_ms`
@@ -495,10 +519,13 @@ among them (`switches`, `conditional_absorbing`, `bf16_predict`, `bf16_train`,
 60-62's `attn_block_C<c>_h<h>`, `serving_absorbing_c<c>_h<h>`,
 `serving_transdim_c<c>_h<h>`, and phases 66-69's `serving_scaled256`,
 `train_scaled256`, `serving_absorbing_scaled256`,
-`serving_transdim_scaled256`), K6's, K7's and K8's checks and times at
-every pair of phase 60 (`widths`), K4's and K5's at every case of phases
-63-64 (`widths`), K6's on the trunk of 256 (`trunk_256`), and K7's
-worst share of its gate on the trained flow; the last
+`serving_transdim_scaled256`, and phases 71 and 73's
+`serving_absorbing_n256`, `serving_absorbing_n200`,
+`serving_transdim_n256`, `serving_transdim_n200`), K6's, K7's and K8's
+checks and times at every pair of phase 60 (`widths`) and past 128 slots
+(`past_128_slots`, phase 70), K4's and K5's at every case of phases 63-64
+(`widths`), K6's on the trunk of 256 (`trunk_256`), and K7's worst share of
+its gate on the trained flow; the last
 line is {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Uses torch, numpy, scipy (the port's jet metrics), the standard library, the
 port and the port's scripts under scripts/ (torch_*.py) only. fp32 with TF32 off (phase 45 also computes in bf16 on the module path).
@@ -1895,14 +1922,16 @@ def scale_encoder(config, width=SCALED_HIDDEN):
     e.dim_emb_features_continuous = e.dim_emb_features_discrete = width
 
 
-def make_absorbing(device, num_timesteps=100, scaled=False, gains=False, heads=None):
+def make_absorbing(device, num_timesteps=100, scaled=False, gains=False, heads=None, n=ABS_N):
     """AbsorbingFlow at AbsorbingConfig's defaults (EPiC 2 blocks, hidden 16;
     survival head 128 wide, 2 heads, 2 blocks; N=109), seeded weights; with
     `scaled` at the `--scaled` backbone (True, or a width: every width
     `scaled`), with `gains` `data_dependent_gains`, with `heads` = (width,
-    count) the survival head at that width and count."""
+    count) the survival head at that width and count, with `n` that many
+    particle slots."""
     config = AbsorbingConfig()
     config.bridge.num_timesteps = num_timesteps
+    config.data.max_num_particles = n
     if heads:
         config.generator.transformer_dim, config.generator.n_heads = heads
     if scaled:
@@ -2005,14 +2034,14 @@ def absorbing_counts():
     return {"epic_forward": epic_forward.launches, "survival_head": survival_head.launches}
 
 
-def check_generated_absorbing(out, batch, B):
+def check_generated_absorbing(out, batch, B, n=ABS_N):
     """What a birth-only request must give: finite kinematics of the expected
     shape, tokens in [0, 8), dead slots zero, no source slot dead."""
     x, k, mask = out.continuous, out.discrete, out.mask_t
     dead = mask == 0
     ok = {
-        "shape": (tuple(x.shape) == (B, ABS_N, 3) and tuple(k.shape) == (B, ABS_N, 1)
-                  and tuple(mask.shape) == (B, ABS_N, 1)),
+        "shape": (tuple(x.shape) == (B, n, 3) and tuple(k.shape) == (B, n, 1)
+                  and tuple(mask.shape) == (B, n, 1)),
         "finite": bool(torch.isfinite(x).all().item()),
         "tokens_in_range": bool(((k >= 0) & (k < 8)).all().item()),
         "mask_is_0_or_1": bool(((mask == 0) | (mask == 1)).all().item()),
@@ -2026,14 +2055,14 @@ def check_generated_absorbing(out, batch, B):
 
 
 def phase_slice_absorbing(device, card, heads=None, sizes=ABS_REQUEST_SIZES,
-                          phase="slice_absorbing"):
+                          phase="slice_absorbing", n=ABS_N):
     """predict at the absorbing family's reference config (with `heads` =
-    (width, count) its survival head's): per step one launch of K1 (with its
-    hidden output) and one of K6, the solver steps in plain PyTorch, no plain
-    version of a kernel."""
-    model = make_absorbing(device, heads=heads)
+    (width, count) its survival head's, with `n` particle slots): per step
+    one launch of K1 (with its hidden output) and one of K6, the solver steps
+    in plain PyTorch, no plain version of a kernel."""
+    model = make_absorbing(device, heads=heads, n=n)
     gen = torch.Generator(device=device).manual_seed(SEED + 17)
-    batches = [absorbing_training_batch(B, ABS_N, 3, 8, gen, device=device, num_empty=1)
+    batches = [absorbing_training_batch(B, n, 3, 8, gen, device=device, num_empty=1)
                for B in sizes]
     torch.cuda.synchronize()
 
@@ -2047,8 +2076,8 @@ def phase_slice_absorbing(device, card, heads=None, sizes=ABS_REQUEST_SIZES,
         seconds = time.perf_counter() - start
         k1 = epic_forward.launches - before["epic_forward"]
         k6 = survival_head.launches - before["survival_head"]
-        checks = check_generated_absorbing(out, batch, B)
-        emit({"phase": phase, "heads": heads, "B": B, "N": ABS_N, "steps": k6, "K1_launches": k1,
+        checks = check_generated_absorbing(out, batch, B, n)
+        emit({"phase": phase, "heads": heads, "B": B, "N": n, "steps": k6, "K1_launches": k1,
               "K6_launches": k6, "seconds": seconds, "jets_per_s": B / seconds,
               "multiplicity_in": batch.source_mask.sum().item() / B,
               "multiplicity_out": out.mask_t.sum().item() / B,
@@ -2065,26 +2094,27 @@ def phase_slice_absorbing(device, card, heads=None, sizes=ABS_REQUEST_SIZES,
     return launches
 
 
-def phase_paths_absorbing(device, model=None, phase="paths_absorbing"):
-    """The 99-step kernel path against the module path, same generator seed."""
-    model = model or make_absorbing(device)
+def phase_paths_absorbing(device, model=None, phase="paths_absorbing", n=ABS_N):
+    """The 99-step kernel path against the module path, same generator seed;
+    `n` particle slots."""
+    model = model or make_absorbing(device, n=n)
     B = ABS_PATHS_B
     batch = absorbing_training_batch(
-        B, ABS_N, 3, 8, torch.Generator(device=device).manual_seed(SEED + 18), device=device,
+        B, n, 3, 8, torch.Generator(device=device).manual_seed(SEED + 18), device=device,
         num_empty=1)
     outs = []
     for use_pallas in ("auto", False):
         model.config.parallel.use_pallas = use_pallas
         outs.append(model.predict(batch, generator=torch.Generator(device=device).manual_seed(SEED + 19)))
     kernel, plain = outs
-    slots = B * ABS_N
+    slots = B * n
     mask_mismatch = (kernel.mask_t != plain.mask_t).sum().item() / slots
     token_mismatch = (kernel.discrete != plain.discrete).sum().item() / slots
     both = ((kernel.mask_t > 0) & (plain.mask_t > 0))[..., 0]
     x_plain = plain.continuous.abs()[both]
     dx = (kernel.continuous - plain.continuous).abs()[both]
     rel = dx / x_plain.clamp_min(1.0)
-    rec = {"phase": phase, "B": B, "N": ABS_N, "steps": 99,
+    rec = {"phase": phase, "B": B, "N": n, "steps": 99,
            "mask_mismatch": mask_mismatch, "token_mismatch": token_mismatch,
            "median_abs_dx": dx.median().item(), "max_abs_dx": dx.max().item(),
            "median_rel_dx": rel.median().item(), "max_rel_dx": rel.max().item(),
@@ -2236,17 +2266,18 @@ def absorbing_phases(device, card, build_dir):
     return entry, k1
 
 
-def make_transdim(device, prior_batch=None, scaled=False, gains=False, heads=None):
+def make_transdim(device, prior_batch=None, scaled=False, gains=False, heads=None, n=TD_N):
     """The transdimensional model at its reference config with the sampler of
     the JAX bench's transdim line (48 steps, multi_birth 24), seeded weights,
     and a multiplicity prior from `prior_batch`'s multiplicities; with
     `scaled` at the `--scaled` backbone (True, or a width: every width
     `scaled`), with `gains` `data_dependent_gains`, with `heads` = (width,
-    count) the gsdm stacks at that width and count."""
+    count) the gsdm stacks at that width and count, with `n` that many
+    particle slots."""
     config = TransdimensionalEpicConfig()
     if heads:
         config.encoder.transformer_dim, config.encoder.n_heads = heads
-    config.data.max_num_particles = TD_N
+    config.data.max_num_particles = n
     config.sampler_kwargs.dt = 1.0 / TD_STEPS
     config.sampler_kwargs.multi_birth = TD_MULTI_BIRTH
     if scaled:
@@ -2369,23 +2400,23 @@ def transdim_counts():
     return {"epic_forward": epic_forward.launches, "gsdm_stack": gsdm_stack.launches}
 
 
-def check_generated_transdim(out, B):
+def check_generated_transdim(out, B, n=TD_N):
     """What a request must give: finite latents of the expected shape,
     1 ≤ dims ≤ N, rows from dims on zero, the live rows centred."""
     x, values, dims = out.continuous, out.discrete, out.dims
-    dead = (torch.arange(TD_N, device=x.device)[None, :] >= dims[:, None])[..., None]
+    dead = (torch.arange(n, device=x.device)[None, :] >= dims[:, None])[..., None]
     live = (~dead).float()
     centre = (x * live).sum(dim=1).abs().max().item()
     scale = max(x.abs().max().item(), 1.0)
     ok = {
-        "shape": (tuple(x.shape) == (B, TD_N, 3) and tuple(values.shape) == (B, TD_N, 8)
+        "shape": (tuple(x.shape) == (B, n, 3) and tuple(values.shape) == (B, n, 8)
                   and tuple(dims.shape) == (B,)),
         "finite": bool(torch.isfinite(x).all().item() and torch.isfinite(values).all().item()),
-        "dims_in_range": bool(((dims >= 1) & (dims <= TD_N)).all().item()),
+        "dims_in_range": bool(((dims >= 1) & (dims <= n)).all().item()),
         "dead_rows_zero": bool((x[dead.expand_as(x)] == 0).all().item()
                                and (values[dead.expand_as(values)] == 0).all().item()),
-        # a sum of up to 128 float32 values of the jets' scale
-        "centred": centre <= 1e-5 * TD_N * scale,
+        # a sum of up to n float32 values of the jets' scale
+        "centred": centre <= 1e-5 * n * scale,
     }
     if not all(ok.values()):
         raise RuntimeError(f"generated transdimensional jets fail their checks: {ok}")
@@ -2393,14 +2424,15 @@ def check_generated_transdim(out, B):
 
 
 def phase_slice_transdim(device, card, heads=None, sizes=TD_REQUEST_SIZES,
-                         phase="slice_transdim"):
+                         phase="slice_transdim", n=TD_N):
     """predict at the transdimensional family's reference config (with
-    `heads` = (width, count) its gsdm stacks'): per network evaluation one
-    launch of K1 (folded input, hidden output) and two of K7, everything
-    between them plain PyTorch, no plain version of a kernel."""
+    `heads` = (width, count) its gsdm stacks', with `n` particle slots): per
+    network evaluation one launch of K1 (folded input, hidden output) and two
+    of K7, everything between them plain PyTorch, no plain version of a
+    kernel."""
     gen = torch.Generator(device=device).manual_seed(SEED + 24)
-    batches = [transdim_training_batch(B, TD_N, 3, 8, gen, device=device) for B in sizes]
-    model = make_transdim(device, batches[0], heads=heads)
+    batches = [transdim_training_batch(B, n, 3, 8, gen, device=device) for B in sizes]
+    model = make_transdim(device, batches[0], heads=heads, n=n)
     prior_mean = batches[0][0].float().mean().item()
     torch.cuda.synchronize()
 
@@ -2415,9 +2447,9 @@ def phase_slice_transdim(device, card, heads=None, sizes=TD_REQUEST_SIZES,
         k1 = epic_forward.launches - before["epic_forward"]
         k7 = gsdm_stack.launches - before["gsdm_stack"]
         nfe = k1  # a network evaluation launches K1 once
-        checks = check_generated_transdim(out, B)
+        checks = check_generated_transdim(out, B, n)
         mean_out = out.dims.float().mean().item()
-        emit({"phase": phase, "heads": heads, "B": B, "N": TD_N, "steps": TD_STEPS, "nfe": nfe,
+        emit({"phase": phase, "heads": heads, "B": B, "N": n, "steps": TD_STEPS, "nfe": nfe,
               "K1_launches": k1, "K7_launches": k7, "seconds": seconds,
               "jets_per_s": B / seconds, "multiplicity_prior": prior_mean,
               "multiplicity_out": mean_out, "card": card, **checks})
@@ -2532,14 +2564,15 @@ class KernelShadow:
                 "of_those_kernel_finite": total(self.kernel_only)}
 
 
-def transdim_path_draws(B, gen, device):
-    """Every draw of a 48-step request: the initial state, the chain's
-    uniforms, the Gumbel noise of the nearest atom, and two normals a step."""
-    D, kw = TD_N * 11, dict(generator=gen, device=device)
+def transdim_path_draws(B, gen, device, n=TD_N):
+    """Every draw of a 48-step request at n slots: the initial state, the
+    chain's uniforms, the Gumbel noise of the nearest atom, and two normals a
+    step."""
+    D, kw = n * 11, dict(generator=gen, device=device)
     return {"init": torch.randn((B, D), **kw), "em_noise": torch.randn((TD_STEPS, B, D), **kw),
             "birth_noise": torch.randn((TD_STEPS, B, D), **kw),
             "u_chain": torch.rand((TD_STEPS, B, TD_MULTI_BIRTH), **kw),
-            "gumbel": sample_gumbel((TD_STEPS, B, TD_N), gen, device)}
+            "gumbel": sample_gumbel((TD_STEPS, B, n), gen, device)}
 
 
 def nudged_draws(draws):
@@ -2550,7 +2583,7 @@ def nudged_draws(draws):
             "em_noise_up": {**draws, "em_noise": draws["em_noise"] * (1 + ULP)}}
 
 
-def phase_paths_transdim(device, scaled=False, phase="paths_transdim", weights=None):
+def phase_paths_transdim(device, scaled=False, phase="paths_transdim", weights=None, n=TD_N):
     """The 48-step kernel path against the module path from the same injected
     draws. Beside it, as the yardstick of the flow's own sensitivity, the
     module path against itself from draws 1 ulp away (`nudged_draws`): a
@@ -2560,15 +2593,15 @@ def phase_paths_transdim(device, scaled=False, phase="paths_transdim", weights=N
     nudge's parted jets and PART_SLACK more; every kernel call of the kernel
     path within its bound of its plain version on the same inputs
     (`KernelShadow`), the states on which jets part included. `weights`
-    (by name) replace the seeded ones: a trained model's flow. Returns the
-    line."""
+    (by name) replace the seeded ones: a trained model's flow; `n` particle
+    slots. Returns the line."""
     B = TD_PATHS_B
     gen = torch.Generator(device=device).manual_seed(SEED + 25)
-    batch = transdim_training_batch(B, TD_N, 3, 8, gen, device=device)
-    model = make_transdim(device, batch, scaled=scaled, gains=bool(scaled))
+    batch = transdim_training_batch(B, n, 3, 8, gen, device=device)
+    model = make_transdim(device, batch, scaled=scaled, gains=bool(scaled), n=n)
     if weights is not None:
         quality.load_weights(model, weights)
-    draws = transdim_path_draws(B, gen, device)
+    draws = transdim_path_draws(B, gen, device, n)
     model.config.parallel.use_pallas = True
     with KernelShadow() as shadow:
         kernel = model.predict(batch, draws=draws)
@@ -2580,7 +2613,7 @@ def phase_paths_transdim(device, scaled=False, phase="paths_transdim", weights=N
     rel = dx / x_plain.clamp_min(1.0)
     nudged_parted = max(y["jets_over_1e-3_of_their_scale"] for y in yardstick.values())
     allowed = PART_FACTOR * nudged_parted + PART_SLACK
-    rec = {"phase": phase, "B": B, "N": TD_N, "steps": TD_STEPS, **by_jet,
+    rec = {"phase": phase, "B": B, "N": n, "steps": TD_STEPS, **by_jet,
            "parted_jets_allowed": allowed, "module_vs_module_1ulp": yardstick,
            "kernel_err_over_bound": shadow.worst(),
            "median_rel_dx": rel.median().item(), "max_rel_dx": rel.max().item(),
@@ -4816,12 +4849,13 @@ def chunked(fn, B, *tensors, chunk=WIDTH_PLAIN_CHUNK):
                       for lo in range(0, B, chunk)])
 
 
-def width_check(kernel, C, heads, shape, got, again, ref, tol, relative=True):
-    """One check line of phase 60: |err| ≤ tol (+ tol·|ref| when
+def width_check(kernel, C, heads, shape, got, again, ref, tol, relative=True,
+                phase="head_widths"):
+    """One check line of phase 60 (or 70): |err| ≤ tol (+ tol·|ref| when
     `relative`), the same bits on a repeat, finite."""
     err = (got - ref).abs()
     bound = tol + (tol * ref.abs() if relative else 0.0)
-    rec = {"phase": "head_widths", "kernel": kernel, "C": C, "n_heads": heads,
+    rec = {"phase": phase, "kernel": kernel, "C": C, "n_heads": heads,
            "head_width": C // heads, **shape, "max_abs_err": err.max().item(),
            "max_abs_ref": ref.abs().max().item(), "tol": tol, "relative": relative,
            "worst_err_over_bound": (err / bound).max().item(),
@@ -4835,10 +4869,12 @@ def width_check(kernel, C, heads, shape, got, again, ref, tol, relative=True):
     return rec["max_abs_err"]
 
 
-def width_time(kernel, C, heads, timed_at, kernel_fn, plain_fn, bound, card, **extra):
-    """One time line of phase 60: the kernel and its plain version in turns."""
+def width_time(kernel, C, heads, timed_at, kernel_fn, plain_fn, bound, card, phase="head_widths",
+               **extra):
+    """One time line of phase 60 (or 70): the kernel and its plain version in
+    turns."""
     ms, plain_ms = time_pair(kernel_fn, plain_fn)
-    emit({"phase": "head_widths_time", "kernel": kernel, "C": C, "n_heads": heads,
+    emit({"phase": f"{phase}_time", "kernel": kernel, "C": C, "n_heads": heads,
           **timed_at, "ms": ms, "plain_ms": plain_ms, **bound, **against_bounds(bound, ms),
           **extra, "card": card})
     return {"ms": ms, "plain_ms": plain_ms, **bound_fields(bound), "timed_at": timed_at, **extra}
@@ -5328,6 +5364,187 @@ def wide_width_phases(device, card):
     return k4, k5, k6, paths
 
 
+# ------------------------------- phases 70-74: the head kernels past 128 slots
+
+# N on both sides of the row blocks' edge, one odd, and the most the kernels take
+LONG_N = (129, 200, 256)
+LONG_PAIRS = ((128, 2),) + WIDTH_PAIRS
+LONG_CHECK_B = 64  # more jets than the clusters of 8 blocks resident at once
+LONG_TIMED_N, LONG_B = 256, 4096
+LONG_ODD_N, LONG_ODD_B = 200, 1024
+SCALED256_DIN = (264, 267)  # the scaled-256 transdim stacks' inputs: 256 ‖ V (‖ 3)
+
+
+def phase_long_heads(device, card):
+    """K6, K7 and K8 at N = 129, 200 and 256 (two row blocks a jet: K6 and
+    K7 as clusters of C/128 × 2 blocks, K8 a block a query half) against
+    their plain versions at every pair of LONG_PAIRS, K8 with a key mask that
+    masks every key of one jet and without, the same bits on a repeat; then
+    each timed at B=4096, N=256, C=128 × 2 heads beside its plain version,
+    its bounds and (K8) SDPA, and K7 at the scaled-256 stacks' input widths
+    (B=4096, N=128). Returns per kernel its worst error and its times."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 70)
+    torch.cuda.empty_cache()
+    errors = {"survival_head": [], "gsdm_stack": [], "attention_core": []}
+    for C, heads in LONG_PAIRS:
+        absorbing = make_absorbing(device, heads=(C, heads))
+        _, head = absorbing.pack_for_kernel()
+        model = make_transdim(device, heads=(C, heads))
+        net = model.network
+        _, rate_stack, vec_stack = model.pack_for_kernel()
+        stacks = {24: (rate_stack, net.blocks()[0]), 27: (vec_stack, net.blocks("vec_")[0])}
+        B = LONG_CHECK_B
+        for n in LONG_N:
+            t, _, _, mask = scattered_inputs(B, n, device, gen)
+            last = torch.randn((B, n, head.dim_hidden), generator=gen, device=device)
+            tp = project_time_embeddings(absorbing.generator, t, head.n_blocks, C)
+            got = survival_head(head, tp, last, mask.long(), n_heads=heads)
+            again = survival_head(head, tp, last, mask.long(), n_heads=heads)
+            torch.cuda.synchronize()
+            ref = chunked(lambda tp_, last_, m_: survival_head_reference(
+                head, tp_, last_, m_, n_heads=heads), B, tp, last, mask.long())
+            errors["survival_head"].append(width_check(
+                "K6", C, heads, {"B": B, "N": n}, got, again, ref, K6_TOL, phase="long_heads"))
+
+            din = 24 if n == LONG_ODD_N else 27
+            packed, res_blocks = stacks[din]
+            x_in = torch.randn((B, n, din), generator=gen, device=device)
+            with torch.no_grad():
+                tp = stack_time_embeddings(net.time_embedding(torch.rand(
+                    (B,), generator=gen, device=device)), res_blocks)
+            got = gsdm_stack(packed, tp, x_in, n_heads=heads)
+            again = gsdm_stack(packed, tp, x_in, n_heads=heads)
+            torch.cuda.synchronize()
+            ref = chunked(lambda tp_, x_: gsdm_stack_reference(packed, tp_, x_, n_heads=heads),
+                          B, tp, x_in)
+            errors["gsdm_stack"].append(width_check(
+                "K7", C, heads, {"B": B, "N": n, "Din": din}, got, again, ref, K7_TOL,
+                phase="long_heads"))
+
+            q, k, v = (torch.randn((B, n, C), generator=gen, device=device) for _ in range(3))
+            mask = (torch.rand((B, n, 1), generator=gen, device=device) < 0.6).float()
+            mask[0] = 0.0  # every key of jet 0 masked: its output is the mean of its values
+            for m in (mask, None):
+                got = attention_core(q, k, v, m, n_heads=heads)
+                again = attention_core(q, k, v, m, n_heads=heads)
+                torch.cuda.synchronize()
+                ref = attention_core_reference(q, k, v, m, n_heads=heads)
+                errors["attention_core"].append(width_check(
+                    "K8", C, heads, {"B": B, "N": n, "masked": m is not None}, got, again, ref,
+                    K8_TOL, relative=False, phase="long_heads"))
+                if m is not None and not torch.allclose(got[0], v[0].mean(0).expand(n, -1),
+                                                        atol=K8_TOL, rtol=0):
+                    raise RuntimeError(f"K8 at N={n}: a wholly masked jet is not its values' mean")
+        del absorbing, head, model, net, stacks, rate_stack, vec_stack
+        torch.cuda.empty_cache()
+
+    # the timed calls: the reference widths (128 × 2 heads) at N = 256
+    n, B, C, heads = LONG_TIMED_N, LONG_B, 128, 2
+    out = {}
+    absorbing = make_absorbing(device, n=n)
+    _, head = absorbing.pack_for_kernel()
+    t, _, _, mask = scattered_inputs(B, n, device, gen)
+    mask_t = mask.long()
+    last = torch.randn((B, n, head.dim_hidden), generator=gen, device=device)
+    tp = project_time_embeddings(absorbing.generator, t, head.n_blocks, C)
+    out["survival_head"] = {"max_abs_err": max(errors["survival_head"]), **width_time(
+        "K6", C, heads, {"B": B, "N": n},
+        lambda: survival_head(head, tp, last, mask_t, n_heads=heads),
+        lambda: chunked(lambda tp_, last_, m_: survival_head_reference(
+            head, tp_, last_, m_, n_heads=heads), B, tp, last, mask_t),
+        survival_bound(head, B, n), card, phase="long_heads", products_tensor_bound_ms=
+        gsdm_products_tensor_bound_ms(head.dim_hidden, head.n_blocks, B, n, True, C))}
+    del absorbing, head, t, mask, mask_t, last, tp
+
+    model = make_transdim(device, n=n)
+    net = model.network
+    _, rate_stack, vec_stack = model.pack_for_kernel()
+    x_in = torch.randn((B, n, 27), generator=gen, device=device)
+    with torch.no_grad():
+        tp = stack_time_embeddings(net.time_embedding(torch.rand((B,), generator=gen,
+                                                                 device=device)),
+                                   net.blocks("vec_")[0])
+    out["gsdm_stack"] = {"max_abs_err": max(errors["gsdm_stack"]), **width_time(
+        "K7", C, heads, {"B": B, "N": n, "Din": 27},
+        lambda: gsdm_stack(vec_stack, tp, x_in, n_heads=heads),
+        lambda: chunked(lambda tp_, x_: gsdm_stack_reference(vec_stack, tp_, x_, n_heads=heads),
+                        B, tp, x_in),
+        gsdm_stack_bound(vec_stack, B, n), card, phase="long_heads", products_tensor_bound_ms=
+        gsdm_products_tensor_bound_ms(27, vec_stack.n_blocks, B, n, C=C))}
+    del model, net, rate_stack, vec_stack, x_in, tp
+
+    # K7 at the scaled-256 transdim stacks' input widths, N = 128
+    model = make_transdim(device, scaled=SCALED256_HIDDEN)
+    net = model.network
+    _, rate_stack, vec_stack = model.pack_for_kernel()
+    out["gsdm_stack"]["scaled256_inputs"] = {}
+    for din, (packed, res_blocks) in zip(SCALED256_DIN, ((rate_stack, net.blocks()[0]),
+                                                         (vec_stack, net.blocks("vec_")[0]))):
+        if packed.dim_in != din:
+            raise RuntimeError(f"the scaled-256 stack reads {packed.dim_in} columns, not {din}")
+        x_in = torch.randn((B, TD_N, din), generator=gen, device=device)
+        with torch.no_grad():
+            tp = stack_time_embeddings(net.time_embedding(torch.rand((B,), generator=gen,
+                                                                     device=device)), res_blocks)
+        got = gsdm_stack(packed, tp, x_in, n_heads=heads)
+        ref = chunked(lambda tp_, x_: gsdm_stack_reference(packed, tp_, x_, n_heads=heads),
+                      B, tp, x_in)
+        err = width_check("K7", C, heads, {"B": B, "N": TD_N, "Din": din}, got,
+                          gsdm_stack(packed, tp, x_in, n_heads=heads), ref, K7_TOL,
+                          phase="long_heads")
+        out["gsdm_stack"]["scaled256_inputs"][din] = {"max_abs_err": err, **width_time(
+            "K7", C, heads, {"B": B, "N": TD_N, "Din": din},
+            lambda: gsdm_stack(packed, tp, x_in, n_heads=heads),
+            lambda: chunked(lambda tp_, x_: gsdm_stack_reference(packed, tp_, x_, n_heads=heads),
+                            B, tp, x_in),
+            gsdm_stack_bound(packed, B, TD_N), card, phase="long_heads",
+            products_tensor_bound_ms=gsdm_products_tensor_bound_ms(din, packed.n_blocks, B, TD_N,
+                                                                   C=C))}
+        del got, ref, x_in, tp
+    del model, net, rate_stack, vec_stack
+
+    q, k, v = (torch.randn((B, n, C), generator=gen, device=device) for _ in range(3))
+    mask = (torch.rand((B, n, 1), generator=gen, device=device) < 0.6).float()
+    q4, k4, v4 = (a.view(B, n, heads, C // heads).transpose(1, 2) for a in (q, k, v))
+    bias4 = key_bias(mask, B, n, q)[:, None]
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias4)
+    library_ms = (cuda_ms(sdpa) + cuda_ms(sdpa)) / 2
+    out["attention_core"] = {"max_abs_err": max(errors["attention_core"]), **width_time(
+        "K8", C, heads, {"B": B, "N": n, "masked": True},
+        lambda: attention_core(q, k, v, mask, n_heads=heads),
+        lambda: chunked(lambda q_, k_, v_, m_: attention_core_reference(
+            q_, k_, v_, m_, n_heads=heads), B, q, k, v, mask),
+        attention_bound(B, n, C), card, phase="long_heads", library_ms=library_ms,
+        library="torch.nn.functional.scaled_dot_product_attention, float mask")}
+    del q, k, v, q4, k4, v4, bias4, mask
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_head_phases(device, card):
+    """Phases 70-74: the head kernels past 128 slots (70), the absorbing
+    family served at N = 256 and 200 and its kernel path against its module
+    path (71-72), the transdimensional family likewise (73-74). Returns
+    phase 70's per-kernel results and each path's launches by kernel name."""
+    long_heads = phase_long_heads(device, card)
+    paths = {}
+    paths["serving_absorbing_n256"] = phase_slice_absorbing(
+        device, card, sizes=(LONG_B, LONG_B), phase="slice_absorbing_n256", n=LONG_TIMED_N)
+    paths["serving_absorbing_n200"] = phase_slice_absorbing(
+        device, card, sizes=(LONG_ODD_B,), phase="slice_absorbing_n200", n=LONG_ODD_N)
+    phase_paths_absorbing(device, phase="paths_absorbing_n256", n=LONG_TIMED_N)
+    torch.cuda.empty_cache()
+    paths["serving_transdim_n256"] = phase_slice_transdim(
+        device, card, sizes=(LONG_B, LONG_B), phase="slice_transdim_n256", n=LONG_TIMED_N)
+    paths["serving_transdim_n200"] = phase_slice_transdim(
+        device, card, sizes=(LONG_ODD_B,), phase="slice_transdim_n200", n=LONG_ODD_N)
+    phase_paths_transdim(device, phase="paths_transdim_n256", n=LONG_TIMED_N)
+    torch.cuda.empty_cache()
+    return long_heads, paths
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU")
@@ -5462,6 +5679,14 @@ def main():
     k4["widths"], k5["widths"], k6["trunk_256"] = k4_widths, k5_widths, k6_trunk
     for entry in (k4, k5, k6, k7):
         for path, launches in wide_paths.items():
+            if launches.get(entry["name"]):
+                entry["launches_by_path"][path] = launches[entry["name"]]
+    # K6, K7 and K8 past 128 slots, and the two families served at N = 256 and 200
+    long_heads, long_paths = long_head_phases(device, card)
+    for entry in (k6, k7, k8):
+        entry["past_128_slots"] = long_heads[entry["name"]]
+    for entry in (k1, k6, k7):
+        for path, launches in long_paths.items():
             if launches.get(entry["name"]):
                 entry["launches_by_path"][path] = launches[entry["name"]]
     emit({"kernels": kernels})

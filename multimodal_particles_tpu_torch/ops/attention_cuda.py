@@ -21,10 +21,12 @@ from multimodal_particles_tpu_torch.ops import _build
 
 # what the kernel takes (ops/csrc/attention_core.cu): the transformer widths
 # of the head kernels (ops/gsdm_stack_cuda.py, which imports this module
-# through gsdm.py), heads of at most 128 channels, N ≤ 128
+# through gsdm.py), heads of at most 128 channels, N ≤ 256 (past SPLIT_ROWS
+# a block takes half of a (jet, head) pair's query rows)
 WIDTHS = (128, 256, 384, 512)
 MAX_HEAD_WIDTH = 128
-MAX_PARTICLES = 128
+MAX_PARTICLES = 256
+SPLIT_ROWS = 128
 MASKED_KEY_BIAS = -1e9  # attention_pallas.py:149
 
 
@@ -58,7 +60,7 @@ attention_core_reference.calls = 0
 
 def attention_core_supported(shape, n_heads: int) -> bool:
     """True when the kernel takes q of `shape` (B, N, C) with `n_heads`
-    heads: C one of 128, 256, 384, 512, 1 ≤ N ≤ 128, heads of at most 128
+    heads: C one of 128, 256, 384, 512, 1 ≤ N ≤ 256, heads of at most 128
     channels that divide C (a width that is not a multiple of 8 is
     zero-padded inside the kernel)."""
     if len(shape) != 3:
@@ -102,7 +104,7 @@ def attention_core(q, k, v, mask=None, *, n_heads: int):
         rc = lib.mmp_attention_core(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             mask.data_ptr() if mask is not None else None, out.data_ptr(),
-            B * n_heads, B, N, C, n_heads, stream,
+            B * n_heads * (2 if N > SPLIT_ROWS else 1), B, N, C, n_heads, stream,
         )
     _build.check(lib, rc, "mmp_attention_core")
     attention_core.launches += 1

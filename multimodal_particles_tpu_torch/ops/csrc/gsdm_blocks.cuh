@@ -7,7 +7,8 @@
 // A block is ResnetBlock: GroupNorm → swish → Dense → + time row → GroupNorm →
 // swish → Dense → + x; AttnBlock: GroupNorm → q, k, v → per-head
 // softmax(q·kᵀ/√d)·v over all N slots → proj_out → + x. Channel width C = 128,
-// N ≤ 128 slots, float32 values. GroupNorm (32 groups of 4 channels, biased
+// N ≤ 128 slots (a jet of up to 256 takes two row blocks, below), float32
+// values. GroupNorm (32 groups of 4 channels, biased
 // variance, eps 1e-6) and the attention run over all N slots of a jet, dead
 // ones included, and over no slot past N: the TPU kernels' rounding of N up
 // to 128 with their row masks and −1e9 key bias is TPU layout and has no
@@ -89,6 +90,32 @@
 // columns add 0, the padded output columns are not stored. At width 128
 // with heads of a multiple of 8 the code is the one above: every cluster
 // step is `if constexpr (CL > 1)`.
+//
+// Jets of 129 … 256 slots (RT = 2 row blocks). The three tiles hold 128 rows,
+// so such a jet's rows are cut in two: the cluster grows to CL × RT blocks
+// (at most 8, the portable limit, at width 512), block (row block rb, channel
+// block cb) at cluster rank rb·CL + cb owning rows 128·rb … + 127 of its 128
+// channels, each running the plan above on its rows.
+//   * The products are row-local: a block's A operand is its own rows, read
+//     from its channel peers as before; its weight stream is its channel
+//     block's, the same for both row blocks.
+//   * GroupNorm's sums are reduced over the row peers as well as the channel
+//     peers, in double (gn_stats_rows, through the cluster's vectors also at
+//     CL = 1).
+//   * Attention (attend_any for every head width): each warp's online softmax
+//     runs over the keys of its own row block and on into the row peer's k
+//     and v, read from the peer's shared memory, chunk by chunk as before;
+//     the keys of a row block past N never enter it. v is centred on the last
+//     key's value (P·v's terms of a jet's equal dead slots are then 0).
+//   * Every barrier that the jet needs is the cluster's (Jet::sync), which
+//     now also holds a block from overwriting k or v while a row peer may
+//     still attend over them; each block parks its own residual tile.
+//   What bounds it: the operations, as at 128 slots (a jet's products grow
+//   as N, its attention as N²); besides, a block reads half its keys from
+//   its row peer's shared memory and waits at the cluster's barriers, and a
+//   jet takes two SMs whatever its rows past 128 (PERF.md §6).
+// A jet of at most 128 slots keeps RT = 1: the code above, unchanged (every
+// row-block step is `if constexpr (RT > 1)`).
 #pragma once
 
 #include <math.h>
@@ -104,7 +131,8 @@ namespace cg = cooperative_groups;
 
 constexpr int C = 128;        // channels a block owns: the transformer width at CL = 1
 constexpr int MAX_CL = 4;     // blocks a jet: transformer width up to 512
-constexpr int ROWS = 128;     // particle slots per jet
+constexpr int ROWS = 128;     // particle slots a block: a row block of a jet
+constexpr int MAX_RT = 2;     // row blocks a jet: up to 256 slots
 constexpr int THREADS = 256;  // two warpgroups
 constexpr int GROUPS = 32;    // GroupNorm groups
 constexpr int GSIZE = C / GROUPS;
@@ -140,43 +168,77 @@ static_assert(RING >= 3, "the ring refills the slot read two k-steps before");
 // post_rate, and every channel's rstd·scale.
 constexpr int VC_RED = 0, VC_RED2 = 2 * C, VC_MU = 4 * C, VC_RSTD = VC_MU + GROUPS,
               VC_POST = VC_RSTD + GROUPS, VC_RS = VC_POST + ROWS;
-template <int CL>
+template <int CL, int RT = 1>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)(S_VEC + (CL == 1 ? V_END : VC_RS + C * CL));
+  return sizeof(float) * (size_t)(S_VEC + (CL * RT == 1 ? V_END : VC_RS + C * CL));
 }
-static_assert(smem_bytes<1>() <= 232448 && smem_bytes<MAX_CL>() <= 232448,
+static_assert(smem_bytes<1>() <= 232448 && smem_bytes<MAX_CL, MAX_RT>() <= 232448,
               "over a block's 227 KB of shared memory");
 // A block's scratch in device memory: the parked residual tile, then the
 // tile of the heads that lie across two blocks.
 constexpr int SCRATCH_FLOATS = 2 * TILE;
 
-// The jet's blocks: the cluster of CL blocks, this one `rank`, owning
-// channels col0() … + 127. At CL = 1 every call is the single block's.
-template <int CL>
+// The jet's blocks: the cluster of CL × RT blocks, this one owning channels
+// col0() … + 127 (channel block `rank`) of rows row0() … + 127 (row block
+// `rrow`). At CL = RT = 1 every call is the single block's.
+template <int CL, int RT = 1>
 struct Jet {
   int rank;
+  int rrow;
   __device__ __forceinline__ int col0() const { return CL == 1 ? 0 : C * rank; }
-  // Every thread of the jet's blocks; a block barrier at CL = 1.
+  __device__ __forceinline__ int row0() const { return RT == 1 ? 0 : ROWS * rrow; }
+  // Every thread of the jet's blocks; a block barrier at CL = RT = 1.
   __device__ __forceinline__ void sync() const {
-    if constexpr (CL == 1) {
+    if constexpr (CL * RT == 1) {
       __syncthreads();
     } else {
       cg::this_cluster().sync();
     }
   }
-  // `p` in this block's shared memory → the same place in block r's.
-  __device__ __forceinline__ const float* peer(const float* p, int r) const {
-    if constexpr (CL == 1) {
+  // `p` in this block's shared memory → the same place in block (rb, cb)'s.
+  __device__ __forceinline__ const float* at(const float* p, int rb, int cb) const {
+    if constexpr (CL * RT == 1) {
       return p;
     } else {
+      const int r = rb * CL + cb;
+      return r == rrow * CL + rank ? p
+                                   : cg::this_cluster().map_shared_rank(const_cast<float*>(p), r);
+    }
+  }
+  // `p` in this block's shared memory → the same place in channel block r's
+  // of this row block.
+  __device__ __forceinline__ const float* peer(const float* p, int r) const {
+    if constexpr (CL == 1 && RT == 1) {
+      return p;
+    } else if constexpr (RT == 1) {
       return r == rank ? p : cg::this_cluster().map_shared_rank(const_cast<float*>(p), r);
+    } else {
+      return at(p, rrow, r);
     }
   }
   // Row 0 of channel gc (0 … 128·CL − 1) of tile T.
   __device__ __forceinline__ const float* channel(const float* T, int gc) const {
     return peer(T, gc / C) + (gc % C);
   }
+  // The same in row block rb's tile.
+  __device__ __forceinline__ const float* channel_at(const float* T, int gc, int rb) const {
+    if constexpr (RT == 1) {
+      return channel(T, gc);
+    } else {
+      return at(T, rb, gc / C) + (gc % C);
+    }
+  }
 };
+
+// Slots of a jet of N in this block's row block: N at RT = 1.
+template <int CL, int RT>
+__device__ __forceinline__ int block_rows(int N, const Jet<CL, RT>& jet) {
+  if constexpr (RT == 1) {
+    return N;
+  } else {
+    return min(ROWS, N - jet.row0());
+  }
+}
 
 // Offsets in floats of one block's weights from the block's start (the
 // per-block entries of ops/gsdm_stack_cuda.py::block_layout); vectors only
@@ -288,11 +350,11 @@ __device__ __forceinline__ float2 ldg2(const float* p) {
 //
 // From a tile, column 8kt + t and 8kt + t + 4, through f(column, value). At
 // CL > 1 the columns are the cluster's, k-step kt in block kt / KSTEPS's tile.
-template <class F, int CL = 1>
+template <class F, int CL = 1, int RT = 1>
 struct TileA {
   const float* T;
   F f;
-  Jet<CL> jet;
+  Jet<CL, RT> jet;
   __device__ __forceinline__ void operator()(int kt, float (&x)[4]) const {
     const int r0 = frag_row0(), sg = swz(r0), c = 8 * kt + (threadIdx.x & 3);
     if constexpr (CL == 1) {
@@ -314,16 +376,16 @@ struct TileA {
 struct Plain {
   __device__ __forceinline__ float operator()(int, float x) const { return x; }
 };
-// GroupNorm by gn_stats' vectors, then swish if SWISH. At CL > 1 by
-// gn_stats_cluster's, with the biases `bias` (all channels) from device
-// memory.
-template <bool SWISH, int CL = 1>
+// GroupNorm by gn_stats' vectors, then swish if SWISH. In a cluster (CL or
+// RT > 1) by gn_stats_cluster's or gn_stats_rows', with the biases `bias`
+// (all channels) from device memory.
+template <bool SWISH, int CL = 1, int RT = 1>
 struct Norm {
   const float* vec;
   const float* __restrict__ bias;
   __device__ __forceinline__ float operator()(int c, float x) const {
     float y;
-    if constexpr (CL == 1) {
+    if constexpr (CL * RT == 1) {
       y = fmaf(x - vec[V_MU + c], vec[V_RED + c], vec[V_RED + C + c]);
     } else {
       y = fmaf(x - vec[VC_MU + c / (GSIZE * CL)], vec[VC_RS + c], __ldg(bias + c));
@@ -417,16 +479,90 @@ __device__ __forceinline__ void gn_stats_cluster(const float* T, const float* __
   __syncthreads();
 }
 
+// A double in the two floats' room at red[c], red[C + c] (its high and low
+// 32-bit words: squares of the seeded flow's 1e19 entries pass float's range).
+__device__ __forceinline__ void put_double(float* red, int c, double x) {
+  reinterpret_cast<int*>(red)[c] = __double2hiint(x);
+  reinterpret_cast<int*>(red)[C + c] = __double2loint(x);
+}
+__device__ __forceinline__ double get_double(const float* red, int c) {
+  return __hiloint2double(reinterpret_cast<const int*>(red)[c],
+                          reinterpret_cast<const int*>(red)[C + c]);
+}
+
+// A block's sum of one channel over its two halves of threads, as a double
+// at red[c], red[C + c] (put_double). Every thread of the block calls it with
+// its half's sum; it ends with a block barrier.
+__device__ __forceinline__ void block_sum_double(double s, float* red) {
+  const int tid = threadIdx.x, c = tid & (C - 1);
+  if (tid >= C) put_double(red, c, s);
+  __syncthreads();
+  if (tid < C) put_double(red, c, s + get_double(red, c));  // only this thread touches c
+  __syncthreads();
+}
+
+// gn_stats for a jet of two row blocks (RT > 1, any CL): gn_stats_cluster's
+// plan over the cluster's channel and row blocks, with the sums in double.
+// In float a jet of up to 256 slots, most of them dead rows of one value,
+// loses the group mean's low bits, and the live rows' centred values with
+// them: on the seeded transdimensional flow K7 then missed its gate against
+// the plain GroupNorm (a Welford mean) on jets of one live particle. Each
+// block's sum of a channel is one double (block_sum_double); the means and
+// rstds are rounded to float once. Nl: the block's rows, N the jet's.
+template <int CL, int RT>
+__device__ __forceinline__ void gn_stats_rows(const float* T, const float* __restrict__ scale,
+                                              int Nl, int N, float* vec, const Jet<CL, RT>& jet) {
+  constexpr int GS = GSIZE * CL;  // channels a group
+  const int tid = threadIdx.x, c = tid & (C - 1), half = tid >> 7;
+  const int grp = (jet.col0() + c) / GS;
+  const int red_group = tid >> 3, part = tid & 7;  // the group this thread reduces, its share
+  const double count = (double)N * GS;
+  // the group's sum over the cluster's blocks of the sums at `off`
+  auto group_total = [&](int off) {
+    double total = 0.0;
+    for (int q = part; q < GS; q += 8) {
+#pragma unroll
+      for (int rb = 0; rb < RT; ++rb)
+        total += get_double(jet.channel_at(vec + off, red_group * GS + q, rb), 0);
+    }
+#pragma unroll
+    for (int m = 1; m < 8; m <<= 1) total += __shfl_xor_sync(0xffffffffu, total, m);
+    return total;
+  };
+  double s = 0.0;
+  for (int r = half; r < Nl; r += 2) s += (double)T[tix(r, c)];
+  block_sum_double(s, vec + VC_RED);
+  jet.sync();  // every block's sums
+  const double total = group_total(VC_RED);
+  if (part == 0) vec[VC_MU + red_group] = (float)(total / count);
+  __syncthreads();
+  const float mu = vec[VC_MU + grp];
+  s = 0.0;
+  for (int r = half; r < Nl; r += 2) {
+    const double dv = (double)(T[tix(r, c)] - mu);
+    s = fma(dv, dv, s);
+  }
+  block_sum_double(s, vec + VC_RED2);
+  jet.sync();
+  const double var = group_total(VC_RED2) / count;
+  if (part == 0) vec[VC_RSTD + red_group] = (float)(1.0 / sqrt(var + (double)GN_EPS));
+  __syncthreads();
+  for (int ch = tid; ch < C * CL; ch += THREADS) vec[VC_RS + ch] = vec[VC_RSTD + ch / GS] * scale[ch];
+  __syncthreads();
+}
+
 // GroupNorm's statistics for the Norm of the jet's tile T: `scale`, `bias`
-// the cluster's (all channels).
-template <int CL>
+// the cluster's (all channels); Nl the block's rows, N the jet's.
+template <int CL, int RT>
 __device__ __forceinline__ void group_stats(const float* T, const float* __restrict__ scale,
-                                            const float* __restrict__ bias, int N, float* vec,
-                                            const Jet<CL>& jet) {
-  if constexpr (CL == 1) {
+                                            const float* __restrict__ bias, int Nl, int N,
+                                            float* vec, const Jet<CL, RT>& jet) {
+  if constexpr (CL * RT == 1) {
     gn_stats(T, scale, bias, N, vec);
-  } else {
+  } else if constexpr (RT == 1) {
     gn_stats_cluster<CL>(T, scale, N, vec, jet);
+  } else {
+    gn_stats_rows<CL, RT>(T, scale, Nl, N, vec, jet);
   }
 }
 
@@ -636,23 +772,30 @@ __device__ __forceinline__ void attend(float* Q, const float* K, const float* V,
   __syncwarp();  // the rows are the warp's A operand of proj_out
 }
 
-// attend for heads of any width hd ≤ 8·NB (1 … 128) and at CL > 1: the
-// warp's 16 rows of Q attend over the keys < N, head by head over the heads
-// that hold any of this block's channels; each head's output goes to this
-// block's own channels of it. A head's channels are taken 8 at a time, those
-// past hd as 0 (they add 0 to q·kᵀ, and their output is not stored). A head
-// that lies across two blocks reads its peer's channels of q and k, and its
-// output goes to `spill` (a tile in device memory, same layout), since the
-// peer may still read this block's q; the caller copies it back after a
-// cluster barrier (`unspill`). Only the warp's own rows are written.
-template <int CL, int NB>
-__device__ __forceinline__ void attend_any(float* Q, const float* K, const float* V, int N, int hd,
-                                           const Jet<CL>& jet, float* spill) {
+// attend for heads of any width hd ≤ 8·NB (1 … 128) and in a cluster: the
+// warp's 16 rows of Q (of the block's N) attend over the jet's n_keys keys,
+// head by head over the heads that hold any of this block's channels; each head's
+// output goes to this block's own channels of it. A head's channels are
+// taken 8 at a time, those past hd as 0 (they add 0 to q·kᵀ, and their output
+// is not stored). A head that lies across two blocks reads its peer's
+// channels of q and k, and its output goes to `spill` (a tile in device
+// memory, same layout), since the peer may still read this block's q; the
+// caller copies it back after a cluster barrier (`unspill`). At RT > 1 the
+// keys of row block rb are the rows of block (rb, ·)'s K and V, taken in row
+// block order by one online softmax, and v is centred on the last key's
+// value: o = v_last + Σ p (v − v_last) / Σ p. A jet's dead slots share one
+// value, and on a jet of one live particle among 256 their 255 equal terms
+// cancel the live one's in float32 sums (K7 then missed its gate against the
+// plain version on the seeded transdimensional flow); centred, they are 0.
+// Only the warp's own rows are written.
+template <int CL, int RT, int NB>
+__device__ __forceinline__ void attend_any(float* Q, const float* K, const float* V, int N,
+                                           int n_keys, int hd, const Jet<CL, RT>& jet,
+                                           float* spill) {
   constexpr int KC = NB == 16 ? 32 : 64;  // keys a softmax chunk
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int row0 = 64 * (warp >> 2) + 16 * (warp & 3);
   if (row0 >= N) return;
-  const int kpad = (N + 7) & ~7;
   const int own = jet.col0(), hdp = (hd + 7) & ~7;
   const int qr = (row0 + g) * LDT;  // the thread's rows g and g + 8 of Q
   for (int head = own / hd; head * hd < own + C; ++head) {
@@ -663,92 +806,115 @@ __device__ __forceinline__ void attend_any(float* Q, const float* K, const float
 #pragma unroll
     for (int n = 0; n < NB; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
     float row_max[2] = {-INFINITY, -INFINITY}, row_sum[2] = {0.f, 0.f};
-    for (int kc = 0; kc < kpad; kc += KC) {
-      const int nt = min(KC, kpad - kc) / 8;
-      float s[KC / 8][4];
+    // RT > 1: the last key's v (row n_keys − 1) at this block's columns, and
+    // at the thread's B-fragment columns lo + 8n + g (0 past hi)
+    const float* v_last = V;
+    float v_ref[NB];
+    if constexpr (RT > 1) {
+      v_last = jet.at(V, (n_keys - 1) / ROWS, jet.rank) + ((n_keys - 1) % ROWS) * LDT;
 #pragma unroll
-      for (int j = 0; j < KC / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      for (int kk = 0; kk < hdp; kk += 8) {
-        const int e0 = kk + t, e1 = kk + t + 4;  // the head's channels of this k-step
-        const bool in0 = e0 < hd, in1 = e1 < hd;
-        const float* q0 = jet.channel(Q, hc + min(e0, hd - 1));
-        const float* q1 = jet.channel(Q, hc + min(e1, hd - 1));
-        const float* k0 = jet.channel(K, hc + min(e0, hd - 1));
-        const float* k1 = jet.channel(K, hc + min(e1, hd - 1));
-        uint32_t ah[4], al[4];
-        split_fast(in0 ? q0[qr] : 0.f, ah[0], al[0]);
-        split_fast(in0 ? q0[qr + 8 * LDT] : 0.f, ah[1], al[1]);
-        split_fast(in1 ? q1[qr] : 0.f, ah[2], al[2]);
-        split_fast(in1 ? q1[qr + 8 * LDT] : 0.f, ah[3], al[3]);
+      for (int n = 0; n < NB; ++n) {
+        const int c = lo + 8 * n + g;
+        v_ref[n] = lo + 8 * n < hi && c < hi ? v_last[c] : 0.f;
+      }
+    }
+#pragma unroll 1
+    for (int rb = 0; rb < RT; ++rb) {
+      const int nk = RT == 1 ? n_keys : min(ROWS, n_keys - ROWS * rb);  // keys of row block rb
+      const int kpad = (nk + 7) & ~7;
+      const float* Vb = RT == 1 ? V : jet.at(V, rb, jet.rank);
+      for (int kc = 0; kc < kpad; kc += KC) {
+        const int nt = min(KC, kpad - kc) / 8;
+        float s[KC / 8][4];
+#pragma unroll
+        for (int j = 0; j < KC / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        for (int kk = 0; kk < hdp; kk += 8) {
+          const int e0 = kk + t, e1 = kk + t + 4;  // the head's channels of this k-step
+          const bool in0 = e0 < hd, in1 = e1 < hd;
+          const float* q0 = jet.channel(Q, hc + min(e0, hd - 1));
+          const float* q1 = jet.channel(Q, hc + min(e1, hd - 1));
+          const float* k0 = jet.channel_at(K, hc + min(e0, hd - 1), rb);
+          const float* k1 = jet.channel_at(K, hc + min(e1, hd - 1), rb);
+          uint32_t ah[4], al[4];
+          split_fast(in0 ? q0[qr] : 0.f, ah[0], al[0]);
+          split_fast(in0 ? q0[qr + 8 * LDT] : 0.f, ah[1], al[1]);
+          split_fast(in1 ? q1[qr] : 0.f, ah[2], al[2]);
+          split_fast(in1 ? q1[qr + 8 * LDT] : 0.f, ah[3], al[3]);
+#pragma unroll
+          for (int j = 0; j < KC / 8; ++j) {
+            if (j < nt) {
+              const int kr = (kc + 8 * j + g) * LDT;
+              uint32_t bh[2], bl[2];
+              split_fast(in0 ? k0[kr] : 0.f, bh[0], bl[0]);
+              split_fast(in1 ? k1[kr] : 0.f, bh[1], bl[1]);
+              mma3_split(s[j], ah, al, bh, bl);
+            }
+          }
+        }
+        float cmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
         for (int j = 0; j < KC / 8; ++j) {
           if (j < nt) {
-            const int kr = (kc + 8 * j + g) * LDT;
-            uint32_t bh[2], bl[2];
-            split_fast(in0 ? k0[kr] : 0.f, bh[0], bl[0]);
-            split_fast(in1 ? k1[kr] : 0.f, bh[1], bl[1]);
-            mma3_split(s[j], ah, al, bh, bl);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = kc + 8 * j + 2 * t + (e & 1);
+              const float x = key < nk ? s[j][e] : -INFINITY;
+              s[j][e] = x;
+              cmax[e >> 1] = fmaxf(cmax[e >> 1], x);
+            }
           }
         }
-      }
-      float cmax[2] = {-INFINITY, -INFINITY};
+        float factor[2];
 #pragma unroll
-      for (int j = 0; j < KC / 8; ++j) {
-        if (j < nt) {
+        for (int h = 0; h < 2; ++h) {
+          cmax[h] = fmaxf(cmax[h], __shfl_xor_sync(0xffffffffu, cmax[h], 1));
+          cmax[h] = fmaxf(cmax[h], __shfl_xor_sync(0xffffffffu, cmax[h], 2));
+          const float m = fmaxf(row_max[h], cmax[h]);
+          factor[h] = expf(row_max[h] - m);
+          row_max[h] = m;
+          row_sum[h] *= factor[h];
+        }
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = kc + 8 * j + 2 * t + (e & 1);
-            const float x = key < N ? s[j][e] : -INFINITY;
-            s[j][e] = x;
-            cmax[e >> 1] = fmaxf(cmax[e >> 1], x);
+        for (int n = 0; n < NB; ++n) {
+          o[n][0] *= factor[0];
+          o[n][1] *= factor[0];
+          o[n][2] *= factor[1];
+          o[n][3] *= factor[1];
+        }
+#pragma unroll
+        for (int j = 0; j < KC / 8; ++j) {
+          if (j < nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              s[j][e] = expf(s[j][e] - row_max[e >> 1]);
+              row_sum[e >> 1] += s[j][e];
+            }
           }
         }
-      }
-      float factor[2];
+        // O += P·v over the head's own columns lo … hi − 1, 8 a block
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        cmax[h] = fmaxf(cmax[h], __shfl_xor_sync(0xffffffffu, cmax[h], 1));
-        cmax[h] = fmaxf(cmax[h], __shfl_xor_sync(0xffffffffu, cmax[h], 2));
-        const float m = fmaxf(row_max[h], cmax[h]);
-        factor[h] = expf(row_max[h] - m);
-        row_max[h] = m;
-        row_sum[h] *= factor[h];
-      }
+        for (int j = 0; j < KC / 8; ++j) {
+          if (j < nt) {
+            uint32_t ah[4], al[4];
+            split(s[j][0], ah[0], al[0]);
+            split(s[j][2], ah[1], al[1]);
+            split(s[j][1], ah[2], al[2]);
+            split(s[j][3], ah[3], al[3]);
+            const float* v0 = Vb + (kc + 8 * j + 2 * t) * LDT;
 #pragma unroll
-      for (int n = 0; n < NB; ++n) {
-        o[n][0] *= factor[0];
-        o[n][1] *= factor[0];
-        o[n][2] *= factor[1];
-        o[n][3] *= factor[1];
-      }
-#pragma unroll
-      for (int j = 0; j < KC / 8; ++j) {
-        if (j < nt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            s[j][e] = expf(s[j][e] - row_max[e >> 1]);
-            row_sum[e >> 1] += s[j][e];
-          }
-        }
-      }
-      // O += P·v over the head's own columns lo … hi − 1, 8 a block
-#pragma unroll
-      for (int j = 0; j < KC / 8; ++j) {
-        if (j < nt) {
-          uint32_t ah[4], al[4];
-          split(s[j][0], ah[0], al[0]);
-          split(s[j][2], ah[1], al[1]);
-          split(s[j][1], ah[2], al[2]);
-          split(s[j][3], ah[3], al[3]);
-          const float* v0 = V + (kc + 8 * j + 2 * t) * LDT;
-#pragma unroll
-          for (int n = 0; n < NB; ++n) {
-            if (lo + 8 * n < hi) {
-              const int c = lo + 8 * n + g;
-              uint32_t bh[2], bl[2];
-              split_fast(c < hi ? v0[c] : 0.f, bh[0], bl[0]);
-              split_fast(c < hi ? v0[LDT + c] : 0.f, bh[1], bl[1]);
-              mma3_split(o[n], ah, al, bh, bl);
+            for (int n = 0; n < NB; ++n) {
+              if (lo + 8 * n < hi) {
+                const int c = lo + 8 * n + g;
+                uint32_t bh[2], bl[2];
+                if constexpr (RT == 1) {
+                  split_fast(c < hi ? v0[c] : 0.f, bh[0], bl[0]);
+                  split_fast(c < hi ? v0[LDT + c] : 0.f, bh[1], bl[1]);
+                } else {
+                  split_fast(c < hi ? v0[c] - v_ref[n] : 0.f, bh[0], bl[0]);
+                  split_fast(c < hi ? v0[LDT + c] - v_ref[n] : 0.f, bh[1], bl[1]);
+                }
+                mma3_split(o[n], ah, al, bh, bl);
+              }
             }
           }
         }
@@ -769,8 +935,13 @@ __device__ __forceinline__ void attend_any(float* Q, const float* K, const float
       for (int e = 0; e < 2; ++e) {
         const int c = lo + 8 * n + 2 * t + e;
         if (c < hi) {
-          dst[qr + c] = o[n][e] * inv[0];
-          dst[qr + 8 * LDT + c] = o[n][2 + e] * inv[1];
+          if constexpr (RT == 1) {
+            dst[qr + c] = o[n][e] * inv[0];
+            dst[qr + 8 * LDT + c] = o[n][2 + e] * inv[1];
+          } else {
+            dst[qr + c] = fmaf(o[n][e], inv[0], v_last[c]);
+            dst[qr + 8 * LDT + c] = fmaf(o[n][2 + e], inv[1], v_last[c]);
+          }
         }
       }
     }
@@ -781,9 +952,9 @@ __device__ __forceinline__ void attend_any(float* Q, const float* K, const float
 // After attend_any at CL > 1, once every block of the cluster has attended:
 // the outputs of the heads that lie across two blocks, from `spill` into
 // this block's columns of Q, rows < N. Every thread of the block calls it.
-template <int CL>
+template <int CL, int RT>
 __device__ __forceinline__ void unspill(float* Q, const float* spill, int N, int hd,
-                                        const Jet<CL>& jet) {
+                                        const Jet<CL, RT>& jet) {
   const int own = jet.col0();
   const int first = own % hd ? hd - own % hd : 0;  // own columns of a head begun in the block before
   const int last = (own + C) % hd;                 // own columns of a head that goes on in the next
@@ -802,20 +973,22 @@ __device__ __forceinline__ void unspill(float* Q, const float* spill, int N, int
 // on; the ring's next stages are the blocks'; `park` is the block's scratch
 // in device memory (SCRATCH_FLOATS). Every thread of the cluster calls it.
 // HD: channels a head, for `attend`; HD = 0: heads of `hd` channels through
-// attend_any<CL, NB> (always at CL > 1). At CL > 1 it ends with a cluster
-// barrier.
-template <int CL, int HD, int NB>
+// attend_any<CL, RT, NB> (always in a cluster). N: the jet's slots, of which
+// the block holds its row block's (block_rows). In a cluster it ends with a
+// cluster barrier.
+template <int CL, int RT, int HD, int NB>
 __device__ __forceinline__ void gsdm_blocks(const float* __restrict__ wblocks,
                                             const BlockLayout& L, float* smem,
                                             const float* __restrict__ tp, size_t tp_block_stride,
                                             Ring& ring, float* park, int N, int n_blocks, int hd,
-                                            float q_scale, const Jet<CL>& jet) {
-  static_assert(CL == 1 || HD == 0, "a cluster attends through attend_any");
+                                            float q_scale, const Jet<CL, RT>& jet) {
+  static_assert(CL * RT == 1 || HD == 0, "a cluster attends through attend_any");
   float* h = smem;             // the residual stream
   float* a = smem + TILE;      // the ResnetBlock's hidden, then k
   float* v = smem + 2 * TILE;  // v
   float* vec = smem + S_VEC;
-  const bool live = 64 * (threadIdx.x >> 7) < N;  // the warpgroup's rows reach below N
+  const int Nl = block_rows(N, jet);  // the block's rows
+  const bool live = 64 * (threadIdx.x >> 7) < Nl;  // the warpgroup's rows reach below Nl
   const int own = jet.col0();
   constexpr int KW = KSTEPS * CL;  // k-steps of a block's product
   float acc[64];
@@ -826,20 +999,20 @@ __device__ __forceinline__ void gsdm_blocks(const float* __restrict__ wblocks,
     const float* tpb = tp + blk * tp_block_stride;
 
     // ---- ResnetBlock
-    group_stats(h, wb + L.gn1_s, wb + L.gn1_b, N, vec, jet);
+    group_stats(h, wb + L.gn1_s, wb + L.gn1_b, Nl, N, vec, jet);
     zero(acc);
-    gemm_tc(acc, TileA<Norm<true, CL>, CL>{h, {vec, wb + L.gn1_b}, jet}, KW, ring, live);
+    gemm_tc(acc, TileA<Norm<true, CL, RT>, CL, RT>{h, {vec, wb + L.gn1_b}, jet}, KW, ring, live);
     each_pair(acc, [&](int r, int c, int at, float v0, float v1) {
       const float2 b = ldg2(wo + L.b_c1 + c), tr = ldg2(tpb + c);
-      const bool real = r < N;
+      const bool real = r < Nl;
       store2(a, at, real ? (v0 + b.x) + tr.x : 0.f, real ? (v1 + b.y) + tr.y : 0.f);
     });
     __syncthreads();
-    group_stats(a, wb + L.gn2_s, wb + L.gn2_b, N, vec, jet);
+    group_stats(a, wb + L.gn2_s, wb + L.gn2_b, Nl, N, vec, jet);
     zero(acc);
-    gemm_tc(acc, TileA<Norm<true, CL>, CL>{a, {vec, wb + L.gn2_b}, jet}, KW, ring, live);
+    gemm_tc(acc, TileA<Norm<true, CL, RT>, CL, RT>{a, {vec, wb + L.gn2_b}, jet}, KW, ring, live);
     each_pair(acc, [&](int r, int c, int at, float v0, float v1) {
-      if (r < N) {
+      if (r < Nl) {
         const float2 b = ldg2(wo + L.b_c2 + c);
         float2* p = reinterpret_cast<float2*>(h + at);
         const float2 x = *p;
@@ -849,22 +1022,22 @@ __device__ __forceinline__ void gsdm_blocks(const float* __restrict__ wblocks,
     __syncthreads();
 
     // ---- AttnBlock: h parked, k into `a`, v into `v`, q into h's tile
-    group_stats(h, wb + L.gna_s, wb + L.gna_b, N, vec, jet);
+    group_stats(h, wb + L.gna_s, wb + L.gna_b, Nl, N, vec, jet);
     for (int idx = threadIdx.x; idx < TILE / 4; idx += THREADS)
       reinterpret_cast<float4*>(park)[idx] = reinterpret_cast<const float4*>(h)[idx];
-    const TileA<Norm<false, CL>, CL> hn{h, {vec, wb + L.gna_b}, jet};
+    const TileA<Norm<false, CL, RT>, CL, RT> hn{h, {vec, wb + L.gna_b}, jet};
     zero(acc);
     gemm_tc(acc, hn, KW, ring, live);
     each_pair(acc, [&](int r, int c, int at, float v0, float v1) {
       const float2 b = ldg2(wo + L.bk + c);
-      const bool real = r < N;
+      const bool real = r < Nl;
       store2(a, at, real ? v0 + b.x : 0.f, real ? v1 + b.y : 0.f);
     });
     zero(acc);
     gemm_tc(acc, hn, KW, ring, live);
     each_pair(acc, [&](int r, int c, int at, float v0, float v1) {
       const float2 b = ldg2(wo + L.bv + c);
-      const bool real = r < N;
+      const bool real = r < Nl;
       store2(v, at, real ? v0 + b.x : 0.f, real ? v1 + b.y : 0.f);
     });
     zero(acc);
@@ -879,22 +1052,22 @@ __device__ __forceinline__ void gsdm_blocks(const float* __restrict__ wblocks,
       attend<HD>(h, a, v, N);
     } else {
       float* spill = park + TILE;
-      attend_any<CL, NB>(h, a, v, N, hd, jet, spill);
+      attend_any<CL, RT, NB>(h, a, v, Nl, N, hd, jet, spill);
       if constexpr (CL > 1) {
         if (C % hd) {  // heads across two blocks
           jet.sync();
-          unspill(h, spill, N, hd, jet);
+          unspill(h, spill, Nl, hd, jet);
         }
         jet.sync();  // every block's output is in place: proj_out's A
       }
     }
     zero(acc);
     // the warps' A fragments are the rows they attended for: no barrier before (CL = 1)
-    gemm_tc(acc, TileA<Plain, CL>{h, {}, jet}, KW, ring, live);
+    gemm_tc(acc, TileA<Plain, CL, RT>{h, {}, jet}, KW, ring, live);
     if constexpr (CL > 1) jet.sync();  // the peers have read h
     each_pair(acc, [&](int r, int c, int at, float v0, float v1) {
       float2 y = make_float2(0.f, 0.f);
-      if (r < N) {
+      if (r < Nl) {
         const float2 b = ldg2(wo + L.bp + c), x = *reinterpret_cast<const float2*>(park + at);
         y = make_float2(x.x + (v0 + b.x), x.y + (v1 + b.y));
       }
@@ -911,8 +1084,9 @@ __host__ __device__ constexpr int head_blocks(int hd) {
 }
 
 // Launch a jet kernel: at CL = 1 `grid` blocks that walk the jets; at CL > 1
-// clusters of CL blocks, as many as are resident at once (and at most
-// grid / CL, B), that walk the jets.
+// clusters of CL blocks (here the blocks a jet: channel blocks × row blocks),
+// as many as are resident at once (and at most grid / CL, B), that walk the
+// jets.
 template <int CL, class... Params, class... Args>
 cudaError_t launch_jets(void (*kernel)(Params...), int grid, int B, size_t smem, cudaStream_t s,
                         Args... args) {

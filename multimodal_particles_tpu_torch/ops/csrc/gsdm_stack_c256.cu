@@ -5,5 +5,5 @@
 #include "gsdm_stack.cuh"
 
 namespace mmps {
-MMPS_STACK_CLUSTER(2)
+MMPS_STACK_CLUSTER(2, 1)
 }  // namespace mmps

@@ -5,5 +5,5 @@
 #include "gsdm_stack.cuh"
 
 namespace mmps {
-MMPS_STACK_CLUSTER(3)
+MMPS_STACK_CLUSTER(3, 1)
 }  // namespace mmps

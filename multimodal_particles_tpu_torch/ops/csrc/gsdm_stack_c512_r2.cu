@@ -1,0 +1,10 @@
+// K7 at transformer width 512 on jets of 129 … 256 slots: the gsdm stack's kernel
+// as a cluster of 4 channel blocks × 2 row blocks a jet (gsdm_stack.cuh,
+// gsdm_blocks.cuh), instantiated for every head width; its own source so
+// that nvcc builds it beside the others.
+
+#include "gsdm_stack.cuh"
+
+namespace mmps {
+MMPS_STACK_CLUSTER(4, 2)
+}  // namespace mmps

@@ -5,5 +5,5 @@
 #include "survival_head.cuh"
 
 namespace mmps {
-MMPS_HEAD_CLUSTER(2)
+MMPS_HEAD_CLUSTER(2, 1)
 }  // namespace mmps

@@ -5,5 +5,5 @@
 #include "survival_head.cuh"
 
 namespace mmps {
-MMPS_HEAD_CLUSTER(3)
+MMPS_HEAD_CLUSTER(3, 1)
 }  // namespace mmps

@@ -5,5 +5,5 @@
 #include "survival_head.cuh"
 
 namespace mmps {
-MMPS_HEAD_CLUSTER(4)
+MMPS_HEAD_CLUSTER(4, 1)
 }  // namespace mmps

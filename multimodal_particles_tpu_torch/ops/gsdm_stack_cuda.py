@@ -43,17 +43,19 @@ from multimodal_particles_tpu_torch.ops.epic_cuda import STAGE_ROWS, tensor_core
 
 # what the kernels are compiled for (ops/csrc/gsdm_blocks.cuh): channels a
 # block owns, the transformer widths (a cluster of width / 128 blocks a jet),
-# the widest head, the slots of a jet
+# the widest head, the slots a block owns (a jet of more slots is a cluster of
+# row blocks too), the slots of a jet
 CHANNELS = 128
 WIDTHS = (128, 256, 384, 512)
 MAX_HEAD_WIDTH = 128
-MAX_PARTICLES = 128
+BLOCK_ROWS = 128
+MAX_PARTICLES = 256
 # proj_in's rows in the flat buffer: zero rows up to a multiple of this
 # (ops/csrc/gsdm_stack.cu finds proj_in's bias after them)
 WEIGHT_TILE_ROWS = 16
 # a block's scratch: its parked residual tile and the tile of the heads that
-# lie across two blocks (ops/csrc/gsdm_blocks.cuh SCRATCH_FLOATS)
-SCRATCH_FLOATS = 2 * MAX_PARTICLES * 132
+# lie across two blocks, 128 rows each (ops/csrc/gsdm_blocks.cuh SCRATCH_FLOATS)
+SCRATCH_FLOATS = 2 * BLOCK_ROWS * 132
 
 
 def block_layout(i: int, C: int = CHANNELS):
@@ -161,11 +163,12 @@ def stacked_time_rows(temb_projected, n_blocks: int, B: int, C: int = CHANNELS):
     return tp
 
 
-def block_grid_and_scratch(B: int, device, C: int = CHANNELS):
-    """One block an SM walks over the jets, in clusters of C / 128 blocks a
-    jet (the kernel launches no more clusters than are resident at once); each
-    block parks its residual tile in its row of the scratch while it attends."""
-    cl = C // CHANNELS
+def block_grid_and_scratch(B: int, device, C: int = CHANNELS, N: int = BLOCK_ROWS):
+    """One block an SM walks over the jets, in clusters of C / 128 channel
+    blocks × ⌈N / 128⌉ row blocks a jet (the kernel launches no more clusters
+    than are resident at once); each block parks its residual tile in its row
+    of the scratch while it attends."""
+    cl = C // CHANNELS * -(-N // BLOCK_ROWS)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     grid = min(B * cl, sms // cl * cl)
     return grid, torch.empty((grid, SCRATCH_FLOATS), dtype=torch.float32, device=device)
@@ -270,7 +273,7 @@ def gsdm_stack_supported(config) -> bool:
     for (transdimensional_model.py:329-333 without the TPU-only parts): no
     tensor-parallel 'model' axis, transformer width 128, 256, 384 or 512 with
     heads of at most 128 channels that divide it (`heads_supported`), at least
-    one block, at most 128 slots. The stacks' input width
+    one block, at most 256 slots. The stacks' input width
     (the trunk's hidden width + V, and + 3) may be any: the kernel's first
     product runs over it in passes of 128 columns, as the JAX kernel takes any
     width (gsdm_stack_pallas.py:138, :152, :168)."""
@@ -321,7 +324,7 @@ def gsdm_stack(packed: PackedGsdmStack, temb_projected, x_in, *, n_heads: int):
     lib = _build.load_library()
     # the stream is checked where the kernel reads it
     check_stream(packed.tensor_core, stream_stages(dim_in, packed.n_blocks, C), x_in.device)
-    grid, scratch = block_grid_and_scratch(B, x_in.device, C)
+    grid, scratch = block_grid_and_scratch(B, x_in.device, C, N)
     with torch.cuda.device(x_in.device):
         stream = torch.cuda.current_stream(x_in.device).cuda_stream
         rc = lib.mmp_gsdm_stack(

@@ -117,7 +117,7 @@ def survival_supported(config) -> bool:
     (survival_pallas.py:355-366 without the TPU-only parts): no tensor-parallel
     'model' axis, transformer width 128, 256, 384 or 512 with heads of at
     most 128 channels that divide it (`heads_supported`), at least one block
-    and at most 128 slots. The trunk's hidden width may be any, as in JAX."""
+    and at most 256 slots. The trunk's hidden width may be any, as in JAX."""
     if getattr(getattr(config, "parallel", None), "model_axis", 1) > 1:
         return False
     g = config.generator
@@ -182,7 +182,7 @@ def survival_head(packed: PackedSurvivalHead, temb_projected, last_layer, mask_t
     lib = _build.load_library()
     # the stream is checked where the kernel reads it
     check_stream(packed.tensor_core, head_stages(dh, packed.n_blocks, C), last_layer.device)
-    grid, scratch = block_grid_and_scratch(B, last_layer.device, C)
+    grid, scratch = block_grid_and_scratch(B, last_layer.device, C, N)
     with torch.cuda.device(last_layer.device):
         stream = torch.cuda.current_stream(last_layer.device).cuda_stream
         rc = lib.mmp_survival_head(

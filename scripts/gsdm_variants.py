@@ -58,10 +58,13 @@ from multimodal_particles_tpu_torch.ops.survival_cuda import (  # noqa: E402
 )
 
 HEADER = "gsdm_blocks.cuh"
-# width 128's instances and the entry points, and the wider widths' instances
-# that the entry points call (a revision before them has none)
+# width 128's instances and the entry points, and the wider widths' and the
+# longer jets' instances that the entry points call (a revision before them
+# has none)
 SOURCES = ("survival_head.cu", "gsdm_stack.cu",
-           *(f"{stem}_c{w}.cu" for stem in ("survival_head", "gsdm_stack") for w in (256, 384, 512)))
+           *(f"{stem}_c{w}.cu" for stem in ("survival_head", "gsdm_stack") for w in (256, 384, 512)),
+           *(f"{stem}{c}_r2.cu" for stem in ("survival_head", "gsdm_stack")
+             for c in ("", "_c256", "_c384", "_c512")))
 TOL = 2e-4
 # variant → [(old text, new text)] in gsdm_blocks.cuh
 HEADER_EDITS = {

@@ -12,7 +12,8 @@ tensor-core kernel on, `tf32x3.cuh` (and later `narrow_tc.cuh`) for K2;
 and, from the tensor-core K4 on, `tf32x3.cuh` for K4; `epic_wide_backward.cu`
 and the same headers for K5; `survival_head.cu`, `gsdm_blocks.cuh` and, from
 the tensor-core K6 on, `tf32x3.cuh` and, from the K6 of any width on,
-`survival_head.cuh` and `survival_head_c{256,384,512}.cu` for K6 (and,
+`survival_head.cuh` and `survival_head_c{256,384,512}.cu` (and, from
+K6 past 128 slots on, `survival_head_r2.cu`, `_c{256,384,512}_r2.cu`) for K6 (and,
 from K4 and K5 at every width on, `epic_wide_any.cuh`,
 `epic_wide_forward_any.cuh`, `epic_wide_backward.cuh`,
 `epic_wide_backward_any.cuh` and `epic_wide_{forward,backward}_h*.cu`);
@@ -118,9 +119,11 @@ HEADERS = ("epic_forward.cuh", "epic_forward_kernel.cuh", "epic_wide.cuh", "epic
            "gsdm_blocks.cuh", "gsdm_stack.cuh", "narrow_tc.cuh", "survival_head.cuh",
            "tf32x3.cuh")
 # K6's and K7's sources of their widths 256, 384 and 512 (their cluster
-# instances), and K4's and K5's of their local hidden widths 128 … 512 (the
+# instances) and of their jets of 129 … 256 slots (two row blocks a jet, at
+# every width), and K4's and K5's of their local hidden widths 128 … 512 (the
 # general kernels), where the revision has them
 WIDE_SOURCES = {k: tuple(f"{stem}_c{w}.cu" for w in (256, 384, 512))
+                + (f"{stem}_r2.cu",) + tuple(f"{stem}_c{w}_r2.cu" for w in (256, 384, 512))
                 for k, stem in (("K6", "survival_head"), ("K7", "gsdm_stack"))}
 WIDE_SOURCES.update({k: tuple(f"{stem}_h{w}.cu" for w in (128, 256, 384, 512))
                      for k, stem in (("K4", "epic_wide_forward"), ("K5", "epic_wide_backward"))})

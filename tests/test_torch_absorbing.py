@@ -309,12 +309,15 @@ def test_absorbing_state_cat():
 # ------------------------------------------------------------------ forward
 
 
-@pytest.mark.parametrize("n", [16, 109])
-def test_forward_and_forward_sampling_match_jax_head_by_head(n):
+@pytest.mark.parametrize("n,b", [(16, B), (109, B), (200, 2)])
+def test_forward_and_forward_sampling_match_jax_head_by_head(n, b):
     """`forward` against the flax forward, and `forward_sampling` (CPU: the
     kernels' plain versions) against the JAX one with `use_pallas=True`
-    (interpret mode), each head within rtol = atol = 2e-4."""
-    jax_model, params, model, batch = absorbing_pair(seed=3, n=n)
+    (interpret mode), each head within rtol = atol = 2e-4. Past 128 slots
+    (K6 as two row blocks a jet on the card) at 2 jets, the weights drawn on
+    flax's parameter tree (`drawn_init`: flax's eager init compiles each
+    operation anew at every new shape)."""
+    jax_model, params, model, batch = absorbing_pair(seed=3, n=n, b=b, drawn_init=n > 128)
     t, x, k, mask = sampled_state(batch)
     state_j = JaxState(jnp.asarray(t), jnp.asarray(x), jnp.asarray(k), jnp.asarray(mask))
     state = AbsorbingBridgeState(*to_torch(t, x, k, mask.astype(np.int64)))
@@ -324,7 +327,7 @@ def test_forward_and_forward_sampling_match_jax_head_by_head(n):
     for name in ("continuous", "discrete", "absorbing"):
         np.testing.assert_allclose(getattr(heads, name).numpy(), np.asarray(getattr(heads_j, name)),
                                    err_msg=name, **TOL)
-    assert tuple(heads.absorbing.shape) == (B, n, 1)
+    assert tuple(heads.absorbing.shape) == (b, n, 1)
 
     jax_model.config.parallel.use_pallas = model.config.parallel.use_pallas = True
     calls = epic_cuda.epic_forward_reference.calls, survival_cuda.survival_head_reference.calls

@@ -55,6 +55,18 @@ def test_plain_core_matches_pallas_interpret_and_the_einsum(B, N, C, heads, mask
     """`attention_core` on CPU tensors (its plain version) against the
     interpret-mode kernel and `_core_jnp`; the masked case has a jet with
     every key masked, whose output is the mean of its values."""
+    _check_plain_core(B, N, C, heads, masked)
+
+
+@pytest.mark.parametrize("N,heads,masked", [(200, 2, False), (256, 1, True)])
+def test_plain_core_past_128_slots_matches_pallas_interpret_and_the_einsum(N, heads, masked):
+    """The same at N = 200 and 256 (on the card a block a query half, the
+    keys in two blocks of 128), two jets, the second case with a wholly
+    masked jet."""
+    _check_plain_core(2, N, 128, heads, masked)
+
+
+def _check_plain_core(B, N, C, heads, masked):
     q, k, v, mask = qkv_mask(B, N, C, masked=masked)
     jq, jk, jv = map(jnp.asarray, (q, k, v))
     pallas = attention_core_pallas(jq, jk, jv, None if mask is None else jnp.asarray(mask),
@@ -159,11 +171,12 @@ def test_core_on_cpu_and_auto_follow_the_jax_switch():
 
 @pytest.mark.parametrize("shape,heads,ok", [
     ((4, 128, 128), 2, True), ((4, 109, 128), 4, True), ((4, 1, 128), 1, True),
-    ((4, 129, 128), 2, False), ((4, 16, 64), 2, False), ((4, 16, 128), 3, False),
+    ((4, 129, 128), 2, True), ((4, 256, 128), 1, True), ((4, 257, 128), 2, False),
+    ((4, 16, 64), 2, False), ((4, 16, 128), 3, False),
     ((4, 16, 128), 8, True), ((16, 128), 2, False),
 ])
 def test_attention_core_supported(shape, heads, ok):
-    """C of 128 … 512, N ≤ 128, heads of at most 128 channels that divide C."""
+    """C of 128 … 512, N ≤ 256, heads of at most 128 channels that divide C."""
     assert attention_cuda.attention_core_supported(shape, heads) is ok
 
 
@@ -174,7 +187,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     meta = dict(device="meta")
     q = torch.empty((4, 16, 128), **meta)
     with pytest.raises(ValueError, match="attention kernel takes"):
-        attention_cuda.attention_core(torch.empty((4, 129, 128), **meta), q, q, n_heads=2)
+        attention_cuda.attention_core(torch.empty((4, 257, 128), **meta), q, q, n_heads=2)
     with pytest.raises(ValueError, match="attention kernel takes"):
         attention_cuda.attention_core(q, q, q, n_heads=3)
     with pytest.raises(ValueError, match="k must be"):

@@ -1404,7 +1404,7 @@ def test_attn_block_fused_core_matches_the_einsum_path(device, flag):
         scale = max(r.abs().max().item(), 1e-6)
         assert ((a - r).abs() <= 1e-4 * scale + 1e-3 * r.abs()).all(), name
     # shapes K8 does not take go to the einsum path under "auto", and raise under True
-    small = torch.randn((2, 129, 128), device=device)
+    small = torch.randn((2, 257, 128), device=device)
     if flag == "auto":
         launches = attention_core.launches
         torch.testing.assert_close(block(small), ref_block(small), atol=1e-5, rtol=1e-5)
@@ -1493,6 +1493,114 @@ def test_head_kernels_at_every_width(device, width, n_heads):
             torch.cuda.synchronize()
             torch.testing.assert_close(got, attention_core_reference(q, k, v, m, n_heads=n_heads),
                                        atol=2e-5, rtol=0)
+
+
+# ------------------------------------------- K6, K7 and K8 past 128 slots
+
+LONG_N = (129, 200, 256)
+LONG_PAIRS = [(128, 2), (128, 1), (128, 128), (384, 4), (512, 16)]
+
+
+@pytest.mark.parametrize("N", LONG_N)
+@pytest.mark.parametrize("width,n_heads", LONG_PAIRS,
+                         ids=[f"C{c}-heads{h}" for c, h in LONG_PAIRS])
+def test_head_kernels_past_128_slots(device, width, n_heads, N):
+    """K6, K7 and K8 on jets of 129 to 256 slots against their plain
+    versions: K6 and K7 as clusters of width / 128 channel blocks × 2 row
+    blocks a jet (up to 8 blocks at width 512), K8 a block a (jet, head,
+    query half) with the keys in two blocks of 128; at 2e-4 (K6, K7, atol =
+    rtol) and 2e-5 (K8, atol), heads of 1 to 128 channels (and of 96, across
+    two channel blocks), more jets than the grid's clusters, a random
+    non-prefix mask (K6) and a key mask that masks every key of jet 0 (K8,
+    whose output there is the mean of the values); the same bits on a
+    repeat."""
+    from multimodal_particles_tpu_torch.ops.attention_cuda import (
+        attention_core,
+        attention_core_reference,
+    )
+
+    B = 133
+    absorbing = absorbing_model(device, hidden=20, n_heads=n_heads, n_blocks=1, width=width)
+    _, head = absorbing.pack_for_kernel()
+    t, _, _, mask = scattered_inputs(device, B, N)
+    last = torch.randn((B, N, 20), generator=torch.Generator(device=device).manual_seed(5),
+                       device=device)
+    tp = project_time_embeddings(absorbing.generator, t, 1, width)
+    got = survival_head(head, tp, last, mask.long(), n_heads=n_heads)
+    again = survival_head(head, tp, last, mask.long(), n_heads=n_heads)
+    torch.cuda.synchronize()
+    ref = survival_head_reference(head, tp, last, mask.long(), n_heads=n_heads)
+    assert tuple(got.shape) == (B, N, 1) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=2e-4, rtol=2e-4)
+    assert torch.equal(got, again)
+
+    model = transdim_model(device, n_heads=n_heads, n_blocks=1, width=width, n=N)
+    net = model.network
+    _, _, vec_stack = model.pack_for_kernel()
+    gen = torch.Generator(device=device).manual_seed(6)
+    x_in = torch.randn((B, N, vec_stack.dim_in), generator=gen, device=device)
+    with torch.no_grad():
+        tp7 = stack_time_embeddings(net.time_embedding(torch.rand((B,), generator=gen,
+                                                                  device=device)),
+                                    net.blocks("vec_")[0])
+    got = gsdm_stack(vec_stack, tp7, x_in, n_heads=n_heads)
+    again = gsdm_stack(vec_stack, tp7, x_in, n_heads=n_heads)
+    torch.cuda.synchronize()
+    ref = gsdm_stack_reference(vec_stack, tp7, x_in, n_heads=n_heads)
+    assert tuple(got.shape) == (B, N, width) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, ref, atol=2e-4, rtol=2e-4)
+    assert torch.equal(got, again)
+
+    q, k, v, mask = attention_inputs(device, B, N, C=width)
+    for m in (mask, None):
+        got = attention_core(q, k, v, m, n_heads=n_heads)
+        again = attention_core(q, k, v, m, n_heads=n_heads)
+        torch.cuda.synchronize()
+        ref = attention_core_reference(q, k, v, m, n_heads=n_heads)
+        torch.testing.assert_close(got, ref, atol=2e-5, rtol=0)
+        if m is not None:
+            torch.testing.assert_close(got[0], v[0].mean(0).expand(N, -1), atol=2e-5, rtol=0)
+        assert torch.equal(got, again)
+
+
+def test_head_kernels_refuse_257_slots(device):
+    """At N = 257 the three wrappers raise and the three C entry points
+    return cudaErrorInvalidValue; nothing is launched."""
+    from multimodal_particles_tpu_torch.ops import _build
+    from multimodal_particles_tpu_torch.ops.attention_cuda import attention_core
+
+    B, N = 2, 257
+    absorbing = absorbing_model(device)
+    _, head = absorbing.pack_for_kernel()
+    t, _, _, mask = scattered_inputs(device, B, N)
+    last = torch.randn((B, N, 16), device=device)
+    tp = project_time_embeddings(absorbing.generator, t, 2, 128)
+    model = transdim_model(device, n=128)
+    _, _, vec_stack = model.pack_for_kernel()
+    x_in = torch.randn((B, N, vec_stack.dim_in), device=device)
+    tp7 = tuple(torch.randn((B, 128), device=device) for _ in range(2))
+    q, k, v, amask = attention_inputs(device, B, N)
+    launches = survival_head.launches, gsdm_stack.launches, attention_core.launches
+    with pytest.raises(ValueError, match="outside"):
+        survival_head(head, tp, last, mask.long(), n_heads=2)
+    with pytest.raises(ValueError, match="outside"):
+        gsdm_stack(vec_stack, tp7, x_in, n_heads=2)
+    with pytest.raises(ValueError, match="attention kernel takes"):
+        attention_core(q, k, v, amask, n_heads=2)
+    assert (survival_head.launches, gsdm_stack.launches, attention_core.launches) == launches
+    lib = _build.load_library()
+    out = torch.empty_like(q)
+    scratch = torch.empty((8, 2 * 128 * 132), device=device)
+    tps = torch.stack(tp)
+    assert lib.mmp_attention_core(q.data_ptr(), k.data_ptr(), v.data_ptr(), None,
+                                  out.data_ptr(), 8, B, N, 128, 2, 0) == 1
+    assert lib.mmp_survival_head(head.flat.data_ptr(), head.tensor_core.data_ptr(),
+                                 tps.data_ptr(), last.data_ptr(), mask.data_ptr(),
+                                 out.data_ptr(), scratch.data_ptr(), 8, B, N, 16, 2, 2, 128,
+                                 0) == 1
+    assert lib.mmp_gsdm_stack(vec_stack.flat.data_ptr(), vec_stack.tensor_core.data_ptr(),
+                              tps.data_ptr(), x_in.data_ptr(), out.data_ptr(),
+                              scratch.data_ptr(), 8, B, N, vec_stack.dim_in, 2, 2, 128, 0) == 1
 
 
 # ------------------------------------------- encoder switches, contexts, bf16

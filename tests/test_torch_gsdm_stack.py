@@ -83,6 +83,19 @@ def test_plain_stack_matches_pallas_interpret_and_flax(n, b, dim_in):
     interpret-mode Pallas kernel and the flax stack, at the reference N and a
     ragged one, an odd batch, both stack input widths; atol = rtol = 2e-4,
     the JAX kernel's own test's tolerance."""
+    _check_plain_stack(n, b, dim_in)
+
+
+@pytest.mark.parametrize("n,dim_in", [(256, 27)])
+def test_plain_stack_past_128_slots_matches_pallas_interpret_and_flax(n, dim_in):
+    """The same at N = 256 (two row blocks a jet on the card), two jets;
+    N = 200 (which the Pallas kernel pads to 256 slots) is held through the
+    transdimensional network's kernel path at both stack input widths
+    (tests/test_torch_transdim.py)."""
+    _check_plain_stack(n, 2, dim_in)
+
+
+def _check_plain_stack(n, b, dim_in):
     flax_stack, params, module, x_in, temb = _case(n, b, dim_in)
     res_p, attn_p = _jax_blocks(params)
     pallas = jax_stack.gsdm_stack_pallas(
@@ -181,7 +194,9 @@ def _config(**encoder):
     ({"n_heads": 3}, 128, False),
     ({"n_heads": 8}, 128, True),  # heads of 16 channels
     ({"n_attn_blocks": 0}, 128, False),
-    ({}, 129, False),
+    ({}, 129, True),  # two row blocks a jet
+    ({}, 256, True),
+    ({}, 257, False),
     ({"dim_hidden_local": 64}, 128, True),
     ({"dim_hidden_local": 128}, 128, True),  # stack inputs of 136 and 139 columns
 ])
@@ -212,6 +227,7 @@ def _meta_case(n=16, b=2, dim_in=24):
     (lambda p, tp, x: (p, tp, x.double()), TypeError),             # not float32
     (lambda p, tp, x: (p, tp, x.transpose(0, 1).contiguous().transpose(0, 1)), ValueError),
     (lambda p, tp, x: (p, (tp[0][:1], tp[1][:1]), x), ValueError),  # time rows of another batch
+    (lambda p, tp, x: (p, tp, x.new_zeros((2, 257, 24))), ValueError),  # past 256 slots
 ])
 def test_gsdm_stack_wrapper_refuses(break_it, error):
     """What the wrapper checks before it builds or launches anything, on

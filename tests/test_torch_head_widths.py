@@ -320,17 +320,17 @@ def _in_scope(C, heads):
     return C in (128, 256, 384, 512) and C % heads == 0 and C // heads <= 128
 
 
-@pytest.mark.parametrize("n", [109, 128, 129])
+@pytest.mark.parametrize("n", [109, 128, 129, 200, 256, 257])
 def test_gates_equal_jax_inside_the_scope_and_refuse_outside(n):
     """On a grid of (C, heads, N, K6's trunk hidden width): inside the scope
-    (C of 128 … 512, heads of at most 128 channels that divide C, N ≤ 128,
+    (C of 128 … 512, heads of at most 128 channels that divide C, N ≤ 256,
     any trunk hidden width) the port's K6, K7 and K8 gates say what JAX's
     say, which is True; outside it the port's say False, wherever JAX's may
     stand."""
     inside = 0
     for C in GRID_C:
         for heads in GRID_HEADS:
-            scope = _in_scope(C, heads) and n <= 128
+            scope = _in_scope(C, heads) and n <= 256
             for hidden in (16, 24, 300):
                 jax_abs = AbsorbingConfig()
                 jax_abs.generator.transformer_dim, jax_abs.generator.n_heads = C, heads
@@ -352,4 +352,4 @@ def test_gates_equal_jax_inside_the_scope_and_refuse_outside(n):
             assert gsdm_stack_cuda.gsdm_stack_supported(ours) == (jax_on and scope), (C, heads)
             # JAX's attention core takes every shape (attention_pallas.py:135-151)
             assert attention_cuda.attention_core_supported((2, n, C), heads) == scope
-    assert (inside > 0) == (n <= 128)
+    assert (inside > 0) == (n <= 256)

@@ -135,22 +135,28 @@ def test_project_time_embeddings_matches_jax(pair):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("n,b", [(109, 8), (128, 8), (109, 7)])
+@pytest.mark.parametrize("n,b", [(109, 8), (128, 8), (109, 7), (256, 2)])
 def test_survival_head_reference_matches_pallas_and_flax(n, b):
     """The plain version of the fused head against the interpret-mode Pallas
     kernel on the same packed inputs and against the flax head, at the
-    reference N = 109, at N = 128 and at a batch that is no tile multiple;
-    random non-prefix masks. rtol = atol = 2e-4."""
-    jax_model, params, model, batch = absorbing_pair(seed=1, n=n, b=b)
+    reference N = 109, at N = 128, at a batch that is no tile multiple, and
+    at N = 256 (two row blocks a jet on the card; there the weights are drawn
+    on flax's parameter tree, `drawn_init`, which spares flax's eager init at
+    the new shapes; N = 200 is held through the absorbing family's
+    `forward_sampling`, tests/test_torch_absorbing.py); random non-prefix
+    masks. rtol = atol = 2e-4."""
+    jax_model, params, model, batch = absorbing_pair(seed=1, n=n, b=b, drawn_init=n > 128)
     gen_params = params["generator"]
     rng = np.random.default_rng(3)
     t = rng.uniform(0.05, 0.95, (b, 1, 1)).astype(np.float32)
     state = AbsorbingBridgeState(
         time=jnp.asarray(t), continuous=batch.source_continuous,
         discrete=batch.source_discrete, mask_t=batch.source_mask.astype(jnp.int32))
-    flax_logits = jax_model.generator.apply({"params": gen_params}, state, batch).absorbing
-    _, _, last = jax_model.generator.apply(
-        {"params": gen_params}, state, batch, method=AbsorbingGenerator.trunk_and_heads)
+    # jitted: flax's op-by-op apply compiles each operation anew at every shape
+    flax_logits, last = jax.jit(lambda p: (
+        jax_model.generator.apply({"params": p}, state, batch).absorbing,
+        jax_model.generator.apply({"params": p}, state, batch,
+                                  method=AbsorbingGenerator.trunk_and_heads)[2]))(gen_params)
     pallas_logits = survival_pallas.survival_head_pallas(
         survival_pallas.pack_survival_head_params(gen_params, 2),
         survival_pallas.project_time_embeddings(gen_params, state.time, 2, 128),
@@ -171,7 +177,7 @@ def test_survival_gate_matches_jax():
     """transformer_dim 96 → off; a tensor-parallel model axis → off, as
     survival_pallas_supported; 8 heads, width 256 and a trunk hidden width
     of 24 → on, as in JAX; and what only the CUDA kernel rules out: N past
-    128, a head wider than 128 channels."""
+    256, a head wider than 128 channels."""
     from multimodal_particles_tpu.config_classes import AbsorbingConfig
     from multimodal_particles_tpu_torch.config_classes import AbsorbingConfig as TorchConfig
 
@@ -188,7 +194,7 @@ def test_survival_gate_matches_jax():
         ours = TorchConfig.from_dict(cfg.to_dict())
         assert survival_cuda.survival_supported(ours) == survival_pallas.survival_pallas_supported(cfg)
         assert survival_cuda.survival_supported(ours) == on
-    for sections in ({"data": {"max_num_particles": 129}},
+    for sections in ({"data": {"max_num_particles": 257}},
                      {"generator": {"transformer_dim": 256, "n_heads": 1}}):
         ours = TorchConfig()
         for section, fields in sections.items():
@@ -227,8 +233,8 @@ def test_survival_wrapper_raises_off_the_cpu(pair, monkeypatch, tmp_path):
     with pytest.raises(TypeError, match="float32"):
         survival_cuda.survival_head(packed, tp, last.double(), mask, n_heads=2)
     with pytest.raises(ValueError, match="outside"):
-        big = torch.empty((4, 129, 16), device="meta")
-        survival_cuda.survival_head(packed, tp, big, torch.empty((4, 129, 1), device="meta"),
+        big = torch.empty((4, 257, 16), device="meta")
+        survival_cuda.survival_head(packed, tp, big, torch.empty((4, 257, 1), device="meta"),
                                     n_heads=2)
     cpu_packed = survival_cuda.pack_survival_head_params(pair[2].generator, 2)
     with pytest.raises(ValueError, match="is on cpu"):

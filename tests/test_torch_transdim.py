@@ -473,6 +473,32 @@ def test_forward_kernel_matches_network_fused_in_interpret_mode(pair):
         np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-4, atol=1e-5, err_msg=name)
 
 
+def test_forward_kernel_past_128_slots_matches_network_fused_in_interpret_mode():
+    """The kernel path at max_num_particles 200 (K7 as two row blocks a jet
+    on the card; JAX's kernels pad 200 to 256 slots) on the plain versions
+    against `_network_fused` with the Pallas kernels in interpret mode, as
+    above, at B = 2 (one jet of one particle, one of 200) and one
+    transformer block a stack; atol 5e-4."""
+    n, b = 200, 2
+    jax_model, params, model, batch = transdim_pair(
+        seed=2, n=n, b=b, drawn_init=True, sections={"encoder": {"n_attn_blocks": 1}})
+    rng = np.random.default_rng(4)
+    live = batch[2].sum(-1, keepdims=True) > 0
+    noisy = [batch[0], batch[1], (batch[2] + 0.3 * rng.standard_normal(batch[2].shape).astype(
+        np.float32)) * live]
+    ts = rng.uniform(0.05, 1.0, b).astype(np.float32)
+    nearest = np.minimum(rng.integers(0, n, b), noisy[0] - 1).astype(np.int32)
+    jax_model.config.parallel.use_pallas = model.config.parallel.use_pallas = True
+    assert model._pallas_enabled("cpu") and jax_model._pallas_enabled()
+    ref = jax_model._network_fused(params["network"], _jax_state(noisy), jnp.asarray(ts),
+                                   jnp.asarray(nearest), False, None, interpret=True)
+    k1, k7 = epic_forward_reference.calls, gsdm_stack_reference.calls
+    got = model.forward_kernel(_torch_state(noisy), _t(ts), _t(nearest).long())
+    assert epic_forward_reference.calls == k1 + 1 and gsdm_stack_reference.calls == k7 + 2
+    for name, g, r in zip(OUTPUTS, got, ref):
+        np.testing.assert_allclose(g.numpy(), _np(r), rtol=5e-4, atol=5e-4, err_msg=name)
+
+
 @pytest.mark.parametrize("predict", ["eps", "x0"])
 def test_net_forward_matches_jax(pair, predict):
     """Preconditioning and the reverse rate on top of the network; rates by
