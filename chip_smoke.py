@@ -157,7 +157,10 @@ Phases, one JSON line each:
               (|err| ≤ tol·(1 + max|ref| over the jet), 1e-4 for the
               trunk, 2e-4 for K7) where the plain version is finite (the
               seeded flow overflows float32 in some jets' GroupNorms; those
-              jets are counted)
+              jets are counted); past 128 slots K7 against its plain
+              version's float64 evaluation on the jets where the float32
+              plain version misses K7's gate against that evaluation
+              (counted)
  28. train_transdim  Trainer.fit with the transdimensional model at B=1024,
               N=128 (3 epochs of 8 synthetic 'list' batches + 1 validation
               batch, Adam at lr 1e-3, the JAX quality runs' rate), then
@@ -501,6 +504,39 @@ Phases, one JSON line each:
               jets, parted jets ≤ 3 × a 1-ulp nudge's + 4, every kernel call
               within its bound of its plain version)
 
+ 75. long_wide_k4  K4 on jets of 129, 144, 145, 192, 193, 200 and 256 slots
+              (a cluster of hidden / 128 column blocks × 2 row blocks a jet)
+              as MBM's, the absorbing generator's (56-wide head, hidden
+              output) and the transdimensional trunk (folded input, hidden
+              output) call it, at the scaled backbone (6 blocks) and at local
+              256 / global 128, 384 and 512 (2 blocks), B=64, one jet's only
+              live particle at the last slot: per particle against the plain
+              version as phase 11, the same bits on a repeat
+ 76. long_wide_k5  K5 at N = 129, 200 and 256 at the scaled backbone,
+              scaled-256 and 512 (2 blocks) under phase 12's rules on 512
+              jets of random masks and 512 of sparse scattered ones (about 19
+              live slots a jet; B/16 of the held jets with a particle past
+              slot 128), the same bits on a repeat
+ 77. long_wide_time  K4 and K5 at B=8192, N=256 at the scaled backbone and
+              scaled-256, and K4 at the scaled backbone at N = 128, 129 and
+              192 (the step at the row cut), beside their plain versions and
+              both bounds for that N
+ 78. slice_scaled_n256  scaled MBM with max_num_particles 256 serves 8192
+              jets: 99 launches of K4, nothing else, no plain version; then
+              paths_scaled_n256 (phase 6's check at N=256, B=256)
+ 79. train_scaled_n256  Trainer.fit at the scaled backbone, N=256, B=8192,
+              8 steps + 1 validation batch: K5 once a step, K4 once a step and
+              a validation batch, no plain version, the losses finite and
+              falling; on 256 jets of the first batch the kernels' loss and
+              every parameter's gradient against plain autograd with the same
+              draws (losses within 1e-3, every leaf within 1e-3 of its largest)
+ 80. slice_absorbing_scaled_n256, slice_transdim_scaled_n256 and their
+              scaled-256 twins  the scaled and scaled-256 absorbing and
+              transdimensional families at max_num_particles 256 serve 4096
+              jets each: K4 and K6 99 times a request (absorbing), K4 48 and
+              K7 96 times (transdim), nothing else, no plain version; then
+              the kernel path against the module path as phases 34 and 35
+
 The line before the last lists every kernel with its launches on its own
 path's run, its two bounds from the shapes and the H100 data sheet's peaks
 (`bound_ms` with the operations on the CUDA cores in fp32, `tensor_bound_ms`
@@ -638,6 +674,7 @@ from multimodal_particles_tpu_torch.ops.epic_wide_vjp_cuda import (
     epic_train_forward_wide,
 )
 from multimodal_particles_tpu_torch.ops.gsdm_stack_cuda import (
+    blocks_reference,
     gsdm_stack,
     gsdm_stack_reference,
     stack_time_embeddings,
@@ -990,11 +1027,11 @@ def phase_k2(device, card):
     return worst, ms, plain_ms
 
 
-def check_generated(out, batch, B):
+def check_generated(out, batch, B, n=N):
     x, k = out.continuous, out.discrete
     mask = batch.source_mask
     ok = {
-        "shape": tuple(x.shape) == (B, N, 3) and tuple(k.shape) == (B, N, 1),
+        "shape": tuple(x.shape) == (B, n, 3) and tuple(k.shape) == (B, n, 1),
         "finite": bool(torch.isfinite(x).all().item()),
         "tokens_in_range": bool(((k >= 0) & (k < 8)).all().item()),
         "masked_slots_zero": bool(((x * (1 - mask)) == 0).all().item()
@@ -1356,10 +1393,10 @@ def phase_train_paths(device, card, make_config=None, B=TRAIN_B, phase="train_pa
         raise RuntimeError(f"kernel and plain training paths diverge: {rec}")
 
 
-def phase_paths(device, model=None, B=CHECK_B, phase="paths"):
+def phase_paths(device, model=None, B=CHECK_B, phase="paths", n=N):
     model = model or make_model(device)
     batch = gauss_noise_source_batch(
-        B, N, 3, 8, torch.Generator(device=device).manual_seed(SEED + 4), device=device,
+        B, n, 3, 8, torch.Generator(device=device).manual_seed(SEED + 4), device=device,
         num_empty=1)
     out_kernel = model.predict(batch, generator=torch.Generator(device=device).manual_seed(SEED + 5))
     model.config.parallel.use_pallas = False
@@ -1371,7 +1408,7 @@ def phase_paths(device, model=None, B=CHECK_B, phase="paths"):
     dx = (out_kernel.continuous - out_plain.continuous).abs()[real]
     rel = dx / x_plain.clamp_min(1.0)
     q = torch.tensor([0.5, 0.99, 1.0], device=device)
-    rec = {"phase": phase, "B": B, "steps": 99, "token_mismatch": mismatch,
+    rec = {"phase": phase, "B": B, "N": n, "steps": 99, "token_mismatch": mismatch,
            "median_abs_dx": dx.median().item(), "max_abs_dx": dx.max().item(),
            "median_rel_dx": rel.median().item(), "max_rel_dx": rel.max().item(),
            "abs_x_q50_q99_max": torch.quantile(x_plain, q).tolist()}
@@ -2505,6 +2542,13 @@ def not_finite_jets(got, ref):
     return undefined.any(dim=1), undefined.any(dim=1) & ~(undefined & ~torch.isfinite(got)).any(dim=1)
 
 
+def gsdm_stack_float64(packed, temb_projected, x_in, n_heads):
+    """K7's plain version evaluated in float64 on the same weights."""
+    W = {name: t.double() for name, t in packed.tensors.items()}
+    h = x_in.double() @ W["w_in"][:packed.dim_in] + W["b_in"]
+    return blocks_reference(W, h, [t.double() for t in temb_projected], packed.n_blocks, n_heads)
+
+
 class KernelShadow:
     """Within `with`: the transdimensional network's kernels as
     `forward_kernel` calls them (the trunk's, K1 or K4, and K7), each call
@@ -2513,11 +2557,17 @@ class KernelShadow:
     trunk at ATOL, K7 at K7_TOL): along the flow the inputs reach 1e21 and
     a jet's entries are coupled through its GroupNorm and attention, so the
     bound scales with the jet's largest output. `undefined` and
-    `kernel_only` hold per call and kernel the jets of `not_finite_jets`."""
+    `kernel_only` hold per call and kernel the jets of `not_finite_jets`.
+    K7's plain version is float32 and is itself only so close to the
+    function: past 128 slots, on a jet where it is finite but misses K7's
+    gate against its own float64 evaluation (`gsdm_stack_float64`; on the
+    scaled-256 flow at N = 256 the worst such jet was 1.17 of the gate from
+    it), K7 is held to the float64 evaluation instead; `plain_off` holds those
+    jets per call."""
 
     def __enter__(self):
         m = transdim_module
-        self.trunk, self.stack = [], []
+        self.trunk, self.stack, self.plain_off = [], [], []
         self.undefined = {"trunk": [], "gsdm_stack": []}
         self.kernel_only = {"trunk": [], "gsdm_stack": []}
         self.saved = m.epic_forward, m.epic_forward_wide, m.gsdm_stack
@@ -2547,21 +2597,31 @@ class KernelShadow:
     def _stack(self, packed, temb, x_in, *, n_heads):
         got = gsdm_stack(packed, temb, x_in, n_heads=n_heads)
         ref = gsdm_stack_reference(packed, temb, x_in, n_heads=n_heads)
-        self.stack.append(jet_err_over_bound(got, ref, K7_TOL))
+        err = jet_err_over_bound(got, ref, K7_TOL)
+        off = torch.zeros_like(err, dtype=torch.bool)
+        if x_in.shape[1] > 128:
+            exact = gsdm_stack_float64(packed, temb, x_in, n_heads)
+            finite = torch.isfinite(ref).reshape(ref.shape[0], -1).all(dim=1)
+            off = finite & (jet_err_over_bound(ref.double(), exact, K7_TOL) > 1.0)
+            err = torch.where(off, jet_err_over_bound(got.double(), exact, K7_TOL).float(), err)
+        self.stack.append(err)
+        self.plain_off.append(off)
         self._count("gsdm_stack", got, ref)
         return got
 
     def worst(self):
         """The largest error over bound of each kernel; the calls; and summed
         over calls, the jets where the plain version is not finite and, of
-        those, the ones where the kernel is."""
+        those, the ones where the kernel is, and the jets where K7 was held to
+        the float64 evaluation."""
         def total(per_call):
             return {name: int(torch.stack(v).sum().item()) for name, v in per_call.items()}
         return {"trunk": torch.stack(self.trunk).max().item(),
                 "gsdm_stack": torch.stack(self.stack).max().item(),
                 "calls": [len(self.trunk), len(self.stack)],
                 "jet_calls_plain_not_finite": total(self.undefined),
-                "of_those_kernel_finite": total(self.kernel_only)}
+                "of_those_kernel_finite": total(self.kernel_only),
+                "jet_calls_k7_held_to_float64": int(torch.stack(self.plain_off).sum().item())}
 
 
 def transdim_path_draws(B, gen, device, n=TD_N):
@@ -3097,15 +3157,15 @@ def profile_request(model, request, B, gen, phase, bare_seconds, card):
 
 
 def phase_slice_absorbing_scaled(device, card, width=SCALED_HIDDEN,
-                                 sizes=SCALED_FAMILY_REQUEST_SIZES, tag=""):
-    """predict at the scaled absorbing backbone (every width `width`): per
-    step one launch of K4 (hidden output, 56-wide head) and one of K6,
-    nothing else, no plain version; then the kernel path against the module
-    path. With more than one request size, a profiler window over one
-    request. `tag` ends the phases' names."""
-    model = make_absorbing(device, scaled=width, gains=True)
+                                 sizes=SCALED_FAMILY_REQUEST_SIZES, tag="", n=ABS_N):
+    """predict at the scaled absorbing backbone (every width `width`, `n`
+    particle slots): per step one launch of K4 (hidden output, 56-wide head)
+    and one of K6, nothing else, no plain version; then the kernel path
+    against the module path. With more than one request size, a profiler
+    window over one request. `tag` ends the phases' names."""
+    model = make_absorbing(device, scaled=width, gains=True, n=n)
     gen = torch.Generator(device=device).manual_seed(SEED + 32)
-    batches = [absorbing_training_batch(B, ABS_N, 3, 8, gen, device=device, num_empty=1)
+    batches = [absorbing_training_batch(B, n, 3, 8, gen, device=device, num_empty=1)
                for B in sizes]
     torch.cuda.synchronize()
 
@@ -3120,8 +3180,8 @@ def phase_slice_absorbing_scaled(device, card, width=SCALED_HIDDEN,
         seconds = bare[B] = time.perf_counter() - start
         k4 = epic_forward_wide.launches - k4_before
         k6 = survival_head.launches - k6_before
-        checks = check_generated_absorbing(out, batch, B)
-        emit({"phase": f"slice_absorbing_scaled{tag}", "width": width, "B": B, "N": ABS_N,
+        checks = check_generated_absorbing(out, batch, B, n)
+        emit({"phase": f"slice_absorbing_scaled{tag}", "width": width, "B": B, "N": n,
               "steps": k6,
               "K4_launches": k4, "K6_launches": k6, "seconds": seconds,
               "jets_per_s": B / seconds, "multiplicity_in": batch.source_mask.sum().item() / B,
@@ -3140,20 +3200,21 @@ def phase_slice_absorbing_scaled(device, card, width=SCALED_HIDDEN,
     if len(sizes) > 1:
         profile_request(model, batches[1], ABS_B, gen, f"profile_absorbing_scaled{tag}",
                         bare[ABS_B], card)
-    phase_paths_absorbing(device, model, f"paths_absorbing_scaled{tag}")
+    phase_paths_absorbing(device, model, f"paths_absorbing_scaled{tag}", n)
     return launches
 
 
 def phase_slice_transdim_scaled(device, card, width=SCALED_HIDDEN,
-                                sizes=SCALED_FAMILY_REQUEST_SIZES, tag=""):
-    """predict at the scaled transdimensional backbone (every width `width`):
-    per network evaluation one launch of K4 (folded input, hidden output)
-    and two of K7 (Din width + 8 and + 11), nothing else, no plain version;
-    then the kernel path against the module path from the same draws. With
-    more than one request size, a profiler window over one request."""
+                                sizes=SCALED_FAMILY_REQUEST_SIZES, tag="", n=TD_N):
+    """predict at the scaled transdimensional backbone (every width `width`,
+    `n` particle slots): per network evaluation one launch of K4 (folded
+    input, hidden output) and two of K7 (Din width + 8 and + 11), nothing
+    else, no plain version; then the kernel path against the module path
+    from the same draws. With more than one request size, a profiler window
+    over one request."""
     gen = torch.Generator(device=device).manual_seed(SEED + 33)
-    batches = [transdim_training_batch(B, TD_N, 3, 8, gen, device=device) for B in sizes]
-    model = make_transdim(device, batches[0], scaled=width, gains=True)
+    batches = [transdim_training_batch(B, n, 3, 8, gen, device=device) for B in sizes]
+    model = make_transdim(device, batches[0], scaled=width, gains=True, n=n)
     prior_mean = batches[0][0].float().mean().item()
     torch.cuda.synchronize()
 
@@ -3168,9 +3229,9 @@ def phase_slice_transdim_scaled(device, card, width=SCALED_HIDDEN,
         seconds = bare[B] = time.perf_counter() - start
         k4 = epic_forward_wide.launches - k4_before
         k7 = gsdm_stack.launches - k7_before
-        checks = check_generated_transdim(out, B)
+        checks = check_generated_transdim(out, B, n)
         mean_out = out.dims.float().mean().item()
-        emit({"phase": f"slice_transdim_scaled{tag}", "width": width, "B": B, "N": TD_N,
+        emit({"phase": f"slice_transdim_scaled{tag}", "width": width, "B": B, "N": n,
               "steps": TD_STEPS, "nfe": k4,
               "K4_launches": k4, "K7_launches": k7, "seconds": seconds,
               "jets_per_s": B / seconds, "multiplicity_prior": prior_mean,
@@ -3189,7 +3250,7 @@ def phase_slice_transdim_scaled(device, card, width=SCALED_HIDDEN,
     if len(sizes) > 1:
         profile_request(model, batches[1], TD_B, gen, f"profile_transdim_scaled{tag}",
                         bare[TD_B], card)
-    phase_paths_transdim(device, scaled=width, phase=f"paths_transdim_scaled{tag}")
+    phase_paths_transdim(device, scaled=width, phase=f"paths_transdim_scaled{tag}", n=n)
     return launches
 
 
@@ -5545,6 +5606,397 @@ def long_head_phases(device, card):
     return long_heads, paths
 
 
+
+# ------------------------------------------- phases 75-80: K4 and K5 past 128 slots
+
+# N on both sides of the row blocks' edge, of a 16-row tile's (144, 145) and a 64-row
+# half's (192, 193) edge in the second row block, one odd N, and the most the kernels take
+LONG_WIDE_N = (129, 144, 145, 192, 193, 200, 256)
+# K4's widths (name, make_config's widths, blocks): the scaled backbone and phase 63's
+# cluster widths, cut to 2 blocks as there
+LONG_WIDE_CASES = (("scaled", dict(hidden=128, emb=128), SCALED_BLOCKS),
+                   ("local256_glob128", dict(hidden=256, emb=256, glob=128), 2),
+                   ("all384", dict(hidden=384, emb=384), 2),
+                   ("all512", dict(hidden=512, emb=512), 2))
+LONG_WIDE_CHECK_B = 64  # more jets than the clusters of 8 blocks resident at once
+# K5's checks at these N and widths: the scaled backbone, scaled-256 and 512 (2 blocks)
+LONG_K5_N = (129, 200, 256)
+LONG_K5_CASES = (("scaled", dict(hidden=128, emb=128), SCALED_BLOCKS),
+                 ("scaled256", dict(hidden=256, emb=256), SCALED_BLOCKS),
+                 ("all512", dict(hidden=512, emb=512), 2))
+LONG_K5_B = 512
+# past 128 slots the near-kink window leaves out nearly every dense jet; the sparse batch
+# scatters about this many particles a jet over all N slots
+LONG_K5_PARTICLES = 19
+LONG_WIDE_TIMED_N = (128, 129, 192, 256)  # K4's time against N: the step at the row cut
+LONG_WIDE_TIMED_CASES = (("scaled", dict(hidden=128, emb=128), SCALED_BLOCKS),
+                         ("scaled256", dict(hidden=256, emb=256), SCALED_BLOCKS))
+LONG_WIDE_SLOTS = 256  # the served and trained paths' N
+LONG_GRAD_B = 256  # the train step's gradient check: a slice of the batch
+GRAD_BOUND = 1e-3  # |Δgrad| ≤ GRAD_BOUND·max|leaf| (phase 17's first step: 8.3e-5)
+
+
+def encoder_fields(enc):
+    """make_config's width arguments as encoder fields."""
+    hidden = enc["hidden"]
+    emb, glob = enc.get("emb", hidden), enc.get("glob", hidden)
+    return {"dim_hidden_local": hidden, "dim_hidden_glob": glob, "dim_emb_time": emb,
+            "dim_emb_features_continuous": emb, "dim_emb_features_discrete": emb}
+
+
+def long_k4_instances(device, enc, blocks, n=LONG_WIDE_SLOTS):
+    """K4's three trunks at make_config's widths `enc`, `blocks` blocks and
+    `n` slots, seeded weights, as their models pack them: MBM's (tokens, the
+    8-wide head), the absorbing generator's (the 56-wide head, the hidden
+    output) and the transdimensional network's (the folded input, no head,
+    the hidden output): (name, packing, hidden output)."""
+    out = [("mbm", wide_case_packing(device, enc, blocks), False)]
+    for name, config, init, model_class in (
+            ("absorbing", AbsorbingConfig(), init_absorbing_parameters, AbsorbingFlow),
+            ("transdim", TransdimensionalEpicConfig(), init_transdimensional_parameters,
+             TransdimensionalJumpDiffusion)):
+        config.data.max_num_particles = n
+        for field, value in encoder_fields(enc).items():
+            setattr(config.encoder, field, value)
+        config.encoder.num_blocks = blocks
+        model = init(model_class(config), SEED).to(device).eval()
+        trunk = model.pack_for_kernel()[0]
+        if trunk is None or trunk.layout != "wide":
+            raise RuntimeError(f"the {name} trunk at {enc} and N={n} is not packed for K4")
+        out.append((name, trunk, True))
+    return out
+
+
+def long_inputs(packed, B, n, device, gen):
+    """K4's inputs at n slots: random non-prefix masks with the last jet
+    empty (tokens), or the transdimensional state's prefix masks (the folded
+    input); jet 1 then has one live particle, at slot n − 1, past the first
+    row block."""
+    if packed.dims.fold_discrete:
+        state, ts = transdim_state(B, n, device, gen)
+        t, x, k, mask = (ts.reshape(B, 1, 1), state.continuous.clone(), state.discrete.clone(),
+                         state.particle_mask()[:, :, None].float().contiguous())
+    else:
+        t, x, k, mask = scattered_inputs(B, n, device, gen)
+    mask[1] = 0.0
+    mask[1, n - 1] = 1.0
+    x, k = x * mask, k * (mask if packed.dims.fold_discrete else mask.long())
+    return t, x.contiguous(), k.contiguous(), mask
+
+
+def phase_long_wide_k4(device, card):
+    """Phase 75. K4 on jets of LONG_WIDE_N slots (a cluster of hidden / 128
+    column blocks × 2 row blocks a jet) as each family's trunk calls it
+    (`long_k4_instances`) at each case of LONG_WIDE_CASES, B=64, jet 1 with
+    its one live particle at the last slot: per particle against the plain
+    version (outputs and hidden state), the same bits on a repeat. Returns
+    the worst share of the gate and error by case."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 75)
+    gate, out = "within_tol_per_particle", {}
+    for name, enc, blocks in LONG_WIDE_CASES:
+        worst, err = 0.0, 0.0
+        for instance, packed, hidden in long_k4_instances(device, enc, blocks):
+            for n in LONG_WIDE_N:
+                args = (packed, *long_inputs(packed, LONG_WIDE_CHECK_B, n, device, gen))
+                got = epic_forward_wide(*args, output_hidden_local=hidden)
+                again = epic_forward_wide(*args, output_hidden_local=hidden)
+                torch.cuda.synchronize()
+                ref = epic_forward_reference(*args, output_hidden_local=hidden)
+                got, again, ref = ((a,) if not hidden else a for a in (got, again, ref))
+                cmps = [compare(a, r) for a, r in zip(got, ref)]
+                rec = {"phase": "long_wide_k4", "case": name, "instance": instance,
+                       "hidden": packed.dims.hidden, "num_blocks": blocks,
+                       "cluster": [packed.dims.hidden // 128, 2], "B": LONG_WIDE_CHECK_B, "N": n,
+                       "gate": gate,
+                       "worst_particle_err_over_bound": max(c["worst_particle_err_over_bound"]
+                                                            for c in cmps),
+                       "max_abs_err": max(c["max_abs_err"] for c in cmps),
+                       "max_abs_ref": max(r.abs().max().item() for r in ref),
+                       "same_bits_on_repeat": all(torch.equal(a, b) for a, b in zip(got, again)),
+                       "finite": all(bool(torch.isfinite(a).all().item()) for a in got)}
+                emit(rec)
+                if not (all(c[gate] for c in cmps) and rec["same_bits_on_repeat"] and rec["finite"]):
+                    raise RuntimeError(f"K4 past 128 slots disagrees with its plain version: {rec}")
+                worst = max(worst, rec["worst_particle_err_over_bound"])
+                err = max(err, rec["max_abs_err"])
+        out[name] = {"worst_share_of_gate": worst, "max_abs_err": err}
+        torch.cuda.empty_cache()
+    return out
+
+
+def sparse_long_inputs(B, n, device, gen):
+    """t, x, k and a random mask at n slots, each alive with probability
+    LONG_K5_PARTICLES / n, and every other jet's last slot alive (at n = 129
+    the one slot past the first row block); jet 0 with one live particle, at
+    slot n − 1; the last jet empty."""
+    mask = (torch.rand((B, n, 1), generator=gen, device=device) < LONG_K5_PARTICLES / n).float()
+    mask[::2, n - 1] = 1.0
+    mask[0] = 0.0
+    mask[0, n - 1] = 1.0
+    mask[-1] = 0.0
+    x = torch.randn((B, n, 3), generator=gen, device=device) * mask
+    k = torch.randint(0, 8, (B, n, 1), generator=gen, device=device) * mask.long()
+    return torch.rand((B, 1, 1), generator=gen, device=device), x, k, mask
+
+
+def phase_long_wide_k5(device, card):
+    """Phase 76. K5 (the wide forward + hand-written backward) on jets of
+    LONG_K5_N slots at each case of LONG_K5_CASES against plain autograd
+    under phase 12's rules (per packed leaf, no cotangent on near-kink jets),
+    B=512: on random non-prefix masks (60% of the slots alive), where the
+    near-kink window leaves out nearly every jet, and on sparse scattered
+    masks (`sparse_long_inputs`), of whose held jets B/16 must have a
+    particle past slot 128; the plain backward in chunks of WIDE_PLAIN_CHUNK
+    jets; the same bits on a repeat. Returns the worst error and share of
+    the gate by case."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 76)
+    out, B = {}, LONG_K5_B
+    for name, enc, blocks in LONG_K5_CASES:
+        packed = wide_case_packing(device, enc, blocks)
+        errors = []
+        for n in LONG_K5_N:
+            for batch in ("dense", "sparse"):
+                t, x, k, mask = (scattered_inputs if batch == "dense" else sparse_long_inputs)(
+                    B, n, device, gen)
+                near = torch.cat([near_kink_jets(packed, *(a[lo:lo + WIDE_PLAIN_CHUNK]
+                                                           for a in (t, x, k, mask)))
+                                  for lo in range(0, B, WIDE_PLAIN_CHUNK)])
+                g = torch.randn((B, n, 11), generator=gen, device=device) * (~near)[:, None, None]
+                leaf = packed.flat.clone().requires_grad_(True)
+                y = epic_train_forward_wide(packed.rebind(leaf), t, x, k, mask)
+                y.backward(g)
+                again = epic_backward_wide(packed, t, x, k, mask, g)
+                torch.cuda.synchronize()
+                fwd = compare(y.detach(), epic_forward_reference(packed, t, x, k, mask))
+                ref = chunked_jets(lambda *a: epic_backward_reference(packed, *a), B,
+                                   t, x, k, mask, g)
+                bwd = leaf_compare(leaf.grad, ref, packed)
+                held_past_128 = int(((~near) & (mask[:, 128:, 0].sum(dim=1) > 0)).sum().item())
+                rec = {"phase": "long_wide_k5", "case": name, "batch": batch,
+                       "hidden": packed.dims.hidden, "num_blocks": blocks,
+                       "cluster": [packed.dims.hidden // 128, 2], "B": B, "N": n,
+                       "forward": fwd, "backward": bwd,
+                       "near_kink_jets_left_out": int(near.sum().item()),
+                       "kept_jets_with_a_particle_past_128": held_past_128,
+                       "one_particle_jet_held": bool(batch == "sparse" and not near[0].item()),
+                       "same_bits_on_repeat": bool(torch.equal(again, leaf.grad)),
+                       "finite": bool(torch.isfinite(leaf.grad).all().item())}
+                emit(rec)
+                covered = batch == "dense" or held_past_128 >= B // 16
+                if not (fwd["within_tol_per_particle"] and rec["finite"] and covered
+                        and rec["same_bits_on_repeat"] and not bwd["leaves_out_of_bound"]):
+                    raise RuntimeError(f"K5 past 128 slots disagrees with plain autograd: {rec}")
+                errors.append(bwd)
+                del leaf, y, again, ref, near, g
+        out[name] = {"max_abs_err": max(e["max_abs_err"] for e in errors),
+                     "worst_leaf_err_over_bound": max(e["worst_leaf_err_over_bound"]
+                                                      for e in errors)}
+        del packed
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_long_wide_time(device, card):
+    """Phase 77. K4 and K5 at B=8192 on jets of 256 slots at the scaled
+    backbone and at scaled-256, and K4 at the scaled backbone also at N =
+    128, 129 and 192 (the step at the row cut), each beside its plain
+    version (K4's in chunks of 2048 jets, K5's autograd at WIDE_PLAIN_CHUNK
+    jets) and both bounds for this N, timed in turns plain, kernel, kernel,
+    plain. Returns the times and bounds by case and N."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 77)
+    out = {}
+    for name, enc, blocks in LONG_WIDE_TIMED_CASES:
+        packed = wide_case_packing(device, enc, blocks)
+        d = packed.dims
+        for n in (LONG_WIDE_TIMED_N if name == "scaled" else (LONG_WIDE_SLOTS,)):
+            t, x, k, mask = scattered_inputs(TRAIN_B, n, device, gen)
+            kernel = lambda: epic_forward_wide(packed, t, x, k, mask)
+            plain = lambda: torch.cat([epic_forward_reference(
+                packed, *(a[lo:lo + SCALED_PLAIN_B] for a in (t, x, k, mask)))
+                for lo in range(0, TRAIN_B, SCALED_PLAIN_B)])
+            p1, k1, k2, p2 = cuda_ms(plain, 2), cuda_ms(kernel, 5), cuda_ms(kernel, 5), cuda_ms(plain, 2)
+            ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            bound = kernel_bound(packed, TRAIN_B, "forward", n)
+            products = products_tensor_bound_ms(d, TRAIN_B, n)
+            emit({"phase": "long_wide_time", "kernel": "K4", "case": name, "B": TRAIN_B, "N": n,
+                  "num_blocks": blocks, "ms": ms, "plain_ms": plain_ms, **bound,
+                  **against_bounds(bound, ms), "products_tensor_bound_ms": products,
+                  "card": card})
+            out[f"K4_{name}_n{n}"] = {"ms": ms, "plain_ms": plain_ms, **bound_fields(bound),
+                                      "products_tensor_bound_ms": products,
+                                      "timed_at": {"hidden": d.hidden, "num_blocks": blocks,
+                                                   "B": TRAIN_B, "N": n}}
+        n = LONG_WIDE_SLOTS
+        t, x, k, mask = scattered_inputs(TRAIN_B, n, device, gen)
+        g = torch.randn((TRAIN_B, n, 11), generator=gen, device=device)
+        small = tuple(a[:WIDE_PLAIN_CHUNK].contiguous() for a in (t, x, k, mask, g))
+        kernel = lambda: epic_backward_wide(packed, t, x, k, mask, g)
+        plain = lambda: epic_backward_reference(packed, *small)
+        p1, k1, k2, p2 = cuda_ms(plain, 3), cuda_ms(kernel, 3), cuda_ms(kernel, 3), cuda_ms(plain, 3)
+        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        bound = kernel_bound(packed, TRAIN_B, "backward", n)
+        products = wide_backward_products_tensor_bound_ms(d, TRAIN_B, n)
+        _, floats = epic_wide_vjp_cuda._workspace(_build.load_library(), TRAIN_B, n, d, device)
+        emit({"phase": "long_wide_time", "kernel": "K5", "case": name, "B": TRAIN_B, "N": n,
+              "num_blocks": blocks, "backward_ms": ms, "plain_B": WIDE_PLAIN_CHUNK,
+              "backward_plain_ms_at_plain_B": plain_ms, **bound, **against_bounds(bound, ms),
+              "products_tensor_bound_ms": products, "k5_scratch_gb": 4 * floats / 1e9,
+              "card": card})
+        out[f"K5_{name}_n{n}"] = {"ms": ms, "plain_ms": plain_ms, **bound_fields(bound),
+                                  "products_tensor_bound_ms": products,
+                                  "timed_at": {"hidden": d.hidden, "num_blocks": blocks,
+                                               "B": TRAIN_B, "N": n, "plain_B": WIDE_PLAIN_CHUNK}}
+        del packed, t, x, k, mask, g, small
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_slice_scaled_n256(device, card):
+    """Phase 78. MBM at the scaled backbone with max_num_particles 256
+    (data-dependent gains) serves one request of 8192 jets: 99 launches of
+    K4, no other kernel, no plain version, phase 5's checks; then the 99-step
+    kernel path against the module path at B=256 (paths_scaled_n256, phase
+    6's bounds)."""
+    n = LONG_WIDE_SLOTS
+    config = make_config(**SCALED)
+    config.data.max_num_particles = n
+    model = MultiModalBridgeMatching(config)
+    init_mbm_parameters(model, SEED)
+    model = model.to(device).eval()
+    emit({"phase": "slice_scaled_n256_init", "log10_gain_divisors":
+          data_dependent_gains(model, device)})
+    gen = torch.Generator(device=device).manual_seed(SEED + 78)
+    batch = gauss_noise_source_batch(TRAIN_B, n, 3, 8, gen, device=device, num_empty=1)
+    torch.cuda.synchronize()
+    reset_counts()  # the scaled N = 256 serving path's run starts here
+    start = time.perf_counter()
+    out = model.predict(batch, generator=gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts, only = launched({"epic_wide_forward": 99})
+    checks = check_generated(out, batch, TRAIN_B, n)
+    emit({"phase": "slice_scaled_n256", "B": TRAIN_B, "N": n, "launches": counts,
+          "plain_calls": plain_calls(), "seconds": seconds, "jets_per_s": TRAIN_B / seconds,
+          "card": card, **checks})
+    if not only:
+        raise RuntimeError(f"the scaled N = 256 serving path left its kernels: {counts}")
+    phase_paths(device, model, SCALED_PATHS_B, "paths_scaled_n256", n=n)
+    return counts
+
+
+def phase_train_scaled_n256(device, card):
+    """Phase 79. Trainer.fit at the scaled backbone with max_num_particles
+    256, B=8192 (TRAIN_BATCHES synthetic batches + 1 validation batch),
+    data-dependent gains: K5 once a train step, K4 once a step and a
+    validation batch, no plain version, the losses finite and falling. Then
+    on a slice of LONG_GRAD_B jets of the first batch, with the same bridge
+    draws, `loss_fn`'s value and every parameter's gradient by the kernels
+    (K4 + K5) against plain autograd: the losses within LOSS_BOUND, every
+    leaf's gradient within GRAD_BOUND of the leaf's largest."""
+    n = LONG_WIDE_SLOTS
+    gen = torch.Generator(device=device).manual_seed(SEED + 79)
+    dm = InMemoryDataModule(
+        train=[synthetic_training_batch(TRAIN_B, n, 3, 8, gen, device=device)
+               for _ in range(TRAIN_BATCHES)],
+        valid=[synthetic_training_batch(TRAIN_B, n, 3, 8, gen, device=device)])
+    config = make_config(**SCALED)
+    config.data.max_num_particles = n
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(MultiModalBridgeMatching(config).to(device), config,
+                          ExperimentsFiles(str(Path(tmp) / "run_scaled_n256")), seed=SEED,
+                          ema_decay=EMA_DECAY)
+        step_losses = []
+        train_step = trainer.train_step
+
+        def recording_step(batch, draws=None):
+            metrics = train_step(batch, draws)
+            step_losses.append(metrics["loss"])
+            return metrics
+
+        trainer.train_step = recording_step
+        trainer.setup(steps_per_epoch=TRAIN_BATCHES)
+        divisors = set_gains(trainer, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()  # the scaled N = 256 training path's run starts here
+        start = time.perf_counter()
+        history = trainer.fit(dm, epochs=1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+    counts, only = launched({"epic_wide_forward": TRAIN_BATCHES + 1,
+                             "epic_wide_backward": TRAIN_BATCHES})
+    plain = plain_calls()
+    losses = [v.item() for v in step_losses]
+    finite = all(torch.isfinite(torch.tensor(losses + [r["val_loss"] for r in history])).tolist())
+
+    model, S = trainer.model, LONG_GRAD_B
+    first = dm.train[0]
+    batch = MultimodalDatabatch(**{f.name: None if getattr(first, f.name) is None
+                                   else getattr(first, f.name)[:S]
+                                   for f in dataclasses.fields(first)})
+    draws = (torch.rand((S,), generator=gen, device=device),
+             torch.randn((S, n, 3), generator=gen, device=device),
+             torch.rand((S, n), generator=gen, device=device))
+    grads, slice_losses = [], []
+    for use_pallas in (True, False):
+        model.config.parallel.use_pallas = use_pallas
+        model.zero_grad()
+        loss, _ = model.loss_fn(batch, draws=draws)
+        loss.backward()
+        slice_losses.append(loss.item())
+        grads.append({name: p.grad.detach().clone() for name, p in model.named_parameters()
+                      if p.grad is not None})
+    model.config.parallel.use_pallas = "auto"
+    model.zero_grad()
+    worst, worst_leaf = 0.0, None
+    for name, ref in grads[1].items():
+        share = ((grads[0][name] - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+        if share >= worst:
+            worst, worst_leaf = share, name
+    loss_diff = abs(slice_losses[0] - slice_losses[1]) / abs(slice_losses[1])
+    emit({"phase": "train_scaled_n256", "B": TRAIN_B, "N": n, "steps": TRAIN_BATCHES,
+          "log10_gain_divisors": divisors, "step_losses": losses, "epochs": history,
+          "launches": counts, "plain_calls": plain, "fit_seconds": seconds,
+          "steps_per_s": TRAIN_BATCHES / seconds,
+          "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+          "slice_B": S, "slice_loss_kernel": slice_losses[0], "slice_loss_plain": slice_losses[1],
+          "slice_rel_loss_diff": loss_diff, "loss_bound": LOSS_BOUND,
+          "max_grad_diff_over_leaf_max": worst, "worst_leaf": worst_leaf,
+          "leaves": len(grads[1]), "grad_bound": GRAD_BOUND, "card": card})
+    if not only:
+        raise RuntimeError(f"the scaled N = 256 fit launched {counts}, plain {plain}")
+    if not finite or not sum(losses[-2:]) / 2 < losses[0]:
+        raise RuntimeError(f"the scaled N = 256 loss is not finite or did not fall: {losses}")
+    if set(grads[0]) != set(grads[1]) or loss_diff > LOSS_BOUND or worst > GRAD_BOUND:
+        raise RuntimeError(f"the kernels' gradient at N = 256 parts from autograd: {worst_leaf} "
+                           f"{worst}, losses {slice_losses}")
+    return counts
+
+
+def long_wide_phases(device, card):
+    """Phases 75-80: K4 (75) and K5 (76) past 128 slots against their plain
+    versions, both timed at N = 256 and K4 across the row cut (77), scaled
+    MBM served (78) and trained (79) at N = 256, and (80) the scaled and
+    scaled-256 absorbing and transdimensional families served at N = 256,
+    4096 jets each, with their paths checks. Returns the kernels line's
+    additions for K4 and K5 and each path's launches by kernel name."""
+    k4 = phase_long_wide_k4(device, card)
+    k5 = phase_long_wide_k5(device, card)
+    times = phase_long_wide_time(device, card)
+    paths = {"serving_scaled_n256": phase_slice_scaled_n256(device, card)}
+    torch.cuda.empty_cache()
+    paths["train_scaled_n256"] = phase_train_scaled_n256(device, card)
+    torch.cuda.empty_cache()
+    for width, tag in ((SCALED_HIDDEN, "_n256"), (SCALED256_HIDDEN, "256_n256")):
+        paths[f"serving_absorbing_scaled{tag}"] = phase_slice_absorbing_scaled(
+            device, card, width, (LONG_B,), tag, n=LONG_WIDE_SLOTS)
+        torch.cuda.empty_cache()
+        paths[f"serving_transdim_scaled{tag}"] = phase_slice_transdim_scaled(
+            device, card, width, (LONG_B,), tag, n=LONG_WIDE_SLOTS)
+        torch.cuda.empty_cache()
+    return k4, k5, times, paths
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this script needs a GPU")
@@ -5689,10 +6141,57 @@ def main():
         for path, launches in long_paths.items():
             if launches.get(entry["name"]):
                 entry["launches_by_path"][path] = launches[entry["name"]]
+    # K4 and K5 past 128 slots, scaled MBM served and trained at N = 256, and the two
+    # families at the scaled and scaled-256 backbones at N = 256
+    k4_long, k5_long, long_times, long_wide_paths = long_wide_phases(device, card)
+    for entry in (k4, k5, k6, k7):
+        for path, launches in long_wide_paths.items():
+            if launches.get(entry["name"]):
+                entry["launches_by_path"][path] = launches[entry["name"]]
+    kernels.extend(past_128_entries(k4_long, k5_long, long_times, long_wide_paths))
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
+
+
+def past_128_entries(k4_checks, k5_checks, times, paths):
+    """The kernels line's entries of K4 and K5 on jets of 129 to 256 slots
+    (phases 75-80): `launches` the scaled N = 256 serving path's run (K4) and
+    training path's run (K5); the errors from phases 75 and 76, the times and
+    bounds from phase 77 at the scaled backbone, N = 256, B = 8192."""
+    n = LONG_WIDE_SLOTS
+
+    def by_path(name):
+        return {path: launches[name] for path, launches in paths.items() if launches.get(name)}
+
+    k4, k5 = times[f"K4_scaled_n{n}"], times[f"K5_scaled_n{n}"]
+    return [
+        {"name": "epic_wide_forward_past_128_slots", "route": "cuda",
+         "source": "multimodal_particles_tpu_torch/ops/csrc/epic_wide_forward_h128_r2.cu",
+         "also_sources": [f"multimodal_particles_tpu_torch/ops/csrc/epic_wide_forward_h{w}_r2.cu"
+                          for w in (256, 384, 512)],
+         "replaces": "multimodal_particles_tpu/ops/epic_pallas_wide.py:318",
+         "launches": paths["serving_scaled_n256"]["epic_wide_forward"],
+         "launches_by_path": by_path("epic_wide_forward"),
+         "max_abs_err": k4_checks["scaled"]["max_abs_err"], "max_abs_err_by_case": k4_checks,
+         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+         **{key: k4[key] for key in BOUND_KEYS}, "library_ms": None,
+         "timed_at": k4["timed_at"],
+         "times": {key: value for key, value in times.items() if key.startswith("K4")}},
+        {"name": "epic_wide_backward_past_128_slots", "route": "cuda",
+         "source": "multimodal_particles_tpu_torch/ops/csrc/epic_wide_backward_h128_r2.cu",
+         "also_sources": [f"multimodal_particles_tpu_torch/ops/csrc/epic_wide_backward_h{w}_r2.cu"
+                          for w in (256, 384, 512)],
+         "replaces": "multimodal_particles_tpu/ops/epic_pallas_wide_vjp.py:349",
+         "launches": paths["train_scaled_n256"]["epic_wide_backward"],
+         "launches_by_path": by_path("epic_wide_backward"),
+         "max_abs_err": k5_checks["scaled"]["max_abs_err"], "max_abs_err_by_case": k5_checks,
+         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+         **{key: k5[key] for key in BOUND_KEYS}, "library_ms": None,
+         "timed_at": k5["timed_at"],
+         "times": {key: value for key, value in times.items() if key.startswith("K5")}},
+    ]
 
 
 def bound_keys(packed, B, kind):

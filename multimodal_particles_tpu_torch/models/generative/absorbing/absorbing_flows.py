@@ -193,7 +193,8 @@ class AbsorbingFlow(nn.Module):
         """(packed trunk or None, packed survival head) of the current
         weights, detached: what `forward_sampling` reads. The trunk tier
         follows absorbing_flows.py:204-245: the wide kernel where
-        `wide_supported` takes the trunk and its discrete head, the narrow one
+        `wide_supported` takes the trunk, its discrete head and its jets (up
+        to 256 slots), the narrow one
         at the hidden widths it is compiled for, the module trunk (None)
         otherwise."""
         gen = self.generator

@@ -132,8 +132,9 @@ class MultiModalBridgeMatching(nn.Module):
 
     def wide_kernel_enabled(self, device) -> bool:
         """Wide kernel gate (multimodal_bridge_matching.py:127-141 with
-        ops/epic_pallas_wide.py:335-369): the widths 128 to 512 of
-        `wide_supported`, the wide forward and its backward."""
+        ops/epic_pallas_wide.py:335-369): the widths 128 to 512 and the jets
+        of up to 256 slots of `wide_supported`, the wide forward and its
+        backward."""
         return self._gate(wide_supported(self.config), device)
 
     def forward(self, state: HybridState, batch=None) -> MultiHeadOutput:

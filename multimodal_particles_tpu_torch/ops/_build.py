@@ -8,7 +8,9 @@ device code include a header: epic_forward.cuh (the narrow EPiC layout),
 narrow_tc.cuh (the per-warp tensor-core products and the buffer of the narrow
 forward, the sampler step and the narrow backward; epic_forward_kernel.cuh the
 forward kernel, its two instantiations and the backward's rerun),
-epic_wide.cuh (the wide ones and the tiled products), gsdm_blocks.cuh (the
+epic_wide.cuh (the wide ones and the tiled products; epic_wide_any.cuh the
+clusters, instantiated a source a width and, past 128 slots, a source a width
+with two row blocks: epic_wide_{forward,backward}_h*{,_r2}.cu), gsdm_blocks.cuh (the
 (ResnetBlock, AttnBlock) stack of the survival head and the gsdm stack, whose
 kernels survival_head.cuh and gsdm_stack.cuh instantiate, a source a
 transformer width) and
@@ -56,7 +58,7 @@ _SIGNATURES = {
     # the buffer (ops/epic_cuda.py::narrow_buffer), weights, t, x, k, mask,
     # g, d_weights, the rerun's out (or null), scratch, grid, B, N, dims[10], stream
     "mmp_epic_backward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
-    # the wide pair (hidden, global and embedding widths 128 to 512) takes the
+    # the wide pair (hidden, global and embedding widths 128 to 512, N ≤ 256) takes the
     # narrow one's arguments; the forward also the tensor-core stages and
     # local_0's tables after the weights, the backward those and the
     # transposed stages

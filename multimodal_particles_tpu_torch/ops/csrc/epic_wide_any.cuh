@@ -34,6 +34,18 @@
 //     started, after each product's epilogue (the next product reads what
 //     the peers wrote, and the tile it overwrites is no longer read), after
 //     the pooled vector is complete, and before a block leaves.
+// Jets of 129 … 256 slots (RB = 2 row blocks): a block's tiles hold 128 rows,
+// so the cluster grows to CL × RB blocks, cluster rank rb·CL + rank, row
+// block rb owning slots 128·rb … + 127 of every tile and running the plan
+// above on them (its live rows min(128, N − 128·rb), the products' 64-row
+// halves and 16-row edge as at N ≤ 128). Only what sums over rows crosses a
+// row block: the pooled sums, whose row peers' partials meet in the
+// reduction buffer behind a cluster barrier and are added row block 0
+// first, so that every block of the cluster holds the same bits of every
+// per-jet vector; and the mean's denominator, which every block sums from
+// the jet's mask in device memory in the same order. A jet of at most 128
+// slots keeps RB = 1, the code above unchanged (every row-block step is
+// `if constexpr (RB > 1)` or folds to the single row block's).
 // What bounds it: the products grow as H² (CL blocks, each product CL
 // times as deep), the per-jet global MLP as H·(2H + G + T) per block and
 // jet, streamed from L2 by every block of the cluster; a block reads
@@ -49,6 +61,7 @@ namespace mmpw {
 namespace cg = cooperative_groups;
 
 constexpr int MAX_CL = 4;              // blocks a jet: widths up to 512
+constexpr int MAX_RB = 2;              // row blocks a jet: up to 256 slots
 constexpr int MAX_WIDTH = MAX_CL * WD;
 constexpr int MAX_HEAD = 512;          // the widest discrete head
 
@@ -167,6 +180,10 @@ static_assert(A_P + ROWS * 12 <= A_VA, "the heads' partial sums overrun the pool
 static_assert(L0_END <= TC_STAGING && T_BO + 16 <= TC_STAGING, "the staging area overruns");
 // the head's partial sums: 12 floats a row, in the pooled vector's place
 constexpr int PART_STRIDE = 12;
+// at RB > 1 a block's partial column sums for its row peers, in the reduction
+// buffer past what column_sums uses
+constexpr int RED_ROWS = 2 * WD;
+static_assert(A_END - A_RED >= RED_ROWS + WD, "the row peers' partial sums overrun");
 
 // Every thread of the jet's blocks; a block barrier at CL = 1. The cluster
 // barrier releases and acquires: shared-memory writes before it, the peers'
@@ -180,7 +197,8 @@ __device__ __forceinline__ void cluster_sync() {
   }
 }
 
-// `p` in this block's shared memory → the same place in block r's.
+// `p` in this block's shared memory → the same place in block r's (cluster
+// ranks; `rank`: this block's).
 template <int CL>
 __device__ __forceinline__ float* peer_ptr(float* p, int r, int rank) {
   if constexpr (CL == 1) {
@@ -200,11 +218,12 @@ __device__ __forceinline__ const float* peer_ptr(const float* p, int r, int rank
 // columns as its 16·CL prepared stages Wt; `next`'s first stages fetched as
 // Wt's last are read. Every thread of the block calls it; it ends with a
 // block barrier (the peers' tiles are read until the caller's next cluster
-// barrier).
-template <int CL>
+// barrier). CS, base: the cluster's size and the cluster rank of the row
+// block's column block 0 (CL and 0 at one row block).
+template <int CL, int CS = CL>
 __device__ __forceinline__ void gemm_cl(WgAcc& acc, const float* A, const float* __restrict__ Wt,
                                         float* ring, const float* __restrict__ next, int npad,
-                                        int rank) {
+                                        int rank, int base = 0) {
   using namespace tf32x3;
   constexpr int KPB = WD / TC_KT;  // k-steps a column block
   constexpr int NKT = CL * KPB;
@@ -216,7 +235,11 @@ __device__ __forceinline__ void gemm_cl(WgAcc& acc, const float* A, const float*
   fence_operands(acc.v);
   auto step = [&](int kt, uint32_t (&h)[4], uint32_t (&l)[4]) {
     if (live) {  // registers of k-step kt − 2, which has completed
-      const float* a = peer_ptr<CL>(A, kt / KPB, rank) + roff + (kt % KPB) * TC_KT;
+      // (at one row block the column peers' ranks are the cluster's: in that
+      // form ptxas spills less in K5's recording rerun)
+      const float* a = (CS == CL ? peer_ptr<CL>(A, kt / KPB, rank)
+                                 : peer_ptr<CS>(A, base + kt / KPB, base + rank)) +
+                       roff + (kt % KPB) * TC_KT;
       split_fast(a[0], h[0], l[0]);
       split_fast(a[8 * LDA_TC], h[1], l[1]);
       split_fast(a[4], h[2], l[2]);
@@ -327,20 +350,73 @@ __device__ __forceinline__ void output_parts(const float* S0, const float* tiles
   __syncthreads();
 }
 
-// Row r's (cont ‖ disc_pre), masked: the cluster's partial sums added in
-// block order, plus the bias; every lane gets all 11.
-template <int CL>
+// Row r's (cont ‖ disc_pre), masked: the row block's partial sums added in
+// block order, plus the bias; every lane gets all 11. CS, base as gemm_cl's.
+template <int CL, int CS = CL>
 __device__ __forceinline__ void row_from_parts(const float* part, const float* tiles, float m, int r,
-                                               int rank, float (&p)[NOUT]) {
+                                               int rank, float (&p)[NOUT], int base = 0) {
 #pragma unroll
   for (int o = 0; o < NOUT; ++o) p[o] = 0.f;
   for (int q = 0; q < CL; ++q) {
-    const float* pq = peer_ptr<CL>(part, q, rank) + r * PART_STRIDE;
+    const float* pq = peer_ptr<CS>(part, base + q, base + rank) + r * PART_STRIDE;
 #pragma unroll
     for (int o = 0; o < NOUT; ++o) p[o] += pq[o];
   }
 #pragma unroll
   for (int o = 0; o < NOUT; ++o) p[o] = (p[o] + tiles[T_BO + o]) * m;
+}
+
+// max(Σ mask, 1) of the jet: at one row block over the block's rows in
+// shared memory; at RB > 1 over the jet's mask in device memory (N slots),
+// the two row blocks' halves summed apart and then added, the same bits in
+// every block of the cluster.
+template <int RB>
+__device__ __forceinline__ float jet_denominator(const float* m, const float* __restrict__ mask,
+                                                 int N) {
+  float denom = 0.f;
+  if constexpr (RB == 1) {
+    for (int r = 0; r < ROWS; ++r) denom += m[r];
+  } else {
+    float d1 = 0.f;
+    for (int r = 0; r < ROWS; ++r) denom += __ldg(mask + r);
+    for (int r = ROWS; r < N; ++r) d1 += __ldg(mask + r);
+    denom += d1;
+  }
+  return fmaxf(denom, 1.f);
+}
+
+// The masked pooling of the block's columns of S0 into the pooled vector of
+// every block of its row block: [mean ‖ sum] at col0 + c and H + col0 + c.
+// At RB > 1 each block first leaves its rows' sums in red[RED_ROWS …]; after
+// a cluster barrier the row blocks' sums are added, row block 0 first. The
+// caller's next cluster barrier completes the pooled vector; the row peers
+// read red until then. Every thread calls it.
+template <int CL, int RB>
+__device__ __forceinline__ void pool_columns(const float* S0, const float* m, float* red, float* pv,
+                                             int H, float denom, int rank, int base) {
+  constexpr int CS = CL * RB;
+  const int col0 = WD * rank;
+  auto put = [&](int c, float s) {
+    const float mean = s / denom;
+    for (int q = 0; q < CL; ++q) {
+      float* p = peer_ptr<CS>(pv, base + q, base + rank);
+      p[col0 + c] = mean;
+      p[H + col0 + c] = s;
+    }
+  };
+  if constexpr (RB == 1) {
+    column_sums<LDA_TC>(S0, red, [&](int r, float v) { return v * m[r]; }, put);
+  } else {
+    column_sums<LDA_TC>(S0, red, [&](int r, float v) { return v * m[r]; },
+                        [&](int c, float s) { red[RED_ROWS + c] = s; });
+    cluster_sync<CS>();  // every row block's sums
+    if (threadIdx.x < WD) {
+      float s = 0.f;
+      for (int r = 0; r < RB; ++r)
+        s += peer_ptr<CS>(red, r * CL + rank, base + rank)[RED_ROWS + threadIdx.x];
+      put(threadIdx.x, s);
+    }
+  }
 }
 
 // Receives nothing.
@@ -360,26 +436,43 @@ struct NoRecordAny {
 // S0 holds the block's columns of h_final and the peers may still read them
 // until the caller's next cluster barrier (with Rec::HEADS it has passed
 // one). Tile elements go to the recorder in the block's own columns (c <
-// 128), per-jet vectors at the offsets R gives. FOLD: the discrete input is
-// `kv` (N, V) channel values through the folded Dense; else the tokens `k`.
-// A non-null `hid` (N, H) receives the block's columns of h_final. `tcw`:
-// each layer's stages, fc_local1's particle third and then fc_local2, each
-// as CL column blocks of 16·CL stages; `l0t`: local_0's tables, L0_END
-// floats a column block.
-template <class Rec, bool FOLD, int CL>
+// 128) and rows, per-jet vectors at the offsets R gives. FOLD: the discrete
+// input is `kv` (N, V) channel values through the folded Dense; else the
+// tokens `k`. A non-null `hid` (N, H) receives the block's columns of
+// h_final. `tcw`: each layer's stages, fc_local1's particle third and then
+// fc_local2, each as CL column blocks of 16·CL stages; `l0t`: local_0's
+// tables, L0_END floats a column block. The jet's arrays (x, k, kv, mask,
+// out, hid) from its slot 0, N slots; `rank`: the block's column block,
+// `rb`: its row block (RB > 1: N > 128).
+template <class Rec, bool FOLD, int CL, int RB = 1>
 __device__ void wide_forward_jet_any(const float* __restrict__ w, const float* __restrict__ tcw,
                                      const float* __restrict__ l0t, const Dims& d, const Layout& L,
                                      const JetRec& R, float* smem, float t,
                                      const float* __restrict__ x, const int* __restrict__ k,
                                      const float* __restrict__ kv, const float* __restrict__ mask,
                                      int N, float* __restrict__ out, float* __restrict__ hid,
-                                     const Rec& rec, int rank) {
+                                     const Rec& rec, int rank, int rb = 0) {
   constexpr int LDA = LDA_TC;
   constexpr int NKT = CL * WD / TC_KT;
+  constexpr int CS = CL * RB;
   constexpr size_t PROD = (size_t)NKT * TC_STAGE;  // one product's stages of a column block
   constexpr size_t LAYER = 2 * CL * PROD;
   const int tid = threadIdx.x, H = d.hidden, G = d.hidden_glob, T = d.emb_t, col0 = WD * rank;
-  const int npad = (N + 15) & ~15;
+  // the row block's slots: row0 … row0 + n − 1 of the jet; `base` the cluster
+  // rank of its column block 0
+  const int row0 = RB > 1 ? ROWS * rb : 0, base = RB > 1 ? CL * rb : 0;
+  const int n = RB > 1 ? min(ROWS, N - row0) : N;
+  const float* jet_mask = mask;
+  x += row0 * DC;
+  mask += row0;
+  if constexpr (FOLD) {
+    kv += row0 * V;
+  } else {
+    k += row0;
+  }
+  if (Rec::HEADS) out += (size_t)row0 * NOUT;
+  if (hid != nullptr) hid += (size_t)row0 * H;
+  const int npad = (n + 15) & ~15;
   float* S0 = smem;
   float* S1 = smem + ROWS * LDA;
   float* ring = smem + SA_RING;
@@ -403,7 +496,7 @@ __device__ void wide_forward_jet_any(const float* __restrict__ w, const float* _
 
   // ---- inputs and the sinusoidal time embedding [cos | sin] of width T
   if (tid < ROWS) {
-    const bool real = tid < N;
+    const bool real = tid < n;
     m[tid] = real ? mask[tid] : 0.f;
     if constexpr (!FOLD) ks[tid] = real ? k[tid] : 0;
 #pragma unroll
@@ -420,9 +513,7 @@ __device__ void wide_forward_jet_any(const float* __restrict__ w, const float* _
   for (int e = tid; e < L0_END / 4; e += THREADS)
     reinterpret_cast<float4*>(tiles)[e] = __ldg(reinterpret_cast<const float4*>(l0) + e);
   __syncthreads();
-  float denom = 0.f;
-  for (int r = 0; r < ROWS; ++r) denom += m[r];
-  denom = fmaxf(denom, 1.f);
+  const float denom = jet_denominator<RB>(m, jet_mask, N);
 
   // the time third of local_0, the block's columns
   jet_matvec<MATVEC_ANY_UNROLL>(temb, w + L.w_l0, T, H, col0, red,
@@ -440,7 +531,7 @@ __device__ void wide_forward_jet_any(const float* __restrict__ w, const float* _
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         if constexpr (FOLD) {
-          kin[h][v] = r < N ? __ldg(kv + r * V + v) : 0.f;
+          kin[h][v] = r < n ? __ldg(kv + r * V + v) : 0.f;
         } else {
           kin[h][v] = ks[r] == v ? 1.f : 0.f;
         }
@@ -462,21 +553,14 @@ __device__ void wide_forward_jet_any(const float* __restrict__ w, const float* _
   }
   __syncthreads();
   // the pooled sums of the block's columns, into every block's pv
-  column_sums<LDA>(S0, red, [&](int r, float v) { return v * m[r]; }, [&](int c, float s) {
-    const float mean = s / denom;
-    for (int q = 0; q < CL; ++q) {
-      float* p = peer_ptr<CL>(pv, q, rank);
-      p[col0 + c] = mean;
-      p[H + col0 + c] = s;
-    }
-  });
+  pool_columns<CL, RB>(S0, m, red, pv, H, denom, rank, base);
   for (int i = tid; i < T; i += THREADS) pv[2 * H + i] = temb[i];
   // h = h_act·mask (the skip copy is in registers)
   for (int idx = tid; idx < MAT; idx += THREADS) {
     const int at = (idx >> 7) * LDA + (idx & (WD - 1));
     S0[at] *= m[idx >> 7];
   }
-  cluster_sync<CL>();  // every block's pooled sums
+  cluster_sync<CS>();  // every block's pooled sums
   for (int i = tid; i < 2 * H + T; i += THREADS) rec.proj(R.p0 + i, pv[i]);
   matvec_all(pv, w + L.w_g0, 2 * H + T, H, red, [&](int j, float s) {
     const float z = s + w[L.b_g0 + j];
@@ -494,24 +578,17 @@ __device__ void wide_forward_jet_any(const float* __restrict__ w, const float* _
     g[j] = leaky(z);
     gskip[j] = d.use_skip ? g[j] : 0.f;
   });
-  cluster_sync<CL>();  // every block has read its pv: the first layer's sums may overwrite it
+  cluster_sync<CS>();  // every block has read its pv: the first layer's sums may overwrite it
 
   // ---- EPiC layers (epic.py:193-241)
   for (int blk = 0; blk < d.num_blocks; ++blk) {
     const float* wb = w + L.blocks + (size_t)blk * L.block_stride;
     const float* tb = tcw + (size_t)blk * LAYER;
     rec.h_in(blk, S0, LDA);
-    column_sums<LDA>(S0, red, [&](int r, float v) { return v * m[r]; }, [&](int c, float s) {
-      const float mean = s / denom;
-      for (int q = 0; q < CL; ++q) {
-        float* p = peer_ptr<CL>(pv, q, rank);
-        p[col0 + c] = mean;
-        p[H + col0 + c] = s;
-      }
-    });
+    pool_columns<CL, RB>(S0, m, red, pv, H, denom, rank, base);
     for (int i = tid; i < G; i += THREADS) pv[2 * H + i] = g[i];
     for (int i = tid; i < T; i += THREADS) pv[2 * H + G + i] = temb[i];
-    cluster_sync<CL>();  // every block's pooled sums
+    cluster_sync<CS>();  // every block's pooled sums
     for (int i = tid; i < 2 * H + G + T; i += THREADS) rec.glob(blk, R.p + i, pv[i]);
     matvec_all(pv, wb + L.fg1, 2 * H + G + T, H, red, [&](int j, float s) {
       const float z = s + wb[L.bfg1 + j];
@@ -529,42 +606,42 @@ __device__ void wide_forward_jet_any(const float* __restrict__ w, const float* _
     for (int j = tid; j < G; j += THREADS) g[j] = gnew[j] + gskip[j];
 
     acc.zero();
-    gemm_cl<CL>(acc, S0, tb + rank * PROD, ring, tb + (CL + rank) * PROD, npad, rank);
+    gemm_cl<CL, CS>(acc, S0, tb + rank * PROD, ring, tb + (CL + rank) * PROD, npad, rank, base);
     acc.each([&](int, int r, int c, float a) {
       const float z = a + cl1[c];
       rec.z_fl1(blk, r, c, z);
       S1[r * LDA + c] = leaky(z);
     });
-    cluster_sync<CL>();  // every block's l1; every read of h is done
+    cluster_sync<CS>();  // every block's l1; every read of h is done
     acc.zero();
-    gemm_cl<CL>(acc, S1, tb + (CL + rank) * PROD, ring,
-                blk + 1 < d.num_blocks ? tb + LAYER + rank * PROD : nullptr, npad, rank);
+    gemm_cl<CL, CS>(acc, S1, tb + (CL + rank) * PROD, ring,
+                    blk + 1 < d.num_blocks ? tb + LAYER + rank * PROD : nullptr, npad, rank, base);
     acc.each([&](int i, int r, int c, float a) {
       const float z = a + wb[L.bfl2 + col0 + c] + S0[r * LDA + c];
       rec.z_fl2(blk, i, r, c, z);
       S0[r * LDA + c] = leaky(z) * m[r] + h0[i];
     });
-    cluster_sync<CL>();  // every block's h; every read of l1 is done
+    cluster_sync<CS>();  // every block's h; every read of l1 is done
   }
 
   // ---- the trunk's last local hidden state, the block's columns of rows of H
   if (hid != nullptr)
-    for (int idx = tid; idx < N * (WD / 4); idx += THREADS)
+    for (int idx = tid; idx < n * (WD / 4); idx += THREADS)
       *reinterpret_cast<float4*>(hid + (size_t)(idx >> 5) * H + col0 + (idx & 31) * 4) =
           *reinterpret_cast<const float4*>(S0 + (idx >> 5) * LDA + (idx & 31) * 4);
 
   // ---- weight-normed output + heads (epic.py:145-162, mbm :102-113): each
   // block's columns' part of every row, then rows rank, rank + CL, … of the
-  // cluster, one warp a row
+  // row block, one warp a row
   if (!Rec::HEADS) return;
   stage_outputs_own(w, L, col0, tiles);
   __syncthreads();
-  output_parts(S0, tiles, N, pv);
-  cluster_sync<CL>();  // every block's parts
+  output_parts(S0, tiles, n, pv);
+  cluster_sync<CS>();  // every block's parts
   const int lane = tid & 31, warp = tid >> 5;
-  for (int r = rank + CL * warp; r < N; r += CL * (THREADS / 32)) {
+  for (int r = rank + CL * warp; r < n; r += CL * (THREADS / 32)) {
     float p[NOUT];
-    row_from_parts<CL>(pv, tiles, m[r], r, rank, p);
+    row_from_parts<CL, CS>(pv, tiles, m[r], r, rank, p, base);
     if (d.add_discrete_head) head_any(p, w, L, d.head_hidden);
     float val = 0.f;
 #pragma unroll
@@ -572,11 +649,12 @@ __device__ void wide_forward_jet_any(const float* __restrict__ w, const float* _
       if (lane == o) val = p[o];
     if (lane < NOUT) out[r * NOUT + lane] = val;
   }
-  cluster_sync<CL>();  // no block leaves while a peer reads its parts
+  cluster_sync<CS>();  // no block leaves while a peer reads its parts
 }
 
 // The launch of a kernel over B jets as clusters of CL blocks (a plain
-// launch at CL = 1), grid = clusters · CL.
+// launch at CL = 1), grid = clusters · CL. (CL: every block of a jet's
+// cluster, row blocks included.)
 template <int CL, class... Params, class... Args>
 cudaError_t launch_clusters(void (*kernel)(Params...), int clusters, size_t smem, cudaStream_t s,
                             Args... args) {
@@ -602,6 +680,30 @@ cudaError_t launch_clusters(void (*kernel)(Params...), int clusters, size_t smem
     err = cudaLaunchKernelEx(&cfg, kernel, args...);
     return err != cudaSuccess ? err : cudaGetLastError();
   }
+}
+
+// How many clusters of CL blocks of `kernel` at `smem` bytes the card holds
+// at once (cudaOccupancyMaxActiveClusters: a cluster lies in one GPC), for a
+// persistent grid.
+template <int CL, class... Params>
+cudaError_t resident_clusters(void (*kernel)(Params...), size_t smem, int* clusters) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaOccupancyMaxActiveClusters(clusters, reinterpret_cast<const void*>(kernel), &cfg);
+  if (err == cudaSuccess && *clusters < 1) err = cudaErrorInvalidConfiguration;
+  return err;
 }
 
 }  // namespace mmpw

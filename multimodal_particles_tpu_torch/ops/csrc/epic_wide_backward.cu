@@ -2,7 +2,9 @@
 // cotangent g (B, N, 3 + 8), in one persistent launch plus a deterministic
 // reduction. This file's kernel takes every width 128; the general kernel
 // (epic_wide_backward_any.cuh, a cluster of hidden / 128 blocks a jet,
-// instantiated by epic_wide_backward_h*.cu) the other widths up to 512.
+// instantiated by epic_wide_backward_h*.cu) the other widths up to 512, and
+// jets of 129 to 256 slots at every width as a cluster of hidden / 128 × 2
+// row blocks (epic_wide_backward_h*_r2.cu).
 //
 // Replaces the TPU kernel multimodal_particles_tpu/ops/epic_pallas_wide_vjp.py
 // (`make_epic_train_forward_wide`, body `_bwd_kernel`, :90-238). The forward
@@ -570,13 +572,30 @@ inline cudaError_t backward_grid(int B, int* grid) {
 }
 
 // The general kernel's grid: clusters of H / 128 blocks, at most one block
-// an SM, at most one cluster a jet.
-inline cudaError_t backward_grid_any(const Dims& d, int B, int* grid) {
+// an SM, at most one cluster a jet. Jets of more than 128 slots (N > 128):
+// clusters of H / 128 × 2 blocks, as many as the card holds at once
+// (cudaOccupancyMaxActiveClusters: a cluster of up to 8 blocks of ~213 KB
+// must fit in one GPC, so a division of the SMs would overcount), at most
+// one a jet.
+inline cudaError_t backward_grid_any(const Dims& d, int B, int N, int* grid) {
+  const int CL = d.hidden / WD;
+  int clusters;
+  if (N > ROWS) {
+    auto resident = CL == 1 ? resident_backward_clusters<1, 2>
+                    : CL == 2 ? resident_backward_clusters<2, 2>
+                    : CL == 3 ? resident_backward_clusters<3, 2>
+                              : resident_backward_clusters<4, 2>;
+    cudaError_t err = resident(&clusters);
+    if (err != cudaSuccess) return err;
+    clusters = clusters < B ? clusters : B;
+    if (clusters < 1) clusters = 1;
+    *grid = clusters * CL * 2;
+    return cudaSuccess;
+  }
   int sms;
   cudaError_t err = backward_grid(1 << 30, &sms);
   if (err != cudaSuccess) return err;
-  const int CL = d.hidden / WD;
-  int clusters = sms / CL < B ? sms / CL : B;
+  clusters = sms / CL < B ? sms / CL : B;
   if (clusters < 1) clusters = 1;
   *grid = clusters * CL;
   return cudaSuccess;
@@ -585,19 +604,20 @@ inline cudaError_t backward_grid_any(const Dims& d, int B, int* grid) {
 }  // namespace mmpw
 
 // Every width 128 takes this file's kernel; every other width the wide gate
-// takes (MBM's token input and vocabulary-wide head) epic_wide_backward_any.cuh's.
+// takes (MBM's token input and vocabulary-wide head) epic_wide_backward_any.cuh's,
+// and so does every width at N > 128 (1 ≤ N ≤ 256), with two row blocks.
 extern "C" int mmp_epic_wide_backward_workspace(int B, int N, const int* dims, int* grid,
                                                 long long* floats) {
   using namespace mmpw;
   const Dims d = dims_from(dims);
-  if (!any_dims_supported(d, false) || N < 1 || N > ROWS) return cudaErrorInvalidValue;
-  if (!dims_supported(d)) {
-    cudaError_t err = backward_grid_any(d, B, grid);
+  if (!any_dims_supported(d, false) || N < 1 || N > MAX_RB * ROWS) return cudaErrorInvalidValue;
+  if (!dims_supported(d) || N > ROWS) {
+    cudaError_t err = backward_grid_any(d, B, N, grid);
     if (err != cudaSuccess) return err;
-    const int CL = d.hidden / WD, clusters = *grid / CL;
+    const int CS = d.hidden / WD * (N > ROWS ? 2 : 1), clusters = *grid / CS;
     const int jets_per_cluster = (B + clusters - 1) / clusters;
     *floats = (long long)*grid * ((long long)make_layout(d).row_stride + record_floats_any(d) +
-                                  pair_block_floats_any(d, CL, jets_per_cluster));
+                                  pair_block_floats_any(d, CS, jets_per_cluster));
     return cudaSuccess;
   }
   cudaError_t err = backward_grid(B, grid);
@@ -620,20 +640,27 @@ extern "C" int mmp_epic_wide_backward(const void* w, const void* tcw, const void
                                       void* stream) {
   using namespace mmpw;
   const Dims d = dims_from(dims);
-  if (!any_dims_supported(d, false) || N < 1 || N > ROWS || grid < 1) return cudaErrorInvalidValue;
+  if (!any_dims_supported(d, false) || N < 1 || N > MAX_RB * ROWS || grid < 1)
+    return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   auto* partials = static_cast<float*>(scratch);
   cudaError_t err;
-  if (!dims_supported(d)) {
-    const int CL = d.hidden / WD;
-    if (grid % CL != 0) return cudaErrorInvalidValue;
+  if (!dims_supported(d) || N > ROWS) {
+    const int CL = d.hidden / WD, CS = CL * (N > ROWS ? 2 : 1);
+    if (grid % CS != 0) return cudaErrorInvalidValue;
     const Layout L = make_layout(d);
-    const int clusters = grid / CL, jets_per_cluster = (B + clusters - 1) / clusters;
+    const int clusters = grid / CS, jets_per_cluster = (B + clusters - 1) / clusters;
     float* records = partials + (size_t)grid * L.row_stride;
     float* pair_log = records + (size_t)grid * record_floats_any(d);
-    auto launch = CL == 1 ? launch_backward_any<1> : CL == 2 ? launch_backward_any<2>
-                : CL == 3 ? launch_backward_any<3> : launch_backward_any<4>;
+    auto launch = N > ROWS ? (CL == 1   ? launch_backward_any<1, 2>
+                              : CL == 2 ? launch_backward_any<2, 2>
+                              : CL == 3 ? launch_backward_any<3, 2>
+                                        : launch_backward_any<4, 2>)
+                           : (CL == 1   ? launch_backward_any<1>
+                              : CL == 2 ? launch_backward_any<2>
+                              : CL == 3 ? launch_backward_any<3>
+                                        : launch_backward_any<4>);
     if ((err = launch(w, tcw, l0t, tcw_t, d, t, x, k, mask, g, partials, records, pair_log,
                       jets_per_cluster, grid, B, N, s)) != cudaSuccess)
       return err;

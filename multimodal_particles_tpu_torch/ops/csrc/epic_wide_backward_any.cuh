@@ -30,6 +30,18 @@
 //     outputs, in every block).
 //   * Every gradient element is added by one block into its own gradient
 //     row; the reduction kernel sums the rows.
+// Jets of 129 … 256 slots (RB = 2, epic_wide_backward_h*_r2.cu): a cluster of
+// CL × 2 row blocks (epic_wide_any.cuh), each block the plan above on its
+// 128 rows, with its own records and gradient row. What sums over rows is
+// added by each row block for its own rows (the per-row products, the
+// biases of fc_local1/fc_local2 and local_0, the heads', the output layer's,
+// Q and all that follows from it: each is linear in its rows' cotangents).
+// Only the per-jet cotangent Σ_rows dz_fl1 feeds the per-jet vectors'
+// backward, whose result every row comes back to: the row blocks' sums meet
+// in the reduction buffer behind a cluster barrier, added row block 0 first,
+// so that every block runs the global MLP's backward on the same bits; its
+// pairs and biases are shared out over all CL × 2 blocks (by cluster rank),
+// fc_local1's broadcast pairs are row block 0's.
 // Shared memory: the forward's general plan (the tiles h and l1, the ring of
 // four stages, the staging area, the forward's vectors) and the walk back's
 // vectors after them; the weight gradient's a is never a tile of its own.
@@ -92,20 +104,29 @@ __host__ __device__ inline long long pair_block_floats_any(const Dims& d, int CL
 // blocks of 16·CL stages. `records`/`rec_floats`: every block's records, so
 // that the peers' h_in can be read. Accumulates into this block's gradient
 // row `grad`. Every thread of the jet's blocks calls it.
-template <int CL>
+// The jet's gout and mask from its slot 0, N slots; `rank` the block's
+// column block, `rb` its row block (RB > 1: N > 128).
+template <int CL, int RB = 1>
 __device__ void wide_backward_jet_any(const float* __restrict__ w, const float* __restrict__ tcw_t,
                                       const Dims& d, const Layout& L, const JetRec& R, float* smem,
                                       const GlobalRecord& rec, const float* records,
-                                      long long rec_floats, const float* __restrict__ gout, int N,
-                                      float* grad, PairLog& pairs, int rank) {
+                                      long long rec_floats, const float* __restrict__ gout,
+                                      const float* __restrict__ mask, int N, float* grad,
+                                      PairLog& pairs, int rank, int rb = 0) {
   constexpr int LD = LDA_TC;
   constexpr int NKT = CL * WD / TC_KT;
+  constexpr int CS = CL * RB;
   constexpr size_t PROD = (size_t)NKT * TC_STAGE;
   constexpr size_t LAYER = 2 * CL * PROD;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nb = d.num_blocks, H = d.hidden, G = d.hidden_glob, T = d.emb_t;
   const int X = d.emb_x, K = d.emb_k, col0 = WD * rank;
-  const int npad = (N + 15) & ~15, ksteps = (N + 7) / 8;
+  // the row block's slots row0 … row0 + n − 1; `base` the cluster rank of its
+  // column block 0, `me` this block's
+  const int row0 = RB > 1 ? ROWS * rb : 0, base = RB > 1 ? CL * rb : 0, me = base + rank;
+  const int n = RB > 1 ? min(ROWS, N - row0) : N;
+  gout += (size_t)row0 * NOUT;
+  const int npad = (n + 15) & ~15, ksteps = (n + 7) / 8;
   float* S0 = smem;
   float* S1 = smem + ROWS * LD;
   float* ring = smem + SA_RING;
@@ -129,14 +150,12 @@ __device__ void wide_backward_jet_any(const float* __restrict__ w, const float* 
   float* sdz = vec + BA_SDZ;
   float* dp = vec + BA_DP;
   float4* S0v = reinterpret_cast<float4*>(S0);
-  // the block's records of peer q (q = rank: its own)
+  // the block's records of column peer q of its row block (q = rank: its own)
   auto records_of = [&](int q) {
-    return records + (size_t)(blockIdx.x - rank + q) * (size_t)rec_floats;
+    return records + (size_t)(blockIdx.x - me + base + q) * (size_t)rec_floats;
   };
 
-  float denom = 0.f;
-  for (int r = 0; r < ROWS; ++r) denom += m[r];
-  denom = fmaxf(denom, 1.f);
+  const float denom = jet_denominator<RB>(m, mask, N);
 
   // ---- heads: each block's part of every row's outputs, then in every
   // block the masked cotangents of (cont ‖ disc_pre) of every row into DZ
@@ -156,17 +175,17 @@ __device__ void wide_backward_jet_any(const float* __restrict__ w, const float* 
   }
   __syncthreads();
   float* part = dp;
-  output_parts(S0, tiles, N, part);
-  cluster_sync<CL>();  // every block's parts
+  output_parts(S0, tiles, n, part);
+  cluster_sync<CS>();  // every block's parts
   float* DZ = tiles + T_DZ;
   {
     float gh1[2] = {0.f, 0.f}, gh0[2] = {0.f, 0.f}, gb1 = 0.f, gb0 = 0.f;
     const int u0 = lane >> 3, u1 = u0 + 4, v0 = lane & 7;
     for (int r = warp; r < ROWS; r += THREADS / 32) {
       float p[NOUT], gc[DC], gd[V], dd[V];
-      const bool real = r < N;
+      const bool real = r < n;
       if (real) {
-        row_from_parts<CL>(part, tiles, m[r], r, rank, p);
+        row_from_parts<CL, CS>(part, tiles, m[r], r, rank, p, base);
       } else {
 #pragma unroll
         for (int o = 0; o < NOUT; ++o) p[o] = 0.f;
@@ -238,7 +257,7 @@ __device__ void wide_backward_jet_any(const float* __restrict__ w, const float* 
       }
     }
   }
-  cluster_sync<CL>();  // every block has read the parts: the part buffer is free
+  cluster_sync<CS>();  // every block has read the parts: the part buffer is free
   // output layer, the block's rows: dW (own 128, 11) = h_finalᵀ·DZ; db = Σ_rows DZ (block 0)
   {
     const int i = tid & (WD - 1), o_lo = tid < WD ? 0 : 6, o_hi = tid < WD ? 6 : NOUT;
@@ -328,23 +347,23 @@ __device__ void wide_backward_jet_any(const float* __restrict__ w, const float* 
 #pragma unroll
         for (int u = 0; u < 4; ++u) dsl[i0 + u * THREADS] = sk[u];
     }
-    cluster_sync<CL>();  // every block's dz_fl2 and z_fl1
+    cluster_sync<CS>();  // every block's dz_fl2 and z_fl1
     // fc_local2: dW[rows of block q, own columns] += l1_qᵀ·dz_fl2, l1 = leaky(z_fl1) of
     // block q's tile; db = Σ_rows dz_fl2
     for (int q = 0; q < CL; ++q) {
-      const float* s1q = peer_ptr<CL>(S1, q, rank);
+      const float* s1q = peer_ptr<CS>(S1, base + q, me);
       outer_mma(gb + L.fl2 + (size_t)WD * q * H + col0, H,
                 [&](int r, int c) { return leaky(s1q[r * LD + c]); }, S0, ksteps);
     }
     column_sums<LD>(S0, red, [](int, float v) { return v; },
                     [&](int c, float s) { gb[L.bfl2 + col0 + c] += s; });
-    cluster_sync<CL>();  // every block has read this block's z_fl1
+    cluster_sync<CS>();  // every block has read this block's z_fl1
     // dz_fl1 = (dz_fl2·W_fl2ᵀ)·leaky'(z_fl1), in place of z_fl1
     ring_prefetch<RING_ANY>(tb + rank * PROD, ring);
     acc.zero();
-    gemm_cl<CL>(acc, S0, tb + rank * PROD, ring, nullptr, npad, rank);
+    gemm_cl<CL, CS>(acc, S0, tb + rank * PROD, ring, nullptr, npad, rank, base);
     acc.each([&](int, int r, int c, float a) { S1[r * LD + c] = a * dleaky(S1[r * LD + c]); });
-    cluster_sync<CL>();  // every block's dz_fl1; every read of dz_fl2 is done
+    cluster_sync<CS>();  // every block's dz_fl1; every read of dz_fl2 is done
     // fc_local1: the per-particle third (h_in of block q from its records),
     // then the broadcast [g_new ‖ temb] thirds from the per-jet sum of dz_fl1
     for (int q = 0; q < CL; ++q) {
@@ -353,28 +372,42 @@ __device__ void wide_backward_jet_any(const float* __restrict__ w, const float* 
       outer_mma(gb + L.fl1 + (size_t)WD * q * H + col0, H,
                 [&](int r, int c) { return __ldcg(hq + r * WD + c); }, S1, ksteps);
     }
-    column_sums<LD>(S1, red, [](int, float v) { return v; }, [&](int c, float s) {
-      for (int q = 0; q < CL; ++q) peer_ptr<CL>(sdz, q, rank)[col0 + c] = s;
-      gb[L.bfl1 + col0 + c] += s;
-    });
-    pairs.put(boff + L.fl1 + H * H + col0, gnew, G + T, sdz + col0, H);
+    if constexpr (RB == 1) {
+      column_sums<LD>(S1, red, [](int, float v) { return v; }, [&](int c, float s) {
+        for (int q = 0; q < CL; ++q) peer_ptr<CL>(sdz, q, rank)[col0 + c] = s;
+        gb[L.bfl1 + col0 + c] += s;
+      });
+    } else {
+      // the row blocks' sums meet in red[RED_ROWS …], row block 0 first
+      column_sums<LD>(S1, red, [](int, float v) { return v; }, [&](int c, float s) {
+        red[RED_ROWS + c] = s;
+        gb[L.bfl1 + col0 + c] += s;
+      });
+      cluster_sync<CS>();  // every row block's sums
+      if (tid < WD) {
+        float s = 0.f;
+        for (int r = 0; r < RB; ++r) s += peer_ptr<CS>(red, r * CL + rank, me)[RED_ROWS + tid];
+        for (int q = 0; q < CL; ++q) peer_ptr<CS>(sdz, base + q, me)[col0 + tid] = s;
+      }
+    }
+    if (rb == 0) pairs.put(boff + L.fl1 + H * H + col0, gnew, G + T, sdz + col0, H);
     // dh_in = dz_fl2 (residual) + dz_fl1·W_fl1[0:H]ᵀ
     ring_prefetch<RING_ANY>(tb + (CL + rank) * PROD, ring);
     acc.zero();
-    gemm_cl<CL>(acc, S1, tb + (CL + rank) * PROD, ring, nullptr, npad, rank);
+    gemm_cl<CL, CS>(acc, S1, tb + (CL + rank) * PROD, ring, nullptr, npad, rank, base);
     acc.each([&](int, int r, int c, float a) { S0[r * LD + c] += a; });
-    cluster_sync<CL>();  // every block's Σdz_fl1; every read of dz_fl1 is done
+    cluster_sync<CS>();  // every block's Σdz_fl1; every read of dz_fl1 is done
     // global MLP: dz_fg2 = (dg + W_fl1[H:H+G]·Σdz_fl1)·leaky'(z_fg2)
     jet_matvec_t(sdz, wb + L.fl1 + (size_t)H * H, H, H, G, [&](int j, float s) {
       dza[j] = (dg[j] + s) * dleaky(gv[R.zfg2 + j]);
     });
-    pairs.put_shared(boff + L.fg2, va, H, dza, G, rank, CL);
-    vec_add(gb + L.bfg2, dza, G, rank, CL);
+    pairs.put_shared(boff + L.fg2, va, H, dza, G, me, CS);
+    vec_add(gb + L.bfg2, dza, G, me, CS);
     jet_matvec_t(dza, wb + L.fg2, G, G, H, [&](int j, float s) {
       dzb[j] = s * dleaky(gv[R.zfg1 + j]);
     });
-    pairs.put_shared(boff + L.fg1, pv, 2 * H + G + T, dzb, H, rank, CL);
-    vec_add(gb + L.bfg1, dzb, H, rank, CL);
+    pairs.put_shared(boff + L.fg1, pv, 2 * H + G + T, dzb, H, me, CS);
+    vec_add(gb + L.bfg1, dzb, H, me, CS);
     jet_matvec_t(dzb, wb + L.fg1, H, H, 2 * H + G, [&](int j, float s) { dp[j] = s; });
     for (int j = tid; j < H; j += THREADS) dsum[j] = dp[H + j] + dp[j] / denom;
     for (int j = tid; j < G; j += THREADS) dg[j] = dza[j] + dp[2 * H + j];
@@ -407,16 +440,16 @@ __device__ void wide_backward_jet_any(const float* __restrict__ w, const float* 
       vb[j] = leaky(pj[R.zg1 + j]);  // a_g1
     }
     __syncthreads();
-    pairs.put_shared(L.w_g2, vb, H, dza, G, rank, CL);
-    vec_add(grad + L.b_g2, dza, G, rank, CL);
+    pairs.put_shared(L.w_g2, vb, H, dza, G, me, CS);
+    vec_add(grad + L.b_g2, dza, G, me, CS);
     jet_matvec_t(dza, w + L.w_g2, G, G, H,
                  [&](int j, float s) { dzb[j] = s * dleaky(pj[R.zg1 + j]); });
-    pairs.put_shared(L.w_g1, va, H, dzb, H, rank, CL);
-    vec_add(grad + L.b_g1, dzb, H, rank, CL);
+    pairs.put_shared(L.w_g1, va, H, dzb, H, me, CS);
+    vec_add(grad + L.b_g1, dzb, H, me, CS);
     jet_matvec_t(dzb, w + L.w_g1, H, H, H,
                  [&](int j, float s) { dzc[j] = s * dleaky(pj[R.zg0 + j]); });
-    pairs.put_shared(L.w_g0, pv, 2 * H + T, dzc, H, rank, CL);
-    vec_add(grad + L.b_g0, dzc, H, rank, CL);
+    pairs.put_shared(L.w_g0, pv, 2 * H + T, dzc, H, me, CS);
+    vec_add(grad + L.b_g0, dzc, H, me, CS);
     jet_matvec_t(dzc, w + L.w_g0, H, H, 2 * H, [&](int j, float s) { dp[j] = s; });
     for (int j = tid; j < H; j += THREADS) dsum[j] = dp[H + j] + dp[j] / denom;
     __syncthreads();
@@ -477,7 +510,7 @@ __device__ void wide_backward_jet_any(const float* __restrict__ w, const float* 
   __syncthreads();
   if (tid < WD) grad[L.b_l0 + col0 + tid] += Q[(NQ - 1) * WD + tid];
   // w_l0 ((T + X + K), H), the block's columns: rows of temb (a pair), of
-  // x_emb = x·w_x + b_x and of k_emb = table[k] (through Q)
+  // x_emb = x·w_x + b_x and of k_emb = table[k] (through Q, the block's rows)
   pairs.put(L.w_l0 + col0, temb, T, Q + DC * WD, H);
   for (int idx = tid; idx < (X + K) * (WD / 4); idx += THREADS) {
     const int e = idx >> 5, o4 = (idx & 31) * 4;
@@ -520,7 +553,7 @@ __device__ void wide_backward_jet_any(const float* __restrict__ w, const float* 
   }
 }
 
-template <int CL>
+template <int CL, int RB = 1>
 __global__ void __launch_bounds__(THREADS, 1)
 epic_wide_backward_any_kernel(const float* __restrict__ w, const float* __restrict__ tcw,
                               const float* __restrict__ l0t, const float* __restrict__ tcw_t,
@@ -530,69 +563,94 @@ epic_wide_backward_any_kernel(const float* __restrict__ w, const float* __restri
                               float* __restrict__ records, float* __restrict__ pair_log,
                               int jets_per_cluster, int B, int N) {
   extern __shared__ __align__(16) float smem[];
-  int rank = 0;
-  if constexpr (CL > 1) rank = (int)cg::this_cluster().block_rank();
+  constexpr int CS = CL * RB;
+  int me = 0;  // the cluster rank: row block me / CL, column block me % CL
+  if constexpr (CS > 1) me = (int)cg::this_cluster().block_rank();
+  const int rank = RB == 1 ? me : me % CL, rb = RB == 1 ? 0 : me / CL;
   const Layout L = make_layout(d);
   const JetRec R = make_jet_rec(d);
   float* grad = partials + (size_t)blockIdx.x * L.row_stride;
   for (int i = threadIdx.x; i < L.total; i += THREADS) grad[i] = 0.f;
   const long long rec_floats = record_floats_any(d);
   const GlobalRecord rec = record_at(records + (size_t)blockIdx.x * (size_t)rec_floats, d, R);
-  const int stride = pair_floats_any(d, CL);
-  float* pairs = pair_log + (size_t)blockIdx.x * pair_block_floats_any(d, CL, jets_per_cluster);
+  const int stride = pair_floats_any(d, CS);
+  float* pairs = pair_log + (size_t)blockIdx.x * pair_block_floats_any(d, CS, jets_per_cluster);
   int* groups = reinterpret_cast<int*>(pairs + (size_t)jets_per_cluster * stride);
-  cluster_sync<CL>();  // every block of the cluster has started
+  cluster_sync<CS>();  // every block of the cluster has started
   int n_jets = 0, n_groups = 0;
-  for (int jet = blockIdx.x / CL; jet < B; jet += gridDim.x / CL, ++n_jets) {
+  for (int jet = blockIdx.x / CS; jet < B; jet += gridDim.x / CS, ++n_jets) {
     const size_t p = (size_t)jet * N;
     PairLog log{pairs + (size_t)n_jets * stride, groups, 0, 0};
-    wide_forward_jet_any<GlobalRecord, false, CL>(
+    wide_forward_jet_any<GlobalRecord, false, CL, RB>(
         w, tcw, l0t, d, L, R, smem, t[jet], x + p * DC, k + p, nullptr, mask + p, N, nullptr,
-        nullptr, rec, rank);
-    wide_backward_jet_any<CL>(w, tcw_t, d, L, R, smem, rec, records, rec_floats, gout + p * NOUT,
-                              N, grad, log, rank);
+        nullptr, rec, rank, rb);
+    wide_backward_jet_any<CL, RB>(w, tcw_t, d, L, R, smem, rec, records, rec_floats,
+                                  gout + p * NOUT, mask + p, N, grad, log, rank, rb);
     n_groups = log.idx;
-    cluster_sync<CL>();  // the peers are done with this jet's tiles and records
+    cluster_sync<CS>();  // the peers are done with this jet's tiles and records
   }
   contract_pairs(pairs, n_jets, stride, groups, n_groups, grad);
 }
 
-// The launch at local hidden width 128·CL; one source a width.
-template <int CL>
+// The launch at local hidden width 128·CL and RB row blocks a jet (RB = 2:
+// N > 128), grid blocks; one source a width and row-block count. At RB = 2
+// the persistent grid is as many clusters as the card holds at once
+// (`resident_backward_clusters`), at most one a jet.
+template <int CL, int RB = 1>
 cudaError_t launch_backward_any(const void* w, const void* tcw, const void* l0t,
                                 const void* tcw_t, const Dims& d, const void* t, const void* x,
                                 const void* k, const void* mask, const void* g, float* partials,
                                 float* records, float* pair_log, int jets_per_cluster, int grid,
                                 int B, int N, cudaStream_t s);
+template <int CL, int RB>
+cudaError_t resident_backward_clusters(int* clusters);
 
-#define MMPW_BACKWARD_ANY_DECL(CL)                                                               \
+#define MMPW_BACKWARD_ANY_DECL(CL, RB)                                                           \
   template <>                                                                                    \
-  cudaError_t launch_backward_any<CL>(const void* w, const void* tcw, const void* l0t,          \
-                                      const void* tcw_t, const Dims& d, const void* t,          \
-                                      const void* x, const void* k, const void* mask,           \
-                                      const void* g, float* partials, float* records,           \
-                                      float* pair_log, int jets_per_cluster, int grid, int B,   \
-                                      int N, cudaStream_t s);
-MMPW_BACKWARD_ANY_DECL(1)
-MMPW_BACKWARD_ANY_DECL(2)
-MMPW_BACKWARD_ANY_DECL(3)
-MMPW_BACKWARD_ANY_DECL(4)
+  cudaError_t launch_backward_any<CL, RB>(const void* w, const void* tcw, const void* l0t,      \
+                                          const void* tcw_t, const Dims& d, const void* t,      \
+                                          const void* x, const void* k, const void* mask,       \
+                                          const void* g, float* partials, float* records,       \
+                                          float* pair_log, int jets_per_cluster, int grid,      \
+                                          int B, int N, cudaStream_t s);
+MMPW_BACKWARD_ANY_DECL(1, 1)
+MMPW_BACKWARD_ANY_DECL(2, 1)
+MMPW_BACKWARD_ANY_DECL(3, 1)
+MMPW_BACKWARD_ANY_DECL(4, 1)
+MMPW_BACKWARD_ANY_DECL(1, 2)
+MMPW_BACKWARD_ANY_DECL(2, 2)
+MMPW_BACKWARD_ANY_DECL(3, 2)
+MMPW_BACKWARD_ANY_DECL(4, 2)
+template <> cudaError_t resident_backward_clusters<1, 2>(int* clusters);
+template <> cudaError_t resident_backward_clusters<2, 2>(int* clusters);
+template <> cudaError_t resident_backward_clusters<3, 2>(int* clusters);
+template <> cudaError_t resident_backward_clusters<4, 2>(int* clusters);
 
-#define MMPW_BACKWARD_ANY(CL)                                                                    \
+#define MMPW_BACKWARD_ANY_ROWS(CL, RB)                                                           \
   template <>                                                                                    \
-  cudaError_t launch_backward_any<CL>(const void* w, const void* tcw, const void* l0t,          \
-                                      const void* tcw_t, const Dims& d, const void* t,          \
-                                      const void* x, const void* k, const void* mask,           \
-                                      const void* g, float* partials, float* records,           \
-                                      float* pair_log, int jets_per_cluster, int grid, int B,   \
-                                      int N, cudaStream_t s) {                                   \
-    return launch_clusters<CL>(                                                                  \
-        epic_wide_backward_any_kernel<CL>, grid / CL, SMEM_BYTES_BWD_ANY, s,                     \
+  cudaError_t launch_backward_any<CL, RB>(const void* w, const void* tcw, const void* l0t,      \
+                                          const void* tcw_t, const Dims& d, const void* t,      \
+                                          const void* x, const void* k, const void* mask,       \
+                                          const void* g, float* partials, float* records,       \
+                                          float* pair_log, int jets_per_cluster, int grid,      \
+                                          int B, int N, cudaStream_t s) {                        \
+    return launch_clusters<CL * RB>(                                                             \
+        epic_wide_backward_any_kernel<CL, RB>, grid / (CL * RB), SMEM_BYTES_BWD_ANY, s,          \
         static_cast<const float*>(w), static_cast<const float*>(tcw),                            \
         static_cast<const float*>(l0t), static_cast<const float*>(tcw_t), d,                     \
         static_cast<const float*>(t), static_cast<const float*>(x), static_cast<const int*>(k),  \
         static_cast<const float*>(mask), static_cast<const float*>(g), partials, records,        \
         pair_log, jets_per_cluster, B, N);                                                       \
+  }
+// one row block (N ≤ 128)
+#define MMPW_BACKWARD_ANY(CL) MMPW_BACKWARD_ANY_ROWS(CL, 1)
+// two row blocks (N > 128), and the persistent grid's cluster count
+#define MMPW_BACKWARD_ANY_R2(CL)                                                                 \
+  MMPW_BACKWARD_ANY_ROWS(CL, 2)                                                                  \
+  template <>                                                                                    \
+  cudaError_t resident_backward_clusters<CL, 2>(int* clusters) {                                 \
+    return resident_clusters<CL * 2>(epic_wide_backward_any_kernel<CL, 2>, SMEM_BYTES_BWD_ANY,   \
+                                     clusters);                                                  \
   }
 
 }  // namespace mmpw

@@ -2,7 +2,9 @@
 // encoder. This file's kernel takes every width 128 with a discrete head of
 // at most 64; the general kernel (epic_wide_forward_any.cuh, a cluster of
 // hidden / 128 blocks a jet, instantiated by epic_wide_forward_h*.cu) every
-// other width the JAX wide gate takes up to 512, mixed, and heads up to 512.
+// other width the JAX wide gate takes up to 512, mixed, and heads up to 512;
+// on jets of 129 to 256 slots, at every width, the general kernel as a
+// cluster of hidden / 128 × 2 row blocks (epic_wide_forward_h*_r2.cu).
 //
 // Replaces the TPU kernel multimodal_particles_tpu/ops/epic_pallas_wide.py
 // (`epic_forward_pallas_wide`, body `_epic_wide_kernel` / `_forward_acts_wide`):
@@ -89,18 +91,27 @@ cudaError_t launch(const void* w, const void* tcw, const void* l0t, const Dims& 
 // and l0t: local_0's tables (ops/epic_cuda.py::tensor_core_weights), per layer
 // and per column block of 128 of the local hidden width H, 16-byte aligned;
 // k: (B, N) int tokens, or with fold_discrete (B, N, V) float channel values;
-// hidden: (B, N, H) or null. Every width 128 with a head of at most 64 takes
-// this file's kernel; every other width the wide gate takes, and heads up to
-// 512, take epic_wide_forward_any.cuh's, a cluster of H / 128 blocks a jet.
+// hidden: (B, N, H) or null; 1 ≤ N ≤ 256. Every width 128 with a head of at
+// most 64 takes this file's kernel; every other width the wide gate takes,
+// and heads up to 512, take epic_wide_forward_any.cuh's, a cluster of H / 128
+// blocks a jet; a jet of more than 128 slots, at every width, the latter's
+// cluster of H / 128 × 2 row blocks (epic_wide_forward_h*_r2.cu).
 extern "C" int mmp_epic_wide_forward(const void* w, const void* tcw, const void* l0t,
                                      const void* t, const void* x, const void* k,
                                      const void* mask, void* out, void* hidden, int B, int N,
                                      const int* dims, void* stream) {
   using namespace mmpw;
   const Dims d = dims_from(dims);
-  if (!any_dims_supported(d, true) || N < 1 || N > ROWS) return cudaErrorInvalidValue;
+  if (!any_dims_supported(d, true) || N < 1 || N > MAX_RB * ROWS) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N > ROWS) {
+    auto launch = d.hidden == 128   ? launch_forward_any<1, 2>
+                  : d.hidden == 256 ? launch_forward_any<2, 2>
+                  : d.hidden == 384 ? launch_forward_any<3, 2>
+                                    : launch_forward_any<4, 2>;
+    return launch(w, tcw, l0t, d, t, x, k, mask, out, hidden, B, N, s);
+  }
   if (!forward_dims_supported(d)) {
     auto launch = d.hidden == 128   ? launch_forward_any<1>
                   : d.hidden == 256 ? launch_forward_any<2>

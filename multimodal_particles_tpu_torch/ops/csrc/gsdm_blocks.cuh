@@ -110,10 +110,22 @@
 //   * Every barrier that the jet needs is the cluster's (Jet::sync), which
 //     now also holds a block from overwriting k or v while a row peer may
 //     still attend over them; each block parks its own residual tile.
-//   What bounds it: the operations, as at 128 slots (a jet's products grow
-//   as N, its attention as N²); besides, a block reads half its keys from
-//   its row peer's shared memory and waits at the cluster's barriers, and a
-//   jet takes two SMs whatever its rows past 128 (PERF.md §6).
+//   * K7's products (proj_in and the six of each block) run on the CUDA
+//     cores in fp32 fused multiply-adds rounded to nearest (gemm_fma: the
+//     weights' fp32 rows through the ring's slots by cp.async, 16 at a time);
+//     its tensor-core stream is not read. The tensor cores add each product
+//     into the accumulator rounding toward zero, and on a jet of one live
+//     particle among 256 that one-signed error in the live row's hidden
+//     state (whose normalised values reach √N, its attention logits ~250
+//     while its weights stay between 0 and 1) took K7 past its gate on the
+//     scaled transdimensional flows at N = 256 on an H100: 1.51 of it
+//     against a float64 evaluation at stack inputs of 139 columns (the plain
+//     version 0.13), where a float64 model of the kernel's products with
+//     each accumulation rounded toward zero gives 1.57, the same model with
+//     every product a fused multiply-add 0.17
+//     (scripts/k7_accumulation_model.py). On the CUDA cores K7 takes 45.8 ms
+//     against 31.5 at B = 4096, N = 256, Din 27 (H100). K6 keeps its products
+//     on the tensor cores (its checks pass).
 // A jet of at most 128 slots keeps RT = 1: the code above, unchanged (every
 // row-block step is `if constexpr (RT > 1)`).
 #pragma once
@@ -617,13 +629,85 @@ __device__ __forceinline__ void gemm_tc(float (&acc)[64], const AF& afrag, int n
   ring.seq += nkt;
 }
 
+// acc += A·W on the CUDA cores: fp32 fused multiply-adds in k order, each
+// rounded to nearest (no one-signed error, unlike the tensor cores'
+// accumulation). a_at(r, k): A's element (row r, column k); W (K, 128) the
+// block's output columns, rows of ld floats in device memory, brought through
+// the ring's slots (unused by the caller) 16 rows at a time by cp.async, two
+// chunks ahead. The thread's elements are gemm_tc's (each_pair's). Every
+// thread calls it; the warps whose rows all lie at or past the block's N
+// only fetch (`live`). It begins and ends with a barrier.
+constexpr int FMA_ROWS = 16;  // W rows a chunk: one slot
+static_assert(FMA_ROWS * C <= STAGE && RING == 3, "a chunk fills one of three slots");
+template <class AF>
+__device__ __forceinline__ void gemm_fma(float (&acc)[64], const AF& a_at,
+                                         const float* __restrict__ Wg, int ld, int K, float* slots,
+                                         bool live) {
+  const int nch = (K + FMA_ROWS - 1) / FMA_ROWS;
+  const int r0 = frag_row0(), c0 = 2 * (threadIdx.x & 3);
+  auto fetch = [&](int ch) {  // chunk ch into slot ch % RING, committed as a group
+    if (ch < nch) {
+      float* dst = slots + (ch % RING) * STAGE;
+      for (int i = threadIdx.x; i < FMA_ROWS * C / 4; i += THREADS) {
+        const int r = i / (C / 4), c4 = 4 * (i - r * (C / 4)), k = ch * FMA_ROWS + r;
+        if (k < K) cp_async16(dst + r * C + c4, Wg + (size_t)k * ld + c4);
+      }
+    }
+    cp_async_commit();
+  };
+  __syncthreads();  // the slots are free
+  fetch(0);
+  fetch(1);
+#pragma unroll 1
+  for (int ch = 0; ch < nch; ++ch) {
+    cp_async_wait<1>();
+    __syncthreads();  // chunk ch has landed for every thread; every read of chunk ch − 1 is done
+    fetch(ch + 2);    // into the slot of chunk ch − 1
+    if (live) {
+      const float* ws = slots + (ch % RING) * STAGE + c0;
+      const int kn = min(FMA_ROWS, K - ch * FMA_ROWS);
+#pragma unroll 2
+      for (int kk = 0; kk < kn; ++kk) {
+        const int k = ch * FMA_ROWS + kk;
+        const float x0 = a_at(r0, k), x1 = a_at(r0 + 8, k);
+        const float* wr = ws + kk * C;
+#pragma unroll
+        for (int j = 0; j < KSTEPS; ++j) {
+          const float2 w = *reinterpret_cast<const float2*>(wr + 8 * j);
+          acc[4 * j] = fmaf(x0, w.x, acc[4 * j]);
+          acc[4 * j + 1] = fmaf(x0, w.y, acc[4 * j + 1]);
+          acc[4 * j + 2] = fmaf(x1, w.x, acc[4 * j + 2]);
+          acc[4 * j + 3] = fmaf(x1, w.y, acc[4 * j + 3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every read of the slots and of A is done
+}
+
+// A's element (row r, column k) of a TileA operand: its function of the
+// tile's value, from the channel block that owns column k.
+template <class F, int CL, int RT>
+__device__ __forceinline__ float tile_at(const TileA<F, CL, RT>& A, int r, int k) {
+  if constexpr (CL == 1) {
+    return A.f(k, A.T[tix(r, k)]);
+  } else {
+    return A.f(k, A.jet.peer(A.T, k / C)[tix(r, k % C)]);
+  }
+}
+
 // proj_in's product acc += x·W of a (N, Din) input x (rows of Din floats),
 // W's ⌈Din/8⌉ stages next in the ring (zero rows past Din): the input's
 // columns go through the work tile `a` in passes of up to 128 (zero past N
-// and Din), each pass accumulating into the same registers. Every thread of
-// the block calls it; it ends with a barrier (`a` is free).
+// and Din), each pass accumulating into the same registers. With FMA on the
+// CUDA cores (gemm_fma; `w_in`: W's rows of ld floats from the block's
+// column 0), the ring not read. Every thread of the block calls it; it ends
+// with a barrier (`a` is free).
+template <bool FMA = false>
 __device__ __forceinline__ void project_in(float (&acc)[64], const float* __restrict__ x, int N,
-                                           int Din, float* a, Ring& ring, bool live) {
+                                           int Din, float* a, Ring& ring, bool live,
+                                           const float* __restrict__ w_in = nullptr, int ld = 0) {
   const int Dp = (Din + STAGE_ROWS - 1) / STAGE_ROWS * STAGE_ROWS;
   for (int c0 = 0; c0 < Dp; c0 += C) {
     const int width = Dp - c0 < C ? Dp - c0 : C;
@@ -632,8 +716,13 @@ __device__ __forceinline__ void project_in(float (&acc)[64], const float* __rest
       a[tix(r, c)] = (r < N && c0 + c < Din) ? x[r * Din + c0 + c] : 0.f;
     }
     __syncthreads();
-    // ends with a barrier: `a` is free for the next pass
-    gemm_tc(acc, TileA<Plain>{a, {}}, width / STAGE_ROWS, ring, live);
+    if constexpr (FMA) {
+      gemm_fma(acc, [&](int r, int k) { return a[tix(r, k)]; }, w_in + (size_t)c0 * ld, ld,
+               width, ring.slots, live);
+    } else {
+      // ends with a barrier: `a` is free for the next pass
+      gemm_tc(acc, TileA<Plain>{a, {}}, width / STAGE_ROWS, ring, live);
+    }
   }
 }
 
@@ -975,8 +1064,9 @@ __device__ __forceinline__ void unspill(float* Q, const float* spill, int N, int
 // HD: channels a head, for `attend`; HD = 0: heads of `hd` channels through
 // attend_any<CL, RT, NB> (always in a cluster). N: the jet's slots, of which
 // the block holds its row block's (block_rows). In a cluster it ends with a
-// cluster barrier.
-template <int CL, int RT, int HD, int NB>
+// cluster barrier. FMA: every product on the CUDA cores (gemm_fma; K7 at
+// RT > 1, the design note), the ring not read.
+template <int CL, int RT, int HD, int NB, bool FMA = false>
 __device__ __forceinline__ void gsdm_blocks(const float* __restrict__ wblocks,
                                             const BlockLayout& L, float* smem,
                                             const float* __restrict__ tp, size_t tp_block_stride,
@@ -992,6 +1082,15 @@ __device__ __forceinline__ void gsdm_blocks(const float* __restrict__ wblocks,
   const int own = jet.col0();
   constexpr int KW = KSTEPS * CL;  // k-steps of a block's product
   float acc[64];
+  // acc += A·W for the block's output columns of W (in, out) at `wm`
+  auto product = [&](const auto& A, const float* __restrict__ wm) {
+    if constexpr (FMA) {
+      gemm_fma(acc, [&](int r, int k) { return tile_at(A, r, k); }, wm + own, C * CL, C * CL,
+               ring.slots, live);
+    } else {
+      gemm_tc(acc, A, KW, ring, live);
+    }
+  };
 
   for (int blk = 0; blk < n_blocks; ++blk) {
     const float* wb = wblocks + (size_t)blk * L.stride;
@@ -1001,7 +1100,7 @@ __device__ __forceinline__ void gsdm_blocks(const float* __restrict__ wblocks,
     // ---- ResnetBlock
     group_stats(h, wb + L.gn1_s, wb + L.gn1_b, Nl, N, vec, jet);
     zero(acc);
-    gemm_tc(acc, TileA<Norm<true, CL, RT>, CL, RT>{h, {vec, wb + L.gn1_b}, jet}, KW, ring, live);
+    product(TileA<Norm<true, CL, RT>, CL, RT>{h, {vec, wb + L.gn1_b}, jet}, wb + L.w_c1);
     each_pair(acc, [&](int r, int c, int at, float v0, float v1) {
       const float2 b = ldg2(wo + L.b_c1 + c), tr = ldg2(tpb + c);
       const bool real = r < Nl;
@@ -1010,7 +1109,7 @@ __device__ __forceinline__ void gsdm_blocks(const float* __restrict__ wblocks,
     __syncthreads();
     group_stats(a, wb + L.gn2_s, wb + L.gn2_b, Nl, N, vec, jet);
     zero(acc);
-    gemm_tc(acc, TileA<Norm<true, CL, RT>, CL, RT>{a, {vec, wb + L.gn2_b}, jet}, KW, ring, live);
+    product(TileA<Norm<true, CL, RT>, CL, RT>{a, {vec, wb + L.gn2_b}, jet}, wb + L.w_c2);
     each_pair(acc, [&](int r, int c, int at, float v0, float v1) {
       if (r < Nl) {
         const float2 b = ldg2(wo + L.b_c2 + c);
@@ -1027,21 +1126,21 @@ __device__ __forceinline__ void gsdm_blocks(const float* __restrict__ wblocks,
       reinterpret_cast<float4*>(park)[idx] = reinterpret_cast<const float4*>(h)[idx];
     const TileA<Norm<false, CL, RT>, CL, RT> hn{h, {vec, wb + L.gna_b}, jet};
     zero(acc);
-    gemm_tc(acc, hn, KW, ring, live);
+    product(hn, wb + L.wk);
     each_pair(acc, [&](int r, int c, int at, float v0, float v1) {
       const float2 b = ldg2(wo + L.bk + c);
       const bool real = r < Nl;
       store2(a, at, real ? v0 + b.x : 0.f, real ? v1 + b.y : 0.f);
     });
     zero(acc);
-    gemm_tc(acc, hn, KW, ring, live);
+    product(hn, wb + L.wv);
     each_pair(acc, [&](int r, int c, int at, float v0, float v1) {
       const float2 b = ldg2(wo + L.bv + c);
       const bool real = r < Nl;
       store2(v, at, real ? v0 + b.x : 0.f, real ? v1 + b.y : 0.f);
     });
     zero(acc);
-    gemm_tc(acc, hn, KW, ring, live);  // its barriers end h's reads
+    product(hn, wb + L.wq);  // its barriers end h's reads
     if constexpr (CL > 1) jet.sync();  // and the peers'
     each_pair(acc, [&](int r, int c, int at, float v0, float v1) {
       const float2 b = ldg2(wo + L.bq + c);
@@ -1063,7 +1162,7 @@ __device__ __forceinline__ void gsdm_blocks(const float* __restrict__ wblocks,
     }
     zero(acc);
     // the warps' A fragments are the rows they attended for: no barrier before (CL = 1)
-    gemm_tc(acc, TileA<Plain, CL, RT>{h, {}, jet}, KW, ring, live);
+    product(TileA<Plain, CL, RT>{h, {}, jet}, wb + L.wp);
     if constexpr (CL > 1) jet.sync();  // the peers have read h
     each_pair(acc, [&](int r, int c, int at, float v0, float v1) {
       float2 y = make_float2(0.f, 0.f);

@@ -33,15 +33,16 @@ __device__ void stack_jet(const float* __restrict__ w, const BlockLayout& L, flo
   // ---- proj_in, in passes of up to 128 input columns
   float acc[64];
   zero(acc);
-  project_in(acc, x, Nl, Din, a, ring, live);
+  project_in<(RT > 1)>(acc, x, Nl, Din, a, ring, live, w + own, W);
   each_pair(acc, [&](int r, int c, int at, float v0, float v1) {
     const bool real = r < Nl;
     store2(h, at, real ? v0 + b_in[own + c] : 0.f, real ? v1 + b_in[own + c + 1] : 0.f);
   });
   __syncthreads();
 
-  gsdm_blocks<CL, RT, HD, NB>(wblocks, L, smem, tp, tp_block_stride, ring, park, N, n_blocks,
-                              hd, q_scale, jet);
+  // past 128 slots every product on the CUDA cores (gsdm_blocks.cuh's design note)
+  gsdm_blocks<CL, RT, HD, NB, (RT > 1)>(wblocks, L, smem, tp, tp_block_stride, ring, park, N,
+                                        n_blocks, hd, q_scale, jet);
 
   // ---- the residual tile's first Nl rows are this block's columns of the
   // output: rows of W floats
@@ -74,7 +75,7 @@ gsdm_stack_kernel(const float* __restrict__ w, const float* __restrict__ stream,
   Ring ring{stream + (size_t)jet.rank * total * STAGE, total, smem + S_RING, 0};
   float* park = scratch + (size_t)blockIdx.x * SCRATCH_FLOATS;
   const float q_scale = HD > 0 ? 1.f / sqrtf((float)HD) : (float)(1.0 / sqrt((double)hd));
-  ring.start();
+  if constexpr (RT == 1) ring.start();  // past 128 slots the stream is not read
   for (int i = blockIdx.x / K; i < B; i += gridDim.x / K) {
     const size_t p = (size_t)i * N + jet.row0();  // the block's first row of jet i
     stack_jet<CL, RT, HD, NB>(w, L, smem, ring, tp + (size_t)i * W + jet.col0(), (size_t)B * W,

@@ -28,13 +28,15 @@ MBM's packing only.
 
 Widths: the local hidden width, the global one and the time embedding's
 each 128, 256, 384 or 512, mixed, and the token embeddings too (with the
-folded input two widths whose sum is a multiple of 128), N ≤ 128, a
+folded input two widths whose sum is a multiple of 128), N ≤ 256, a
 discrete head up to 512 wide. At every width 128 with a head of at most 64
-a jet is one block (ops/csrc/epic_wide.cuh); otherwise a cluster of
-hidden / 128 blocks (ops/csrc/epic_wide_any.cuh), each owning 128 columns of
-every activation tile, the stages and tables laid out a column block after
-the other. JAX's gate also takes widths above 512 and any N; those go to
-the module path here.
+and N ≤ 128 a jet is one block (ops/csrc/epic_wide.cuh); otherwise a
+cluster of hidden / 128 blocks (ops/csrc/epic_wide_any.cuh), each owning 128
+columns of every activation tile, the stages and tables laid out a column
+block after the other; past 128 slots, at every width, a cluster of
+hidden / 128 × 2 row blocks, row block r owning slots 128·r … + 127
+(`epic_wide_forward_h*_r2.cu`). JAX's gate also takes widths above 512 and
+any N; those go to the module path here.
 """
 
 import torch
@@ -53,10 +55,11 @@ from multimodal_particles_tpu_torch.ops.epic_cuda import (
     pack_encoder,
 )
 
-# the widths, the particle slots and the widest discrete head the wide kernels
-# are compiled for (ops/csrc/epic_wide.cuh, epic_wide_any.cuh)
+# the widths, the particle slots (two row blocks of 128) and the widest
+# discrete head the wide kernels are compiled for (ops/csrc/epic_wide.cuh,
+# epic_wide_any.cuh)
 WIDE_WIDTHS = (128, 256, 384, 512)
-WIDE_MAX_PARTICLES = 128
+WIDE_MAX_PARTICLES = 256
 MAX_WIDE_HEAD = 512
 
 
@@ -88,7 +91,7 @@ def wide_supported(config, allow_linear_discrete: bool = False, head_hidden: int
     """True when the encoder matches what the wide kernels are compiled for:
     the pattern of `epic_supported` with the local hidden, global and time
     widths each one of WIDE_WIDTHS (mixed), the token embeddings as
-    `embedding_widths_supported` takes them, at most 128 particle slots and a
+    `embedding_widths_supported` takes them, at most 256 particle slots and a
     discrete head at most MAX_WIDE_HEAD wide (`head_hidden`: the absorbing
     generator's `discrete_head_hidden_dim`); with `allow_linear_discrete`
     also the Linear-discrete input. Only the forward kernel takes the

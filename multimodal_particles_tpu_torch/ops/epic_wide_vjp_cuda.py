@@ -17,10 +17,13 @@ autograd chains d(flat) to v, g and the rest.
             carries, and the transposed stages of its dz·Wᵀ products, which
             its wrapper makes (`tensor_core_transposed_stages`)
 
-At every width 128 the backward is one block a jet; at the other widths
-`wide_supported` takes (MBM's token input and 8-wide head) a cluster of
-hidden / 128 blocks (ops/csrc/epic_wide_backward_any.cuh), its transposed
-stages a 128-column block after the other.
+At every width 128 and N ≤ 128 the backward is one block a jet; at the other
+widths `wide_supported` takes (MBM's token input and 8-wide head) a cluster
+of hidden / 128 blocks (ops/csrc/epic_wide_backward_any.cuh), its transposed
+stages a 128-column block after the other; on jets of 129 to 256 slots, at
+every width, a cluster of hidden / 128 × 2 row blocks
+(`epic_wide_backward_h*_r2.cu`), its persistent grid as many clusters as
+the card holds at once.
 
 `epic_train_forward_wide` dispatches: CUDA tensors go to the kernels or
 raise, CPU tensors to `epic_train_forward_reference`, autograd through the

@@ -4,6 +4,7 @@ seeded transdimensional flow against a float64 evaluation, and its time
 against N.
 
     python3 scripts/k7_long_jets.py [--n 256] [--calls 3] [--time-n 128 129 192 256]
+                                    [--scaled WIDTH] [--save FILE]
 
 The flow is chip_smoke.py's `paths_transdim` check at N = `--n` (the
 reference transdimensional config, the 48-step sampler from injected draws,
@@ -13,7 +14,11 @@ error over the gate's bound 2e-4·(1 + max|ref|)). The `--calls` worst calls
 are kept and evaluated again: the kernel, the plain version in float32 on
 the card and on the CPU, and the plain version in float64 on the card; one
 JSON line each with the worst jet's share against each, its live rows and
-magnitudes. The phase's own line (and its pass or fail) comes first. Then
+magnitudes. The phase's own line (and its pass or fail) comes first. With
+`--scaled WIDTH` the flow is the scaled one (every trunk width WIDTH, the
+stacks reading WIDTH + 8 and WIDTH + 11 columns, the data-dependent gains:
+`paths_transdim_scaled`); with `--save FILE` the worst call's inputs, time
+rows and kernel output of its 8 worst jets go to FILE (torch.save). Then
 K7 at B=4096, 128 × 2 heads, Din 27, timed with CUDA events at each N of
 `--time-n`: at 129 a jet already takes two row blocks (two SMs).
 """
@@ -32,17 +37,9 @@ import chip_smoke as cs  # noqa: E402
 from multimodal_particles_tpu_torch.ops import _build  # noqa: E402
 from multimodal_particles_tpu_torch.ops.gsdm_stack_cuda import (  # noqa: E402
     PackedGsdmStack,
-    blocks_reference,
     gsdm_stack,
     gsdm_stack_reference,
 )
-
-
-def float64_reference(packed, temb, x_in, n_heads):
-    """The plain version of the stack in float64 on the same weights."""
-    W = {name: t.double() for name, t in packed.tensors.items()}
-    h = x_in.double() @ W["w_in"][:packed.dim_in] + W["b_in"]
-    return blocks_reference(W, h, [t.double() for t in temb], packed.n_blocks, n_heads)
 
 
 def on_cpu(packed):
@@ -61,6 +58,8 @@ def main():
     parser.add_argument("--n", type=int, default=256)
     parser.add_argument("--calls", type=int, default=3)
     parser.add_argument("--time-n", type=int, nargs="*", default=[128, 129, 192, 256])
+    parser.add_argument("--scaled", type=int, default=0, help="the trunk's width (0: reference)")
+    parser.add_argument("--save", type=Path, default=None)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k7_long_jets: no GPU")
@@ -83,21 +82,22 @@ def main():
 
     cs.KernelShadow._stack = keeping
     try:
-        cs.phase_paths_transdim(device, phase=f"paths_transdim_n{args.n}", n=args.n)
+        cs.phase_paths_transdim(device, scaled=args.scaled or False,
+                                phase=f"paths_transdim_n{args.n}", n=args.n)
         passed = True
     except RuntimeError:
         passed = False
     finally:
         cs.KernelShadow._stack = shadow_stack
-    print(json.dumps({"phase": "k7_long_jets_check", "n": args.n, "passed": passed,
-                      "card": card}), flush=True)
+    print(json.dumps({"phase": "k7_long_jets_check", "n": args.n, "scaled": args.scaled,
+                      "passed": passed, "card": card}), flush=True)
 
     for worst, packed, temb, x_in, n_heads in kept:
         got = gsdm_stack(packed, temb, x_in, n_heads=n_heads)
         plain = gsdm_stack_reference(packed, temb, x_in, n_heads=n_heads)
         plain_cpu = gsdm_stack_reference(on_cpu(packed), [t.cpu() for t in temb], x_in.cpu(),
                                          n_heads=n_heads).to(device)
-        exact = float64_reference(packed, temb, x_in, n_heads)
+        exact = cs.gsdm_stack_float64(packed, temb, x_in, n_heads)
         kernel_plain, kernel_exact = share(got, plain), share(got, exact)
         j = int(kernel_plain.nan_to_num(0).argmax())
         print(json.dumps({
@@ -112,6 +112,13 @@ def main():
             "jet_live_rows": int((x_in[j].abs().sum(-1) > 0).sum().item()),
             "jet_max_abs_in": x_in[j].abs().max().item(),
             "jet_max_abs_out": exact[j].abs().max().item(), "card": card}), flush=True)
+        if args.save is not None and worst == kept[0][0]:
+            jets = kernel_plain.nan_to_num(0).argsort(descending=True)[:8]
+            torch.save({"jets": jets.cpu(), "x_in": x_in[jets].cpu(),
+                        "temb": [t[jets].cpu() for t in temb], "kernel": got[jets].cpu(),
+                        "plain": plain[jets].cpu(), "n_heads": n_heads,
+                        "flat": packed.flat.cpu(), "dim_in": packed.dim_in,
+                        "n_blocks": packed.n_blocks, "channels": packed.channels}, args.save)
 
     model = cs.make_transdim(device, n=max(args.time_n))
     _, _, vec_stack = model.pack_for_kernel()

@@ -16,7 +16,8 @@ the tensor-core K6 on, `tf32x3.cuh` and, from the K6 of any width on,
 K6 past 128 slots on, `survival_head_r2.cu`, `_c{256,384,512}_r2.cu`) for K6 (and,
 from K4 and K5 at every width on, `epic_wide_any.cuh`,
 `epic_wide_forward_any.cuh`, `epic_wide_backward.cuh`,
-`epic_wide_backward_any.cuh` and `epic_wide_{forward,backward}_h*.cu`);
+`epic_wide_backward_any.cuh` and `epic_wide_{forward,backward}_h*.cu`, and,
+from K4 and K5 past 128 slots on, `epic_wide_{forward,backward}_h*_r2.cu`);
 `gsdm_stack.cu` and the same headers (`gsdm_stack.cuh`, `gsdm_stack_c*.cu`)
 for K7; `attention_core.cu`, `tf32x3.cuh` for K8), for example
 unpacked with `git archive REV multimodal_particles_tpu_torch/ops/csrc`. The
@@ -43,10 +44,11 @@ N=128) at t = 0.0101, 0.5 and 1 − 1e-4, x' elementwise |err| ≤ 1e-4 +
 1e-4·|other|, and at most 1% of the real slots' tokens differing. K4: each
 of its four instances (tokens or the folded input, times the 8-wide or the
 56-wide head; the hidden output of all but MBM's) at the scaled backbone,
-B=512, N=109 and 128, per particle |err| ≤ 1e-4 + 1e-4·max|other| over the
+B=512, N=109 and 128, and MBM's at scaled-256 (every width 256, a cluster
+of two blocks), per particle |err| ≤ 1e-4 + 1e-4·max|other| over the
 particle's row. K3: the narrow backward at config-berlin (B=1024, N=128),
 K5: the wide backward at the scaled MBM backbone (every width 128, 6 blocks,
-B=512, N=128), both for a random cotangent with none on jets near a kink,
+B=512, N=128) and at scaled-256, both for a random cotangent with none on jets near a kink,
 per leaf |err| ≤ 1e-4·max|other leaf| + 1e-3·|other|. K6: the
 fused survival head at (B, N) = (512, 109), (7, 109), (64, 128); K7: the
 fused gsdm stack at the reference input widths 24 and 27 (B=512, N=128;
@@ -125,7 +127,8 @@ HEADERS = ("epic_forward.cuh", "epic_forward_kernel.cuh", "epic_wide.cuh", "epic
 WIDE_SOURCES = {k: tuple(f"{stem}_c{w}.cu" for w in (256, 384, 512))
                 + (f"{stem}_r2.cu",) + tuple(f"{stem}_c{w}_r2.cu" for w in (256, 384, 512))
                 for k, stem in (("K6", "survival_head"), ("K7", "gsdm_stack"))}
-WIDE_SOURCES.update({k: tuple(f"{stem}_h{w}.cu" for w in (128, 256, 384, 512))
+WIDE_SOURCES.update({k: tuple(f"{stem}_h{w}{rows}.cu" for rows in ("", "_r2")
+                           for w in (128, 256, 384, 512))
                      for k, stem in (("K4", "epic_wide_forward"), ("K5", "epic_wide_backward"))})
 K1_FOLD = ("epic_forward_fold.cu", "mmp_epic_forward_fold")  # K1's folded-input instantiation
 K1_TOL = 1e-4  # K1's gate, elementwise (atol = rtol), at the three shapes held
@@ -372,14 +375,22 @@ def inputs(B, N, device, gen):
     return torch.rand((B, 1, 1), generator=gen, device=device), x, k, mask
 
 
-def scaled_config(config, blocks=6):
-    """`config` with every encoder width 128 and `blocks` EPiC layers (the
-    `--scaled` backbone)."""
+def scaled_config(config, blocks=6, width=128):
+    """`config` with every encoder width `width` and `blocks` EPiC layers
+    (the `--scaled` backbone; scaled-256 at 256)."""
     e = config.encoder
     e.num_blocks = blocks
-    e.dim_hidden_local = e.dim_hidden_glob = e.dim_emb_time = 128
-    e.dim_emb_features_continuous = e.dim_emb_features_discrete = 128
+    e.dim_hidden_local = e.dim_hidden_glob = e.dim_emb_time = width
+    e.dim_emb_features_continuous = e.dim_emb_features_discrete = width
     return config
+
+
+def scaled256_mbm(device):
+    """MBM's encoder at scaled-256 (every width 256, 6 blocks; a cluster of
+    2 blocks a jet), seeded, packed for the wide kernels."""
+    mbm = init_parameters(MultiModalBridgeMatching(scaled_config(MultimodalBridgeMatchingConfig(),
+                                                                 width=256)), 0)
+    return epic_wide_cuda.pack_wide_encoder_params(mbm.to(device).encoder, mbm.config)
 
 
 def k4_instances(device):
@@ -507,20 +518,28 @@ def main():
                     report_share("K4", both(lambda lib: wide_forward(lib, packed, t, x, k, mask,
                                                                      hidden)),
                                  instance=name, B=512, N=N)
+            wide256 = scaled256_mbm(device)
+            for N in (109, 128):
+                t, x, k, mask = inputs(512, N, device, gen)
+                report_share("K4", both(lambda lib: wide_forward(lib, wide256, t, x, k, mask, False)),
+                             instance="mbm at scaled-256 (cluster of 2)", B=512, N=N)
 
         if "K5" in args.kernels:
             mbm = init_parameters(MultiModalBridgeMatching(scaled_config(MultimodalBridgeMatchingConfig())), 0)
-            packed = epic_wide_cuda.pack_wide_encoder_params(mbm.to(device).encoder, mbm.config)
-            t, x, k, mask = inputs(512, 128, device, gen)
-            near = epic_vjp_cuda.near_kink_jets(packed, t, x, k, mask)
-            g = torch.randn((512, 128, 11), generator=gen, device=device) * (~near)[:, None, None]
-            outs = both(lambda lib: wide_backward(lib, packed, t, x, k, mask, g))
-            share = max(leaf_share(packed, here, other) for other, here in zip(*outs))
-            same.append(share <= 1.0)
-            print(json.dumps({"kernel": "K5", "config": "scaled MBM", "B": 512, "N": 128,
-                              "share_of_gate": share,
-                              "same_bits": all(torch.equal(a, b) for a, b in zip(*outs)),
-                              "max_abs": max(a.abs().max().item() for a in outs[0])}), flush=True)
+            scaled = epic_wide_cuda.pack_wide_encoder_params(mbm.to(device).encoder, mbm.config)
+            for config, packed in (("scaled MBM", scaled),
+                                   ("scaled-256 MBM (cluster of 2)", scaled256_mbm(device))):
+                t, x, k, mask = inputs(512, 128, device, gen)
+                near = epic_vjp_cuda.near_kink_jets(packed, t, x, k, mask)
+                g = torch.randn((512, 128, 11), generator=gen, device=device) * (~near)[:, None, None]
+                outs = both(lambda lib: wide_backward(lib, packed, t, x, k, mask, g))
+                share = max(leaf_share(packed, here, other) for other, here in zip(*outs))
+                same.append(share <= 1.0)
+                print(json.dumps({"kernel": "K5", "config": config, "B": 512, "N": 128,
+                                  "share_of_gate": share,
+                                  "same_bits": all(torch.equal(a, b) for a, b in zip(*outs)),
+                                  "max_abs": max(a.abs().max().item() for a in outs[0])}),
+                      flush=True)
 
         if "K6" in args.kernels:
             gen_cfg = flow.config.generator
@@ -567,7 +586,7 @@ def time_head_kernels(libs, kernels, flow, device, gen):
     """K4 to K8 (those in `kernels`) at their main paths' shapes under each
     build, in turns (other, here, here, other): K4 and K5 at the scaled MBM
     backbone (every width 128, 6 blocks, B=8192, N=128; K5 for a random
-    cotangent), K6 at the absorbing reference head (B=4096, N=109), K7 at the
+    cotangent) and at scaled-256, K6 at the absorbing reference head (B=4096, N=109), K7 at the
     transdimensional creation stack (B=4096, N=128, Din=27), K8 at B=4096,
     N=128, 2 heads, with a key mask. One JSON line a kernel, with the card's
     name and power limit."""
@@ -580,12 +599,17 @@ def time_head_kernels(libs, kernels, flow, device, gen):
         scaled = epic_wide_cuda.pack_wide_encoder_params(mbm.to(device).encoder, mbm.config)
         t8, x8, k8, mask8 = inputs(8192, 128, device, gen)
         g8 = torch.randn((8192, 128, 11), generator=gen, device=device)
+        wide256 = scaled256_mbm(device)
     if "K4" in kernels:
         runs["K4"] = ({"config": "scaled MBM", "B": 8192, "N": 128},
                       lambda lib: wide_forward(lib, scaled, t8, x8, k8, mask8, False))
+        runs["K4 scaled-256"] = ({"config": "scaled-256 MBM", "B": 8192, "N": 128},
+                                 lambda lib: wide_forward(lib, wide256, t8, x8, k8, mask8, False))
     if "K5" in kernels:
         runs["K5"] = ({"config": "scaled MBM", "B": 8192, "N": 128},
                       lambda lib: wide_backward(lib, scaled, t8, x8, k8, mask8, g8))
+        runs["K5 scaled-256"] = ({"config": "scaled-256 MBM", "B": 8192, "N": 128},
+                                 lambda lib: wide_backward(lib, wide256, t8, x8, k8, mask8, g8))
     if "K6" in kernels:
         gen_cfg = flow.config.generator
         _, head = flow.pack_for_kernel()

@@ -29,7 +29,9 @@ and K7 at every head width and N on both sides of the same edges, K1 and K2
 at N from 1 to 256 (K1 per particle past N = 128, where no float32
 evaluation holds the elementwise form), K3 at N from 1 to 256 at hidden 16,
 32 and 64, with skip and head on and off, at B from 0 to 8192 and on empty
-jets, its rerun of the forward held to K1's bits on the same buffer.
+jets, its rerun of the forward held to K1's bits on the same buffer. K4 and K5
+are also held on jets of 129 to 256 slots (two row blocks a jet), K7 at the
+scaled stacks' input widths past 128 slots.
 """
 
 import copy
@@ -809,7 +811,7 @@ def test_wide_wrappers_reject_what_the_kernels_do_not_take(device):
     with pytest.raises(ValueError, match="layout"):
         epic_forward(wide, t, x, k, mask)
     with pytest.raises(ValueError, match="outside"):
-        epic_forward_wide(wide, *inputs(device, 2, 129)[:4])
+        epic_forward_wide(wide, *inputs(device, 2, 257)[:4])
     with pytest.raises(ValueError, match="g must be"):
         epic_backward_wide(wide, t, x, k, mask, g[..., :10].contiguous())
     with pytest.raises(TypeError, match="float32"):
@@ -1729,3 +1731,226 @@ def test_bf16_config_berlin_keeps_the_float32_kernels(device):
         assert sampler_step.launches == before + 5
     assert torch.equal(outs[0].continuous, outs[1].continuous)
     assert torch.equal(outs[0].discrete, outs[1].discrete)
+
+
+# ------------------------------------------------------ K4 and K5 past 128 slots
+
+# (name, packed model args): MBM's token input at every width 128 (the
+# one-block kernel's shape at N ≤ 128), 256 and 512 (clusters of 2 × 2 and
+# 4 × 2 blocks past 128 slots)
+LONG_WIDE_CASES = {"all128": (128, {}), "all256": (256, {}), "all512": (512, {})}
+
+
+def long_wide_inputs(device, B, N, seed=4, sparse=False):
+    """t, x, k, mask at N > 128 slots: jet 0 with one live particle, at slot
+    N − 1; jet 1 with every live slot past 128; the last two jets empty; the
+    others random non-prefix masks (each slot alive with probability 0.6, or
+    with `sparse` about 19 live slots a jet and every other jet's last slot
+    alive)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    alive = 19 / N if sparse else 0.6
+    mask = (torch.rand((B, N, 1), generator=gen, device=device) < alive).float()
+    mask[0] = 0.0
+    mask[0, N - 1] = 1.0
+    mask[1, :128] = 0.0
+    if sparse:  # every other jet with a particle at the last slot
+        mask[2::2, N - 1] = 1.0
+    mask[-2:] = 0.0
+    x = torch.randn((B, N, 3), generator=gen, device=device) * mask
+    k = torch.randint(0, 8, (B, N, 1), generator=gen, device=device) * mask.long()
+    t = torch.rand((B, 1, 1), generator=gen, device=device)
+    return t, x, k, mask, gen
+
+
+@pytest.mark.parametrize("N", [129, 256])
+@pytest.mark.parametrize("case", list(LONG_WIDE_CASES))
+def test_epic_forward_wide_past_128_slots(device, case, N):
+    """K4 on jets of 129 and 256 slots (a cluster of hidden / 128 × 2 row
+    blocks) against its plain version per particle, 2 blocks with skip and
+    head and 1 without; one jet whose only particle lies at the last slot, one
+    whose live slots all lie past 128; the same bits on a repeat."""
+    hidden, overrides = LONG_WIDE_CASES[case]
+    t, x, k, mask, _ = long_wide_inputs(device, 40, N)
+    for blocks, skip, head in ((2, True, True), (1, False, False)):
+        packed = packed_model(device, hidden, blocks, skip, head, wide=True, **overrides)
+        hold_wide_forward(packed, t, x, k, mask)
+
+
+@pytest.mark.parametrize("N", [129, 256])
+@pytest.mark.parametrize("name", ["tokens_wide_head", "fold", "fold_wide_head"])
+def test_epic_forward_wide_instances_past_128_slots(device, name, N):
+    """K4's other instances (the 56-wide head, the folded input, both) with
+    the hidden output at N = 129 and 256, per particle, the same bits on a
+    repeat."""
+    packed, t, x, k, mask, hidden = k4_instance(device, name, N)
+    got = epic_forward_wide(packed, t, x, k, mask, output_hidden_local=hidden)
+    again = epic_forward_wide(packed, t, x, k, mask, output_hidden_local=hidden)
+    torch.cuda.synchronize()
+    ref = epic_forward_reference(packed, t, x, k, mask, output_hidden_local=hidden)
+    for a, b, r in zip(got, again, ref):
+        close_per_particle(a, r)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("hidden", [256, 512])
+def test_epic_forward_wide_second_row_block_dead_gives_one_row_blocks_bits(device, hidden):
+    """A jet of 256 slots whose live particles all lie in the first 128 runs
+    through the two-row-block cluster with the first row block on the N = 128
+    kernel's plan and a dead second one: its first 128 rows are the N = 128
+    kernel's bits (the row peers' sums add zeros)."""
+    packed = packed_model(device, hidden, 2, wide=True)
+    t, x, k, mask, _ = inputs(device, 24, 128)
+    pad = lambda a: torch.cat([a, torch.zeros_like(a)], dim=1).contiguous()
+    short = epic_forward_wide(packed, t, x, k, mask)
+    long = epic_forward_wide(packed, t, pad(x), pad(k), pad(mask))
+    torch.cuda.synchronize()
+    assert torch.equal(long[:, :128], short)
+    assert (long[:, 128:, :3] == 0).all()
+
+
+@pytest.mark.parametrize("N", [129, 256])
+@pytest.mark.parametrize("case", list(LONG_WIDE_CASES))
+def test_epic_backward_wide_past_128_slots(device, case, N):
+    """K5 on jets of 129 and 256 slots against plain autograd per leaf, over
+    more jets than the persistent grid has clusters, with dense and sparse
+    masks (the near-kink window leaves out most dense jets of many
+    particles), skip and head on and off; the same bits on a repeat."""
+    hidden, overrides = LONG_WIDE_CASES[case]
+    B = 150
+    for sparse, (skip, head) in ((False, (True, True)), (True, (True, True)),
+                                 (True, (False, False))):
+        packed = packed_model(device, hidden, 2, skip, head, wide=True, **overrides)
+        t, x, k, mask, gen = long_wide_inputs(device, B, N, sparse=sparse)
+        near = near_kink_jets(packed, t, x, k, mask)
+        g = torch.randn((B, N, 11), generator=gen, device=device) * (~near)[:, None, None]
+        if sparse:  # enough jets held with a particle past slot 128
+            held = ((~near) & (mask[:, 128:, 0].sum(dim=1) > 0)).sum()
+            assert held >= B // 16, int(held)
+        hold_wide_backward(packed, t, x, k, mask, g)
+
+
+def test_wide_kernels_refuse_257_slots(device):
+    """At N = 257 both wrappers raise and both C entry points return
+    cudaErrorInvalidValue; nothing is launched."""
+    from multimodal_particles_tpu_torch.ops import _build
+
+    wide = packed_model(device, 128, 1, wide=True)
+    t, x, k, mask, gen = inputs(device, 2, 257)
+    g = torch.randn((2, 257, 11), generator=gen, device=device)
+    launches = epic_forward_wide.launches, epic_backward_wide.launches
+    with pytest.raises(ValueError, match="outside"):
+        epic_forward_wide(wide, t, x, k, mask)
+    with pytest.raises(ValueError, match="outside"):
+        epic_backward_wide(wide, t, x, k, mask, g)
+    assert (epic_forward_wide.launches, epic_backward_wide.launches) == launches
+    lib = _build.load_library()
+    stages, tables = wide.tensor_core
+    out = torch.empty((2, 257, 11), device=device)
+    k32 = k.to(torch.int32).contiguous()
+    assert lib.mmp_epic_wide_forward(wide.flat.data_ptr(), stages.data_ptr(), tables.data_ptr(),
+                                     t.data_ptr(), x.data_ptr(), k32.data_ptr(), mask.data_ptr(),
+                                     out.data_ptr(), None, 2, 257, wide.dims.c_array(), 0) == 1
+    import ctypes
+    grid, floats = ctypes.c_int(0), ctypes.c_longlong(0)
+    assert lib.mmp_epic_wide_backward_workspace(2, 257, wide.dims.c_array(), ctypes.byref(grid),
+                                                ctypes.byref(floats)) == 1
+
+
+def scaled_transdim_model(device, width, n):
+    """The transdimensional model with its trunk at every width `width` (2
+    blocks: the `--scaled` and scaled-256 trunks) and n slots; its stacks
+    read width + 8 and width + 11 columns."""
+    config = TransdimensionalEpicConfig()
+    config.data.max_num_particles = n
+    e = config.encoder
+    e.num_blocks = 2
+    e.dim_hidden_local = e.dim_hidden_glob = e.dim_emb_time = width
+    e.dim_emb_features_continuous = e.dim_emb_features_discrete = width
+    model = init_transdimensional_parameters(TransdimensionalJumpDiffusion(config), 0).to(device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen, device=device))
+    return model.eval()
+
+
+@pytest.mark.parametrize("N", [129, 256])
+@pytest.mark.parametrize("width", [128, 256])
+def test_gsdm_stack_past_128_slots_at_the_scaled_stack_inputs(device, width, N):
+    """K7's two-row-block instances at the input widths the scaled and
+    scaled-256 transdim paths feed them past 128 slots (Din 136 / 139 and
+    264 / 267) against the plain version at 2e-4, jet 0 of one live slot;
+    the same bits on a repeat; then the model's `forward_kernel` at that N
+    through one K4 and two K7 launches, within 5e-4 of the module path."""
+    model = scaled_transdim_model(device, width, N)
+    net = model.network
+    _, rate_stack, vec_stack = model.pack_for_kernel()
+    assert (rate_stack.dim_in, vec_stack.dim_in) == (width + 8, width + 11)
+    gen = torch.Generator(device=device).manual_seed(9)
+    B = 133
+    for packed, blocks in ((rate_stack, net.blocks()[0]), (vec_stack, net.blocks("vec_")[0])):
+        x_in = torch.randn((B, N, packed.dim_in), generator=gen, device=device)
+        x_in[0, 1:] = 0.0
+        with torch.no_grad():
+            tp = stack_time_embeddings(net.time_embedding(torch.rand((B,), generator=gen,
+                                                                     device=device)), blocks)
+        got = gsdm_stack(packed, tp, x_in, n_heads=2)
+        again = gsdm_stack(packed, tp, x_in, n_heads=2)
+        torch.cuda.synchronize()
+        ref = gsdm_stack_reference(packed, tp, x_in, n_heads=2)
+        assert torch.isfinite(got).all() and torch.equal(got, again)
+        torch.testing.assert_close(got, ref, atol=2e-4, rtol=2e-4)
+    assert model._pallas_enabled(device) and model.kernel_refusal() is None
+    state, ts = transdim_state(device, 32, N)
+    nearest = torch.zeros(32, dtype=torch.long, device=device)
+    counts = epic_forward_wide.launches, gsdm_stack.launches
+    got = model.forward_kernel(state, ts, nearest)
+    torch.cuda.synchronize()
+    assert (epic_forward_wide.launches, gsdm_stack.launches) == (counts[0] + 1, counts[1] + 2)
+    with torch.no_grad():
+        ref = model.network(state, ts, nearest)
+    for g, r in zip(got[:5], ref[:5]):
+        torch.testing.assert_close(g, r, rtol=5e-4, atol=5e-4 * max(r.abs().max().item(), 1.0))
+
+
+@pytest.mark.parametrize("N", [129, 256])
+def test_scaled_mbm_and_absorbing_take_the_wide_kernels_past_128_slots(device, N):
+    """At max_num_particles 129 and 256 the MBM wide gate is on and a train
+    step runs K4 + K5 (every encoder gradient finite), and AbsorbingFlow
+    packs its trunk for K4 (its `forward_sampling` one K4 and one K6 launch,
+    within 2e-4 of the module path)."""
+    config = MultimodalBridgeMatchingConfig()
+    scale_encoder(config, 2)
+    config.data.max_num_particles = N
+    model = MultiModalBridgeMatching(config)
+    init_mbm_parameters(model, 0)
+    model = model.to(device)
+    assert model.wide_kernel_enabled(device)
+    t, x, k, mask, _ = long_wide_inputs(device, 16, N)
+    fwd, bwd = epic_forward_wide.launches, epic_backward_wide.launches
+    packed = pack_wide_encoder_params(model.encoder, config, differentiable=True)
+    (epic_train_forward_wide(packed, t, x, k, mask) ** 2).mean().backward()
+    torch.cuda.synchronize()
+    assert (epic_forward_wide.launches, epic_backward_wide.launches) == (fwd + 1, bwd + 1)
+    for name, p in model.encoder.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+    from multimodal_particles_tpu_torch.models.generative.states import AbsorbingBridgeState
+
+    absorbing = absorbing_model(device, scaled_blocks=2)
+    absorbing.config.data.max_num_particles = N
+    trunk, _ = absorbing.pack_for_kernel()
+    assert trunk is not None and trunk.layout == "wide"
+    t, x, k, mask = scattered_inputs(device, 16, N)
+    state = AbsorbingBridgeState(t, x, k, mask.long())
+    counts = epic_forward_wide.launches, survival_head.launches
+    heads = absorbing.forward_sampling(state)
+    torch.cuda.synchronize()
+    assert (epic_forward_wide.launches, survival_head.launches) == (counts[0] + 1, counts[1] + 1)
+    with torch.no_grad():
+        ref = absorbing.forward(state)
+    for name in ("continuous", "discrete", "absorbing"):
+        r = getattr(ref, name)
+        torch.testing.assert_close(getattr(heads, name), r, rtol=2e-4,
+                                   atol=2e-4 * max(r.abs().max().item(), 1.0))

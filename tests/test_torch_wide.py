@@ -267,8 +267,8 @@ def test_gates_match_the_jax_gates(case):
 
 def test_widths_the_port_has_no_kernel_for_take_the_module_path():
     """JAX sends every multiple of 128 to its wide kernel, at any N; the
-    port's take 128 to 512 (256 is the wide gate's) and N ≤ 128, so 640 and
-    N = 256 go to neither gate."""
+    port's take 128 to 512 (256 is the wide gate's) and N ≤ 256, so 640 and
+    N = 257 go to neither gate."""
     w256 = {name: 256 for name in WIDE if name != "num_blocks"}
     port_cfg = TorchConfig.from_dict(_gate_case(**w256).to_dict())
     assert wide_supported(port_cfg) and not epic_supported(port_cfg)
@@ -277,10 +277,10 @@ def test_widths_the_port_has_no_kernel_for_take_the_module_path():
     assert wide_pallas_supported(cfg)
     port_cfg = TorchConfig.from_dict(cfg.to_dict())
     assert not wide_supported(port_cfg) and not epic_supported(port_cfg)
-    cfg = _gate_case(**WIDE, max_num_particles=256)
+    cfg = _gate_case(**WIDE, max_num_particles=257)
     assert wide_pallas_supported(cfg)
     port_cfg = TorchConfig.from_dict(cfg.to_dict())
-    assert not wide_supported(port_cfg)  # 128 particle slots a jet
+    assert not wide_supported(port_cfg)  # 256 particle slots a jet
 
 
 def test_wide_kernel_gate_flag(pair):

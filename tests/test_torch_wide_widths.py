@@ -308,7 +308,7 @@ def test_survival_head_on_a_trunk_of_256_matches_pallas_interpret(absorbing256):
 def test_wide_gate_equals_jax_at_every_width_up_to_512():
     """`wide_supported` says what `wide_pallas_supported` says for every
     combination of the five widths in 128 … 512, with tokens and with the
-    folded Linear-discrete input; above 512 and past 128 slots the port
+    folded Linear-discrete input; above 512 and past 256 slots the port
     refuses where JAX takes its kernel."""
     cfg = jax_config(num_blocks=1)
     port = TorchConfig.from_dict(cfg.to_dict())
@@ -331,7 +331,7 @@ def test_wide_gate_equals_jax_at_every_width_up_to_512():
     cfg.encoder.embedding_features_discrete = port.encoder.embedding_features_discrete = "Embedding"
     assert wide_pallas_supported(cfg) and not wide_supported(port)
     port.encoder.dim_hidden_local = 128
-    port.data.max_num_particles = 256
+    port.data.max_num_particles = 257
     assert not wide_supported(port)
     port.data.max_num_particles = 128
     assert wide_supported(port, head_hidden=MAX_WIDE_HEAD)
