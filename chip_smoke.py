@@ -172,7 +172,7 @@ Phases, one JSON line each:
               launch K1 48 times and K7 96 times; then steps/s over 8
               synchronized steps, and the peak memory
  29. profile_transdim  torch.profiler windows over 3 train steps and over
-              serving requests of 1024 and 4096 jets: the top device operations
+              a serving request of 1024 jets: the top device operations
 
  30. k4_hidden_head  K4 as the `--scaled` absorbing generator calls it (every
               width 128, 6 blocks: bench.py's `_scale_encoder`): the 56-wide
@@ -536,6 +536,42 @@ Phases, one JSON line each:
               jets each: K4 and K6 99 times a request (absorbing), K4 48 and
               K7 96 times (transdim), nothing else, no plain version; then
               the kernel path against the module path as phases 34 and 35
+ 81. narrow_edges  K1 (MBM's tokens and 8-wide head; the absorbing
+              generator's 56-wide head and hidden output; the
+              transdimensional folded input and hidden output) and K2 at
+              t = 0.5 and 1 − 1e-4 against their plain versions at the
+              hidden widths the packings zero-pad to an instance (8, 20, 24,
+              40, 56; 48 its own) × N 128 and 200, and at hidden 16, 24, 64
+              × N 257, 300, 384 and 512 (a cluster of two row blocks a jet;
+              jet 1 one live particle at the last slot), B=1024: K1's gate
+              per particle (atol = rtol = 1e-4 against the particle's largest
+              output, as at hidden 64), K2's x' the same with ≤ 1% of the
+              real slots' tokens differing, the same bits on a repeat
+ 82. narrow_edges_k3  K3 at the same shapes under phase 7's rules (per
+              packed leaf, no cotangent on near-kink jets), B=512, on random
+              masks and on sparse scattered masks (~19 particles a jet), of
+              whose held jets B/16 must have a particle past slot 256 at N >
+              256; the rerun gives K1's bits; the same bits on a repeat
+ 83. narrow_edges_time  K1, K2 and K3 at hidden 16, N=512 and hidden 48,
+              N=128, K1 and K2 at B=8192 and 32768 (the main path's particle
+              count), K3 at B=8192, beside their plain versions and bounds;
+              at hidden 48 each also on the weights zero-padded to the 64
+              instance (narrow_edges_time_padded: both times, the largest
+              difference of the results)
+ 84. slice_n512  MBM at config-berlin with max_num_particles 512 (data-
+              dependent gains: from the seed alone its flow leaves float32
+              there, on the module path too) serves 8192 jets: 99 launches
+              of K2, nothing else, no plain version; then paths_n512 (phase
+              6's check at N=512, B=256)
+ 85. train_n512  Trainer.fit at config-berlin, N=512 (the gains), B=8192, 8
+              steps + 1 validation batch: K3 once a step, K1 once a step and a
+              validation batch, no plain version, the losses finite and
+              falling; on 256 jets the kernels' loss and every gradient
+              against plain autograd, as phase 79
+ 86. slice_absorbing_h24, slice_transdim_h24  AbsorbingFlow and the
+              transdimensional model at hidden 24 (zero-padded to 32) serve
+              4096 jets each through K1 + K6 and K1 + K7, no plain version;
+              then paths_absorbing_h24 (phase 21's check)
 
 The line before the last lists every kernel with its launches on its own
 path's run, its two bounds from the shapes and the H100 data sheet's peaks
@@ -557,7 +593,10 @@ among them (`switches`, `conditional_absorbing`, `bf16_predict`, `bf16_train`,
 `train_scaled256`, `serving_absorbing_scaled256`,
 `serving_transdim_scaled256`, and phases 71 and 73's
 `serving_absorbing_n256`, `serving_absorbing_n200`,
-`serving_transdim_n256`, `serving_transdim_n200`), K6's, K7's and K8's
+`serving_transdim_n256`, `serving_transdim_n200`, and phases 84-86's
+`serving_n512`, `train_n512`, `serving_absorbing_h24`,
+`serving_transdim_h24`), K1's, K2's and K3's checks and times at the padded
+widths (`narrow_widths`) and past 256 slots (`past_256_slots`), K6's, K7's and K8's
 checks and times at every pair of phase 60 (`widths`) and past 128 slots
 (`past_128_slots`, phase 70), K4's and K5's at every case of phases 63-64
 (`widths`), K6's on the trunk of 256 (`trunk_256`), and K7's worst share of
@@ -654,8 +693,14 @@ from multimodal_particles_tpu_torch.ops.epic_cuda import (
     EpicDims,
     epic_forward,
     epic_forward_reference,
+    PackedEncoder,
+    flat_views,
+    hidden_pad_index,
+    pack_bare_trunk_params,
     pack_encoder,
     pack_mbm_encoder_params,
+    pad_hidden,
+    padded_dims,
     with_narrow_buffer,
 )
 from multimodal_particles_tpu_torch.ops.epic_vjp_cuda import (
@@ -847,7 +892,14 @@ PEAK_HBM_BYTES = 3.35e12
 TF32X3_PRODUCTS = 3  # tensor-core products a multiply-add under the 3×TF32 split
 
 
+START = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (`elapsed_s`), so that a run shows where its time goes."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": round(time.perf_counter() - START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -947,9 +999,11 @@ def cuda_ms(fn, iters=10):
     return start.elapsed_time(stop) / iters
 
 
-def time_pair(kernel_fn, plain_fn):
-    """Plain, kernel, kernel, plain; each number is the mean of its two turns."""
-    p1, k1, k2, p2 = cuda_ms(plain_fn), cuda_ms(kernel_fn), cuda_ms(kernel_fn), cuda_ms(plain_fn)
+def time_pair(kernel_fn, plain_fn, iters=10):
+    """Plain, kernel, kernel, plain, `iters` calls a turn; each number is the
+    mean of its two turns."""
+    p1, k1 = cuda_ms(plain_fn, iters), cuda_ms(kernel_fn, iters)
+    k2, p2 = cuda_ms(kernel_fn, iters), cuda_ms(plain_fn, iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -1959,16 +2013,19 @@ def scale_encoder(config, width=SCALED_HIDDEN):
     e.dim_emb_features_continuous = e.dim_emb_features_discrete = width
 
 
-def make_absorbing(device, num_timesteps=100, scaled=False, gains=False, heads=None, n=ABS_N):
+def make_absorbing(device, num_timesteps=100, scaled=False, gains=False, heads=None, n=ABS_N,
+                   hidden=None):
     """AbsorbingFlow at AbsorbingConfig's defaults (EPiC 2 blocks, hidden 16;
     survival head 128 wide, 2 heads, 2 blocks; N=109), seeded weights; with
     `scaled` at the `--scaled` backbone (True, or a width: every width
     `scaled`), with `gains` `data_dependent_gains`, with `heads` = (width,
     count) the survival head at that width and count, with `n` that many
-    particle slots."""
+    particle slots, with `hidden` the trunk's local hidden width."""
     config = AbsorbingConfig()
     config.bridge.num_timesteps = num_timesteps
     config.data.max_num_particles = n
+    if hidden:
+        config.encoder.dim_hidden_local = hidden
     if heads:
         config.generator.transformer_dim, config.generator.n_heads = heads
     if scaled:
@@ -2092,12 +2149,13 @@ def check_generated_absorbing(out, batch, B, n=ABS_N):
 
 
 def phase_slice_absorbing(device, card, heads=None, sizes=ABS_REQUEST_SIZES,
-                          phase="slice_absorbing", n=ABS_N):
+                          phase="slice_absorbing", n=ABS_N, hidden=None):
     """predict at the absorbing family's reference config (with `heads` =
-    (width, count) its survival head's, with `n` particle slots): per step
-    one launch of K1 (with its hidden output) and one of K6, the solver steps
-    in plain PyTorch, no plain version of a kernel."""
-    model = make_absorbing(device, heads=heads, n=n)
+    (width, count) its survival head's, with `n` particle slots, with
+    `hidden` the trunk's width): per step one launch of K1 (with its hidden
+    output) and one of K6, the solver steps in plain PyTorch, no plain
+    version of a kernel."""
+    model = make_absorbing(device, heads=heads, n=n, hidden=hidden)
     gen = torch.Generator(device=device).manual_seed(SEED + 17)
     batches = [absorbing_training_batch(B, n, 3, 8, gen, device=device, num_empty=1)
                for B in sizes]
@@ -2114,7 +2172,8 @@ def phase_slice_absorbing(device, card, heads=None, sizes=ABS_REQUEST_SIZES,
         k1 = epic_forward.launches - before["epic_forward"]
         k6 = survival_head.launches - before["survival_head"]
         checks = check_generated_absorbing(out, batch, B, n)
-        emit({"phase": phase, "heads": heads, "B": B, "N": n, "steps": k6, "K1_launches": k1,
+        emit({"phase": phase, "heads": heads, "hidden": model.config.encoder.dim_hidden_local,
+              "B": B, "N": n, "steps": k6, "K1_launches": k1,
               "K6_launches": k6, "seconds": seconds, "jets_per_s": B / seconds,
               "multiplicity_in": batch.source_mask.sum().item() / B,
               "multiplicity_out": out.mask_t.sum().item() / B,
@@ -2303,17 +2362,20 @@ def absorbing_phases(device, card, build_dir):
     return entry, k1
 
 
-def make_transdim(device, prior_batch=None, scaled=False, gains=False, heads=None, n=TD_N):
+def make_transdim(device, prior_batch=None, scaled=False, gains=False, heads=None, n=TD_N,
+                  hidden=None):
     """The transdimensional model at its reference config with the sampler of
     the JAX bench's transdim line (48 steps, multi_birth 24), seeded weights,
     and a multiplicity prior from `prior_batch`'s multiplicities; with
     `scaled` at the `--scaled` backbone (True, or a width: every width
     `scaled`), with `gains` `data_dependent_gains`, with `heads` = (width,
     count) the gsdm stacks at that width and count, with `n` that many
-    particle slots."""
+    particle slots, with `hidden` the trunk's local hidden width."""
     config = TransdimensionalEpicConfig()
     if heads:
         config.encoder.transformer_dim, config.encoder.n_heads = heads
+    if hidden:
+        config.encoder.dim_hidden_local = hidden
     config.data.max_num_particles = n
     config.sampler_kwargs.dt = 1.0 / TD_STEPS
     config.sampler_kwargs.multi_birth = TD_MULTI_BIRTH
@@ -2461,15 +2523,15 @@ def check_generated_transdim(out, B, n=TD_N):
 
 
 def phase_slice_transdim(device, card, heads=None, sizes=TD_REQUEST_SIZES,
-                         phase="slice_transdim", n=TD_N):
+                         phase="slice_transdim", n=TD_N, hidden=None):
     """predict at the transdimensional family's reference config (with
-    `heads` = (width, count) its gsdm stacks', with `n` particle slots): per
-    network evaluation one launch of K1 (folded input, hidden output) and two
-    of K7, everything between them plain PyTorch, no plain version of a
-    kernel."""
+    `heads` = (width, count) its gsdm stacks', with `n` particle slots, with
+    `hidden` the trunk's width): per network evaluation one launch of K1
+    (folded input, hidden output) and two of K7, everything between them
+    plain PyTorch, no plain version of a kernel."""
     gen = torch.Generator(device=device).manual_seed(SEED + 24)
     batches = [transdim_training_batch(B, n, 3, 8, gen, device=device) for B in sizes]
-    model = make_transdim(device, batches[0], heads=heads, n=n)
+    model = make_transdim(device, batches[0], heads=heads, n=n, hidden=hidden)
     prior_mean = batches[0][0].float().mean().item()
     torch.cuda.synchronize()
 
@@ -2486,7 +2548,8 @@ def phase_slice_transdim(device, card, heads=None, sizes=TD_REQUEST_SIZES,
         nfe = k1  # a network evaluation launches K1 once
         checks = check_generated_transdim(out, B, n)
         mean_out = out.dims.float().mean().item()
-        emit({"phase": phase, "heads": heads, "B": B, "N": n, "steps": TD_STEPS, "nfe": nfe,
+        emit({"phase": phase, "heads": heads, "hidden": model.config.encoder.dim_hidden_local,
+              "B": B, "N": n, "steps": TD_STEPS, "nfe": nfe,
               "K1_launches": k1, "K7_launches": k7, "seconds": seconds,
               "jets_per_s": B / seconds, "multiplicity_prior": prior_mean,
               "multiplicity_out": mean_out, "card": card, **checks})
@@ -2804,7 +2867,7 @@ def phase_train_transdim(device, card, workdir):
 
     trainer.model.eval()
     serve_gen = torch.Generator(device=device).manual_seed(SEED + 27)
-    for request_b in (B, TD_B):
+    for request_b in (B,):  # TD_B's window cut for the script's time limit
         request = transdim_training_batch(request_b, TD_N, 3, 8, gen, device=device)
         request_ms = []
         for _ in range(2):  # the second is the bare request: the first may allocate
@@ -4933,8 +4996,8 @@ def width_check(kernel, C, heads, shape, got, again, ref, tol, relative=True,
 def width_time(kernel, C, heads, timed_at, kernel_fn, plain_fn, bound, card, phase="head_widths",
                **extra):
     """One time line of phase 60 (or 70): the kernel and its plain version in
-    turns."""
-    ms, plain_ms = time_pair(kernel_fn, plain_fn)
+    turns of 3 calls (cut from 10 for the script's time limit)."""
+    ms, plain_ms = time_pair(kernel_fn, plain_fn, iters=3)
     emit({"phase": f"{phase}_time", "kernel": kernel, "C": C, "n_heads": heads,
           **timed_at, "ms": ms, "plain_ms": plain_ms, **bound, **against_bounds(bound, ms),
           **extra, "card": card})
@@ -5893,17 +5956,32 @@ def phase_train_scaled_n256(device, card):
     draws, `loss_fn`'s value and every parameter's gradient by the kernels
     (K4 + K5) against plain autograd: the losses within LOSS_BOUND, every
     leaf's gradient within GRAD_BOUND of the leaf's largest."""
-    n = LONG_WIDE_SLOTS
-    gen = torch.Generator(device=device).manual_seed(SEED + 79)
+    config = make_config(**SCALED)
+    config.data.max_num_particles = LONG_WIDE_SLOTS
+    return fit_and_hold_gradient(
+        device, card, config, "train_scaled_n256",
+        {"epic_wide_forward": TRAIN_BATCHES + 1, "epic_wide_backward": TRAIN_BATCHES},
+        SEED + 79, gains=True)
+
+
+def fit_and_hold_gradient(device, card, config, phase, expected, seed, gains=False):
+    """Phases 79 and 85: Trainer.fit on `config` at B=8192 (TRAIN_BATCHES
+    synthetic batches + 1 validation batch; with `gains` data-dependent
+    gains): exactly the `expected` launches, no plain version, the losses
+    finite and falling; then on a slice of LONG_GRAD_B jets of the first
+    batch, with the same bridge draws, `loss_fn`'s value and every
+    parameter's gradient by the kernels against plain autograd: the losses
+    within LOSS_BOUND, every leaf's gradient within GRAD_BOUND of the leaf's
+    largest. Returns the fit's launches."""
+    n = config.data.max_num_particles
+    gen = torch.Generator(device=device).manual_seed(seed)
     dm = InMemoryDataModule(
         train=[synthetic_training_batch(TRAIN_B, n, 3, 8, gen, device=device)
                for _ in range(TRAIN_BATCHES)],
         valid=[synthetic_training_batch(TRAIN_B, n, 3, 8, gen, device=device)])
-    config = make_config(**SCALED)
-    config.data.max_num_particles = n
     with tempfile.TemporaryDirectory() as tmp:
         trainer = Trainer(MultiModalBridgeMatching(config).to(device), config,
-                          ExperimentsFiles(str(Path(tmp) / "run_scaled_n256")), seed=SEED,
+                          ExperimentsFiles(str(Path(tmp) / f"run_{phase}")), seed=SEED,
                           ema_decay=EMA_DECAY)
         step_losses = []
         train_step = trainer.train_step
@@ -5915,16 +5993,15 @@ def phase_train_scaled_n256(device, card):
 
         trainer.train_step = recording_step
         trainer.setup(steps_per_epoch=TRAIN_BATCHES)
-        divisors = set_gains(trainer, device)
+        divisors = set_gains(trainer, device) if gains else None
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
-        reset_counts()  # the scaled N = 256 training path's run starts here
+        reset_counts()  # the training path's run starts here
         start = time.perf_counter()
         history = trainer.fit(dm, epochs=1)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
-    counts, only = launched({"epic_wide_forward": TRAIN_BATCHES + 1,
-                             "epic_wide_backward": TRAIN_BATCHES})
+    counts, only = launched(expected)
     plain = plain_calls()
     losses = [v.item() for v in step_losses]
     finite = all(torch.isfinite(torch.tensor(losses + [r["val_loss"] for r in history])).tolist())
@@ -5954,7 +6031,7 @@ def phase_train_scaled_n256(device, card):
         if share >= worst:
             worst, worst_leaf = share, name
     loss_diff = abs(slice_losses[0] - slice_losses[1]) / abs(slice_losses[1])
-    emit({"phase": "train_scaled_n256", "B": TRAIN_B, "N": n, "steps": TRAIN_BATCHES,
+    emit({"phase": phase, "B": TRAIN_B, "N": n, "steps": TRAIN_BATCHES,
           "log10_gain_divisors": divisors, "step_losses": losses, "epochs": history,
           "launches": counts, "plain_calls": plain, "fit_seconds": seconds,
           "steps_per_s": TRAIN_BATCHES / seconds,
@@ -5964,11 +6041,11 @@ def phase_train_scaled_n256(device, card):
           "max_grad_diff_over_leaf_max": worst, "worst_leaf": worst_leaf,
           "leaves": len(grads[1]), "grad_bound": GRAD_BOUND, "card": card})
     if not only:
-        raise RuntimeError(f"the scaled N = 256 fit launched {counts}, plain {plain}")
+        raise RuntimeError(f"{phase}: the fit launched {counts}, plain {plain}")
     if not finite or not sum(losses[-2:]) / 2 < losses[0]:
-        raise RuntimeError(f"the scaled N = 256 loss is not finite or did not fall: {losses}")
+        raise RuntimeError(f"{phase}: the loss is not finite or did not fall: {losses}")
     if set(grads[0]) != set(grads[1]) or loss_diff > LOSS_BOUND or worst > GRAD_BOUND:
-        raise RuntimeError(f"the kernels' gradient at N = 256 parts from autograd: {worst_leaf} "
+        raise RuntimeError(f"{phase}: the kernels' gradient parts from autograd: {worst_leaf} "
                            f"{worst}, losses {slice_losses}")
     return counts
 
@@ -5995,6 +6072,368 @@ def long_wide_phases(device, card):
             device, card, width, (LONG_B,), tag, n=LONG_WIDE_SLOTS)
         torch.cuda.empty_cache()
     return k4, k5, times, paths
+
+
+# phases 81-86: K1, K2 and K3 at the hidden widths the packings zero-pad to an
+# instance (48 its own) and on jets of 257-512 slots (a cluster of two row blocks)
+EDGE_WIDTHS = (8, 20, 24, 40, 48, 56)  # padded to 16, 32, 32, 48, 48, 64
+EDGE_WIDTHS_N = (128, 200)
+EDGE_LONG = (16, 24, 64)
+EDGE_LONG_N = (257, 300, 384, 512)
+EDGE_CHECK_B, EDGE_K3_B = 1024, 512
+EDGE_SPARSE_PARTICLES = 19  # the sparse K3 batch's particles a jet, scattered over N slots
+# (hidden, N, B of K1 and K2): hidden 16 at N = 512 over as many particles as the main
+# path's 32768 × 128, and the new instance at the main path's shape; K3 at TRAIN_B
+EDGE_TIMED = ((16, 512, 8192), (48, 128, TIMING_B))
+# phase 83 also times hidden 48 zero-padded to the 64 instance beside its own instance
+EDGE_PAD_FROM, EDGE_PAD_TO = 48, 64
+EDGE_SLOTS = 512  # MBM's served and trained N
+EDGE_FAMILY_HIDDEN = 24
+# K1's and K2's gate in phases 81-82: per particle, K1's gate at hidden 64 (phase 3) and past
+# 128 slots (the card tests). The elementwise form fails near-zero outputs that are
+# differences of larger terms: at hidden 20 (padded to 32) two float32 sums in other orders
+# part one logit of 0.0036 by 1.2e-4 (tests/test_torch_cuda.py on an H100)
+EDGE_GATE = "within_tol_per_particle"
+
+
+def edge_shapes():
+    """(hidden, N) of phases 81 and 82."""
+    return ([(h, n) for h in EDGE_WIDTHS for n in EDGE_WIDTHS_N]
+            + [(h, n) for h in EDGE_LONG for n in EDGE_LONG_N])
+
+
+def share_of_gate(got, ref, gate):
+    """The largest |err| as a share of the gate's bound: elementwise
+    (`within_tol`) or per particle (`within_tol_per_particle`), as `compare`
+    holds them."""
+    if gate == "within_tol":
+        return ((got - ref).abs() / (ATOL + RTOL * ref.abs())).max().item()
+    return compare(got, ref)["worst_particle_err_over_bound"]
+
+
+def edge_k1_packings(device, hidden, n):
+    """K1's three instances at local hidden width `hidden` and n slots,
+    seeded, as the families pack them: MBM's (tokens, the 8-wide head), the
+    absorbing generator's (the 56-wide head, the hidden output) and the
+    transdimensional network's (the folded input, no head, the hidden
+    output): (name, packing, hidden output)."""
+    mbm = make_model(device, hidden)
+    out = [("mbm", with_narrow_buffer(pack_mbm_encoder_params(mbm.encoder, mbm.config)), False)]
+    flow = make_absorbing(device, n=n, hidden=hidden)
+    gen = flow.generator
+    out.append(("absorbing", with_narrow_buffer(pack_mbm_encoder_params(
+        gen, flow.config, head=gen.discrete_head_mlp)), True))
+    td = make_transdim(device, n=n, hidden=hidden)
+    out.append(("transdim", with_narrow_buffer(pack_bare_trunk_params(
+        td.network, td.config, fold_discrete=True)), True))
+    return out
+
+
+def phase_narrow_edges(device, card):
+    """Phase 81. K1 (its three instances) and K2 against their plain versions
+    at every shape of `edge_shapes`, B=EDGE_CHECK_B, jet 1 with one live
+    particle at the last slot, K2 at t = 0.5 and 1 − 1e-4; the same bits on a
+    repeat. Returns the worst share of the gate and error by kernel and
+    shape."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 81)
+    out = {"K1": {}, "K2": {}}
+    for hidden, n in edge_shapes():
+        gate = EDGE_GATE
+        worst, err = 0.0, 0.0
+        for instance, packed, hidden_out in edge_k1_packings(device, hidden, n):
+            args = (packed, *long_inputs(packed, EDGE_CHECK_B, n, device, gen))
+            got = epic_forward(*args, output_hidden_local=hidden_out)
+            again = epic_forward(*args, output_hidden_local=hidden_out)
+            torch.cuda.synchronize()
+            ref = epic_forward_reference(*args, output_hidden_local=hidden_out)
+            got, again, ref = ((a,) if not hidden_out else a for a in (got, again, ref))
+            cmps = [compare(a, r) for a, r in zip(got, ref)]
+            rec = {"phase": "narrow_edges", "kernel": "K1", "instance": instance,
+                   "hidden": hidden, "instance_hidden": packed.dims.hidden, "B": EDGE_CHECK_B,
+                   "N": n, "row_blocks": 2 if n > 256 else 1, "gate": gate,
+                   "worst_err_over_bound": max(share_of_gate(a, r, gate)
+                                               for a, r in zip(got, ref)),
+                   "max_abs_err": max(c["max_abs_err"] for c in cmps),
+                   "hidden_width": got[-1].shape[-1] if hidden_out else None,
+                   "same_bits_on_repeat": all(torch.equal(a, b) for a, b in zip(got, again)),
+                   "finite": all(bool(torch.isfinite(a).all().item()) for a in got)}
+            emit(rec)
+            if not (all(c[gate] for c in cmps) and rec["same_bits_on_repeat"] and rec["finite"]
+                    and (not hidden_out or rec["hidden_width"] == hidden)):
+                raise RuntimeError(f"K1 disagrees with its plain version: {rec}")
+            worst, err = max(worst, rec["worst_err_over_bound"]), max(err, rec["max_abs_err"])
+        out["K1"][f"h{hidden}_n{n}"] = {"worst_share_of_gate": worst, "max_abs_err": err}
+
+        model = make_model(device, hidden)
+        packed = pack_sampler_params(model.encoder, model.config)
+        _, x, k, mask = long_inputs(packed, EDGE_CHECK_B, n, device, gen)
+        k = k.to(torch.int32)
+        u = torch.rand((2, EDGE_CHECK_B, n), generator=gen, device=device)
+        real = mask[..., 0] > 0
+        worst, err = 0.0, 0.0
+        for t in (0.5, 1.0 - 1e-4):
+            x_new, k_new = sampler_step(packed, x, k, mask, u, t, 0.0101, gamma=0.125)
+            x_again, k_again = sampler_step(packed, x, k, mask, u, t, 0.0101, gamma=0.125)
+            torch.cuda.synchronize()
+            x_ref, k_ref = sampler_step_reference(packed, x, k, mask, u, t, 0.0101, gamma=0.125)
+            cmp = compare(x_new, x_ref)
+            mismatch = ((k_new != k_ref)[..., 0] & real).sum().item() / real.sum().item()
+            share = share_of_gate(x_new, x_ref, gate)
+            rec = {"phase": "narrow_edges", "kernel": "K2", "hidden": hidden,
+                   "instance_hidden": packed.dims.hidden, "B": EDGE_CHECK_B, "N": n, "t": t,
+                   "row_blocks": 2 if n > 256 else 1, "gate": gate, "worst_err_over_bound": share,
+                   "max_abs_err": cmp["max_abs_err"], "token_mismatch": mismatch,
+                   "same_bits_on_repeat": bool(torch.equal(x_new, x_again)
+                                               and torch.equal(k_new, k_again))}
+            emit(rec)
+            if not (cmp[gate] and mismatch <= MAX_TOKEN_MISMATCH and rec["same_bits_on_repeat"]):
+                raise RuntimeError(f"K2 disagrees with its plain version: {rec}")
+            worst, err = max(worst, share), max(err, cmp["max_abs_err"])
+        out["K2"][f"h{hidden}_n{n}"] = {"worst_share_of_gate": worst, "max_abs_err": err}
+        torch.cuda.empty_cache()
+    return out
+
+
+def sparse_edge_inputs(B, n, device, gen):
+    """t, x, k and a random mask at n slots, each alive with probability
+    EDGE_SPARSE_PARTICLES / n, every other jet's last slot alive (past the
+    first row block at n > 256); the last jet empty."""
+    mask = (torch.rand((B, n, 1), generator=gen, device=device) < EDGE_SPARSE_PARTICLES / n).float()
+    mask[::2, n - 1] = 1.0
+    mask[-1] = 0.0
+    x = torch.randn((B, n, 3), generator=gen, device=device) * mask
+    k = torch.randint(0, 8, (B, n, 1), generator=gen, device=device) * mask.long()
+    return torch.rand((B, 1, 1), generator=gen, device=device), x, k, mask
+
+
+def phase_narrow_edges_k3(device, card):
+    """Phase 82. K3 (K1's forward + the hand-written backward) against plain
+    autograd under phase 7's rules at every shape of `edge_shapes`,
+    B=EDGE_K3_B, on random non-prefix masks (`scattered_inputs`) and on
+    sparse scattered ones (`sparse_edge_inputs`), of whose held jets B/16
+    must have a particle past slot 256 at N > 256; the rerun gives K1's bits
+    and a repeat the same bits. Returns the worst error and share of the gate
+    by shape."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 82)
+    out, B = {}, EDGE_K3_B
+    for hidden, n in edge_shapes():
+        model = make_model(device, hidden)
+        packed = with_narrow_buffer(pack_mbm_encoder_params(model.encoder, model.config))
+        errors = []
+        for batch in ("dense", "sparse"):
+            t, x, k, mask = (scattered_inputs if batch == "dense" else sparse_edge_inputs)(
+                B, n, device, gen)
+            near = near_kink_jets(packed, t, x, k, mask)
+            g = torch.randn((B, n, 11), generator=gen, device=device) * (~near)[:, None, None]
+            leaf = packed.flat.clone().requires_grad_(True)
+            y = epic_train_forward(packed.rebind(leaf), t, x, k, mask)
+            y.backward(g)
+            rerun = torch.empty((B, n, 11), device=device)
+            again = epic_backward(packed, t, x, k, mask, g, rerun_out=rerun)
+            torch.cuda.synchronize()
+            fwd = compare(y.detach(), epic_forward_reference(packed, t, x, k, mask))
+            bwd = leaf_compare(leaf.grad, epic_backward_reference(packed, t, x, k, mask, g), packed)
+            held_past_256 = int(((~near) & (mask[:, 256:, 0].sum(dim=1) > 0)).sum().item())
+            gate = EDGE_GATE
+            rec = {"phase": "narrow_edges_k3", "hidden": hidden,
+                   "instance_hidden": packed.dims.hidden, "batch": batch, "B": B, "N": n,
+                   "row_blocks": 2 if n > 256 else 1, "forward_gate": gate, "forward": fwd,
+                   "backward": bwd, "near_kink_jets_left_out": int(near.sum().item()),
+                   "kept_jets_with_a_particle_past_256": held_past_256,
+                   "rerun_equals_k1_bits": bool(torch.equal(rerun, epic_forward(packed, t, x, k,
+                                                                                mask))),
+                   "same_bits_on_repeat": bool(torch.equal(again, leaf.grad)),
+                   "finite": bool(torch.isfinite(leaf.grad).all().item())}
+            emit(rec)
+            covered = batch == "dense" or n <= 256 or held_past_256 >= B // 16
+            if not (fwd[gate] and rec["finite"] and covered and rec["same_bits_on_repeat"]
+                    and rec["rerun_equals_k1_bits"] and not bwd["leaves_out_of_bound"]):
+                raise RuntimeError(f"K3 disagrees with plain autograd: {rec}")
+            errors.append(bwd)
+            del leaf, y, again, near, g
+        out[f"h{hidden}_n{n}"] = {
+            "max_abs_err": max(e["max_abs_err"] for e in errors),
+            "worst_leaf_err_over_bound": max(e["worst_leaf_err_over_bound"] for e in errors)}
+        torch.cuda.empty_cache()
+    return out
+
+
+def on_instance(packed, width):
+    """A narrow packing at its own instance's width zero-padded to the wider
+    instance `width`, with its buffer: the same function on another instance."""
+    d = packed.dims
+    flat = pad_hidden(packed.flat, d, width)
+    dp = padded_dims(d, width)
+    return with_narrow_buffer(PackedEncoder(flat, flat_views(flat, dp), dp))
+
+
+def instance_pair(own_fn, wide_fn, card, where, kernel, unpad=None):
+    """One kernel call on its own instance and on the wider one, in turns
+    own, wide, wide, own: both times and the largest difference of their
+    results (K3's padded gradient gathered back to the model's floats by
+    `unpad`)."""
+    own_ms, wide_ms = time_pair(own_fn, wide_fn)
+    own, wide = own_fn(), wide_fn()
+    own, wide = ((own,), (wide,)) if torch.is_tensor(own) else (own, wide)
+    if unpad is not None:
+        wide = tuple(unpad(a) for a in wide)
+    diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(own, wide))
+    tag = f"on_{EDGE_PAD_TO}"
+    rec = {"ms": own_ms, f"{tag}_ms": wide_ms, f"{tag}_over_own": wide_ms / own_ms,
+           f"{tag}_max_abs_diff": diff}
+    emit({"phase": "narrow_edges_time_padded", "kernel": kernel, **where, **rec, "card": card})
+    return {key: v for key, v in rec.items() if key != "ms"}
+
+
+def phase_narrow_edges_time(device, card):
+    """Phase 83. K1 and K2 at each (hidden, N, B) of EDGE_TIMED, K3 there at
+    B=TRAIN_B, each beside its plain version and its bounds (K3's plain is
+    autograd), in turns plain, kernel, kernel, plain; at hidden EDGE_PAD_FROM
+    each also beside the same weights zero-padded to the EDGE_PAD_TO
+    instance. Returns the times and bounds by kernel and shape."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 83)
+    out = {}
+    for hidden, n, B in EDGE_TIMED:
+        model = make_model(device, hidden)
+        packed = with_narrow_buffer(pack_mbm_encoder_params(model.encoder, model.config))
+        sampling = pack_sampler_params(model.encoder, model.config)
+        wide = on_instance(packed, EDGE_PAD_TO) if hidden == EDGE_PAD_FROM else None
+        t, x, k, mask = scattered_inputs(B, n, device, gen)
+        u = torch.rand((2, B, n), generator=gen, device=device)
+        k32 = k.to(torch.int32)
+        where = {"hidden": hidden, "N": n, "B": B}
+        ms, plain_ms = time_pair(lambda: epic_forward(packed, t, x, k, mask),
+                                 lambda: epic_forward_reference(packed, t, x, k, mask))
+        bounds = forward_bounds(packed, B, "forward", n, ms)
+        emit({"phase": "narrow_edges_time", "kernel": "K1", **where, "ms": ms,
+              "plain_ms": plain_ms, **bounds, "card": card})
+        out[f"K1_h{hidden}_n{n}"] = {"ms": ms, "plain_ms": plain_ms, **bounds, "timed_at": where}
+        if wide is not None:
+            out[f"K1_h{hidden}_n{n}"].update(instance_pair(
+                lambda: epic_forward(packed, t, x, k, mask),
+                lambda: epic_forward(wide, t, x, k, mask), card, where, "K1"))
+        ms, plain_ms = time_pair(
+            lambda: sampler_step(sampling, x, k32, mask, u, 0.5, 0.0101, gamma=0.125),
+            lambda: sampler_step_reference(sampling, x, k32, mask, u, 0.5, 0.0101, gamma=0.125))
+        bound = kernel_bound(sampling, B, "sampler_step", n)
+        products = needed_products_tensor_bound_ms(sampling.dims, B, n)
+        emit({"phase": "narrow_edges_time", "kernel": "K2", **where, "ms": ms,
+              "plain_ms": plain_ms, **bound, **against_bounds(bound, ms),
+              "products_tensor_bound_ms": products, "card": card})
+        out[f"K2_h{hidden}_n{n}"] = {"ms": ms, "plain_ms": plain_ms, **bound_fields(bound),
+                                     "products_tensor_bound_ms": products, "timed_at": where}
+        if wide is not None:
+            out[f"K2_h{hidden}_n{n}"].update(instance_pair(
+                lambda: sampler_step(sampling, x, k32, mask, u, 0.5, 0.0101, gamma=0.125),
+                lambda: sampler_step(wide, x, k32, mask, u, 0.5, 0.0101, gamma=0.125),
+                card, where, "K2"))
+        del u, k32, x, k, mask, t
+        torch.cuda.empty_cache()
+        t, x, k, mask = scattered_inputs(TRAIN_B, n, device, gen)
+        g = torch.randn((TRAIN_B, n, 11), generator=gen, device=device)
+        where = {"hidden": hidden, "N": n, "B": TRAIN_B}
+        ms, plain_ms = time_pair(lambda: epic_backward(packed, t, x, k, mask, g),
+                                 lambda: epic_backward_reference(packed, t, x, k, mask, g))
+        bounds = backward_bounds(packed, TRAIN_B, n, ms)
+        emit({"phase": "narrow_edges_time", "kernel": "K3", **where, "backward_ms": ms,
+              "backward_plain_ms": plain_ms, **bounds, "card": card})
+        out[f"K3_h{hidden}_n{n}"] = {"ms": ms, "plain_ms": plain_ms, **bounds, "timed_at": where}
+        if wide is not None:
+            index = hidden_pad_index(packed.dims, EDGE_PAD_TO).to(device)
+            real = index < packed.flat.numel()
+
+            def unpad(grad):
+                return grad.new_zeros(packed.flat.numel()).index_copy_(0, index[real], grad[real])
+
+            out[f"K3_h{hidden}_n{n}"].update(instance_pair(
+                lambda: epic_backward(packed, t, x, k, mask, g),
+                lambda: epic_backward(wide, t, x, k, mask, g), card, where, "K3", unpad))
+        del t, x, k, mask, g
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_slice_n512(device, card):
+    """Phase 84. MBM at config-berlin with max_num_particles 512 and
+    data-dependent gains serves one request of 8192 jets: 99 launches of K2,
+    no other kernel, no plain version, phase 5's checks; then the 99-step
+    kernel path against the module path at B=256 (paths_n512, phase 6's
+    bounds). From the seeded weights alone the 99-step flow leaves float32
+    at N = 512: a quarter of 256 jets' coordinates came out non-finite on
+    the module path (no kernel) on the CPU, |x| up to 5e34 in the rest (at
+    N = 128: all finite, ≤ 1.7e4)."""
+    n = EDGE_SLOTS
+    config = make_config()
+    config.data.max_num_particles = n
+    model = MultiModalBridgeMatching(config)
+    init_mbm_parameters(model, SEED)
+    model = model.to(device).eval()
+    emit({"phase": "slice_n512_init", "log10_gain_divisors": data_dependent_gains(model, device)})
+    gen = torch.Generator(device=device).manual_seed(SEED + 84)
+    batch = gauss_noise_source_batch(TRAIN_B, n, 3, 8, gen, device=device, num_empty=1)
+    torch.cuda.synchronize()
+    reset_counts()  # the N = 512 serving path's run starts here
+    start = time.perf_counter()
+    out = model.predict(batch, generator=gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts, only = launched({"sampler_step": 99})
+    checks = check_generated(out, batch, TRAIN_B, n)
+    emit({"phase": "slice_n512", "B": TRAIN_B, "N": n, "launches": counts,
+          "plain_calls": plain_calls(), "seconds": seconds, "jets_per_s": TRAIN_B / seconds,
+          "card": card, **checks})
+    if not only:
+        raise RuntimeError(f"the N = 512 serving path left its kernels: {counts}")
+    phase_paths(device, model, SCALED_PATHS_B, "paths_n512", n=n)
+    return counts
+
+
+def narrow_edge_phases(device, card):
+    """Phases 81-86: K1 and K2 (81) and K3 (82) at the padded widths and past
+    256 slots against their plain versions, the three timed at hidden 16, N
+    = 512 and hidden 48 (83), MBM at N = 512 served (84) and trained (85),
+    and the absorbing and transdimensional families at hidden 24 served
+    (86). Returns the checks, the times and each path's launches by kernel
+    name."""
+    checks = phase_narrow_edges(device, card)
+    checks["K3"] = phase_narrow_edges_k3(device, card)
+    times = phase_narrow_edges_time(device, card)
+    paths = {"serving_n512": phase_slice_n512(device, card)}
+    torch.cuda.empty_cache()
+    config = make_config()
+    config.data.max_num_particles = EDGE_SLOTS
+    paths["train_n512"] = fit_and_hold_gradient(
+        device, card, config, "train_n512",
+        {"epic_forward": TRAIN_BATCHES + 1, "epic_backward": TRAIN_BATCHES}, SEED + 85,
+        gains=True)
+    torch.cuda.empty_cache()
+    h = EDGE_FAMILY_HIDDEN
+    paths[f"serving_absorbing_h{h}"] = phase_slice_absorbing(
+        device, card, sizes=(ABS_B,), phase=f"slice_absorbing_h{h}", hidden=h)
+    phase_paths_absorbing(device, make_absorbing(device, hidden=h), f"paths_absorbing_h{h}")
+    paths[f"serving_transdim_h{h}"] = phase_slice_transdim(
+        device, card, sizes=(TD_B,), phase=f"slice_transdim_h{h}", hidden=h)
+    torch.cuda.empty_cache()
+    return checks, times, paths
+
+
+def edge_entries(kernels, checks, times, paths):
+    """K1's, K2's and K3's entries of the kernels line gain phases 81-83's
+    checks and times, at the padded widths (`narrow_widths`) and past 256
+    slots (`past_256_slots`), and phases 84-86's launches."""
+    long = lambda key: int(key.split("_n")[1]) > 256
+    for entry, name in zip(kernels[:3], ("K1", "K2", "K3")):
+        by_shape = checks[name]
+        entry["narrow_widths"] = {
+            "checks": {key: v for key, v in by_shape.items() if not long(key)},
+            "times": {key: v for key, v in times.items() if key.startswith(name) and not long(key)}}
+        entry["past_256_slots"] = {
+            "checks": {key: v for key, v in by_shape.items() if long(key)},
+            "times": {key: v for key, v in times.items() if key.startswith(name) and long(key)}}
+        kernel = {"K1": "epic_forward", "K2": "sampler_step", "K3": "epic_backward"}[name]
+        for path, launches in paths.items():
+            if launches.get(kernel):
+                entry["launches_by_path"][path] = launches[kernel]
 
 
 def main():
@@ -6149,6 +6588,14 @@ def main():
             if launches.get(entry["name"]):
                 entry["launches_by_path"][path] = launches[entry["name"]]
     kernels.extend(past_128_entries(k4_long, k5_long, long_times, long_wide_paths))
+    # K1, K2 and K3 at the padded widths and past 256 slots, MBM at N = 512 served and
+    # trained, and the two families at hidden 24
+    edge_checks, edge_times, edge_paths = narrow_edge_phases(device, card)
+    edge_entries(kernels, edge_checks, edge_times, edge_paths)
+    for entry in (k6, k7):
+        for path, launches in edge_paths.items():
+            if launches.get(entry["name"]):
+                entry["launches_by_path"][path] = launches[entry["name"]]
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

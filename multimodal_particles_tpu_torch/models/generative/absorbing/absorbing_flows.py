@@ -195,8 +195,8 @@ class AbsorbingFlow(nn.Module):
         follows absorbing_flows.py:204-245: the wide kernel where
         `wide_supported` takes the trunk, its discrete head and its jets (up
         to 256 slots), the narrow one
-        at the hidden widths it is compiled for, the module trunk (None)
-        otherwise."""
+        at any hidden width up to 64 (zero-padded to one of its instances,
+        `epic_supported`), the module trunk (None) otherwise."""
         gen = self.generator
         head = gen.discrete_head_mlp if self.config.encoder.add_discrete_head else None
         trunk = None

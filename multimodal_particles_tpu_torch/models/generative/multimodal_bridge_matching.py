@@ -126,8 +126,9 @@ class MultiModalBridgeMatching(nn.Module):
 
     def kernel_enabled(self, device) -> bool:
         """Narrow kernel gate (multimodal_bridge_matching.py:114-125 with
-        ops/epic_pallas.py:474-494): hidden ≤ 64, the fused forward, its
-        backward and the whole-step sampler kernel."""
+        ops/epic_pallas.py:474-494): hidden ≤ 64 (zero-padded to an
+        instance) and up to 512 slots, the fused forward, its backward and
+        the whole-step sampler kernel."""
         return self._gate(epic_supported(self.config), device)
 
     def wide_kernel_enabled(self, device) -> bool:

@@ -294,8 +294,9 @@ class TransdimensionalJumpDiffusion(nn.Module):
     def _trunk_layout(self):
         """The trunk's kernel (transdimensional_model.py:325-337): "wide" at
         the widths 128 to 512 and jets of up to 256 slots of
-        `wide_supported`, "narrow" at the hidden
-        widths K1 is compiled for, None when neither takes it."""
+        `wide_supported`, "narrow" at any hidden
+        width up to 64 (zero-padded to one of K1's instances,
+        `epic_supported`), None when neither takes it."""
         if wide_supported(self.config, allow_linear_discrete=True):
             return "wide"
         if epic_supported(self.config, allow_linear_discrete=True):

@@ -7,7 +7,9 @@ is rebuilt when a source or header is newer than it. Sources that share
 device code include a header: epic_forward.cuh (the narrow EPiC layout),
 narrow_tc.cuh (the per-warp tensor-core products and the buffer of the narrow
 forward, the sampler step and the narrow backward; epic_forward_kernel.cuh the
-forward kernel, its two instantiations and the backward's rerun),
+forward kernel, its two instantiations and the backward's rerun;
+epic_backward.cuh the backward kernel, instantiated a source a width:
+epic_backward{,_h32,_h48,_h64}.cu),
 epic_wide.cuh (the wide ones and the tiled products; epic_wide_any.cuh the
 clusters, instantiated a source a width and, past 128 slots, a source a width
 with two row blocks: epic_wide_{forward,backward}_h*{,_r2}.cu), gsdm_blocks.cuh (the

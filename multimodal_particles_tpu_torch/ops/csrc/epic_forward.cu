@@ -18,7 +18,13 @@
 // (narrow_tc.cuh).
 //
 // Design. A persistent grid (as many blocks as fit on the SMs, each walking
-// over jets); a block of one warp per 16 particle slots (⌈N/16⌉ warps).
+// over jets); a block of one warp per 16 particle slots (⌈N/16⌉ warps); a jet
+// of 257–512 slots a thread-block cluster of two such blocks, one a half of
+// its slots, whose pools add both blocks' partial sums through distributed
+// shared memory (narrow_tc.cuh `pool`), so that both run the per-jet MLP on
+// the same bits. Hidden widths 16, 32, 48 and 64 are instances; the wrappers
+// zero-pad any other width up to 64 to the next (exact: a padded unit has
+// zero weights in and out and a zero bias, and leaky(0) = 0).
 //   * A warp's 16 rows go through every per-particle product as
 //     mma.sync.m16n8k8 TF32 products under the 3×TF32 split (tf32x3.cuh):
 //     local_0's particle two thirds (folded with the x and discrete

@@ -15,7 +15,12 @@ namespace mmp {
 
 constexpr int DC = 3;            // continuous features per particle
 constexpr int V = 8;             // token vocabulary
-constexpr int MAX_THREADS = 256; // particle slots a jet, at most
+constexpr int MAX_SLOTS = 512;  // particle slots a jet, at most (two row blocks past 256)
+// the local hidden widths the kernels are instantiated for; the wrappers
+// zero-pad any other width up to 64 to the next (ops/epic_cuda.py)
+inline bool narrow_width(int hidden) {
+  return hidden == 16 || hidden == 32 || hidden == 48 || hidden == 64;
+}
 
 // head_hidden: hidden width of the discrete head's MLP (V for MBM, 56 for the
 // absorbing generator). fold_discrete: the discrete input is the particle's V

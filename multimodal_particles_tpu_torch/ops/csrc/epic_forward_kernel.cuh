@@ -14,13 +14,13 @@ namespace k1 {
 
 using namespace narrow;
 
-constexpr int MAX_K1_THREADS = 512;  // ⌈256 / 16⌉ warps
+constexpr int MAX_K1_THREADS = 512;  // ⌈256 / 16⌉ warps: a block's slots, at most
 
 // What the kernel is written for: any head width (or none), either discrete
 // input, per-jet vectors of any width.
 inline bool forward_dims_supported(const Dims& d) {
-  return (d.hidden == 16 || d.hidden == 32 || d.hidden == 64) && d.head_hidden >= 1 &&
-         d.hidden_glob >= 0 && d.emb_t >= 0 && d.num_blocks >= 0;
+  return narrow_width(d.hidden) && d.head_hidden >= 1 && d.hidden_glob >= 0 && d.emb_t >= 0 &&
+         d.num_blocks >= 0;
 }
 
 // Floats before the staged buffer in shared memory: the two pool buffers,
@@ -116,17 +116,19 @@ __device__ __forceinline__ void leaky_dense_to(const Rec&, float* z, float* out,
 }
 
 // One jet's forward on the calling warp's 16 particle slots: K1's function.
-// Every thread of the block calls it; it synchronises (the pools) and leaves
-// the scratch in use (the caller's barrier frees it for the next jet). `sw`
+// Every thread of the block calls it; it synchronises (the pools, across the
+// jet's row blocks `rb`) and leaves the scratch in use (the caller's barrier
+// frees it for the next jet). `sw`
 // is the buffer (staged or global); `swj` its per-jet entries, the first
 // `L.l0f` floats (the same buffer, or a copy of them in shared memory).
 // FOLD: `k` points at (B, N, V) float channel values, else at (B, N) int
 // tokens. `out` and `hidden` may be null. Returns the thread's rows' final
 // local state h (C fragments), the masked output layer o (n-tile 0 the
 // discrete pre-logits, 1 the continuous outputs) and the rows' masks m.
-template <int H, bool FOLD, class Rec>
+template <int H, bool FOLD, int RB, class Rec>
 __device__ __forceinline__ void forward_jet(const float* sw, const float* swj, const TcLayout& L,
-                                            const Dims& d, const Scratch& S, int jet, int N,
+                                            const Dims& d, const Scratch& S,
+                                            const RowBlocks<RB>& rb, int jet, int N,
                                             const float* __restrict__ t,
                                             const float* __restrict__ x,
                                             const void* __restrict__ k,
@@ -145,7 +147,7 @@ __device__ __forceinline__ void forward_jet(const float* sw, const float* swj, c
   float* gv = S.gv;
   float* gskip = S.gskip;
   float* gnew = S.gnew;
-  const int rows[2] = {16 * warp + g, 16 * warp + g + 8};
+  const int rows[2] = {rb.row0 + 16 * warp + g, rb.row0 + 16 * warp + g + 8};
   const LaneVec none{};
   const size_t p0 = (size_t)jet * N;
 
@@ -232,7 +234,7 @@ __device__ __forceinline__ void forward_jet(const float* sw, const float* swj, c
 
   // ---- the projection's global MLP (epic.py:44-58); the first pool's
   // barrier also makes the time terms visible to warp 0
-  const Pooled pooled = pool<H, true>(h, tq == 0 ? m[0] + m[1] : 0.f, red);
+  const Pooled pooled = pool<H, true>(h, tq == 0 ? m[0] + m[1] : 0.f, red, rb);
   const float denom = fmaxf(pooled.msum, 1.f);
   LaneVec s = pooled.s, sm;
   if (warp == 0) {
@@ -253,7 +255,7 @@ __device__ __forceinline__ void forward_jet(const float* sw, const float* swj, c
     const float* wb = swj + L.blocks + blk * L.block_stride;
     const float* pb = sw + L.pblocks + blk * L.pblock_stride;
     rec.h_in(blk, h);
-    s = pool<H, false>(h, 0.f, red + ((blk + 1) & 1) * nwarps * (H + 1)).s;
+    s = pool<H, false>(h, 0.f, red + ((blk + 1) & 1) * nwarps * (H + 1), rb).s;
     if (warp == 0) {
       rec.pooled(blk, s, denom);
       rec.g_in(blk, gv);
@@ -356,8 +358,9 @@ __device__ __forceinline__ void forward_jet(const float* sw, const float* swj, c
 }
 
 // FOLD: `k` points at (B, N, V) float channel values, else at (B, N) int
-// tokens. `hidden` may be null (no hidden output).
-template <int H, int THREADS_MAX, bool FOLD>
+// tokens. `hidden` may be null (no hidden output). RB: 1, or 2 for a launch
+// in clusters of two blocks a jet (N > 256).
+template <int H, int THREADS_MAX, bool FOLD, int RB>
 __global__ void __launch_bounds__(THREADS_MAX, (min_blocks<H, THREADS_MAX>()))
 epic_forward_kernel(const float* __restrict__ gw, Dims d, const float* __restrict__ t,
                     const float* __restrict__ x, const void* __restrict__ k,
@@ -378,33 +381,40 @@ epic_forward_kernel(const float* __restrict__ gw, Dims d, const float* __restric
   }
   __syncthreads();
   NoRecord rec;
-  for (int jet = blockIdx.x; jet < B; jet += gridDim.x) {
+  const RowBlocks<RB> rb = row_blocks<RB>();
+  rows_begin(rb);
+  // a cluster of row blocks takes a jet: jets by cluster
+  for (int jet = blockIdx.x / RB; jet < B; jet += gridDim.x / RB) {
     float h[H / 8][4], o[2][4], m[2];
-    forward_jet<H, FOLD>(sw, sw, L, d, S, jet, N, t, x, k, mask, out, hidden, rec, h, o, m);
+    forward_jet<H, FOLD>(sw, sw, L, d, S, rb, jet, N, t, x, k, mask, out, hidden, rec, h, o, m);
     __syncthreads();  // the pool, per-jet and time buffers are free for the next jet
   }
+  rows_end(rb);
 }
 
 template <int H, bool FOLD>
 cudaError_t launch_epic_forward(const float* sw, const Dims& d, const float* t, const float* x,
                                 const void* k, const float* mask, float* out, float* hidden,
                                 int B, int N, cudaStream_t stream) {
-  const int threads = 32 * ((N + 15) / 16);
+  const int rb = row_blocks_for(N), threads = block_threads(N);
   const size_t total = sizeof(float) * make_tc_layout(d).total;
   const int staged = total <= MAX_STAGED_BYTES;
   const size_t smem = sizeof(float) * staged_offset(threads / 32, d) + (staged ? total : 0);
-  auto kernel = threads <= 256 ? epic_forward_kernel<H, 256, FOLD>
-                               : epic_forward_kernel<H, MAX_K1_THREADS, FOLD>;
+  // the parent's instances at one row block; past 256 slots the cluster's
+  auto kernel = rb > 1 ? epic_forward_kernel<H, MAX_K1_THREADS, FOLD, 2>
+                : threads <= 256 ? epic_forward_kernel<H, 256, FOLD, 1>
+                                 : epic_forward_kernel<H, MAX_K1_THREADS, FOLD, 1>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int blocks;
-  if ((err = resident_blocks((const void*)kernel, threads, smem, &blocks)) != cudaSuccess) return err;
-  // a persistent grid: every block walks over jets, so a staged buffer is
-  // copied once a block and not once a jet
-  const int grid = B < blocks ? B : blocks;
-  kernel<<<grid, threads, smem, stream>>>(sw, d, t, x, k, mask, out, hidden, B, N, staged);
-  return cudaGetLastError();
+  if ((err = resident_blocks((const void*)kernel, threads, smem, &blocks, rb)) != cudaSuccess)
+    return err;
+  // a persistent grid: every block (cluster of row blocks) walks over jets,
+  // so a staged buffer is copied once a block and not once a jet
+  const int grid = B * rb < blocks ? B * rb : blocks;
+  return launch_rows(kernel, grid, threads, smem, rb, stream, sw, d, t, x, k, mask, out, hidden,
+                     B, N, staged);
 }
 
 }  // namespace k1
@@ -417,7 +427,7 @@ cudaError_t epic_forward_entry(const void* tcw, const void* t, const void* x, co
                                const int* dims, void* stream) {
   const Dims d = dims_from(dims);
   if (!k1::forward_dims_supported(d) || d.fold_discrete != (FOLD ? 1 : 0) || N < 1 ||
-      N > MAX_THREADS || B < 0)
+      N > MAX_SLOTS || B < 0)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const auto* sw = static_cast<const float*>(tcw);
@@ -430,6 +440,7 @@ cudaError_t epic_forward_entry(const void* tcw, const void* t, const void* x, co
   switch (d.hidden) {
     case 16: return k1::launch_epic_forward<16, FOLD>(sw, d, tf, xf, k, mf, of, hf, B, N, s);
     case 32: return k1::launch_epic_forward<32, FOLD>(sw, d, tf, xf, k, mf, of, hf, B, N, s);
+    case 48: return k1::launch_epic_forward<48, FOLD>(sw, d, tf, xf, k, mf, of, hf, B, N, s);
     case 64: return k1::launch_epic_forward<64, FOLD>(sw, d, tf, xf, k, mf, of, hf, B, N, s);
     default: return cudaErrorInvalidValue;
   }

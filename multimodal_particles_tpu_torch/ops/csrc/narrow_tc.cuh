@@ -3,13 +3,19 @@
 // sampler_step.cu) and K3 (the backward, epic_backward.cu, whose rerun is
 // K1's forward), and the buffer they read.
 //
-// A block gives each warp 16 particle slots. A warp's rows go through every
+// A block gives each warp 16 particle slots, at most 256 slots (16 warps) a
+// block. A jet of 257 to 512 slots is a thread-block cluster of two row
+// blocks (`RowBlocks`), each the same plan on its half of the slots; only
+// the pools cross them (below). A warp's rows go through every
 // per-particle product as mma.sync.m16n8k8 TF32 products under the 3×TF32
 // split (tf32x3.cuh, `product`), each product's accumulator passed on as the
 // next one's A fragment: a thread holds columns 2t and 2t + 1 of each 8-column
 // n-tile, and the buffer lays each weight's k-step out so that the mma's k
 // positions t and t + 4 read the inputs 2t and 2t + 1. A masked pool is each
-// warp's column partial sums in shared memory and one barrier (`pool`). The
+// warp's column partial sums in shared memory and one barrier (`pool`); in a
+// cluster of row blocks every block adds both blocks' partials, row block 0
+// first, through distributed shared memory, so that both hold the same bits
+// and run the jet's per-jet MLP alike. The
 // per-jet vector-matrix products run on one warp (`dense*`): H-wide vectors
 // lane-held (`LaneVec`), vectors of any width in shared memory (`SmemVec`),
 // 64 output columns at a time.
@@ -26,6 +32,8 @@
 // to 8-column tiles. The fragments of K3's transposed weights follow
 // (`make_tc_layout_t`); K1 and K2 do not read them.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "epic_forward.cuh"
 #include "tf32x3.cuh"
@@ -320,22 +328,85 @@ __device__ __forceinline__ void at_columns(float (&out)[NT][2], const LaneVec& v
       out[j][e] = __shfl_sync(FULL, 8 * j < 32 ? v.v[0] : v.v[1], (8 * j + 2 * tq + e) & 31);
 }
 
+// ---- jets past 256 slots: a cluster of row blocks
+
+namespace cg = cooperative_groups;
+
+constexpr int MAX_BLOCK_SLOTS = 256;  // a block's slots, at most: 16 warps
+
+// The row blocks of a jet: RB = 1 (a plain launch, the jet's every slot in
+// one block: the kernels' code at N ≤ 256) or 2 (a cluster of two blocks, N =
+// 257 … 512), this block's cluster rank, and the jet's first slot that it
+// takes. Both blocks have the same warps; block r takes the slots
+// r·16·nwarps … + 16·nwarps − 1.
+template <int RB>
+struct RowBlocks {
+  int rank, row0;
+};
+
+__host__ __device__ inline int row_blocks_for(int N) { return N > MAX_BLOCK_SLOTS ? 2 : 1; }
+
+// Threads a block: one warp per 16 of the block's slots.
+__host__ __device__ inline int block_threads(int N) {
+  const int per_block = 16 * row_blocks_for(N);
+  return 32 * ((N + per_block - 1) / per_block);
+}
+
+template <int RB>
+__device__ __forceinline__ RowBlocks<RB> row_blocks() {
+  RowBlocks<RB> r{0, 0};
+  if constexpr (RB > 1) {
+    r.rank = (int)cg::this_cluster().block_rank();
+    r.row0 = r.rank * 16 * (int)(blockDim.x >> 5);
+  }
+  return r;
+}
+
+// The cluster barrier in its two halves: `arrive` releases this thread's
+// writes (shared memory included), `wait` returns once every thread of the
+// cluster has arrived, and acquires theirs. Every thread alternates them.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// A cluster's pools keep one barrier phase open between them: each block
+// arrives when it has read its peer's partial sums, and waits before it
+// writes the next pool's, so that no pool overwrites what a peer still
+// reads. The kernel opens the first phase (`rows_begin`) and closes the last
+// before it exits (`rows_end`), when no peer reads its shared memory any
+// more. No-ops at one row block.
+template <int RB>
+__device__ __forceinline__ void rows_begin(const RowBlocks<RB>&) {
+  if constexpr (RB > 1) cluster_arrive();
+}
+template <int RB>
+__device__ __forceinline__ void rows_end(const RowBlocks<RB>&) {
+  if constexpr (RB > 1) cluster_wait();
+}
+
 // Column sums over the jet's rows of h (C fragments: an 8-column n-tile of a
 // 16-row product, e = 0, 1 row g at columns 2t, 2t + 1, e = 2, 3 row g + 8;
 // already times the mask): every warp gets them lane-held, in warp order, and
 // with MASK also Σ mask from mrows (the thread's rows' mask, given by one lane
 // of each quad). One barrier; `red` is this pool's buffer of nwarps × (H + 1).
+// In a cluster of row blocks (`rb`) the barrier is the cluster's and the sums
+// run over both blocks' warps, row block 0's first.
 struct Pooled {
   LaneVec s;
   float msum;
 };
 
-template <int H, bool MASK>
-__device__ __forceinline__ Pooled pool(const float (&h)[H / 8][4], float mrows, float* red) {
+template <int H, bool MASK, int RB>
+__device__ __forceinline__ Pooled pool(const float (&h)[H / 8][4], float mrows, float* red,
+                                       const RowBlocks<RB>& rb) {
   constexpr int NT = H / 8;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int g = lane >> 2, tq = lane & 3;
   float* mine = red + warp * (H + 1);
+  if constexpr (RB > 1) cluster_wait();  // the peer has read what this pool overwrites
 #pragma unroll
   for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -352,20 +423,43 @@ __device__ __forceinline__ Pooled pool(const float (&h)[H / 8][4], float mrows, 
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
     if (lane == 0) mine[H] = s;
   }
-  __syncthreads();
   Pooled out;
+  if constexpr (RB == 1) {
+    __syncthreads();
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int c = lane + 32 * q;
-    float s = 0.f;
-    if (c < H)
-      for (int w = 0; w < nwarps; ++w) s += red[w * (H + 1) + c];
-    out.s.v[q] = s;
+    for (int q = 0; q < 2; ++q) {
+      const int c = lane + 32 * q;
+      float s = 0.f;
+      if (c < H)
+        for (int w = 0; w < nwarps; ++w) s += red[w * (H + 1) + c];
+      out.s.v[q] = s;
+    }
+    out.msum = 0.f;
+    if (MASK)
+      for (int w = 0; w < nwarps; ++w) out.msum += red[w * (H + 1) + H];
+    return out;
+  } else {
+    cluster_arrive();
+    cluster_wait();  // every block's partial sums
+    const float* part[2];
+    for (int r = 0; r < 2; ++r)
+      part[r] = r == rb.rank ? red : cg::this_cluster().map_shared_rank(red, r);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int c = lane + 32 * q;
+      float s = 0.f;
+      if (c < H)
+        for (int r = 0; r < 2; ++r)
+          for (int w = 0; w < nwarps; ++w) s += part[r][w * (H + 1) + c];
+      out.s.v[q] = s;
+    }
+    out.msum = 0.f;
+    if (MASK)
+      for (int r = 0; r < 2; ++r)
+        for (int w = 0; w < nwarps; ++w) out.msum += part[r][w * (H + 1) + H];
+    cluster_arrive();  // this block has read its peer's partial sums
+    return out;
   }
-  out.msum = 0.f;
-  if (MASK)
-    for (int w = 0; w < nwarps; ++w) out.msum += red[w * (H + 1) + H];
-  return out;
 }
 
 __device__ __forceinline__ LaneVec lane_load(const float* p, int n) {
@@ -393,16 +487,29 @@ constexpr size_t MAX_STAGED_BYTES = 64 * 1024;
 template <int H, int THREADS_MAX>
 constexpr int min_blocks() { return THREADS_MAX > 256 ? 1 : H == 16 ? 4 : H == 32 ? 2 : 1; }
 
+// The cluster launch attribute of `rb` row blocks.
+inline cudaLaunchAttribute cluster_of(int rb) {
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = rb;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  return attr;
+}
+
 // Blocks of `kernel` resident on the card at once (SMs × blocks an SM at
-// `threads` and `smem`), the size of a persistent grid. Asked of the runtime
-// once a (device, kernel, threads, shared memory), not at each launch: a
-// request of 1024 jets is bound by the host.
-inline cudaError_t resident_blocks(const void* kernel, int threads, size_t smem, int* blocks) {
+// `threads` and `smem`; at two row blocks a jet, twice the clusters of two
+// that the card holds, cudaOccupancyMaxActiveClusters), the size of a
+// persistent grid. Asked of the runtime once a (device, kernel, threads,
+// shared memory, row blocks), not at each launch: a request of 1024 jets is
+// bound by the host.
+inline cudaError_t resident_blocks(const void* kernel, int threads, size_t smem, int* blocks,
+                                   int rb = 1) {
   struct Config {
     int dev = -1, threads = 0;
     const void* kernel = nullptr;
     size_t smem = 0;
-    int blocks = 0;
+    int rb = 0, blocks = 0;
   };
   static thread_local Config cache[8];
   static thread_local int next = 0;
@@ -410,19 +517,58 @@ inline cudaError_t resident_blocks(const void* kernel, int threads, size_t smem,
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   for (const Config& c : cache)
-    if (c.dev == dev && c.threads == threads && c.kernel == kernel && c.smem == smem) {
+    if (c.dev == dev && c.threads == threads && c.kernel == kernel && c.smem == smem && c.rb == rb) {
       *blocks = c.blocks;
       return cudaSuccess;
     }
-  int sms, per_sm;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  cache[next] = Config{dev, threads, kernel, smem, sms * per_sm};
+  int count;
+  if (rb == 1) {
+    int sms, per_sm;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    count = sms * per_sm;
+  } else {
+    cudaLaunchAttribute attr = cluster_of(rb);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(rb);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    int clusters;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    count = clusters * rb;
+  }
+  cache[next] = Config{dev, threads, kernel, smem, rb, count};
   next = (next + 1) % 8;
-  *blocks = sms * per_sm;
+  *blocks = count;
   return cudaSuccess;
+}
+
+// kernel<<<grid, threads, smem, stream>>>(args…), as clusters of `rb` row
+// blocks when rb > 1 (grid a multiple of rb).
+template <class... Params, class... Args>
+cudaError_t launch_rows(void (*kernel)(Params...), int grid, int threads, size_t smem, int rb,
+                        cudaStream_t stream, Args... args) {
+  if (rb == 1) {
+    kernel<<<grid, threads, smem, stream>>>(args...);
+    return cudaGetLastError();
+  }
+  cudaLaunchAttribute attr = cluster_of(rb);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace narrow

@@ -7,7 +7,12 @@
 // x ← (x + dt·cont)·mask → telegraph single-jump token update.
 //
 // Design. A persistent grid (as many blocks as fit on the SMs, each walking
-// over jets); a block of one warp per 16 particle slots (⌈N/16⌉ warps).
+// over jets); a block of one warp per 16 particle slots (⌈N/16⌉ warps); a jet
+// of 257–512 slots a cluster of two such blocks, one a half of its slots,
+// whose pools add both blocks' partial sums (narrow_tc.cuh `pool`), so that
+// both run the per-jet MLP on the same bits; the Euler and telegraph updates
+// are a row's own. Hidden widths 16, 32, 48 and 64 are instances; the wrapper
+// zero-pads any other width up to 64 to the next.
 //   * A warp's 16 rows go through every per-particle product as
 //     mma.sync.m16n8k8 TF32 products under the 3×TF32 split (tf32x3.cuh):
 //     local_0's particle part, fc_local1's particle third and fc_local2 of
@@ -68,13 +73,13 @@ namespace k2 {
 
 using namespace narrow;
 
-constexpr int MAX_K2_THREADS = 512;  // ⌈256 / 16⌉ warps
+constexpr int MAX_K2_THREADS = 512;  // ⌈256 / 16⌉ warps: a block's slots, at most
 
 // What the kernel is written for: a token input and a V-wide head (as every
 // narrow kernel but the forward).
 inline bool sampler_dims_supported(const Dims& d) {
-  return token_layout(d) && (d.hidden == 16 || d.hidden == 32 || d.hidden == 64) &&
-         d.hidden_glob >= 0 && d.emb_t >= 0 && d.num_blocks >= 0;
+  return token_layout(d) && narrow_width(d.hidden) && d.hidden_glob >= 0 && d.emb_t >= 0 &&
+         d.num_blocks >= 0;
 }
 
 // Floats before the staged buffer in shared memory: the pool buffers, the
@@ -87,7 +92,7 @@ __host__ __device__ inline int staged_offset(int nwarps, const Dims& d) {
 }
 
 
-template <int H, int THREADS_MAX>
+template <int H, int THREADS_MAX, int RB>
 __global__ void __launch_bounds__(THREADS_MAX, (min_blocks<H, THREADS_MAX>()))
 sampler_step_kernel(const float* __restrict__ gw, Dims d, const float* __restrict__ x,
                     const int* __restrict__ k, const float* __restrict__ mask,
@@ -134,7 +139,9 @@ sampler_step_kernel(const float* __restrict__ gw, Dims d, const float* __restric
     sw = wsm;
   }
   __syncthreads();
-  const int rows[2] = {16 * warp + g, 16 * warp + g + 8};
+  // past 256 slots a jet is a cluster of two row blocks (narrow_tc.cuh)
+  const RowBlocks<RB> rb = row_blocks<RB>();
+  const int rows[2] = {rb.row0 + 16 * warp + g, rb.row0 + 16 * warp + g + 8};
 
   // local_0's time third, the same for every particle of every jet (t is one
   // scalar a step)
@@ -153,7 +160,8 @@ sampler_step_kernel(const float* __restrict__ gw, Dims d, const float* __restric
   }
 
 
-  for (int jet = blockIdx.x; jet < B; jet += gridDim.x) {
+  rows_begin(rb);
+  for (int jet = blockIdx.x / RB; jet < B; jet += gridDim.x / RB) {
   const size_t p0 = (size_t)jet * N;
   // the thread's two rows' inputs; rows past N are empty slots
   float xv[2][DC], m[2];
@@ -198,7 +206,7 @@ sampler_step_kernel(const float* __restrict__ gw, Dims d, const float* __restric
   }
 
   // ---- the projection's global MLP (epic.py:44-58)
-  const Pooled pooled = pool<H, true>(h, tq == 0 ? m[0] + m[1] : 0.f, red);
+  const Pooled pooled = pool<H, true>(h, tq == 0 ? m[0] + m[1] : 0.f, red, rb);
   const float denom = fmaxf(pooled.msum, 1.f);
   LaneVec s = pooled.s, sm;
   if (warp == 0) {
@@ -215,7 +223,7 @@ sampler_step_kernel(const float* __restrict__ gw, Dims d, const float* __restric
   for (int blk = 0; blk < d.num_blocks; ++blk) {
     const float* wb = sw + L.blocks + blk * L.block_stride;
     const float* pb = sw + L.pblocks + blk * L.pblock_stride;
-    s = pool<H, false>(h, 0.f, red + ((blk + 1) & 1) * nwarps * (H + 1)).s;
+    s = pool<H, false>(h, 0.f, red + ((blk + 1) & 1) * nwarps * (H + 1), rb).s;
     if (warp == 0) {
       sm.v[0] = s.v[0] / denom;
       sm.v[1] = s.v[1] / denom;
@@ -357,6 +365,7 @@ sampler_step_kernel(const float* __restrict__ gw, Dims d, const float* __restric
   }
   __syncthreads();  // the pool and per-jet buffers are free for the next jet
   }
+  rows_end(rb);
 }
 
 template <int H>
@@ -364,23 +373,26 @@ cudaError_t launch_sampler_step(const float* sw, const Dims& d, const float* x, 
                                 const float* mask, const float* u, float* x_out, int* k_out,
                                 float t, float dt, float gamma, int B, int N,
                                 cudaStream_t stream) {
-  const int threads = 32 * ((N + 15) / 16);
+  const int rb = row_blocks_for(N), threads = block_threads(N);
   const size_t total = sizeof(float) * make_tc_layout(d).total;
   const int staged = total <= MAX_STAGED_BYTES;
   const size_t smem =
       sizeof(float) * staged_offset(threads / 32, d) + (staged ? total : 0);
-  auto kernel = threads <= 256 ? sampler_step_kernel<H, 256> : sampler_step_kernel<H, MAX_K2_THREADS>;
+  // the parent's instances at one row block; past 256 slots the cluster's
+  auto kernel = rb > 1 ? sampler_step_kernel<H, MAX_K2_THREADS, 2>
+                : threads <= 256 ? sampler_step_kernel<H, 256, 1>
+                                 : sampler_step_kernel<H, MAX_K2_THREADS, 1>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int blocks;
-  if ((err = resident_blocks((const void*)kernel, threads, smem, &blocks)) != cudaSuccess) return err;
-  // a persistent grid: every block walks over jets, so a staged buffer is
-  // copied once a block and not once a jet
-  const int grid = B < blocks ? B : blocks;
-  kernel<<<grid, threads, smem, stream>>>(sw, d, x, k, mask, u, x_out, k_out, t, dt, gamma, B, N,
-                                          staged);
-  return cudaGetLastError();
+  if ((err = resident_blocks((const void*)kernel, threads, smem, &blocks, rb)) != cudaSuccess)
+    return err;
+  // a persistent grid: every block (cluster of row blocks) walks over jets,
+  // so a staged buffer is copied once a block and not once a jet
+  const int grid = B * rb < blocks ? B * rb : blocks;
+  return launch_rows(kernel, grid, threads, smem, rb, stream, sw, d, x, k, mask, u, x_out, k_out,
+                     t, dt, gamma, B, N, staged);
 }
 
 }  // namespace k2
@@ -391,7 +403,7 @@ extern "C" int mmp_sampler_step(const void* tcw, const void* x, const void* k, c
                                 float gamma, int B, int N, const int* dims, void* stream) {
   using namespace mmp;
   const Dims d = dims_from(dims);
-  if (!k2::sampler_dims_supported(d) || N < 1 || N > MAX_THREADS) return cudaErrorInvalidValue;
+  if (!k2::sampler_dims_supported(d) || N < 1 || N > MAX_SLOTS) return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const auto* sw = static_cast<const float*>(tcw);
   const auto* xf = static_cast<const float*>(x);
@@ -404,6 +416,7 @@ extern "C" int mmp_sampler_step(const void* tcw, const void* x, const void* k, c
   switch (d.hidden) {
     case 16: return k2::launch_sampler_step<16>(sw, d, xf, ki, mf, uf, xo, ko, t, dt, gamma, B, N, s);
     case 32: return k2::launch_sampler_step<32>(sw, d, xf, ki, mf, uf, xo, ko, t, dt, gamma, B, N, s);
+    case 48: return k2::launch_sampler_step<48>(sw, d, xf, ki, mf, uf, xo, ko, t, dt, gamma, B, N, s);
     case 64: return k2::launch_sampler_step<64>(sw, d, xf, ki, mf, uf, xo, ko, t, dt, gamma, B, N, s);
     default: return cudaErrorInvalidValue;
   }

@@ -57,12 +57,15 @@ from multimodal_particles_tpu_torch.models.architectures.utils import (
 )
 from multimodal_particles_tpu_torch.ops import _build
 
-# widths the narrow kernels are compiled for (ops/csrc/epic_forward.cuh's DC, V and
-# MAX_THREADS; each kernel's instances at hidden 16, 32 and 64)
+# widths the narrow kernels are compiled for (ops/csrc/epic_forward.cuh's DC, V,
+# MAX_SLOTS and `narrow_width`; each kernel's instances at hidden 16, 32, 48 and 64)
 DIM_C = 3
 VOCAB = 8
-HIDDEN_WIDTHS = (16, 32, 64)
-MAX_PARTICLES = 256  # K1, K2 and K3: one warp per 16 particle slots, at most 16 warps
+HIDDEN_WIDTHS = (16, 32, 48, 64)
+MAX_HIDDEN = 64  # the packings zero-pad any hidden width up to it to the next instance
+# K1, K2 and K3: one warp per 16 particle slots, at most 16 warps a block; a jet
+# of 257-512 slots is a cluster of two such blocks (ops/csrc/narrow_tc.cuh)
+MAX_PARTICLES = 512
 MAX_HEAD_HIDDEN = 256  # the discrete head widths K1 takes
 
 
@@ -78,6 +81,14 @@ class EpicDims:
     add_discrete_head: bool
     head_hidden: int = 8  # hidden width of the discrete head's MLP
     fold_discrete: bool = False  # the discrete input is a Dense over the V channel values
+    # the model's local hidden width where `hidden` is the kernels' zero-padded one
+    # (`padded_dims`); 0 where they are the same
+    model_hidden: int = 0
+
+    @property
+    def hidden_local(self) -> int:
+        """The model's local hidden width: the width of the hidden output."""
+        return self.model_hidden or self.hidden
 
     @classmethod
     def from_config(cls, config, head_hidden: int = 8, add_discrete_head=None,
@@ -147,6 +158,85 @@ def _walk(flat: torch.Tensor, entries):
 def flat_views(flat: torch.Tensor, d: EpicDims) -> Dict[str, torch.Tensor]:
     """Named (out, in) views into a flat buffer in weight_layout order."""
     return dict(_walk(flat, weight_layout(d)))
+
+
+def kernel_hidden(hidden: int) -> int:
+    """The narrow kernels' instance for a local hidden width ≤ MAX_HIDDEN:
+    the narrowest of HIDDEN_WIDTHS that holds it."""
+    return next(w for w in HIDDEN_WIDTHS if w >= hidden)
+
+
+def padded_dims(d: EpicDims, width: Optional[int] = None) -> EpicDims:
+    """`d` at the kernels' hidden width (`kernel_hidden`, or the instance
+    `width`), the model's width kept as `model_hidden`; `d` itself at its
+    own instance's width."""
+    width = width or kernel_hidden(d.hidden)
+    if width == d.hidden:
+        return d
+    return dataclasses.replace(d, hidden=width, model_hidden=d.hidden)
+
+
+def _hidden_axes(name: str, d: EpicDims):
+    """The segments of each axis of a packed weight: "H" for the local hidden
+    width, else a fixed width (the inputs of a layer over a concatenation, in
+    their order). Weights without an H-wide axis: None."""
+    prefix, _, layer = name.rpartition("_")
+    base = prefix if layer.isdigit() else name  # w_fg1_0 → w_fg1
+    H, Hg, Et = "H", d.hidden_glob, d.emb_t
+    return {
+        "w_l0": ((H,), (Et + d.emb_x + d.emb_k,)), "b_l0": ((H,),),
+        "w_g0": ((H,), (H, H, Et)), "b_g0": ((H,),), "w_g1": ((H,), (H,)), "b_g1": ((H,),),
+        "w_g2": ((Hg,), (H,)),
+        "w_fg1": ((H,), (H, H, Hg, Et)), "b_fg1": ((H,),), "w_fg2": ((Hg,), (H,)),
+        "w_fl1": ((H,), (H, Hg, Et)), "b_fl1": ((H,),), "w_fl2": ((H,), (H,)), "b_fl2": ((H,),),
+        "w_out_c": ((DIM_C,), (H,)), "w_out_d": ((VOCAB,), (H,)),
+    }.get(base)
+
+
+def _axis_map(segments, H: int, Hp: int) -> torch.Tensor:
+    """Per position of the padded axis, the real axis's position; −1 in a pad."""
+    out, at = [], 0
+    for seg in segments:
+        n = H if seg == "H" else seg
+        out.append(torch.arange(at, at + n))
+        if seg == "H":
+            out.append(torch.full((Hp - H,), -1))
+        at += n
+    return torch.cat(out)
+
+
+@functools.lru_cache(maxsize=None)
+def hidden_pad_index(d: EpicDims, width: Optional[int] = None) -> torch.Tensor:
+    """The gather that zero-pads a narrow packing at the model's hidden width
+    `d.hidden` to the kernels' (`padded_dims`; or to the instance `width`,
+    as chip_smoke.py times hidden 48 on the 64 instance): per float of the
+    padded layout, its index into [flat ‖ 0]. A padded unit has zero weights in and
+    out and a zero bias, so leaky(0) = 0 keeps it 0 through every layer and
+    the pooled sums: the padded network computes the model's outputs exactly,
+    and autograd through the gather drops the gradient of the pads."""
+    dp = padded_dims(d, width)
+    n = sum(math.prod(shape) for _, shape in weight_layout(d))
+    real = dict(_walk(torch.arange(n), weight_layout(d)))
+    parts = []
+    for name, _ in weight_layout(dp):
+        w, axes = real[name], _hidden_axes(name, d)
+        if axes is not None:
+            maps = [_axis_map(seg, d.hidden, dp.hidden) for seg in axes]
+            if len(maps) == 1:
+                w = torch.where(maps[0] >= 0, w[maps[0].clamp(min=0)], n)
+            else:
+                rows, cols = maps
+                w = w[rows.clamp(min=0)][:, cols.clamp(min=0)]
+                w = torch.where((rows[:, None] >= 0) & (cols[None, :] >= 0), w, n)
+        parts.append(w.reshape(-1))
+    return torch.cat(parts)
+
+
+def pad_hidden(flat: torch.Tensor, d: EpicDims, width: Optional[int] = None) -> torch.Tensor:
+    """A narrow-layout buffer at the model's hidden width → the buffer at
+    the kernels' (`hidden_pad_index`), differentiable."""
+    index = hidden_pad_index(d, width).to(flat.device)
+    return torch.cat([flat, flat.new_zeros(1)])[index]
 
 
 def transposed_in_wide(name: str, shape) -> bool:
@@ -464,7 +554,9 @@ def pack_encoder(encoder, d: EpicDims, layout: str = "narrow", differentiable: b
     `layout`'s order: matrices (out, in) for the narrow kernels, (in, out)
     for the wide ones (`wide_weight_layout`), whose forward kernel also gets
     its tensor-core weights here, once a packing (a request's sampler steps
-    and a train step's forward reuse them). With `differentiable`, `flat`
+    and a train step's forward reuse them). The narrow layout at a hidden
+    width between the kernels' instances is zero-padded to the next
+    (`pad_hidden`; its dims `padded_dims`). With `differentiable`, `flat`
     is a non-leaf of the autograd graph."""
     transpose = layout == "wide"
     with torch.set_grad_enabled(differentiable and torch.is_grad_enabled()):
@@ -474,6 +566,9 @@ def pack_encoder(encoder, d: EpicDims, layout: str = "narrow", differentiable: b
             .reshape(-1).float()
             for name, shape in weight_layout(d)
         ])
+        if layout == "narrow" and d.hidden not in HIDDEN_WIDTHS and d.hidden <= MAX_HIDDEN:
+            # the weight norm is resolved above, at the model's width
+            flat, d = pad_hidden(flat, d), padded_dims(d)
     tensor_core = tensor_core_weights(flat, d) if layout == "wide" else None
     return PackedEncoder(flat, LAYOUT_VIEWS[layout](flat, d), d, layout, tensor_core)
 
@@ -536,11 +631,13 @@ def epic_pattern_supported(config, allow_linear_discrete: bool = False) -> bool:
 
 
 def epic_supported(config, allow_linear_discrete: bool = False) -> bool:
-    """True when the encoder matches what the narrow kernels are compiled for
-    (epic_pallas.py:474-494, without the TPU-only N % 128 condition)."""
+    """True when the encoder matches what the narrow kernels take
+    (epic_pallas.py:474-494, without the TPU-only N % 128 condition): any
+    local hidden width up to 64 (the packings zero-pad it to the next
+    instance) and jets of up to 512 slots."""
     return (
         epic_pattern_supported(config, allow_linear_discrete)
-        and config.encoder.dim_hidden_local in HIDDEN_WIDTHS
+        and 1 <= config.encoder.dim_hidden_local <= MAX_HIDDEN
         and 1 <= config.data.max_num_particles <= MAX_PARTICLES
     )
 
@@ -630,6 +727,12 @@ def forward_from_temb(packed: PackedEncoder, temb, x, k, mask, preacts=None,
     return cont, disc
 
 
+def model_width(hidden, d: EpicDims):
+    """A hidden state (B, N, d.hidden) at the model's width, contiguous: a
+    zero-padded packing's pads cut off."""
+    return hidden if d.model_hidden == 0 else hidden[..., :d.model_hidden].contiguous()
+
+
 def epic_forward_reference(packed: PackedEncoder, t, x, k, mask, output_hidden_local=False):
     """Plain PyTorch version of the kernel: (B, N, 3 + 8) head outputs
     (continuous ‖ discrete logits); with `output_hidden_local` also the
@@ -639,7 +742,7 @@ def epic_forward_reference(packed: PackedEncoder, t, x, k, mask, output_hidden_l
     cont, disc, h = forward_from_temb(packed, temb, x.float(), k, mask.float(),
                                       return_hidden=True)
     out = torch.cat([cont, disc], dim=-1)
-    return (out, h) if output_hidden_local else out
+    return (out, model_width(h, packed.dims)) if output_hidden_local else out
 
 
 epic_forward_reference.calls = 0
@@ -710,7 +813,8 @@ def epic_forward(packed: PackedEncoder, t, x, k, mask, output_hidden_local=False
     float32; with `output_hidden_local` also the trunk's last local hidden
     state (B, N, H), written by the same launch. CPU tensors take the plain
     version; CUDA tensors launch the kernel or raise. The kernel reads the
-    packing's first `tensor_core` buffer (`with_narrow_buffer`)."""
+    packing's first `tensor_core` buffer (`with_narrow_buffer`). A zero-padded
+    packing's hidden output comes back at the model's width."""
     if x.device.type == "cpu":
         return epic_forward_reference(packed, t, x, k, mask, output_hidden_local)
     check_narrow_packing(packed, any_head_width=True)
@@ -744,7 +848,7 @@ def epic_forward(packed: PackedEncoder, t, x, k, mask, output_hidden_local=False
         )
     _build.check(lib, rc, "mmp_epic_forward")
     epic_forward.launches += 1
-    return (out, hidden) if output_hidden_local else out
+    return (out, model_width(hidden, packed.dims)) if output_hidden_local else out
 
 
 epic_forward.launches = 0

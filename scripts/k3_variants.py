@@ -4,7 +4,7 @@ source with one part taken out, on one GPU, in one process.
 
     python3 scripts/k3_variants.py [--other DIR]
 
-Each variant is `ops/csrc/epic_backward.cu` (with the headers it includes,
+Each variant is `ops/csrc/epic_backward.cuh` and its sources (with the headers it includes,
 K1's forward among them) edited as text (EDITS below, and the edits of
 `narrow_tc.cuh` that kernel_variants.py holds), built with nvcc into a
 temporary directory, the builds in parallel. The variants compute wrong
@@ -69,8 +69,9 @@ from multimodal_particles_tpu_torch.ops.epic_vjp_cuda import (  # noqa: E402
     near_kink_jets,
 )
 
-SOURCES = ("epic_forward.cu", "epic_backward.cu")
-K3 = "epic_backward.cu"
+SOURCES = ("epic_forward.cu", "epic_backward.cu", "epic_backward_h32.cu", "epic_backward_h48.cu",
+           "epic_backward_h64.cu")
+K3 = "epic_backward.cuh"  # the kernel and its launches; epic_backward*.cu instantiate them
 SMALL_MMA = ("      mma(small, A[ks].lo, b.hi);\n      mma(acc, A[ks].hi, b.hi);\n"
              "      mma(small, A[ks].hi, b.lo);\n")
 # the records at the start of the planned shared memory, counted first
@@ -134,7 +135,8 @@ def bind(lib, src):
     kv.bind_entries(lib, {
         "mmp_epic_forward": kv._build._SIGNATURES["mmp_epic_forward"],
         "mmp_epic_backward_workspace": kv._build._SIGNATURES["mmp_epic_backward_workspace"],
-        "mmp_epic_backward": pkb.narrow_backward_signature((src / K3).read_text()),
+        "mmp_epic_backward": pkb.narrow_backward_signature("".join(
+            (src / f).read_text() for f in ("epic_backward.cu", K3) if (src / f).exists())),
     })
 
 

@@ -58,8 +58,10 @@ bits are the same.
 
 The FFMA K1's and K3's sources (before their tensor-core kernels) build in
 minutes; `--kernels` leaves them out when their sources did not change.
-With `--time`, K4, K5, K6, K7 and K8 (those chosen) are also timed under both
-builds in turns at their main paths' shapes (`time_head_kernels`). One JSON line a comparison; exit code 1
+K1, K2 and K3 are also compared at hidden 32 (3 blocks, N=200) and 64 (4
+blocks, N=256), B=512 (K1's and K2's x' per particle, K3's per leaf). With
+`--time`, the kernels chosen are also timed under both builds in turns at
+their main paths' shapes (`time_head_kernels`). One JSON line a comparison; exit code 1
 if any output held to the bits differs or a share exceeds 1. For a change
 to a header that several kernels share.
 """
@@ -116,7 +118,8 @@ KERNELS = {
     "K7": ("gsdm_stack.cu", "mmp_gsdm_stack"),
     "K8": ("attention_core.cu", "mmp_attention_core"),
 }
-HEADERS = ("epic_forward.cuh", "epic_forward_kernel.cuh", "epic_wide.cuh", "epic_wide_any.cuh",
+HEADERS = ("epic_backward.cuh", "epic_forward.cuh", "epic_forward_kernel.cuh", "epic_wide.cuh",
+           "epic_wide_any.cuh",
            "epic_wide_forward_any.cuh", "epic_wide_backward.cuh", "epic_wide_backward_any.cuh",
            "gsdm_blocks.cuh", "gsdm_stack.cuh", "narrow_tc.cuh", "survival_head.cuh",
            "tf32x3.cuh")
@@ -130,6 +133,8 @@ WIDE_SOURCES = {k: tuple(f"{stem}_c{w}.cu" for w in (256, 384, 512))
 WIDE_SOURCES.update({k: tuple(f"{stem}_h{w}{rows}.cu" for rows in ("", "_r2")
                            for w in (128, 256, 384, 512))
                      for k, stem in (("K4", "epic_wide_forward"), ("K5", "epic_wide_backward"))})
+# K3's instances at hidden 32, 48 and 64 (since the instance at 48), where the revision has them
+WIDE_SOURCES["K3"] = tuple(f"epic_backward_h{w}.cu" for w in (32, 48, 64))
 K1_FOLD = ("epic_forward_fold.cu", "mmp_epic_forward_fold")  # K1's folded-input instantiation
 K1_TOL = 1e-4  # K1's gate, elementwise (atol = rtol), at the three shapes held
 K4_TOL = 1e-4  # K4's gate against its plain version, per particle (atol = rtol)
@@ -157,7 +162,15 @@ def build(csrc: Path, workdir: Path, kernels) -> ctypes.CDLL:
     if "K1" not in kernels:
         (src / "error_string.cu").write_text(ERROR_STRING_STUB)
     _build.CSRC_DIR, _build.BUILD_DIR = src, workdir / "build"
-    lib = ctypes.CDLL(str(_build.build_library().path))
+    built = _build.build_library()
+    lib = ctypes.CDLL(str(built.path))
+    # ptxas's registers and spills of each kernel (`-Xptxas=-v`), entry by entry
+    lib.ptxas, entry = {}, None
+    for line in built.log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and ("registers" in line or "spill" in line):
+            lib.ptxas.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
     names = [KERNELS[k][1] for k in kernels]
     if "K1" in kernels:
         names.append(K1_FOLD[1])
@@ -168,7 +181,10 @@ def build(csrc: Path, workdir: Path, kernels) -> ctypes.CDLL:
     # which of K2's designs the build holds (`sampler_step` reads it), and
     # each entry's source (K5's signature follows it)
     lib.text = (src / KERNELS["K2"][0]).read_text() if "K2" in kernels else ""
-    text = {name: (src / KERNELS[k][0]).read_text() for k in kernels for name in [KERNELS[k][1]]}
+    # (K3's kernel lives in epic_backward.cuh since its instances moved to sources of their own)
+    text = {name: "".join((src / f).read_text() for f in (KERNELS[k][0], "epic_backward.cuh")
+                          if (src / f).exists())
+            for k in kernels for name in [KERNELS[k][1]]}
     # K1 on the tensor cores reads the buffer it shares with K2, the FFMA K1
     # before it the packed weights (one signature); K4 before its tensor-core
     # products takes no prepared weights, nor K6 and K7 before theirs their
@@ -385,6 +401,16 @@ def scaled_config(config, blocks=6, width=128):
     return config
 
 
+def narrow_mbm(device, hidden, blocks):
+    """MBM's encoder at every width `hidden` with `blocks` EPiC layers,
+    seeded, packed for the narrow kernels with K1's buffer."""
+    config = MultimodalBridgeMatchingConfig()
+    config.encoder.dim_hidden_local = config.encoder.dim_hidden_glob = hidden
+    config.encoder.num_blocks = blocks
+    mbm = init_parameters(MultiModalBridgeMatching(config), 0).to(device)
+    return epic_cuda.with_narrow_buffer(epic_cuda.pack_mbm_encoder_params(mbm.encoder, config))
+
+
 def scaled256_mbm(device):
     """MBM's encoder at scaled-256 (every width 256, 6 blocks; a cluster of
     2 blocks a jet), seeded, packed for the wide kernels."""
@@ -415,7 +441,7 @@ def main():
     parser.add_argument("--other", required=True, type=Path, help="the other revision's csrc files")
     parser.add_argument("--kernels", nargs="+", choices=sorted(KERNELS), default=sorted(KERNELS))
     parser.add_argument("--time", action="store_true",
-                        help="also time K4 to K8 (those chosen) under both builds")
+                        help="also time the kernels chosen under both builds")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("port_kernel_bits: needs a GPU")
@@ -425,6 +451,8 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         libs = {"other": build(args.other, Path(tmp) / "other", args.kernels),
                 "here": build(here, Path(tmp) / "here", args.kernels)}
+        for name, lib in libs.items():
+            print(json.dumps({"build": name, "ptxas": lib.ptxas}), flush=True)
 
         def both(fn):
             """fn's outputs under each library, as tuples of tensors."""
@@ -464,6 +492,41 @@ def main():
             t, x, k, mask = inputs(1024, 128, device, gen)
             report_share("K1", both(lambda lib: epic_forward(lib, packed, t, x, k, mask, False)),
                          config="config-berlin", B=1024, N=128)
+
+        # K1, K2 and K3 at the wider instances and past 128 slots (N ≤ 256: one block a jet)
+        for hidden, blocks, N in ((32, 3, 200), (64, 4, 256)):
+            enc = narrow_mbm(device, hidden, blocks)
+            t, x, k, mask = inputs(512, N, device, gen)
+            if "K1" in args.kernels:
+                outs = both(lambda lib: epic_forward(lib, enc, t, x, k, mask, False))
+                share = max(share_of_gate(here, other, K1_TOL, K1_TOL, True)
+                            for other, here in zip(*outs))
+                same.append(share <= 1.0)
+                print(json.dumps({"kernel": "K1", "hidden": hidden, "num_blocks": blocks, "B": 512,
+                                  "N": N, "share_of_gate_per_particle": share,
+                                  "same_bits": all(torch.equal(a, b) for a, b in zip(*outs))}),
+                      flush=True)
+            if "K2" in args.kernels:
+                sampling = epic_cuda.with_narrow_buffer(enc)
+                u = torch.rand((2, 512, N), generator=gen, device=device)
+                outs = both(lambda lib: sampler_step(lib, sampling, x, k.to(torch.int32), mask, u,
+                                                     0.5, 0.0101, 0.125))
+                share = share_of_gate(outs[1][0], outs[0][0], K2_TOL, K2_TOL, True)
+                same.append(share <= 1.0)
+                print(json.dumps({"kernel": "K2", "hidden": hidden, "num_blocks": blocks, "B": 512,
+                                  "N": N, "t": 0.5, "share_of_gate_per_particle": share,
+                                  "same_bits": all(torch.equal(a, b) for a, b in zip(*outs))}),
+                      flush=True)
+            if "K3" in args.kernels:
+                near = epic_vjp_cuda.near_kink_jets(enc, t, x, k, mask)
+                g = torch.randn((512, N, 11), generator=gen, device=device) * (~near)[:, None, None]
+                outs = both(lambda lib: narrow_backward(lib, enc, t, x, k, mask, g))
+                share = max(leaf_share(enc, here, other) for other, here in zip(*outs))
+                same.append(share <= 1.0)
+                print(json.dumps({"kernel": "K3", "hidden": hidden, "num_blocks": blocks, "B": 512,
+                                  "N": N, "share_of_gate": share,
+                                  "same_bits": all(torch.equal(a, b) for a, b in zip(*outs))}),
+                      flush=True)
 
         if "K2" in args.kernels or "K3" in args.kernels:
             mbm = init_parameters(MultiModalBridgeMatching(MultimodalBridgeMatchingConfig()), 0)
@@ -583,8 +646,9 @@ def main():
 
 
 def time_head_kernels(libs, kernels, flow, device, gen):
-    """K4 to K8 (those in `kernels`) at their main paths' shapes under each
-    build, in turns (other, here, here, other): K4 and K5 at the scaled MBM
+    """K1 to K8 (those in `kernels`) at their main paths' shapes under each
+    build, in turns (other, here, here, other): K1 and K2 at config-berlin
+    (B=32768, N=128), K3 there at B=8192 for a random cotangent, K4 and K5 at the scaled MBM
     backbone (every width 128, 6 blocks, B=8192, N=128; K5 for a random
     cotangent) and at scaled-256, K6 at the absorbing reference head (B=4096, N=109), K7 at the
     transdimensional creation stack (B=4096, N=128, Din=27), K8 at B=4096,
@@ -594,6 +658,25 @@ def time_head_kernels(libs, kernels, flow, device, gen):
 
     card = chip_smoke.card_line()
     runs = {}
+    if {"K1", "K2", "K3"} & set(kernels):
+        berlin = narrow_mbm(device, 16, 2)
+        sampling = sampler_cuda.pack_sampler_params(
+            init_parameters(MultiModalBridgeMatching(MultimodalBridgeMatchingConfig()), 0)
+            .to(device).encoder, MultimodalBridgeMatchingConfig())
+        t32, x32, k32, mask32 = inputs(32768, 128, device, gen)
+        u32 = torch.rand((2, 32768, 128), generator=gen, device=device)
+        t8, x8, k8, mask8 = (a[:8192].contiguous() for a in (t32, x32, k32, mask32))
+        g8 = torch.randn((8192, 128, 11), generator=gen, device=device)
+    if "K1" in kernels:
+        runs["K1"] = ({"config": "config-berlin", "B": 32768, "N": 128},
+                      lambda lib: epic_forward(lib, berlin, t32, x32, k32, mask32, False))
+    if "K2" in kernels:
+        runs["K2"] = ({"config": "config-berlin", "B": 32768, "N": 128, "t": 0.5},
+                      lambda lib: sampler_step(lib, sampling, x32, k32.to(torch.int32), mask32, u32,
+                                               0.5, 0.0101, 0.125))
+    if "K3" in kernels:
+        runs["K3"] = ({"config": "config-berlin", "B": 8192, "N": 128},
+                      lambda lib: narrow_backward(lib, berlin, t8, x8, k8, mask8, g8))
     if "K4" in kernels or "K5" in kernels:
         mbm = init_parameters(MultiModalBridgeMatching(scaled_config(MultimodalBridgeMatchingConfig())), 0)
         scaled = epic_wide_cuda.pack_wide_encoder_params(mbm.to(device).encoder, mbm.config)

@@ -393,12 +393,13 @@ def test_kernel_gate(pair):
     trunk, head = AbsorbingFlow(wide).pack_for_kernel()
     assert trunk is None and head.dim_hidden == 128
 
-    # a trunk no kernel takes (hidden 48): the module trunk, then the fused head
+    # a trunk no kernel takes (hidden 65, past the narrow kernels' 64; hidden 48
+    # is K1's since its instance at 48): the module trunk, then the fused head
     odd = port_cfg.AbsorbingConfig()
-    odd.encoder.dim_hidden_local = 48
+    odd.encoder.dim_hidden_local = 65
     odd.parallel.use_pallas = True
     trunk, head = AbsorbingFlow(odd).pack_for_kernel()
-    assert trunk is None and head.dim_hidden == 48
+    assert trunk is None and head.dim_hidden == 65
 
 
 @pytest.mark.parametrize("field,value", [("compute_dtype", "bfloat16")])

@@ -31,7 +31,12 @@ evaluation holds the elementwise form), K3 at N from 1 to 256 at hidden 16,
 32 and 64, with skip and head on and off, at B from 0 to 8192 and on empty
 jets, its rerun of the forward held to K1's bits on the same buffer. K4 and K5
 are also held on jets of 129 to 256 slots (two row blocks a jet), K7 at the
-scaled stacks' input widths past 128 slots.
+scaled stacks' input widths past 128 slots. K1, K2 and K3 are also held at
+hidden widths that the packings zero-pad to an instance (8, 20, 24, 40, 56;
+48 its own instance) and on jets of 257 to 512 slots (a cluster of two row
+blocks a jet), K3 there also on sparse masks whose held jets reach past slot
+256; at hidden 72 and at N = 513 the wrappers raise and the C entry points
+return cudaErrorInvalidValue.
 """
 
 import copy
@@ -242,7 +247,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(device):
     with pytest.raises(TypeError, match="integer"):
         epic_forward(packed, t, x, k.float(), mask)
     with pytest.raises(ValueError, match="outside"):
-        big = inputs(device, 2, 300)
+        big = inputs(device, 2, 513)  # past the two row blocks' 512 slots
         epic_forward(packed, *big[:4])
     with pytest.raises(ValueError, match="u must be"):
         sampler_step(packed, x, k, mask, torch.rand((2, 8, 31), device=device), 0.5, 0.01,
@@ -471,7 +476,7 @@ def k1_case(device, packed, N, B=133, per_particle=False):
     torch.cuda.synchronize()
     assert epic_forward.launches == before + 2
     ref_out, ref_hid = epic_forward_reference(packed, t, x, k, mask, output_hidden_local=True)
-    assert tuple(out.shape) == (B, N, 11) and tuple(hid.shape) == (B, N, packed.dims.hidden)
+    assert tuple(out.shape) == (B, N, 11) and tuple(hid.shape) == (B, N, packed.dims.hidden_local)
     for got, ref in ((out, ref_out), (hid, ref_hid)):
         assert torch.isfinite(got).all()
         if per_particle:
@@ -1954,3 +1959,127 @@ def test_scaled_mbm_and_absorbing_take_the_wide_kernels_past_128_slots(device, N
         r = getattr(ref, name)
         torch.testing.assert_close(getattr(heads, name), r, rtol=2e-4,
                                    atol=2e-4 * max(r.abs().max().item(), 1.0))
+
+
+# ------------------- K1, K2 and K3 at every narrow width and past 256 slots
+
+
+PADDED_WIDTHS = [8, 20, 24, 40, 48, 56]  # zero-padded to 16, 32, 32, 48, 48 (its own), 64
+PAST_256_N = [257, 300, 384, 511, 512]
+
+
+@pytest.mark.parametrize("N", [128, 200])
+@pytest.mark.parametrize("hidden", PADDED_WIDTHS)
+def test_epic_forward_at_padded_widths(device, hidden, N):
+    """K1 on a packing zero-padded to the next instance: its outputs and its
+    hidden output, at the model's width, against the plain version, per
+    particle (as at hidden 64: at hidden 20, N = 128 one logit of 0.0036, a
+    difference of larger terms, parts by 1.2e-4 between two float32 sums in
+    other orders on an H100)."""
+    packed = k1_packed(device, hidden)
+    assert packed.dims.hidden_local == hidden and packed.dims.hidden >= hidden
+    k1_case(device, packed, N, per_particle=True)
+
+
+@pytest.mark.parametrize("N", PAST_256_N)
+@pytest.mark.parametrize("hidden", [16, 24, 64])
+def test_epic_forward_past_256_slots(device, hidden, N):
+    """K1 on jets of 257 to 512 slots, a cluster of two row blocks a jet
+    (per particle, as past 128)."""
+    k1_case(device, k1_packed(device, hidden), N)
+
+
+@pytest.mark.parametrize("head_width,fold", [(56, False), (None, True)], ids=["head56", "folded"])
+def test_epic_forward_family_trunks_past_256_slots(device, head_width, fold):
+    """The absorbing trunk's instance (the 56-wide head) and the
+    transdimensional one's (the folded input, no head) at hidden 24, N = 384."""
+    k1_case(device, k1_packed(device, 24, head_width=head_width, fold=fold), 384)
+
+
+K2_EDGE_CASES = ([(hidden, N) for hidden in (8, 24, 48, 64) for N in (128, 200)]
+                 + [(hidden, N) for hidden in (16, 24, 64) for N in PAST_256_N])
+
+
+@pytest.mark.parametrize("hidden,N", K2_EDGE_CASES)
+def test_sampler_step_at_padded_widths_and_past_256_slots(device, hidden, N):
+    """K2 at the padded widths and the new instance, and on jets of 257 to
+    512 slots, against its plain version."""
+    sampler_case(device, hidden, N, 0.5)
+
+
+@pytest.mark.parametrize("hidden", [8, 24, 40, 48, 56])
+def test_epic_backward_at_padded_widths(device, hidden):
+    """K3 on a packing zero-padded to the next instance (its gradient on the
+    pads held to the plain version's 0 with the rest), N = 128 and 200."""
+    packed = packed_model(device, hidden, 2)
+    for N in (128, 200):
+        hold_k3(packed, *k3_inputs(device, 133, N))
+
+
+@pytest.mark.parametrize("N", PAST_256_N)
+@pytest.mark.parametrize("hidden", [16, 24, 64])
+def test_epic_backward_past_256_slots(device, hidden, N):
+    """K3 on jets of 257 to 512 slots (two row blocks a jet) on random masks,
+    then on sparse scattered masks, of whose jets held out of the near-kink
+    window B/16 must have a particle past slot 256."""
+    packed = packed_model(device, hidden, {16: 2, 24: 2, 64: 4}[hidden])
+    hold_k3(packed, *k3_inputs(device, 133, N))
+    B = 256
+    t, x, k, mask, gen = k3_inputs(device, B, N, seed=8)
+    sparse = (torch.rand((B, N, 1), generator=gen, device=device) < 19 / N).float()
+    sparse[::2, N - 1] = 1.0
+    mask.copy_(sparse)
+    x.mul_(mask)
+    k.mul_(mask.long())
+    near = near_kink_jets(packed, t, x, k, mask)
+    held = ((~near) & (mask[:, 256:, 0].sum(dim=1) > 0)).sum()
+    assert held >= B // 16, int(held)
+    hold_k3(packed, t, x, k, mask, gen)
+
+
+def test_narrow_kernels_refuse_hidden_72_and_513_slots(device):
+    """At hidden 72 (no instance, past the padding's 64) and at N = 513 the
+    three wrappers raise and the three C entry points return
+    cudaErrorInvalidValue; nothing is launched."""
+    import ctypes
+
+    from multimodal_particles_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    launches = epic_forward.launches, sampler_step.launches, epic_backward.launches
+    wide72 = k1_packed(device, 72)
+    assert wide72.dims.hidden == 72 and wide72.tensor_core[0].numel() > 0
+    t, x, k, mask, gen = inputs(device, 2, 64)
+    with pytest.raises(ValueError, match="hidden width 72"):
+        epic_forward(wide72, t, x, k, mask)
+    packed = packed_model(device, sampler=True)
+    t, x, k, mask, gen = inputs(device, 2, 513)
+    g = torch.randn((2, 513, 11), generator=gen, device=device)
+    u = torch.rand((2, 2, 513), generator=gen, device=device)
+    with pytest.raises(ValueError, match="outside"):
+        epic_forward(packed, t, x, k, mask)
+    with pytest.raises(ValueError, match="outside"):
+        sampler_step(packed, x, k, mask, u, 0.5, 0.01, gamma=0.125)
+    with pytest.raises(ValueError, match="outside"):
+        epic_backward(packed, t, x, k, mask, g)
+    assert (epic_forward.launches, sampler_step.launches, epic_backward.launches) == launches
+    (buf,) = packed.tensor_core
+    k32 = k.to(torch.int32).contiguous()
+    out = torch.empty((2, 513, 11), device=device)
+    x_out, k_out = torch.empty_like(x), torch.empty_like(k32)
+    for dims, n, buffer in ((packed.dims, 513, buf), (wide72.dims, 64, wide72.tensor_core[0])):
+        assert lib.mmp_epic_forward(buffer.data_ptr(), t.data_ptr(), x.data_ptr(), k32.data_ptr(),
+                                    mask.data_ptr(), out.data_ptr(), None, 2, n,
+                                    dims.c_array(), 0) == 1
+        assert lib.mmp_sampler_step(buffer.data_ptr(), x.data_ptr(), k32.data_ptr(),
+                                    mask.data_ptr(), u.data_ptr(), x_out.data_ptr(),
+                                    k_out.data_ptr(), 0.5, 0.01, 0.125, 2, n,
+                                    dims.c_array(), 0) == 1
+        grid, floats = ctypes.c_int(0), ctypes.c_longlong(0)
+        assert lib.mmp_epic_backward_workspace(2, n, dims.c_array(), ctypes.byref(grid),
+                                               ctypes.byref(floats)) == 1
+        assert lib.mmp_epic_backward(buffer.data_ptr(), packed.flat.data_ptr(), t.data_ptr(),
+                                     x.data_ptr(), k32.data_ptr(), mask.data_ptr(), g.data_ptr(),
+                                     out.data_ptr(), None, out.data_ptr(), 2, 2, n,
+                                     dims.c_array(), 0) == 1
+    torch.cuda.synchronize()

@@ -126,7 +126,9 @@ def test_kernel_gate(pair):
         par.use_pallas = False
         assert not torch_model.kernel_enabled("cuda")
         par.use_pallas = "auto"
-        torch_model.config.encoder.dim_hidden_local = 24  # no kernel instance
+        torch_model.config.encoder.dim_hidden_local = 24  # zero-padded to the 32 instance
+        assert torch_model.kernel_enabled("cuda")
+        torch_model.config.encoder.dim_hidden_local = 65  # past the narrow kernels
         assert not torch_model.kernel_enabled("cuda")
     finally:
         par.use_pallas = "auto"

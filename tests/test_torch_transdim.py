@@ -556,7 +556,7 @@ def test_kernel_gate_follows_the_heads_and_a_wide_trunk_raises():
     cfg.encoder.n_heads = 3
     assert not TransdimensionalJumpDiffusion(cfg)._pallas_enabled("cuda")
     cfg.encoder.n_heads = 2
-    cfg.encoder.dim_hidden_local = 48  # no kernel is compiled for it
+    cfg.encoder.dim_hidden_local = 65  # past the narrow kernels' 64 and below the wide 128
     assert not TransdimensionalJumpDiffusion(cfg)._pallas_enabled("cuda")
     e = cfg.encoder
     e.dim_hidden_local = e.dim_hidden_glob = e.dim_emb_time = 128
